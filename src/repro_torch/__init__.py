@@ -1,0 +1,12 @@
+"""PyTorch + CUDA port of the HOG+SVM human detector (Nguyen et al. 2022).
+
+The JAX package ``repro`` is the reference; this package mirrors its
+module layout (``repro_torch/core/hog.py`` <-> ``repro/core/hog.py``, ...)
+and imports nothing of it, nor JAX. Plain tensor code is PyTorch; every
+TPU kernel on the ported path is a CUDA kernel written for Hopper
+(csrc/, built by kernels/build.py at first use).
+
+Slice 1 (this package's scope): single-frame dense multi-scale detection
+-- ``api.DetectionSession.detect`` -> ``core.detector.FrameDetector`` --
+for the float numerics (presets default, paper, faithful, perf).
+"""

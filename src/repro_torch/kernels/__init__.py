@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain twins.
+
+Each kernel module holds the wrapper (launches the kernel for a CUDA
+tensor, runs the plain version for a CPU tensor), the plain PyTorch
+version, and a ``launches`` counter on the wrapper that counts kernel
+launches only. ``build.py`` compiles csrc/ at first use.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+
+def wrappers() -> Dict[str, object]:
+    """Kernel name -> wrapper function (each carries ``.launches``)."""
+    from .dense_block_norm import dense_block_norm
+    from .dense_grad_hist import dense_grad_hist
+    from .fused_hog import dense_fused_hog
+    from .svm_matmul import score_matmul
+    return {"dense_grad_hist": dense_grad_hist,
+            "dense_block_norm": dense_block_norm,
+            "dense_fused_hog": dense_fused_hog,
+            "score_matmul": score_matmul}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}

@@ -1,0 +1,85 @@
+"""Fused dense HOG: (B, H, W) f32 gray -> (B, ch-1, cw-1, 36) f32 blocks
+in one kernel; only the blocks reach device memory.
+
+Replaces the TPU kernel repro/kernels/fused_hog.py:137
+(``dense_fused_hog``), CUDA source csrc/dense_fused_hog.cu. The window
+kernel of the same file (``fused_hog``, :75) serves the window path, a
+later slice.
+
+Bound on the H100: memory, about half a microsecond per 640x480 level
+(1.2 MB of gray in, 0.65 MB of blocks out at 3.35 TB/s), well below a
+launch. Against the two-kernel backend it saves the histogram round trip
+and one launch per level. One thread block owns a 4x8 tile of blocks:
+it computes the 5x9 cell histograms the tile needs into shared memory
+(one cell row and column recomputed at tile seams, as the TPU kernel
+recomputes one cell row per slab) and normalizes from there; edge tiles
+mask, so ragged grids need no padded gather.
+
+``dense_fused_hog`` launches the kernel for a CUDA tensor and runs the
+plain version ``dense_fused_hog_plain`` for a CPU tensor; nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core import numerics as N
+from . import build
+from .dense_block_norm import (dense_block_norm_plain,
+                               norm_code)
+from .dense_grad_hist import dense_grad_hist_plain
+from .mag_bin import mode_code
+
+Tensor = torch.Tensor
+
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
+
+
+def _norm_flavor(mode: str) -> str:
+    # the normalize tail is derived from the mode through SPECS, as in
+    # repro/kernels/fused_hog.py:_norm_flavor
+    return N.SPECS[mode].norm
+
+
+def dense_fused_hog_plain(gray: Tensor, cell: int = 8, block: int = 2,
+                          bins: int = 9, eps: float = 1e-2,
+                          mode: str = "sector") -> Tensor:
+    """The same function in plain tensor ops, on any device."""
+    hist = dense_grad_hist_plain(gray, cell, bins, mode)
+    return dense_block_norm_plain(hist, block, eps, _norm_flavor(mode))
+
+
+def dense_fused_hog(gray: Tensor, cell: int = 8, block: int = 2,
+                    bins: int = 9, eps: float = 1e-2,
+                    mode: str = "sector") -> Tensor:
+    """(B, H, W) f32 dense scene -> (B, bh, bw, block^2*bins) f32."""
+    code = mode_code(mode)
+    ncode = norm_code(_norm_flavor(mode))
+    if gray.dim() != 3 or gray.dtype != torch.float32:
+        raise ValueError(f"dense_fused_hog takes (B, H, W) float32, got "
+                         f"{tuple(gray.shape)} {gray.dtype}")
+    B, H, W = gray.shape
+    ch, cw = (H - 2) // cell, (W - 2) // cell
+    if ch < block or cw < block:
+        raise ValueError(f"scene {tuple(gray.shape)} holds no whole block")
+    if gray.device.type == "cpu":
+        return dense_fused_hog_plain(gray, cell, block, bins, eps, mode)
+    if gray.device.type != "cuda":
+        raise ValueError(f"dense_fused_hog: unsupported device {gray.device}")
+    if (cell, block, bins) != (8, 2, 9):
+        raise ValueError("the CUDA kernel is built for 8-px cells, 2x2 "
+                         "blocks, 9 bins")
+    if not gray.is_contiguous():
+        raise ValueError("dense_fused_hog: gray must be contiguous")
+    out = torch.empty((B, ch - 1, cw - 1, 36), dtype=torch.float32,
+                      device=gray.device)
+    build.launch("dense_fused_hog", _ARGTYPES, gray, gray.data_ptr(),
+                 out.data_ptr(), B, H, W, N.eps_squared(eps), code, ncode)
+    dense_fused_hog.launches += 1
+    return out
+
+
+dense_fused_hog.launches = 0

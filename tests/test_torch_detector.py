@@ -1,0 +1,186 @@
+"""The port's detector pieces (repro_torch.core.detector, api.config,
+convert) against the JAX reference: resize weights, top-k order, NMS,
+scoring, configuration carry-over, and the settings this slice refuses.
+"""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api.config import presets as j_presets
+from repro.core import detector as jdet
+from repro.core.hog import HOGConfig as JHOGConfig
+from repro_torch.api import DetectionSession, presets
+from repro_torch.convert import config_from_reference_dict, svm_from_numpy
+from repro_torch.core import detector as tdet
+from repro_torch.core.detector import DetectorConfig, FrameDetector
+from repro_torch.core.hog import HOGConfig
+
+#: the 640x480 and 1280x720 frame buckets; the tests' small frames go
+#: through the same function end to end in test_torch_session.py
+BUCKETS = [(480, 640), (736, 1280)]
+
+
+def _pairs():
+    """Every (src, dst) resize the buckets' pyramid levels use."""
+    out = set()
+    for ph, pw in BUCKETS:
+        for s in (0.8, 0.64):
+            out.add((ph, int(ph * s)))
+            out.add((pw, int(pw * s)))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("src,dst", _pairs())
+def test_resize_weights_match_jax_image_resize(src, dst):
+    want = jdet._resize_weights(src, dst)
+    got = tdet._resize_weights(src, dst)
+    assert got.shape == want.shape == (dst, src)
+    assert got.dtype == np.float32
+    # op-for-op f32 rebuild; XLA sums each column's 2-3 taps in its own
+    # order, so a few entries per matrix differ by one ulp (measured
+    # max 8.9e-8 over this sweep)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1.2e-7)
+    # identical support: zero exactly where the reference is zero
+    np.testing.assert_array_equal(got == 0, want == 0)
+
+
+def test_top_k_tie_order_matches_lax_top_k():
+    x = np.array([0.5, 0.9, 0.5, -np.inf, 0.9, 0.1, -np.inf, 0.5, -np.inf,
+                  0.9], np.float32)
+    for k in (3, 6, 10):
+        wv, wi = jax.lax.top_k(jnp.asarray(x), k)
+        tv, ti = tdet.top_k(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(wi))
+
+
+def _boxes(rng, n):
+    y0 = rng.uniform(0, 200, n)
+    x0 = rng.uniform(0, 200, n)
+    hh = rng.uniform(40, 130, n)
+    ww = rng.uniform(20, 66, n)
+    return np.stack([y0, x0, y0 + hh, x0 + ww], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nms_keep_matches_reference_and_host_greedy(seed):
+    rng = np.random.default_rng(seed)
+    boxes = _boxes(rng, 64)
+    scores = np.sort(rng.normal(0, 1, 64).astype(np.float32))[::-1].copy()
+    scores[50:] = -np.inf                       # the masked top-k tail
+    want = np.asarray(jdet.nms_keep(jnp.asarray(boxes), jnp.asarray(scores),
+                                    0.3))
+    got = tdet.nms_keep(torch.from_numpy(boxes), torch.from_numpy(scores),
+                        0.3).numpy()
+    np.testing.assert_array_equal(got, want)
+    greedy = sorted(tdet._nms(boxes[:50], scores[:50], 0.3))
+    assert greedy == sorted(np.flatnonzero(got).tolist())
+    assert greedy == sorted(jdet._nms(boxes[:50], scores[:50], 0.3))
+    iou_t = tdet.matrix_iou(torch.from_numpy(boxes), torch.from_numpy(boxes))
+    iou_j = jdet.matrix_iou(jnp.asarray(boxes), jnp.asarray(boxes))
+    np.testing.assert_allclose(iou_t.numpy(), np.asarray(iou_j), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_score_blocks_matches_reference(dtype, use_kernel):
+    rng = np.random.default_rng(2)
+    blocks = rng.uniform(0, 0.4, (20, 11, 36)).astype(np.float32)
+    w = rng.normal(0, 0.02, 3780).astype(np.float32)
+    b = np.float32(0.125)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    want = np.asarray(jdet.score_blocks(
+        jnp.asarray(blocks).astype(jdt), jnp.asarray(w), jnp.asarray(b),
+        JHOGConfig(), use_kernel=use_kernel))
+    got = tdet.score_blocks(torch.from_numpy(blocks).to(tdt),
+                            torch.from_numpy(w), torch.tensor(b),
+                            HOGConfig(), use_kernel=use_kernel)
+    assert tuple(got.shape) == want.shape == (6, 5)
+    # the 105-add collate runs in the reference's order; only the 36-term
+    # matmul sums differ in order
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["default", "paper", "faithful", "perf"])
+def test_config_carries_over_from_reference_dict(name):
+    ref = j_presets(name).to_dict()
+    cfg = config_from_reference_dict(ref)
+    assert cfg.to_dict() == ref
+    assert cfg.to_dict() == presets(name).to_dict()
+    assert cfg.detector.hog == cfg.hog
+    assert config_from_reference_dict(
+        json.loads(cfg.to_json())) == cfg
+
+
+def test_svm_from_numpy_shapes_and_device():
+    g = np.random.default_rng(3)
+    svm = svm_from_numpy({"w": g.normal(size=3780), "b": np.float32(0.5)},
+                         device="cpu")
+    assert svm["w"].dtype == torch.float32 and svm["w"].shape == (3780,)
+    assert svm["b"].shape == () and svm["w"].device.type == "cpu"
+    with pytest.raises(ValueError, match="expected w"):
+        svm_from_numpy({"w": np.zeros(100), "b": 0.0}, device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-head"):
+        svm_from_numpy({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
+                       device="cpu")
+
+
+def _svm():
+    return {"w": np.zeros(3780, np.float32), "b": np.float32(0.0)}
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(hog=HOGConfig(mode="cordic", numerics="fixed")), "next slice"),
+    (dict(pyramid_resize="banded"), "banded"),
+    (dict(data_parallel=0), "data_parallel"),
+    (dict(data_parallel=2), "data_parallel"),
+    (dict(frame_parallel=0), "frame_parallel"),
+])
+def test_unported_settings_raise(change, match):
+    cfg = dataclasses.replace(DetectorConfig(), **change)
+    with pytest.raises(NotImplementedError, match=match):
+        FrameDetector(_svm(), cfg, device="cpu")
+
+
+def test_unported_entry_points_raise():
+    with pytest.raises(NotImplementedError, match="multi-head"):
+        FrameDetector({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
+                      device="cpu")
+    det = FrameDetector(_svm(), device="cpu")
+    with pytest.raises(NotImplementedError, match="batched"):
+        det.detect_batch([np.zeros((200, 100), np.uint8)])
+    sess = DetectionSession(_svm(), "paper", device="cpu")
+    with pytest.raises(NotImplementedError, match="batched"):
+        sess.detect_batch([np.zeros((200, 100), np.uint8)])
+    quant = config_from_reference_dict(j_presets("quant").to_dict())
+    with pytest.raises(NotImplementedError, match="next slice"):
+        DetectionSession(_svm(), quant, device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        FrameDetector(_svm(), DetectorConfig(backend="pallas"),
+                      device="cpu")
+
+
+def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
+    """Without a GPU, anything but an explicit CPU request raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DetectionSession(_svm(), "paper", device=device)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FrameDetector(_svm(), device=device)
+    assert DetectionSession(_svm(), device="cpu").device.type == "cpu"
+
+
+def test_small_frame_gives_empty_result():
+    det = FrameDetector(_svm(), device="cpu")
+    d = det.detect_raw(np.zeros((100, 60, 3), np.uint8))
+    assert d.to_list() == [] and not d.saturated
+    with pytest.raises(ValueError, match="frame"):
+        det.detect_raw(np.zeros((4, 100, 60, 3), np.uint8))

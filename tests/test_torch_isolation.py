@@ -1,0 +1,46 @@
+"""The port stands alone: importing every repro_torch module, and what
+chip_smoke.py imports, loads neither JAX nor the reference package."""
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke                     # its top level, then what it runs
+import repro_torch.api, repro_torch.core.detector, repro_torch.core.stages
+import repro_torch.data.synth_pedestrian, repro_torch.kernels.build
+import torch.profiler
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _PROBE.format(src=str(ROOT / "src"), root=str(ROOT))],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, out.stdout          # every module was imported
+    assert bad == "[]", bad
+
+
+def test_port_sources_name_no_reference_import():
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_)"
+                         r"|from repro\b(?!_))", re.M)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
