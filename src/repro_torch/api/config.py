@@ -11,7 +11,8 @@ repro/core/svm.py:57 SVMTrainConfig, repro/api/config.py:66
 ServiceConfig with serve/resilience.py and obs/metrics.py nested,
 repro/core/cascade.py:60 CascadeConfig).
 
-Presets: "default", "paper", "faithful", "perf" (from configs/hog_svm.py).
+Presets: "default", "paper", "faithful", "perf", "quant" (from
+configs/hog_svm.py).
 """
 from __future__ import annotations
 
@@ -148,6 +149,13 @@ _PRESETS: Dict[str, PipelineConfig] = {
     "perf": PipelineConfig(
         name="perf", hog=hog_svm.PERF,
         detector=DetectorConfig(hog=hog_svm.PERF, score_threshold=0.5,
+                                backend="fused", batch_chunk=0),
+        train=dict(TRAIN_PAPER)),
+    # the fixed-point datapath, fused dense backend
+    # (repro/api/config.py:229-233)
+    "quant": PipelineConfig(
+        name="quant", hog=hog_svm.QUANT,
+        detector=DetectorConfig(hog=hog_svm.QUANT, score_threshold=0.5,
                                 backend="fused", batch_chunk=0),
         train=dict(TRAIN_PAPER)),
 }

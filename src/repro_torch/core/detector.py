@@ -11,11 +11,13 @@ the greedy NMS, and decode on the host against static box tables.
 Block normalization is window-independent, so the scene's block grid is
 computed once per scale and shared by every window. Everything up to the
 decode stays on the detector's device; the "kernel" and "fused"
-backends run the hand-written CUDA kernels there.
+backends run the hand-written CUDA kernels there. Both numerics run:
+float, and the fixed-point chain of the quant preset, which scores int8
+block codes against int8 weight codes with an exact int32 product.
 
-What this slice does not run raises NotImplementedError naming the
-later slice: fixed-point numerics, stacked multi-head weights, the
-banded resize, data/frame parallelism and the batched path.
+What the port does not run yet raises NotImplementedError naming the
+later slice: stacked multi-head weights, the banded resize, data/frame
+parallelism and the batched path.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import svm_matmul as sm
 from . import numerics as N
+from . import quant
 from .hog import HOGConfig, PAPER_HOG, grayscale
 from .stages import BACKENDS, dense_blocks
 
@@ -79,10 +83,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(cfg: DetectorConfig) -> None:
-    """Raise NotImplementedError for every setting this slice accepts in
-    a configuration but does not run, and ValueError for invalid ones."""
-    if cfg.hog.numerics == "fixed":
-        raise NotImplementedError(N.FIXED_NEXT_SLICE)
+    """Raise NotImplementedError for every setting the port accepts in a
+    configuration but does not run yet, and ValueError for invalid ones."""
     if cfg.pyramid_resize == "banded":
         raise NotImplementedError(
             "pyramid_resize='banded' (core/tiling.py:resize_banded): a later "
@@ -119,20 +121,30 @@ def score_blocks(blocks: Tensor, w: Tensor, b: Tensor,
     score_matmul kernel when ``use_kernel``) and 105 shifted adds in the
     reference's order: from zeros, offsets (di, dj) row-major, then b.
     bf16 blocks meet bf16 weights, accumulated in f32.
+
+    Fixed numerics (repro/core/detector.py:205-224): the block grid is
+    already on its per-block int8 grid, so requantizing recovers the
+    codes exactly; the weights quantize per offset column; the int8
+    product (the score_matmul_int8 kernel when ``use_kernel``) is exact
+    int32, and the rank-1 rescale has a fixed multiply order.
     """
     if w.dim() == 2:
         raise NotImplementedError(MULTI_HEAD_LATER)
-    if N.spec_for(cfg).quantized:
-        raise NotImplementedError(N.FIXED_NEXT_SLICE)
     bh, bw = cfg.blocks_hw                              # 15, 7
     BH, BW, bd = blocks.shape
-    flat = blocks.reshape(BH * BW, bd)
-    wt = w.reshape(bh * bw, bd).T.to(blocks.dtype).contiguous()  # (36, 105)
-    if use_kernel:
-        from ..kernels.svm_matmul import score_matmul
-        contrib = score_matmul(flat.contiguous(), wt)
+    flat = blocks.reshape(BH * BW, bd).contiguous()
+    if N.spec_for(cfg).quantized:
+        q, s_rows = quant.quantize_blocks(flat)
+        wt = w.reshape(bh * bw, bd).T.to(torch.float32)
+        wq, s_cols = quant.quantize_weight_columns(wt)
+        wq = wq.contiguous()
+        ci = (sm.score_matmul_int8(q, wq) if use_kernel
+              else sm.score_matmul_int8_plain(q, wq))
+        contrib = quant.rescale_scores(ci, s_rows, s_cols)
     else:
-        contrib = torch.matmul(flat.to(torch.float32), wt.to(torch.float32))
+        wt = w.reshape(bh * bw, bd).T.to(blocks.dtype).contiguous()
+        contrib = (sm.score_matmul(flat, wt) if use_kernel
+                   else sm.score_matmul_plain(flat, wt))
     return collate_scores(contrib.reshape(BH, BW, bh * bw), bh, bw) + b
 
 

@@ -11,7 +11,9 @@ Modes:
                through the sector predicate, ``mag_bin_ref_fast``),
   * "cordic" -- 15-iteration CORDIC + Newton-Raphson rsqrt,
   * "sector" -- bin via 8 tangent-boundary cross-multiplication tests,
-               hardware rsqrt.
+               hardware rsqrt,
+  * "fixed"  -- ``numerics="fixed"``: the int32 shift-add CORDIC, int16
+               cell histograms, NR rsqrt and per-block int8 blocks.
 
 Plain tensor functions on any device; they are the plain path of the
 "ref" backend and the building blocks of the kernels' plain versions.
@@ -25,7 +27,7 @@ from typing import Tuple
 import torch
 
 from . import numerics as N
-from .cordic import cordic_mag_angle
+from .cordic import cordic_mag_angle, cordic_mag_bin_fixed
 
 Tensor = torch.Tensor
 
@@ -46,7 +48,7 @@ class HOGConfig:
     eps: float = 1e-2
     mode: str = "ref"            # "ref" | "cordic" | "sector"
     feat_dtype: str = "f32"      # "f32" | "bf16" descriptor width
-    numerics: str = "float"      # "float" | "fixed" (slice 2)
+    numerics: str = "float"      # "float" | "fixed"
 
     def __post_init__(self):
         if self.numerics not in ("float", "fixed"):
@@ -177,9 +179,13 @@ def mag_bin_ref_fast(fx: Tensor, fy: Tensor, bins: int = 9
     return mag_bin_sector(fx, fy, bins)
 
 
-def mag_bin_fixed(fx: Tensor, fy: Tensor, bins: int = 9):
-    """Integer shift-add CORDIC of the fixed-point chain: slice 2."""
-    raise NotImplementedError(N.FIXED_NEXT_SLICE)
+def mag_bin_fixed(fx: Tensor, fy: Tensor, bins: int = 9
+                  ) -> Tuple[Tensor, Tensor]:
+    """Fixed-point mode: the integer shift-add CORDIC (core/cordic.py).
+    Returns int32 magnitudes in half-gray-level units (quant.MAG_SCALE)
+    and int32 bins; the cell histograms accumulate them in int32 and
+    store int16 (numerics.store_hist)."""
+    return cordic_mag_bin_fixed(fx, fy, bins=bins)
 
 
 _MAG_BIN = {"ref": mag_bin_ref, "cordic": mag_bin_cordic,
@@ -193,7 +199,9 @@ def cell_histograms(mag: Tensor, bin_idx: Tensor, cfg: HOGConfig) -> Tensor:
     """(..., Ha, Wa) mag/bin -> (..., ch, cw, bins) histograms.
 
     hist[c, b] = sum of the magnitudes of the pixels in cell c whose bin
-    is b, as a select-and-reduce over the static bin count.
+    is b, as a select-and-reduce over the static bin count. Integer
+    magnitudes accumulate in their own int32 (torch.sum would widen to
+    int64) and store int16: 64 px * 361 = 23104 < 2^15 per cell.
     """
     ch, cw = cfg.cells_hw
     c = cfg.cell
@@ -201,7 +209,8 @@ def cell_histograms(mag: Tensor, bin_idx: Tensor, cfg: HOGConfig) -> Tensor:
     m = mag.reshape(lead + (ch, c, cw, c))
     bi = bin_idx.reshape(lead + (ch, c, cw, c))
     zero = torch.zeros((), dtype=m.dtype, device=m.device)
-    outs = [torch.sum(torch.where(bi == k, m, zero), dim=(-3, -1))
+    outs = [torch.sum(torch.where(bi == k, m, zero), dim=(-3, -1),
+                      dtype=m.dtype)
             for k in range(cfg.bins)]
     return N.store_hist(torch.stack(outs, dim=-1))
 

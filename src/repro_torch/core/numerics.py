@@ -8,10 +8,8 @@ normalize one way in the plain path and another in a kernel:
   * ``store_hist(hist)``              -- accumulator -> stored dtype,
   * ``finish_blocks(v, eps, norm)``   -- the block-normalize tail, used
     by the plain path and mirrored op for op by the CUDA block-norm
-    kernels (csrc/finish_blocks.cuh).
-
-The fixed-point row stays in ``SPECS`` so every configuration loads; its
-datapath (``norm="fixed"``) is slice 2 and raises here.
+    kernels (csrc/finish_blocks.cuh); ``norm="fixed"`` ends in the
+    per-block int8 quantize-dequantize (core/quant.py).
 """
 from __future__ import annotations
 
@@ -20,7 +18,7 @@ from typing import Dict
 
 import torch
 
-FIXED_NEXT_SLICE = "fixed numerics: next slice"
+from . import quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,10 +73,12 @@ def nr_rsqrt(x: torch.Tensor, iters: int = 2) -> torch.Tensor:
     return y
 
 
-#: which rsqrt each float norm flavor uses
+#: which rsqrt each norm flavor uses; "fixed" shares the hardware NR
+#: unit and then quantizes (repro/core/numerics.py:95)
 NORM_RSQRT = {
     "rsqrt": torch.rsqrt,
     "nr": nr_rsqrt,
+    "fixed": nr_rsqrt,
 }
 
 
@@ -88,20 +88,32 @@ def eps_squared(eps: float) -> float:
     return float(torch.tensor(eps * eps, dtype=torch.float32))
 
 
+def norm_eps_squared(eps: float, norm: str) -> float:
+    """The eps^2 a norm flavor adds: (eps * MAG_SCALE)^2 in fixed mode,
+    whose block vectors hold half-gray-unit counts, else eps^2."""
+    return eps_squared(eps * quant.MAG_SCALE if norm == "fixed" else eps)
+
+
 def finish_blocks(v: torch.Tensor, eps: float, norm: str) -> torch.Tensor:
     """(..., bd) raw block vectors -> (..., bd) L2-normalized f32 blocks
-    (eq. 5): v * rsqrt(sum(v^2) + eps^2)."""
-    if norm == "fixed":
-        raise NotImplementedError(FIXED_NEXT_SLICE)
+    (eq. 5): v * rsqrt(sum(v^2) + eps^2), put on the per-block int8 grid
+    when norm == "fixed".
+
+    In fixed mode v holds int16 histogram counts in half-gray units, so
+    eps is scaled by quant.MAG_SCALE to stay the same relative
+    regularizer (repro/core/numerics.py:104-132)."""
     try:
         rs = NORM_RSQRT[norm]
     except KeyError:
         raise ValueError(
             f"unknown norm flavor {norm!r}; expected one of "
-            f"{sorted(NORM_RSQRT) + ['fixed']}") from None
+            f"{sorted(NORM_RSQRT)}") from None
     v = v.to(torch.float32)
-    ss = torch.sum(v * v, dim=-1, keepdim=True) + eps_squared(eps)
-    return v * rs(ss)
+    ss = torch.sum(v * v, dim=-1, keepdim=True) + norm_eps_squared(eps, norm)
+    out = v * rs(ss)
+    if norm == "fixed":
+        out = quant.quantize_dequantize(out)
+    return out
 
 
 def store_hist(hist: torch.Tensor) -> torch.Tensor:

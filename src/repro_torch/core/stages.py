@@ -115,9 +115,12 @@ def run_stages(gray: Tensor, geom: HOGConfig, backend: str = "ref",
     the normalized block grid (B, bh, bw, block_dim)."""
     if layout != "dense":
         raise NotImplementedError(WINDOW_LAYOUT_LATER)
-    if N.spec_for(geom).quantized:
-        raise NotImplementedError(N.FIXED_NEXT_SLICE)
     ss = get_backend(backend)
+    if N.spec_for(geom).quantized:
+        # the fixed datapath's entry seam (repro/core/stages.py:198-205):
+        # gray snaps to whole levels, half to even, before any backend,
+        # so the gradients are exact integers
+        gray = torch.round(gray)
     if ss.dense_fused is not None:
         return ss.dense_fused(gray, geom)
     if ss.dense_grad_hist is not None:

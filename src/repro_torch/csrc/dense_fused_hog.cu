@@ -18,6 +18,11 @@
 // Bound on the H100: at 640x480 it reads 1.2 MB of gray and writes
 // 0.65 MB of blocks, about half a microsecond at 3.35 TB/s, so a launch
 // dominates; fusing saves the histogram round trip and one launch.
+//
+// Fixed mode: the lanes sum integer magnitudes in int32, the tile keeps
+// the cell histograms as int16 (the int16 store of the reference's
+// numerics.store_hist; 0.8 KB), and the tail is the fixed flavor (NR
+// rsqrt, then the per-block int8 quantize-dequantize).
 #include <cuda_runtime.h>
 
 #include "finish_blocks.cuh"
@@ -37,7 +42,9 @@ __global__ void __launch_bounds__(THREADS)
 dense_fused_hog_kernel(const float* __restrict__ gray,
                        float* __restrict__ out, int H, int W, int ch, int cw,
                        float eps2) {
-  __shared__ float cells[NCELL * 9];
+  using Acc = typename hog::HistTypes<MODE>::Acc;
+  using Store = typename hog::HistTypes<MODE>::Store;
+  __shared__ Store cells[NCELL * 9];
   const int bi0 = blockIdx.y * TR;
   const int bj0 = blockIdx.x * TC;
   const long long b = blockIdx.z;
@@ -49,15 +56,16 @@ dense_fused_hog_kernel(const float* __restrict__ gray,
     const int task = base + threadIdx.x;
     const int lc = task >> 3, r = task & 7;
     const int ci = bi0 + lc / CC, cj = bj0 + lc % CC;
-    float h[9];
+    Acc h[9];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) h[k] = 0.0f;
+    for (int k = 0; k < 9; ++k) h[k] = Acc(0);
     if (lc < NCELL && ci < ch && cj < cw)
       hog::row_hist<MODE>(g, W, ci * 8 + r, cj * 8, h);
     hog::reduce_cell_lanes(h);          // uniform trip count: all lanes
     if (lc < NCELL && r == 0) {
 #pragma unroll
-      for (int k = 0; k < 9; ++k) cells[lc * 9 + k] = h[k];
+      for (int k = 0; k < 9; ++k)
+        cells[lc * 9 + k] = static_cast<Store>(h[k]);
     }
   }
   __syncthreads();
@@ -71,9 +79,10 @@ dense_fused_hog_kernel(const float* __restrict__ gray,
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const float* src = cells + ((q / TC + i) * CC + q % TC + j) * 9;
+        const Store* src = cells + ((q / TC + i) * CC + q % TC + j) * 9;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) v[(i * 2 + j) * 9 + k] = src[k];
+        for (int k = 0; k < 9; ++k)
+          v[(i * 2 + j) * 9 + k] = static_cast<float>(src[k]);
       }
     }
     hog::finish_block<NORM>(v, eps2);
@@ -100,7 +109,10 @@ extern "C" int dense_fused_hog_launch(const float* gray, float* out, int B,
   const int cw = (W - 2) / 8;
   if (B <= 0 || ch < 2 || cw < 2) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == hog::kSector && norm == hog::kRsqrt)
+  if (mode == hog::kFixed)          // the fixed chain has one tail
+    launch<hog::kFixed, hog::kFixedNorm>(gray, out, B, H, W, ch, cw, eps2,
+                                         s);
+  else if (mode == hog::kSector && norm == hog::kRsqrt)
     launch<hog::kSector, hog::kRsqrt>(gray, out, B, H, W, ch, cw, eps2, s);
   else if (mode == hog::kSector)
     launch<hog::kSector, hog::kNr>(gray, out, B, H, W, ch, cw, eps2, s);

@@ -15,11 +15,12 @@ def wrappers() -> Dict[str, object]:
     from .dense_block_norm import dense_block_norm
     from .dense_grad_hist import dense_grad_hist
     from .fused_hog import dense_fused_hog
-    from .svm_matmul import score_matmul
+    from .svm_matmul import score_matmul, score_matmul_int8
     return {"dense_grad_hist": dense_grad_hist,
             "dense_block_norm": dense_block_norm,
             "dense_fused_hog": dense_fused_hog,
-            "score_matmul": score_matmul}
+            "score_matmul": score_matmul,
+            "score_matmul_int8": score_matmul_int8}
 
 
 def reset_launches() -> None:

@@ -39,6 +39,7 @@ SOURCES = {
     "dense_block_norm": "dense_block_norm.cu",
     "dense_fused_hog": "dense_fused_hog.cu",
     "score_matmul": "score_matmul.cu",
+    "score_matmul_int8": "score_matmul_int8.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

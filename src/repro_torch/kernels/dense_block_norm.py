@@ -1,5 +1,6 @@
 """Dense 2x2-block L2 normalization (eq. 5) over a scene's cell grid:
-(B, ch, cw, 9) f32 -> (B, ch-1, cw-1, 36) f32.
+(B, ch, cw, 9) f32 -> (B, ch-1, cw-1, 36) f32; in the fixed flavor
+(B, ch, cw, 9) int16 -> f32 blocks on their per-block int8 grid.
 
 Replaces the TPU kernel repro/kernels/dense_block_norm.py:41
 (``dense_block_norm``), CUDA source csrc/dense_block_norm.cu.
@@ -26,7 +27,7 @@ from . import build
 Tensor = torch.Tensor
 
 #: norm flavor -> the value the CUDA launchers take (csrc/finish_blocks.cuh)
-NORM_CODES = {"rsqrt": 0, "nr": 1}
+NORM_CODES = {"rsqrt": 0, "nr": 1, "fixed": 2}
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
@@ -34,8 +35,6 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 
 def norm_code(mode: str) -> int:
     """Validate a norm flavor and return its launcher code."""
-    if mode == "fixed":
-        raise NotImplementedError(N.FIXED_NEXT_SLICE)
     try:
         return NORM_CODES[mode]
     except KeyError:
@@ -52,11 +51,13 @@ def dense_block_norm_plain(hist: Tensor, block: int = 2, eps: float = 1e-2,
 
 def dense_block_norm(hist: Tensor, block: int = 2, eps: float = 1e-2,
                      mode: str = "rsqrt") -> Tensor:
-    """(B, ch, cw, bins) f32 -> (B, bh, bw, block^2*bins) f32."""
+    """(B, ch, cw, bins) f32 (int16 for mode="fixed") ->
+    (B, bh, bw, block^2*bins) f32."""
     code = norm_code(mode)
-    if hist.dim() != 4 or hist.dtype != torch.float32:
-        raise ValueError(f"dense_block_norm takes (B, ch, cw, bins) float32,"
-                         f" got {tuple(hist.shape)} {hist.dtype}")
+    dtype = torch.int16 if mode == "fixed" else torch.float32
+    if hist.dim() != 4 or hist.dtype != dtype:
+        raise ValueError(f"dense_block_norm {mode} takes (B, ch, cw, bins) "
+                         f"{dtype}, got {tuple(hist.shape)} {hist.dtype}")
     B, ch, cw, bins = hist.shape
     if ch < block or cw < block:
         raise ValueError(f"cell grid {(ch, cw)} holds no whole block")
@@ -71,7 +72,8 @@ def dense_block_norm(hist: Tensor, block: int = 2, eps: float = 1e-2,
     out = torch.empty((B, ch - 1, cw - 1, 36), dtype=torch.float32,
                       device=hist.device)
     build.launch("dense_block_norm", _ARGTYPES, hist, hist.data_ptr(),
-                 out.data_ptr(), B, ch, cw, N.eps_squared(eps), code)
+                 out.data_ptr(), B, ch, cw, N.norm_eps_squared(eps, mode),
+                 code)
     dense_block_norm.launches += 1
     return out
 

@@ -1,5 +1,7 @@
 """Dense gradient -> magnitude/bin -> cell histograms over a scene:
-(B, H, W) f32 gray -> (B, ch, cw, 9) f32, H = gh + 2 with gh whole cells.
+(B, H, W) f32 gray -> (B, ch, cw, 9), H = gh + 2 with gh whole cells; f32
+histograms in the float modes, int16 in the fixed mode (integer-valued
+gray in, int32 sums stored as int16).
 
 Replaces the TPU kernel repro/kernels/dense_grad_hist.py:62
 (``dense_grad_hist``), CUDA source csrc/dense_grad_hist.cu.
@@ -49,7 +51,8 @@ def dense_grad_hist_plain(gray: Tensor, cell: int = 8, bins: int = 9,
 
 def dense_grad_hist(gray: Tensor, cell: int = 8, bins: int = 9,
                     mode: str = "sector") -> Tensor:
-    """(B, H, W) f32 dense scene -> (B, ch, cw, bins) cell histograms."""
+    """(B, H, W) f32 dense scene -> (B, ch, cw, bins) cell histograms,
+    f32 or, for mode="fixed", int16."""
     code = mode_code(mode)
     if gray.dim() != 3 or gray.dtype != torch.float32:
         raise ValueError(f"dense_grad_hist takes (B, H, W) float32, got "
@@ -65,7 +68,8 @@ def dense_grad_hist(gray: Tensor, cell: int = 8, bins: int = 9,
         raise ValueError("the CUDA kernel is built for 8-px cells, 9 bins")
     if not gray.is_contiguous():
         raise ValueError("dense_grad_hist: gray must be contiguous")
-    out = torch.empty((B, ch, cw, bins), dtype=torch.float32,
+    out = torch.empty((B, ch, cw, bins),
+                      dtype=torch.int16 if mode == "fixed" else torch.float32,
                       device=gray.device)
     build.launch("dense_grad_hist", _ARGTYPES, gray, gray.data_ptr(),
                  out.data_ptr(), B, gray.shape[1], gray.shape[2], code)

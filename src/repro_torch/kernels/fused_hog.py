@@ -1,5 +1,7 @@
 """Fused dense HOG: (B, H, W) f32 gray -> (B, ch-1, cw-1, 36) f32 blocks
-in one kernel; only the blocks reach device memory.
+in one kernel; only the blocks reach device memory. In the fixed mode the
+gray is integer-valued, the cell histograms are int16 and the blocks lie
+on their per-block int8 grid.
 
 Replaces the TPU kernel repro/kernels/fused_hog.py:137
 (``dense_fused_hog``), CUDA source csrc/dense_fused_hog.cu. The window
@@ -77,7 +79,8 @@ def dense_fused_hog(gray: Tensor, cell: int = 8, block: int = 2,
     out = torch.empty((B, ch - 1, cw - 1, 36), dtype=torch.float32,
                       device=gray.device)
     build.launch("dense_fused_hog", _ARGTYPES, gray, gray.data_ptr(),
-                 out.data_ptr(), B, H, W, N.eps_squared(eps), code, ncode)
+                 out.data_ptr(), B, H, W,
+                 N.norm_eps_squared(eps, _norm_flavor(mode)), code, ncode)
     dense_fused_hog.launches += 1
     return out
 

@@ -1,11 +1,12 @@
 """Plain PyTorch twins of the kernels' per-pixel magnitude/bin device
 functions (csrc/mag_bin.cuh), which replace the Pallas device functions
-repro/kernels/hog_gradient.py:38 (_mag_bin_sector) and :51
-(_mag_bin_cordic).
+repro/kernels/hog_gradient.py:38 (_mag_bin_sector), :51
+(_mag_bin_cordic) and :76 (_mag_bin_fixed).
 
 They differ from core/hog.py's modes only where the TPU kernels do: the
 kernel CORDIC multiplies by 1/gain where core/cordic.py divides by the
-gain. The fixed-point twin (_mag_bin_fixed) is slice 2.
+gain. The fixed twin is core/hog.py's: _mag_bin_fixed is
+core/cordic.py:cordic_mag_bin_fixed unrolled, the same integer ops.
 """
 from __future__ import annotations
 
@@ -15,12 +16,12 @@ from typing import Tuple
 import torch
 
 from ..core.cordic import ATAN_LUT_DEG, cordic_gain
-from ..core.hog import mag_bin_sector
+from ..core.hog import mag_bin_fixed, mag_bin_sector
 
 Tensor = torch.Tensor
 
 #: kernel mode -> the value the CUDA launchers take (csrc/mag_bin.cuh)
-MODE_CODES = {"sector": 0, "cordic": 1}
+MODE_CODES = {"sector": 0, "cordic": 1, "fixed": 2}
 
 
 def mag_bin_cordic(fx: Tensor, fy: Tensor,
@@ -49,15 +50,14 @@ def mag_bin_cordic(fx: Tensor, fy: Tensor,
     return mag, b.to(torch.int32)
 
 
-# the sector twin is core/hog.py's, which the kernel's arithmetic matches
+# the sector and fixed twins are core/hog.py's, which the kernel's
+# arithmetic matches
 MAG_BIN_IMPLS = {"sector": partial(mag_bin_sector, bins=9),
-                 "cordic": mag_bin_cordic}
+                 "cordic": mag_bin_cordic,
+                 "fixed": partial(mag_bin_fixed, bins=9)}
 
 
 def mag_bin_impl(mode: str):
-    if mode == "fixed":
-        from ..core.numerics import FIXED_NEXT_SLICE
-        raise NotImplementedError(FIXED_NEXT_SLICE)
     try:
         return MAG_BIN_IMPLS[mode]
     except KeyError:

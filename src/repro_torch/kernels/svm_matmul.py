@@ -1,10 +1,14 @@
-"""Dense SVM scoring matmul: (M, K) block rows @ (K, N) per-offset
-weights -> (M, N) f32, from f32 or bf16 inputs with f32 accumulation.
+"""Dense SVM scoring matmuls: (M, K) block rows @ (K, N) per-offset
+weights.
 
-Replaces the TPU kernel repro/kernels/svm_matmul.py:80 (``score_matmul``),
-CUDA source csrc/score_matmul.cu. Its int8 twin ``score_matmul_int8``
-(:118) is the quant preset's, slice 2; ``svm_scores`` (:38) serves the
-window path, a later slice.
+  * ``score_matmul`` -- f32 or bf16 in, f32 accumulation and out.
+    Replaces the TPU kernel repro/kernels/svm_matmul.py:80, CUDA source
+    csrc/score_matmul.cu.
+  * ``score_matmul_int8`` -- int8 codes in, exact int32 out, the fixed
+    chain's scorer. Replaces repro/kernels/svm_matmul.py:118, CUDA source
+    csrc/score_matmul_int8.cu.
+
+``svm_scores`` (:38) serves the window path, a later slice.
 
 Bound on the H100: at the largest 640x480 level (M = 4524, K = 36,
 N = 105) the work is 34 MFLOP and 2.6 MB of traffic, about 0.8 us either
@@ -12,8 +16,9 @@ way -- below one launch. So the kernel stays on CUDA cores: each thread
 block stages the 15 KB weight tile and a 32-row input slab in shared
 memory and its threads write consecutive outputs.
 
-``score_matmul`` launches the kernel for a CUDA tensor and runs the
-plain version ``score_matmul_plain`` for a CPU tensor; nothing else.
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+version (``score_matmul_plain``, ``score_matmul_int8_plain``) for a CPU
+tensor; nothing else.
 """
 from __future__ import annotations
 
@@ -43,15 +48,10 @@ def score_matmul_plain(flat: Tensor, wt: Tensor) -> Tensor:
 
 def score_matmul(flat: Tensor, wt: Tensor) -> Tensor:
     """(M, K) block rows @ (K, N) per-offset weights -> (M, N) f32."""
-    if flat.dim() != 2 or wt.dim() != 2 or flat.shape[1] != wt.shape[0]:
-        raise ValueError(f"score_matmul shapes {tuple(flat.shape)} @ "
-                         f"{tuple(wt.shape)} do not chain")
+    _check_pair("score_matmul", flat, wt)
     if flat.dtype != wt.dtype or flat.dtype not in _DTYPE_CODES:
         raise ValueError(f"score_matmul takes two f32 or two bf16 inputs, "
                          f"got {flat.dtype} and {wt.dtype}")
-    if flat.device != wt.device:
-        raise ValueError(f"score_matmul inputs on {flat.device} and "
-                         f"{wt.device}")
     if flat.device.type == "cpu":
         return score_matmul_plain(flat, wt)
     if flat.device.type != "cuda":
@@ -72,3 +72,53 @@ def score_matmul(flat: Tensor, wt: Tensor) -> Tensor:
 
 
 score_matmul.launches = 0
+
+
+def _check_pair(name: str, flat: Tensor, wt: Tensor) -> None:
+    if flat.dim() != 2 or wt.dim() != 2 or flat.shape[1] != wt.shape[0]:
+        raise ValueError(f"{name} shapes {tuple(flat.shape)} @ "
+                         f"{tuple(wt.shape)} do not chain")
+    if flat.device != wt.device:
+        raise ValueError(f"{name} inputs on {flat.device} and {wt.device}")
+
+
+_ARGTYPES_I8 = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def score_matmul_int8_plain(q: Tensor, wq: Tensor) -> Tensor:
+    """The same function in plain tensor ops, on any device: an f32
+    product of the upcast codes, returned as int32. It is exact: every
+    product (<= 127^2) and every partial sum (<= 64 * 127^2 < 2^24) is an
+    integer that f32 holds exactly, in any summation order. (cuBLAS has
+    no int32 product, so an int32 matmul would not run on the card.)"""
+    return torch.matmul(q.to(torch.float32),
+                        wq.to(torch.float32)).to(torch.int32)
+
+
+def score_matmul_int8(q: Tensor, wq: Tensor) -> Tensor:
+    """(M, K) int8 block codes @ (K, N) int8 weight codes -> (M, N) int32,
+    exact."""
+    _check_pair("score_matmul_int8", q, wq)
+    if q.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError(f"score_matmul_int8 takes two int8 inputs, got "
+                         f"{q.dtype} and {wq.dtype}")
+    if q.device.type == "cpu":
+        return score_matmul_int8_plain(q, wq)
+    if q.device.type != "cuda":
+        raise ValueError(f"score_matmul_int8: unsupported device {q.device}")
+    M, K = q.shape
+    N = wq.shape[1]
+    if K > _MAX_K or N > _MAX_N:
+        raise ValueError(f"the CUDA kernel takes K <= {_MAX_K}, N <= "
+                         f"{_MAX_N}; got K={K}, N={N}")
+    if not (q.is_contiguous() and wq.is_contiguous()):
+        raise ValueError("score_matmul_int8: inputs must be contiguous")
+    out = torch.empty((M, N), dtype=torch.int32, device=q.device)
+    build.launch("score_matmul_int8", _ARGTYPES_I8, q, q.data_ptr(),
+                 wq.data_ptr(), out.data_ptr(), M, K, N)
+    score_matmul_int8.launches += 1
+    return out
+
+
+score_matmul_int8.launches = 0

@@ -1,6 +1,7 @@
 """The port's detector pieces (repro_torch.core.detector, api.config,
 convert) against the JAX reference: resize weights, top-k order, NMS,
-scoring, configuration carry-over, and the settings this slice refuses.
+scoring (float and fixed), configuration carry-over, and the settings the
+port refuses.
 """
 import dataclasses
 import json
@@ -13,6 +14,7 @@ import torch
 
 from repro.api.config import presets as j_presets
 from repro.core import detector as jdet
+from repro.core import quant as jquant
 from repro.core.hog import HOGConfig as JHOGConfig
 from repro_torch.api import DetectionSession, presets
 from repro_torch.convert import config_from_reference_dict, svm_from_numpy
@@ -108,7 +110,32 @@ def test_score_blocks_matches_reference(dtype, use_kernel):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["default", "paper", "faithful", "perf"])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_score_blocks_fixed_bit_equal_to_reference(use_kernel):
+    """The int8 scoring path on the same block grid: the grid requantizes
+    to the same codes, the weights to the same codes and column scales,
+    the int32 product is exact, and the rescale and the 105-add collate
+    run in the reference's order, so the scores are bit-equal."""
+    rng = np.random.default_rng(3)
+    raw = rng.uniform(0, 0.4, (20, 11, 36)).astype(np.float32)
+    raw[2, 3] = 0.0                                   # an empty block
+    blocks = np.array(jquant.quantize_dequantize(jnp.asarray(raw)))
+    w = rng.normal(0, 0.02, 3780).astype(np.float32)
+    b = np.float32(0.125)
+    fixed_j = JHOGConfig(mode="cordic", numerics="fixed")
+    want = np.asarray(jdet.score_blocks(
+        jnp.asarray(blocks), jnp.asarray(w), jnp.asarray(b), fixed_j,
+        use_kernel=use_kernel))
+    got = tdet.score_blocks(torch.from_numpy(blocks), torch.from_numpy(w),
+                            torch.tensor(b),
+                            HOGConfig(mode="cordic", numerics="fixed"),
+                            use_kernel=use_kernel)
+    assert tuple(got.shape) == want.shape == (6, 5)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["default", "paper", "faithful", "perf",
+                                  "quant"])
 def test_config_carries_over_from_reference_dict(name):
     ref = j_presets(name).to_dict()
     cfg = config_from_reference_dict(ref)
@@ -137,7 +164,6 @@ def _svm():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(hog=HOGConfig(mode="cordic", numerics="fixed")), "next slice"),
     (dict(pyramid_resize="banded"), "banded"),
     (dict(data_parallel=0), "data_parallel"),
     (dict(data_parallel=2), "data_parallel"),
@@ -147,6 +173,19 @@ def test_unported_settings_raise(change, match):
     cfg = dataclasses.replace(DetectorConfig(), **change)
     with pytest.raises(NotImplementedError, match=match):
         FrameDetector(_svm(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["ref", "kernel", "fused"])
+def test_fixed_numerics_run_on_every_backend(backend):
+    """numerics="fixed" is accepted and runs the fixed chain: with zero
+    weights every score is the bias exactly."""
+    cfg = DetectorConfig(hog=HOGConfig(mode="cordic", numerics="fixed"),
+                         backend=backend, score_threshold=-1.0)
+    det = FrameDetector({"w": np.zeros(3780, np.float32),
+                         "b": np.float32(0.25)}, cfg, device="cpu")
+    out = det(np.random.default_rng(0).integers(0, 256, (150, 80, 3))
+              .astype(np.uint8))
+    assert out and all(d["score"] == np.float32(0.25) for d in out)
 
 
 def test_unported_entry_points_raise():
@@ -160,8 +199,11 @@ def test_unported_entry_points_raise():
     with pytest.raises(NotImplementedError, match="batched"):
         sess.detect_batch([np.zeros((200, 100), np.uint8)])
     quant = config_from_reference_dict(j_presets("quant").to_dict())
-    with pytest.raises(NotImplementedError, match="next slice"):
-        DetectionSession(_svm(), quant, device="cpu")
+    sess = DetectionSession(_svm(), quant, device="cpu")
+    assert sess.config.hog.numerics == "fixed"
+    assert sess.detector.cfg.backend == "fused"
+    with pytest.raises(NotImplementedError, match="batched"):
+        sess.detect_batch([np.zeros((200, 100), np.uint8)])
     with pytest.raises(ValueError, match="backend"):
         FrameDetector(_svm(), DetectorConfig(backend="pallas"),
                       device="cpu")

@@ -1,11 +1,16 @@
 """Each kernel's plain PyTorch version (repro_torch.kernels.*) against the
 JAX Pallas kernel it replaces, run as the JAX package's own tests run it
-on the CPU (interpret mode), in every float mode and on ragged slab
-shapes. The CUDA kernels themselves run only on the card: chip_smoke.py
-holds each against these plain versions there.
+on the CPU (interpret mode), in every mode and on ragged slab shapes. The
+CUDA kernels themselves run only on the card: chip_smoke.py holds each
+against these plain versions there.
 
 Tolerances (absolute unless stated), each set by summation order only:
-histograms rtol 1e-5, blocks 5e-5, score_matmul f32 1e-5 and bf16 1e-4.
+float histograms rtol 1e-5, float blocks 5e-5, score_matmul f32 1e-5 and
+bf16 1e-4. The fixed chain's integer stages are exact (int16
+histograms, int32 scores); its blocks may differ by one int8 code step
+in under 1e-3 of the elements (the reference's own contract between its
+backends, tests/test_fixed_point.py:221), since the f32 sum of squares
+before the quantizer rounds by summation order.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +21,7 @@ from repro.kernels.dense_block_norm import dense_block_norm as j_block_norm
 from repro.kernels.dense_grad_hist import dense_grad_hist as j_grad_hist
 from repro.kernels.fused_hog import dense_fused_hog as j_fused
 from repro.kernels.svm_matmul import score_matmul as j_score_matmul
+from repro.kernels.svm_matmul import score_matmul_int8 as j_score_int8
 from repro_torch import kernels
 from repro_torch.kernels import build
 from repro_torch.kernels.dense_block_norm import (dense_block_norm,
@@ -23,7 +29,10 @@ from repro_torch.kernels.dense_block_norm import (dense_block_norm,
 from repro_torch.kernels.dense_grad_hist import (dense_grad_hist,
                                                  dense_grad_hist_plain)
 from repro_torch.kernels.fused_hog import dense_fused_hog, dense_fused_hog_plain
-from repro_torch.kernels.svm_matmul import score_matmul, score_matmul_plain
+from repro_torch.kernels.svm_matmul import (score_matmul, score_matmul_int8,
+                                            score_matmul_int8_plain,
+                                            score_matmul_plain)
+from test_torch_hog import _assert_one_code_step
 
 # (B, H, W) gray scenes: 12 cell rows against the reference's 8-row
 # slabs, and 7 against 8 (one short slab) with an untrimmed width
@@ -32,6 +41,12 @@ SCENES = [(1, 98, 130), (2, 59, 85)]
 
 def _gray(shape, seed=0):
     g = np.random.default_rng(seed).uniform(0, 255, shape)
+    return g.astype(np.float32)
+
+
+def _int_gray(shape, seed=0):
+    """Integer-valued gray, what the fixed chain's kernels receive."""
+    g = np.random.default_rng(seed).integers(0, 256, shape)
     return g.astype(np.float32)
 
 
@@ -84,6 +99,64 @@ def test_score_matmul_plain_matches_pallas(dtype, atol):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("shape", SCENES)
+def test_dense_grad_hist_fixed_plain_equals_pallas(shape):
+    g = _int_gray(shape, seed=5)
+    want = np.asarray(j_grad_hist(jnp.asarray(g), mode="fixed"))
+    got = dense_grad_hist_plain(torch.from_numpy(g), mode="fixed")
+    assert got.dtype == torch.int16 and want.dtype == np.int16
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dense_grad_hist_fixed_exact_on_max_contrast_checkerboard():
+    """The 130x3842 checkerboard of tests/test_fixed_point.py:199: every
+    gradient at full contrast, the int16 cell bound's worst real case;
+    an overflow would wrap and break equality."""
+    h, w = 130, 3842
+    yy, xx = np.mgrid[0:h, 0:w]
+    g = ((((yy // 2 + xx // 2) % 2) * 255).astype(np.float32))[None]
+    want = np.asarray(j_grad_hist(jnp.asarray(g), mode="fixed"))
+    got = dense_grad_hist_plain(torch.from_numpy(g), mode="fixed").numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < int(got.max()) < 2 ** 15
+
+
+@pytest.mark.parametrize("shape", [(1, 98, 130), (2, 154, 82)])
+def test_dense_block_norm_fixed_plain_matches_pallas(shape):
+    # 19 cell rows: 18 block rows against 16-row slabs (one ragged slab)
+    hist = np.array(j_grad_hist(jnp.asarray(_int_gray(shape, seed=6)),
+                                mode="fixed"))
+    hist[0, 0] = 0                                    # empty cells
+    want = np.asarray(j_block_norm(jnp.asarray(hist), mode="fixed"))
+    got = dense_block_norm_plain(torch.from_numpy(hist), mode="fixed")
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _assert_one_code_step(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", SCENES)
+def test_dense_fused_hog_fixed_plain_matches_pallas(shape):
+    g = _int_gray(shape, seed=7)
+    want = np.asarray(j_fused(jnp.asarray(g), mode="fixed"))
+    got = dense_fused_hog_plain(torch.from_numpy(g), mode="fixed").numpy()
+    assert got.shape == want.shape
+    _assert_one_code_step(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 77, 300])
+def test_score_matmul_int8_plain_equals_pallas(m):
+    rng = np.random.default_rng(m)
+    q = rng.integers(-127, 128, (m, 36)).astype(np.int8)
+    w = rng.integers(-127, 128, (36, 105)).astype(np.int8)
+    q[0, :], w[:, 0] = 127, -127        # the extreme sum, -36 * 127^2
+    want = np.asarray(j_score_int8(jnp.asarray(q), jnp.asarray(w)))
+    got = score_matmul_int8_plain(torch.from_numpy(q), torch.from_numpy(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), q.astype(np.int64) @ w.astype(np.int64))
+    assert int(got[0, 0]) == -36 * 127 ** 2
+
+
 def test_wrappers_run_plain_version_on_cpu_without_counting():
     g = torch.from_numpy(_gray((1, 50, 66), seed=4))
     kernels.reset_launches()
@@ -99,6 +172,18 @@ def test_wrappers_run_plain_version_on_cpu_without_counting():
     w = torch.rand(36, 105)
     torch.testing.assert_close(score_matmul(x, w), score_matmul_plain(x, w),
                                rtol=0, atol=0)
+    gi = torch.round(g)
+    hf = dense_grad_hist(gi, mode="fixed")
+    assert hf.dtype == torch.int16
+    assert torch.equal(hf, dense_grad_hist_plain(gi, mode="fixed"))
+    assert torch.equal(dense_block_norm(hf, mode="fixed"),
+                       dense_block_norm_plain(hf, mode="fixed"))
+    assert torch.equal(dense_fused_hog(gi, mode="fixed"),
+                       dense_fused_hog_plain(gi, mode="fixed"))
+    q = torch.randint(-127, 128, (10, 36), dtype=torch.int8)
+    wq = torch.randint(-127, 128, (36, 105), dtype=torch.int8)
+    assert torch.equal(score_matmul_int8(q, wq),
+                       score_matmul_int8_plain(q, wq))
     # launches count kernel launches only
     assert kernels.launch_counts() == {k: 0 for k in build.SOURCES}
 
@@ -127,10 +212,28 @@ def test_wrappers_raise_on_other_devices_and_bad_inputs():
                                                      dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="mode"):
         dense_grad_hist(torch.zeros((1, 50, 66)), mode="atan")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        dense_fused_hog(torch.zeros((1, 50, 66)), mode="fixed")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="norm flavor"):
+        dense_block_norm(torch.zeros((1, 5, 6, 9)), mode="l1")
+    # the fixed flavor takes int16 histograms, the float flavors f32
+    with pytest.raises(ValueError, match="int16"):
         dense_block_norm(torch.zeros((1, 5, 6, 9)), mode="fixed")
+    with pytest.raises(ValueError, match="float32"):
+        dense_block_norm(torch.zeros((1, 5, 6, 9), dtype=torch.int16))
+    with pytest.raises(ValueError, match="device"):
+        dense_block_norm(torch.empty((1, 5, 6, 9), dtype=torch.int16,
+                                     device="meta"), mode="fixed")
+    q = torch.zeros((4, 36), dtype=torch.int8)
+    wq = torch.zeros((36, 105), dtype=torch.int8)
+    with pytest.raises(ValueError, match="int8"):
+        score_matmul_int8(q.float(), wq)
+    with pytest.raises(ValueError, match="int8"):
+        score_matmul_int8(q, wq.to(torch.int16))
+    with pytest.raises(ValueError, match="chain"):
+        score_matmul_int8(q, wq[:35])
+    with pytest.raises(ValueError, match="device"):
+        score_matmul_int8(q.to("meta"), wq.to("meta"))
+    with pytest.raises(ValueError, match=" on "):
+        score_matmul_int8(q.to("meta"), wq)
 
 
 def test_build_names_every_kernel_source():
