@@ -8,14 +8,18 @@ Phases, each of which exits non-zero on failure:
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, in
      parallel) and print the build time;
-  3. hold each kernel against its plain PyTorch version on the card, at
-     the main path's shapes (all three pyramid levels of 640x480 and
-     1280x720) plus a ragged shape, in every mode -- the fixed modes on
-     integer-valued gray, int16 histograms and int8 scores exact, blocks
-     within one int8 code step with rare flips -- and time kernel, plain
-     version and, where one exists, the library call; one line per
-     kernel and mode;
-  4. drive the main path -- DetectionSession.detect on the card for the
+  3. hold each dense kernel against its plain PyTorch version on the
+     card, at the detector's shapes (all three pyramid levels of 640x480
+     and 1280x720) plus a ragged shape, in every mode -- the fixed modes
+     on integer-valued gray, int16 histograms and int8 scores exact,
+     blocks within one int8 code step with rare flips -- and time
+     kernel, plain version and, where one exists, the library call; one
+     line per kernel and mode;
+  3b. the same for each window kernel at B = 64 (the service's
+     window_batch), 512 (the timing bench's chunk) and a ragged 11
+     windows of 130x66, in every mode: bins, integer magnitudes and
+     int16 histograms exact, fixed blocks within one int8 code step;
+  4. drive the dense path -- DetectionSession.detect on the card for the
      paper preset with the "kernel" backend, the perf preset, and the
      quant preset with its "fused" backend and with "kernel", on seeded
      synthetic 640x480 and 1280x720 frames -- with every launch counter
@@ -26,6 +30,15 @@ Phases, each of which exits non-zero on failure:
      ms/frame, the per-frame split between kernels, resize matmuls, the
      105-add collate and the top-k + NMS loop, and the device's launches
      and busy time per frame;
+  4b. drive the window path -- classify_windows on the card for paper
+     with the "kernel" path, perf (fused, bf16), quant with "kernel" and
+     quant (fused), counters reset before each and read after it -- on
+     the 294 windows of the paper's test split (scores held against the
+     CPU) and, for paper + kernel, on all 5,949 window positions of a
+     640x480 frame's pyramid in chunks of 512 (scores held against the
+     dense score_map of the same level at the same position); time
+     windows/s, ms per batch, launches and device-busy share per batch
+     at B = 64, 512 and 5,949;
   5. print the kernels line (JSON) and, last, the ok line (JSON).
 
 It imports no JAX and nothing of the reference package. Without a GPU,
@@ -85,6 +98,25 @@ HIST_RTOL, HIST_ATOL = 1e-5, 1e-4            # summation order only
 BLOCK_ATOL = 5e-5
 MATMUL_ATOL = {"f32": 1e-5, "bf16": 1e-4}
 
+# window path: kernel checks at the service's window_batch
+# (repro/api/config.py:79), the timing bench's chunk
+# (benchmarks/bench_timing.py) and a ragged batch; classify_windows timed
+# at the same two and at one 640x480 frame's 5,949 window positions
+# (BENCH_detect.json results.640x480.n_windows), which the layout check
+# runs in chunks of 512
+WINDOW_BATCHES = (("B64", 64), ("B512", 512), ("B11", 11))
+WINDOW_TIMING_B = (64, 512, 5949)
+N_FRAME_WINDOWS = 5949
+WINDOW_CHUNK = 512
+# window scores, card vs CPU: f32 summation order; bf16: a descriptor
+# value on a bf16 rounding boundary; quant: float scoring on the int8
+# grid, where one code step of one element moves a score by at most
+# max|w| / 127 = 6.4e-4 with the golden weights (three allowed)
+WINDOW_SCORE_TOL = {"paper": 1e-4, "perf": 2e-3, "quant": 2e-3}
+LAYOUT_TOL = 1e-4          # window vs dense scoring: summation order
+SVM_ATOL = 1e-5            # svm_scores vs plain: 3,780-term f32 sums
+MAG_RTOL = 1e-6            # float magnitudes: one ulp
+
 # the kernels each main-path configuration must launch, and no others
 PATH_KERNELS = {
     "paper+kernel": ("dense_grad_hist", "dense_block_norm", "score_matmul"),
@@ -92,7 +124,18 @@ PATH_KERNELS = {
     "quant": ("dense_fused_hog", "score_matmul_int8"),
     "quant+kernel": ("dense_grad_hist", "dense_block_norm",
                      "score_matmul_int8"),
+    "window paper+kernel": ("hog_gradient", "cell_hist", "block_norm",
+                            "svm_scores"),
+    "window perf": ("fused_hog", "svm_scores"),
+    "window quant+kernel": ("hog_gradient", "cell_hist", "block_norm",
+                            "svm_scores"),
+    "window quant": ("fused_hog", "svm_scores"),
 }
+# window configuration -> (preset, classify_windows path)
+WINDOW_CONFIGS = {"window paper+kernel": ("paper", "kernel"),
+                  "window perf": ("perf", "fused"),
+                  "window quant+kernel": ("quant", "kernel"),
+                  "window quant": ("quant", "fused")}
 
 KERNELS = {
     "dense_grad_hist": ("src/repro_torch/csrc/dense_grad_hist.cu",
@@ -105,13 +148,36 @@ KERNELS = {
                      "src/repro/kernels/svm_matmul.py:80"),
     "score_matmul_int8": ("src/repro_torch/csrc/score_matmul_int8.cu",
                           "src/repro/kernels/svm_matmul.py:118"),
+    "hog_gradient": ("src/repro_torch/csrc/hog_gradient.cu",
+                     "src/repro/kernels/hog_gradient.py:139"),
+    "cell_hist": ("src/repro_torch/csrc/cell_hist.cu",
+                  "src/repro/kernels/cell_hist.py:46"),
+    "block_norm": ("src/repro_torch/csrc/block_norm.cu",
+                   "src/repro/kernels/block_norm.py:41"),
+    "fused_hog": ("src/repro_torch/csrc/fused_hog.cu",
+                  "src/repro/kernels/fused_hog.py:75"),
+    "svm_scores": ("src/repro_torch/csrc/svm_scores.cu",
+                   "src/repro/kernels/svm_matmul.py:38"),
 }
+DENSE_KERNELS = tuple(KERNELS)[:5]
+WINDOW_KERNELS = tuple(KERNELS)[5:]
 
-# the mode whose 640x480 numbers stand at the top level of a kernel's
-# entry in the kernels line (every mode is under "modes")
+# the mode and group (frame, or window batch) whose numbers stand at the
+# top level of a kernel's entry in the kernels line (every mode and group
+# is under "modes")
 MAIN_MODE = {"dense_grad_hist": "sector", "dense_block_norm": "rsqrt",
              "dense_fused_hog": "sector", "score_matmul": "f32",
-             "score_matmul_int8": "int8"}
+             "score_matmul_int8": "int8", "hog_gradient": "sector",
+             "cell_hist": "sector", "block_norm": "rsqrt",
+             "fused_hog": "sector", "svm_scores": "f32"}
+MAIN_GROUP = dict.fromkeys(DENSE_KERNELS, "640x480")
+MAIN_GROUP.update(dict.fromkeys(WINDOW_KERNELS, "B512"))
+# the per-group numbers under "modes", in this order
+GROUP_FIELDS = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                "bound_by")
+
+# where the tensors live; every phase runs on the card
+DEV = "cuda"
 
 
 class SmokeFailure(Exception):
@@ -207,16 +273,16 @@ def frame_split(torch, np, sess, h: int, w: int) -> dict:
     det = sess.detector
     prog, ph, pw = det.program_for(h, w)
     gray = torch.from_numpy(np.random.default_rng(1).uniform(
-        0, 255, (ph, pw)).astype(np.float32)).cuda()
+        0, 255, (ph, pw)).astype(np.float32)).to(DEV)
     levels = prog.pyramid(gray)
     hcfg = det.cfg.hog
     bh, bw = hcfg.blocks_hw
     blocks = [stages.dense_blocks(g, hcfg, det.cfg.backend) for g in levels]
-    contribs = [torch.zeros(b.shape[:2] + (bh * bw,), device="cuda")
+    contribs = [torch.zeros(b.shape[:2] + (bh * bw,), device=DEV)
                 for b in blocks]
-    boxes = torch.from_numpy(prog.boxes).cuda()
+    boxes = torch.from_numpy(prog.boxes).to(DEV)
     scores = torch.from_numpy(np.random.default_rng(2).normal(
-        0, 1, len(prog.boxes)).astype(np.float32)).cuda()
+        0, 1, len(prog.boxes)).astype(np.float32)).to(DEV)
 
     def resize():
         prog.pyramid(gray)
@@ -260,6 +326,21 @@ def code_flips(got, want):
     return int((diff > 1e-6).sum())
 
 
+def timed_row(torch, kernel, where, shape, mode, e, fn, plain_fn, lib_ms,
+              nbytes, ops, peak, symbol, flips=None) -> dict:
+    """One kernel at one shape and mode: its error against the plain
+    version, and kernel, device, plain, library and bound milliseconds."""
+    bound = max(nbytes / HBM_BPS, ops / peak) * 1e3
+    return {"kernel": kernel, "frame": where, "shape": list(shape),
+            "mode": mode, "max_abs_err": e, "code_flips": flips,
+            "ms": cuda_ms(fn),
+            "device_ms": kernel_device_ms(torch, fn, symbol),
+            "plain_ms": cuda_ms(plain_fn, reps=5), "library_ms": lib_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BPS >= ops / peak
+            else "operations"}
+
+
 def check_kernels(torch, np) -> dict:
     import repro_torch.core.quant as quant
     import repro_torch.kernels.dense_block_norm as dbn
@@ -269,24 +350,14 @@ def check_kernels(torch, np) -> dict:
 
     gw = np.load(ROOT / "tests" / "golden" / "hog_golden.npz")["svm_w"]
     rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     shapes = [("640x480", (1,) + s) for s in level_shapes(480, 640)]
     shapes += [("1280x720", (1,) + s) for s in level_shapes(720, 1280)]
     shapes += [("ragged", RAGGED)]
     rows = []
 
-    def record(kernel, where, shape, mode, e, fn, plain_fn, lib_ms, nbytes,
-               ops, peak, symbol, flips=None):
-        bound = max(nbytes / HBM_BPS, ops / peak) * 1e3
-        rows.append({
-            "kernel": kernel, "frame": where, "shape": list(shape),
-            "mode": mode, "max_abs_err": e, "code_flips": flips,
-            "ms": cuda_ms(fn),
-            "device_ms": kernel_device_ms(torch, fn, symbol),
-            "plain_ms": cuda_ms(plain_fn, reps=5), "library_ms": lib_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BPS >= ops / peak
-            else "operations"})
+    def record(*args, **kw):
+        rows.append(timed_row(torch, *args, **kw))
 
     wt32 = torch.from_numpy(gw).to(dev).reshape(105, 36).T.contiguous()
     wq, _ = quant.quantize_weight_columns(wt32)
@@ -407,7 +478,7 @@ def check_kernels(torch, np) -> dict:
                lambda: sm.score_matmul_int8_plain(q, wq), lib,
                M * 36 + 36 * 105 + 4 * M * 105, 2 * M * 36 * 105,
                INT8_OPS, "score_matmul_int8_kernel")
-    return summarize(rows)
+    return summarize(rows, DENSE_KERNELS, ("640x480", "1280x720"), 3)
 
 
 def int8_library_ms(torch, q, wq, want, refusals):
@@ -442,12 +513,17 @@ def _sum(rows, key):
     return None if None in vals else sum(vals)
 
 
-def summarize(rows) -> dict:
-    """One line per kernel x mode: the worst error over every shape and the
-    per-frame sums (three pyramid levels) at both frame sizes. Returns
-    {kernel: {mode: {frame: sums}, "max_abs_err": worst}}."""
+def _g(x) -> str:
+    return "-" if x is None else f"{x:.4g}"
+
+
+def summarize(rows, names, groups, per_group: int) -> dict:
+    """One line per kernel x mode: the worst error over every shape and,
+    per group (a frame size: the sum over its three pyramid levels; or a
+    window batch), call / device / plain / library / bound ms. Returns
+    {kernel: {mode: {group: sums}, "max_abs_err": worst}}."""
     out = {}
-    for k in KERNELS:
+    for k in names:
         out[k] = {"max_abs_err": 0.0}
         for mode in dict.fromkeys(r["mode"] for r in rows
                                   if r["kernel"] == k):
@@ -459,25 +535,155 @@ def summarize(rows) -> dict:
             if flips is not None:
                 out[k][mode]["code_flips"] = flips
             text = []
-            for frame in ("640x480", "1280x720"):
-                fr = [r for r in sel if r["frame"] == frame]
-                need(len(fr) == 3, f"missing {frame} timings of {k} {mode}")
-                sums = {key: _sum(fr, key) for key in
-                        ("ms", "device_ms", "plain_ms", "bound_ms",
-                         "library_ms")}
+            for group in groups:
+                fr = [r for r in sel if r["frame"] == group]
+                need(len(fr) == per_group,
+                     f"missing {group} timings of {k} {mode}")
+                sums = {key: _sum(fr, key) for key in GROUP_FIELDS[:-1]}
                 sums["bound_by"] = fr[0]["bound_by"]
-                out[k][mode][frame] = sums
-                lib = sums["library_ms"]
-                text.append(
-                    f"{frame} kernel {sums['ms']:.4f} device "
-                    f"{_fmt(sums['device_ms'])} plain {sums['plain_ms']:.4f} "
-                    f"library {'null' if lib is None else f'{lib:.4f}'} "
-                    f"bound {sums['bound_ms']:.5f} ({sums['bound_by']})")
-            print(f"  {k:17s} {mode:6s} err {e:.3e}"
+                out[k][mode][group] = sums
+                text.append(f"{group} " + "/".join(
+                    _g(sums[key]) for key in GROUP_FIELDS[:-1])
+                    + f" ({sums['bound_by'][:3]})")
+            print(f"  {k} {mode} err {e:.2e}"
                   + (f" flips {flips}" if flips is not None else "")
-                  + f" over {len(sel)} shapes; ms per frame: "
-                  + "; ".join(text), flush=True)
+                  + f" ({len(sel)} shapes) " + "; ".join(text), flush=True)
     return out
+
+
+def check_window_kernels(torch, np) -> dict:
+    """Phase 3b: each window kernel against its plain version on the card
+    at every WINDOW_BATCHES size and in every mode, timed."""
+    import repro_torch.kernels.block_norm as bn
+    import repro_torch.kernels.cell_hist as chist
+    import repro_torch.kernels.fused_hog as fh
+    import repro_torch.kernels.hog_gradient as hg
+    import repro_torch.kernels.svm_matmul as sm
+
+    g = np.load(ROOT / "tests" / "golden" / "hog_golden.npz")
+    w = torch.from_numpy(g["svm_w"]).to(DEV)
+    bias = torch.from_numpy(np.asarray(g["svm_b"], np.float32)).to(DEV)
+    rng = np.random.default_rng(3)
+    rows = []
+
+    def record(*args, **kw):
+        rows.append(timed_row(torch, *args, **kw))
+
+    for where, B in WINDOW_BATCHES:
+        shape = (B, 130, 66)
+        pixels, nblocks = B * 128 * 64, B * 15 * 7
+        grays = {"float": torch.from_numpy(
+            rng.uniform(0, 255, shape).astype(np.float32)).to(DEV),
+                 "fixed": torch.from_numpy(
+            rng.integers(0, 256, shape).astype(np.float32)).to(DEV)}
+        descs = {}
+        for mode, norm in (("sector", "rsqrt"), ("cordic", "nr"),
+                           ("fixed", "fixed")):
+            gray = grays["fixed" if mode == "fixed" else "float"]
+            tag = f"{mode} B={B}"
+            mag, bins = hg.hog_gradient(gray, mode)
+            pmag, pbins = hg.hog_gradient_plain(gray, mode)
+            torch.cuda.synchronize()
+            need(mag.dtype == pmag.dtype and mag.shape == pmag.shape
+                 and bins.dtype == pbins.dtype,
+                 f"hog_gradient {tag}: shape or dtype")
+            nb = int((bins != pbins).sum())
+            need(nb == 0, f"hog_gradient {tag}: {nb} bins differ")
+            diff = (mag.double() - pmag.double()).abs()
+            e = float(diff.max())
+            if mode == "fixed":
+                need(torch.equal(mag, pmag),
+                     f"hog_gradient {tag}: integer magnitudes differ")
+            else:
+                need(bool((diff <= MAG_RTOL * pmag.abs()).all()),
+                     f"hog_gradient {tag}: magnitude err {e}")
+            record("hog_gradient", where, shape, mode, e,
+                   lambda: hg.hog_gradient(gray, mode),
+                   lambda: hg.hog_gradient_plain(gray, mode), None,
+                   4 * gray.numel() + 8 * pixels,
+                   pixels * (PIXEL_OPS[mode] - 18), F32_FLOPS,
+                   "hog_gradient_kernel")
+
+            # the same magnitudes and bins into both histogram versions
+            hist = chist.cell_hist(pmag, pbins)
+            phist = chist.cell_hist_plain(pmag, pbins)
+            torch.cuda.synchronize()
+            need(hist.dtype == phist.dtype and hist.shape == phist.shape,
+                 f"cell_hist {tag}: shape or dtype")
+            diff = (hist.float() - phist.float()).abs()
+            e = float(diff.max())
+            if mode == "fixed":
+                need(torch.equal(hist, phist), f"cell_hist {tag}: {e}")
+            else:
+                need(bool((diff <= HIST_ATOL
+                           + HIST_RTOL * phist.abs()).all()),
+                     f"cell_hist {tag}: max err {e}")
+            record("cell_hist", where, (B, 128, 64), mode, e,
+                   lambda: chist.cell_hist(pmag, pbins),
+                   lambda: chist.cell_hist_plain(pmag, pbins), None,
+                   8 * pixels + phist.element_size() * phist.numel(),
+                   pixels * 18, F32_FLOPS, "cell_hist_kernel")
+
+            got = bn.block_norm(phist, mode=norm)
+            want = bn.block_norm_plain(phist, mode=norm)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            flips = None
+            if mode == "fixed":
+                flips = code_flips(got, want)
+                need(flips <= 1e-3 * got.numel(),
+                     f"block_norm fixed B={B}: {flips} code flips")
+            else:
+                need(e <= BLOCK_ATOL, f"block_norm {norm} B={B}: {e}")
+            record("block_norm", where, tuple(phist.shape), norm, e,
+                   lambda: bn.block_norm(phist, mode=norm),
+                   lambda: bn.block_norm_plain(phist, mode=norm), None,
+                   phist.element_size() * phist.numel() + 4 * want.numel(),
+                   nblocks * BLOCK_OPS[norm], F32_FLOPS, "block_norm_kernel",
+                   flips)
+
+            got = fh.fused_hog(gray, mode=mode)
+            want = fh.fused_hog_plain(gray, mode=mode)
+            torch.cuda.synchronize()
+            need(got.shape == want.shape == (B, 3780),
+                 f"fused_hog {tag}: shape")
+            e = float((got - want).abs().max())
+            flips = None
+            if mode == "fixed":
+                flips = code_flips(got.reshape(B, -1, 36),
+                                   want.reshape(B, -1, 36))
+                need(flips <= 1e-3 * got.numel(),
+                     f"fused_hog fixed B={B}: {flips} code flips")
+            else:
+                need(e <= BLOCK_ATOL, f"fused_hog {tag}: {e}")
+            descs[mode] = want
+            record("fused_hog", where, shape, mode, e,
+                   lambda: fh.fused_hog(gray, mode=mode),
+                   lambda: fh.fused_hog_plain(gray, mode=mode), None,
+                   4 * gray.numel() + 4 * want.numel(),
+                   pixels * PIXEL_OPS[mode] + nblocks * BLOCK_OPS[norm],
+                   F32_FLOPS, "fused_hog_kernel", flips)
+
+        for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            feats = descs["sector"].to(dt).contiguous()
+            got = sm.svm_scores(feats, w, bias)
+            want = sm.svm_scores_plain(feats, w, bias)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            need(e <= SVM_ATOL, f"svm_scores {dname} B={B}: {e}")
+            lib = None          # no one call scores bf16 rows by f32 weights
+            if dt == torch.float32:
+                lib_out = torch.addmv(bias, feats, w)
+                torch.cuda.synchronize()
+                need(float((lib_out - want).abs().max()) <= SVM_ATOL,
+                     "torch.addmv disagrees with svm_scores_plain")
+                lib = cuda_ms(lambda: torch.addmv(bias, feats, w))
+            record("svm_scores", where, (B, 3780), dname, e,
+                   lambda: sm.svm_scores(feats, w, bias),
+                   lambda: sm.svm_scores_plain(feats, w, bias), lib,
+                   feats.element_size() * feats.numel() + 4 * 3780 + 4
+                   + 4 * B, 2 * B * 3780, F32_FLOPS, "svm_scores_kernel")
+    return summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1)
 
 
 # ------------------------------------------------------------- phase 4
@@ -504,7 +710,7 @@ def main_path(torch, np) -> dict:
     frames = {(h, w): [synth.make_scene(np.random.default_rng(seed), h, w,
                                   n_people=3)[0] for seed in (0, 1)]
               for h, w in FRAME_SIZES}
-    gpu = {n: api.DetectionSession(svm, c, device="cuda")
+    gpu = {n: api.DetectionSession(svm, c, device=DEV)
            for n, (c, _) in configs.items()}
     cpu = {n: api.DetectionSession(svm, c, device="cpu")
            for n, (c, _) in configs.items()}
@@ -516,18 +722,12 @@ def main_path(torch, np) -> dict:
             results[(name, hw)] = [sess.detect(f).block_until_ready()
                                    for f in fs]
         torch.cuda.synchronize()
-        launches[name] = counts = kernels.launch_counts()
-        print(f"main path {name} launches: {counts}", flush=True)
-        for k, n in counts.items():
-            if k in PATH_KERNELS[name]:
-                need(n > 0, f"kernel {k} was not launched on the {name} path")
-            else:
-                need(n == 0, f"kernel {k} launched {n} times on the {name} "
-                             f"path, which should not run it")
+        launches[name] = check_launches(name, kernels.launch_counts())
 
     for (name, hw), dets in results.items():
         dt = configs[name][1]
         sess = gpu[name]
+        kept, deltas, rints = [], [], []
         for i, (d, f) in enumerate(zip(dets, frames[hw])):
             ref = cpu[name].detect(f).to_list()
             got = d.to_list()
@@ -539,12 +739,16 @@ def main_path(torch, np) -> dict:
             de = max(abs(a["score"] - b["score"]) for a, b in zip(got, ref))
             need(de <= SCORE_TOL[dt], f"{name} {hw} frame {i}: score "
                                       f"delta {de} > {SCORE_TOL[dt]}")
-            flips = (f", {rint_flips(torch, sess, cpu[name], f)} resized "
-                     f"gray pixels round otherwise than on the CPU"
-                     if dt == "int8" else "")
-            print(f"  {name:12s} {hw[1]}x{hw[0]} frame {i}: {len(got)} "
-                  f"boxes kept, same as CPU, max score delta {de:.2e} "
-                  f"(tol {SCORE_TOL[dt]:g}){flips}", flush=True)
+            kept.append(str(len(got)))
+            deltas.append(f"{de:.2e}")
+            if dt == "int8":
+                rints.append(str(rint_flips(torch, sess, cpu[name], f)))
+        flips = (f"; resized gray pixels that round otherwise than on the "
+                 f"CPU: {'/'.join(rints)}" if rints else "")
+        print(f"  {name} {hw[1]}x{hw[0]}, {len(dets)} frames: "
+              f"{'/'.join(kept)} boxes kept, same as CPU; max score delta "
+              f"{'/'.join(deltas)} (tol {SCORE_TOL[dt]:g}){flips}",
+              flush=True)
 
     # ms/frame: the configurations in turns (the order rotating every
     # repetition), so host drift falls on all of them alike
@@ -562,9 +766,10 @@ def main_path(torch, np) -> dict:
         for name in names:
             ms = total[name] * 1e3 / (TIMING_REPS * len(fs))
             per_frame[f"{name} {hw[1]}x{hw[0]}"] = ms
-            print(f"  {name:12s} {hw[1]}x{hw[0]}: {ms:.3f} ms/frame "
-                  f"(detect + synchronize, host clock, configurations in "
-                  f"turns)", flush=True)
+        print(f"  ms/frame {hw[1]}x{hw[0]} (detect + synchronize, host "
+              f"clock, configurations in turns): " + ", ".join(
+                  f"{n} {per_frame[f'{n} {hw[1]}x{hw[0]}']:.3f}"
+                  for n in names), flush=True)
 
     for h, w in FRAME_SIZES:
         key = f"{w}x{h}"
@@ -586,6 +791,25 @@ def main_path(torch, np) -> dict:
     return launches
 
 
+def check_launches(name: str, counts: dict) -> dict:
+    """Print one path's launch counts (read right after its run) and
+    require its own kernels > 0 and every other kernel 0."""
+    own = {k: n for k, n in counts.items() if k in PATH_KERNELS[name]}
+    print(f"main path {name} launches: "
+          + ", ".join(f"{k} {n}" for k, n in own.items())
+          + f"; the other {len(counts) - len(own)} kernels: "
+          + ("0" if not any(n for k, n in counts.items() if k not in own)
+             else str({k: n for k, n in counts.items() if k not in own})),
+          flush=True)
+    for k, n in counts.items():
+        if k in PATH_KERNELS[name]:
+            need(n > 0, f"kernel {k} was not launched on the {name} path")
+        else:
+            need(n == 0, f"kernel {k} launched {n} times on the {name} "
+                         f"path, which should not run it")
+    return counts
+
+
 def rint_flips(torch, gpu_sess, cpu_sess, frame) -> int:
     """Resized-gray pixels of one frame's pyramid whose whole level (round
     half to even, the fixed chain's entry seam) differs between the card
@@ -599,6 +823,158 @@ def rint_flips(torch, gpu_sess, cpu_sess, frame) -> int:
                            ph, pw)
         levels.append([torch.round(g).cpu() for g in prog.pyramid(gray)])
     return sum(int((a != b).sum()) for a, b in zip(*levels))
+
+
+def frame_windows(torch, np, svm_np, svm):
+    """Workload (b): every 130x66 window at 8-px stride of the three gray
+    levels the dense program makes of a seeded 640x480 scene, in the
+    program's (level, row, column) order, and the dense score_map
+    ("kernel" backend) of each level flattened in the same order."""
+    import repro_torch.api as api
+    import repro_torch.core.detector as det_mod
+    import repro_torch.data.synth_pedestrian as synth
+    cfg = api.presets("paper")
+    det = det_mod.FrameDetector(svm_np, dataclasses.replace(
+        cfg.detector, backend="kernel"), device=DEV)
+    frame = synth.make_scene(np.random.default_rng(0), 480, 640,
+                             n_people=3)[0]
+    prog, ph, pw = det.program_for(480, 640)
+    gray = det_mod._prep_frame(torch.as_tensor(frame).to(DEV), 480, 640,
+                               ph, pw)
+    hcfg = cfg.hog
+    wins, dense = [], []
+    for level, (_, sph, spw) in zip(prog.pyramid(gray), prog.per_scale):
+        grid = level.unfold(0, hcfg.window_h, hcfg.cell).unfold(
+            1, hcfg.window_w, hcfg.cell)[:sph, :spw]
+        wins.append(grid.reshape(-1, hcfg.window_h, hcfg.window_w))
+        dense.append(det_mod.score_map(level, svm["w"], svm["b"], hcfg,
+                                       "kernel").reshape(-1))
+    wins = torch.cat(wins)
+    n = sum(sph * spw for _, sph, spw in prog.per_scale)
+    need(wins.shape[0] == n == N_FRAME_WINDOWS,
+         f"640x480 gives {wins.shape[0]} windows, per_scale {n}, "
+         f"BENCH_detect.json {N_FRAME_WINDOWS}")
+    return wins, torch.cat(dense), [sph * spw for _, sph, spw
+                                    in prog.per_scale]
+
+
+def window_path(torch, np) -> dict:
+    """Phase 4b: classify_windows on the card per window configuration,
+    launch counters reset before each and read after it."""
+    import repro_torch.api as api
+    import repro_torch.core.pipeline as pipe
+    import repro_torch.data.synth_pedestrian as synth
+    import repro_torch.kernels as kernels
+
+    g = np.load(ROOT / "tests" / "golden" / "hog_golden.npz")
+    svm_np = {"w": g["svm_w"], "b": np.asarray(g["svm_b"], np.float32)}
+    svm = {k: torch.from_numpy(v).to(DEV) for k, v in svm_np.items()}
+    # workload (a): Table I's 160/134 test split, seeded (the golden
+    # weights are seeded random, so no accuracy is read from it)
+    split, _ = synth.make_windows(160, 134,
+                                       synth.PedestrianDataConfig(),
+                                       np.random.default_rng(0))
+    need(len(split) == 294, f"the split has {len(split)} windows")
+    split_dev = torch.from_numpy(split).to(DEV)
+    wins, dense, per_level = frame_windows(torch, np, svm_np, svm)
+    torch.cuda.synchronize()
+
+    results, launches = {}, {}
+    for name, (preset, path) in WINDOW_CONFIGS.items():
+        cfg = api.presets(preset).hog
+        kernels.reset_launches()
+        results[name] = pipe.classify_windows(svm, split_dev, cfg, path)
+        if name == "window paper+kernel":
+            frame_scores = torch.cat([
+                pipe.classify_windows(svm, wins[i:i + WINDOW_CHUNK], cfg,
+                                      path)["score"]
+                for i in range(0, len(wins), WINDOW_CHUNK)])
+        torch.cuda.synchronize()
+        launches[name] = check_launches(name, kernels.launch_counts())
+
+    for name, (preset, path) in WINDOW_CONFIGS.items():
+        cfg = api.presets(preset).hog
+        tol = WINDOW_SCORE_TOL[preset]
+        ref = pipe.classify_windows(svm_np, split, cfg, path, device="cpu")
+        got = {k: v.cpu() for k, v in results[name].items()}
+        need(got["score"].shape == (294,) and bool(
+            torch.isfinite(got["score"]).all()), f"{name}: scores")
+        de = float((got["score"] - ref["score"]).abs().max())
+        need(de <= tol, f"{name}: split score delta {de} > {tol}")
+        sure = ref["score"].abs() > tol
+        need(torch.equal(got["human"][sure], ref["human"][sure]),
+             f"{name}: human differs from the CPU where |score| > {tol}")
+        print(f"  {name}: 294 split windows, max score delta vs CPU "
+              f"{de:.2e} (tol {tol:g}), human same as CPU on "
+              f"{int(sure.sum())} windows with |score| > tol, "
+              f"{int(got['human'].sum())} humans", flush=True)
+
+    # numpy windows without a device go to the card
+    out = pipe.classify_windows(svm_np, split[:8], api.presets("perf").hog,
+                                "fused")
+    need(out["score"].device.type == torch.device(DEV).type,
+         "numpy windows did not default to the card")
+    d = float((frame_scores - dense).abs().max())
+    need(d <= LAYOUT_TOL, f"frame windows vs dense score_map: {d}")
+    print(f"  window paper+kernel: all {len(wins)} windows of one 640x480 "
+          f"frame (levels {'+'.join(map(str, per_level))}), chunks of "
+          f"{WINDOW_CHUNK}: max delta vs the dense score_map {d:.2e} "
+          f"(tol {LAYOUT_TOL:g})", flush=True)
+
+    for name, (preset, path) in WINDOW_CONFIGS.items():
+        cfg = api.presets(preset).hog
+        own = tuple(f"{k}_kernel" for k in PATH_KERNELS[name])
+        parts = []
+        for B in WINDOW_TIMING_B:
+            x = split_dev[torch.arange(B, device=split_dev.device) % 294]
+
+            def run():
+                return pipe.classify_windows(svm, x, cfg, path)
+
+            run()
+            torch.cuda.synchronize()
+            reps = max(3, min(20, 4096 // B))
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / reps
+            times = device_times(torch, run, 3)
+            busy = sum(t for _, t in times.values()) / 3e3
+            kern = sum(t for k, (_, t) in times.items()
+                       if any(o in k for o in own)) / 3e3
+            n_launch = sum(c for c, _ in times.values()) / 3
+            parts.append(f"B={B} {ms:.4f} ms {B / ms * 1e3:.0f} win/s "
+                         f"{n_launch:.0f} launches busy {busy:.4f} ms "
+                         f"(share {busy / ms:.3f}, own kernels "
+                         f"{kern:.4f} ms)")
+        print(f"  {name}: " + "; ".join(parts), flush=True)
+    return launches
+
+
+def print_ptxas(name: str, log) -> None:
+    """One line per kernel source: ptxas's register count of each
+    instantiation, and any spill."""
+    lines = log.read_text().splitlines() if log.exists() else []
+    regs = [ln.split("Used ")[1].split(" registers")[0] for ln in lines
+            if "Used " in ln and " registers" in ln]
+    spills = [ln.strip() for ln in lines if "spill" in ln and
+              "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    print(f"  ptxas {name}: registers {'/'.join(regs) or '-'}; "
+          + ("; ".join(spills) if spills else "no spills"), flush=True)
+
+
+def _r(x):
+    return float(f"{x:.4g}") if isinstance(x, float) else x
+
+
+def compact_mode(v: dict, group: str) -> dict:
+    """A mode's entry for the kernels line: its error (and code flips)
+    and the main group's numbers as one list in GROUP_FIELDS order, to 4
+    significant digits."""
+    out = {k: _r(d) for k, d in v.items() if not isinstance(d, dict)}
+    out[group] = [_r(v[group][f]) for f in GROUP_FIELDS]
+    return out
 
 
 def main() -> int:
@@ -632,30 +1008,30 @@ def main() -> int:
               f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})",
               flush=True)
         for name in build.SOURCES:
-            log = build.library_path(name).with_suffix(".log")
-            for line in (log.read_text().splitlines() if log.exists()
-                         else []):
-                if "registers" in line or ("spill" in line and
-                                           "0 bytes spill stores, 0 bytes "
-                                           "spill loads" not in line):
-                    print(f"  ptxas {name}: {line.strip()}")
+            print_ptxas(name, build.library_path(name).with_suffix(".log"))
 
-        print("kernel checks (card vs plain version on the card):",
-              flush=True)
+        print("kernel checks (card vs plain version on the card; per "
+              "frame, the sum of its 3 levels, or per window batch: "
+              "call/device/plain/library/bound ms):", flush=True)
         summary = check_kernels(torch, np)
+        summary.update(check_window_kernels(torch, np))
         print("main path:", flush=True)
         launches = main_path(torch, np)
+        print("window path:", flush=True)
+        launches.update(window_path(torch, np))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
 
     # launches: the sum of each path's own count (each read right after
     # that path's run), with the per-path counts beside it; the top-level
-    # numbers are the main mode's 640x480 sums, every mode is under
-    # "modes" at both frame sizes
-    kernels_line = {"kernels": []}
+    # numbers are the main mode's sums at the main group (640x480 for the
+    # dense kernels, B = 512 for the window kernels); every mode's numbers
+    # at the main group are under "modes", as GROUP_FIELDS lists, to 4
+    # digits (every group is on the kernel-check lines above)
+    kernels_line = {"kernels": [], "mode_fields": GROUP_FIELDS}
     for k in KERNELS:
-        main = summary[k][MAIN_MODE[k]]["640x480"]
+        main = summary[k][MAIN_MODE[k]][MAIN_GROUP[k]]
         kernels_line["kernels"].append({
             "name": k, "route": "cuda", "source": KERNELS[k][0],
             "replaces": KERNELS[k][1],
@@ -667,7 +1043,9 @@ def main() -> int:
             **{key: main[key] for key in ("ms", "device_ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
-            "modes": {m: v for m, v in summary[k].items()
+            "main_group": MAIN_GROUP[k],
+            "modes": {m: compact_mode(v, MAIN_GROUP[k])
+                      for m, v in summary[k].items()
                       if m != "max_abs_err"}})
     print(json.dumps(kernels_line))
     print(card[0])

@@ -6,7 +6,9 @@ and imports nothing of it, nor JAX. Plain tensor code is PyTorch; every
 TPU kernel on the ported path is a CUDA kernel written for Hopper
 (csrc/, built by kernels/build.py at first use).
 
-Slice 1 (this package's scope): single-frame dense multi-scale detection
--- ``api.DetectionSession.detect`` -> ``core.detector.FrameDetector`` --
-for the float numerics (presets default, paper, faithful, perf).
+What runs: single-frame dense multi-scale detection --
+``api.DetectionSession.detect`` -> ``core.detector.FrameDetector`` -- and
+window classification -- ``core.pipeline.classify_windows`` and
+``extract_features`` -- for the float presets (default, paper, faithful,
+perf) and the fixed-point ``quant`` preset.
 """

@@ -17,6 +17,7 @@ Modes:
 
 Plain tensor functions on any device; they are the plain path of the
 "ref" backend and the building blocks of the kernels' plain versions.
+``hog_descriptor`` runs the whole window chain on the "ref" stages.
 """
 from __future__ import annotations
 
@@ -241,3 +242,18 @@ def block_normalize(hist: Tensor, cfg: HOGConfig, use_nr: bool = False,
 def collate(blocks: Tensor, cfg: HOGConfig) -> Tensor:
     """(..., bh, bw, 36) -> (..., 3780) descriptor."""
     return blocks.reshape(blocks.shape[:-3] + (cfg.n_features,))
+
+
+def hog_descriptor(window: Tensor, cfg: HOGConfig = PAPER_HOG) -> Tensor:
+    """Full HOG chain: (..., H, W, 3) RGB or (..., H, W) gray ->
+    (..., n_features), on the plain "ref" stages. Windows larger than
+    (cfg.window_h, cfg.window_w) are top-left-anchored and cropped;
+    smaller ones raise ValueError. The chain is core/stages.py's."""
+    from .stages import window_descriptor
+    return window_descriptor(window, cfg, backend="ref")
+
+
+def hog_descriptor_batch(windows: Tensor,
+                         cfg: HOGConfig = PAPER_HOG) -> Tensor:
+    """Batch-first alias: (B, H, W[, 3]) -> (B, n_features)."""
+    return hog_descriptor(windows, cfg)

@@ -1,18 +1,26 @@
-"""The HOG stage chain per backend, dense layout -- the port of
+"""The HOG stage chain per backend and layout -- the port of
 repro/core/stages.py.
 
     grayscale -> gradients -> mag/bin -> cell_histograms -> block_normalize
 
 Backends:
   * "ref"    -- plain tensor stages from core/hog.py,
-  * "kernel" -- the dense gradient+histogram kernel, then the dense
-               block-norm kernel (kernels/dense_grad_hist.py,
+  * "kernel" -- staged kernels: per layout, the window kernels
+               (kernels/hog_gradient.py, kernels/cell_hist.py,
+               kernels/block_norm.py) or the dense gradient+histogram and
+               block-norm kernels (kernels/dense_grad_hist.py,
                kernels/dense_block_norm.py),
-  * "fused"  -- the single dense fused kernel (kernels/fused_hog.py).
+  * "fused"  -- one fused kernel per layout (kernels/fused_hog.py:
+               ``fused_hog`` for windows, ``dense_fused_hog`` for scenes).
 
-This slice ports the dense layout, the one the detector runs. The window
-layout (a batch of 130x66 tiles through the window kernels) serves the
-window-classification path and is a later slice.
+Layouts:
+  * window -- a batch of fixed windows, cropped to the configured
+              geometry; the block grid collates to (..., n_features),
+  * dense  -- a whole scene trimmed to whole cells; the block grid
+              (..., BH, BW, 36) is scored by the detector.
+
+Block normalization is window-independent, so the layouts agree wherever
+a window tiles onto the scene's cell grid.
 """
 from __future__ import annotations
 
@@ -28,22 +36,21 @@ from .hog import (HOGConfig, PAPER_HOG, _MAG_BIN_FAST,
 
 Tensor = torch.Tensor
 
-WINDOW_LAYOUT_LATER = ("window layout (window kernels, classify_windows): "
-                       "a later slice of the port")
-
-
 @dataclasses.dataclass(frozen=True)
 class StageSet:
-    """One backend's implementation of the dense chain. ``dense_fused``
-    short-circuits the whole chain; else ``dense_grad_hist`` +
-    ``dense_block_norm``; else (the ref backend) the per-stage
-    callables, which are shape-agnostic."""
+    """One backend's implementation of the chain. In the window layout
+    ``fused`` short-circuits the whole chain, else the per-stage
+    callables run. In the dense layout ``dense_fused`` short-circuits it,
+    else ``dense_grad_hist`` + ``dense_block_norm``; a backend without
+    dense variants (ref, whose stages are shape-agnostic) runs its
+    per-stage callables on the scene."""
 
     name: str
     grad_mag_bin: Optional[Callable[[Tensor, HOGConfig],
                                     Tuple[Tensor, Tensor]]] = None
     cell_hist: Optional[Callable[[Tensor, Tensor, HOGConfig], Tensor]] = None
     block_norm: Optional[Callable[[Tensor, HOGConfig], Tensor]] = None
+    fused: Optional[Callable[[Tensor, HOGConfig], Tensor]] = None
     dense_grad_hist: Optional[Callable[[Tensor, HOGConfig], Tensor]] = None
     dense_block_norm: Optional[Callable[[Tensor, HOGConfig], Tensor]] = None
     dense_fused: Optional[Callable[[Tensor, HOGConfig], Tensor]] = None
@@ -66,6 +73,33 @@ def _ref_cell_hist(mag: Tensor, b: Tensor, cfg: HOGConfig) -> Tensor:
 
 def _ref_block_norm(hist: Tensor, cfg: HOGConfig) -> Tensor:
     return block_normalize(hist, cfg, norm=N.spec_for(cfg).norm)
+
+
+def _kernel_grad_mag_bin(gray: Tensor, cfg: HOGConfig
+                         ) -> Tuple[Tensor, Tensor]:
+    from ..kernels.hog_gradient import hog_gradient
+    return hog_gradient(gray, mode=N.spec_for(cfg).kernel_mode)
+
+
+def _kernel_cell_hist(mag: Tensor, b: Tensor, cfg: HOGConfig) -> Tensor:
+    from ..kernels.cell_hist import cell_hist
+    return cell_hist(mag, b, cell=cfg.cell, bins=cfg.bins)
+
+
+def _kernel_block_norm(hist: Tensor, cfg: HOGConfig) -> Tensor:
+    from ..kernels.block_norm import block_norm
+    out = block_norm(hist, block=cfg.block, eps=cfg.eps,
+                     mode=N.spec_for(cfg).norm)
+    return _cast_feat(out, cfg)
+
+
+def _kernel_fused(gray: Tensor, cfg: HOGConfig) -> Tensor:
+    from ..kernels.fused_hog import fused_hog
+    desc = fused_hog(gray, cell=cfg.cell, block=cfg.block, bins=cfg.bins,
+                     eps=cfg.eps, mode=N.spec_for(cfg).kernel_mode)
+    bh, bw = cfg.blocks_hw
+    return _cast_feat(desc.reshape(desc.shape[0], bh, bw, cfg.block_dim),
+                      cfg)
 
 
 def _kernel_dense_grad_hist(gray: Tensor, cfg: HOGConfig) -> Tensor:
@@ -92,10 +126,12 @@ def _kernel_dense_fused(gray: Tensor, cfg: HOGConfig) -> Tensor:
 BACKENDS = {
     "ref": StageSet("ref", _ref_grad_mag_bin, _ref_cell_hist,
                     _ref_block_norm),
-    "kernel": StageSet("kernel",
+    "kernel": StageSet("kernel", _kernel_grad_mag_bin, _kernel_cell_hist,
+                       _kernel_block_norm,
                        dense_grad_hist=_kernel_dense_grad_hist,
                        dense_block_norm=_kernel_dense_block_norm),
-    "fused": StageSet("fused", dense_fused=_kernel_dense_fused),
+    "fused": StageSet("fused", fused=_kernel_fused,
+                      dense_fused=_kernel_dense_fused),
 }
 
 
@@ -109,29 +145,78 @@ def get_backend(backend: str) -> StageSet:
 
 
 def run_stages(gray: Tensor, geom: HOGConfig, backend: str = "ref",
-               layout: str = "dense") -> Tensor:
+               layout: str = "window") -> Tensor:
     """Run the chain on prepared gray (B, H, W) whose interior is a whole
     number of cells; ``geom`` is the geometry-adjusted config. Returns
-    the normalized block grid (B, bh, bw, block_dim)."""
-    if layout != "dense":
-        raise NotImplementedError(WINDOW_LAYOUT_LATER)
+    the normalized block grid (B, bh, bw, block_dim). ``layout="dense"``
+    takes the backend's scene kernels where it has them."""
+    if layout not in ("window", "dense"):
+        raise ValueError(f"unknown layout {layout!r}; expected 'window' or "
+                         f"'dense'")
     ss = get_backend(backend)
     if N.spec_for(geom).quantized:
-        # the fixed datapath's entry seam (repro/core/stages.py:198-205):
-        # gray snaps to whole levels, half to even, before any backend,
-        # so the gradients are exact integers
+        # the fixed datapath's entry seam (repro/core/stages.py:198-205),
+        # shared by both layouts: gray snaps to whole levels, half to
+        # even, before any backend, so the gradients are exact integers
         gray = torch.round(gray)
-    if ss.dense_fused is not None:
-        return ss.dense_fused(gray, geom)
-    if ss.dense_grad_hist is not None:
-        return ss.dense_block_norm(ss.dense_grad_hist(gray, geom), geom)
+    if layout == "dense":
+        if ss.dense_fused is not None:
+            return ss.dense_fused(gray, geom)
+        if ss.dense_grad_hist is not None:
+            return ss.dense_block_norm(ss.dense_grad_hist(gray, geom), geom)
+    if ss.fused is not None:
+        return ss.fused(gray, geom)
     mag, b = ss.grad_mag_bin(gray, geom)
     return ss.block_norm(ss.cell_hist(mag, b, geom), geom)
+
+
+def validate_window(window: Tensor, cfg: HOGConfig) -> None:
+    """Reject windows smaller than the configured detection window;
+    larger ones are top-left-anchored and cropped."""
+    spatial = tuple(window.shape[-3:-1]) if window.shape[-1] == 3 \
+        else tuple(window.shape[-2:])
+    if len(spatial) < 2 or spatial[0] < cfg.window_h \
+            or spatial[1] < cfg.window_w:
+        raise ValueError(
+            f"window spatial shape {spatial} is smaller than the "
+            f"configured detection window ({cfg.window_h}, {cfg.window_w}); "
+            f"HOG expects (..., H>={cfg.window_h}, W>={cfg.window_w}[, 3])")
 
 
 def _to_gray(x: Tensor) -> Tensor:
     gray = grayscale(x) if x.shape[-1] == 3 else x
     return gray.to(torch.float32)
+
+
+def _flatten_batch(x: Tensor):
+    """(..., H, W) -> ((B, H, W) contiguous, unflatten), so the kernels
+    see one batch axis whatever the caller's leading dims; a cropped view
+    is copied contiguous here, before any launch."""
+    lead = tuple(x.shape[:-2])
+    flat = x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
+
+    def unflatten(y: Tensor) -> Tensor:
+        return y.reshape(lead + tuple(y.shape[1:]))
+
+    return flat, unflatten
+
+
+def window_blocks(windows: Tensor, cfg: HOGConfig = PAPER_HOG,
+                  backend: str = "ref") -> Tensor:
+    """Window layout: (..., H, W[, 3]) -> (..., bh, bw, block_dim)."""
+    validate_window(windows, cfg)
+    gray = _to_gray(windows)[..., : cfg.active_h + 2, : cfg.active_w + 2]
+    geom = dataclasses.replace(cfg, window_h=cfg.active_h + 2,
+                               window_w=cfg.active_w + 2)
+    flat, unflatten = _flatten_batch(gray)
+    return unflatten(run_stages(flat, geom, backend))
+
+
+def window_descriptor(windows: Tensor, cfg: HOGConfig = PAPER_HOG,
+                      backend: str = "ref") -> Tensor:
+    """Window layout, collated: (..., H, W[, 3]) -> (..., n_features)."""
+    blocks = window_blocks(windows, cfg, backend)
+    return blocks.reshape(tuple(blocks.shape[:-3]) + (cfg.n_features,))
 
 
 def dense_blocks(image: Tensor, cfg: HOGConfig = PAPER_HOG,
@@ -151,7 +236,5 @@ def dense_blocks(image: Tensor, cfg: HOGConfig = PAPER_HOG,
             f"{cfg.block}x{cfg.block}-cell block of {cfg.cell}px cells")
     gray = gray[..., : gh + 2, : gw + 2]
     geom = dataclasses.replace(cfg, window_h=gh + 2, window_w=gw + 2)
-    lead = gray.shape[:-2]
-    flat = gray.reshape((-1,) + tuple(gray.shape[-2:])).contiguous()
-    out = run_stages(flat, geom, backend)
-    return out.reshape(lead + tuple(out.shape[1:]))
+    flat, unflatten = _flatten_batch(gray)
+    return unflatten(run_stages(flat, geom, backend, layout="dense"))

@@ -1,9 +1,10 @@
-"""Synthetic pedestrian scenes for the port's smoke runs and tests.
+"""Synthetic pedestrian windows and scenes for the port's smoke runs and
+tests.
 
-A copy of the scene generator of repro/data/synth_pedestrian.py
-(``make_scene`` and the helpers it draws from, numpy only), so the port
-needs nothing of the reference package. The same ``rng`` state gives the
-same scene as the reference.
+A copy of the generators of repro/data/synth_pedestrian.py
+(``make_windows``, ``make_scene`` and the helpers they draw from, numpy
+only), so the port needs nothing of the reference package. The same
+``rng`` state gives the same arrays as the reference.
 """
 from __future__ import annotations
 
@@ -131,6 +132,70 @@ def _to_rgb(rng: np.random.Generator, gray: np.ndarray,
     rgb = np.stack([gray * t for t in tint], axis=-1)
     rgb += rng.normal(0, noise_std, size=rgb.shape)
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _humanoid_negative(rng: np.random.Generator,
+                       cfg: PedestrianDataConfig) -> np.ndarray:
+    """Hard negative: person-like vertical structure that is NOT a person
+    (mannequin-ish pole cluster / hydrant / narrow trunk pair). Excites the
+    same vertical-edge bins as a pedestrian."""
+    img = _background(rng, cfg)
+    bg_mean = float(img.mean())
+    luma = np.clip(bg_mean + rng.choice([-1, 1]) * rng.uniform(10, 60), 10, 245)
+    cx = W / 2 + rng.uniform(-8, 8)
+    # a head-ish blob at a WRONG height or proportion
+    if rng.random() < 0.7:
+        cy = rng.uniform(10, 50)
+        r = rng.uniform(3, 12)
+        img[_ellipse_mask(H, W, cy, cx + rng.uniform(-6, 6), r,
+                          r * rng.uniform(0.5, 1.6))] = luma
+    # a single wide trunk or two parallel bars (leg-like but rigid)
+    if rng.random() < 0.5:
+        wd = rng.uniform(4, 9)
+        img[_ellipse_mask(H, W, H * 0.65, cx, H * 0.38, wd)] = luma
+    else:
+        for side in (-1, 1):
+            img[_ellipse_mask(H, W, H * 0.65, cx + side * rng.uniform(3, 7),
+                              H * 0.38, rng.uniform(2.2, 4.0))] = luma
+    return img
+
+
+def _negative(rng: np.random.Generator, cfg: PedestrianDataConfig) -> np.ndarray:
+    if rng.random() < cfg.humanoid_neg_p:
+        return _humanoid_negative(rng, cfg)
+    img = _background(rng, cfg)
+    s = cfg.distractor_strength
+    kind = rng.integers(0, 4)
+    if kind == 0:      # vertical bars: trunks / poles (hard negatives)
+        for _ in range(int(rng.integers(1, 4))):
+            x0 = int(rng.integers(0, W - 8))
+            wd = int(rng.integers(3, 12))
+            img[:, x0:x0 + wd] += rng.uniform(-70, 70) * s
+    elif kind == 1:    # blobs (bushes, rocks)
+        for _ in range(int(rng.integers(2, 6))):
+            cy, cx = rng.uniform(10, H - 10), rng.uniform(5, W - 5)
+            ry, rx = rng.uniform(5, 25), rng.uniform(4, 18)
+            mask = _ellipse_mask(H, W, cy, cx, ry, rx)
+            img[mask] += rng.uniform(-60, 60) * s
+    elif kind == 2:    # building edges: rectangles
+        for _ in range(int(rng.integers(1, 3))):
+            y0, x0 = int(rng.integers(0, H - 20)), int(rng.integers(0, W - 15))
+            hh, ww = int(rng.integers(15, 60)), int(rng.integers(10, 40))
+            img[y0:y0 + hh, x0:x0 + ww] += rng.uniform(-55, 55) * s
+    # kind == 3: pure textured background
+    return img
+
+
+def make_windows(n_pos: int, n_neg: int, cfg: PedestrianDataConfig,
+                 rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+    xs = np.empty((n_pos + n_neg, H, W, 3), dtype=np.uint8)
+    ys = np.concatenate([np.ones(n_pos, np.int32), np.zeros(n_neg, np.int32)])
+    for i in range(n_pos):
+        xs[i] = _to_rgb(rng, _positive(rng, cfg), cfg.noise_std)
+    for i in range(n_neg):
+        xs[n_pos + i] = _to_rgb(rng, _negative(rng, cfg), cfg.noise_std)
+    perm = rng.permutation(len(ys))
+    return xs[perm], ys[perm]
 
 
 def make_scene(rng: np.random.Generator, h: int = 320, w: int = 240,

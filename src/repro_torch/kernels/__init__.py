@@ -12,15 +12,23 @@ from typing import Dict
 
 def wrappers() -> Dict[str, object]:
     """Kernel name -> wrapper function (each carries ``.launches``)."""
+    from .block_norm import block_norm
+    from .cell_hist import cell_hist
     from .dense_block_norm import dense_block_norm
     from .dense_grad_hist import dense_grad_hist
-    from .fused_hog import dense_fused_hog
-    from .svm_matmul import score_matmul, score_matmul_int8
+    from .fused_hog import dense_fused_hog, fused_hog
+    from .hog_gradient import hog_gradient
+    from .svm_matmul import score_matmul, score_matmul_int8, svm_scores
     return {"dense_grad_hist": dense_grad_hist,
             "dense_block_norm": dense_block_norm,
             "dense_fused_hog": dense_fused_hog,
             "score_matmul": score_matmul,
-            "score_matmul_int8": score_matmul_int8}
+            "score_matmul_int8": score_matmul_int8,
+            "hog_gradient": hog_gradient,
+            "cell_hist": cell_hist,
+            "block_norm": block_norm,
+            "fused_hog": fused_hog,
+            "svm_scores": svm_scores}
 
 
 def reset_launches() -> None:

@@ -40,7 +40,15 @@ SOURCES = {
     "dense_fused_hog": "dense_fused_hog.cu",
     "score_matmul": "score_matmul.cu",
     "score_matmul_int8": "score_matmul_int8.cu",
+    "hog_gradient": "hog_gradient.cu",
+    "cell_hist": "cell_hist.cu",
+    "block_norm": "block_norm.cu",
+    "fused_hog": "fused_hog.cu",
+    "svm_scores": "svm_scores.cu",
 }
+
+#: the dynamic shared memory a thread block may take without opting in
+SMEM_DEFAULT = 48 * 1024
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",

@@ -1,5 +1,15 @@
-"""Dense SVM scoring matmuls: (M, K) block rows @ (K, N) per-offset
-weights.
+"""SVM scoring kernels: the window scorer and the dense scoring matmuls.
+
+  * ``svm_scores`` -- (B, F) window descriptors, f32 or bf16, . (F,) f32
+    weights + b -> (B,) f32 scores, f32 accumulation, each bf16 feature
+    upcast exactly before its product. Replaces the TPU kernel
+    repro/kernels/svm_matmul.py:38, CUDA source csrc/svm_scores.cu. Bound
+    on the H100: bytes, 15.1 KB (f32) or 7.6 KB (bf16) per row, 27 / 13 us
+    for B = 5,949 rows at 3.35 TB/s; one warp per row, vector loads, a
+    warp-shuffle sum.
+
+The dense scorer multiplies (M, K) block rows by (K, N) per-offset
+weights:
 
   * ``score_matmul`` -- f32 or bf16 in, f32 accumulation and out.
     Replaces the TPU kernel repro/kernels/svm_matmul.py:80, CUDA source
@@ -8,8 +18,6 @@ weights.
     chain's scorer. Replaces repro/kernels/svm_matmul.py:118, CUDA source
     csrc/score_matmul_int8.cu.
 
-``svm_scores`` (:38) serves the window path, a later slice.
-
 Bound on the H100: at the largest 640x480 level (M = 4524, K = 36,
 N = 105) the work is 34 MFLOP and 2.6 MB of traffic, about 0.8 us either
 way -- below one launch. So the kernel stays on CUDA cores: each thread
@@ -17,8 +25,8 @@ block stages the 15 KB weight tile and a 32-row input slab in shared
 memory and its threads write consecutive outputs.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version (``score_matmul_plain``, ``score_matmul_int8_plain``) for a CPU
-tensor; nothing else.
+version (``svm_scores_plain``, ``score_matmul_plain``,
+``score_matmul_int8_plain``) for a CPU tensor; nothing else.
 """
 from __future__ import annotations
 
@@ -122,3 +130,48 @@ def score_matmul_int8(q: Tensor, wq: Tensor) -> Tensor:
 
 
 score_matmul_int8.launches = 0
+
+
+_ARGTYPES_SVM = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p)
+
+
+def svm_scores_plain(feats: Tensor, w: Tensor, bias: Tensor) -> Tensor:
+    """The same function in plain tensor ops, on any device. Both
+    operands are upcast to f32 first (exact for bf16), as the reference
+    kernel promotes bf16 features against its f32 weights; a bf16
+    torch.matmul would round its result to bf16."""
+    return torch.matmul(feats.to(torch.float32), w.to(torch.float32)) + bias
+
+
+def svm_scores(feats: Tensor, w: Tensor, bias: Tensor) -> Tensor:
+    """(B, F) f32 or bf16 descriptors . (F,) f32 weights + () f32 bias
+    -> (B,) f32 scores."""
+    if feats.dim() != 2 or w.dim() != 1 or feats.shape[1] != w.shape[0]:
+        raise ValueError(f"svm_scores shapes {tuple(feats.shape)} . "
+                         f"{tuple(w.shape)} do not chain")
+    if feats.dtype not in _DTYPE_CODES or w.dtype != torch.float32 \
+            or bias.dtype != torch.float32 or bias.numel() != 1:
+        raise ValueError(f"svm_scores takes f32 or bf16 features, f32 "
+                         f"weights and one f32 bias, got {feats.dtype}, "
+                         f"{w.dtype} and {bias.dtype} {tuple(bias.shape)}")
+    if not feats.device == w.device == bias.device:
+        raise ValueError(f"svm_scores inputs on {feats.device}, {w.device} "
+                         f"and {bias.device}")
+    if feats.device.type == "cpu":
+        return svm_scores_plain(feats, w, bias.reshape(()))
+    if feats.device.type != "cuda":
+        raise ValueError(f"svm_scores: unsupported device {feats.device}")
+    if not (feats.is_contiguous() and w.is_contiguous()):
+        raise ValueError("svm_scores: inputs must be contiguous")
+    B, F = feats.shape
+    out = torch.empty((B,), dtype=torch.float32, device=feats.device)
+    build.launch("svm_scores", _ARGTYPES_SVM, feats, feats.data_ptr(),
+                 w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, F,
+                 _DTYPE_CODES[feats.dtype])
+    svm_scores.launches += 1
+    return out
+
+
+svm_scores.launches = 0
