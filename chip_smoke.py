@@ -39,7 +39,27 @@ Phases, each of which exits non-zero on failure:
      dense score_map of the same level at the same position); time
      windows/s, ms per batch, launches and device-busy share per batch
      at B = 64, 512 and 5,949;
-  5. print the kernels line (JSON) and, last, the ok line (JSON).
+  3c. flash_attention against its plain version on the card (and, causal,
+     against the port's _sdpa with the causal mask) at the reference's
+     flash-test shapes, a ragged S = 100, and qwen3-14b's prefill shapes
+     (B 4 x S 512, B 1 x S 2048, read through the (B, S, H, hd) views
+     prefill passes) in f32 and in bf16 on the same inputs, the bf16 run
+     also against flash_bf16_matched (the kernel's roundings in f32) and
+     timed beside scaled_dot_product_attention (timed only, used
+     nowhere);
+  5. LM serving of qwen3-14b: at smoke size in f32 (weights through
+     lm_params_from_numpy) the card's greedy tokens and logits against
+     the CPU port's; at full width and depth in bf16 (seeded random
+     weights made on the card) generate for 4 prompts of 512 tokens and
+     1 of 2,048 (32 new tokens each) with the launch counters reset just
+     before and read just after (flash_attention 40 times per prefill,
+     no other kernel), the same tokens on a second run, prefill against
+     prefill + decode_step (with two planted decode faults beside it),
+     and ms per prefill and per decode step with the device's busy time
+     and flash attention's share of it; then the same consistency in f32
+     at full width, where the sound decode must land under a tight limit
+     and both planted faults over it;
+  6. print the kernels line (JSON) and, last, the ok line (JSON).
 
 It imports no JAX and nothing of the reference package. Without a GPU,
 or run outside a checkout of the repository, it fails and prints no
@@ -49,6 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -117,6 +138,38 @@ LAYOUT_TOL = 1e-4          # window vs dense scoring: summation order
 SVM_ATOL = 1e-5            # svm_scores vs plain: 3,780-term f32 sums
 MAG_RTOL = 1e-6            # float magnitudes: one ulp
 
+# flash attention: the reference's flash tests' shapes (B 2, K 2, S 64,
+# hd 16, rep 1 and 4, causal or not, f32 and bf16) and ragged S = 100,
+# checked only; qwen3-14b's prefill shapes in the (B, S, H, hd) layout
+# prefill hands the kernel, checked in f32 and bf16 and timed in bf16;
+# tolerances against the plain version are the reference's flash tests'
+# (f32 summation order; bf16: the plain version rounds scores and
+# weights to bf16, the kernel keeps f32 scores)
+FLASH_SMALL = [(2, 2 * rep, 2, 64, 16, causal, dt) for rep in (1, 4)
+               for causal in (True, False) for dt in ("f32", "bf16")]
+FLASH_SMALL += [(2, 8, 2, 100, 16, causal, dt) for causal in (True, False)
+                for dt in ("f32", "bf16")]
+FLASH_TOL = {"f32": 1e-5, "bf16": 3e-2}
+# bf16 kernel vs flash_bf16_matched (the same roundings in f32): (atol,
+# rtol); the output's own rounding is 2^-9 relative, and f32 summation
+# order can flip a rare p by one bf16 ulp
+FLASH_MATCHED_TOL = (2e-3, 2.0 ** -7)
+LM_ARCH = "qwen3-14b"
+# (group, B, prompt length); each prompt gets LM_NEW new tokens
+LM_BATCHES = (("B4xS512", 4, 512), ("B1xS2048", 1, 2048))
+LM_NEW = 32
+# prefill(prompt) vs prefill(prompt[:, :-1]) + decode_step at full width
+# in bf16: relative L2 error of the last logits. The two paths round
+# other bf16 intermediates (f32 flash scores against _sdpa's bf16
+# scores; M = 1 against M = 2,048 matmuls) and 40 residual layers
+# compound them; the CPU twin (tests/test_torch_lm.py, 40 layers at
+# width 512) holds the same bound
+CONSIST_TOL = 5e-2
+# the same in f32, where the two paths differ by summation order only
+# (1.1e-6 on the CPU twin, planted decode faults 5.5e-2 and more)
+CONSIST_TOL_F32 = 1e-3
+LM_SMOKE_TOL = 1e-4      # card vs CPU at smoke size, f32 logits
+
 # the kernels each main-path configuration must launch, and no others
 PATH_KERNELS = {
     "paper+kernel": ("dense_grad_hist", "dense_block_norm", "score_matmul"),
@@ -130,6 +183,7 @@ PATH_KERNELS = {
     "window quant+kernel": ("hog_gradient", "cell_hist", "block_norm",
                             "svm_scores"),
     "window quant": ("fused_hog", "svm_scores"),
+    "lm qwen3-14b": ("flash_attention",),
 }
 # window configuration -> (preset, classify_windows path)
 WINDOW_CONFIGS = {"window paper+kernel": ("paper", "kernel"),
@@ -158,9 +212,11 @@ KERNELS = {
                   "src/repro/kernels/fused_hog.py:75"),
     "svm_scores": ("src/repro_torch/csrc/svm_scores.cu",
                    "src/repro/kernels/svm_matmul.py:38"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:86"),
 }
 DENSE_KERNELS = tuple(KERNELS)[:5]
-WINDOW_KERNELS = tuple(KERNELS)[5:]
+WINDOW_KERNELS = tuple(KERNELS)[5:10]
 
 # the mode and group (frame, or window batch) whose numbers stand at the
 # top level of a kernel's entry in the kernels line (every mode and group
@@ -169,9 +225,11 @@ MAIN_MODE = {"dense_grad_hist": "sector", "dense_block_norm": "rsqrt",
              "dense_fused_hog": "sector", "score_matmul": "f32",
              "score_matmul_int8": "int8", "hog_gradient": "sector",
              "cell_hist": "sector", "block_norm": "rsqrt",
-             "fused_hog": "sector", "svm_scores": "f32"}
+             "fused_hog": "sector", "svm_scores": "f32",
+             "flash_attention": "bf16"}
 MAIN_GROUP = dict.fromkeys(DENSE_KERNELS, "640x480")
 MAIN_GROUP.update(dict.fromkeys(WINDOW_KERNELS, "B512"))
+MAIN_GROUP["flash_attention"] = "B4xS512"
 # the per-group numbers under "modes", in this order
 GROUP_FIELDS = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                 "bound_by")
@@ -686,6 +744,131 @@ def check_window_kernels(torch, np) -> dict:
     return summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1)
 
 
+def flash_bf16_matched(torch, q, k, v):
+    """flash_attention's function (causal) in f32 from bf16 q, k, v,
+    rounding as the kernel does: f32 scores times the f32 1/sqrt(hd),
+    p = exp(s - m_t) rounded to bf16 before the P.V product, m_t the
+    running row max after the key's 64-key tile, l the sum of the
+    unrounded p."""
+    import torch.nn.functional as F
+
+    B, H, S, hd = q.shape
+    rep = H // k.shape[1]
+    kk, vv = (x.float().repeat_interleave(rep, 1) for x in (k, v))
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    s.masked_fill_(~torch.ones(S, S, dtype=torch.bool,
+                               device=q.device).tril(), -1e30)
+    nt = -(-S // 64)
+    tiles = F.pad(s, (0, nt * 64 - S), value=-1e30).view(B, H, S, nt, 64)
+    run = tiles.amax(-1).cummax(-1).values        # m after each tile
+    mt = run.repeat_interleave(64, -1)[..., :S]
+    mfin = run[..., -1:]
+    p = torch.exp(s - mt).bfloat16().float() * torch.exp(mt - mfin)
+    l = torch.exp(s - mfin).sum(-1, keepdim=True)
+    return (p @ vv) / l
+
+
+def check_flash(torch, np) -> dict:
+    """Phase 3c: flash_attention against its plain version on the card,
+    and (causal) against the port's _sdpa with the causal make_mask, at
+    FLASH_SMALL (contiguous (B, H, S, hd)) and at qwen3-14b's prefill
+    shapes (the (B, S, H, hd) views prefill passes) in f32 and in bf16 on
+    the same inputs, the bf16 run also against flash_bf16_matched and
+    timed. Tolerances atol + rtol * |want|."""
+    import dataclasses as dc
+
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import _sdpa, make_mask
+
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rng = np.random.default_rng(4)
+    lm = get_config(LM_ARCH)
+    worst = {"f32": 0.0, "bf16": 0.0}
+    rows = []
+
+    def held(got, want, dt, what, tol=None):
+        atol, rtol = tol or (FLASH_TOL[dt], FLASH_TOL[dt])
+        diff = (got.float() - want.float()).abs()
+        lim = atol + rtol * want.float().abs()
+        ratio = float((diff / lim).max())
+        need(ratio <= 1, f"flash_attention {what}: max err "
+                         f"{float(diff.max())}, {ratio:.3g} of the limit")
+        return float(diff.max()), ratio
+
+    def draw(B, H, K, S, hd):
+        return [torch.from_numpy(rng.standard_normal(
+            (B, S, n, hd), dtype=np.float32)).to(DEV) for n in (H, K, K)]
+
+    def case(arrs, causal, dt, bshd):
+        q, k, v = (x.to(dts[dt]).transpose(1, 2) for x in arrs)
+        if not bshd:
+            q, k, v = (x.contiguous() for x in (q, k, v))
+        B, H, S, hd = q.shape
+        what = f"B{B} H{H} K{k.shape[1]} S{S} hd{hd} {dt} causal={causal}"
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        need(got.shape == want.shape and got.dtype == want.dtype
+             and got.stride() == q.stride(), f"flash_attention {what}: "
+             f"shape, dtype or layout")
+        e = held(got, want, dt, what)[0]
+        if causal:
+            cfg = dc.replace(lm, n_heads=H, n_kv_heads=k.shape[1],
+                             head_dim=hd, dtype=dts[dt])
+            pos = torch.arange(S, device=DEV).expand(B, S)
+            ref = _sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), make_mask(pos, pos),
+                        cfg).transpose(1, 2)
+            e = max(e, held(got, ref, dt, what + " vs _sdpa")[0])
+        worst[dt] = max(worst[dt], e)
+        return q, k, v, got, e
+
+    for B, H, K, S, hd, causal, dt in FLASH_SMALL:
+        case(draw(B, H, K, S, hd), causal, dt, bshd=False)
+    print(f"  flash_attention {len(FLASH_SMALL)} small shapes (B 2, S 64 "
+          f"and 100, hd 16, rep 1/4, causal or not): max err vs plain and "
+          f"_sdpa f32 {worst['f32']:.2e} (tol 1e-5), bf16 "
+          f"{worst['bf16']:.2e} (tol 3e-2)", flush=True)
+    full = []
+    for where, B, S in LM_BATCHES:
+        H, K, hd = lm.n_heads, lm.n_kv_heads, lm.hd
+        arrs = draw(B, H, K, S, hd)
+        e32 = case(arrs, True, "f32", bshd=True)[-1]
+        q, k, v, got, e = case(arrs, True, "bf16", bshd=True)
+        em, ratio = held(got, flash_bf16_matched(torch, q, k, v), "bf16",
+                         f"{where} vs the bf16-matched plain version",
+                         FLASH_MATCHED_TOL)
+        full.append(f"{where} f32 {e32:.2e}, bf16 matched {em:.2e} = "
+                    f"{ratio:.2f} of its limit, bf16 {e:.2e}")
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                  enable_gqa=True)
+
+        held(library(), fa.flash_attention_plain(q, k, v), "bf16",
+             f"{where}: the library call vs plain")
+        nbytes = 2 * B * S * (2 * H + 2 * K) * hd
+        ops = 4 * B * H * hd * S * (S + 1) // 2
+        rows.append(timed_row(
+            torch, "flash_attention", where, (B, H, K, S, hd), "bf16", e,
+            lambda: fa.flash_attention(q, k, v),
+            lambda: fa.flash_attention_plain(q, k, v), cuda_ms(library),
+            nbytes, ops, BF16_FLOPS, "flash_attention_kernel"))
+    print(f"  flash_attention full width, (B, S, H, hd) strides, max err "
+          f"vs plain (f32 tol 1e-5 + 1e-5|want|; bf16 3e-2 + 3e-2|want|) "
+          f"and vs flash_bf16_matched (limit 2^-7|want| + 2e-3): "
+          + "; ".join(full), flush=True)
+    out = summarize(rows, ("flash_attention",),
+                    [g for g, _, _ in LM_BATCHES], 1)
+    out["flash_attention"]["max_abs_err"] = max(worst.values())
+    return out
+
+
 # ------------------------------------------------------------- phase 4
 
 def main_path(torch, np) -> dict:
@@ -784,7 +967,7 @@ def main_path(torch, np) -> dict:
             prof = frame_profile(torch, gpu[name], frames[(h, w)][0])
             ms = per_frame[f"{name} {key}"]
             print(f"  profile {key} ({name}): device_launches_per_frame "
-                  f"{prof['device_launches_per_frame']:.4f}, device_busy_ms "
+                  f"{prof['device_launches_per_frame']:.0f}, device_busy_ms "
                   f"{prof['device_busy_ms']:.4f}, ms_per_frame {ms:.4f}, "
                   f"idle share {1 - prof['device_busy_ms'] / ms:.4f}",
                   flush=True)
@@ -952,28 +1135,261 @@ def window_path(torch, np) -> dict:
     return launches
 
 
-def print_ptxas(name: str, log) -> None:
-    """One line per kernel source: ptxas's register count of each
-    instantiation, and any spill."""
+# ------------------------------------------------------------- phase 5
+
+def smoke_leaves(np, cfg, seed: int) -> dict:
+    """The reference's LM parameter tree at ``cfg``'s size as numpy
+    arrays, layers stacked on axis 0, with its distributions (normal x
+    fan_in^-0.5, x 0.02 for embed and lm_head, ones for the norms), from
+    a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    L, D, H, K, hd, Fd, V = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab)
+
+    def dense(shape, std=None):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return x * np.float32(std if std else shape[-2] ** -0.5)
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    attn = {"wq": dense((L, D, H * hd)), "wk": dense((L, D, K * hd)),
+            "wv": dense((L, D, K * hd)), "wo": dense((L, H * hd, D))}
+    if cfg.qk_norm:
+        attn.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+    return {"embed": dense((V, D), 0.02), "final_norm": {"scale": ones(D)},
+            "layers": {"ln1": {"scale": ones(L, D)},
+                       "ln2": {"scale": ones(L, D)}, "attn": attn,
+                       "mlp": {"w_gate": dense((L, D, Fd)),
+                               "w_up": dense((L, D, Fd)),
+                               "w_down": dense((L, Fd, D))}},
+            "lm_head": dense((D, V), 0.02)}
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Host milliseconds per call of ``fn`` + synchronize, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def lm_path(torch, np) -> dict:
+    """Phase 5: LM serving of qwen3-14b. At smoke size (f32, weights
+    through lm_params_from_numpy) the card's greedy tokens and logits
+    against the CPU port's; at full width and depth (bf16, seeded random
+    weights made on the card) generate for every LM_BATCHES prompt with
+    the launch counters reset just before and read just after, the same
+    tokens on a second run, prefill/decode consistency, and ms per
+    prefill and per decode step with the device's share in flash
+    attention."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.serve.engine import generate
+
+    scfg = dc.replace(get_config(LM_ARCH, smoke=True), dtype=torch.float32)
+    leaves = smoke_leaves(np, scfg, 0)
+    prompt = np.random.default_rng(1).integers(0, scfg.vocab, (3, 16))
+    outs = {}
+    for dev in (DEV, "cpu"):
+        p = lm_params_from_numpy(leaves, scfg, dev)
+        toks = generate(p, scfg, prompt, max_new_tokens=8)
+        first, cache = prefill(p, {"tokens": toks[:, :16]}, scfg, 24)
+        step, _ = decode_step(p, toks[:, 16:17], cache, scfg)
+        outs[dev] = [x.cpu() for x in (toks, first, step)]
+    need(torch.equal(outs[DEV][0], outs["cpu"][0]),
+         "smoke-size greedy tokens differ between the card and the CPU")
+    de = max(float((a.float() - b.float()).abs().max())
+             for a, b in zip(outs[DEV][1:], outs["cpu"][1:]))
+    need(de <= LM_SMOKE_TOL, f"smoke-size logits card vs CPU: {de}")
+    print(f"  lm {LM_ARCH} smoke f32 (lm_params_from_numpy): 3x8 greedy "
+          f"tokens same as CPU; prefill and decode logits max delta "
+          f"{de:.2e} (tol {LM_SMOKE_TOL:g})", flush=True)
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n = sum(t.numel() for t in params.parameters())
+    need(n == cfg.param_count(), f"{n} parameters, config {cfg.param_count()}")
+    rng = np.random.default_rng(2)
+    prompts = {g: rng.integers(0, cfg.vocab, (B, S)) for g, B, S in LM_BATCHES}
+
+    kernels.reset_launches()
+    toks = {g: generate(params, cfg, x, LM_NEW) for g, x in prompts.items()}
+    torch.cuda.synchronize()
+    launches = check_launches(f"lm {LM_ARCH}", kernels.launch_counts())
+    want = cfg.n_layers * len(LM_BATCHES)
+    need(launches["flash_attention"] == want,
+         f"flash_attention launched {launches['flash_attention']} times in "
+         f"{len(LM_BATCHES)} prefills of {cfg.n_layers} layers")
+    for g, B, S in LM_BATCHES:
+        t = toks[g]
+        need(t.shape == (B, S + LM_NEW) and bool(((t >= 0)
+                                                  & (t < cfg.vocab)).all())
+             and torch.equal(t[:, :S].cpu(), torch.from_numpy(prompts[g])),
+             f"lm {g}: tokens out of shape or range, or prompt changed")
+    g0 = LM_BATCHES[0][0]
+    need(torch.equal(generate(params, cfg, prompts[g0], LM_NEW), toks[g0]),
+         f"lm {g0}: a second generate gave other tokens")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    x = torch.as_tensor(prompts[g0], device=DEV)
+    a, b, rel = decode_consistency(torch, params, cfg, x)
+    need(rel["sound"] <= CONSIST_TOL, f"prefill vs prefill + decode_step: "
+                                      f"relative L2 {rel} > {CONSIST_TOL}")
+    print(f"  lm {LM_ARCH} full width ({cfg.n_layers} layers, {n:,} "
+          f"parameters, init {t_init:.1f} s, peak {peak:.2f} GiB): tokens "
+          f"in range, a second run the same; prefill vs prefill[:-1] + "
+          f"decode_step last logits: relative L2 {rel['sound']:.2e} (tol "
+          f"{CONSIST_TOL:g}; planted: " + _faults(rel) + "), max delta "
+          f"{float((a - b).abs().max()):.3f} of max |logit| "
+          f"{float(a.abs().max()):.2f}, argmax same in "
+          f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{len(a)}",
+          flush=True)
+
+    # bounds: matmul (+ causal attention) FLOPs of a prefill at the bf16
+    # rate; a decode step reads every weight but the embedding table
+    # (B rows of it) and the live cache
+    per_token = 2 * (cfg.param_count() - 2 * cfg.vocab * cfg.d_model
+                     - cfg.d_model * (2 * cfg.n_layers + 1)
+                     - 2 * cfg.hd * cfg.n_layers)
+    out = {}
+    for g, B, S in LM_BATCHES:
+        xg = torch.as_tensor(prompts[g], device=DEV)
+
+        def run_prefill():
+            return prefill(params, {"tokens": xg}, cfg, S + LM_NEW)
+
+        ms_prefill = host_ms(torch, run_prefill, 3)
+        _, cache = run_prefill()
+        tok = xg[:, -1:]
+
+        def run_decode():
+            return decode_step(params, tok, cache, cfg)
+
+        ms_decode = host_ms(torch, run_decode, LM_NEW - 1)
+        ms_gen = host_ms(torch, lambda: generate(params, cfg, prompts[g],
+                                                 LM_NEW), 1)
+        pre = device_times(torch, run_prefill, 1)
+        dec = device_times(torch, run_decode, 4)
+        flash = sum(t for k, (_, t) in pre.items()
+                    if "flash_attention_kernel" in k) / 1e3
+        busy = sum(t for _, t in pre.values()) / 1e3
+        dbusy = sum(t for _, t in dec.values()) / 4e3
+        attn_flops = 4 * B * cfg.n_heads * cfg.hd * S * (S + 1) // 2
+        bound_pre = (B * S * per_token + 2 * B * cfg.d_model * cfg.vocab
+                     + cfg.n_layers * attn_flops) / BF16_FLOPS * 1e3
+        kv = 4 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.hd
+        bound_dec = (2 * (cfg.param_count() - cfg.vocab * cfg.d_model)
+                     + kv) / HBM_BPS * 1e3
+        out[g] = dict(prefill_ms=ms_prefill, prefill_bound_ms=bound_pre,
+                      prefill_busy_ms=busy, prefill_flash_ms=flash,
+                      prefill_launches=sum(c for c, _ in pre.values()),
+                      decode_ms=ms_decode, decode_bound_ms=bound_dec,
+                      decode_busy_ms=dbusy,
+                      decode_launches=sum(c for c, _ in dec.values()) / 4,
+                      generate_ms=ms_gen)
+        print(f"  lm {g}+{LM_NEW}: prefill {ms_prefill:.2f} ms (bound "
+              f"{bound_pre:.2f}; {B * S / ms_prefill * 1e3:.0f} tok/s; "
+              f"device busy {busy:.2f} ms, flash_attention {flash:.2f} ms "
+              f"= {flash / busy:.3f} of it, {out[g]['prefill_launches']} "
+              f"launches); decode {ms_decode:.3f} ms/step (bound "
+              f"{bound_dec:.3f}; {B / ms_decode * 1e3:.1f} tok/s; busy "
+              f"{dbusy:.3f} ms, {out[g]['decode_launches']:.0f} launches); "
+              f"generate {ms_gen:.1f} ms", flush=True)
+
+    # the same consistency in f32 at full width and depth, where prefill
+    # and decode agree to summation order: the bf16 model goes first
+    del params, cache
+    torch.cuda.empty_cache()
+    cfg = dc.replace(cfg, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    rel = decode_consistency(torch, params, cfg, x)[2]
+    faults = min(v for k, v in rel.items() if k != "sound")
+    need(rel["sound"] <= CONSIST_TOL_F32 < faults,
+         f"f32 prefill vs prefill + decode_step: relative L2 {rel}, limit "
+         f"{CONSIST_TOL_F32} (sound under it, planted faults over it)")
+    print(f"  lm {LM_ARCH} full width f32 ({4 * n / 1e9:.1f} GB): prefill "
+          f"vs prefill[:-1] + decode_step relative L2 {rel['sound']:.2e} "
+          f"(limit {CONSIST_TOL_F32:g}; planted faults over it: "
+          + _faults(rel) + ")", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {f"lm {LM_ARCH}": launches}
+
+
+def decode_consistency(torch, params, cfg, x):
+    """The last logits of prefill(x), of prefill(x[:, :-1]) +
+    decode_step, and their relative L2 distance for the sound decode and
+    for two planted decode faults: RoPE at one position past the token's
+    ("pos+1"), and the new key and value written one slot early
+    ("kv@idx-1"). Each decode starts from the prefill's cache: the two
+    slots a decode can write are put back after it."""
+    import repro_torch.models.model as mm
+
+    n = x.shape[1]
+    full, _ = mm.prefill(params, {"tokens": x}, cfg, n)
+    a = full[:, -1].float()
+    _, cache = mm.prefill(params, {"tokens": x[:, :-1]}, cfg, n)
+    kept = {t: cache[t][:, :, n - 2:].clone() for t in ("k", "v")}
+    sound, rel, b = mm._decode_layer, {}, None
+    for name, dpos, didx in (("sound", 0, 0), ("pos+1", 1, 0),
+                             ("kv@idx-1", 0, -1)):
+        mm._decode_layer = lambda h, lp, c, cl, pos: sound(
+            h, lp, c, {**cl, "idx": cl["idx"] + didx}, pos + dpos)
+        try:
+            step = mm.decode_step(params, x[:, -1:], cache, cfg)[0]
+        finally:
+            mm._decode_layer = sound
+        with torch.inference_mode():
+            for t in kept:
+                cache[t][:, :, n - 2:] = kept[t]
+        rel[name] = float((a - step[:, -1].float()).norm() / a.norm())
+        b = step[:, -1].float() if b is None else b
+    return a, b, rel
+
+
+def _faults(rel) -> str:
+    return ", ".join(f"{k} {v:.2e}" for k, v in rel.items() if k != "sound")
+
+
+def ptxas_report(name: str, log) -> str:
+    """ptxas's register count of each instantiation of one kernel
+    source, and any spill."""
     lines = log.read_text().splitlines() if log.exists() else []
     regs = [ln.split("Used ")[1].split(" registers")[0] for ln in lines
             if "Used " in ln and " registers" in ln]
     spills = [ln.strip() for ln in lines if "spill" in ln and
               "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    print(f"  ptxas {name}: registers {'/'.join(regs) or '-'}; "
-          + ("; ".join(spills) if spills else "no spills"), flush=True)
+    return f"{name} {'/'.join(regs) or '-'}" + (
+        f" ({'; '.join(spills)})" if spills else "")
 
 
 def _r(x):
     return float(f"{x:.4g}") if isinstance(x, float) else x
 
 
-def compact_mode(v: dict, group: str) -> dict:
+def compact_mode(v: dict, group: str, main: bool) -> dict:
     """A mode's entry for the kernels line: its error (and code flips)
-    and the main group's numbers as one list in GROUP_FIELDS order, to 4
-    significant digits."""
+    and, but for the main mode (whose numbers stand at the kernel's top
+    level), the main group's numbers as one list in GROUP_FIELDS order,
+    to 4 significant digits."""
     out = {k: _r(d) for k, d in v.items() if not isinstance(d, dict)}
-    out[group] = [_r(v[group][f]) for f in GROUP_FIELDS]
+    if not main:
+        out[group] = [_r(v[group][f]) for f in GROUP_FIELDS]
     return out
 
 
@@ -1004,21 +1420,26 @@ def main() -> int:
         t0 = time.perf_counter()
         took = build.build_all()
         print(f"build: {time.perf_counter() - t0:.1f} s for "
-              f"{len(took)} kernels in parallel "
-              f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})",
-              flush=True)
-        for name in build.SOURCES:
-            print_ptxas(name, build.library_path(name).with_suffix(".log"))
+              f"{len(took)} kernels in parallel (each "
+              f"{min(took.values(), default=0):.1f}-"
+              f"{max(took.values(), default=0):.1f} s)", flush=True)
+        print("ptxas registers per instantiation (spills named; none "
+              "else): " + ", ".join(ptxas_report(
+                  n, build.library_path(n).with_suffix(".log"))
+                  for n in build.SOURCES), flush=True)
 
         print("kernel checks (card vs plain version on the card; per "
               "frame, the sum of its 3 levels, or per window batch: "
               "call/device/plain/library/bound ms):", flush=True)
         summary = check_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
+        summary.update(check_flash(torch, np))
         print("main path:", flush=True)
         launches = main_path(torch, np)
         print("window path:", flush=True)
         launches.update(window_path(torch, np))
+        print("LM path:", flush=True)
+        launches.update(lm_path(torch, np))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1026,9 +1447,10 @@ def main() -> int:
     # launches: the sum of each path's own count (each read right after
     # that path's run), with the per-path counts beside it; the top-level
     # numbers are the main mode's sums at the main group (640x480 for the
-    # dense kernels, B = 512 for the window kernels); every mode's numbers
-    # at the main group are under "modes", as GROUP_FIELDS lists, to 4
-    # digits (every group is on the kernel-check lines above)
+    # dense kernels, B = 512 for the window kernels, B 4 x S 512 for
+    # flash_attention), to 4 digits; every other mode's numbers at the main
+    # group are under "modes", as GROUP_FIELDS lists (every group is on
+    # the kernel-check lines above)
     kernels_line = {"kernels": [], "mode_fields": GROUP_FIELDS}
     for k in KERNELS:
         main = summary[k][MAIN_MODE[k]][MAIN_GROUP[k]]
@@ -1040,11 +1462,11 @@ def main() -> int:
                                  if k in PATH_KERNELS[p]},
             "max_abs_err": summary[k]["max_abs_err"],
             "main_mode": MAIN_MODE[k],
-            **{key: main[key] for key in ("ms", "device_ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")},
+            **{key: _r(main[key]) for key in ("ms", "device_ms",
+                                              "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
             "main_group": MAIN_GROUP[k],
-            "modes": {m: compact_mode(v, MAIN_GROUP[k])
+            "modes": {m: compact_mode(v, MAIN_GROUP[k], m == MAIN_MODE[k])
                       for m, v in summary[k].items()
                       if m != "max_abs_err"}})
     print(json.dumps(kernels_line))

@@ -10,5 +10,7 @@ What runs: single-frame dense multi-scale detection --
 ``api.DetectionSession.detect`` -> ``core.detector.FrameDetector`` -- and
 window classification -- ``core.pipeline.classify_windows`` and
 ``extract_features`` -- for the float presets (default, paper, faithful,
-perf) and the fixed-point ``quant`` preset.
+perf) and the fixed-point ``quant`` preset; and LM serving for the dense
+family -- ``serve.engine.generate`` over ``models/`` (prefill through the
+flash-attention kernel, then the decode loop).
 """

@@ -4,16 +4,27 @@
     (numpy arrays, as the reference's checkpoint stores them) as f32
     tensors on ``device`` (CUDA unless the CPU is asked for);
   * ``config_from_reference_dict(d)`` -- a reference
-    ``PipelineConfig.to_dict()`` as the port's PipelineConfig.
+    ``PipelineConfig.to_dict()`` as the port's PipelineConfig;
+  * ``model_config_from_reference_dict(d)`` -- a reference LM
+    ``ModelConfig``'s fields (``dataclasses.asdict``) as the port's
+    ModelConfig, ``dtype`` mapped to a torch dtype;
+  * ``lm_params_from_numpy(leaves, cfg, device)`` -- the reference's LM
+    parameter tree as numpy arrays (layer leaves stacked on axis 0) as
+    the port's ``DenseLM`` on ``device`` (CUDA unless the CPU is asked
+    for).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from .api.config import PipelineConfig
 from .core.detector import as_svm, resolve_device
+from .models.configs import ModelConfig
+from .models.model import DenseLM, from_leaves
 
 
 def svm_from_numpy(leaves: Dict[str, Any], device=None
@@ -26,3 +37,58 @@ def config_from_reference_dict(d: Dict[str, Any]) -> PipelineConfig:
     """A reference ``PipelineConfig.to_dict()`` (or its JSON) -> the
     port's PipelineConfig with the same fields."""
     return PipelineConfig.from_dict(d)
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _torch_dtype(x) -> torch.dtype:
+    """A torch dtype from a torch dtype, a name, or a numpy-compatible
+    dtype (a reference ``jnp.bfloat16`` is one, by way of ml_dtypes)."""
+    if isinstance(x, torch.dtype):
+        return x
+    name = x if isinstance(x, str) else np.dtype(x).name
+    if name not in _TORCH_DTYPES:
+        raise ValueError(f"dtype {x!r} has no torch counterpart here")
+    return _TORCH_DTYPES[name]
+
+
+def model_config_from_reference_dict(d: Dict[str, Any]) -> ModelConfig:
+    """A reference ModelConfig's fields (``dataclasses.asdict``, or their
+    JSON) -> the port's ModelConfig with the same fields."""
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown ModelConfig fields {sorted(unknown)}")
+    kw = dict(d)
+    for key in ("mrope_sections", "global_attn_layers"):
+        if key in kw:
+            kw[key] = tuple(kw[key])
+    if "dtype" in kw:
+        kw["dtype"] = _torch_dtype(kw["dtype"])
+    return ModelConfig(**kw)
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.array(a)                    # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":     # ml_dtypes: carry the bits over
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(leaves: Dict[str, Any], cfg: ModelConfig,
+                         device=None) -> DenseLM:
+    """The reference's parameter tree ({"embed", "final_norm": {"scale"},
+    "layers": {"ln1", "ln2": {"scale"}, "attn": {"wq", ...}, "mlp":
+    {...}}, "lm_head"}) as numpy arrays, layers stacked on axis 0 -> the
+    port's DenseLM on ``device``, every leaf in the config's dtype."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _tensor(x, cfg.dtype, dev)
+
+    return from_leaves(cfg, conv(leaves))

@@ -45,10 +45,14 @@ SOURCES = {
     "block_norm": "block_norm.cu",
     "fused_hog": "fused_hog.cu",
     "svm_scores": "svm_scores.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 #: the dynamic shared memory a thread block may take without opting in
 SMEM_DEFAULT = 48 * 1024
+#: the most a thread block may take on Hopper after opting in with
+#: cudaFuncSetAttribute(..., cudaFuncAttributeMaxDynamicSharedMemorySize)
+SMEM_OPTIN = 227 * 1024
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",

@@ -44,3 +44,19 @@ def test_port_sources_name_no_reference_import():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_configs_import_no_model_or_kernel():
+    """The LM configs sit below the model: importing repro_torch.configs
+    loads neither the model nor a kernel wrapper."""
+    probe = ("import sys; sys.path.insert(0, {src!r}); "
+             "import repro_torch.configs; "
+             "print(sorted(m for m in sys.modules if m.startswith("
+             "('repro_torch.models.model', 'repro_torch.models.attention', "
+             "'repro_torch.kernels'))))")
+    out = subprocess.run([sys.executable, "-c",
+                          probe.format(src=str(ROOT / "src"))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
