@@ -7,7 +7,9 @@ Phases, each of which exits non-zero on failure:
 
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, in
-     parallel) and print the build time;
+     parallel) and print the build time, ptxas's registers and spills,
+     and the HGMMA and UTMALDG count of flash_attention_sm90's SASS
+     (failing on a spill or a zero there);
   3. hold each dense kernel against its plain PyTorch version on the
      card, at the detector's shapes (all three pyramid levels of 640x480
      and 1280x720) plus a ragged shape, in every mode -- the fixed modes
@@ -41,24 +43,28 @@ Phases, each of which exits non-zero on failure:
      at B = 64, 512 and 5,949;
   3c. flash_attention against its plain version on the card (and, causal,
      against the port's _sdpa with the causal mask) at the reference's
-     flash-test shapes, a ragged S = 100, and qwen3-14b's prefill shapes
-     (B 4 x S 512, B 1 x S 2048, read through the (B, S, H, hd) views
-     prefill passes) in f32 and in bf16 on the same inputs, the bf16 run
-     also against flash_bf16_matched (the kernel's roundings in f32) and
-     timed beside scaled_dot_product_attention (timed only, used
-     nowhere);
+     flash-test shapes, a ragged S = 100, one bf16 shape at hd 32, and
+     qwen3-14b's prefill shapes (B 4 x S 512, B 1 x S 2048, read through
+     the (B, S, H, hd) views prefill passes) in f32 and in bf16 on the
+     same inputs; each call must launch the route kernels/flash_attention
+     .route names (bf16 at hd 16, 64, 128: the wgmma kernel, sm90; the
+     rest: the CUDA-core kernel), each bf16 run is also held to
+     flash_bf16_matched (its route's roundings in f32, with its key
+     tile); at full width both routes run in bf16 and are timed beside
+     scaled_dot_product_attention (timed only, used nowhere);
   5. LM serving of qwen3-14b: at smoke size in f32 (weights through
      lm_params_from_numpy) the card's greedy tokens and logits against
      the CPU port's; at full width and depth in bf16 (seeded random
      weights made on the card) generate for 4 prompts of 512 tokens and
      1 of 2,048 (32 new tokens each) with the launch counters reset just
      before and read just after (flash_attention 40 times per prefill,
-     no other kernel), the same tokens on a second run, prefill against
-     prefill + decode_step (with two planted decode faults beside it),
-     and ms per prefill and per decode step with the device's busy time
+     all on the sm90 route, no other kernel), the same tokens on a
+     second run, prefill against prefill + decode_step (with two
+     planted decode faults beside it), and ms per prefill and per decode step with the device's busy time
      and flash attention's share of it; then the same consistency in f32
-     at full width, where the sound decode must land under a tight limit
-     and both planted faults over it;
+     at full width (its prefills on the cuda_core route), where the sound
+     decode must land under a tight limit and both planted faults over
+     it;
   6. print the kernels line (JSON) and, last, the ok line (JSON).
 
 It imports no JAX and nothing of the reference package. Without a GPU,
@@ -149,6 +155,9 @@ FLASH_SMALL = [(2, 2 * rep, 2, 64, 16, causal, dt) for rep in (1, 4)
                for causal in (True, False) for dt in ("f32", "bf16")]
 FLASH_SMALL += [(2, 8, 2, 100, 16, causal, dt) for causal in (True, False)
                 for dt in ("f32", "bf16")]
+# one bf16 shape at an hd outside the sm90 route's (16, 64, 128), so the
+# CUDA-core route stays checked in bf16
+FLASH_OTHER_HD = [(2, 8, 2, 100, 32, True, "bf16")]
 FLASH_TOL = {"f32": 1e-5, "bf16": 3e-2}
 # bf16 kernel vs flash_bf16_matched (the same roundings in f32): (atol,
 # rtol); the output's own rounding is 2^-9 relative, and f32 summation
@@ -212,9 +221,13 @@ KERNELS = {
                   "src/repro/kernels/fused_hog.py:75"),
     "svm_scores": ("src/repro_torch/csrc/svm_scores.cu",
                    "src/repro/kernels/svm_matmul.py:38"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:86"),
 }
+# flash_attention's two routes (kernels/flash_attention.py:route), each a
+# mode of its entry in the kernels line
+FLASH_SOURCES = {"sm90": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                 "cuda_core": "src/repro_torch/csrc/flash_attention.cu"}
 DENSE_KERNELS = tuple(KERNELS)[:5]
 WINDOW_KERNELS = tuple(KERNELS)[5:10]
 
@@ -226,7 +239,7 @@ MAIN_MODE = {"dense_grad_hist": "sector", "dense_block_norm": "rsqrt",
              "score_matmul_int8": "int8", "hog_gradient": "sector",
              "cell_hist": "sector", "block_norm": "rsqrt",
              "fused_hog": "sector", "svm_scores": "f32",
-             "flash_attention": "bf16"}
+             "flash_attention": "sm90"}
 MAIN_GROUP = dict.fromkeys(DENSE_KERNELS, "640x480")
 MAIN_GROUP.update(dict.fromkeys(WINDOW_KERNELS, "B512"))
 MAIN_GROUP["flash_attention"] = "B4xS512"
@@ -744,11 +757,11 @@ def check_window_kernels(torch, np) -> dict:
     return summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1)
 
 
-def flash_bf16_matched(torch, q, k, v):
-    """flash_attention's function (causal) in f32 from bf16 q, k, v,
-    rounding as the kernel does: f32 scores times the f32 1/sqrt(hd),
-    p = exp(s - m_t) rounded to bf16 before the P.V product, m_t the
-    running row max after the key's 64-key tile, l the sum of the
+def flash_bf16_matched(torch, q, k, v, block_k=64, causal=True):
+    """flash_attention's function in f32 from bf16 q, k, v, rounding as
+    a kernel with ``block_k``-key tiles does: f32 scores times the f32
+    1/sqrt(hd), p = exp(s - m_t) rounded to bf16 before the P.V product,
+    m_t the running row max after the key's tile, l the sum of the
     unrounded p."""
     import torch.nn.functional as F
 
@@ -757,12 +770,14 @@ def flash_bf16_matched(torch, q, k, v):
     kk, vv = (x.float().repeat_interleave(rep, 1) for x in (k, v))
     scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
-    s.masked_fill_(~torch.ones(S, S, dtype=torch.bool,
-                               device=q.device).tril(), -1e30)
-    nt = -(-S // 64)
-    tiles = F.pad(s, (0, nt * 64 - S), value=-1e30).view(B, H, S, nt, 64)
+    if causal:
+        s.masked_fill_(~torch.ones(S, S, dtype=torch.bool,
+                                   device=q.device).tril(), -1e30)
+    nt = -(-S // block_k)
+    tiles = F.pad(s, (0, nt * block_k - S), value=-1e30).view(
+        B, H, S, nt, block_k)
     run = tiles.amax(-1).cummax(-1).values        # m after each tile
-    mt = run.repeat_interleave(64, -1)[..., :S]
+    mt = run.repeat_interleave(block_k, -1)[..., :S]
     mfin = run[..., -1:]
     p = torch.exp(s - mt).bfloat16().float() * torch.exp(mt - mfin)
     l = torch.exp(s - mfin).sum(-1, keepdim=True)
@@ -772,9 +787,11 @@ def flash_bf16_matched(torch, q, k, v):
 def check_flash(torch, np) -> dict:
     """Phase 3c: flash_attention against its plain version on the card,
     and (causal) against the port's _sdpa with the causal make_mask, at
-    FLASH_SMALL (contiguous (B, H, S, hd)) and at qwen3-14b's prefill
-    shapes (the (B, S, H, hd) views prefill passes) in f32 and in bf16 on
-    the same inputs, the bf16 run also against flash_bf16_matched and
+    FLASH_SMALL (contiguous (B, H, S, hd)), FLASH_OTHER_HD and qwen3-14b's
+    prefill shapes (the (B, S, H, hd) views prefill passes) in f32 and
+    bf16 on the same inputs. Each call must launch the route that
+    fa.route names; every bf16 run is also held to flash_bf16_matched with
+    its route's key tile. At full width both routes run in bf16 and are
     timed. Tolerances atol + rtol * |want|."""
     import dataclasses as dc
 
@@ -788,6 +805,9 @@ def check_flash(torch, np) -> dict:
     rng = np.random.default_rng(4)
     lm = get_config(LM_ARCH)
     worst = {"f32": 0.0, "bf16": 0.0}
+    ratios = {r: 0.0 for r in fa.ROUTES}     # worst share of matched limit
+    # the key tile each route rounds p against (flash_bf16_matched's block_k)
+    block_k = {"cuda_core": fa.BLOCK_K, "sm90": fa.SM90_BLOCK_K}
     rows = []
 
     def held(got, want, dt, what, tol=None):
@@ -803,15 +823,28 @@ def check_flash(torch, np) -> dict:
         return [torch.from_numpy(rng.standard_normal(
             (B, S, n, hd), dtype=np.float32)).to(DEV) for n in (H, K, K)]
 
+    def matched(got, q, k, v, causal, r, what):
+        em, ratio = held(got, flash_bf16_matched(
+            torch, q, k, v, block_k[r], causal), "bf16",
+            f"{what} vs the bf16-matched plain version", FLASH_MATCHED_TOL)
+        ratios[r] = max(ratios[r], ratio)
+        return em, ratio
+
     def case(arrs, causal, dt, bshd):
         q, k, v = (x.to(dts[dt]).transpose(1, 2) for x in arrs)
         if not bshd:
             q, k, v = (x.contiguous() for x in (q, k, v))
         B, H, S, hd = q.shape
-        what = f"B{B} H{H} K{k.shape[1]} S{S} hd{hd} {dt} causal={causal}"
+        r = fa.route(q.dtype, hd)
+        what = (f"B{B} H{H} K{k.shape[1]} S{S} hd{hd} {dt} causal={causal} "
+                f"({r})")
+        before = dict(fa.flash_attention.route_launches)
         got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        need(fa.flash_attention.route_launches
+             == {**before, r: before[r] + 1},
+             f"flash_attention {what}: did not launch the {r} route once")
         need(got.shape == want.shape and got.dtype == want.dtype
              and got.stride() == q.stride(), f"flash_attention {what}: "
              f"shape, dtype or layout")
@@ -824,26 +857,32 @@ def check_flash(torch, np) -> dict:
                         v.transpose(1, 2), make_mask(pos, pos),
                         cfg).transpose(1, 2)
             e = max(e, held(got, ref, dt, what + " vs _sdpa")[0])
+        mr = matched(got, q, k, v, causal, r, what)[1] if dt == "bf16" \
+            else None
         worst[dt] = max(worst[dt], e)
-        return q, k, v, got, e
+        return q, k, v, got, e, mr
 
-    for B, H, K, S, hd, causal, dt in FLASH_SMALL:
+    for B, H, K, S, hd, causal, dt in FLASH_SMALL + FLASH_OTHER_HD:
         case(draw(B, H, K, S, hd), causal, dt, bshd=False)
-    print(f"  flash_attention {len(FLASH_SMALL)} small shapes (B 2, S 64 "
-          f"and 100, hd 16, rep 1/4, causal or not): max err vs plain and "
-          f"_sdpa f32 {worst['f32']:.2e} (tol 1e-5), bf16 "
-          f"{worst['bf16']:.2e} (tol 3e-2)", flush=True)
+    print(f"  flash_attention {len(FLASH_SMALL)} small shapes (B 2, S 64/100, "
+          f"hd 16, rep 1/4, causal or not) + {len(FLASH_OTHER_HD)} bf16 at hd "
+          f"32, each on its route: max err vs plain and _sdpa f32 "
+          f"{worst['f32']:.2e} (tol 1e-5), bf16 {worst['bf16']:.2e} (tol "
+          f"3e-2); share of the matched limit: "
+          + ", ".join(f"{r} {x:.2f}" for r, x in ratios.items()),
+          flush=True)
     full = []
     for where, B, S in LM_BATCHES:
         H, K, hd = lm.n_heads, lm.n_kv_heads, lm.hd
         arrs = draw(B, H, K, S, hd)
-        e32 = case(arrs, True, "f32", bshd=True)[-1]
-        q, k, v, got, e = case(arrs, True, "bf16", bshd=True)
-        em, ratio = held(got, flash_bf16_matched(torch, q, k, v), "bf16",
-                         f"{where} vs the bf16-matched plain version",
-                         FLASH_MATCHED_TOL)
-        full.append(f"{where} f32 {e32:.2e}, bf16 matched {em:.2e} = "
-                    f"{ratio:.2f} of its limit, bf16 {e:.2e}")
+        e32 = case(arrs, True, "f32", bshd=True)[-2]
+        q, k, v, got, e, m_new = case(arrs, True, "bf16", bshd=True)
+        old = fa.launch_cuda_core(q, k, v)
+        e_old = held(old, fa.flash_attention_plain(q, k, v), "bf16",
+                     f"{where} bf16 (cuda_core)")[0]
+        m_old = matched(old, q, k, v, True, "cuda_core", where)[1]
+        full.append(f"{where} f32 {e32:.2e}; bf16 sm90 {e:.2e} (matched "
+                    f"{m_new:.2f}), cuda_core {e_old:.2e} ({m_old:.2f})")
         qc, kc, vc = (x.contiguous() for x in (q, k, v))
 
         def library():
@@ -852,16 +891,19 @@ def check_flash(torch, np) -> dict:
 
         held(library(), fa.flash_attention_plain(q, k, v), "bf16",
              f"{where}: the library call vs plain")
+        lib_ms = cuda_ms(library)
         nbytes = 2 * B * S * (2 * H + 2 * K) * hd
         ops = 4 * B * H * hd * S * (S + 1) // 2
-        rows.append(timed_row(
-            torch, "flash_attention", where, (B, H, K, S, hd), "bf16", e,
-            lambda: fa.flash_attention(q, k, v),
-            lambda: fa.flash_attention_plain(q, k, v), cuda_ms(library),
-            nbytes, ops, BF16_FLOPS, "flash_attention_kernel"))
+        for r, e_r, fn in (("sm90", e, fa.launch_sm90),
+                           ("cuda_core", e_old, fa.launch_cuda_core)):
+            rows.append(timed_row(
+                torch, "flash_attention", where, (B, H, K, S, hd), r, e_r,
+                lambda fn=fn: fn(q, k, v),
+                lambda: fa.flash_attention_plain(q, k, v), lib_ms,
+                nbytes, ops, BF16_FLOPS, "flash_attention_kernel"))
     print(f"  flash_attention full width, (B, S, H, hd) strides, max err "
-          f"vs plain (f32 tol 1e-5 + 1e-5|want|; bf16 3e-2 + 3e-2|want|) "
-          f"and vs flash_bf16_matched (limit 2^-7|want| + 2e-3): "
+          f"vs plain (tol f32 1e-5, bf16 3e-2, + the same x |want|) and "
+          f"share of the limit 2^-7|want| + 2e-3 vs flash_bf16_matched: "
           + "; ".join(full), flush=True)
     out = summarize(rows, ("flash_attention",),
                     [g for g, _, _ in LM_BATCHES], 1)
@@ -1190,6 +1232,7 @@ def lm_path(torch, np) -> dict:
     import dataclasses as dc
 
     import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models.model import decode_step, init_params, prefill
@@ -1234,6 +1277,13 @@ def lm_path(torch, np) -> dict:
     need(launches["flash_attention"] == want,
          f"flash_attention launched {launches['flash_attention']} times in "
          f"{len(LM_BATCHES)} prefills of {cfg.n_layers} layers")
+    routes = dict(fa.flash_attention.route_launches)
+    need(routes == {"sm90": want, "cuda_core": 0},
+         f"bf16 prefills launched the flash routes {routes}, want sm90 "
+         f"{want} and cuda_core 0")
+    print(f"  lm bf16 prefill flash routes: sm90 {routes['sm90']} "
+          f"({cfg.n_layers} per prefill), cuda_core {routes['cuda_core']}",
+          flush=True)
     for g, B, S in LM_BATCHES:
         t = toks[g]
         need(t.shape == (B, S + LM_NEW) and bool(((t >= 0)
@@ -1317,18 +1367,24 @@ def lm_path(torch, np) -> dict:
     cfg = dc.replace(cfg, dtype=torch.float32)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          DEV)
+    kernels.reset_launches()
     rel = decode_consistency(torch, params, cfg, x)[2]
+    r32 = dict(fa.flash_attention.route_launches)
+    need(r32 == {"sm90": 0, "cuda_core": 2 * cfg.n_layers},
+         f"the f32 prefills launched the flash routes {r32}, want cuda_core "
+         f"{2 * cfg.n_layers} and sm90 0")
     faults = min(v for k, v in rel.items() if k != "sound")
     need(rel["sound"] <= CONSIST_TOL_F32 < faults,
          f"f32 prefill vs prefill + decode_step: relative L2 {rel}, limit "
          f"{CONSIST_TOL_F32} (sound under it, planted faults over it)")
-    print(f"  lm {LM_ARCH} full width f32 ({4 * n / 1e9:.1f} GB): prefill "
+    print(f"  lm {LM_ARCH} full width f32 ({4 * n / 1e9:.1f} GB; flash "
+          f"cuda_core {r32['cuda_core']}, sm90 {r32['sm90']}): prefill "
           f"vs prefill[:-1] + decode_step relative L2 {rel['sound']:.2e} "
           f"(limit {CONSIST_TOL_F32:g}; planted faults over it: "
           + _faults(rel) + ")", flush=True)
     del params
     torch.cuda.empty_cache()
-    return {f"lm {LM_ARCH}": launches}
+    return {f"lm {LM_ARCH}": launches}, routes
 
 
 def decode_consistency(torch, params, cfg, x):
@@ -1376,6 +1432,28 @@ def ptxas_report(name: str, log) -> str:
               "0 bytes spill stores, 0 bytes spill loads" not in ln]
     return f"{name} {'/'.join(regs) or '-'}" + (
         f" ({'; '.join(spills)})" if spills else "")
+
+
+def sm90_report(build) -> None:
+    """flash_attention_sm90 must run on the tensor cores through TMA with
+    no spills: count HGMMA and UTMALDG in its SASS (cuobjdump) and read
+    ptxas's spill lines; print both, fail on a zero or a spill."""
+    lib = build.library_path("flash_attention_sm90")
+    lines = lib.with_suffix(".log").read_text().splitlines()
+    spills = [ln.strip() for ln in lines if "spill" in ln]
+    need(bool(spills) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+        f"flash_attention_sm90 spills: {spills}")
+    cuobjdump = pathlib.Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120)
+    need(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+    counts = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    need(all(counts.values()), f"flash_attention_sm90 SASS: {counts}")
+    print(f"flash_attention_sm90 SASS (3 instantiations): HGMMA "
+          f"{counts['HGMMA']}, UTMALDG {counts['UTMALDG']}; ptxas: "
+          f"{len(spills)} functions, no spills; setmaxnreg 240 consumer / "
+          f"24 producer registers", flush=True)
 
 
 def _r(x):
@@ -1427,6 +1505,7 @@ def main() -> int:
               "else): " + ", ".join(ptxas_report(
                   n, build.library_path(n).with_suffix(".log"))
                   for n in build.SOURCES), flush=True)
+        sm90_report(build)
 
         print("kernel checks (card vs plain version on the card; per "
               "frame, the sum of its 3 levels, or per window batch: "
@@ -1439,7 +1518,8 @@ def main() -> int:
         print("window path:", flush=True)
         launches.update(window_path(torch, np))
         print("LM path:", flush=True)
-        launches.update(lm_path(torch, np))
+        lm_launches, flash_routes = lm_path(torch, np)
+        launches.update(lm_launches)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1469,6 +1549,11 @@ def main() -> int:
             "modes": {m: compact_mode(v, MAIN_GROUP[k], m == MAIN_MODE[k])
                       for m, v in summary[k].items()
                       if m != "max_abs_err"}})
+    flash = next(e for e in kernels_line["kernels"]
+                 if e["name"] == "flash_attention")
+    flash["launches_by_route"] = flash_routes
+    for m, v in flash["modes"].items():
+        v["source"] = FLASH_SOURCES[m]
     print(json.dumps(kernels_line))
     print(card[0])
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,11 @@
 // (b*h, 64-query tile) and loops over the key tiles itself, skipping the
 // tiles wholly above the diagonal when causal.
 //
+// This is the CUDA-core route of kernels/flash_attention.py:route: every
+// f32 call, and bf16 at an hd other than 16, 64 or 128. bf16 at those hd
+// goes to csrc/flash_attention_sm90.cu (wgmma tensor cores, TMA). f32
+// stays here because TF32 tensor cores would break its 1e-5 checks.
+//
 // Bound on the H100 at qwen3-14b's widths (H 40, K 8, hd 128, bf16):
 // bytes for B 4 x S 512 (q, k, v read once, o written once: 50.3 MB,
 // 15 us at 3.35 TB/s); operations for B 1 x S 2048 (causal: 42.9 GFLOP,
@@ -28,8 +33,7 @@
 // to hd + 1 (an odd stride: the 16 lanes reading 16 K rows hit 16 banks);
 // P reuses the K tile's space once the scores are in registers. At hd 128
 // that is 98,816 bytes, above the 48 KB default, so the launch opts in
-// (the wrapper checks the request, kernels/flash_attention.py). Tensor
-// cores (wgmma) and TMA are a later kernel's work.
+// (the wrapper checks the request, kernels/flash_attention.py).
 //
 // build.py compiles with --fmad=false: the dot products are spelled with
 // __fmaf_rn, the rest with explicit roundings; expf, never __expf.

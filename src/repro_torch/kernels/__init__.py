@@ -3,7 +3,9 @@
 Each kernel module holds the wrapper (launches the kernel for a CUDA
 tensor, runs the plain version for a CPU tensor), the plain PyTorch
 version, and a ``launches`` counter on the wrapper that counts kernel
-launches only. ``build.py`` compiles csrc/ at first use.
+launches only; a wrapper with more than one kernel (``flash_attention``)
+also counts each route's in ``route_launches``. ``build.py`` compiles
+csrc/ at first use.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ def wrappers() -> Dict[str, object]:
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -6,6 +6,12 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC --fmad=false -Xptxas -v
 
+Every source takes the same flags. ``flash_attention_sm90.cu`` needs
+no other: it includes ``cuda.h`` for the tensor-map types only and
+reaches ``cuTensorMapEncodeTiled`` through the runtime's
+``cudaGetDriverEntryPoint``, so no library links ``libcuda``; its
+``wgmma`` and ``setmaxnreg`` exist only for ``sm_90a``.
+
 ``--fmad=false`` keeps nvcc from contracting ``a*b - c*d`` into an FMA,
 which would flip sector bins at the 20-degree boundaries and change the
 Newton-Raphson rsqrt bits; the kernels also spell the sensitive
@@ -46,6 +52,7 @@ SOURCES = {
     "fused_hog": "fused_hog.cu",
     "svm_scores": "svm_scores.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_sm90": "flash_attention_sm90.cu",
 }
 
 #: the dynamic shared memory a thread block may take without opting in

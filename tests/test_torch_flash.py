@@ -189,18 +189,20 @@ def test_flash_plain_scale_is_the_oracles():
     assert float(torch.tensor(math.sqrt(128)).to(torch.bfloat16)) == 11.3125
 
 
+@pytest.mark.parametrize("block_k", [64, 128])
 @pytest.mark.parametrize("S", [128, 256])
-def test_bf16_matched_version_is_the_pallas_kernels_rounding(S):
-    """chip_smoke.py holds the bf16 kernel at full width to
-    flash_bf16_matched: f32 scores, p rounded to bf16 against the running
-    max of 64-key tiles. The Pallas kernel with 64-row blocks rounds the
-    same way, so it meets the same limit (2^-7 |want| + 2e-3; its bf16
-    output alone is within 2^-9 |want|), far under the oracle's 3e-2."""
+def test_bf16_matched_version_is_the_pallas_kernels_rounding(S, block_k):
+    """chip_smoke.py holds each bf16 route to flash_bf16_matched with its
+    own key tile (64 keys on the CUDA-core route, 128 on the sm90 route):
+    f32 scores, p rounded to bf16 against the running max of the tiles.
+    The Pallas kernel with blocks of the same width rounds the same way,
+    so it meets the same limit (2^-7 |want| + 2e-3; its bf16 output alone
+    is within 2^-9 |want|), far under the oracle's 3e-2."""
     arrays = _qkv(1, 4, 2, S, 32, seed=6)
     q, k, v = _port(arrays, "bf16")
-    want = chip_smoke.flash_bf16_matched(torch, q, k, v)
-    got = _f32(j_flash(*_jax(arrays, "bf16"), causal=True, block_q=64,
-                       block_k=64, interpret=True))
+    want = chip_smoke.flash_bf16_matched(torch, q, k, v, block_k=block_k)
+    got = _f32(j_flash(*_jax(arrays, "bf16"), causal=True, block_q=block_k,
+                       block_k=block_k, interpret=True))
     atol, rtol = chip_smoke.FLASH_MATCHED_TOL
     diff = np.abs(got - want.numpy())
     assert (diff <= atol + rtol * np.abs(want.numpy())).all(), diff.max()
