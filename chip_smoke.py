@@ -7,16 +7,21 @@ Phases, each of which exits non-zero on failure:
 
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, in
-     parallel) and print the build time, ptxas's registers and spills,
-     and the HGMMA and UTMALDG count of flash_attention_sm90's SASS
-     (failing on a spill or a zero there);
+     parallel) and print the build time, ptxas's registers (failing on
+     any spill), and the HGMMA and UTMALDG count of flash_attention_sm90's
+     SASS (failing on a zero there);
   3. hold each dense kernel against its plain PyTorch version on the
      card, at the detector's shapes (all three pyramid levels of 640x480
      and 1280x720) plus a ragged shape, in every mode -- the fixed modes
      on integer-valued gray, int16 histograms and int8 scores exact,
      blocks within one int8 code step with rare flips -- and time
      kernel, plain version and, where one exists, the library call; one
-     line per kernel and mode;
+     line per kernel and mode, under the device time of a one-element
+     add_ (one launch's floor); then dense_fused_hog level by level: its
+     device time beside the two-kernel pair's, its difference from the
+     pair, and its launch plan's CTAs, resident warps per SM (failing
+     under 132 CTAs on a 640x480 level or 16 warps on the largest) and
+     recomputed cells;
   3b. the same for each window kernel at B = 64 (the service's
      window_batch), 512 (the timing bench's chunk) and a ragged 11
      windows of 130x66, in every mode: bins, integer magnitudes and
@@ -84,26 +89,42 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s,
-# dense bf16 tensor-core FLOP/s and int8 tensor-core OP/s; a bound is the
-# larger of bytes over the memory rate and operations over the peak for
-# their type. The fixed chain's int32 CUDA-core work is counted at the f32
-# CUDA-core rate (the data sheet gives no int32 rate).
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
+# (an FMA counted as two), dense bf16 tensor-core FLOP/s and int8
+# tensor-core OP/s; a bound is the larger of bytes over the memory rate and
+# operations over the peak for their type (each type on its own pipe, so
+# the slowest type's time where a kernel mixes them).
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+# The CUDA-core lanes behind those peaks (NVIDIA H100 Tensor Core GPU
+# Architecture whitepaper: 132 SMs, each with 128 FP32 and 64 INT32 lanes
+# per clock; 67e12 = 2 x 128 x 132 x 1.98 GHz). The HOG kernels and
+# svm_scores are built with --fmad=false and spell every product and sum
+# alone, so each float operation takes one lane-clock: 33.5e12/s, half
+# the FMA peak. Their int32 operations (the fixed chain's shifts, adds and
+# selects) run on the INT32 lanes, 16.7e12/s, beside the FP32 lanes, so
+# hog_op_s counts each pipe apart.
+SMS, BOOST_HZ = 132, 1.98e9
+F32_NOFMA_OPS = 128 * SMS * BOOST_HZ
+INT32_OPS = 64 * SMS * BOOST_HZ
 
-# operations per pixel of the gradient + mag/bin + histogram chain:
-# 2 differences, 3 for the squared norm, 1 sqrt, then sector: 8 x (2 mul,
-# 1 sub, 1 compare, 1 add); cordic: 15 x (compare, 4 mul, 3 add) + fold,
-# mod, divide, floor, clamp; fixed: 2 differences, 2 roundings, 3 for the
-# fold and Q8 shifts, 15 x (2 shifts, compare, 3 add/sub), pin, fold, mod,
-# divide, clamp, the magnitude's convert, multiply and rint, the zero
-# test; all end in 9 selects + 9 adds
-PIXEL_OPS = {"sector": 2 + 3 + 1 + 40 + 18,
-             "cordic": 2 + 3 + 1 + 120 + 8 + 18,
-             "fixed": 2 + 2 + 3 + 90 + 6 + 3 + 2 + 18}
+# operations per pixel of the gradient + mag/bin chain, (int32, f32), each
+# on its own lanes: sector: 2 differences, 3 for the squared norm, 1 sqrt,
+# 8 x (2 mul, 1 sub, 1 compare) in f32 and the 8 adds of the boundary
+# count in int32; cordic, all f32: 2 differences, 3 + 1 as sector, 15 x
+# (compare, 4 mul, 3 add), fold, mod, divide, floor, clamp; fixed: in f32
+# the 2 differences, the 2 roundings to int and the magnitude's convert,
+# multiply and rint; in int32 3 for the fold and Q8 shifts, 15 x (2
+# shifts, compare, 3 add/sub), 6 for the pin, fold, floor-mod, divide and
+# clamp, 2 for the zero test
+PIXEL_OPS = {"sector": (8, 2 + 3 + 1 + 32),
+             "cordic": (0, 2 + 3 + 1 + 120 + 8),
+             "fixed": (3 + 90 + 6 + 2, 2 + 2 + 3)}
+# then a pixel's histogram: 9 selects + 9 adds, in the type of the mode's
+# sums (int32 in the fixed mode)
+HIST_OPS = 18
 # operations per block of the normalize tail: 36 mul + 36 add + eps add,
 # sqrt + divide (rsqrt) or the seed and 2 x 5 NR ops (nr, fixed), 36 mul;
 # fixed adds the quantize-dequantize: 36 max, scale and select, then 36 x
@@ -122,6 +143,8 @@ THRESHOLD = 0.26     # keeps 19-74 boxes per frame with the golden weights
 SCORE_TOL = {"f32": 1e-4, "bf16": 2e-3, "int8": 2e-3}
 TIMING_REPS = 5                              # ms/frame: 2 frames x 5 reps
 HIST_RTOL, HIST_ATOL = 1e-5, 1e-4            # summation order only
+# each HOG mode and the normalize flavor it runs (core/numerics.py SPECS)
+MODE_NORMS = {"sector": "rsqrt", "cordic": "nr", "fixed": "fixed"}
 BLOCK_ATOL = 5e-5
 MATMUL_ATOL = {"f32": 1e-5, "bf16": 1e-4}
 
@@ -289,7 +312,7 @@ def level_shapes(h: int, w: int, bucket: int = 32):
 
 
 def _fmt(ms) -> str:
-    return "not measured" if ms is None else f"{ms:.4f} ms"
+    return "not measured" if ms is None else f"{ms:.4g} ms"
 
 
 def device_times(torch, fn, reps: int):
@@ -397,18 +420,35 @@ def code_flips(got, want):
     return int((diff > 1e-6).sum())
 
 
+def hog_op_s(mode: str, pixels: int = 0, nblocks: int = 0,
+             norm: str = "rsqrt", chain: bool = True,
+             hist: bool = True) -> float:
+    """Least seconds of HOG work on the H100's CUDA cores: ``pixels``
+    through the mag/bin chain (``chain``) and their histogram adds
+    (``hist``), ``nblocks`` through the ``norm`` tail (all f32). Each
+    pipe's operations over its own rate, int32 over INT32_OPS and f32 over
+    F32_NOFMA_OPS; the two pipes run side by side, so the slower one."""
+    i32, f32 = PIXEL_OPS[mode] if chain else (0, 0)
+    if hist:
+        i32, f32 = ((i32 + HIST_OPS, f32) if mode == "fixed"
+                    else (i32, f32 + HIST_OPS))
+    return max(pixels * i32 / INT32_OPS,
+               (pixels * f32 + nblocks * BLOCK_OPS[norm]) / F32_NOFMA_OPS)
+
+
 def timed_row(torch, kernel, where, shape, mode, e, fn, plain_fn, lib_ms,
-              nbytes, ops, peak, symbol, flips=None) -> dict:
+              nbytes, op_s, symbol, flips=None) -> dict:
     """One kernel at one shape and mode: its error against the plain
-    version, and kernel, device, plain, library and bound milliseconds."""
-    bound = max(nbytes / HBM_BPS, ops / peak) * 1e3
+    version, and kernel, device, plain, library and bound milliseconds
+    (``op_s``: the least seconds of its operations)."""
+    bound = max(nbytes / HBM_BPS, op_s) * 1e3
     return {"kernel": kernel, "frame": where, "shape": list(shape),
             "mode": mode, "max_abs_err": e, "code_flips": flips,
             "ms": cuda_ms(fn),
             "device_ms": kernel_device_ms(torch, fn, symbol),
             "plain_ms": cuda_ms(plain_fn, reps=5), "library_ms": lib_ms,
             "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BPS >= ops / peak
+            "bound_by": "bytes" if nbytes / HBM_BPS >= op_s
             else "operations"}
 
 
@@ -434,6 +474,7 @@ def check_kernels(torch, np) -> dict:
     wq, _ = quant.quantize_weight_columns(wt32)
     wq = wq.contiguous()
     refusals = set()
+    pair_diff = {}
     for where, shape in shapes:
         B, H, W = shape
         ch, cw = (H - 2) // 8, (W - 2) // 8
@@ -446,8 +487,7 @@ def check_kernels(torch, np) -> dict:
                  "fixed": torch.from_numpy(
             rng.integers(0, 256, shape).astype(np.float32)).to(dev)}
         fused = {}
-        for mode, norm in (("sector", "rsqrt"), ("cordic", "nr"),
-                           ("fixed", "fixed")):
+        for mode, norm in MODE_NORMS.items():
             gray = grays["fixed" if mode == "fixed" else "float"]
             got = dgh.dense_grad_hist(gray, mode=mode)
             hist = dgh.dense_grad_hist_plain(gray, mode=mode)
@@ -467,8 +507,7 @@ def check_kernels(torch, np) -> dict:
                    lambda: dgh.dense_grad_hist(gray, mode=mode),
                    lambda: dgh.dense_grad_hist_plain(gray, mode=mode), None,
                    4 * gray.numel() + hist.element_size() * hist.numel(),
-                   pixels * PIXEL_OPS[mode], F32_FLOPS,
-                   "dense_grad_hist_kernel")
+                   hog_op_s(mode, pixels), "dense_grad_hist_kernel")
 
             got = dbn.dense_block_norm(hist, mode=norm)
             wantb = dbn.dense_block_norm_plain(hist, mode=norm)
@@ -485,13 +524,17 @@ def check_kernels(torch, np) -> dict:
                    lambda: dbn.dense_block_norm(hist, mode=norm),
                    lambda: dbn.dense_block_norm_plain(hist, mode=norm), None,
                    hist.element_size() * hist.numel() + 4 * wantb.numel(),
-                   nblocks * BLOCK_OPS[norm], F32_FLOPS,
+                   hog_op_s(mode, nblocks=nblocks, norm=norm),
                    "dense_block_norm_kernel", flips)
 
             got = fh.dense_fused_hog(gray, mode=mode)
             want = fh.dense_fused_hog_plain(gray, mode=mode)
+            pair = dbn.dense_block_norm(dgh.dense_grad_hist(gray, mode=mode),
+                                        mode=norm)
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
+            pair_diff[mode] = max(pair_diff.get(mode, 0.0),
+                                  float((got - pair).abs().max()))
             flips = None
             fused[mode] = want
             if mode == "fixed":
@@ -504,8 +547,8 @@ def check_kernels(torch, np) -> dict:
                    lambda: fh.dense_fused_hog(gray, mode=mode),
                    lambda: fh.dense_fused_hog_plain(gray, mode=mode), None,
                    4 * gray.numel() + 4 * want.numel(),
-                   pixels * PIXEL_OPS[mode] + nblocks * BLOCK_OPS[norm],
-                   F32_FLOPS, "dense_fused_hog_kernel", flips)
+                   hog_op_s(mode, pixels, nblocks, norm),
+                   "dense_fused_hog_kernel", flips)
 
         blocks = fused["cordic"].reshape(-1, 36)
         M = blocks.shape[0]
@@ -532,7 +575,7 @@ def check_kernels(torch, np) -> dict:
                    lambda: sm.score_matmul(flat, wt),
                    lambda: sm.score_matmul_plain(flat, wt),
                    lib, flat.element_size() * (M * 36 + 36 * 105)
-                   + 4 * M * 105, 2 * M * 36 * 105, peak,
+                   + 4 * M * 105, 2 * M * 36 * 105 / peak,
                    "score_matmul_kernel")
 
         # int8 scoring: the codes of the fixed blocks and of the golden
@@ -547,9 +590,61 @@ def check_kernels(torch, np) -> dict:
         record("score_matmul_int8", where, (M, 36, 105), "int8", 0.0,
                lambda: sm.score_matmul_int8(q, wq),
                lambda: sm.score_matmul_int8_plain(q, wq), lib,
-               M * 36 + 36 * 105 + 4 * M * 105, 2 * M * 36 * 105,
-               INT8_OPS, "score_matmul_int8_kernel")
-    return summarize(rows, DENSE_KERNELS, ("640x480", "1280x720"), 3)
+               M * 36 + 36 * 105 + 4 * M * 105, 2 * M * 36 * 105 / INT8_OPS,
+               "score_matmul_int8_kernel")
+    out = summarize(rows, DENSE_KERNELS, ("640x480", "1280x720"), 3)
+    fused_levels(torch, rows, shapes, pair_diff)
+    return out
+
+
+def fused_levels(torch, rows, shapes, pair_diff) -> None:
+    """dense_fused_hog level by level: its device time beside the
+    two-kernel pair's (dense_grad_hist + dense_block_norm on the same gray,
+    timed in this call), and its plan's tile, CTAs, resident warps per SM
+    (the smaller of the card's occupancy and the grid's CTAs per SM, times
+    the warps of a CTA) and recomputed cells. Fails at 640x480 below 132 CTAs on any level or
+    16 resident warps per SM on the largest."""
+    import repro_torch.kernels.fused_hog as fh
+
+    def dev(kernel, mode, shape):
+        return next(r["device_ms"] for r in rows if r["kernel"] == kernel
+                    and r["mode"] == mode and r["shape"] == list(shape))
+
+    def by_group(fmt):
+        return " | ".join(" ".join(fmt(s) for w, s in shapes if w == g)
+                          for g in dict.fromkeys(w for w, _ in shapes))
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {(m, s): fh.dense_plan(*s, m, sms=sms) for m in MODE_NORMS
+             for _, s in shapes}
+    sector = {s: plans["sector", s] for _, s in shapes}
+    print(f"  dense_fused_hog plan ({sms} SMs), per level ("
+          + " | ".join(dict.fromkeys(w for w, _ in shapes)) + "): tile "
+          + by_group(lambda s: "{}x{}".format(*sector[s].tile))
+          + "; threads " + by_group(lambda s: str(sector[s].threads))
+          + "; CTAs " + by_group(lambda s: str(sector[s].ctas))
+          + "; recompute " + by_group(lambda s: f"{sector[s].recompute():.2f}")
+          + "; per mode below: device us fused/pair (- not measured), "
+          "then resident warps per SM",
+          flush=True)
+    for mode, norm in MODE_NORMS.items():
+        def speed(s):
+            f = dev("dense_fused_hog", mode, s)
+            pr = (dev("dense_grad_hist", mode, s),
+                  dev("dense_block_norm", norm, s))
+            pair = None if None in pr else sum(pr)
+            return "/".join("-" if x is None else f"{x * 1e3:.2f}"
+                            for x in (f, pair))
+        warps = {s: plans[mode, s].resident_warps(
+            fh.dense_occupancy(plans[mode, s], mode), sms) for _, s in shapes}
+        for i, (w, s) in enumerate(shapes[:3]):
+            need(plans[mode, s].ctas >= 132, f"dense_fused_hog {w} level "
+                                             f"{i}: {plans[mode, s].ctas} CTAs")
+        need(warps[shapes[0][1]] >= 16, f"dense_fused_hog {mode} "
+             f"{shapes[0][0]} level 0: {warps[shapes[0][1]]:.1f} warps/SM")
+        print(f"  dense_fused_hog {mode}: " + by_group(speed) + "; "
+              + by_group(lambda s: f"{warps[s]:.1f}")
+              + f"; max |fused - pair| {pair_diff[mode]:.2e}", flush=True)
 
 
 def int8_library_ms(torch, q, wq, want, refusals):
@@ -568,7 +663,7 @@ def int8_library_ms(torch, q, wq, want, refusals):
         except RuntimeError as exc:
             why = (f"torch._int_mm refused {tuple(qp.shape)} @ "
                    f"{tuple(w.shape)} {layout}: "
-                   f"{str(exc).splitlines()[0][:120]}")
+                   f"{str(exc).splitlines()[0][:40]}")
             if layout not in refusals:
                 refusals.add(layout)
                 print(f"  score_matmul_int8 library: {why}", flush=True)
@@ -648,8 +743,7 @@ def check_window_kernels(torch, np) -> dict:
                  "fixed": torch.from_numpy(
             rng.integers(0, 256, shape).astype(np.float32)).to(DEV)}
         descs = {}
-        for mode, norm in (("sector", "rsqrt"), ("cordic", "nr"),
-                           ("fixed", "fixed")):
+        for mode, norm in MODE_NORMS.items():
             gray = grays["fixed" if mode == "fixed" else "float"]
             tag = f"{mode} B={B}"
             mag, bins = hg.hog_gradient(gray, mode)
@@ -672,7 +766,7 @@ def check_window_kernels(torch, np) -> dict:
                    lambda: hg.hog_gradient(gray, mode),
                    lambda: hg.hog_gradient_plain(gray, mode), None,
                    4 * gray.numel() + 8 * pixels,
-                   pixels * (PIXEL_OPS[mode] - 18), F32_FLOPS,
+                   hog_op_s(mode, pixels, hist=False),
                    "hog_gradient_kernel")
 
             # the same magnitudes and bins into both histogram versions
@@ -693,7 +787,8 @@ def check_window_kernels(torch, np) -> dict:
                    lambda: chist.cell_hist(pmag, pbins),
                    lambda: chist.cell_hist_plain(pmag, pbins), None,
                    8 * pixels + phist.element_size() * phist.numel(),
-                   pixels * 18, F32_FLOPS, "cell_hist_kernel")
+                   hog_op_s(mode, pixels, chain=False),
+                   "cell_hist_kernel")
 
             got = bn.block_norm(phist, mode=norm)
             want = bn.block_norm_plain(phist, mode=norm)
@@ -710,8 +805,8 @@ def check_window_kernels(torch, np) -> dict:
                    lambda: bn.block_norm(phist, mode=norm),
                    lambda: bn.block_norm_plain(phist, mode=norm), None,
                    phist.element_size() * phist.numel() + 4 * want.numel(),
-                   nblocks * BLOCK_OPS[norm], F32_FLOPS, "block_norm_kernel",
-                   flips)
+                   hog_op_s(mode, nblocks=nblocks, norm=norm),
+                   "block_norm_kernel", flips)
 
             got = fh.fused_hog(gray, mode=mode)
             want = fh.fused_hog_plain(gray, mode=mode)
@@ -732,8 +827,8 @@ def check_window_kernels(torch, np) -> dict:
                    lambda: fh.fused_hog(gray, mode=mode),
                    lambda: fh.fused_hog_plain(gray, mode=mode), None,
                    4 * gray.numel() + 4 * want.numel(),
-                   pixels * PIXEL_OPS[mode] + nblocks * BLOCK_OPS[norm],
-                   F32_FLOPS, "fused_hog_kernel", flips)
+                   hog_op_s(mode, pixels, nblocks, norm),
+                   "fused_hog_kernel", flips)
 
         for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             feats = descs["sector"].to(dt).contiguous()
@@ -753,7 +848,8 @@ def check_window_kernels(torch, np) -> dict:
                    lambda: sm.svm_scores(feats, w, bias),
                    lambda: sm.svm_scores_plain(feats, w, bias), lib,
                    feats.element_size() * feats.numel() + 4 * 3780 + 4
-                   + 4 * B, 2 * B * 3780, F32_FLOPS, "svm_scores_kernel")
+                   + 4 * B, 2 * B * 3780 / F32_NOFMA_OPS,
+                   "svm_scores_kernel")
     return summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1)
 
 
@@ -900,7 +996,7 @@ def check_flash(torch, np) -> dict:
                 torch, "flash_attention", where, (B, H, K, S, hd), r, e_r,
                 lambda fn=fn: fn(q, k, v),
                 lambda: fa.flash_attention_plain(q, k, v), lib_ms,
-                nbytes, ops, BF16_FLOPS, "flash_attention_kernel"))
+                nbytes, ops / BF16_FLOPS, "flash_attention_kernel"))
     print(f"  flash_attention full width, (B, S, H, hd) strides, max err "
           f"vs plain (tol f32 1e-5, bf16 3e-2, + the same x |want|) and "
           f"share of the limit 2^-7|want| + 2e-3 vs flash_bf16_matched: "
@@ -1002,15 +1098,19 @@ def main_path(torch, np) -> dict:
         split.update(frame_profile(torch, gpu["paper+kernel"],
                                    frames[(h, w)][0]))
         split["ms_per_frame"] = per_frame[f"paper+kernel {key}"]
-        print(f"  split {key} (paper+kernel): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
-              flush=True)
+        print(f"  split {key} (paper+kernel), ms: " + ", ".join(
+            f"{k[:-3]} {split[k]:.4f}" for k in ("resize_ms", "hog_ms",
+                                                "score_matmul_ms",
+                                                "collate_ms", "topk_nms_ms"))
+              + f"; launches/frame {split['device_launches_per_frame']:.0f},"
+              f" busy ms {split['device_busy_ms']:.4f}, ms/frame "
+              f"{split['ms_per_frame']:.4f}", flush=True)
         for name in ("perf", "quant", "quant+kernel"):
             prof = frame_profile(torch, gpu[name], frames[(h, w)][0])
             ms = per_frame[f"{name} {key}"]
-            print(f"  profile {key} ({name}): device_launches_per_frame "
-                  f"{prof['device_launches_per_frame']:.0f}, device_busy_ms "
-                  f"{prof['device_busy_ms']:.4f}, ms_per_frame {ms:.4f}, "
+            print(f"  profile {key} ({name}): launches/frame "
+                  f"{prof['device_launches_per_frame']:.0f}, busy ms "
+                  f"{prof['device_busy_ms']:.4f}, ms/frame {ms:.4f}, "
                   f"idle share {1 - prof['device_busy_ms'] / ms:.4f}",
                   flush=True)
     return launches
@@ -1146,6 +1246,8 @@ def window_path(torch, np) -> dict:
           f"{WINDOW_CHUNK}: max delta vs the dense score_map {d:.2e} "
           f"(tol {LAYOUT_TOL:g})", flush=True)
 
+    print("  window timing, per batch: host ms, windows/s, launches, device "
+          "busy ms (share of host ms), own kernels' device ms", flush=True)
     for name, (preset, path) in WINDOW_CONFIGS.items():
         cfg = api.presets(preset).hog
         own = tuple(f"{k}_kernel" for k in PATH_KERNELS[name])
@@ -1169,10 +1271,8 @@ def window_path(torch, np) -> dict:
             kern = sum(t for k, (_, t) in times.items()
                        if any(o in k for o in own)) / 3e3
             n_launch = sum(c for c, _ in times.values()) / 3
-            parts.append(f"B={B} {ms:.4f} ms {B / ms * 1e3:.0f} win/s "
-                         f"{n_launch:.0f} launches busy {busy:.4f} ms "
-                         f"(share {busy / ms:.3f}, own kernels "
-                         f"{kern:.4f} ms)")
+            parts.append(f"B{B} {ms:.4f} {B / ms * 1e3:.0f} {n_launch:.0f} "
+                         f"{busy:.4f} ({busy / ms:.3f}) {kern:.4f}")
         print(f"  {name}: " + "; ".join(parts), flush=True)
     return launches
 
@@ -1501,15 +1601,19 @@ def main() -> int:
               f"{len(took)} kernels in parallel (each "
               f"{min(took.values(), default=0):.1f}-"
               f"{max(took.values(), default=0):.1f} s)", flush=True)
-        print("ptxas registers per instantiation (spills named; none "
-              "else): " + ", ".join(ptxas_report(
-                  n, build.library_path(n).with_suffix(".log"))
-                  for n in build.SOURCES), flush=True)
+        reports = [ptxas_report(n, build.library_path(n).with_suffix(".log"))
+                   for n in build.SOURCES]
+        print("ptxas registers per instantiation (no spills): "
+              + ", ".join(reports), flush=True)
+        need(not any("spill" in r for r in reports), "ptxas spilled")
         sm90_report(build)
 
+        one = torch.zeros(1, device=DEV)
+        floor = kernel_device_ms(torch, lambda: one.add_(1), "")
         print("kernel checks (card vs plain version on the card; per "
               "frame, the sum of its 3 levels, or per window batch: "
-              "call/device/plain/library/bound ms):", flush=True)
+              "call/device/plain/library/bound ms; a one-element add_, the "
+              f"floor of one launch: {_fmt(floor)} device):", flush=True)
         summary = check_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
         summary.update(check_flash(torch, np))
@@ -1540,7 +1644,7 @@ def main() -> int:
             "launches": sum(c[k] for c in launches.values()),
             "launches_by_path": {p: c[k] for p, c in launches.items()
                                  if k in PATH_KERNELS[p]},
-            "max_abs_err": summary[k]["max_abs_err"],
+            "max_abs_err": _r(summary[k]["max_abs_err"]),
             "main_mode": MAIN_MODE[k],
             **{key: _r(main[key]) for key in ("ms", "device_ms",
                                               "plain_ms", "bound_ms",
@@ -1554,7 +1658,7 @@ def main() -> int:
     flash["launches_by_route"] = flash_routes
     for m, v in flash["modes"].items():
         v["source"] = FLASH_SOURCES[m]
-    print(json.dumps(kernels_line))
+    print(json.dumps(kernels_line, separators=(",", ":")))
     print(card[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,18 +29,30 @@ __device__ __forceinline__ float nr_rsqrt(float x) {
   return y;
 }
 
-// Put v[36] on its int8 grid: scale = max|v| * f32(1/127) (a multiply,
-// never a divide), q = rint(v / safe) with an IEEE divide and rint's half
-// to even (rintf, not roundf), then q * scale.
+// One value of a block onto the block's int8 grid, given scale = max|v| *
+// f32(1/127) (a multiply, never a divide): q = rint(v / safe) with an
+// IEEE divide and rint's half to even (rintf, not roundf), then q * scale.
+__device__ __forceinline__ float quantize_value(float v, float scale) {
+  const float safe = scale > 0.0f ? scale : 1.0f;
+  return __fmul_rn(rintf(__fdiv_rn(v, safe)), scale);
+}
+
+// Put v[36] on its int8 grid.
 __device__ __forceinline__ void quantize_dequantize(float v[36]) {
   float m = 0.0f;
 #pragma unroll
   for (int k = 0; k < 36; ++k) m = fmaxf(m, fabsf(v[k]));
   const float scale = __fmul_rn(m, kInvQ);
-  const float safe = scale > 0.0f ? scale : 1.0f;
 #pragma unroll
-  for (int k = 0; k < 36; ++k)
-    v[k] = __fmul_rn(rintf(__fdiv_rn(v[k], safe)), scale);
+  for (int k = 0; k < 36; ++k) v[k] = quantize_value(v[k], scale);
+}
+
+// 1 / sqrt(ss) of one block's sum of squares (eps^2 added) in the
+// flavor's arithmetic. rsqrt flavor: correctly rounded sqrt and divide
+// (rsqrtf's ~2 ulp approximation would be further from the reference).
+template <int NORM>
+__device__ __forceinline__ float inv_norm(float ss) {
+  return NORM == kRsqrt ? __fdiv_rn(1.0f, sqrtf(ss)) : nr_rsqrt(ss);
 }
 
 // Normalize v[36] in place. eps2 is eps^2 rounded once from f64 to f32
@@ -51,10 +63,7 @@ __device__ __forceinline__ void finish_block(float v[36], float eps2) {
   float ss = 0.0f;
 #pragma unroll
   for (int k = 0; k < 36; ++k) ss = __fadd_rn(ss, __fmul_rn(v[k], v[k]));
-  ss = __fadd_rn(ss, eps2);
-  // rsqrt flavor: correctly rounded sqrt and divide (rsqrtf's ~2 ulp
-  // approximation would be further from the reference)
-  const float rs = NORM == kRsqrt ? __fdiv_rn(1.0f, sqrtf(ss)) : nr_rsqrt(ss);
+  const float rs = inv_norm<NORM>(__fadd_rn(ss, eps2));
 #pragma unroll
   for (int k = 0; k < 36; ++k) v[k] = __fmul_rn(v[k], rs);
   if constexpr (NORM == kFixedNorm) quantize_dequantize(v);

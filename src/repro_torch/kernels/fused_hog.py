@@ -10,14 +10,15 @@ grid.
     (B, 3780) f32 descriptors in collate order. Replaces the TPU kernel
     repro/kernels/fused_hog.py:75, CUDA source csrc/fused_hog.cu.
 
-The dense kernel, bound on the H100: memory, about half a microsecond
-per 640x480 level (1.2 MB of gray in, 0.65 MB of blocks out at
-3.35 TB/s), well below a launch. Against the two-kernel backend it saves the histogram round trip
-and one launch per level. One thread block owns a 4x8 tile of blocks:
-it computes the 5x9 cell histograms the tile needs into shared memory
-(one cell row and column recomputed at tile seams, as the TPU kernel
-recomputes one cell row per slab) and normalizes from there; edge tiles
-mask, so ragged grids need no padded gather.
+The dense kernel, bound on the H100: a 640x480 frame's three levels move
+3.7 MB (1.1 us at 3.35 TB/s) and, in the fixed mode, do 77 M int32
+operations (4.6 us at 64 INT32 lanes per SM per clock), each level one
+launch. Its launch plan (``dense_plan``: tile, threads, grid, shared
+memory) is computed here, once per level shape, and handed to the
+launcher, which refuses a plan it was not compiled for. A CTA owns a
+tile of 3x6, 3x4 or 2x4 blocks, chosen per level, and computes the
+(TR+1) x (TC+1) cells they need, 16 threads a cell and 4 pixels a
+thread (1.5-1.8x the cells of the level).
 
 The window kernel, bound on the H100: bytes -- a window reads 34.3 KB and
 writes 15.1 KB, 88 us for B = 5,949 windows at 3.35 TB/s. One thread
@@ -32,6 +33,9 @@ tensor; nothing else.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import Tuple
 
 import torch
 
@@ -47,6 +51,145 @@ Tensor = torch.Tensor
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p)
+# the window kernel's arguments, then the dense plan's grid_x, grid_y,
+# tile_rows, tile_cols, threads and smem_bytes
+_DENSE_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+
+#: the tiles the dense kernel is compiled for, block rows x block columns
+#: a CTA owns (Tile<TR, TC> in csrc/dense_fused_hog.cu:pick, which refuses
+#: others); dense_plan picks one per level
+DENSE_TILES = ((3, 6), (3, 4), (2, 4))
+#: the card the plan is sized for by default: an H100 SXM's SMs
+SMS = 132
+
+
+def dense_threads(tile: Tuple[int, int]) -> int:
+    """Threads of a CTA (Tile::THREADS): 16 for each of the (TR+1) x (TC+1)
+    cells it may compute, 4 pixels each, in whole rows of 64."""
+    return -(-16 * (tile[0] + 1) * (tile[1] + 1) // 64) * 64
+
+
+def dense_min_ctas(tile: Tuple[int, int]) -> int:
+    """CTAs an SM holds at least (Tile::MIN_CTAS, the kernel's launch
+    bounds, which keep its registers to 48)."""
+    n = dense_threads(tile)
+    return 5 if n <= 256 else 4 if n <= 320 else 3
+
+
+def dense_gray_pitch(tile: Tuple[int, int]) -> int:
+    """Row pitch of a CTA's staged gray in floats (Tile::GP): the
+    (TC+1)*8 + 2 columns, made odd against bank conflicts."""
+    return ((tile[1] + 1) * 8 + 2) | 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """How ``dense_fused_hog`` covers one (B, H, W) level: CTA (tx, ty)
+    owns blocks [ty*TR, ty*TR + TR) x [tx*TC, tx*TC + TC) (clipped to the
+    grid) and computes the cells they need, those of the same indices and
+    the row below and column to the right."""
+    B: int
+    ch: int
+    cw: int
+    tile: Tuple[int, int]           # (TR, TC) blocks a CTA owns
+    grid: Tuple[int, int, int]      # (x, y, B) CTAs
+    threads: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def blocks(self, tx: int, ty: int) -> Tuple[int, int, int, int]:
+        """Blocks CTA (tx, ty) owns: rows [r0, r1) x columns [c0, c1)."""
+        tr, tc = self.tile
+        return (min(ty * tr, self.ch - 1), min(ty * tr + tr, self.ch - 1),
+                min(tx * tc, self.cw - 1), min(tx * tc + tc, self.cw - 1))
+
+    def cells(self, tx: int, ty: int) -> Tuple[int, int, int, int]:
+        """Cells CTA (tx, ty) computes: rows [r0, r1) x columns [c0, c1),
+        which its staged gray covers with rows 8 r0 .. 8 r1 + 1 and
+        columns 8 c0 .. 8 c1 + 1."""
+        tr, tc = self.tile
+        return (min(ty * tr, self.ch), min(ty * tr + tr + 1, self.ch),
+                min(tx * tc, self.cw), min(tx * tc + tc + 1, self.cw))
+
+    def recompute(self) -> float:
+        """Cells computed over cells needed (ch x cw per scene)."""
+        done = 0
+        for ty in range(self.grid[1]):
+            for tx in range(self.grid[0]):
+                r0, r1, c0, c1 = self.cells(tx, ty)
+                done += max(0, r1 - r0) * max(0, c1 - c0)
+        return done / (self.ch * self.cw)
+
+    def resident_warps(self, blocks_per_sm: int, sms: int = SMS) -> float:
+        """Warps per SM: the smaller of what an SM holds (``blocks_per_sm``,
+        from cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the grid's
+        CTAs per SM, times the warps of a CTA."""
+        return min(blocks_per_sm, self.ctas / sms) * self.threads / 32
+
+
+def dense_smem_bytes(mode: str, tile: Tuple[int, int]) -> int:
+    """Shared memory of one CTA of csrc/dense_fused_hog.cu (its Smem):
+    each block's 36 squares, the partial sums (per cell 8 rows of 9 f32
+    bins; fixed, 9 int32; whole int4), the gray of (TR+1) x (TC+1) cells
+    with the 1-px halo, 1/norm and max|v| per block, the cell histograms
+    (int16 in the fixed mode)."""
+    tr, tc = tile
+    slots = (tr + 1) * (tc + 1)
+    part = -(-slots * 9 * (1 if mode == "fixed" else 8) // 4) * 4
+    gray = ((tr + 1) * 8 + 2) * dense_gray_pitch(tile)
+    hist = (2 if mode == "fixed" else 4) * slots * 9
+    size = 4 * (36 * tr * tc + part + gray + 2 * tr * tc) + hist
+    return -(-size // 4) * 4
+
+
+def _plan_for(tile: Tuple[int, int], B: int, H: int, W: int,
+              mode: str = "sector") -> DensePlan:
+    """The plan of a (B, H, W) gray of 8-px cells and 2x2 blocks at
+    ``tile``, one of DENSE_TILES."""
+    ch, cw = (H - 2) // 8, (W - 2) // 8
+    if ch < 2 or cw < 2:
+        raise ValueError(f"scene ({B}, {H}, {W}) holds no whole block")
+    grid = (-(-(cw - 1) // tile[1]), -(-(ch - 1) // tile[0]), B)
+    return DensePlan(B, ch, cw, tuple(tile), grid, dense_threads(tile),
+                     dense_smem_bytes(mode, tile))
+
+
+@functools.lru_cache(maxsize=None)
+def dense_plan(B: int, H: int, W: int, mode: str = "sector",
+               sms: int = SMS) -> DensePlan:
+    """The launch plan of ``dense_fused_hog`` for a (B, H, W) gray on a
+    card of ``sms`` SMs: the tile of DENSE_TILES that gives at least one
+    CTA per SM and, with CTAs dealt round the SMs, the fewest cells on the
+    busiest SM (the level's time, as every level of a frame runs in about
+    one wave); a level too small for any takes the smallest tile."""
+    plans = [_plan_for(t, B, H, W, mode) for t in DENSE_TILES]
+    fit = [p for p in plans if p.ctas >= sms]
+    if not fit:
+        return min(plans, key=lambda p: p.tile[0] * p.tile[1])
+    return min(fit, key=lambda p: -(-p.ctas // sms)
+               * (p.tile[0] + 1) * (p.tile[1] + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dense_occupancy(plan: DensePlan, mode: str) -> int:
+    """CTAs of the ``mode`` kernel one SM of the current card holds at
+    the plan's threads and shared memory (the card's own count)."""
+    blocks = ctypes.c_int(0)
+    fn = build.library("dense_fused_hog").dense_fused_hog_occupancy
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rc = fn(mode_code(mode), norm_code(_norm_flavor(mode)), *plan.tile,
+            plan.threads, plan.smem_bytes, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"dense_fused_hog occupancy: cudaError {rc}")
+    return blocks.value
 
 
 def _norm_flavor(mode: str) -> str:
@@ -67,8 +210,8 @@ def dense_fused_hog(gray: Tensor, cell: int = 8, block: int = 2,
                     bins: int = 9, eps: float = 1e-2,
                     mode: str = "sector") -> Tensor:
     """(B, H, W) f32 dense scene -> (B, bh, bw, block^2*bins) f32."""
-    code = mode_code(mode)
-    ncode = norm_code(_norm_flavor(mode))
+    mode_code(mode)                    # an unknown mode raises first
+    norm_code(_norm_flavor(mode))
     if gray.dim() != 3 or gray.dtype != torch.float32:
         raise ValueError(f"dense_fused_hog takes (B, H, W) float32, got "
                          f"{tuple(gray.shape)} {gray.dtype}")
@@ -87,9 +230,12 @@ def dense_fused_hog(gray: Tensor, cell: int = 8, block: int = 2,
         raise ValueError("dense_fused_hog: gray must be contiguous")
     out = torch.empty((B, ch - 1, cw - 1, 36), dtype=torch.float32,
                       device=gray.device)
-    build.launch("dense_fused_hog", _ARGTYPES, gray, gray.data_ptr(),
+    plan = dense_plan(B, H, W, mode, _sms(gray.device.index))
+    build.launch("dense_fused_hog", _DENSE_ARGTYPES, gray, gray.data_ptr(),
                  out.data_ptr(), B, H, W,
-                 N.norm_eps_squared(eps, _norm_flavor(mode)), code, ncode)
+                 N.norm_eps_squared(eps, _norm_flavor(mode)), mode_code(mode),
+                 norm_code(_norm_flavor(mode)), *plan.grid[:2], *plan.tile,
+                 plan.threads, plan.smem_bytes)
     dense_fused_hog.launches += 1
     return out
 
