@@ -15,13 +15,18 @@ Phases, each of which exits non-zero on failure:
      and 1280x720) plus a ragged shape, in every mode -- the fixed modes
      on integer-valued gray, int16 histograms and int8 scores exact,
      blocks within one int8 code step with rare flips -- and time
-     kernel, plain version and, where one exists, the library call; one
-     line per kernel and mode, under the device time of a one-element
-     add_ (one launch's floor); then dense_fused_hog level by level: its
-     device time beside the two-kernel pair's, its difference from the
-     pair, and its launch plan's CTAs, resident warps per SM (failing
-     under 132 CTAs on a 640x480 level or 16 warps on the largest) and
-     recomputed cells;
+     kernel, plain version and, where one exists, the library call (its
+     device time, as the kernel's); one line per kernel and mode, under
+     the device time of a one-element add_ (one launch's floor); then
+     dense_fused_hog level by level: its device time beside the
+     two-kernel pair's, its difference from the pair, and its launch
+     plan's CTAs, resident warps per SM (failing under 132 CTAs on a
+     640x480 level or 16 warps on the largest) and recomputed cells; then
+     each scorer dtype level by level (device us beside the library
+     call's, CTAs, rows of the busiest CTA), and the scorers at the
+     plan's and the copies' edges (M = 1, 3, 5, 131, 133, operands at odd
+     offsets, K = 35, K = 64 with N = 128): f32 within 1e-5, bf16 1e-4,
+     int8 equal;
   3b. the same for each window kernel at B = 64 (the service's
      window_batch), 512 (the timing bench's chunk) and a ragged 11
      windows of 130x66, in every mode: bins, integer magnitudes and
@@ -79,6 +84,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -147,6 +153,9 @@ HIST_RTOL, HIST_ATOL = 1e-5, 1e-4            # summation order only
 MODE_NORMS = {"sector": "rsqrt", "cordic": "nr", "fixed": "fixed"}
 BLOCK_ATOL = 5e-5
 MATMUL_ATOL = {"f32": 1e-5, "bf16": 1e-4}
+# scorer rows where the launch plan has edges: one CTA of one unit, a
+# ragged unit, two CTAs, 33 and 34 CTAs of one unit each
+SCORER_TAILS = (1, 3, 5, 131, 133)
 
 # window path: kernel checks at the service's window_batch
 # (repro/api/config.py:79), the timing bench's chunk
@@ -436,18 +445,25 @@ def hog_op_s(mode: str, pixels: int = 0, nblocks: int = 0,
                (pixels * f32 + nblocks * BLOCK_OPS[norm]) / F32_NOFMA_OPS)
 
 
-def timed_row(torch, kernel, where, shape, mode, e, fn, plain_fn, lib_ms,
+def timed_row(torch, kernel, where, shape, mode, e, fn, plain_fn, lib_fn,
               nbytes, op_s, symbol, flips=None) -> dict:
     """One kernel at one shape and mode: its error against the plain
     version, and kernel, device, plain, library and bound milliseconds
-    (``op_s``: the least seconds of its operations)."""
+    (``op_s``: the least seconds of its operations). ``lib_fn`` is one
+    PyTorch call of the same function, or None: its ``library_ms`` is
+    the device time of every kernel it launches (torch.profiler, as the
+    kernel's ``device_ms``), ``library_call_ms`` its CUDA-event time per
+    back-to-back call (as the kernel's ``ms``, host dispatch included)."""
     bound = max(nbytes / HBM_BPS, op_s) * 1e3
+    lib = call = None
+    if lib_fn is not None:
+        lib, call = kernel_device_ms(torch, lib_fn, ""), cuda_ms(lib_fn)
     return {"kernel": kernel, "frame": where, "shape": list(shape),
             "mode": mode, "max_abs_err": e, "code_flips": flips,
             "ms": cuda_ms(fn),
             "device_ms": kernel_device_ms(torch, fn, symbol),
-            "plain_ms": cuda_ms(plain_fn, reps=5), "library_ms": lib_ms,
-            "bound_ms": bound,
+            "plain_ms": cuda_ms(plain_fn, reps=5), "library_ms": lib,
+            "library_call_ms": call, "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BPS >= op_s
             else "operations"}
 
@@ -561,16 +577,9 @@ def check_kernels(torch, np) -> dict:
             torch.cuda.synchronize()
             e = float((got - wantm).abs().max())
             need(e <= MATMUL_ATOL[dname], f"score_matmul {dname} {shape}: {e}")
-            if dt == torch.float32:
-                lib = cuda_ms(lambda: torch.matmul(flat, wt))
-            else:
-                try:     # one call with f32 output, where torch has it
-                    torch.mm(flat, wt, out_dtype=torch.float32)
-                    lib = cuda_ms(lambda: torch.mm(flat, wt,
-                                                   out_dtype=torch.float32))
-                except (TypeError, RuntimeError):
-                    lib = cuda_ms(lambda: torch.matmul(flat, wt))
-                    print("  (bf16 library_ms: torch.matmul, bf16 output)")
+            lib = (functools.partial(torch.matmul, flat, wt)
+                   if dt == torch.float32
+                   else bf16_library(torch, flat, wt, wantm, refusals))
             record("score_matmul", where, (M, 36, 105), dname, e,
                    lambda: sm.score_matmul(flat, wt),
                    lambda: sm.score_matmul_plain(flat, wt),
@@ -586,7 +595,7 @@ def check_kernels(torch, np) -> dict:
         torch.cuda.synchronize()
         need(got.dtype == torch.int32 and torch.equal(got, wanti),
              f"score_matmul_int8 {shape}: not equal to its plain version")
-        lib = int8_library_ms(torch, q, wq, got, refusals)
+        lib = int8_library(torch, q, wq, got, refusals)
         record("score_matmul_int8", where, (M, 36, 105), "int8", 0.0,
                lambda: sm.score_matmul_int8(q, wq),
                lambda: sm.score_matmul_int8_plain(q, wq), lib,
@@ -594,6 +603,8 @@ def check_kernels(torch, np) -> dict:
                "score_matmul_int8_kernel")
     out = summarize(rows, DENSE_KERNELS, ("640x480", "1280x720"), 3)
     fused_levels(torch, rows, shapes, pair_diff)
+    score_levels(torch, rows, shapes)
+    check_scorer_edges(torch, np)
     return out
 
 
@@ -624,8 +635,7 @@ def fused_levels(torch, rows, shapes, pair_diff) -> None:
           + "; threads " + by_group(lambda s: str(sector[s].threads))
           + "; CTAs " + by_group(lambda s: str(sector[s].ctas))
           + "; recompute " + by_group(lambda s: f"{sector[s].recompute():.2f}")
-          + "; per mode below: device us fused/pair (- not measured), "
-          "then resident warps per SM",
+          + "; below: device us fused/pair, warps/SM",
           flush=True)
     for mode, norm in MODE_NORMS.items():
         def speed(s):
@@ -647,7 +657,94 @@ def fused_levels(torch, rows, shapes, pair_diff) -> None:
               + f"; max |fused - pair| {pair_diff[mode]:.2e}", flush=True)
 
 
-def int8_library_ms(torch, q, wq, want, refusals):
+def score_levels(torch, rows, shapes) -> None:
+    """One line per scorer dtype, level by level: the kernel's device us
+    and the library call's (torch.profiler, every kernel it launches; -
+    where the profiler saw nothing), and the launch plan's CTAs x rows of
+    the busiest CTA (kernels/svm_matmul.py:score_plan)."""
+    import repro_torch.kernels.svm_matmul as sm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = list(dict.fromkeys(w for w, _ in shapes))
+    for kernel, mode, dt in (("score_matmul", "f32", torch.float32),
+                             ("score_matmul", "bf16", torch.bfloat16),
+                             ("score_matmul_int8", "int8", torch.int8)):
+        text = []
+        for g in groups:
+            parts = []
+            for r in rows:
+                if (r["kernel"], r["mode"], r["frame"]) != (kernel, mode, g):
+                    continue
+                plan = sm.score_plan(r["shape"][0], 105, dt, sms)
+                parts.append("/".join(
+                    "-" if x is None else f"{x * 1e3:.2f}"
+                    for x in (r["device_ms"], r["library_ms"]))
+                    + f" {plan.grid}x{plan.rows}")
+            text.append(f"{g} " + " ".join(parts))
+        print(f"  {kernel} {mode} per level, device/library us, CTAs x "
+              f"rows: " + " | ".join(text), flush=True)
+
+
+def check_scorer_edges(torch, np) -> None:
+    """The scorers against their plain versions where the plan and the
+    copies have edges: M = SCORER_TAILS (one to 34 CTAs, a ragged last
+    unit), x and w at odd offsets of a flat buffer (the element-wise
+    copies), and two other widths (a partial int8 word at K = 35; the
+    widest shape the wrapper takes, K = 64 and N = 128). The 1280x720
+    levels take the shared-memory opt-in above 48 KB."""
+    import repro_torch.kernels.svm_matmul as sm
+    rng = np.random.default_rng(5)
+    worst = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                     ("int8", torch.int8)):
+        cases = [(m, 36, 105, False) for m in SCORER_TAILS]
+        cases += [(133, 36, 105, True), (4524, 36, 105, True),
+                  (133, 35, 50, False), (133, 64, 128, False)]
+        for M, K, N, odd in cases:
+            def draw(n, lo, hi):
+                if name == "int8":
+                    a = rng.integers(-127, 128, n).astype(np.int8)
+                else:
+                    a = rng.uniform(lo, hi, n).astype(np.float32)
+                buf = torch.from_numpy(a).to(DEV).to(dt)
+                return buf[1:] if odd else buf[:n - 1]
+            x = draw(M * K + 1, 0, 0.5).view(M, K)
+            w = draw(K * N + 1, -0.1, 0.1).view(K, N)
+            what = f"{name} M={M} K={K} N={N}" + (" odd" if odd else "")
+            need((x.data_ptr() % 16 != 0) == odd, f"{what}: alignment")
+            if name == "int8":
+                got = sm.score_matmul_int8(x, w)
+                need(torch.equal(got, sm.score_matmul_int8_plain(x, w)),
+                     f"score_matmul_int8 {what}: not equal")
+                e = 0.0
+            else:
+                got = sm.score_matmul(x, w)
+                e = float((got - sm.score_matmul_plain(x, w)).abs().max())
+                need(e <= MATMUL_ATOL[name], f"score_matmul {what}: {e}")
+            torch.cuda.synchronize()
+            worst[name] = max(worst.get(name, 0.0), e)
+    print(f"  scorer edges (M {'/'.join(map(str, SCORER_TAILS))}; x and w "
+          f"at odd offsets, M 133 and 4524; K35xN50; K64xN128), max err vs "
+          f"plain: f32 {worst['f32']:.2e}, bf16 {worst['bf16']:.2e}, int8 "
+          f"equal", flush=True)
+
+
+def bf16_library(torch, flat, wt, want, refusals):
+    """One call with f32 output from bf16 inputs, where torch has it
+    (torch.mm's out_dtype), else torch.matmul with bf16 output (said once)."""
+    try:
+        out = torch.mm(flat, wt, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+    except (TypeError, RuntimeError):
+        if "bf16" not in refusals:
+            refusals.add("bf16")
+            print("  (bf16 library: torch.matmul, bf16 output)", flush=True)
+        return functools.partial(torch.matmul, flat, wt)
+    need(float((out - want).abs().max()) <= MATMUL_ATOL["bf16"],
+         "torch.mm(out_dtype=f32) disagrees with score_matmul_plain")
+    return functools.partial(torch.mm, flat, wt, out_dtype=torch.float32)
+
+
+def int8_library(torch, q, wq, want, refusals):
     """torch._int_mm on K padded to 40 and N to 112 (its int8 GEMM wants
     multiples of 8), the padding made outside the timing, with the weights
     row-major and, where cuBLASLt refuses that, column-major; None where
@@ -670,7 +767,7 @@ def int8_library_ms(torch, q, wq, want, refusals):
             continue
         need(torch.equal(out[:, :want.shape[1]], want),
              "torch._int_mm disagrees with score_matmul_int8")
-        return cuda_ms(lambda: torch._int_mm(qp, w))
+        return functools.partial(torch._int_mm, qp, w)
     return None
 
 
@@ -686,8 +783,9 @@ def _g(x) -> str:
 def summarize(rows, names, groups, per_group: int) -> dict:
     """One line per kernel x mode: the worst error over every shape and,
     per group (a frame size: the sum over its three pyramid levels; or a
-    window batch), call / device / plain / library / bound ms. Returns
-    {kernel: {mode: {group: sums}, "max_abs_err": worst}}."""
+    window batch), device / plain / bound / library ms (the call's
+    CUDA-event ms is in the kernels line). Returns {kernel: {mode: {group:
+    sums}, "max_abs_err": worst}}."""
     out = {}
     for k in names:
         out[k] = {"max_abs_err": 0.0}
@@ -705,11 +803,12 @@ def summarize(rows, names, groups, per_group: int) -> dict:
                 fr = [r for r in sel if r["frame"] == group]
                 need(len(fr) == per_group,
                      f"missing {group} timings of {k} {mode}")
-                sums = {key: _sum(fr, key) for key in GROUP_FIELDS[:-1]}
+                sums = {key: _sum(fr, key)
+                        for key in GROUP_FIELDS[:-1] + ("library_call_ms",)}
                 sums["bound_by"] = fr[0]["bound_by"]
                 out[k][mode][group] = sums
                 text.append(f"{group} " + "/".join(
-                    _g(sums[key]) for key in GROUP_FIELDS[:-1])
+                    _g(sums[key]) for key in GROUP_FIELDS[1:-1])
                     + f" ({sums['bound_by'][:3]})")
             print(f"  {k} {mode} err {e:.2e}"
                   + (f" flips {flips}" if flips is not None else "")
@@ -843,7 +942,7 @@ def check_window_kernels(torch, np) -> dict:
                 torch.cuda.synchronize()
                 need(float((lib_out - want).abs().max()) <= SVM_ATOL,
                      "torch.addmv disagrees with svm_scores_plain")
-                lib = cuda_ms(lambda: torch.addmv(bias, feats, w))
+                lib = functools.partial(torch.addmv, bias, feats, w)
             record("svm_scores", where, (B, 3780), dname, e,
                    lambda: sm.svm_scores(feats, w, bias),
                    lambda: sm.svm_scores_plain(feats, w, bias), lib,
@@ -987,7 +1086,6 @@ def check_flash(torch, np) -> dict:
 
         held(library(), fa.flash_attention_plain(q, k, v), "bf16",
              f"{where}: the library call vs plain")
-        lib_ms = cuda_ms(library)
         nbytes = 2 * B * S * (2 * H + 2 * K) * hd
         ops = 4 * B * H * hd * S * (S + 1) // 2
         for r, e_r, fn in (("sm90", e, fa.launch_sm90),
@@ -995,7 +1093,7 @@ def check_flash(torch, np) -> dict:
             rows.append(timed_row(
                 torch, "flash_attention", where, (B, H, K, S, hd), r, e_r,
                 lambda fn=fn: fn(q, k, v),
-                lambda: fa.flash_attention_plain(q, k, v), lib_ms,
+                lambda: fa.flash_attention_plain(q, k, v), library,
                 nbytes, ops / BF16_FLOPS, "flash_attention_kernel"))
     print(f"  flash_attention full width, (B, S, H, hd) strides, max err "
           f"vs plain (tol f32 1e-5, bf16 3e-2, + the same x |want|) and "
@@ -1612,8 +1710,9 @@ def main() -> int:
         floor = kernel_device_ms(torch, lambda: one.add_(1), "")
         print("kernel checks (card vs plain version on the card; per "
               "frame, the sum of its 3 levels, or per window batch: "
-              "call/device/plain/library/bound ms; a one-element add_, the "
-              f"floor of one launch: {_fmt(floor)} device):", flush=True)
+              "device/plain/bound/library ms, library the device time of "
+              "one PyTorch call, as device; a one-element add_, the floor "
+              f"of one launch: {_fmt(floor)} device):", flush=True)
         summary = check_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
         summary.update(check_flash(torch, np))
@@ -1642,13 +1741,12 @@ def main() -> int:
             "name": k, "route": "cuda", "source": KERNELS[k][0],
             "replaces": KERNELS[k][1],
             "launches": sum(c[k] for c in launches.values()),
-            "launches_by_path": {p: c[k] for p, c in launches.items()
-                                 if k in PATH_KERNELS[p]},
             "max_abs_err": _r(summary[k]["max_abs_err"]),
             "main_mode": MAIN_MODE[k],
             **{key: _r(main[key]) for key in ("ms", "device_ms",
                                               "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")},
+                                              "bound_by", "library_ms",
+                                              "library_call_ms")},
             "main_group": MAIN_GROUP[k],
             "modes": {m: compact_mode(v, MAIN_GROUP[k], m == MAIN_MODE[k])
                       for m, v in summary[k].items()

@@ -5,73 +5,73 @@
 // an MXU dot over M tiles with the whole (K, N) weight tile resident.
 // In the detector K = 36 (one block descriptor) and N = 105 (window
 // offsets); M is the scene's block count, 4524 / 2852 / 1813 at the
-// three 640x480 pyramid levels.
+// three 640x480 pyramid levels, 14220 / 9072 / 5757 at 1280x720.
 //
-// Design: each thread block stages the whole (K, N) weight tile (15 KB
-// in f32) and a TM-row slab of the input in shared memory, converted to
-// f32, then its threads walk the TM x N outputs in row-major order, so
-// consecutive threads write consecutive addresses. Each output is a
-// K-step fmaf chain. Products of bf16 values are exact in f32, so the
-// bf16 path differs from an f32 matmul of the upcast inputs only in the
-// summation order.
+// Bound on the H100: bytes. A 640x480 frame's 9,189 rows read 1.32 MB
+// and write 3.86 MB of f32 (1.56 us at 3.35 TB/s; bf16 reads half);
+// 2*M*K*N = 34 MFLOP at the largest level is 0.5 us on the FP32 lanes.
+// Each level is one launch, and one launch's floor is about 1.1 us, so
+// what a CTA does before and around its arithmetic -- staging, barriers,
+// shared-memory traffic -- weighs as much as the arithmetic.
 //
-// Bound on the H100: 2*M*K*N = 34 MFLOP at M = 4524, 0.5 us at the 67
-// TFLOP/s f32 (CUDA-core) rate; the output (1.9 MB) takes 0.6 us at
-// 3.35 TB/s. Both are below a launch, so CUDA cores suffice and the
-// tensor cores are left for a later PR.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design (score_tile.cuh holds the body; the plan is
+// kernels/svm_matmul.py:score_plan), against what held the 32-row kernel
+// back:
+//  * Too few CTAs: every SM gets one CTA at every level (G = min(132,
+//    ceil(M/4))), each over a contiguous span of 4-row units balanced to
+//    within one unit, so the busiest SM has the fewest rows possible (36
+//    / 24 / 16 at 640x480; the 32-row tiles gave 142 / 90 / 57 CTAs, two
+//    on some SMs at level 1.0 and idle SMs at the others).
+//  * Weights restaged per CTA with 4-byte loads and converted on the way:
+//    staged once per CTA (one per SM) by 16-byte cp.async, as they are,
+//    and read in place (no conversion pass, no barrier for one).
+//  * A serial inner loop: f32 runs a 4 x 4 register micro-tile per
+//    thread, 16 independent fmaf accumulators, k = 0..35 in order (the
+//    build has --fmad=false); one 16-byte load of a row feeds 4 columns,
+//    one weight load 4 rows, consecutive threads read consecutive
+//    columns; no division per output. bf16 runs on the tensor cores
+//    (mma.sync m16n8k16, products exact in f32, f32 accumulation), each
+//    warp over a run of 8-column tiles of every 16-row block, its B
+//    fragments gathered once.
+//  * Outputs go through shared memory row-major and leave as 16-byte
+//    stores over the one contiguous span they occupy in the output (a 2-D
+//    TMA store cannot take the 420-byte row pitch); the next pass's rows
+//    are prefetched by cp.async meanwhile.
+//  * Misaligned inputs (a view at an odd offset) take the element-wise
+//    copies the wrapper selects from data_ptr() % 16.
+//
+// ptxas (sm_90a): 96 registers (f32) and 96 (bf16), no spills.
+#include "score_tile.cuh"
 
 namespace {
 
-constexpr int TM = 32;                // input rows per thread block
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(score::MAX_THREADS, 1)
 score_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    float* __restrict__ out, int M, int K, int N) {
-  extern __shared__ float smem[];
-  float* ws = smem;                   // (K, N)
-  float* xs = smem + K * N;           // (TM, K)
-  const int m0 = blockIdx.x * TM;
-  const int rows = min(TM, M - m0);
-  for (int i = threadIdx.x; i < K * N; i += THREADS) ws[i] = to_f32(w[i]);
-  for (int i = threadIdx.x; i < rows * K; i += THREADS)
-    xs[i] = to_f32(x[static_cast<long long>(m0) * K + i]);
-  __syncthreads();
-  for (int o = threadIdx.x; o < rows * N; o += THREADS) {
-    const int r = o / N, c = o % N;
-    const float* xr = xs + r * K;
-    float acc = 0.0f;
-    for (int k = 0; k < K; ++k) acc = fmaf(xr[k], ws[k * N + c], acc);
-    out[static_cast<long long>(m0 + r) * N + c] = acc;
-  }
+                    float* __restrict__ out, int M, int K, int N,
+                    int pass_units, int vec) {
+  score::run<T>(x, w, out, M, K, N, pass_units, vec);
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (x and w share it). Shared memory is
-// (K*N + TM*K) floats; the wrapper keeps it under the 48 KB static limit.
+// dtype: 0 = f32, 1 = bf16 (x and w share it). grid, pass_units, threads
+// and smem_bytes are kernels/svm_matmul.py:score_plan's; vec holds
+// score::VEC_X / VEC_W / VEC_OUT for the 16-byte-aligned operands.
 extern "C" int score_matmul_launch(const void* x, const void* w, float* out,
-                                   int M, int K, int N, int dtype,
-                                   void* stream) {
-  if (M <= 0) return 0;
-  const unsigned grid = static_cast<unsigned>((M + TM - 1) / TM);
-  const size_t smem = static_cast<size_t>(K * N + TM * K) * sizeof(float);
+                                   int M, int K, int N, int dtype, int grid,
+                                   int pass_units, int threads,
+                                   int smem_bytes, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    score_matmul_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), out, M, K, N);
-  else
-    score_matmul_kernel<float><<<grid, THREADS, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), out, M,
-        K, N);
-  return static_cast<int>(cudaGetLastError());
+    return score::launch(score_matmul_kernel<__nv_bfloat16>,
+                         static_cast<const __nv_bfloat16*>(x),
+                         static_cast<const __nv_bfloat16*>(w), out, M, K, N,
+                         grid, pass_units, threads, smem_bytes, vec, s);
+  if (dtype == 0)
+    return score::launch(score_matmul_kernel<float>,
+                         static_cast<const float*>(x),
+                         static_cast<const float*>(w), out, M, K, N, grid,
+                         pass_units, threads, smem_bytes, vec, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,6 +28,7 @@ at import: the CPU tests import every module on a machine with no nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -55,6 +56,9 @@ SOURCES = {
     "flash_attention_sm90": "flash_attention_sm90.cu",
 }
 
+#: the card the launch plans are sized for by default: an H100 SXM's SMs
+SMS = 132
+
 #: the dynamic shared memory a thread block may take without opting in
 SMEM_DEFAULT = 48 * 1024
 #: the most a thread block may take on Hopper after opting in with
@@ -67,6 +71,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, "ctypes._CFuncPtr"] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (the card's own count)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def nvcc() -> str:

@@ -41,6 +41,7 @@ import torch
 
 from ..core import numerics as N
 from . import build
+from .build import SMS
 from .dense_block_norm import (dense_block_norm_plain,
                                norm_code)
 from .dense_grad_hist import dense_grad_hist_plain
@@ -59,8 +60,6 @@ _DENSE_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 #: a CTA owns (Tile<TR, TC> in csrc/dense_fused_hog.cu:pick, which refuses
 #: others); dense_plan picks one per level
 DENSE_TILES = ((3, 6), (3, 4), (2, 4))
-#: the card the plan is sized for by default: an H100 SXM's SMs
-SMS = 132
 
 
 def dense_threads(tile: Tuple[int, int]) -> int:
@@ -173,11 +172,6 @@ def dense_plan(B: int, H: int, W: int, mode: str = "sector",
                * (p.tile[0] + 1) * (p.tile[1] + 1))
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def dense_occupancy(plan: DensePlan, mode: str) -> int:
     """CTAs of the ``mode`` kernel one SM of the current card holds at
     the plan's threads and shared memory (the card's own count)."""
@@ -230,7 +224,7 @@ def dense_fused_hog(gray: Tensor, cell: int = 8, block: int = 2,
         raise ValueError("dense_fused_hog: gray must be contiguous")
     out = torch.empty((B, ch - 1, cw - 1, 36), dtype=torch.float32,
                       device=gray.device)
-    plan = dense_plan(B, H, W, mode, _sms(gray.device.index))
+    plan = dense_plan(B, H, W, mode, build.sm_count(gray.device.index))
     build.launch("dense_fused_hog", _DENSE_ARGTYPES, gray, gray.data_ptr(),
                  out.data_ptr(), B, H, W,
                  N.norm_eps_squared(eps, _norm_flavor(mode)), mode_code(mode),

@@ -18,11 +18,18 @@ weights:
     chain's scorer. Replaces repro/kernels/svm_matmul.py:118, CUDA source
     csrc/score_matmul_int8.cu.
 
-Bound on the H100: at the largest 640x480 level (M = 4524, K = 36,
-N = 105) the work is 34 MFLOP and 2.6 MB of traffic, about 0.8 us either
-way -- below one launch. So the kernel stays on CUDA cores: each thread
-block stages the 15 KB weight tile and a 32-row input slab in shared
-memory and its threads write consecutive outputs.
+Both are one design (csrc/score_tile.cuh). Bound on the H100: bytes, most
+of them the output -- a 640x480 frame's 9,189 rows read 1.32 MB and write
+3.86 MB in f32, 1.56 us at 3.35 TB/s -- against about 1.1 us of launch
+floor per level.
+
+The launch plan (``score_plan``: grid, rows per pass, threads, shared
+memory) is computed here, once per shape, and the launcher refuses any
+other: one CTA per SM, each over a contiguous span of 4-row units
+balanced to within one unit, the weights staged once per CTA, the outputs
+written as one contiguous span of 16-byte stores. f32 multiplies on the
+CUDA cores (a 4 x 4 register micro-tile per thread, fmaf in k order),
+bf16 and int8 on the tensor cores (mma.sync).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (``svm_scores_plain``, ``score_matmul_plain``,
@@ -31,19 +38,128 @@ version (``svm_scores_plain``, ``score_matmul_plain``,
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import List, Tuple
 
 import torch
 
 from . import build
+from .build import SMS
 
 Tensor = torch.Tensor
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_K, _MAX_N = 64, 128        # (K*N + 32*K) floats stay under 48 KB
+_MAX_K, _MAX_N = 64, 128        # csrc/score_tile.cuh: MAX_K, MAX_N
+#: threads a scorer CTA may have (score::MAX_THREADS): one per 4 x 4
+#: micro-tile of a pass, so a pass holds SCORE_THREADS // ceil(N/4) units
+SCORE_THREADS = 512
+#: the vec flags (score::VEC_X, VEC_W, VEC_OUT): operands whose copies go
+#: in 16-byte chunks
+VEC_X, VEC_W, VEC_OUT = 1, 2, 4
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p)
+# x, w, out, M, K, N, then the plan's grid, pass_units, threads,
+# smem_bytes and the vec flags; the f32/bf16 kernel also takes its dtype
+# code after N
+_PLAN_ARGS = (ctypes.c_int,) * 5
+_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + _PLAN_ARGS
+             + (ctypes.c_void_p,))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScorePlan:
+    """How the scorer covers an (M, K) @ (K, N) product: rows in units of
+    4, ``units`` of them; CTA b of ``grid`` owns the contiguous units
+    [b*units // grid, (b+1)*units // grid) and walks them in passes of at
+    most ``pass_units`` (csrc/score_tile.cuh:run)."""
+    M: int
+    K: int
+    N: int
+    itemsize: int                   # bytes of an input element
+    units: int
+    grid: int
+    pass_units: int
+    threads: int
+    smem_bytes: int
+
+    @property
+    def rows(self) -> int:
+        """Rows of the busiest CTA (and SM): 4 * ceil(units / grid)."""
+        return 4 * -(-self.units // self.grid)
+
+    def span(self, b: int) -> Tuple[int, int]:
+        """Rows [r0, r1) of CTA b."""
+        u0 = b * self.units // self.grid
+        u1 = (b + 1) * self.units // self.grid
+        return 4 * u0, min(4 * u1, self.M)
+
+    def passes(self, b: int) -> List[Tuple[int, int]]:
+        """(first row, rows) of each pass of CTA b."""
+        r0, r1 = self.span(b)
+        step = 4 * self.pass_units
+        return [(r, min(step, r1 - r)) for r in range(r0, r1, step)]
+
+
+def score_smem_bytes(K: int, N: int, itemsize: int, pass_units: int) -> int:
+    """Shared memory of one scorer CTA (score::layout): the weights as
+    they are (K x N), two slabs of a pass's rows (rows of K rounded up to
+    4 input elements), the pass's (rows x N) 4-byte outputs."""
+    P = 4 * pass_units
+
+    def r16(b):
+        return -(-b // 16) * 16
+
+    return (r16(K * N * itemsize) + 2 * r16(P * -(-K // 4) * 4 * itemsize)
+            + P * N * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def score_plan(M: int, N: int, dtype: torch.dtype, sms: int = SMS,
+               K: int = 36) -> ScorePlan:
+    """The launch plan of ``score_matmul`` / ``score_matmul_int8`` for an
+    (M, K) @ (K, N) product of ``dtype`` inputs on a card of ``sms`` SMs:
+    one CTA per SM (fewer only when M has fewer 4-row units), each over a
+    span of floor or ceil(units / grid) units, so the busiest SM has the
+    fewest rows possible; passes as even as the micro-tiles a CTA's
+    SCORE_THREADS hold allow."""
+    if M < 1 or not (1 <= K <= _MAX_K and 1 <= N <= _MAX_N):
+        raise ValueError(f"no scorer plan for M={M}, K={K}, N={N}")
+    itemsize = dtype.itemsize
+    units = -(-M // 4)
+    grid = min(sms, units)
+    if units * grid >= 2 ** 31:        # the kernel's span arithmetic is int
+        raise ValueError(f"no scorer plan for M={M} on {sms} SMs")
+    most = -(-units // grid)                # units of the busiest CTA
+    ng = -(-N // 4)
+    npass = -(-most // (SCORE_THREADS // ng))
+    pass_units = -(-most // npass)
+    return ScorePlan(M, K, N, itemsize, units, grid, pass_units,
+                     -(-pass_units * ng // 32) * 32,
+                     score_smem_bytes(K, N, itemsize, pass_units))
+
+
+def vec_flags(x: Tensor, w: Tensor, out: Tensor) -> int:
+    """The operands the kernel may copy in 16-byte chunks: x when its
+    base is 16-byte aligned and its rows hold a multiple of 4 elements
+    (then every 4-row unit starts aligned and the staged rows need no
+    padding), w and out when their base is aligned; the others go element
+    by element."""
+    return ((VEC_X if x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0
+             else 0)
+            | (VEC_W if w.data_ptr() % 16 == 0 else 0)
+            | (VEC_OUT if out.data_ptr() % 16 == 0 else 0))
+
+
+def _launch_scorer(name: str, argtypes, x: Tensor, w: Tensor, out: Tensor,
+                   *extra) -> None:
+    """Launch ``name`` on the plan of its shape and the card's SMs."""
+    M, K = x.shape
+    N = w.shape[1]
+    plan = score_plan(M, N, x.dtype, build.sm_count(x.device.index), K)
+    build.launch(name, argtypes, x, x.data_ptr(), w.data_ptr(),
+                 out.data_ptr(), M, K, N, *extra, plan.grid,
+                 plan.pass_units, plan.threads, plan.smem_bytes,
+                 vec_flags(x, w, out))
 
 
 def score_matmul_plain(flat: Tensor, wt: Tensor) -> Tensor:
@@ -72,9 +188,10 @@ def score_matmul(flat: Tensor, wt: Tensor) -> Tensor:
     if not (flat.is_contiguous() and wt.is_contiguous()):
         raise ValueError("score_matmul: inputs must be contiguous")
     out = torch.empty((M, N), dtype=torch.float32, device=flat.device)
-    build.launch("score_matmul", _ARGTYPES, flat, flat.data_ptr(),
-                 wt.data_ptr(), out.data_ptr(), M, K, N,
-                 _DTYPE_CODES[flat.dtype])
+    if M == 0:
+        return out
+    _launch_scorer("score_matmul", _ARGTYPES, flat, wt, out,
+                   _DTYPE_CODES[flat.dtype])
     score_matmul.launches += 1
     return out
 
@@ -90,8 +207,8 @@ def _check_pair(name: str, flat: Tensor, wt: Tensor) -> None:
         raise ValueError(f"{name} inputs on {flat.device} and {wt.device}")
 
 
-_ARGTYPES_I8 = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES_I8 = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + _PLAN_ARGS
+                + (ctypes.c_void_p,))
 
 
 def score_matmul_int8_plain(q: Tensor, wq: Tensor) -> Tensor:
@@ -123,8 +240,9 @@ def score_matmul_int8(q: Tensor, wq: Tensor) -> Tensor:
     if not (q.is_contiguous() and wq.is_contiguous()):
         raise ValueError("score_matmul_int8: inputs must be contiguous")
     out = torch.empty((M, N), dtype=torch.int32, device=q.device)
-    build.launch("score_matmul_int8", _ARGTYPES_I8, q, q.data_ptr(),
-                 wq.data_ptr(), out.data_ptr(), M, K, N)
+    if M == 0:
+        return out
+    _launch_scorer("score_matmul_int8", _ARGTYPES_I8, q, wq, out)
     score_matmul_int8.launches += 1
     return out
 
