@@ -8,7 +8,8 @@ Phases, each of which exits non-zero on failure:
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, in
      parallel) and print the build time, ptxas's registers (failing on
-     any spill), and the HGMMA and UTMALDG count of flash_attention_sm90's
+     any spill; the spill bytes of dense_grad_hist and dense_block_norm
+     printed), and the HGMMA and UTMALDG count of flash_attention_sm90's
      SASS (failing on a zero there);
   3. hold each dense kernel against its plain PyTorch version on the
      card, at the detector's shapes (all three pyramid levels of 640x480
@@ -17,11 +18,14 @@ Phases, each of which exits non-zero on failure:
      blocks within one int8 code step with rare flips -- and time
      kernel, plain version and, where one exists, the library call (its
      device time, as the kernel's); one line per kernel and mode, under
-     the device time of a one-element add_ (one launch's floor); then
-     dense_fused_hog level by level: its device time beside the
-     two-kernel pair's, its difference from the pair, and its launch
-     plan's CTAs, resident warps per SM (failing under 132 CTAs on a
-     640x480 level or 16 warps on the largest) and recomputed cells; then
+     the device time of a one-element add_ (one launch's floor);
+     dense_block_norm(dense_grad_hist(g)) must equal dense_fused_hog(g)
+     bit for bit in every mode at every shape; then the pair level by
+     level (each kernel's device time, its launch plan's tile, CTAs and
+     resident warps per SM, failing under 132 CTAs on a 640x480 level)
+     and dense_fused_hog level by level (device time, tile, CTAs, warps
+     per SM, failing under 132 CTAs on a 640x480 level or 16 warps on the
+     largest, and recomputed cells); then
      each scorer dtype level by level (device us beside the library
      call's, CTAs, rows of the busiest CTA), and the scorers at the
      plan's and the copies' edges (M = 1, 3, 5, 131, 133, operands at odd
@@ -490,7 +494,6 @@ def check_kernels(torch, np) -> dict:
     wq, _ = quant.quantize_weight_columns(wt32)
     wq = wq.contiguous()
     refusals = set()
-    pair_diff = {}
     for where, shape in shapes:
         B, H, W = shape
         ch, cw = (H - 2) // 8, (W - 2) // 8
@@ -549,8 +552,10 @@ def check_kernels(torch, np) -> dict:
                                         mode=norm)
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
-            pair_diff[mode] = max(pair_diff.get(mode, 0.0),
-                                  float((got - pair).abs().max()))
+            # the same summation order: the pair is the fused kernel's
+            # output bit for bit
+            need(torch.equal(got, pair), f"dense_fused_hog {mode} {shape}: "
+                 f"max |fused - pair| {float((got - pair).abs().max())}")
             flips = None
             fused[mode] = want
             if mode == "fixed":
@@ -602,49 +607,97 @@ def check_kernels(torch, np) -> dict:
                M * 36 + 36 * 105 + 4 * M * 105, 2 * M * 36 * 105 / INT8_OPS,
                "score_matmul_int8_kernel")
     out = summarize(rows, DENSE_KERNELS, ("640x480", "1280x720"), 3)
-    fused_levels(torch, rows, shapes, pair_diff)
+    pair_levels(torch, rows, shapes)
+    fused_levels(torch, rows, shapes)
     score_levels(torch, rows, shapes)
     check_scorer_edges(torch, np)
     return out
 
 
-def fused_levels(torch, rows, shapes, pair_diff) -> None:
-    """dense_fused_hog level by level: its device time beside the
-    two-kernel pair's (dense_grad_hist + dense_block_norm on the same gray,
-    timed in this call), and its plan's tile, CTAs, resident warps per SM
-    (the smaller of the card's occupancy and the grid's CTAs per SM, times
-    the warps of a CTA) and recomputed cells. Fails at 640x480 below 132 CTAs on any level or
-    16 resident warps per SM on the largest."""
+def _dev_us(rows, kernel, mode, shape) -> str:
+    """A kernel's device us at one shape and mode from the timed rows (-
+    where the profiler saw nothing)."""
+    ms = next(r["device_ms"] for r in rows if r["kernel"] == kernel
+              and r["mode"] == mode and r["shape"] == list(shape))
+    return "-" if ms is None else f"{ms * 1e3:.2f}"
+
+
+def _by_group(shapes, fmt) -> str:
+    """fmt(shape) for each shape, a space between levels, " | " between
+    groups (frame sizes)."""
+    return " | ".join(" ".join(fmt(s) for w, s in shapes if w == g)
+                      for g in dict.fromkeys(w for w, _ in shapes))
+
+
+def pair_levels(torch, rows, shapes) -> None:
+    """dense_grad_hist and dense_block_norm level by level: each one's
+    device us, its plan's tile and CTAs (kernels/dense_grad_hist.py:
+    dense_grad_hist_plan, kernels/dense_block_norm.py:dense_block_norm_plan)
+    and resident warps per SM (the smaller of the card's occupancy and the
+    grid's CTAs per SM, times the warps of a CTA; frame sizes only). Fails
+    under 132 CTAs on a 640x480 level."""
+    import repro_torch.kernels.dense_block_norm as dbn
+    import repro_torch.kernels.dense_grad_hist as dgh
+    import repro_torch.kernels.tile_plan as tp
+    from repro_torch.kernels.mag_bin import mode_code
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def plans(mode, norm, s):
+        B, H, W = s
+        return (dgh.dense_grad_hist_plan(B, H, W, mode, sms),
+                dbn.dense_block_norm_plan(B, (H - 2) // 8, (W - 2) // 8,
+                                          norm, sms))
+
+    sector = {s: plans("sector", "rsqrt", s) for _, s in shapes}
+    print(f"  dense pair plans ({sms} SMs), tile:CTAs per level ("
+          + " | ".join(dict.fromkeys(w for w, _ in shapes))
+          + "): dense_grad_hist " + _by_group(shapes, lambda s: "{}x{}:{}"
+                                              .format(*sector[s][0].tile,
+                                                      sector[s][0].ctas))
+          + "; dense_block_norm " + _by_group(shapes, lambda s: "{}x{}:{}"
+                                              .format(*sector[s][1].tile,
+                                                      sector[s][1].ctas))
+          + "; the pair equals dense_fused_hog bit for bit at every mode "
+          "and shape; below: device us, warps/SM, grad_hist/block_norm",
+          flush=True)
+    frames = [(w, s) for w, s in shapes if w != "ragged"]
+    for mode, norm in MODE_NORMS.items():
+        ps = {s: plans(mode, norm, s) for _, s in shapes}
+        for i, (w, s) in enumerate(shapes[:3]):
+            for kernel, p in zip(("dense_grad_hist", "dense_block_norm"),
+                                 ps[s]):
+                need(p.ctas >= 132, f"{kernel} {w} level {i}: {p.ctas} CTAs")
+        warps = {s: (ps[s][0].resident_warps(tp.occupancy(
+            "dense_grad_hist", mode_code(mode), ps[s][0]), sms),
+                     ps[s][1].resident_warps(tp.occupancy(
+                         "dense_block_norm", dbn.norm_code(norm), ps[s][1]),
+                         sms)) for _, s in frames}
+        print(f"  dense pair {mode}/{norm}: " + _by_group(
+            shapes, lambda s: _dev_us(rows, "dense_grad_hist", mode, s) + "/"
+            + _dev_us(rows, "dense_block_norm", norm, s)) + "; "
+            + _by_group(frames, lambda s: "{:.1f}/{:.1f}".format(*warps[s])),
+            flush=True)
+
+
+def fused_levels(torch, rows, shapes) -> None:
+    """dense_fused_hog level by level: its device time, and its plan's
+    tile, CTAs, resident warps per SM (as pair_levels) and recomputed
+    cells. Fails at 640x480 below 132 CTAs on any level or 16 resident
+    warps per SM on the largest."""
     import repro_torch.kernels.fused_hog as fh
-
-    def dev(kernel, mode, shape):
-        return next(r["device_ms"] for r in rows if r["kernel"] == kernel
-                    and r["mode"] == mode and r["shape"] == list(shape))
-
-    def by_group(fmt):
-        return " | ".join(" ".join(fmt(s) for w, s in shapes if w == g)
-                          for g in dict.fromkeys(w for w, _ in shapes))
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {(m, s): fh.dense_plan(*s, m, sms=sms) for m in MODE_NORMS
              for _, s in shapes}
     sector = {s: plans["sector", s] for _, s in shapes}
-    print(f"  dense_fused_hog plan ({sms} SMs), per level ("
-          + " | ".join(dict.fromkeys(w for w, _ in shapes)) + "): tile "
-          + by_group(lambda s: "{}x{}".format(*sector[s].tile))
-          + "; threads " + by_group(lambda s: str(sector[s].threads))
-          + "; CTAs " + by_group(lambda s: str(sector[s].ctas))
-          + "; recompute " + by_group(lambda s: f"{sector[s].recompute():.2f}")
-          + "; below: device us fused/pair, warps/SM",
-          flush=True)
-    for mode, norm in MODE_NORMS.items():
-        def speed(s):
-            f = dev("dense_fused_hog", mode, s)
-            pr = (dev("dense_grad_hist", mode, s),
-                  dev("dense_block_norm", norm, s))
-            pair = None if None in pr else sum(pr)
-            return "/".join("-" if x is None else f"{x * 1e3:.2f}"
-                            for x in (f, pair))
+    print(f"  dense_fused_hog plan ({sms} SMs), per level: tile "
+          + _by_group(shapes, lambda s: "{}x{}".format(*sector[s].tile))
+          + "; CTAs " + _by_group(shapes, lambda s: str(sector[s].ctas))
+          + "; recompute "
+          + _by_group(shapes, lambda s: f"{sector[s].recompute():.2f}")
+          + "; below: device us, warps/SM", flush=True)
+    for mode in MODE_NORMS:
         warps = {s: plans[mode, s].resident_warps(
             fh.dense_occupancy(plans[mode, s], mode), sms) for _, s in shapes}
         for i, (w, s) in enumerate(shapes[:3]):
@@ -652,9 +705,10 @@ def fused_levels(torch, rows, shapes, pair_diff) -> None:
                                              f"{i}: {plans[mode, s].ctas} CTAs")
         need(warps[shapes[0][1]] >= 16, f"dense_fused_hog {mode} "
              f"{shapes[0][0]} level 0: {warps[shapes[0][1]]:.1f} warps/SM")
-        print(f"  dense_fused_hog {mode}: " + by_group(speed) + "; "
-              + by_group(lambda s: f"{warps[s]:.1f}")
-              + f"; max |fused - pair| {pair_diff[mode]:.2e}", flush=True)
+        print(f"  dense_fused_hog {mode}: " + _by_group(
+            shapes, lambda s: _dev_us(rows, "dense_fused_hog", mode, s))
+            + "; " + _by_group(shapes, lambda s: f"{warps[s]:.1f}"),
+            flush=True)
 
 
 def score_levels(torch, rows, shapes) -> None:
@@ -812,7 +866,7 @@ def summarize(rows, names, groups, per_group: int) -> dict:
                     + f" ({sums['bound_by'][:3]})")
             print(f"  {k} {mode} err {e:.2e}"
                   + (f" flips {flips}" if flips is not None else "")
-                  + f" ({len(sel)} shapes) " + "; ".join(text), flush=True)
+                  + " " + "; ".join(text), flush=True)
     return out
 
 
@@ -1096,8 +1150,8 @@ def check_flash(torch, np) -> dict:
                 lambda: fa.flash_attention_plain(q, k, v), library,
                 nbytes, ops / BF16_FLOPS, "flash_attention_kernel"))
     print(f"  flash_attention full width, (B, S, H, hd) strides, max err "
-          f"vs plain (tol f32 1e-5, bf16 3e-2, + the same x |want|) and "
-          f"share of the limit 2^-7|want| + 2e-3 vs flash_bf16_matched: "
+          f"vs plain (tol f32 1e-5, bf16 3e-2, each + tol x |want|), "
+          f"matched: share of 2^-7|want| + 2e-3 vs flash_bf16_matched: "
           + "; ".join(full), flush=True)
     out = summarize(rows, ("flash_attention",),
                     [g for g, _, _ in LM_BATCHES], 1)
@@ -1162,8 +1216,8 @@ def main_path(torch, np) -> dict:
             deltas.append(f"{de:.2e}")
             if dt == "int8":
                 rints.append(str(rint_flips(torch, sess, cpu[name], f)))
-        flips = (f"; resized gray pixels that round otherwise than on the "
-                 f"CPU: {'/'.join(rints)}" if rints else "")
+        flips = (f"; resized gray pixels rounded unlike the CPU's: "
+                 f"{'/'.join(rints)}" if rints else "")
         print(f"  {name} {hw[1]}x{hw[0]}, {len(dets)} frames: "
               f"{'/'.join(kept)} boxes kept, same as CPU; max score delta "
               f"{'/'.join(deltas)} (tol {SCORE_TOL[dt]:g}){flips}",
@@ -1186,7 +1240,7 @@ def main_path(torch, np) -> dict:
             ms = total[name] * 1e3 / (TIMING_REPS * len(fs))
             per_frame[f"{name} {hw[1]}x{hw[0]}"] = ms
         print(f"  ms/frame {hw[1]}x{hw[0]} (detect + synchronize, host "
-              f"clock, configurations in turns): " + ", ".join(
+              f"clock, in turns): " + ", ".join(
                   f"{n} {per_frame[f'{n} {hw[1]}x{hw[0]}']:.3f}"
                   for n in names), flush=True)
 
@@ -1206,10 +1260,10 @@ def main_path(torch, np) -> dict:
         for name in ("perf", "quant", "quant+kernel"):
             prof = frame_profile(torch, gpu[name], frames[(h, w)][0])
             ms = per_frame[f"{name} {key}"]
-            print(f"  profile {key} ({name}): launches/frame "
+            print(f"  profile {key} {name}: launches/frame "
                   f"{prof['device_launches_per_frame']:.0f}, busy ms "
                   f"{prof['device_busy_ms']:.4f}, ms/frame {ms:.4f}, "
-                  f"idle share {1 - prof['device_busy_ms'] / ms:.4f}",
+                  f"idle {1 - prof['device_busy_ms'] / ms:.4f}",
                   flush=True)
     return launches
 
@@ -1329,7 +1383,7 @@ def window_path(torch, np) -> dict:
              f"{name}: human differs from the CPU where |score| > {tol}")
         print(f"  {name}: 294 split windows, max score delta vs CPU "
               f"{de:.2e} (tol {tol:g}), human same as CPU on "
-              f"{int(sure.sum())} windows with |score| > tol, "
+              f"{int(sure.sum())} with |score| > tol, "
               f"{int(got['human'].sum())} humans", flush=True)
 
     # numpy windows without a device go to the card
@@ -1632,6 +1686,18 @@ def ptxas_report(name: str, log) -> str:
         f" ({'; '.join(spills)})" if spills else "")
 
 
+def spill_bytes(log):
+    """Bytes of spill stores and spill loads over every function in one
+    kernel source's ptxas report."""
+    st = ld = 0
+    for ln in log.read_text().splitlines():
+        if "bytes spill stores" in ln:
+            parts = ln.split(",")
+            st += int(next(p for p in parts if "spill stores" in p).split()[0])
+            ld += int(next(p for p in parts if "spill loads" in p).split()[0])
+    return st, ld
+
+
 def sm90_report(build) -> None:
     """flash_attention_sm90 must run on the tensor cores through TMA with
     no spills: count HGMMA and UTMALDG in its SASS (cuobjdump) and read
@@ -1701,18 +1767,23 @@ def main() -> int:
               f"{max(took.values(), default=0):.1f} s)", flush=True)
         reports = [ptxas_report(n, build.library_path(n).with_suffix(".log"))
                    for n in build.SOURCES]
+        pair = {n: spill_bytes(build.library_path(n).with_suffix(".log"))
+                for n in ("dense_grad_hist", "dense_block_norm")}
         print("ptxas registers per instantiation (no spills): "
-              + ", ".join(reports), flush=True)
-        need(not any("spill" in r for r in reports), "ptxas spilled")
+              + ", ".join(reports) + "; spill stores/loads, bytes: "
+              + ", ".join(f"{n} {st}/{ld}" for n, (st, ld) in pair.items()),
+              flush=True)
+        need(not any("spill" in r for r in reports)
+             and not any(sum(v) for v in pair.values()), "ptxas spilled")
         sm90_report(build)
 
         one = torch.zeros(1, device=DEV)
         floor = kernel_device_ms(torch, lambda: one.add_(1), "")
-        print("kernel checks (card vs plain version on the card; per "
-              "frame, the sum of its 3 levels, or per window batch: "
-              "device/plain/bound/library ms, library the device time of "
-              "one PyTorch call, as device; a one-element add_, the floor "
-              f"of one launch: {_fmt(floor)} device):", flush=True)
+        print("kernel checks vs the plain versions on the card (err: the "
+              "worst at any shape), per frame (3 levels) or window batch: "
+              "device/plain/bound/library ms "
+              "(library: one PyTorch call's device time); one launch's "
+              f"floor (a 1-element add_): {_fmt(floor)}", flush=True)
         summary = check_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
         summary.update(check_flash(torch, np))

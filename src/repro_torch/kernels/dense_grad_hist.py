@@ -6,12 +6,13 @@ gray in, int32 sums stored as int16).
 Replaces the TPU kernel repro/kernels/dense_grad_hist.py:62
 (``dense_grad_hist``), CUDA source csrc/dense_grad_hist.cu.
 
-Bound on the H100: memory, and at the detector's sizes not even that --
-a 640x480 level moves 1.4 MB (under half a microsecond at 3.35 TB/s), so
-one launch's overhead dominates. The kernel gives every cell 8 lanes,
-one per pixel row, reads the 10x10 gray patch straight from global
-memory (the TPU kernel's row-shifted halo views become overlapping reads
-through the cache) and sums the 8 partial histograms with warp shuffles.
+Bound on the H100: a 640x480 level moves 1.4 MB (under half a
+microsecond at 3.35 TB/s), and the fixed mode's int32 CORDIC takes the
+INT32 lanes about 2 us at the largest level, so one launch's overhead
+weighs as much as the work. A CTA owns a tile of TR x TC cells (``GRAD_HIST_TILES``,
+chosen per level by ``dense_grad_hist_plan``), stages its gray with the
+1-px halo in shared memory, gives every cell 16 threads of 4 pixels and
+stores each tile row of histograms in consecutive values.
 
 ``dense_grad_hist`` launches the kernel for a CUDA tensor and runs the
 plain version ``dense_grad_hist_plain`` for a CPU tensor; nothing else.
@@ -19,17 +20,64 @@ plain version ``dense_grad_hist_plain`` for a CPU tensor; nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from ..core.hog import HOGConfig, cell_histograms, gradients
 from . import build
+from .build import SMS
 from .mag_bin import mag_bin_impl, mode_code
+from .tile_plan import TilePlan, pick_plan, plan_at
 
 Tensor = torch.Tensor
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+# gray, hist, B, H, W, mode, then the plan's grid_x, grid_y, tile_rows,
+# tile_cols, threads and smem_bytes, and the stream
+_ARGTYPES = ((ctypes.c_void_p, ctypes.c_void_p) + (ctypes.c_int,) * 10
+             + (ctypes.c_void_p,))
+
+#: the tiles the kernel is compiled for, cell rows x cell columns a CTA
+#: owns (Tile<TR, TC> in csrc/dense_grad_hist.cu:pick, which refuses
+#: others); dense_grad_hist_plan picks one per level
+GRAD_HIST_TILES = ((2, 4), (2, 8))
+
+
+def grad_hist_threads(tile: Tuple[int, int]) -> int:
+    """Threads of a CTA (Tile::THREADS): 16 a cell, 4 pixels each."""
+    return 16 * tile[0] * tile[1]
+
+
+def grad_hist_gray_pitch(tile: Tuple[int, int]) -> int:
+    """Row pitch of a CTA's staged gray in floats (Tile::GP): the
+    TC*8 + 2 columns, made odd against bank conflicts."""
+    return (tile[1] * 8 + 2) | 1
+
+
+def grad_hist_smem_bytes(mode: str, tile: Tuple[int, int]) -> int:
+    """Shared memory of one CTA (csrc/dense_grad_hist.cu's Smem): the
+    partial sums (per cell 8 rows of 9 f32 bins; fixed, 9 int32; whole
+    int4), then the gray of TR x TC cells with the 1-px halo."""
+    tr, tc = tile
+    part = -(-tr * tc * 9 * (1 if mode == "fixed" else 8) // 4) * 4
+    return 4 * (part + (tr * 8 + 2) * grad_hist_gray_pitch(tile))
+
+
+@functools.lru_cache(maxsize=None)
+def dense_grad_hist_plan(B: int, H: int, W: int, mode: str = "sector",
+                         sms: int = SMS) -> TilePlan:
+    """The launch plan of ``dense_grad_hist`` for a (B, H, W) gray on a
+    card of ``sms`` SMs: of GRAD_HIST_TILES, the tile that gives every SM
+    a CTA and the fewest cells to the busiest SM (tile_plan.pick_plan).
+    CTA (tx, ty) computes the cells ``plan.units(tx, ty)``, from gray rows
+    8 r0 .. 8 r1 + 1 and columns 8 c0 .. 8 c1 + 1."""
+    ch, cw = (H - 2) // 8, (W - 2) // 8
+    if ch < 1 or cw < 1:
+        raise ValueError(f"scene ({B}, {H}, {W}) holds no whole cell")
+    return pick_plan([plan_at(t, B, ch, cw, grad_hist_threads(t),
+                              grad_hist_smem_bytes(mode, t))
+                      for t in GRAD_HIST_TILES], sms)
 
 
 def _geometry(gray: Tensor, cell: int):
@@ -71,8 +119,11 @@ def dense_grad_hist(gray: Tensor, cell: int = 8, bins: int = 9,
     out = torch.empty((B, ch, cw, bins),
                       dtype=torch.int16 if mode == "fixed" else torch.float32,
                       device=gray.device)
+    plan = dense_grad_hist_plan(B, gray.shape[1], gray.shape[2], mode,
+                                build.sm_count(gray.device.index))
     build.launch("dense_grad_hist", _ARGTYPES, gray, gray.data_ptr(),
-                 out.data_ptr(), B, gray.shape[1], gray.shape[2], code)
+                 out.data_ptr(), B, gray.shape[1], gray.shape[2], code,
+                 *plan.grid[:2], *plan.tile, plan.threads, plan.smem_bytes)
     dense_grad_hist.launches += 1
     return out
 
