@@ -7,8 +7,9 @@ Phases, each of which exits non-zero on failure:
 
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from csrc/ (one nvcc per source, in
-     parallel) and print the build time, ptxas's registers (failing on
-     any spill; the spill bytes of dense_grad_hist and dense_block_norm
+     parallel) and print the build time, ptxas's registers, fewest and
+     most per source (failing on any spill; the spill bytes of
+     dense_grad_hist, dense_block_norm, hog_gradient and fused_hog
      printed), and the HGMMA and UTMALDG count of flash_attention_sm90's
      SASS (failing on a zero there);
   3. hold each dense kernel against its plain PyTorch version on the
@@ -35,6 +36,13 @@ Phases, each of which exits non-zero on failure:
      window_batch), 512 (the timing bench's chunk) and a ragged 11
      windows of 130x66, in every mode: bins, integer magnitudes and
      int16 histograms exact, fixed blocks within one int8 code step;
+     fused_hog(g) must equal dense_fused_hog(g).reshape(B, -1) bit for
+     bit in every mode at every B; then the window plans of
+     hog_gradient and fused_hog per B (band, CTAs, recompute; failing
+     under 132 CTAs at B >= 64), every compiled band of each held to the
+     same output at B = 11, and per kernel and mode the device time at
+     B = 64, 512 and 5,949 with the B = 5,949 bound and resident warps
+     per SM;
   4. drive the dense path -- DetectionSession.detect on the card for the
      paper preset with the "kernel" backend, the perf preset, and the
      quant preset with its "fused" backend and with "kernel", on seeded
@@ -864,9 +872,14 @@ def summarize(rows, names, groups, per_group: int) -> dict:
                 text.append(f"{group} " + "/".join(
                     _g(sums[key]) for key in GROUP_FIELDS[1:-1])
                     + f" ({sums['bound_by'][:3]})")
+            by = {out[k][mode][g]["bound_by"] for g in groups}
+            if len(by) == 1:             # one bound for every group: once
+                text = [t.rsplit(" (", 1)[0] for t in text]
             print(f"  {k} {mode} err {e:.2e}"
                   + (f" flips {flips}" if flips is not None else "")
-                  + " " + "; ".join(text), flush=True)
+                  + " " + "; ".join(text)
+                  + (f" ({by.pop()[:3]})" if len(by) == 1 else ""),
+                  flush=True)
     return out
 
 
@@ -975,6 +988,10 @@ def check_window_kernels(torch, np) -> dict:
                      f"fused_hog fixed B={B}: {flips} code flips")
             else:
                 need(e <= BLOCK_ATOL, f"fused_hog {tag}: {e}")
+            dense = fh.dense_fused_hog(gray, mode=mode).reshape(B, -1)
+            torch.cuda.synchronize()
+            need(torch.equal(got, dense), f"fused_hog {tag}: not "
+                 "dense_fused_hog(g).reshape(B, -1) bit for bit")
             descs[mode] = want
             record("fused_hog", where, shape, mode, e,
                    lambda: fh.fused_hog(gray, mode=mode),
@@ -1003,7 +1020,86 @@ def check_window_kernels(torch, np) -> dict:
                    feats.element_size() * feats.numel() + 4 * 3780 + 4
                    + 4 * B, 2 * B * 3780 / F32_NOFMA_OPS,
                    "svm_scores_kernel")
-    return summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1)
+    out = summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1)
+    window_plans(torch, np, rows)
+    return out
+
+
+def window_plans(torch, np, rows) -> None:
+    """hog_gradient and fused_hog by batch: each launch plan's band (R
+    output rows, k block rows), CTAs, resident warps per SM (as
+    pair_levels, per mode) and recompute ratio (kernels/hog_gradient.py:
+    hog_gradient_plan, kernels/fused_hog.py:window_plan); then per kernel
+    and mode the device us at B 64, 512 and 5,949 (that last timed only,
+    beside its bound). Fails under 132 CTAs at B >= 64."""
+    import repro_torch.kernels.fused_hog as fh
+    import repro_torch.kernels.hog_gradient as hg
+    import repro_torch.kernels.tile_plan as tp
+    from repro_torch.kernels.mag_bin import mode_code
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sizes = [B for _, B in sorted(WINDOW_BATCHES, key=lambda x: x[1])]
+    sizes.append(N_FRAME_WINDOWS)
+    plans = {("hog_gradient", m, B): hg.hog_gradient_plan(B, 130, 66, sms)
+             for m in MODE_NORMS for B in sizes}
+    plans.update({("fused_hog", m, B): fh.window_plan(B, 130, 66, m, sms)
+                  for m in MODE_NORMS for B in sizes})
+    for (k, m, B), p in plans.items():
+        need(B < 64 or p.ctas >= sms, f"{k} {m} B={B}: {p.ctas} CTAs")
+    print(f"  window plans ({sms} SMs), band:CTAs:recompute at B "
+          + "/".join(map(str, sizes)) + ": " + "; ".join(
+              k + " " + " ".join("{}:{}:{:.3g}".format(
+                  p.band, p.ctas, p.recompute())
+                  for p in (plans[k, "sector", B] for B in sizes))
+              for k in ("hog_gradient", "fused_hog"))
+          + "; fused_hog == dense_fused_hog(g).reshape(B, -1) at B 64/512/"
+          "11, every band at B 11; below: us B64/B512/B5949, B5949 bound, "
+          "warps/SM per B", flush=True)
+    # every compiled band, not only the plans' picks: hog_gradient's equal
+    # to the wrapper's output, fused_hog's to dense_fused_hog's, at B 11
+    rng = np.random.default_rng(4)
+    for mode in MODE_NORMS:
+        g = rng.uniform(0, 255, (11, 130, 66))
+        g = torch.from_numpy((np.rint(g) if mode == "fixed" else g)
+                             .astype(np.float32)).to(DEV)
+        want_g = hg.hog_gradient(g, mode)
+        want_f = fh.dense_fused_hog(g, mode=mode).reshape(11, -1)
+        for r in hg.GRADIENT_BANDS:
+            got = hg._launch(g, mode, hg.gradient_plan_at(r, 11, 130))
+            need(all(map(torch.equal, got, want_g)),
+                 f"hog_gradient {mode} band {r}: not the wrapper's output")
+        for k in fh.WINDOW_BANDS:
+            got = fh._window_launch(g, 1e-2, mode, fh.window_plan_at(k, 11,
+                                                                     130))
+            need(torch.equal(got, want_f),
+                 f"fused_hog {mode} band {k}: not dense_fused_hog's")
+    shape = (N_FRAME_WINDOWS, 130, 66)
+    grays = {"float": torch.from_numpy(
+        rng.uniform(0, 255, shape).astype(np.float32)).to(DEV),
+             "fixed": torch.from_numpy(
+        rng.integers(0, 256, shape).astype(np.float32)).to(DEV)}
+    pixels = N_FRAME_WINDOWS * 128 * 64
+    for kernel in ("hog_gradient", "fused_hog"):
+        for mode, norm in MODE_NORMS.items():
+            gray = grays["fixed" if mode == "fixed" else "float"]
+            if kernel == "hog_gradient":
+                fn = functools.partial(hg.hog_gradient, gray, mode)
+                nbytes = 4 * gray.numel() + 8 * pixels
+                op_s = hog_op_s(mode, pixels, hist=False)
+            else:
+                fn = functools.partial(fh.fused_hog, gray, mode=mode)
+                nbytes = 4 * gray.numel() + 4 * N_FRAME_WINDOWS * 3780
+                op_s = hog_op_s(mode, pixels, N_FRAME_WINDOWS * 105, norm)
+            big = kernel_device_ms(torch, fn, f"{kernel}_kernel", reps=10)
+            dev = [_dev_us(rows, kernel, mode, (B, 130, 66))
+                   for B in (64, 512)]
+            warps = [plans[kernel, mode, B].resident_warps(tp.occupancy(
+                kernel, mode_code(mode), plans[kernel, mode, B]), sms)
+                     for B in sizes]
+            print(f"  {kernel} {mode}: " + "/".join(dev) + "/"
+                  + ("-" if big is None else f"{big * 1e3:.2f}")
+                  + f" us, B5949 bound {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
+                  + "; " + " ".join(f"{w:.1f}" for w in warps), flush=True)
 
 
 def flash_bf16_matched(torch, q, k, v, block_k=64, causal=True):
@@ -1675,15 +1771,16 @@ def _faults(rel) -> str:
 
 
 def ptxas_report(name: str, log) -> str:
-    """ptxas's register count of each instantiation of one kernel
-    source, and any spill."""
+    """ptxas's registers of one kernel source, the fewest and most over
+    its instantiations, and any spill."""
     lines = log.read_text().splitlines() if log.exists() else []
-    regs = [ln.split("Used ")[1].split(" registers")[0] for ln in lines
+    regs = [int(ln.split("Used ")[1].split(" registers")[0]) for ln in lines
             if "Used " in ln and " registers" in ln]
     spills = [ln.strip() for ln in lines if "spill" in ln and
               "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    return f"{name} {'/'.join(regs) or '-'}" + (
-        f" ({'; '.join(spills)})" if spills else "")
+    span = (f"{min(regs)}-{max(regs)}" if len(set(regs)) > 1
+            else str(regs[0]) if regs else "-")
+    return f"{name} {span}" + (f" ({'; '.join(spills)})" if spills else "")
 
 
 def spill_bytes(log):
@@ -1768,8 +1865,9 @@ def main() -> int:
         reports = [ptxas_report(n, build.library_path(n).with_suffix(".log"))
                    for n in build.SOURCES]
         pair = {n: spill_bytes(build.library_path(n).with_suffix(".log"))
-                for n in ("dense_grad_hist", "dense_block_norm")}
-        print("ptxas registers per instantiation (no spills): "
+                for n in ("dense_grad_hist", "dense_block_norm",
+                          "hog_gradient", "fused_hog")}
+        print("ptxas registers, fewest-most over instantiations: "
               + ", ".join(reports) + "; spill stores/loads, bytes: "
               + ", ".join(f"{n} {st}/{ld}" for n, (st, ld) in pair.items()),
               flush=True)
@@ -1779,11 +1877,10 @@ def main() -> int:
 
         one = torch.zeros(1, device=DEV)
         floor = kernel_device_ms(torch, lambda: one.add_(1), "")
-        print("kernel checks vs the plain versions on the card (err: the "
-              "worst at any shape), per frame (3 levels) or window batch: "
-              "device/plain/bound/library ms "
-              "(library: one PyTorch call's device time); one launch's "
-              f"floor (a 1-element add_): {_fmt(floor)}", flush=True)
+        print("kernel checks vs plain on the card (err: worst shape), per "
+              "frame (3 levels) or window batch: device/plain/bound/library "
+              "ms (library: one PyTorch call's device time); launch floor "
+              f"(1-element add_): {_fmt(floor)}", flush=True)
         summary = check_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
         summary.update(check_flash(torch, np))
@@ -1804,7 +1901,8 @@ def main() -> int:
     # dense kernels, B = 512 for the window kernels, B 4 x S 512 for
     # flash_attention), to 4 digits; every other mode's numbers at the main
     # group are under "modes", as GROUP_FIELDS lists (every group is on
-    # the kernel-check lines above)
+    # the kernel-check lines above; each mode's list is keyed by the main
+    # group)
     kernels_line = {"kernels": [], "mode_fields": GROUP_FIELDS}
     for k in KERNELS:
         main = summary[k][MAIN_MODE[k]][MAIN_GROUP[k]]
@@ -1816,9 +1914,10 @@ def main() -> int:
             "main_mode": MAIN_MODE[k],
             **{key: _r(main[key]) for key in ("ms", "device_ms",
                                               "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms",
-                                              "library_call_ms")},
-            "main_group": MAIN_GROUP[k],
+                                              "bound_by", "library_ms")},
+            # the library call's CUDA-event ms, where there is one
+            **({"library_call_ms": _r(main["library_call_ms"])}
+               if main["library_call_ms"] is not None else {}),
             "modes": {m: compact_mode(v, MAIN_GROUP[k], m == MAIN_MODE[k])
                       for m, v in summary[k].items()
                       if m != "max_abs_err"}})

@@ -260,10 +260,16 @@ def _resize_weights(src: int, dst: int) -> np.ndarray:
           <= 1000 * eps(f32), and columns whose sample lies outside
           [-0.5, src - 0.5] zeroed.
 
-    The column sums run in index order. The reference's own reduction
-    order is XLA's, so a few entries per matrix differ by one ulp: the
-    sweep in tests/test_torch_detector.py holds it within 1.2e-7.
+    The column sums follow XLA:CPU's reduction: rows in chunks of 32,
+    each chunk summed in index order, then the chunk sums in order. For
+    a ``src`` that is a multiple of 32 (every frame bucket, as
+    ``shape_bucket`` is 32) that reproduces the reference bit for bit;
+    other sizes tried (40, 97, 150, 331, 577, 1080, 2160) leave a few
+    entries one ulp off, which tests/test_torch_detector.py holds within
+    1.2e-7.
     """
+    # counterpart: repro/core/detector.py:_resize_weights (the identity
+    # through jax.image.resize)
     scale = dst / src                       # f64, as jax's _resize
     inv_scale = 1.0 / scale
     kernel_scale = np.float32(max(inv_scale, 1.0))
@@ -273,8 +279,11 @@ def _resize_weights(src: int, dst: int) -> np.ndarray:
                - np.arange(src, dtype=np.float32)[:, None]) / kernel_scale
     w = np.maximum(np.float32(0.0), np.float32(1.0) - x)      # (src, dst)
     total = np.zeros((1, dst), np.float32)
-    for i in range(src):
-        total = total + w[i:i + 1]
+    for c0 in range(0, src, 32):
+        chunk = np.zeros((1, dst), np.float32)
+        for i in range(c0, min(c0 + 32, src)):
+            chunk = chunk + w[i:i + 1]
+        total = total + chunk
     w = np.where(np.abs(total) > np.float32(1000.0 * np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, np.float32(1.0)),
                  np.float32(0.0))

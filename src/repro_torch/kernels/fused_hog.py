@@ -20,11 +20,15 @@ tile of 3x6, 3x4 or 2x4 blocks, chosen per level, and computes the
 (TR+1) x (TC+1) cells they need, 16 threads a cell and 4 pixels a
 thread (1.5-1.8x the cells of the level).
 
-The window kernel, bound on the H100: bytes -- a window reads 34.3 KB and
-writes 15.1 KB, 88 us for B = 5,949 windows at 3.35 TB/s. One thread
-block per window holds its gray (34.3 KB) and its 16x8x9 cell
-histograms in shared memory, stages the normalized blocks in the gray's
-space and writes the 3,780 floats in one coalesced copy.
+The window kernel, bound on the H100: bytes in the float modes -- a
+window reads 34.3 KB and writes 15.1 KB, 7.6 us for B = 512 windows at
+3.35 TB/s -- and the INT32 lanes in the fixed mode. Its launch plan
+(``window_plan``) cuts each window into bands of K block rows
+(``WINDOW_BANDS``: the whole window where the batch fills the card); a
+CTA stages its band's gray rows by bulk copies, computes the K + 1 cell
+rows they need in dense_fused_hog's order (16 threads a cell, 4 pixels a
+thread) and stores its K x 7 blocks as float4, so ``fused_hog(g)`` is
+``dense_fused_hog(g).reshape(B, -1)`` bit for bit.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (``dense_fused_hog_plain``, ``fused_hog_plain``) for a CPU
@@ -45,16 +49,20 @@ from .build import SMS
 from .dense_block_norm import (dense_block_norm_plain,
                                norm_code)
 from .dense_grad_hist import dense_grad_hist_plain
+from .hog_gradient import BAR_BYTES, WINDOW_W, check_window_layout
 from .mag_bin import mode_code
+from .tile_plan import BandPlan, pick_band
 
 Tensor = torch.Tensor
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p)
-# the window kernel's arguments, then the dense plan's grid_x, grid_y,
-# tile_rows, tile_cols, threads and smem_bytes
-_DENSE_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+# the kernels' common arguments: gray, out, B, H, W, eps^2, mode, norm
+_ARGTYPES = ((ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 3
+             + (ctypes.c_float,) + (ctypes.c_int,) * 2)
+# the window kernel's, then its plan's band, grid, threads and smem_bytes
+_WINDOW_ARGTYPES = _ARGTYPES + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+# the dense kernel's, then its plan's grid_x, grid_y, tile_rows,
+# tile_cols, threads and smem_bytes
+_DENSE_ARGTYPES = _ARGTYPES + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 #: the tiles the dense kernel is compiled for, block rows x block columns
 #: a CTA owns (Tile<TR, TC> in csrc/dense_fused_hog.cu:pick, which refuses
@@ -237,13 +245,51 @@ def dense_fused_hog(gray: Tensor, cell: int = 8, block: int = 2,
 dense_fused_hog.launches = 0
 
 
-def window_smem_bytes(H: int, W: int, mode: str) -> int:
-    """Shared memory of one window in csrc/fused_hog.cu: the gray (or the
-    staged blocks at a 37-float row stride, whichever is larger), then
-    the cell histograms (int16 in the fixed mode)."""
-    ch, cw = (H - 2) // 8, (W - 2) // 8
-    region = max(H * W, (ch - 1) * (cw - 1) * 37)
-    return 4 * region + (2 if mode == "fixed" else 4) * ch * cw * 9
+#: the bands the window kernel is compiled for, block rows of one window
+#: a CTA owns (Band<K> in csrc/fused_hog.cu:pick, which refuses others);
+#: window_plan picks one per batch
+WINDOW_BANDS = (15, 8, 5, 3, 1)
+
+#: threads of a window CTA: 16 cells of 16 threads a trip
+WINDOW_THREADS = 256
+
+#: each warp's partial sums in a window CTA (WPART): its 2 cells' 8 rows
+#: of 9 bins
+WINDOW_PART = 2 * 8 * 9
+
+
+def window_smem_bytes(band: int) -> int:
+    """Shared memory of one window CTA (Band::SMEM): the mbarriers, the
+    gray of its K + 1 cell rows with the 1-px halo, the cells (9 bins
+    padded to 12 floats), and each of its 8 warps' partial sums (whose
+    space then holds 1/norm and the int8 step of each block)."""
+    rows = 8 * (band + 1) + 2
+    return BAR_BYTES + 4 * (rows * WINDOW_W + (band + 1) * 8 * 12
+                            + WINDOW_THREADS // 32 * WINDOW_PART)
+
+
+def window_plan_at(band: int, B: int, H: int) -> BandPlan:
+    """The plan of B windows of H x 66 at ``band``, one of WINDOW_BANDS."""
+    return BandPlan(B, (H - 2) // 8 - 1, 8, 8, band, WINDOW_THREADS,
+                    window_smem_bytes(band))
+
+
+@functools.lru_cache(maxsize=None)
+def window_plan(B: int, H: int, W: int, mode: str = "sector",
+                sms: int = SMS) -> BandPlan:
+    """The launch plan of ``fused_hog`` for B windows of H x W on a card of
+    ``sms`` SMs: of WINDOW_BANDS, the band that gives every SM a CTA and
+    the fewest staged gray rows to the busiest SM (tile_plan.pick_band).
+    CTA (band i, window b) owns block rows ``plan.owned(i)`` and computes
+    their cell rows and the one below from gray rows ``plan.staged(i)``.
+    Every mode gets the same plan (its cells are staged as f32)."""
+    mode_code(mode)
+    bh = (H - 2) // 8 - 1
+    if W != WINDOW_W or H % 2 or bh < 1:
+        raise ValueError(f"fused_hog: no plan for {B} windows of {H}x{W} "
+                         f"(the kernel takes even heights of at least 2 "
+                         f"cells, {WINDOW_W} columns)")
+    return pick_band([window_plan_at(k, B, H) for k in WINDOW_BANDS], sms)
 
 
 def fused_hog_plain(gray: Tensor, cell: int = 8, block: int = 2,
@@ -259,8 +305,8 @@ def fused_hog(gray: Tensor, cell: int = 8, block: int = 2, bins: int = 9,
               eps: float = 1e-2, mode: str = "sector") -> Tensor:
     """(B, H, W) f32 windows -> (B, (ch-1)*(cw-1)*block^2*bins) f32
     descriptors, blocks row-major then their values."""
-    code = mode_code(mode)
-    ncode = norm_code(_norm_flavor(mode))
+    mode_code(mode)
+    norm_code(_norm_flavor(mode))
     if gray.dim() != 3 or gray.dtype != torch.float32:
         raise ValueError(f"fused_hog takes (B, H, W) float32, got "
                          f"{tuple(gray.shape)} {gray.dtype}")
@@ -275,17 +321,25 @@ def fused_hog(gray: Tensor, cell: int = 8, block: int = 2, bins: int = 9,
     if (cell, block, bins) != (8, 2, 9):
         raise ValueError("the CUDA kernel is built for 8-px cells, 2x2 "
                          "blocks, 9 bins")
-    if window_smem_bytes(H, W, mode) > build.SMEM_DEFAULT:
-        raise ValueError(f"a {H}x{W} window needs "
-                         f"{window_smem_bytes(H, W, mode)} B of shared "
-                         f"memory, over {build.SMEM_DEFAULT}")
-    if not gray.is_contiguous():
-        raise ValueError("fused_hog: gray must be contiguous")
-    out = torch.empty((B, (ch - 1) * (cw - 1) * 36), dtype=torch.float32,
+    check_window_layout(gray, "fused_hog")
+    plan = window_plan(B, H, W, mode, build.sm_count(gray.device.index))
+    if plan.smem_bytes > build.SMEM_DEFAULT:
+        raise ValueError(f"fused_hog: band {plan.band} needs "
+                         f"{plan.smem_bytes} B of shared memory, over "
+                         f"{build.SMEM_DEFAULT}")
+    return _window_launch(gray, eps, mode, plan)
+
+
+def _window_launch(gray: Tensor, eps: float, mode: str,
+                   plan: BandPlan) -> Tensor:
+    B, H, W = gray.shape
+    out = torch.empty((B, plan.units * 7 * 36), dtype=torch.float32,
                       device=gray.device)
-    build.launch("fused_hog", _ARGTYPES, gray, gray.data_ptr(),
+    build.launch("fused_hog", _WINDOW_ARGTYPES, gray, gray.data_ptr(),
                  out.data_ptr(), B, H, W,
-                 N.norm_eps_squared(eps, _norm_flavor(mode)), code, ncode)
+                 N.norm_eps_squared(eps, _norm_flavor(mode)), mode_code(mode),
+                 norm_code(_norm_flavor(mode)), plan.band, plan.ctas,
+                 plan.threads, plan.smem_bytes)
     fused_hog.launches += 1
     return out
 
