@@ -37,12 +37,19 @@ Phases, each of which exits non-zero on failure:
      windows of 130x66, in every mode: bins, integer magnitudes and
      int16 histograms exact, fixed blocks within one int8 code step;
      fused_hog(g) must equal dense_fused_hog(g).reshape(B, -1) bit for
-     bit in every mode at every B; then the window plans of
-     hog_gradient and fused_hog per B (band, CTAs, recompute; failing
-     under 132 CTAs at B >= 64), every compiled band of each held to the
-     same output at B = 11, and per kernel and mode the device time at
-     B = 64, 512 and 5,949 with the B = 5,949 bound and resident warps
-     per SM;
+     bit in every mode at every B, and block_norm(h) equal
+     dense_block_norm(h) bit for bit in every flavor at every B; then the
+     window plans of hog_gradient and fused_hog per B (band, CTAs,
+     recompute; failing under 132 CTAs at B >= 64), every compiled band
+     of each held to the same output at B = 11, and per kernel and mode
+     the device time at B = 64, 512 and 5,949 with the B = 5,949 bound
+     and resident warps per SM; then the same for the tail: the plans of
+     block_norm and svm_scores per B (failing under 132 CTAs where the
+     batch has a CTA's rows for every SM), every compiled band of
+     block_norm equal to dense_block_norm at B = 11, svm_scores giving
+     the same rows the same scores at B = 11 and 512 and one row later
+     (the other bf16 parity), plans the kernels are not built for
+     refused, and cell_hist, block_norm and svm_scores timed as above;
   4. drive the dense path -- DetectionSession.detect on the card for the
      paper preset with the "kernel" backend, the perf preset, and the
      quant preset with its "fused" backend and with "kernel", on seeded
@@ -287,7 +294,7 @@ MAIN_MODE = {"dense_grad_hist": "sector", "dense_block_norm": "rsqrt",
 MAIN_GROUP = dict.fromkeys(DENSE_KERNELS, "640x480")
 MAIN_GROUP.update(dict.fromkeys(WINDOW_KERNELS, "B512"))
 MAIN_GROUP["flash_attention"] = "B4xS512"
-# the per-group numbers under "modes", in this order
+# the per-group numbers summarize() keeps, in the order the check lines print
 GROUP_FIELDS = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                 "bound_by")
 
@@ -666,9 +673,8 @@ def pair_levels(torch, rows, shapes) -> None:
           + "; dense_block_norm " + _by_group(shapes, lambda s: "{}x{}:{}"
                                               .format(*sector[s][1].tile,
                                                       sector[s][1].ctas))
-          + "; the pair equals dense_fused_hog bit for bit at every mode "
-          "and shape; below: device us, warps/SM, grad_hist/block_norm",
-          flush=True)
+          + "; pair == dense_fused_hog everywhere; below: us, warps/SM, "
+          "grad_hist/block_norm", flush=True)
     frames = [(w, s) for w, s in shapes if w != "ragged"]
     for mode, norm in MODE_NORMS.items():
         ps = {s: plans(mode, norm, s) for _, s in shapes}
@@ -888,6 +894,7 @@ def check_window_kernels(torch, np) -> dict:
     at every WINDOW_BATCHES size and in every mode, timed."""
     import repro_torch.kernels.block_norm as bn
     import repro_torch.kernels.cell_hist as chist
+    import repro_torch.kernels.dense_block_norm as dbn
     import repro_torch.kernels.fused_hog as fh
     import repro_torch.kernels.hog_gradient as hg
     import repro_torch.kernels.svm_matmul as sm
@@ -896,7 +903,7 @@ def check_window_kernels(torch, np) -> dict:
     w = torch.from_numpy(g["svm_w"]).to(DEV)
     bias = torch.from_numpy(np.asarray(g["svm_b"], np.float32)).to(DEV)
     rng = np.random.default_rng(3)
-    rows = []
+    rows, tail_inputs = [], {}
 
     def record(*args, **kw):
         rows.append(timed_row(torch, *args, **kw))
@@ -908,7 +915,7 @@ def check_window_kernels(torch, np) -> dict:
             rng.uniform(0, 255, shape).astype(np.float32)).to(DEV),
                  "fixed": torch.from_numpy(
             rng.integers(0, 256, shape).astype(np.float32)).to(DEV)}
-        descs = {}
+        descs, hists = {}, {}
         for mode, norm in MODE_NORMS.items():
             gray = grays["fixed" if mode == "fixed" else "float"]
             tag = f"{mode} B={B}"
@@ -967,6 +974,10 @@ def check_window_kernels(torch, np) -> dict:
                      f"block_norm fixed B={B}: {flips} code flips")
             else:
                 need(e <= BLOCK_ATOL, f"block_norm {norm} B={B}: {e}")
+            need(torch.equal(got, dbn.dense_block_norm(phist, mode=norm)),
+                 f"block_norm {norm} B={B}: not dense_block_norm(h) bit for "
+                 "bit")
+            hists[norm] = phist
             record("block_norm", where, tuple(phist.shape), norm, e,
                    lambda: bn.block_norm(phist, mode=norm),
                    lambda: bn.block_norm_plain(phist, mode=norm), None,
@@ -1020,8 +1031,11 @@ def check_window_kernels(torch, np) -> dict:
                    feats.element_size() * feats.numel() + 4 * 3780 + 4
                    + 4 * B, 2 * B * 3780 / F32_NOFMA_OPS,
                    "svm_scores_kernel")
+        if B in (11, 512):
+            tail_inputs[B] = (hists, descs["sector"])
     out = summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1)
     window_plans(torch, np, rows)
+    out["plans"] = tail_plans(torch, np, rows, tail_inputs, w, bias)
     return out
 
 
@@ -1052,9 +1066,9 @@ def window_plans(torch, np, rows) -> None:
                   p.band, p.ctas, p.recompute())
                   for p in (plans[k, "sector", B] for B in sizes))
               for k in ("hog_gradient", "fused_hog"))
-          + "; fused_hog == dense_fused_hog(g).reshape(B, -1) at B 64/512/"
-          "11, every band at B 11; below: us B64/B512/B5949, B5949 bound, "
-          "warps/SM per B", flush=True)
+          + "; fused_hog == dense_fused_hog at B 64/512/11, every band at "
+          "B 11; below: us B64/B512/B5949, B5949 bound, warps/SM per B",
+          flush=True)
     # every compiled band, not only the plans' picks: hog_gradient's equal
     # to the wrapper's output, fused_hog's to dense_fused_hog's, at B 11
     rng = np.random.default_rng(4)
@@ -1100,6 +1114,133 @@ def window_plans(torch, np, rows) -> None:
                   + ("-" if big is None else f"{big * 1e3:.2f}")
                   + f" us, B5949 bound {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
                   + "; " + " ".join(f"{w:.1f}" for w in warps), flush=True)
+
+
+def tail_plans(torch, np, rows, inputs, w, bias) -> dict:
+    """block_norm and svm_scores by batch: each launch plan
+    (rows/threads/body:CTAs, rows a CTA:CTAs; kernels/block_norm.py:
+    block_norm_plan, kernels/svm_matmul.py:svm_scores_plan); every
+    compiled band of block_norm equal to dense_block_norm at B 11, the
+    same rows the same svm_scores at B 11 and 512 and one row later (the
+    other bf16 parity); a plan the kernels are not compiled for refused;
+    then per kernel and mode (cell_hist too) the device us at B 64, 512
+    and 5,949 (that last timed only), the B 5,949 bound and resident
+    warps per SM. Fails under 132 CTAs where the batch has a CTA's rows
+    for every SM. Returns {kernel: {group: plan}} for the kernels
+    line."""
+    import repro_torch.kernels.block_norm as bn
+    import repro_torch.kernels.cell_hist as chist
+    import repro_torch.kernels.dense_block_norm as dbn
+    import repro_torch.kernels.hog_gradient as hg
+    import repro_torch.kernels.svm_matmul as sm
+    import repro_torch.kernels.tile_plan as tp
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sizes = (11, 64, 512, N_FRAME_WINDOWS)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    plans = {("block_norm", B): bn.block_norm_plan(B, 16, 8, "rsqrt", sms)
+             for B in sizes}
+    plans.update({("svm_scores", B): sm.svm_scores_plan(B, 3780,
+                                                        torch.float32)
+                  for B in sizes})
+    for (k, B), p in plans.items():
+        need(B < sms or p.ctas >= sms, f"{k} B={B}: {p.ctas} CTAs")
+    bf = {B: sm.svm_scores_plan(B, 3780, torch.bfloat16) for B in sizes}
+    shown = {"block_norm": {f"B{B}": "{}/{}/{}:{}".format(
+        p.rows, p.threads, p.body, p.ctas) for B in sizes
+        for p in [plans["block_norm", B]]},
+             "svm_scores": {f"B{B}": "{}:{},{}:{}".format(
+                 p.rows, p.ctas, bf[B].rows, bf[B].ctas) for B in sizes
+                 for p in [plans["svm_scores", B]]}}
+    for B in sizes:
+        need(all(bn.block_norm_plan(B, 16, 8, n, sms) == plans["block_norm", B]
+                 for n in ("nr", "fixed")),
+             f"block_norm B={B}: the plan depends on the flavor")
+        need(B < 2 * sms or bf[B].ctas >= sms, f"svm_scores bf16 B={B}: "
+             f"{bf[B].ctas} CTAs")
+    for norm, hist in inputs[11][0].items():
+        want = dbn.dense_block_norm(hist, mode=norm)
+        for k in bn.BLOCK_NORM_BANDS:
+            need(torch.equal(bn._launch(hist, 1e-2, norm,
+                                        bn.block_norm_plan_at(k, 11, 16)),
+                             want), f"block_norm {norm} band {k}: not "
+                 "dense_block_norm's")
+    for name, dt in dts.items():
+        f512 = inputs[512][1].to(dt).contiguous()
+        s512 = sm.svm_scores(f512, w, bias)
+        first = sm.svm_scores(f512[:11].contiguous(), w, bias)
+        later = sm.svm_scores(torch.cat([f512[5:6], f512[:11]]), w,
+                              bias)[1:]
+        need(torch.equal(first, s512[:11]) and torch.equal(later, s512[:11]),
+             f"svm_scores {name}: rows scored at B 11 (or one row later) "
+             "unlike at B 512")
+    hist = inputs[11][0]["rsqrt"]
+    for what, fn in (
+            ("block_norm band 2", lambda: bn._launch(
+                hist, 1e-2, "rsqrt", bn.block_norm_plan_at((2, 64, 0), 11,
+                                                           16))),
+            ("svm_scores 3 rows", lambda: sm._svm_launch(
+                inputs[11][1], w, bias, dataclasses.replace(
+                    sm.svm_scores_plan(11, 3780, torch.float32), rows=3),
+                torch.empty(11, device=DEV)))):
+        try:
+            fn()
+        except RuntimeError:
+            continue
+        need(False, f"{what}: a plan the kernel is not built for ran")
+    print("  tail plans at B " + "/".join(map(str, sizes)) + ": "
+          + "; ".join(f"{k} {' '.join(v.values())}"
+                      for k, v in shown.items())
+          + " (rows/threads/body:CTAs; f32,bf16 rows:CTAs); == "
+          "dense_block_norm every band, svm rows batch-free, others refused",
+          flush=True)
+    rng = np.random.default_rng(6)
+    shape = (N_FRAME_WINDOWS, 130, 66)
+    nb, px = N_FRAME_WINDOWS * 105, N_FRAME_WINDOWS * 128 * 64
+    grads, big = {}, {}                  # by HOG mode; by norm flavor
+    for mode in ("sector", "fixed"):
+        g = rng.uniform(0, 255, shape)
+        g = torch.from_numpy((np.rint(g) if mode == "fixed" else g)
+                             .astype(np.float32)).to(DEV)
+        grads[mode] = hg.hog_gradient(g, mode)
+        big[MODE_NORMS[mode]] = chist.cell_hist(*grads[mode])
+    big["nr"] = big["rsqrt"]
+    desc = torch.from_numpy(rng.uniform(0, 0.4, (N_FRAME_WINDOWS, 3780))
+                            .astype(np.float32)).to(DEV)
+    work = [("cell_hist", m, functools.partial(chist.cell_hist, *grads[m]),
+             8 * px + big[MODE_NORMS[m]].element_size()
+             * big[MODE_NORMS[m]].numel(), hog_op_s(m, px, chain=False),
+             None) for m in ("sector", "fixed")]
+    work += [("block_norm", n, functools.partial(bn.block_norm, big[n],
+                                                 mode=n),
+              big[n].element_size() * big[n].numel() + 4 * nb * 36,
+              hog_op_s("fixed" if n == "fixed" else "sector", nblocks=nb,
+                       norm=n), bn.norm_code(n))
+             for n in ("rsqrt", "nr", "fixed")]
+    for name, dt in dts.items():
+        x = desc.to(dt)
+        work.append(("svm_scores", name, functools.partial(sm.svm_scores, x,
+                                                           w, bias),
+                     x.element_size() * x.numel() + 4 * 3780 + 4
+                     + 4 * N_FRAME_WINDOWS,
+                     2 * x.numel() / F32_NOFMA_OPS, int(dt != torch.float32)))
+    for kernel, mode, fn, nbytes, op_s, code in work:
+        t = kernel_device_ms(torch, fn, f"{kernel}_kernel", reps=10)
+        dev = [_dev_us(rows, kernel, mode, shape) for shape in (
+            ((B, 128, 64) if kernel == "cell_hist" else (B, 16, 8, 9)
+             if kernel == "block_norm" else (B, 3780)) for B in (64, 512))]
+        warps = ""
+        if code is not None:
+            ps = [bn.block_norm_plan(B, 16, 8, mode, sms)
+                  if kernel == "block_norm" else
+                  sm.svm_scores_plan(B, 3780, dts[mode]) for B in sizes]
+            warps = "; " + " ".join("{:.1f}".format(p.resident_warps(
+                tp.occupancy(kernel, code, p), sms)) for p in ps)
+        print(f"  {kernel} {mode}: " + "/".join(dev) + "/"
+              + ("-" if t is None else f"{t * 1e3:.2f}")
+              + f" us, B5949 bound {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
+              + warps, flush=True)
+    return shown
 
 
 def flash_bf16_matched(torch, q, k, v, block_k=64, causal=True):
@@ -1824,11 +1965,12 @@ def _r(x):
 def compact_mode(v: dict, group: str, main: bool) -> dict:
     """A mode's entry for the kernels line: its error (and code flips)
     and, but for the main mode (whose numbers stand at the kernel's top
-    level), the main group's numbers as one list in GROUP_FIELDS order,
-    to 4 significant digits."""
+    level), the main group's CUDA-event ms per call, to 4 significant
+    digits (its device, plain, bound and library ms are on its check
+    line)."""
     out = {k: _r(d) for k, d in v.items() if not isinstance(d, dict)}
     if not main:
-        out[group] = [_r(v[group][f]) for f in GROUP_FIELDS]
+        out["ms"] = _r(v[group]["ms"])
     return out
 
 
@@ -1877,10 +2019,10 @@ def main() -> int:
 
         one = torch.zeros(1, device=DEV)
         floor = kernel_device_ms(torch, lambda: one.add_(1), "")
-        print("kernel checks vs plain on the card (err: worst shape), per "
-              "frame (3 levels) or window batch: device/plain/bound/library "
-              "ms (library: one PyTorch call's device time); launch floor "
-              f"(1-element add_): {_fmt(floor)}", flush=True)
+        print("kernel checks vs plain (err: worst shape), per frame (3 "
+              "levels) or window batch: device/plain/bound/library ms (one "
+              "PyTorch call's device time); launch floor (1-element add_): "
+              f"{_fmt(floor)}", flush=True)
         summary = check_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
         summary.update(check_flash(torch, np))
@@ -1899,11 +2041,10 @@ def main() -> int:
     # that path's run), with the per-path counts beside it; the top-level
     # numbers are the main mode's sums at the main group (640x480 for the
     # dense kernels, B = 512 for the window kernels, B 4 x S 512 for
-    # flash_attention), to 4 digits; every other mode's numbers at the main
-    # group are under "modes", as GROUP_FIELDS lists (every group is on
-    # the kernel-check lines above; each mode's list is keyed by the main
-    # group)
-    kernels_line = {"kernels": [], "mode_fields": GROUP_FIELDS}
+    # flash_attention), to 4 digits; every other mode's error and ms at the
+    # main group are under "modes" (every group's device, plain, bound and
+    # library ms are on the kernel-check lines above)
+    kernels_line = {"kernels": []}
     for k in KERNELS:
         main = summary[k][MAIN_MODE[k]][MAIN_GROUP[k]]
         kernels_line["kernels"].append({
@@ -1920,7 +2061,10 @@ def main() -> int:
                if main["library_call_ms"] is not None else {}),
             "modes": {m: compact_mode(v, MAIN_GROUP[k], m == MAIN_MODE[k])
                       for m, v in summary[k].items()
-                      if m != "max_abs_err"}})
+                      if m != "max_abs_err"},
+            # the launch plans by window batch (band or rows a CTA:CTAs)
+            **({"plans": summary["plans"][k]} if k in summary["plans"]
+               else {})})
     flash = next(e for e in kernels_line["kernels"]
                  if e["name"] == "flash_attention")
     flash["launches_by_route"] = flash_routes

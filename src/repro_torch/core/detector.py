@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from ..kernels import svm_matmul as sm
 from . import numerics as N
 from . import quant
-from .hog import HOGConfig, PAPER_HOG, grayscale
+from .hog import HOGConfig, PAPER_HOG, grayscale_fused
 from .stages import BACKENDS, dense_blocks
 
 Tensor = torch.Tensor
@@ -417,9 +417,12 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
 
 def _prep_frame(frame: Tensor, h: int, w: int, ph: int, pw: int) -> Tensor:
     """Grayscale (RGB input only) and edge-pad the frame to its bucket.
+    The gray is the reference's jitted luma (``grayscale_fused``: its two
+    fused multiply-adds, exact for uint8 frames), on the frame's device.
     Replicate padding keeps downscaling from bleeding zeros into the last
     valid windows near the pad seam."""
-    g = grayscale(frame) if frame.dim() == 3 else frame.to(torch.float32)
+    g = (grayscale_fused(frame) if frame.dim() == 3
+         else frame.to(torch.float32))
     if (ph, pw) != (h, w):
         # F.pad's replicate mode wants leading batch and channel dims
         g = F.pad(g[None, None], (0, pw - w, 0, ph - h),

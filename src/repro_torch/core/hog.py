@@ -97,6 +97,30 @@ def grayscale(rgb: Tensor) -> Tensor:
     return _LUMA[0] * r + _LUMA[1] * g + _LUMA[2] * b
 
 
+def grayscale_fused(rgb: Tensor) -> Tensor:
+    """RGB (..., 3) -> float32 gray as the reference's jitted frame prep
+    computes it (repro/core/detector.py:536 inside jax.jit), where XLA
+    contracts ``grayscale``'s sum into two fused multiply-adds, each
+    rounded once: fl(b * 0.114 + fl(r * 0.2989 + fl(g * 0.587))), the
+    constants as f32.
+
+    For uint8 input f64 evaluates each multiply-add exactly, so its one
+    cast to f32 is the FMA's one rounding: a product of an integer <= 255
+    (8 bits) and an f32 constant (24 bits) needs at most 32 bits, and
+    each sum, of values under 256 whose lowest bits lie no lower than
+    2^-27 (the ulp of f32(0.114)), at most 35 -- under f64's 53. Float
+    input has no such bound (a product of two f32 values needs 48 bits,
+    its sum with an f32 more than 53), so it keeps ``grayscale``'s eager
+    order."""
+    if rgb.dtype != torch.uint8:
+        return grayscale(rgb)
+    x = rgb.to(torch.float64)
+    c = [torch.tensor(v, dtype=torch.float32).item() for v in _LUMA]
+    t = (x[..., 1] * c[1]).to(torch.float32).to(torch.float64)
+    t = (x[..., 0] * c[0] + t).to(torch.float32).to(torch.float64)
+    return (x[..., 2] * c[2] + t).to(torch.float32)
+
+
 def gradients(gray: Tensor) -> Tuple[Tensor, Tensor]:
     """Central differences. gray: (..., H, W) -> fx, fy on (..., H-2, W-2).
 

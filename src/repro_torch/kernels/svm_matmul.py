@@ -5,8 +5,10 @@
     upcast exactly before its product. Replaces the TPU kernel
     repro/kernels/svm_matmul.py:38, CUDA source csrc/svm_scores.cu. Bound
     on the H100: bytes, 15.1 KB (f32) or 7.6 KB (bf16) per row, 27 / 13 us
-    for B = 5,949 rows at 3.35 TB/s; one warp per row, vector loads, a
-    warp-shuffle sum.
+    for B = 5,949 rows at 3.35 TB/s; each row cut into 8 segments, a warp
+    a segment, 16-byte loads, 4 accumulators a lane, in an order fixed by
+    F and the dtype (``svm_order``), so a row's score does not depend on
+    its batch; rows a CTA from ``svm_scores_plan``.
 
 The dense scorer multiplies (M, K) block rows by (K, N) per-offset
 weights:
@@ -46,6 +48,7 @@ import torch
 
 from . import build
 from .build import SMS
+from .tile_plan import Resident
 
 Tensor = torch.Tensor
 
@@ -250,9 +253,79 @@ def score_matmul_int8(q: Tensor, wq: Tensor) -> Tensor:
 score_matmul_int8.launches = 0
 
 
-_ARGTYPES_SVM = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p)
+# feats, w, bias, out, B, F, dtype code, then the plan's rows, grid,
+# threads and smem_bytes, and the stream
+_ARGTYPES_SVM = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
+                 + (ctypes.c_void_p,))
+
+#: accumulators a lane keeps and threads of a CTA (csrc/svm_scores.cu:
+#: ACC, THREADS)
+SVM_ACC, SVM_THREADS = 4, 256
+#: segments a row's units are cut into, per dtype (F32::SEGS, BF16::SEGS):
+#: about 1.9 KB each at F = 3,780; a CTA's 8 warps take 8 / SEGS rows,
+#: one warp a segment
+SVM_SEGS = {torch.float32: 8, torch.bfloat16: 4}
+
+
+def svm_order(F: int, dtype: torch.dtype) -> Tuple[int, List[Tuple[int, int]],
+                                                   int]:
+    """The summation order of ``svm_scores``, fixed by F and the dtype
+    alone: (features a unit holds -- 16 bytes: 4 f32 or 8 bf16 --, the
+    SVM_SEGS[dtype] segments [u0, u1) of the row's F // unit units, the
+    tail's first feature). Lane l of a segment's warp adds units u0 + 32 j
+    + l, product by product, into its accumulator j % SVM_ACC; the score is
+    ((segment sums left to right) + tail) + b (csrc/svm_scores.cu)."""
+    unit, segs = 16 // dtype.itemsize, SVM_SEGS[dtype]
+    U = F // unit
+    return (unit, [(s * U // segs, (s + 1) * U // segs)
+                   for s in range(segs)], unit * U)
+
+
+@dataclasses.dataclass(frozen=True)
+class SvmPlan(Resident):
+    """How ``svm_scores`` covers B rows: CTA i owns rows ``owned(i)``,
+    warp w segment w % segs of row w // segs."""
+    B: int
+    F: int
+    itemsize: int
+    segs: int                       # segments of a row
+    rows: int                       # rows a CTA (8 warps / segs)
+    threads: int
+    smem_bytes: int
+
+    @property
+    def tile(self) -> Tuple[int]:
+        """The compiled shape a CTA takes (the occupancy entry point's
+        argument)."""
+        return (self.rows,)
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.B // self.rows)
+
+    def owned(self, i: int) -> Tuple[int, int]:
+        """Rows [r0, r1) of CTA ``i``."""
+        return min(i * self.rows, self.B), min(i * self.rows + self.rows,
+                                               self.B)
+
+    def segment_of(self, warp: int) -> Tuple[int, int]:
+        """(row within the CTA, segment) of ``warp``."""
+        return divmod(warp, self.segs)
+
+
+@functools.lru_cache(maxsize=None)
+def svm_scores_plan(B: int, F: int, dtype: torch.dtype) -> SvmPlan:
+    """The launch plan of ``svm_scores`` for B rows of F features: one
+    warp a segment, so a CTA of SVM_THREADS takes 8 / SVM_SEGS[dtype] rows
+    (1 f32, 2 bf16) and the batch ceil(B / rows) CTAs; every SM has a CTA
+    from 132 (f32) or 264 (bf16) rows up on the H100. The summation order
+    does not depend on it."""
+    if B < 1 or F < 1 or dtype not in _DTYPE_CODES:
+        raise ValueError(f"svm_scores: no plan for {B} rows of {F} {dtype}")
+    segs = SVM_SEGS[dtype]
+    rows = SVM_THREADS // 32 // segs
+    return SvmPlan(B, F, dtype.itemsize, segs, rows, SVM_THREADS,
+                   4 * rows * (segs + 1))
 
 
 def svm_scores_plain(feats: Tensor, w: Tensor, bias: Tensor) -> Tensor:
@@ -285,9 +358,19 @@ def svm_scores(feats: Tensor, w: Tensor, bias: Tensor) -> Tensor:
         raise ValueError("svm_scores: inputs must be contiguous")
     B, F = feats.shape
     out = torch.empty((B,), dtype=torch.float32, device=feats.device)
+    if B == 0:
+        return out
+    return _svm_launch(feats, w, bias, svm_scores_plan(B, F, feats.dtype),
+                       out)
+
+
+def _svm_launch(feats: Tensor, w: Tensor, bias: Tensor, plan: SvmPlan,
+                out: Tensor) -> Tensor:
+    B, F = feats.shape
     build.launch("svm_scores", _ARGTYPES_SVM, feats, feats.data_ptr(),
                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, F,
-                 _DTYPE_CODES[feats.dtype])
+                 _DTYPE_CODES[feats.dtype], plan.rows, plan.ctas,
+                 plan.threads, plan.smem_bytes)
     svm_scores.launches += 1
     return out
 

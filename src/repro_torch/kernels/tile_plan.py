@@ -26,8 +26,18 @@ from . import build
 from .build import SMS
 
 
+class Resident:
+    """Occupancy of a launch plan that has ``ctas`` and ``threads``."""
+
+    def resident_warps(self, blocks_per_sm: int, sms: int = SMS) -> float:
+        """Warps per SM: the smaller of what an SM holds (``blocks_per_sm``,
+        from cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the grid's
+        CTAs per SM, times the warps of a CTA."""
+        return min(blocks_per_sm, self.ctas / sms) * self.threads / 32
+
+
 @dataclasses.dataclass(frozen=True)
-class TilePlan:
+class TilePlan(Resident):
     """How a tiled kernel covers one (B, rows, cols) grid of units."""
     B: int
     rows: int
@@ -51,12 +61,6 @@ class TilePlan:
         """Units of the busiest SM, the CTAs dealt round ``sms`` SMs."""
         return -(-self.ctas // sms) * self.tile[0] * self.tile[1]
 
-    def resident_warps(self, blocks_per_sm: int, sms: int = SMS) -> float:
-        """Warps per SM: the smaller of what an SM holds (``blocks_per_sm``,
-        from cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the grid's
-        CTAs per SM, times the warps of a CTA."""
-        return min(blocks_per_sm, self.ctas / sms) * self.threads / 32
-
 
 def plan_at(tile: Tuple[int, int], B: int, rows: int, cols: int,
             threads: int, smem_bytes: int) -> TilePlan:
@@ -76,7 +80,7 @@ def pick_plan(plans: Sequence[TilePlan], sms: int = SMS) -> TilePlan:
 
 
 @dataclasses.dataclass(frozen=True)
-class BandPlan:
+class BandPlan(Resident):
     """How a window kernel covers a batch of B windows, each ``units``
     units (output rows, or block rows) of ``unit_rows`` gradient rows:
     CTA (band, b) owns units [band*R, band*R + R) of window b, clipped,
@@ -128,10 +132,6 @@ class BandPlan:
         done = sum(g1 - g0 - 2 for g0, g1 in map(self.staged,
                                                  range(self.bands)))
         return done / (self.units * self.unit_rows + self.seam)
-
-    def resident_warps(self, blocks_per_sm: int, sms: int = SMS) -> float:
-        """Warps per SM, as TilePlan.resident_warps."""
-        return min(blocks_per_sm, self.ctas / sms) * self.threads / 32
 
 
 def pick_band(plans: Sequence[BandPlan], sms: int = SMS) -> BandPlan:

@@ -96,13 +96,17 @@ def test_grad_hist_plan_matches_the_compiled_kernel():
 
 
 def test_block_norm_plan_matches_the_compiled_kernel():
-    src = (build.CSRC / "dense_block_norm.cu").read_text()
+    # the kernel, then the tile body it shares with the window kernel
+    src = (build.CSRC / "dense_block_norm.cu").read_text() \
+        + (build.CSRC / "block_tile.cuh").read_text()
     compiled = [tuple(map(int, m)) for m in re.findall(
         r"pick_norm<Tile<(\d+), (\d+)>>", src)]
     assert compiled == list(dbn.BLOCK_NORM_TILES)
-    for expr in (r"THREADS = \(NBLK \* 9 \+ 31\) / 32 \* 32;",
+    for expr in (r"int THREADS_ = \(TR_ \* TC_ \* 9 \+ 31\) / 32 \* 32>",
+                 r"THREADS = THREADS_;",
                  r"NVAL = SR \* SC \* 9;", r"SR = TR \+ 1, SC = TC \+ 1;",
-                 r"__launch_bounds__\(T::THREADS\)"):
+                 r"__launch_bounds__\(T::THREADS\)",
+                 r'#include "block_tile.cuh"'):
         assert re.search(expr, src), expr
     assert [dbn.block_norm_threads(t) for t in dbn.BLOCK_NORM_TILES] == [160]
     launch = re.search(r"int dense_block_norm_launch\(([^)]*)\)", src)[1]

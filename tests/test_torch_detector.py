@@ -59,6 +59,51 @@ def test_resize_weights_match_jax_image_resize(src, dst):
     np.testing.assert_array_equal(got == 0, want == 0)
 
 
+#: (h, w, bucket): frames already on their 32-px bucket, and frames the
+#: prep edge-pads up to it
+PREP_FRAMES = [(128, 192, (128, 192)), (480, 640, (480, 640)),
+               (120, 180, (128, 192)), (97, 131, (128, 160))]
+
+
+@pytest.mark.parametrize("h,w,bucket", PREP_FRAMES)
+def test_prep_frame_gray_is_the_jitted_reference_bit_for_bit(h, w, bucket):
+    """The reference runs its frame prep inside jit, where XLA fuses the
+    luma into two multiply-adds; the port's grayscale_fused rebuilds that
+    exactly for uint8 frames (the eager luma differs in about a fifth of
+    the pixels)."""
+    frame = np.random.default_rng(h * w).integers(
+        0, 256, (h, w, 3)).astype(np.uint8)
+    ph, pw = bucket
+    want = np.asarray(jax.jit(jdet._prep_frame, static_argnums=(1, 2, 3, 4))(
+        jnp.asarray(frame), h, w, ph, pw))
+    got = tdet._prep_frame(torch.from_numpy(frame), h, w, ph, pw)
+    assert got.dtype == torch.float32 and got.shape == (ph, pw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # a gray frame passes through as f32, padded the same way
+    gray = frame[..., 0]
+    want = np.asarray(jax.jit(jdet._prep_frame, static_argnums=(1, 2, 3, 4))(
+        jnp.asarray(gray), h, w, ph, pw))
+    np.testing.assert_array_equal(
+        tdet._prep_frame(torch.from_numpy(gray), h, w, ph, pw).numpy(), want)
+
+
+def test_grayscale_fused_keeps_the_eager_order_for_float_input():
+    """Only uint8 has the exactness bound; float RGB keeps grayscale's
+    eager order, and the window path's eager gray is unchanged."""
+    from repro_torch.core.hog import grayscale, grayscale_fused
+    rgb = np.random.default_rng(5).integers(0, 256, (40, 30, 3))
+    as_u8 = torch.from_numpy(rgb.astype(np.uint8))
+    as_f32 = torch.from_numpy(rgb.astype(np.float32))
+    assert torch.equal(grayscale_fused(as_f32), grayscale(as_f32))
+    fused, eager = grayscale_fused(as_u8), grayscale(as_u8)
+    assert fused.dtype == eager.dtype == torch.float32
+    # the two orders differ in the last bits (the eager one rounds five
+    # times, the fused one three), and not everywhere
+    assert 0 < int((fused != eager).sum()) < fused.numel()
+    np.testing.assert_allclose(fused.numpy(), eager.numpy(), rtol=2 ** -22,
+                               atol=0)
+
+
 def test_top_k_tie_order_matches_lax_top_k():
     x = np.array([0.5, 0.9, 0.5, -np.inf, 0.9, 0.1, -np.inf, 0.5, -np.inf,
                   0.9], np.float32)

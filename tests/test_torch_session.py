@@ -16,8 +16,9 @@ of one block element moves a window score by at most max|w| / 127 =
 6.4e-4 with the golden weights, and 2e-3 allows three such steps -- the
 steps come from the f32 sum of squares before the quantizer and from a
 resized gray level on x.5 that rounds the other way, since the
-reference's jitted grayscale and its resize matmul round in another
-order than the port's). Where two candidates'
+reference's jitted resize matmul rounds in another order than the
+port's; the jitted grayscale the port now rebuilds bit for bit,
+core/hog.py:grayscale_fused). Where two candidates'
 scores lie within that tolerance of each other the top-k order could
 flip; such a case is compared as sets and says so.
 """
