@@ -50,6 +50,9 @@ Phases, each of which exits non-zero on failure:
      the same rows the same scores at B = 11 and 512 and one row later
      (the other bf16 parity), plans the kernels are not built for
      refused, and cell_hist, block_norm and svm_scores timed as above;
+  3d. each dense kernel in every mode on a batch of 8 frames of each
+     640x480 level: kernel(stack)[i] must equal kernel(frame i) bit for
+     bit, and the batch its plain version within the limits of 3;
   4. drive the dense path -- DetectionSession.detect on the card for the
      paper preset with the "kernel" backend, the perf preset, and the
      quant preset with its "fused" backend and with "kernel", on seeded
@@ -61,6 +64,20 @@ Phases, each of which exits non-zero on failure:
      ms/frame, the per-frame split between kernels, resize matmuls, the
      105-add collate and the top-k + NMS loop, and the device's launches
      and busy time per frame;
+  4c. drive the batched path -- DetectionSession.detect_batch on the
+     card for the same four configurations, on batches of 4 and 8 seeded
+     640x480 scenes and one batch of two true sizes sharing the 640x480
+     bucket, the batch schedule autotuned (no cache file is read or
+     written), counters reset before each configuration and read after
+     it; hold the kept boxes against the card's single-frame detect (for
+     the mixed batch, of each frame's eager gray, as the batch takes it)
+     and the CPU session's detect_batch, scores within the same limits;
+     time ms/frame (host clock, configurations in turns), launches and
+     device-busy ms per frame and the idle share; count the resized
+     pixels unlike each frame's own and the CPU's (the resize sums in
+     f64), and what f32 GEMMs of the batch's shape would change;
+  4d. stream a seeded make_clip clip (640x480, batches of 4) on the card
+     and hold its track ids and boxes against the CPU session's;
   4b. drive the window path -- classify_windows on the card for paper
      with the "kernel" path, perf (fused, bf16), quant with "kernel" and
      quant (fused), counters reset before each and read after it -- on
@@ -106,6 +123,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -167,6 +185,12 @@ THRESHOLD = 0.26     # keeps 19-74 boxes per frame with the golden weights
 # resized gray level on x.5 that rounds the other way on the card)
 SCORE_TOL = {"f32": 1e-4, "bf16": 2e-3, "int8": 2e-3}
 TIMING_REPS = 5                              # ms/frame: 2 frames x 5 reps
+# the batched frame path: batches of 4 and 8 seeded 640x480 scenes, and a
+# mixed batch of two true sizes that share the 640x480 bucket
+BATCH_SIZES = (4, 8)
+MIXED_SIZES = ((480, 640), (470, 630), (480, 640), (470, 630))
+BATCH_REPS = 3                               # batch ms: reps per config
+KERNEL_BATCH = 8                             # batched kernel checks: B 8
 HIST_RTOL, HIST_ATOL = 1e-5, 1e-4            # summation order only
 # each HOG mode and the normalize flavor it runs (core/numerics.py SPECS)
 MODE_NORMS = {"sector": "rsqrt", "cordic": "nr", "fixed": "fixed"}
@@ -245,6 +269,11 @@ PATH_KERNELS = {
     "window quant": ("fused_hog", "svm_scores"),
     "lm qwen3-14b": ("flash_attention",),
 }
+# the batched path and the tracked clip run the dense kernels of their
+# configuration
+DENSE_CONFIGS = ("paper+kernel", "perf", "quant", "quant+kernel")
+PATH_KERNELS.update({f"batch {c}": PATH_KERNELS[c] for c in DENSE_CONFIGS})
+PATH_KERNELS["stream paper+kernel"] = PATH_KERNELS["paper+kernel"]
 # window configuration -> (preset, classify_windows path)
 WINDOW_CONFIGS = {"window paper+kernel": ("paper", "kernel"),
                   "window perf": ("perf", "fused"),
@@ -1112,7 +1141,7 @@ def window_plans(torch, np, rows) -> None:
                      for B in sizes]
             print(f"  {kernel} {mode}: " + "/".join(dev) + "/"
                   + ("-" if big is None else f"{big * 1e3:.2f}")
-                  + f" us, B5949 bound {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
+                  + f" us; {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
                   + "; " + " ".join(f"{w:.1f}" for w in warps), flush=True)
 
 
@@ -1238,7 +1267,7 @@ def tail_plans(torch, np, rows, inputs, w, bias) -> dict:
                 tp.occupancy(kernel, code, p), sms)) for p in ps)
         print(f"  {kernel} {mode}: " + "/".join(dev) + "/"
               + ("-" if t is None else f"{t * 1e3:.2f}")
-              + f" us, B5949 bound {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
+              + f" us; {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
               + warps, flush=True)
     return shown
 
@@ -1350,11 +1379,10 @@ def check_flash(torch, np) -> dict:
 
     for B, H, K, S, hd, causal, dt in FLASH_SMALL + FLASH_OTHER_HD:
         case(draw(B, H, K, S, hd), causal, dt, bshd=False)
-    print(f"  flash_attention {len(FLASH_SMALL)} small shapes (B 2, S 64/100, "
-          f"hd 16, rep 1/4, causal or not) + {len(FLASH_OTHER_HD)} bf16 at hd "
-          f"32, each on its route: max err vs plain and _sdpa f32 "
-          f"{worst['f32']:.2e} (tol 1e-5), bf16 {worst['bf16']:.2e} (tol "
-          f"3e-2); share of the matched limit: "
+    print(f"  flash_attention {len(FLASH_SMALL)} small shapes + "
+          f"{len(FLASH_OTHER_HD)} bf16 at hd 32, each on its route: max err "
+          f"vs plain and _sdpa f32 {worst['f32']:.2e} (tol 1e-5), bf16 "
+          f"{worst['bf16']:.2e} (tol 3e-2); matched limit share: "
           + ", ".join(f"{r} {x:.2f}" for r, x in ratios.items()),
           flush=True)
     full = []
@@ -1387,8 +1415,7 @@ def check_flash(torch, np) -> dict:
                 lambda: fa.flash_attention_plain(q, k, v), library,
                 nbytes, ops / BF16_FLOPS, "flash_attention_kernel"))
     print(f"  flash_attention full width, (B, S, H, hd) strides, max err "
-          f"vs plain (tol f32 1e-5, bf16 3e-2, each + tol x |want|), "
-          f"matched: share of 2^-7|want| + 2e-3 vs flash_bf16_matched: "
+          f"vs plain (tol + tol x |want|), matched limit share: "
           + "; ".join(full), flush=True)
     out = summarize(rows, ("flash_attention",),
                     [g for g, _, _ in LM_BATCHES], 1)
@@ -1434,6 +1461,9 @@ def main_path(torch, np) -> dict:
         torch.cuda.synchronize()
         launches[name] = check_launches(name, kernels.launch_counts())
 
+    # one line per configuration: each frame size's frames, "/" between
+    # frames and " " between sizes
+    report = {}
     for (name, hw), dets in results.items():
         dt = configs[name][1]
         sess = gpu[name]
@@ -1450,15 +1480,21 @@ def main_path(torch, np) -> dict:
             need(de <= SCORE_TOL[dt], f"{name} {hw} frame {i}: score "
                                       f"delta {de} > {SCORE_TOL[dt]}")
             kept.append(str(len(got)))
-            deltas.append(f"{de:.2e}")
+            deltas.append(f"{de:.1e}")
             if dt == "int8":
                 rints.append(str(rint_flips(torch, sess, cpu[name], f)))
+        for key, part in (("kept", kept), ("delta", deltas),
+                          ("rint", rints)):
+            report.setdefault((name, key), []).append("/".join(part))
+    for name, (_, dt) in configs.items():
         flips = (f"; resized gray pixels rounded unlike the CPU's: "
-                 f"{'/'.join(rints)}" if rints else "")
-        print(f"  {name} {hw[1]}x{hw[0]}, {len(dets)} frames: "
-              f"{'/'.join(kept)} boxes kept, same as CPU; max score delta "
-              f"{'/'.join(deltas)} (tol {SCORE_TOL[dt]:g}){flips}",
-              flush=True)
+                 + " ".join(report[(name, "rint")])
+                 if dt == "int8" else "")
+        print(f"  {name} " + "/".join(f"{w}x{h}" for h, w in frames)
+              + f", {len(frames[FRAME_SIZES[0]])} frames each: "
+              + " ".join(report[(name, "kept")]) + " boxes kept, same as "
+              "CPU; max score delta " + " ".join(report[(name, "delta")])
+              + f" (tol {SCORE_TOL[dt]:g}){flips}", flush=True)
 
     # ms/frame: the configurations in turns (the order rotating every
     # repetition), so host drift falls on all of them alike
@@ -1494,15 +1530,16 @@ def main_path(torch, np) -> dict:
               + f"; launches/frame {split['device_launches_per_frame']:.0f},"
               f" busy ms {split['device_busy_ms']:.4f}, ms/frame "
               f"{split['ms_per_frame']:.4f}", flush=True)
+        text = []
         for name in ("perf", "quant", "quant+kernel"):
             prof = frame_profile(torch, gpu[name], frames[(h, w)][0])
             ms = per_frame[f"{name} {key}"]
-            print(f"  profile {key} {name}: launches/frame "
-                  f"{prof['device_launches_per_frame']:.0f}, busy ms "
-                  f"{prof['device_busy_ms']:.4f}, ms/frame {ms:.4f}, "
-                  f"idle {1 - prof['device_busy_ms'] / ms:.4f}",
-                  flush=True)
-    return launches
+            text.append(f"{name} {prof['device_launches_per_frame']:.0f} "
+                        f"{prof['device_busy_ms']:.4f} {ms:.4f} "
+                        f"{1 - prof['device_busy_ms'] / ms:.4f}")
+        print(f"  profile {key}, launches/frame, busy ms, ms/frame, idle: "
+              + "; ".join(text), flush=True)
+    return launches, configs, svm
 
 
 def check_launches(name: str, counts: dict) -> dict:
@@ -1511,7 +1548,7 @@ def check_launches(name: str, counts: dict) -> dict:
     own = {k: n for k, n in counts.items() if k in PATH_KERNELS[name]}
     print(f"main path {name} launches: "
           + ", ".join(f"{k} {n}" for k, n in own.items())
-          + f"; the other {len(counts) - len(own)} kernels: "
+          + f"; other {len(counts) - len(own)}: "
           + ("0" if not any(n for k, n in counts.items() if k not in own)
              else str({k: n for k, n in counts.items() if k not in own})),
           flush=True)
@@ -1537,6 +1574,320 @@ def rint_flips(torch, gpu_sess, cpu_sess, frame) -> int:
                            ph, pw)
         levels.append([torch.round(g).cpu() for g in prog.pyramid(gray)])
     return sum(int((a != b).sum()) for a, b in zip(*levels))
+
+
+def check_batched_kernels(torch, np) -> None:
+    """Phase 3d: each dense kernel, in each mode, on a batch of
+    KERNEL_BATCH frames of every 640x480 level: kernel(stack)[i] must equal
+    kernel(frame i) bit for bit (the launch plans pick tiles and CTAs from
+    the batch), and the batch its plain version within the limits of
+    check_kernels."""
+    import repro_torch.core.quant as quant
+    import repro_torch.kernels.dense_block_norm as dbn
+    import repro_torch.kernels.dense_grad_hist as dgh
+    import repro_torch.kernels.fused_hog as fh
+    import repro_torch.kernels.svm_matmul as sm
+
+    gw = np.load(ROOT / "tests" / "golden" / "hog_golden.npz")["svm_w"]
+    wt32 = torch.from_numpy(gw).to(DEV).reshape(105, 36).T.contiguous()
+    wq = quant.quantize_weight_columns(wt32)[0].contiguous()
+    rng = np.random.default_rng(3)
+    B = KERNEL_BATCH
+    errs, checks = {}, 0
+
+    def same(name, fn, x, split=lambda y, i: y[i]):
+        """fn on the stack against fn on each frame alone, bit for bit."""
+        nonlocal checks
+        got = fn(x)
+        for i in range(B):
+            one = fn(x[i:i + 1].contiguous())
+            need(torch.equal(split(got, i), split(one, 0)),
+                 f"{name}: kernel(stack)[{i}] != kernel(frame {i}) at "
+                 f"{tuple(x.shape)}")
+        checks += 1
+        return got
+
+    def err(name, got, want, limit):
+        e = float((got.float() - want.float()).abs().max())
+        need(e <= limit, f"{name} B{B}: max err vs plain {e} > {limit}")
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    for H, W in level_shapes(480, 640):
+        shape = (B, H, W)
+        grays = {"float": torch.from_numpy(
+            rng.uniform(0, 255, shape).astype(np.float32)).to(DEV),
+                 "fixed": torch.from_numpy(
+            rng.integers(0, 256, shape).astype(np.float32)).to(DEV)}
+        fused = {}
+        for mode, norm in MODE_NORMS.items():
+            gray = grays["fixed" if mode == "fixed" else "float"]
+            hist = same(f"dense_grad_hist {mode}",
+                        lambda g: dgh.dense_grad_hist(g, mode=mode), gray)
+            want = dgh.dense_grad_hist_plain(gray, mode=mode)
+            if mode == "fixed":
+                need(torch.equal(hist, want), "dense_grad_hist fixed B8")
+            else:
+                need(bool(((hist - want).abs() <= HIST_ATOL
+                           + HIST_RTOL * want.abs()).all()),
+                     f"dense_grad_hist {mode} B{B} vs plain")
+            err(f"dense_grad_hist {mode}", hist, want, math.inf)
+            blocks = same(f"dense_block_norm {norm}",
+                          lambda h: dbn.dense_block_norm(h, mode=norm), hist)
+            want = dbn.dense_block_norm_plain(hist, mode=norm)
+            if mode == "fixed":
+                flips = code_flips(blocks, want)
+                need(flips <= 1e-3 * blocks.numel(),
+                     f"dense_block_norm fixed B{B}: {flips} code flips")
+                err(f"dense_block_norm {norm}", blocks, want, math.inf)
+            else:
+                err(f"dense_block_norm {norm}", blocks, want, BLOCK_ATOL)
+            fused[mode] = same(f"dense_fused_hog {mode}",
+                               lambda g: fh.dense_fused_hog(g, mode=mode),
+                               gray)
+            need(torch.equal(fused[mode], blocks),
+                 f"dense_fused_hog {mode} B{B}: not the pair's blocks")
+            want = fh.dense_fused_hog_plain(gray, mode=mode)
+            if mode == "fixed":
+                need(code_flips(fused[mode], want)
+                     <= 1e-3 * want.numel(), "dense_fused_hog fixed B8")
+                err(f"dense_fused_hog {mode}", fused[mode], want, math.inf)
+            else:
+                err(f"dense_fused_hog {mode}", fused[mode], want, BLOCK_ATOL)
+        m = fused["cordic"][0].numel() // 36        # block rows a frame
+        rows = lambda y, i: y[i * m:(i + 1) * m]     # noqa: E731
+        for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            flat = fused["cordic"].reshape(B, m, 36).to(dt)
+            wt = wt32.to(dt).contiguous()
+            got = same(f"score_matmul {dname}", lambda x: sm.score_matmul(
+                x.reshape(-1, 36), wt), flat, rows)
+            err(f"score_matmul {dname}", got, sm.score_matmul_plain(
+                flat.reshape(-1, 36), wt), MATMUL_ATOL[dname])
+        q = quant.quantize_blocks(fused["fixed"].reshape(-1, 36))[0]
+        q = q.reshape(B, m, 36)
+        got = same("score_matmul_int8 int8", lambda x: sm.score_matmul_int8(
+            x.reshape(-1, 36), wq), q, rows)
+        err("score_matmul_int8 int8", got, sm.score_matmul_int8_plain(
+            q.reshape(-1, 36), wq), 0.0)
+    torch.cuda.synchronize()
+    by_kernel = {}
+    for k, e in errs.items():
+        by_kernel.setdefault(k.split()[0], []).append(f"{e:.1e}" if e
+                                                      else "0")
+    print(f"  batched kernels B{B}, each 640x480 level: kernel(stack)[i] "
+          f"== kernel(frame i) in {checks} checks; err vs plain by mode: "
+          + ", ".join(f"{k} {'/'.join(v)}" for k, v in by_kernel.items()),
+          flush=True)
+
+
+def _per_kernel(steps, own) -> str:
+    """Launches of each kernel in each step ("/" between steps), or, where
+    every kernel launched n times in every step, "n of each kernel"."""
+    counts = {st[k] for st in steps for k in own}
+    if len(counts) == 1:
+        return f"{counts.pop()} of each kernel"
+    return ", ".join(k + " " + "/".join(str(st[k]) for st in steps)
+                     for k in own)
+
+
+def _autotuned(det_mod, det, B: int) -> str:
+    """The chunk the autotune chose for a B-frame batch of this
+    detector's configuration on the card, with each candidate's ms."""
+    for k, v in det_mod._AUTOTUNE.items():
+        if k[4] == B and k[5] == det.cfg and k[10] == "cuda":
+            return f"{v['chunk']} (" + " ".join(
+                f"{c}:{ms:.2f}" for c, ms in v["probe_ms"].items()) + ")"
+    raise SmokeFailure(f"no autotune decision for B {B}")
+
+
+def batch_path(torch, np, configs, svm) -> dict:
+    """Phase 4c: DetectionSession.detect_batch on the card for each dense
+    configuration, on batches of 4 and 8 seeded 640x480 scenes and one
+    batch of mixed true sizes in the 640x480 bucket, every launch counter
+    reset just before each configuration's run and read just after; the
+    kept boxes held against the card's single-frame detect and the CPU
+    session's detect_batch, scores within SCORE_TOL; ms/frame (host
+    clock, configurations in turns), launches and device-busy ms per
+    frame, and the idle share."""
+    import repro_torch.api as api
+    import repro_torch.core.detector as det_mod
+    import repro_torch.data.synth_pedestrian as synth
+    import repro_torch.kernels as kernels
+
+    batches = {f"B{b}": [synth.make_scene(np.random.default_rng(10 + i),
+                                          480, 640, n_people=3)[0]
+                         for i in range(b)] for b in BATCH_SIZES}
+    batches["mixed"] = [synth.make_scene(np.random.default_rng(30 + i), h,
+                                         w, n_people=3)[0]
+                        for i, (h, w) in enumerate(MIXED_SIZES)]
+    gpu = {n: api.DetectionSession(svm, c, device=DEV)
+           for n, (c, _) in configs.items()}
+    # the CPU's chunk is fixed: its autotune would run every candidate
+    cpu = {n: api.DetectionSession(svm, c.replace(
+        detector=dataclasses.replace(c.detector, batch_chunk=1 << 10)),
+        device="cpu") for n, (c, _) in configs.items()}
+    for sess in gpu.values():                 # the autotune probes first
+        for frames in batches.values():
+            sess.detect_batch(frames).block_until_ready()
+
+    launches, lines = {}, {}
+    for name, sess in gpu.items():
+        kernels.reset_launches()
+        results, per_batch = {}, []
+        for key, frames in batches.items():
+            results[key] = sess.detect_batch(frames)
+            per_batch.append(kernels.launch_counts())  # running totals
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        launches[f"batch {name}"] = counts
+        own = [k for k in counts if k in PATH_KERNELS[f"batch {name}"]]
+        for k, n in counts.items():
+            need((n > 0) == (k in own), f"batch {name}: kernel {k} "
+                 f"launched {n} times")
+        steps = [{k: c[k] - p.get(k, 0) for k in own}
+                 for p, c in zip([{}] + per_batch, per_batch)]
+        dt = configs[name][1]
+        n_frames, differ, worst, kept = 0, 0, 0.0, 0
+        for key, frames in batches.items():
+            got = results[key].to_list()
+            # a mixed batch takes each frame's eager gray, edge-padded (as
+            # the reference does); its single-frame detect takes the same
+            alone = [sess.detect(sess.detector._to_gray(f) if key == "mixed"
+                                 else f).to_list() for f in frames]
+            for where, ref in (("CPU batch", cpu[name].detect_batch(
+                    frames).to_list()), ("card detect", alone)):
+                for i, (a, b) in enumerate(zip(got, ref)):
+                    first = next((j for j, (x, y) in enumerate(zip(a, b))
+                                  if x["box"] != y["box"]), None)
+                    need([x["box"] for x in a] == [x["box"] for x in b],
+                         f"batch {name} {key} frame {i}: kept boxes differ "
+                         f"from the {where}'s ({len(a)} vs {len(b)}; first "
+                         f"at {first}: " + (f"{a[first]} vs {b[first]}"
+                                            if first is not None else "-")
+                         + ")")
+                    de = max((abs(x["score"] - y["score"])
+                              for x, y in zip(a, b)), default=0.0)
+                    need(de <= SCORE_TOL[dt], f"batch {name} {key} frame "
+                                              f"{i}: score delta {de}")
+                    n_frames += 1
+                    differ += de > 0
+                    worst = max(worst, de)
+            kept += sum(len(a) for a in got)
+        need(kept >= 3 * sum(len(f) for f in batches.values()),
+             f"batch {name}: only {kept} boxes kept; the check is vacuous")
+        lines[name] = (f"launches a batch: {_per_kernel(steps, own)}; "
+                       f"same boxes as card and CPU: {n_frames} pairs, "
+                       f"{kept} boxes, scores differ in {differ} (max "
+                       f"{worst:.1e})")
+
+    # ms/frame, each batch size, the configurations in turns
+    names = list(gpu)
+    per_frame = {}
+    for b in BATCH_SIZES:
+        frames = batches[f"B{b}"]
+        total = dict.fromkeys(names, 0.0)
+        for rep in range(-1, BATCH_REPS):
+            for name in names[rep % len(names):] + names[:rep % len(names)]:
+                t0 = time.perf_counter()
+                gpu[name].detect_batch(frames).block_until_ready()
+                if rep >= 0:
+                    total[name] += time.perf_counter() - t0
+        for name in names:
+            per_frame[(name, b)] = total[name] * 1e3 / (BATCH_REPS * b)
+    print("  per batch size: chunk (probe ms per candidate), ms/frame, "
+          "frames/s, launches/frame, busy ms/frame, idle share", flush=True)
+    for name in names:
+        sess = gpu[name]
+        text = []
+        for b in BATCH_SIZES:
+            frames = batches[f"B{b}"]
+            times = device_times(
+                torch, lambda: sess.detect_batch(frames).block_until_ready(),
+                2)
+            nl = sum(c for c, _ in times.values()) / 2 / b
+            busy = sum(t for _, t in times.values()) / 1e3 / 2 / b
+            ms = per_frame[(name, b)]
+            text.append(f"B{b} {_autotuned(det_mod, sess.detector, b)} "
+                        f"{ms:.3f} {1e3 / ms:.1f} {nl:.0f} {busy:.4f} "
+                        f"{1 - busy / ms:.3f}")
+        print(f"  batch {name}: " + "; ".join(text) + "; " + lines[name],
+              flush=True)
+
+    # the batched resize (f64, one GEMM per axis over the batch, one
+    # rounding): pixels unlike each frame's alone and the CPU's; and what
+    # f32 GEMMs would give, the batch's shape against each frame's
+    det = gpu["paper+kernel"].detector
+    prog, ph, pw = det.program_for(480, 640)
+    cpu_prog = cpu["paper+kernel"].detector.program_for(480, 640)[0]
+    text = []
+    for b in BATCH_SIZES:
+        stack = torch.from_numpy(np.stack(batches[f"B{b}"])).to(DEV)
+        gray = det_mod._prep_batch(stack, 480, 640, ph, pw)
+        levels = prog.pyramid(gray)
+        on_cpu = cpu_prog.pyramid(gray.cpu())
+        f32_wide, f32_alone = [], []
+        for sh, sw in [lv.shape[1:] for lv in levels[1:]]:
+            wy = torch.tensor(det_mod._resize_weights(ph, sh), device=DEV)
+            wx = torch.tensor(det_mod._resize_weights(pw, sw), device=DEV)
+            x = wy @ gray.permute(1, 0, 2).reshape(ph, b * pw)
+            x = x.reshape(sh, b, pw).permute(1, 0, 2).reshape(b * sh, pw)
+            f32_wide.append((x @ wx.T).reshape(b, sh, sw))
+            f32_alone.append(torch.stack([(wy @ g) @ wx.T for g in gray]))
+        vs_cpu = sum(int((lv.cpu() != c).sum())
+                     for lv, c in zip(levels, on_cpu))
+        vs_alone = frames_off = pixels = rints = 0
+        for i in range(b):
+            alone = prog.pyramid(gray[i])
+            vs_alone += sum(int((lv[i] != a).sum())
+                            for lv, a in zip(levels, alone))
+            off = [int((w[i] != a[i]).sum())
+                   for w, a in zip(f32_wide, f32_alone)]
+            rints += sum(int((torch.round(w[i]) != torch.round(a[i])).sum())
+                         for w, a in zip(f32_wide, f32_alone))
+            frames_off += any(off)
+            pixels += sum(off)
+        text.append(f"B{b} {vs_alone}/{vs_cpu} px; f32 {frames_off}/{b} "
+                    f"frames ({pixels} px, {rints} whole levels)")
+    print("  batched resize (f64) px unlike each frame's alone/the CPU's; "
+          "f32 GEMMs of the batch's shape unlike each frame's: "
+          + "; ".join(text), flush=True)
+    return launches
+
+
+def stream_path(torch, np, configs, svm) -> dict:
+    """Phase 4d: DetectionSession.stream of a seeded make_clip clip on the
+    card (paper + kernel, batches of 4), counters reset just before and
+    read just after; the track ids and boxes must be the CPU session's."""
+    import repro_torch.api as api
+    import repro_torch.data.synth_pedestrian as synth
+    import repro_torch.kernels as kernels
+
+    clip, truths = synth.make_clip(np.random.default_rng(5),
+                                   synth.ClipConfig(n_frames=10, h=480,
+                                                    w=640, n_people=2))
+    cfg = configs["paper+kernel"][0]
+    gpu = api.DetectionSession(svm, cfg, device=DEV)
+    kernels.reset_launches()
+    got = [d.to_list() for d in gpu.stream(list(clip), batch_size=4)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    own = [k for k in counts if k in PATH_KERNELS["stream paper+kernel"]]
+    for k, n in counts.items():
+        need((n > 0) == (k in own), f"stream: kernel {k} launched {n} "
+                                    f"times")
+    cpu = api.DetectionSession(svm, cfg.replace(detector=dataclasses.replace(
+        cfg.detector, batch_chunk=1 << 10)), device="cpu")
+    want = [d.to_list() for d in cpu.stream(list(clip), batch_size=4)]
+    for t, (a, b) in enumerate(zip(got, want)):
+        need([(x["track_id"], x["box"]) for x in a]
+             == [(x["track_id"], x["box"]) for x in b],
+             f"stream frame {t}: tracks differ from the CPU session's")
+    ids = sorted({x["track_id"] for a in got for x in a})
+    need(len(ids) >= 2, f"stream: only tracks {ids}; the check is vacuous")
+    print(f"  stream paper+kernel, {len(clip)} frames of 640x480 in batches "
+          f"of 4: {sum(len(a) for a in got)} tracked boxes, track ids "
+          f"{ids[0]}-{ids[-1]}, same as CPU; launches: "
+          f"{_per_kernel([counts], own)}, others 0", flush=True)
+    return {"stream paper+kernel": counts}
 
 
 def frame_windows(torch, np, svm_np, svm):
@@ -1618,9 +1969,9 @@ def window_path(torch, np) -> dict:
         sure = ref["score"].abs() > tol
         need(torch.equal(got["human"][sure], ref["human"][sure]),
              f"{name}: human differs from the CPU where |score| > {tol}")
-        print(f"  {name}: 294 split windows, max score delta vs CPU "
-              f"{de:.2e} (tol {tol:g}), human same as CPU on "
-              f"{int(sure.sum())} with |score| > tol, "
+        print(f"  {name}: 294 split windows, score delta vs CPU "
+              f"{de:.2e} (tol {tol:g}), human same on "
+              f"{int(sure.sum())} beyond tol, "
               f"{int(got['human'].sum())} humans", flush=True)
 
     # numpy windows without a device go to the card
@@ -1790,8 +2141,8 @@ def lm_path(torch, np) -> dict:
                                       f"relative L2 {rel} > {CONSIST_TOL}")
     print(f"  lm {LM_ARCH} full width ({cfg.n_layers} layers, {n:,} "
           f"parameters, init {t_init:.1f} s, peak {peak:.2f} GiB): tokens "
-          f"in range, a second run the same; prefill vs prefill[:-1] + "
-          f"decode_step last logits: relative L2 {rel['sound']:.2e} (tol "
+          f"in range, rerun the same; prefill vs prefill[:-1] + "
+          f"decode_step, last logits' relative L2 {rel['sound']:.2e} (tol "
           f"{CONSIST_TOL:g}; planted: " + _faults(rel) + "), max delta "
           f"{float((a - b).abs().max()):.3f} of max |logit| "
           f"{float(a.abs().max()):.2f}, argmax same in "
@@ -1963,18 +2314,23 @@ def _r(x):
 
 
 def compact_mode(v: dict, group: str, main: bool) -> dict:
-    """A mode's entry for the kernels line: its error (and code flips)
-    and, but for the main mode (whose numbers stand at the kernel's top
+    """A mode's entry for the kernels line: its error ("err") and code
+    flips ("flips") and, but for the main mode (whose numbers stand at the kernel's top
     level), the main group's CUDA-event ms per call, to 4 significant
     digits (its device, plain, bound and library ms are on its check
     line)."""
-    out = {k: _r(d) for k, d in v.items() if not isinstance(d, dict)}
+    short = {"max_abs_err": "err", "code_flips": "flips"}
+    out = {short.get(k, k): _r(d) for k, d in v.items()
+           if not isinstance(d, dict)}
     if not main:
         out["ms"] = _r(v[group]["ms"])
     return out
 
 
 def main() -> int:
+    # every run probes the batch schedule: no autotune decision is read
+    # from, or written to, a cache file
+    os.environ["REPRO_AUTOTUNE_CACHE"] = ""
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: FAIL: src/repro_torch not found beside this "
               "script; run it from a checkout of the repository",
@@ -2009,25 +2365,29 @@ def main() -> int:
         pair = {n: spill_bytes(build.library_path(n).with_suffix(".log"))
                 for n in ("dense_grad_hist", "dense_block_norm",
                           "hog_gradient", "fused_hog")}
+        spills = ", ".join(f"{n} {st}/{ld}" for n, (st, ld) in pair.items())
         print("ptxas registers, fewest-most over instantiations: "
               + ", ".join(reports) + "; spill stores/loads, bytes: "
-              + ", ".join(f"{n} {st}/{ld}" for n, (st, ld) in pair.items()),
-              flush=True)
+              + (spills if any(map(sum, pair.values()))
+                 else "0/0 in " + ", ".join(pair)), flush=True)
         need(not any("spill" in r for r in reports)
              and not any(sum(v) for v in pair.values()), "ptxas spilled")
         sm90_report(build)
 
         one = torch.zeros(1, device=DEV)
         floor = kernel_device_ms(torch, lambda: one.add_(1), "")
-        print("kernel checks vs plain (err: worst shape), per frame (3 "
-              "levels) or window batch: device/plain/bound/library ms (one "
-              "PyTorch call's device time); launch floor (1-element add_): "
-              f"{_fmt(floor)}", flush=True)
+        print("kernel checks vs plain (err: worst shape), per frame or "
+              "window batch: device/plain/bound/library ms (device time); "
+              f"launch floor (1-element add_): {_fmt(floor)}", flush=True)
         summary = check_kernels(torch, np)
+        check_batched_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
         summary.update(check_flash(torch, np))
         print("main path:", flush=True)
-        launches = main_path(torch, np)
+        launches, configs, svm = main_path(torch, np)
+        print("batch path:", flush=True)
+        launches.update(batch_path(torch, np, configs, svm))
+        launches.update(stream_path(torch, np, configs, svm))
         print("window path:", flush=True)
         launches.update(window_path(torch, np))
         print("LM path:", flush=True)
@@ -2052,7 +2412,6 @@ def main() -> int:
             "replaces": KERNELS[k][1],
             "launches": sum(c[k] for c in launches.values()),
             "max_abs_err": _r(summary[k]["max_abs_err"]),
-            "main_mode": MAIN_MODE[k],
             **{key: _r(main[key]) for key in ("ms", "device_ms",
                                               "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")},
@@ -2062,9 +2421,7 @@ def main() -> int:
             "modes": {m: compact_mode(v, MAIN_GROUP[k], m == MAIN_MODE[k])
                       for m, v in summary[k].items()
                       if m != "max_abs_err"},
-            # the launch plans by window batch (band or rows a CTA:CTAs)
-            **({"plans": summary["plans"][k]} if k in summary["plans"]
-               else {})})
+            })
     flash = next(e for e in kernels_line["kernels"]
                  if e["name"] == "flash_attention")
     flash["launches_by_route"] = flash_routes

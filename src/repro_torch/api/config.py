@@ -1,13 +1,13 @@
 """The configuration tree of the port's detection API -- the port of
 repro/api/config.py.
 
-``PipelineConfig`` nests the typed ``hog`` and ``detector`` configs this
-slice runs. The ``tracker``, ``train``, ``service`` and ``cascade``
-sub-trees belong to paths a later slice ports; they are kept as plain
-dicts and round-trip unchanged, so a reference ``PipelineConfig.to_dict()``
-loads and dumps back equal. Their defaults are copies of the reference
-dataclasses' defaults (repro/core/video.py:60 TrackerConfig,
-repro/core/svm.py:57 SVMTrainConfig, repro/api/config.py:66
+``PipelineConfig`` nests the typed ``hog``, ``detector`` and ``tracker``
+(core/video.py:TrackerConfig) configs the port runs. The ``train``,
+``service`` and ``cascade`` sub-trees belong to paths a later slice
+ports; they are kept as plain dicts and round-trip unchanged, so a
+reference ``PipelineConfig.to_dict()`` loads and dumps back equal. Their
+defaults are copies of the reference dataclasses' defaults
+(repro/core/svm.py:57 SVMTrainConfig, repro/api/config.py:66
 ServiceConfig with serve/resilience.py and obs/metrics.py nested,
 repro/core/cascade.py:60 CascadeConfig).
 
@@ -24,10 +24,8 @@ from typing import Any, Dict, Optional
 from ..configs import hog_svm
 from ..core.detector import DetectorConfig
 from ..core.hog import HOGConfig, PAPER_HOG
+from ..core.video import TrackerConfig
 
-TRACKER_DEFAULT = {"iou_match": 0.3, "max_misses": 2, "min_hits": 1,
-                   "score_alpha": 0.6, "velocity_alpha": 0.7,
-                   "emit_coasting": False}
 TRAIN_DEFAULT = {"steps": 2000, "batch": 256, "lam": 0.0001, "seed": 0,
                  "pegasos_lr": True, "neg_weight": 1.0}
 #: the paper presets' schedule (repro/configs/hog_svm.py:24 TRAIN)
@@ -66,7 +64,7 @@ class PipelineConfig:
     name: str = "default"
     hog: HOGConfig = PAPER_HOG
     detector: DetectorConfig = DetectorConfig()
-    tracker: Dict[str, Any] = _default(TRACKER_DEFAULT)
+    tracker: TrackerConfig = TrackerConfig()
     train: Dict[str, Any] = _default(TRAIN_DEFAULT)
     service: Dict[str, Any] = _default(SERVICE_DEFAULT)
     cascade: Dict[str, Any] = _default(CASCADE_DEFAULT)

@@ -1,5 +1,5 @@
-"""Multi-scale sliding-window human detector, single-frame path -- the
-port of repro/core/detector.py.
+"""Multi-scale sliding-window human detector, single-frame and batched
+paths -- the port of repro/core/detector.py.
 
 Per frame: grayscale and edge-pad to the 32-px bucket, resize each
 pyramid scale as two matmuls over the exact ``jax.image.resize``
@@ -15,15 +15,22 @@ backends run the hand-written CUDA kernels there. Both numerics run:
 float, and the fixed-point chain of the quant preset, which scores int8
 block codes against int8 weight codes with an exact int32 product.
 
+A bucket's program takes a leading batch axis: B frames of one bucket go
+through one launch sequence, each kernel taking the whole batch (the
+reference vmaps its program). ``detect_raw`` is a batch of one;
+``detect_batch_raw`` schedules B frames in ``batch_chunk``-wide steps
+(``_chunked_schedule``), the width measured at first use when it is 0
+(``_autotune_chunk``).
+
 What the port does not run yet raises NotImplementedError naming the
-later slice: stacked multi-head weights, the banded resize, data/frame
-parallelism and the batched path.
+later slice: stacked multi-head weights, the banded resize and
+data/frame parallelism.
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,14 +39,13 @@ import torch.nn.functional as F
 from ..kernels import svm_matmul as sm
 from . import numerics as N
 from . import quant
-from .hog import HOGConfig, PAPER_HOG, grayscale_fused
+from .hog import HOGConfig, PAPER_HOG, grayscale, grayscale_fused
 from .stages import BACKENDS, dense_blocks
 
 Tensor = torch.Tensor
 
 MULTI_HEAD_LATER = ("stacked multi-head SVM weights (2-D w): a later slice "
                     "of the port (multi-head)")
-BATCH_LATER = "detect_batch (the batched path): a later slice of the port"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +61,7 @@ class DetectorConfig:
     max_detections: int = 0               # top-k size K; 0 = auto
     backend: str = "ref"                  # "ref" | "kernel" | "fused"
     shape_bucket: int = 32                # frames pad up to multiples
-    batch_chunk: int = 0                  # batched path (later slice)
+    batch_chunk: int = 0                  # frames a batch step; 0 = autotune
     data_parallel: int = 1                # multi-device (later slice)
     frame_parallel: int = 1               # intra-frame tiling (later)
     tile_mode: str = "slab"               # intra-frame tiling (later)
@@ -114,13 +120,14 @@ def scene_blocks(gray: Tensor, cfg: HOGConfig, backend: str = "ref") -> Tensor:
 def score_blocks(blocks: Tensor, w: Tensor, b: Tensor,
                  cfg: HOGConfig = PAPER_HOG,
                  use_kernel: bool = False) -> Tensor:
-    """Score the dense block grid: (BH, BW, 36) -> (PH, PW).
+    """Score the dense block grid: (..., BH, BW, 36) -> (..., PH, PW).
 
     score[i, j] = <blocks[i:i+15, j:j+7, :], W> + b, factored as ONE
-    (BH*BW, 36) @ (36, 105) matmul of per-offset partial scores (the
-    score_matmul kernel when ``use_kernel``) and 105 shifted adds in the
-    reference's order: from zeros, offsets (di, dj) row-major, then b.
-    bf16 blocks meet bf16 weights, accumulated in f32.
+    (N*BH*BW, 36) @ (36, 105) matmul of per-offset partial scores over
+    every grid of the leading axes (the score_matmul kernel when
+    ``use_kernel``) and 105 shifted adds in the reference's order: from
+    zeros, offsets (di, dj) row-major, then b. bf16 blocks meet bf16
+    weights, accumulated in f32.
 
     Fixed numerics (repro/core/detector.py:205-224): the block grid is
     already on its per-block int8 grid, so requantizing recovers the
@@ -131,8 +138,9 @@ def score_blocks(blocks: Tensor, w: Tensor, b: Tensor,
     if w.dim() == 2:
         raise NotImplementedError(MULTI_HEAD_LATER)
     bh, bw = cfg.blocks_hw                              # 15, 7
-    BH, BW, bd = blocks.shape
-    flat = blocks.reshape(BH * BW, bd).contiguous()
+    lead = tuple(blocks.shape[:-3])
+    BH, BW, bd = blocks.shape[-3:]
+    flat = blocks.reshape(-1, bd).contiguous()
     if N.spec_for(cfg).quantized:
         q, s_rows = quant.quantize_blocks(flat)
         wt = w.reshape(bh * bw, bd).T.to(torch.float32)
@@ -145,24 +153,28 @@ def score_blocks(blocks: Tensor, w: Tensor, b: Tensor,
         wt = w.reshape(bh * bw, bd).T.to(blocks.dtype).contiguous()
         contrib = (sm.score_matmul(flat, wt) if use_kernel
                    else sm.score_matmul_plain(flat, wt))
-    return collate_scores(contrib.reshape(BH, BW, bh * bw), bh, bw) + b
+    return collate_scores(contrib.reshape(lead + (BH, BW, bh * bw)),
+                          bh, bw) + b
 
 
 def collate_scores(contrib: Tensor, bh: int, bw: int) -> Tensor:
     """Sum the per-offset partial scores into the window score map:
-    (BH, BW, bh*bw) -> (BH-bh+1, BW-bw+1), from zeros, offsets (di, dj)
-    row-major, as the reference accumulates them (bias not added)."""
-    ph, pw = contrib.shape[0] - bh + 1, contrib.shape[1] - bw + 1
-    out = torch.zeros((ph, pw), dtype=torch.float32, device=contrib.device)
+    (..., BH, BW, bh*bw) -> (..., BH-bh+1, BW-bw+1), from zeros, offsets
+    (di, dj) row-major, as the reference accumulates them (bias not
+    added)."""
+    ph, pw = contrib.shape[-3] - bh + 1, contrib.shape[-2] - bw + 1
+    out = torch.zeros(tuple(contrib.shape[:-3]) + (ph, pw),
+                      dtype=torch.float32, device=contrib.device)
     for di in range(bh):
         for dj in range(bw):
-            out = out + contrib[di:di + ph, dj:dj + pw, di * bw + dj]
+            out = out + contrib[..., di:di + ph, dj:dj + pw, di * bw + dj]
     return out
 
 
 def score_map(gray: Tensor, w: Tensor, b: Tensor, cfg: HOGConfig = PAPER_HOG,
               backend: str = "ref") -> Tensor:
-    """Dense SVM score map at cell (8-px) stride. gray: (H, W) -> (PH, PW)."""
+    """Dense SVM score map at cell (8-px) stride. gray: (..., H, W) ->
+    (..., PH, PW)."""
     blocks = scene_blocks(gray, cfg, backend)
     return score_blocks(blocks, w, b, cfg, use_kernel=(backend != "ref"))
 
@@ -170,37 +182,43 @@ def score_map(gray: Tensor, w: Tensor, b: Tensor, cfg: HOGConfig = PAPER_HOG,
 # ------------------------------------------------------------------- NMS
 
 def matrix_iou(a: Tensor, b: Tensor) -> Tensor:
-    """Pairwise IoU. a: (N, 4), b: (M, 4) as (y0, x0, y1, x1) -> (N, M)."""
-    y0 = torch.maximum(a[:, None, 0], b[None, :, 0])
-    x0 = torch.maximum(a[:, None, 1], b[None, :, 1])
-    y1 = torch.minimum(a[:, None, 2], b[None, :, 2])
-    x1 = torch.minimum(a[:, None, 3], b[None, :, 3])
+    """Pairwise IoU. a: (..., N, 4), b: (..., M, 4) as (y0, x0, y1, x1)
+    -> (..., N, M)."""
+    y0 = torch.maximum(a[..., :, None, 0], b[..., None, :, 0])
+    x0 = torch.maximum(a[..., :, None, 1], b[..., None, :, 1])
+    y1 = torch.minimum(a[..., :, None, 2], b[..., None, :, 2])
+    x1 = torch.minimum(a[..., :, None, 3], b[..., None, :, 3])
     inter = torch.clamp(y1 - y0, min=0.0) * torch.clamp(x1 - x0, min=0.0)
-    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
-    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
-    return inter / torch.clamp(area_a[:, None] + area_b[None, :] - inter,
-                               min=1e-9)
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / torch.clamp(area_a[..., :, None] + area_b[..., None, :]
+                               - inter, min=1e-9)
 
 
 def nms_keep(boxes: Tensor, scores: Tensor, iou_thr: float) -> Tensor:
     """Greedy NMS on the device over boxes sorted by descending score;
-    entries with score -inf are invalid and never kept.
+    entries with score -inf are invalid and never kept. boxes (..., K, 4),
+    scores (..., K) -> keep (..., K), each leading index its own list.
 
     The reference runs a fori_loop over K whose step i keeps box i iff it
-    is valid and no kept box j < i overlaps it by more than ``iou_thr``.
-    The loop-invariant part of that test, (iou > thr) & (j < i), is built
-    once here; the sequential dependency stays a K-step loop of small
-    tensor ops (an NMS kernel is later work).
+    is valid and no kept box j < i overlaps it by more than ``iou_thr``
+    (vmapped over a batch). The loop-invariant part of that test,
+    (iou > thr) & (j < i), is built once here; the sequential dependency
+    stays a K-step loop of small tensor ops, each over every list at once
+    (an NMS kernel is later work).
     """
-    k = boxes.shape[0]
+    k = boxes.shape[-2]
     iou = matrix_iou(boxes, boxes)
-    valid = torch.isfinite(scores)
     rank = torch.arange(k, device=boxes.device)
     sup = (iou > iou_thr) & (rank[:, None] < rank[None, :])
-    keep = torch.zeros((k,), dtype=torch.bool, device=boxes.device)
+    # box axes first, so each step indexes dim 0 alone (the host's fast
+    # path): valid[i] (...), sup_by_i[i][j] = sup[..., j, i], keep[j] (...)
+    valid = torch.isfinite(scores).movedim(-1, 0)
+    sup_by_i = sup.movedim(-1, 0).movedim(-1, 1).contiguous()
+    keep = torch.zeros(valid.shape, dtype=torch.bool, device=boxes.device)
     for i in range(k):
-        keep[i] = valid[i] & ~torch.any(keep & sup[:, i])
-    return keep
+        keep[i] = valid[i] & ~torch.any(keep & sup_by_i[i], dim=0)
+    return keep.movedim(0, -1)
 
 
 def _nms(boxes: np.ndarray, scores: np.ndarray, iou_thr: float) -> List[int]:
@@ -228,10 +246,11 @@ def _nms(boxes: np.ndarray, scores: np.ndarray, iou_thr: float) -> List[int]:
 
 
 def top_k(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
-    """The k largest values and their indices, ties to the lower index
-    (lax.top_k's order, which torch.topk does not promise)."""
-    srt = torch.sort(x, descending=True, stable=True)
-    return srt.values[:k], srt.indices[:k]
+    """The k largest values of the last axis and their indices, ties to
+    the lower index (lax.top_k's order, which torch.topk does not
+    promise)."""
+    srt = torch.sort(x, dim=-1, descending=True, stable=True)
+    return srt.values[..., :k], srt.indices[..., :k]
 
 
 # ---------------------------------------------- per-bucket frame program
@@ -248,6 +267,30 @@ def _resolve_k(cfg: DetectorConfig, n: int) -> int:
     return min(n, max(256, -(-n // 256)))
 
 
+def _xla_column_sum(w: np.ndarray) -> np.ndarray:
+    """Column sums of an (n, m) f32 array in XLA:CPU's order, read from
+    its optimized HLO and emitted loops: while more than 32 rows remain,
+    the rows are padded to a multiple of 32, floor(pad / 2) before and
+    the rest after, and each window of 32 is summed in row order from
+    zero (a reduce-window); the last 32 or fewer partial sums are then
+    added in order from zero."""
+    rows = list(w)
+    while len(rows) > 32:
+        n = len(rows)
+        lo = (-(-n // 32) * 32 - n) // 2
+        windows = []
+        for start in range(-lo, n, 32):
+            acc = np.zeros(w.shape[1:], np.float32)
+            for r in rows[max(start, 0):start + 32]:
+                acc = acc + r
+            windows.append(acc)
+        rows = windows
+    total = np.zeros(w.shape[1:], np.float32)
+    for r in rows:
+        total = total + r
+    return total
+
+
 @lru_cache(maxsize=256)
 def _resize_weights(src: int, dst: int) -> np.ndarray:
     """(dst, src) row-weight matrix of jax.image.resize's "linear" kernel
@@ -260,13 +303,8 @@ def _resize_weights(src: int, dst: int) -> np.ndarray:
           <= 1000 * eps(f32), and columns whose sample lies outside
           [-0.5, src - 0.5] zeroed.
 
-    The column sums follow XLA:CPU's reduction: rows in chunks of 32,
-    each chunk summed in index order, then the chunk sums in order. For
-    a ``src`` that is a multiple of 32 (every frame bucket, as
-    ``shape_bucket`` is 32) that reproduces the reference bit for bit;
-    other sizes tried (40, 97, 150, 331, 577, 1080, 2160) leave a few
-    entries one ulp off, which tests/test_torch_detector.py holds within
-    1.2e-7.
+    The column sums follow XLA:CPU's reduction (``_xla_column_sum``), so
+    the weights equal the reference's bit for bit at every size.
     """
     # counterpart: repro/core/detector.py:_resize_weights (the identity
     # through jax.image.resize)
@@ -278,12 +316,7 @@ def _resize_weights(src: int, dst: int) -> np.ndarray:
     x = np.abs(sample_f[None, :]
                - np.arange(src, dtype=np.float32)[:, None]) / kernel_scale
     w = np.maximum(np.float32(0.0), np.float32(1.0) - x)      # (src, dst)
-    total = np.zeros((1, dst), np.float32)
-    for c0 in range(0, src, 32):
-        chunk = np.zeros((1, dst), np.float32)
-        for i in range(c0, min(c0 + 32, src)):
-            chunk = chunk + w[i:i + 1]
-        total = total + chunk
+    total = _xla_column_sum(w)[None, :]
     w = np.where(np.abs(total) > np.float32(1000.0 * np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, np.float32(1.0)),
                  np.float32(0.0))
@@ -320,8 +353,9 @@ class DecodeTables:
 class FrameProgram:
     """One bucket's multi-scale program + its static decode tables."""
 
-    fn: Optional[Callable]         # (gray_pad, w, b, (h, w)) ->
-    #                                (top, idx, keep, n_valid)
+    fn: Optional[Callable]         # (gray (B, ph, pw), w, b, ((h, w),) * B)
+    #                                -> (top, idx, keep, n_valid), each
+    #                                with the leading batch axis
     boxes: np.ndarray              # (N, 4) window boxes in frame coords
     scales: np.ndarray             # (N,) nominal pyramid scale per row
     n_positions: int               # N: window positions, all scales
@@ -329,14 +363,16 @@ class FrameProgram:
     per_scale: Tuple[Tuple[float, int, int], ...] = ()
     #                (scale, score-map PH, score-map PW) per pyramid level
     tables: Optional[DecodeTables] = None
-    pyramid: Optional[Callable] = None  # gray_pad -> one gray per level
+    pyramid: Optional[Callable] = None  # gray (..., ph, pw) -> levels
 
 
 def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
                    device: torch.device) -> FrameProgram:
     """Build the program for padded frame shape (ph, pw) on ``device``:
     per-scale pyramid shapes, the flattened box table, the resize weights
-    and K are fixed here; the returned ``fn`` runs one frame."""
+    and K are fixed here, once; the returned ``fn`` runs a batch of
+    frames of the bucket through one launch sequence, and nothing in it
+    reads a device value back to the host."""
     hcfg = cfg.hog
     specs: List[Tuple[int, int, float]] = []
     for s in cfg.scales:
@@ -371,16 +407,21 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
     n = len(boxes_tab)
     k = _resolve_k(cfg, n)
     boxes_dev = torch.from_numpy(boxes_tab).to(device)
-    # torch.tensor copies: the cached tables are shared by every program
+    # the weights in f64 (exact: they are f32 values); the resize sums in
+    # f64 and rounds once to f32, so the card's GEMM and the CPU's give
+    # the same level whatever order each sums in
     resize_w = {(sh, sw): (
-        torch.tensor(_resize_weights(ph, sh), device=device),
-        torch.tensor(_resize_weights(pw, sw), device=device))
+        torch.tensor(_resize_weights(ph, sh), dtype=torch.float64,
+                     device=device),
+        torch.tensor(_resize_weights(pw, sw), dtype=torch.float64,
+                     device=device))
         for sh, sw, _ in specs if (sh, sw) != (ph, pw)}
     inside_masks: Dict[Tuple[int, int], Tensor] = {}
 
     def inside_mask(h: int, w: int) -> Tensor:
         # windows must lie inside the TRUE frame; the reference adds 1e-4
-        # to the f32 frame size in f32, and so does this host-side mask
+        # to the f32 frame size in f32, and so does this host-side mask,
+        # built once per true size and kept on the device
         m = inside_masks.get((h, w))
         if m is None:
             lim_h = np.float32(h) + np.float32(1e-4)
@@ -390,44 +431,178 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
             inside_masks[(h, w)] = m
         return m
 
+    def resize(gray: Tensor, wy: Tensor, wx: Tensor) -> Tensor:
+        # (B, ph, pw) -> (B, sh, sw): both products in f64 over the whole
+        # batch, rounded to f32 once. Each output sums at most 4 x 4 taps
+        # within a few f64 ulps of exact, so any GEMM order on any device
+        # rounds it to the same f32 unless it lies that close to an f32
+        # rounding boundary. An f32 GEMM rounds in its kernel's order,
+        # which differs between cuBLAS and the CPU and between a batch's
+        # shape and a frame's, and a last-ulp difference flips sector
+        # bins and int8 codes, and with them kept boxes
+        B = gray.shape[0]
+        sh, sw = wy.shape[0], wx.shape[0]
+        x = wy @ gray.to(torch.float64).permute(1, 0, 2).reshape(ph, B * pw)
+        x = x.reshape(sh, B, pw).permute(1, 0, 2).reshape(B * sh, pw)
+        return (x @ wx.T).to(torch.float32).reshape(B, sh, sw)
+
     def pyramid(gray: Tensor) -> List[Tensor]:
+        lead = tuple(gray.shape[:-2])
+        g = gray.reshape((-1, ph, pw))
         levels = []
         for sh, sw, _ in specs:
             if (sh, sw) == (ph, pw):
                 levels.append(gray)
             else:
-                wy, wx = resize_w[(sh, sw)]
-                levels.append((wy @ gray) @ wx.T)
+                levels.append(resize(g, *resize_w[(sh, sw)])
+                              .reshape(lead + (sh, sw)))
         return levels
 
-    def fn(gray: Tensor, w: Tensor, b: Tensor, hw: Tuple[int, int]):
-        parts = [score_map(g, w, b, hcfg, cfg.backend).reshape(-1)
+    def fn(gray: Tensor, w: Tensor, b: Tensor,
+           hws: Sequence[Tuple[int, int]]):
+        B = gray.shape[0]
+        parts = [score_map(g, w, b, hcfg, cfg.backend).reshape(B, -1)
                  for g in pyramid(gray)]
-        scores = parts[0] if len(parts) == 1 else torch.cat(parts)
-        valid = inside_mask(*hw) & (scores > cfg.score_threshold)
+        scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if len(set(hws)) == 1:
+            inside = inside_mask(*hws[0])[None]
+        else:
+            inside = torch.stack([inside_mask(*hw) for hw in hws])
+        valid = inside & (scores > cfg.score_threshold)
         masked = torch.where(valid, scores, float("-inf"))
         top, idx = top_k(masked, k)
         keep = nms_keep(boxes_dev[idx], top, cfg.nms_iou)
-        return top, idx, keep, torch.sum(valid)
+        return top, idx, keep, torch.sum(valid, dim=-1)
 
     return FrameProgram(fn, boxes_tab, scale_tab, n, k, tuple(per_scale),
                         tables=DecodeTables(boxes_tab, scale_tab, k),
                         pyramid=pyramid)
 
 
-def _prep_frame(frame: Tensor, h: int, w: int, ph: int, pw: int) -> Tensor:
-    """Grayscale (RGB input only) and edge-pad the frame to its bucket.
-    The gray is the reference's jitted luma (``grayscale_fused``: its two
-    fused multiply-adds, exact for uint8 frames), on the frame's device.
+def _prep_batch(frames: Tensor, h: int, w: int, ph: int, pw: int) -> Tensor:
+    """Grayscale (RGB input only) and edge-pad a (B, h, w[, 3]) stack to
+    its bucket, frame by frame as the reference's vmapped prep. The gray
+    is the reference's jitted luma (``grayscale_fused``: its two fused
+    multiply-adds, exact for uint8 frames), on the frames' device.
     Replicate padding keeps downscaling from bleeding zeros into the last
     valid windows near the pad seam."""
-    g = (grayscale_fused(frame) if frame.dim() == 3
-         else frame.to(torch.float32))
+    g = (grayscale_fused(frames) if frames.dim() == 4
+         else frames.to(torch.float32))
     if (ph, pw) != (h, w):
-        # F.pad's replicate mode wants leading batch and channel dims
-        g = F.pad(g[None, None], (0, pw - w, 0, ph - h),
-                  mode="replicate")[0, 0]
+        # F.pad's replicate mode wants a channel dim
+        g = F.pad(g[:, None], (0, pw - w, 0, ph - h), mode="replicate")[:, 0]
     return g
+
+
+def _prep_frame(frame: Tensor, h: int, w: int, ph: int, pw: int) -> Tensor:
+    """One (h, w[, 3]) frame through ``_prep_batch``: (ph, pw) gray."""
+    return _prep_batch(frame[None], h, w, ph, pw)[0]
+
+
+def _batch_fn(prog: FrameProgram, h: int, w: int, ph: int, pw: int,
+              batch: int, chunk: int) -> Callable:
+    """The bucket's program over raw (batch, h, w[, 3]) frames, prep
+    included, in ``chunk``-wide steps (``_chunked_schedule``)."""
+    def one(frames: Tensor, wv: Tensor, bv: Tensor, hws):
+        return prog.fn(_prep_batch(frames, h, w, ph, pw), wv, bv, hws)
+
+    return _chunked_schedule(one, max(1, chunk), batch)
+
+
+def _chunked_schedule(one: Callable, chunk: int, batch: int) -> Callable:
+    """The batch schedule of repro/core/detector.py:603: chunk >= batch
+    is one wide step over every frame; otherwise chunk-wide steps in
+    order and a last step of the remainder, as lax.map(batch_size=chunk)
+    runs them (chunk 1: frame by frame), their outputs concatenated."""
+    if chunk >= batch:
+        return one
+
+    def fn(frames: Tensor, wv: Tensor, bv: Tensor, hws):
+        steps = [one(frames[i:i + chunk], wv, bv, hws[i:i + chunk])
+                 for i in range(0, batch, chunk)]
+        return tuple(torch.cat(parts) for parts in zip(*steps))
+
+    return fn
+
+
+# ------------------------------------------------- batch-chunk autotune
+# The first detect_batch on a new (true-shape, bucket, B, frame layout)
+# tuple with batch_chunk 0 times each candidate schedule on zero frames
+# of the caller's layout (one warm-up, then the best of 3, the device
+# synchronized around each run), keeps the fastest for the process and
+# on disk (core/autotune_cache.py), and reports every decision through
+# autotune_report() -- as repro/core/detector.py:1039-1130 does.
+
+_AUTOTUNE: dict = {}
+_AUTOTUNE_PROBE_ITERS = 3
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _autotune_chunk(prog: FrameProgram, h: int, w: int, ph: int, pw: int,
+                    batch: int, cfg: DetectorConfig,
+                    frame_shape: Tuple[int, ...], frame_dtype: torch.dtype,
+                    device: torch.device) -> int:
+    import time
+
+    from . import autotune_cache
+    dtype = str(frame_dtype).replace("torch.", "")
+    layout = f"{'rgb' if len(frame_shape) == 4 else 'gray'}-{dtype}"
+    # the reference's key (dp = fp = 1, heads = 0), then the device type:
+    # one process may run detectors on the card and on the CPU
+    key = (h, w, ph, pw, batch, cfg, layout, 1, 1, 0, device.type)
+    hit = _AUTOTUNE.get(key)
+    if hit is not None:
+        autotune_cache.note_memory_hit()
+        return hit["chunk"]
+    candidates = sorted({1, batch} | ({4} if 1 < 4 < batch else set()))
+    if len(candidates) == 1:
+        _AUTOTUNE[key] = {"chunk": candidates[0], "probe_ms": {}}
+        return candidates[0]
+    dkey = autotune_cache.entry_key(_autotune_key_str(key), cfg)
+    disk = autotune_cache.lookup(dkey)
+    if disk is not None and disk["chunk"] in candidates:
+        _AUTOTUNE[key] = {**disk, "source": "disk"}
+        return disk["chunk"]
+    frames = torch.zeros(frame_shape, dtype=frame_dtype, device=device)
+    wv = torch.zeros(cfg.hog.n_features, dtype=torch.float32, device=device)
+    bv = torch.zeros((), dtype=torch.float32, device=device)
+    hws = ((h, w),) * batch
+    probe_ms = {}
+    for c in candidates:
+        fn = _batch_fn(prog, h, w, ph, pw, batch, c)
+        fn(frames, wv, bv, hws)                               # warm-up
+        _sync(device)
+        best = float("inf")
+        for _ in range(_AUTOTUNE_PROBE_ITERS):
+            t0 = time.perf_counter()
+            fn(frames, wv, bv, hws)
+            _sync(device)
+            best = min(best, time.perf_counter() - t0)
+        probe_ms[c] = best * 1e3
+    chunk = min(probe_ms, key=probe_ms.get)
+    _AUTOTUNE[key] = {"chunk": chunk, "probe_ms": probe_ms,
+                      "source": "probe"}
+    autotune_cache.store(dkey, chunk, probe_ms)
+    return chunk
+
+
+def _autotune_key_str(k: tuple) -> str:
+    mesh = f"data:{k[7]}" + (f",tile:{k[8]}" if k[8] > 1 else "")
+    heads = f" heads:{k[9]}" if k[9] else ""
+    return (f"{k[0]}x{k[1]}->{k[2]}x{k[3]} B={k[4]} mesh={mesh}{heads} "
+            f"[{k[6]}] on {k[10]}")
+
+
+def autotune_report() -> dict:
+    """Chosen detect_batch schedules, keyed by the probed geometry, frame
+    layout and device: {"HxW->PHxPW B=n mesh=data:1 [rgb-uint8] on cuda":
+    {"chunk": c, "probe_ms": {candidate: ms}, "source": "probe" or
+    "disk"}}."""
+    return {_autotune_key_str(k): dict(v) for k, v in _AUTOTUNE.items()}
 
 
 def as_svm(svm, device: torch.device,
@@ -444,10 +619,16 @@ def as_svm(svm, device: torch.device,
     return {"w": w, "b": b.reshape(())}
 
 
+def _empty_tables() -> DecodeTables:
+    return DecodeTables(np.zeros((0, 4), np.float32),
+                        np.zeros((0,), np.float32), 0)
+
+
 class FrameDetector:
     """Reusable handle: SVM params + config -> per-frame detections.
 
-    Builds one program per frame-shape bucket on first use; only the
+    Builds one program per frame-shape bucket on first use and runs a
+    frame, or a batch of frames of one bucket, through it; only the
     final box decode touches host numpy. Runs on CUDA unless
     ``device="cpu"``; raises RuntimeError when no GPU is present and the
     CPU was not asked for.
@@ -477,26 +658,121 @@ class FrameDetector:
         _, ph, pw = self.program_for(h, w)
         return ph, pw
 
+    def _to_gray(self, image) -> Tensor:
+        """One frame -> f32 gray on the device, the EAGER luma, as the
+        reference's host-side prep of mixed-size batches
+        (repro/core/detector.py:1189)."""
+        _frame_hw(tuple(image.shape))
+        frame = torch.as_tensor(image).to(self.device)
+        return (grayscale(frame) if frame.dim() == 3
+                else frame).to(torch.float32)
+
+    @staticmethod
+    def _pad_to(gray: Tensor, ph: int, pw: int) -> Tensor:
+        h, w = gray.shape
+        if (ph, pw) == (h, w):
+            return gray
+        return F.pad(gray[None, None], (0, pw - w, 0, ph - h),
+                     mode="replicate")[0, 0]
+
     def detect_raw(self, image) -> "Detections":
         """One frame (numpy or tensor, (H, W) gray or (H, W, 3) RGB) ->
-        Detections whose tensors stay on the device until decoded."""
+        Detections whose tensors stay on the device until decoded: the
+        bucket's program on a batch of one."""
         from ..api.results import Detections
         h, w = _frame_hw(tuple(image.shape))
         frame = torch.as_tensor(image).to(self.device)
         prog, ph, pw = self.program_for(h, w)
         if prog.fn is None:
             return Detections.empty(prog.tables)
-        top, idx, keep, n_valid = prog.fn(_prep_frame(frame, h, w, ph, pw),
-                                          self.svm["w"], self.svm["b"],
-                                          (h, w))
-        return Detections(top, idx, keep, n_valid, prog.tables)
+        top, idx, keep, n_valid = prog.fn(
+            _prep_frame(frame, h, w, ph, pw)[None], self.svm["w"],
+            self.svm["b"], ((h, w),))
+        return Detections(top[0], idx[0], keep[0], n_valid[0], prog.tables)
 
     def __call__(self, image) -> List[dict]:
         """Legacy per-frame contract (list of dicts)."""
         return self.detect_raw(image).to_list()
 
-    def detect_batch(self, frames):
-        raise NotImplementedError(BATCH_LATER)
+    def _stack(self, frames) -> Tensor:
+        if isinstance(frames, (list, tuple)):
+            if any(isinstance(f, torch.Tensor) for f in frames):
+                return torch.stack([torch.as_tensor(f).to(self.device)
+                                    for f in frames])
+            return torch.from_numpy(np.stack([np.asarray(f)
+                                              for f in frames])
+                                    ).to(self.device)
+        return torch.as_tensor(frames).to(self.device)
+
+    def detect_batch_raw(self, frames) -> "Detections":
+        """Batched frame path: B frames -> one batched Detections.
+
+        ``frames`` is a stacked (B, H, W[, 3]) array or tensor, or a
+        sequence of frames. All frames must land in the SAME padded shape
+        bucket; mixed buckets raise ValueError. Frames of one shape take
+        the program's in-program prep (the jitted reference's fused luma);
+        frames of mixed true sizes are turned gray (the eager luma) and
+        edge-padded first, each keeping its own true size in the inside
+        mask. The batch runs in ``batch_chunk``-wide steps (0: measured
+        at first use, ``_autotune_chunk``); top-k and NMS run on the
+        device and nothing is read back until the result is decoded.
+        """
+        from ..api.results import Detections
+        if isinstance(frames, (list, tuple)) and not frames:
+            return Detections.empty_batch(_empty_tables(), 0)
+        uniform = not isinstance(frames, (list, tuple)) or \
+            len({tuple(f.shape) for f in frames}) == 1
+        if uniform:
+            shape = tuple(frames.shape) if not isinstance(
+                frames, (list, tuple)) else (len(frames),) + tuple(
+                frames[0].shape)
+            if not isinstance(frames, (list, tuple)) \
+                    and len(shape) == 3 and shape[-1] == 3:
+                # a bare (H, W, 3) RGB frame would silently parse as H
+                # gray frames of width 3 -- an ambiguity no caller wants
+                raise ValueError(
+                    f"shape {shape} looks like a single RGB frame; pass "
+                    f"a list of frames or a stacked (B, H, W[, 3]) array")
+            if not (len(shape) == 3
+                    or (len(shape) == 4 and shape[-1] == 3)):
+                raise ValueError(
+                    f"expected (B, H, W[, 3]) stacked frames, got shape "
+                    f"{shape}")
+            n, h, w = shape[:3]
+            if n == 0:
+                return Detections.empty_batch(_empty_tables(), 0)
+            hws = ((h, w),) * n
+        else:
+            grays = [self._to_gray(f) for f in frames]
+            n = len(grays)
+            hws = tuple((int(g.shape[0]), int(g.shape[1])) for g in grays)
+        buckets = {self.program_for(h, w)[1:] for h, w in hws}
+        if len(buckets) != 1:
+            raise ValueError(
+                f"detect_batch needs one shape bucket per call, got "
+                f"{sorted(buckets)}; group frames by bucket first")
+        prog, ph, pw = self.program_for(*hws[0])
+        if prog.fn is None:
+            return Detections.empty_batch(prog.tables, n)
+        if uniform:
+            th, tw = hws[0]
+            frames_b = self._stack(frames)
+        else:
+            th, tw = ph, pw
+            frames_b = torch.stack([self._pad_to(g, ph, pw) for g in grays])
+        chunk = self.cfg.batch_chunk
+        if chunk == 0:
+            chunk = _autotune_chunk(prog, th, tw, ph, pw, n, self.cfg,
+                                    tuple(frames_b.shape), frames_b.dtype,
+                                    self.device)
+        fn = _batch_fn(prog, th, tw, ph, pw, n, chunk)
+        top, idx, keep, n_valid = fn(frames_b, self.svm["w"],
+                                     self.svm["b"], hws)
+        return Detections(top, idx, keep, n_valid, prog.tables)
+
+    def detect_batch(self, frames) -> List[List[dict]]:
+        """Legacy batched contract (B per-frame dict lists)."""
+        return self.detect_batch_raw(frames).to_list()
 
 
 def detect(image_rgb, svm, cfg: Optional[DetectorConfig] = None,

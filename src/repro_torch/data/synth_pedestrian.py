@@ -2,9 +2,10 @@
 tests.
 
 A copy of the generators of repro/data/synth_pedestrian.py
-(``make_windows``, ``make_scene`` and the helpers they draw from, numpy
-only), so the port needs nothing of the reference package. The same
-``rng`` state gives the same arrays as the reference.
+(``make_windows``, ``make_scene``, ``ClipConfig`` / ``make_clip`` and
+the helpers they draw from, numpy only), so the port needs nothing of the
+reference package. The same ``rng`` state gives the same arrays as the
+reference.
 """
 from __future__ import annotations
 
@@ -196,6 +197,86 @@ def make_windows(n_pos: int, n_neg: int, cfg: PedestrianDataConfig,
         xs[n_pos + i] = _to_rgb(rng, _negative(rng, cfg), cfg.noise_std)
     perm = rng.permutation(len(ys))
     return xs[perm], ys[perm]
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipConfig:
+    """Synthetic video clip: pedestrians walking across a static
+    cluttered background with constant-velocity motion + jitter."""
+
+    n_frames: int = 16
+    h: int = 240
+    w: int = 320
+    n_people: int = 2
+    speed: float = 4.0          # px/frame trajectory magnitude (per axis)
+    jitter: float = 0.6         # per-frame gaussian position jitter (px)
+    frame_noise: float = 8.0    # per-frame pixel noise (temporal flicker)
+    n_distractors: int = 3      # static clutter blobs/bars in the bg
+
+
+def make_clip(rng: np.random.Generator,
+              cfg: ClipConfig = ClipConfig()):
+    """Video clip for the batched/tracking path.
+
+    Each pedestrian keeps ONE rendered appearance for the whole clip
+    and moves on a constant-velocity trajectory (chosen so the full
+    path stays in-frame) with small gaussian jitter; the background and
+    its clutter are static, only per-frame sensor noise changes. This
+    is the workload the tracker's constant-velocity prediction and the
+    batched detector are built for.
+
+    Returns (frames, truths): frames (T, H, W, 3) uint8, truths[t] a
+    list of {"id": person, "box": (y0, x0, y1, x1)} per frame.
+    """
+    pcfg = PedestrianDataConfig()
+    h, w, T = cfg.h, cfg.w, cfg.n_frames
+    if h < H or w < W:
+        raise ValueError(f"clip frames must fit the {H}x{W} window, "
+                         f"got ({h}, {w})")
+    bg = _smooth_noise(rng, h, w, 12) * 20 + rng.uniform(70, 170)
+    for _ in range(cfg.n_distractors):          # static clutter
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        ry, rx = rng.uniform(8, 40), rng.uniform(5, 25)
+        bg[_ellipse_mask(h, w, cy, cx, ry, rx)] += rng.uniform(-50, 50)
+    bg = np.clip(bg, 0, 255)
+
+    sprites, starts, vels = [], [], []
+    for _ in range(cfg.n_people):
+        sprites.append(_positive(rng, pcfg))
+        v = rng.uniform(-cfg.speed, cfg.speed, size=2)
+        # start uniformly inside the interval that keeps the whole
+        # trajectory in-bounds; shrink the velocity if none exists
+        pos = np.empty(2)
+        for ax, lim in ((0, h - H), (1, w - W)):
+            travel = v[ax] * (T - 1)
+            lo, hi = max(0.0, -travel), min(lim, lim - travel)
+            if lo > hi:
+                v[ax] = np.sign(v[ax]) * lim / (T - 1)
+                travel = v[ax] * (T - 1)
+                lo, hi = max(0.0, -travel), min(lim, lim - travel)
+            pos[ax] = rng.uniform(lo, hi)
+        starts.append(pos)
+        vels.append(v)
+
+    tint = rng.uniform(0.9, 1.1, size=3)        # constant chroma per clip
+    frames = np.empty((T, h, w, 3), np.uint8)
+    truths = []
+    for t in range(T):
+        scene = bg.copy()
+        boxes = []
+        for i in range(cfg.n_people):
+            y, x = starts[i] + vels[i] * t + rng.normal(0, cfg.jitter, 2)
+            y0 = int(np.clip(round(y), 0, h - H))
+            x0 = int(np.clip(round(x), 0, w - W))
+            scene[y0:y0 + H, x0:x0 + W] = sprites[i]
+            boxes.append({"id": i,
+                          "box": (float(y0), float(x0),
+                                  float(y0 + H), float(x0 + W))})
+        rgb = np.stack([scene * c for c in tint], axis=-1)
+        rgb += rng.normal(0, cfg.frame_noise, size=rgb.shape)
+        frames[t] = np.clip(rgb, 0, 255).astype(np.uint8)
+        truths.append(boxes)
+    return frames, truths
 
 
 def make_scene(rng: np.random.Generator, h: int = 320, w: int = 240,

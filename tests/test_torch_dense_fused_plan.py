@@ -1,7 +1,8 @@
 """The launch plan of the dense fused HOG kernel
 (repro_torch/kernels/fused_hog.py:dense_plan), checked on the CPU at the
 shapes chip_smoke.py runs the kernel at -- every pyramid level of 640x480
-and 1280x720 and its ragged shape -- and at the CPU tests' SCENES.
+and 1280x720, one frame and batches of 4 and 8 frames, and its ragged
+shape -- and at the CPU tests' SCENES.
 
 The CUDA kernel (csrc/dense_fused_hog.cu) follows the plan: CTA (tx, ty)
 owns a tile of blocks (3x6, 3x4 or 2x4, chosen per level) and computes
@@ -199,3 +200,57 @@ def test_plan_is_made_once_per_level_shape():
         fh.dense_plan(*shape, "fixed", 132)
     assert fh.dense_plan(*shape, "fixed", 132) is not \
         fh.dense_plan(*shape, "sector", 132)
+
+
+# ------------------------------------------------------- batches of frames
+
+BATCHES = [(size, B) for size in LEVELS for B in (4, 8)]
+
+
+@pytest.fixture
+def one_thread():
+    """The batched emulation runs in one thread: the suite runs files in
+    parallel workers, and their thread pools would contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("size,B", BATCHES,
+                         ids=[f"{s}-B{b}" for s, b in BATCHES])
+def test_plan_at_a_batch_rebuilds_each_frame_alone(size, B, one_thread):
+    """At B 4 and 8 frames of each 640x480 and 1280x720 level: the plan
+    keeps the rule at that B (every SM a CTA) and puts the batch on the
+    grid's z axis; the CTAs of the first and the last frame rebuild, tile
+    by tile -- each the cells of its own frame's staged gray, then its
+    blocks from them alone -- that frame's blocks bit for bit as the plain
+    version gives the frame alone (fixed mode)."""
+    from repro_torch.kernels.dense_block_norm import dense_block_norm_plain
+    ends = (0, B - 1)
+    for _, H, W in LEVELS[size]:
+        plan = fh.dense_plan(B, H, W, "fixed")
+        assert plan.grid[2] == B and plan.ctas >= build.SMS
+        assert plan.tile in fh.DENSE_TILES
+        rng = np.random.default_rng(B + H)
+        gray = torch.from_numpy(rng.integers(0, 256, (B, H, W))
+                                .astype(np.float32))
+        groups = {}
+        for b in ends:
+            for tx, ty in _ctas(plan):
+                q0, q1, p0, p1 = plan.cells(tx, ty)
+                groups.setdefault((q1 - q0, p1 - p0), []).append(
+                    (b, q0, p0) + plan.blocks(tx, ty))
+        got = torch.full((B, plan.ch - 1, plan.cw - 1, 36), float("nan"))
+        for (nq, np_), items in groups.items():
+            staged = torch.stack([gray[b, 8 * q0: 8 * (q0 + nq) + 2,
+                                       8 * p0: 8 * (p0 + np_) + 2]
+                                  for b, q0, p0, *_ in items])
+            blocks = dense_block_norm_plain(
+                dense_grad_hist_plain(staged, mode="fixed"), mode="fixed")
+            for (b, q0, p0, r0, r1, c0, c1), blk in zip(items, blocks):
+                assert (r0, c0) == (q0, p0)
+                got[b, r0:r1, c0:c1] = blk[:r1 - r0, :c1 - c0]
+        for b in ends:
+            assert torch.equal(got[b], fh.dense_fused_hog_plain(
+                gray[b:b + 1], mode="fixed")[0]), (H, b)

@@ -2,7 +2,8 @@
 (repro_torch/kernels/dense_grad_hist.py:dense_grad_hist_plan and
 repro_torch/kernels/dense_block_norm.py:dense_block_norm_plan), checked on
 the CPU at the shapes chip_smoke.py runs the kernels at -- every pyramid
-level of 640x480 and 1280x720 and its ragged shape -- and at small scenes.
+level of 640x480 and 1280x720, one frame and batches of 4 and 8 frames,
+and its ragged shape -- and at small scenes.
 
 The CUDA kernels (csrc/dense_grad_hist.cu, csrc/dense_block_norm.cu)
 follow the plans: CTA (tx, ty) owns a disjoint tile of cells (blocks),
@@ -351,3 +352,81 @@ def test_a_single_cell_scene_gets_one_cta():
     assert plan.ctas == 1 and plan.units(0, 0) == (0, 1, 0, 1)
     plan = dbn.dense_block_norm_plan(1, 2, 2)
     assert plan.ctas == 1 and plan.units(0, 0) == (0, 1, 0, 1)
+
+
+# ------------------------------------------------------- batches of frames
+
+def _rebuild(frames, grid_xy, stage, own, src, fn, out_shape):
+    """Every CTA (tx, ty, b) of a plan, b in ``frames`` (z slices of its
+    grid): ``fn`` (a plain version) on the patch of frame b alone that it
+    stages, its owned units of frame b taken from the result. Patches of
+    one shape go through ``fn`` as one batch, each its own batch row."""
+    groups = {}
+    for b in frames:
+        for tx, ty in grid_xy:
+            s0, s1, t0, t1 = stage(tx, ty)
+            groups.setdefault((s1 - s0, t1 - t0), []).append(
+                (b, s0, t0) + own(tx, ty))
+    out = None
+    for (sh, sw), items in groups.items():
+        res = fn(torch.stack([src[b, s0:s0 + sh, t0:t0 + sw]
+                              for b, s0, t0, *_ in items]))
+        if out is None:
+            out = torch.full(out_shape + tuple(res.shape[3:]), -1,
+                             dtype=res.dtype)
+        for (b, _, _, r0, r1, c0, c1), r in zip(items, res):
+            out[b, r0:r1, c0:c1] = r[:r1 - r0, :c1 - c0]
+    return out
+
+
+@pytest.fixture
+def one_thread():
+    """The batched emulations run in one thread: the suite runs files in
+    parallel workers, and their thread pools would contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+BATCHES = [(size, B) for size in LEVELS for B in (4, 8)]
+BATCH_IDS = [f"{size}-B{B}" for size, B in BATCHES]
+
+
+@pytest.mark.parametrize("size,B", BATCHES, ids=BATCH_IDS)
+def test_plans_at_a_batch_rebuild_each_frame_alone(size, B, one_thread):
+    """At B 4 and 8 frames of each 640x480 and 1280x720 level: the plans
+    follow the rule at that B and put the batch on the grid's z axis; the
+    CTAs of the first and the last frame rebuild, tile by tile, each from
+    its own frame's staged gray (cells) or cells (blocks), that frame's
+    output bit for bit as the plain version gives the frame alone (fixed
+    mode: exact integers; every norm flavor)."""
+    ends = (0, B - 1)
+    for _, H, W in LEVELS[size]:
+        shape = (B, H, W)
+        ch, cw = (H - 2) // 8, (W - 2) // 8
+        gray = _gray(shape, True, seed=B + H)
+        plan = dgh.dense_grad_hist_plan(B, H, W, "fixed")
+        test_grad_hist_plan_is_the_rule_over_the_compiled_tiles(shape)
+        assert plan.grid[2] == B
+        hist = _rebuild(ends, _ctas(plan), lambda tx, ty: (
+            lambda r0, r1, c0, c1: (8 * r0, 8 * r1 + 2, 8 * c0,
+                                    8 * c1 + 2))(*plan.units(tx, ty)),
+            plan.units, gray,
+            lambda g: dgh.dense_grad_hist_plain(g, mode="fixed"),
+            (B, ch, cw))
+        for b in ends:
+            assert torch.equal(hist[b], dgh.dense_grad_hist_plain(
+                gray[b:b + 1], mode="fixed")[0]), b
+        for mode in ("rsqrt", "nr", "fixed"):
+            src = hist if mode == "fixed" else hist.to(torch.float32)
+            nplan = dbn.dense_block_norm_plan(B, ch, cw, mode)
+            assert nplan.grid[2] == B and nplan.ctas >= build.SMS
+            blocks = _rebuild(ends, _ctas(nplan), lambda tx, ty: (
+                lambda r0, r1, c0, c1: (r0, r1 + 1, c0, c1 + 1))(
+                    *nplan.units(tx, ty)), nplan.units, src,
+                lambda h: dbn.dense_block_norm_plain(h, mode=mode),
+                (B, ch - 1, cw - 1))
+            for b in ends:
+                assert torch.equal(blocks[b], dbn.dense_block_norm_plain(
+                    src[b:b + 1], mode=mode)[0]), (mode, b)

@@ -19,7 +19,10 @@ for n in names:
 import chip_smoke                     # its top level, then what it runs
 import repro_torch.api, repro_torch.core.detector, repro_torch.core.stages
 import repro_torch.data.synth_pedestrian, repro_torch.kernels.build
+import repro_torch.core.video, repro_torch.core.autotune_cache
 import torch.profiler
+assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache"}} \
+    <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -36,6 +39,26 @@ def test_port_imports_neither_jax_nor_reference():
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20, out.stdout          # every module was imported
     assert bad == "[]", bad
+
+
+def test_batch_and_video_modules_stand_alone():
+    """The batched path's and tracked clips' modules, imported on their
+    own, load neither JAX nor the reference package, and the autotune
+    cache keeps its own default file."""
+    probe = ("import sys; sys.path.insert(0, {src!r}); "
+             "import repro_torch.core.video as v, "
+             "repro_torch.core.autotune_cache as c, "
+             "repro_torch.api.session as s; "
+             "import os; os.environ.pop('REPRO_AUTOTUNE_CACHE', None); "
+             "print(c.cache_path().split(os.sep)[-2], sorted(m for m in "
+             "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+             "'repro')))")
+    out = subprocess.run([sys.executable, "-c",
+                          probe.format(src=str(ROOT / "src"))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "repro_torch []", out.stdout
 
 
 def test_port_sources_name_no_reference_import():

@@ -1,10 +1,12 @@
 """The frame prep's parity with the JAX reference's jitted program, on the
 CPU: the gray (repaired: core/hog.py:grayscale_fused), the resized levels
-(open: the second resize product's summation order) and the resize
-weights off the 32-px grid (open: XLA's column-sum order).
+(open: the second resize product's summation order, which XLA:CPU runs
+as a library dot at run time, not as an emitted loop) and the resize
+weights off the 32-px grid (repaired: XLA's column-sum order,
+core/detector.py:_xla_column_sum).
 
 Run as a script, it prints the counts ROADMAP.md's queue 3 and PERF.md
-cite, and the orders tried for the two open faults:
+cite, and the orders tried for both:
 
     PYTHONPATH=src python tests/test_torch_prep_parity.py
 """
@@ -46,14 +48,13 @@ def session_frame_counts():
                       for wy, wx in weights.values()]
 
     ref = [np.asarray(x) for x in jax.jit(reference)(jnp.asarray(frame))]
+    prog = tdet.FrameDetector({"w": np.zeros(3780, f32), "b": f32(0)},
+                              device="cpu").program_for(h, w)[0]
     out = {}
     for name, gray_fn in (("fused", thog.grayscale_fused),
                           ("eager", thog.grayscale)):
         g = gray_fn(torch.from_numpy(frame))
-        levels = [g] + [
-            (torch.from_numpy(tdet._resize_weights(h, sz[0])) @ g)
-            @ torch.from_numpy(tdet._resize_weights(w, sz[1])).T
-            for sz in sizes]
+        levels = prog.pyramid(g)
         out[name] = [(int((l.numpy() != r).sum()),
                       int((np.rint(l.numpy()) != np.rint(r)).sum()), r.size)
                      for l, r in zip(levels, ref)]
@@ -133,7 +134,8 @@ def column_sum_orders(pairs=((40, 32), (97, 78), (150, 120), (331, 264),
             inside = (sf >= f32(-0.5)) & (sf <= f32(src - 0.5))
             return np.where(inside[None, :], v, f32(0)).T
 
-        rules = {"sequential": _seq(w), "reverse": _seq(w[::-1])}
+        rules = {"sequential": _seq(w), "reverse": _seq(w[::-1]),
+                 "xla windows of 32": tdet._xla_column_sum(w)}
         for c in (8, 16, 32, 64):
             parts = [_seq(w[i:i + c]) for i in range(0, src, c)]
             rules[f"chunks {c}, in order"] = _seq(np.array(parts))
@@ -174,10 +176,16 @@ def test_session_frame_gray_is_the_jitted_reference():
 
 
 def test_port_column_sum_is_one_of_the_orders_tried():
-    """The chunk-of-32 order the port uses is the 'chunks 32, in order'
-    rule of the probe, exact on the grid (src 128)."""
+    """The order the port uses, XLA's windows of 32 rows padded half
+    before and half after (read from its optimized HLO), is exact on the
+    grid (src 128) and off it, where every other order tried is not."""
     got = column_sum_orders(((128, 102),))[128, 102]
     assert got["chunks 32, in order"] == 0
+    assert got["xla windows of 32"] == 0
+    for key, rules in column_sum_orders().items():
+        assert rules["xla windows of 32"] == 0, key
+        assert min(n for r, n in rules.items()
+                   if r != "xla windows of 32") > 0, key
 
 
 if __name__ == "__main__":

@@ -219,11 +219,12 @@ def _fma(a, b, acc):
     return (a.astype(np.float64) * b + acc).astype(np.float32)
 
 
-def emulate(plan, x, w):
-    """csrc/score_tile.cuh:run for f32 in numpy, over every CTA and pass
-    of the plan: x (M, K) and w (K, N) f32, the 4 x 4 micro-tile of each
-    thread id (rows 4u..4u+3, columns cg + NG j), k in order, the raw
-    weights' last row read past K and column 0 past N."""
+def emulate(plan, x, w, ctas=None):
+    """csrc/score_tile.cuh:run for f32 in numpy, over every CTA (or those
+    of ``ctas``) and pass of the plan: x (M, K) and w (K, N) f32, the 4 x
+    4 micro-tile of each thread id (rows 4u..4u+3, columns cg + NG j), k
+    in order, the raw weights' last row read past K and column 0 past
+    N."""
     M, Kx = x.shape
     Nw = w.shape[1]
     Kp, NG = -(-Kx // 4) * 4, -(-Nw // 4)
@@ -233,7 +234,7 @@ def emulate(plan, x, w):
     tid = np.arange(plan.threads)
     u, cg = tid // NG, tid - (tid // NG) * NG
     lanes = np.arange(4)
-    for b in range(plan.grid):
+    for b in (range(plan.grid) if ctas is None else ctas):
         for row0, rows in plan.passes(b):
             # the pass's rows staged in rows of Kp (zero past K; rows past
             # the pass hold whatever the slab held before: here NaN)
@@ -250,8 +251,13 @@ def emulate(plan, x, w):
                            w[min(k, Kx - 1), cs][:, None, :], acc)
             rr, cc = np.broadcast_arrays(ri[:, :, None], ci[:, None, :])
             _flush(out, written, row0, rows, Nw, P, rr, cc, acc)
-    assert (written == 1).all()
+    _check_written(written, ctas)
     return out.reshape(M, Nw)
+
+
+def _check_written(written, ctas):
+    """Every output written once (by the CTAs emulated: at most once)."""
+    assert (written == 1).all() if ctas is None else (written <= 1).all()
 
 
 def _flush(out, written, row0, rows, Nw, P, rr, cc, acc):
@@ -292,7 +298,7 @@ def test_mma_fragment_maps_cover_each_tile_once(pack, kstep):
         assert (seen == 1).all()
 
 
-def emulate_mma(plan, x, w, pack, kstep):
+def emulate_mma(plan, x, w, pack, kstep, ctas=None):
     """score::run for bf16 (pack 2, mma depth 16) and int8 (pack 4, depth
     32) in numpy: each pass's rows staged in rows of Kp; the A fragments
     of every 16-row block and the B fragments of every 8-column tile
@@ -318,7 +324,7 @@ def emulate_mma(plan, x, w, pack, kstep):
                     k < Kx, w[np.minimum(k, Kx - 1), col], 0)
     out = np.zeros(M * Nw, np.int32 if int8 else np.float32)
     written = np.zeros(M * Nw, np.int32)
-    for b in range(plan.grid):
+    for b in (range(plan.grid) if ctas is None else ctas):
         for row0, rows in plan.passes(b):
             xs = np.zeros((P, Kp), x.dtype)
             xs[:rows, :Kx] = x[row0:row0 + rows]
@@ -338,7 +344,7 @@ def emulate_mma(plan, x, w, pack, kstep):
                                  for nt in range(NT) for _, col in c_map])
             _flush(out, written, row0, rows, Nw, P, rr, cc,
                    C[rr, cc].astype(out.dtype))
-    assert (written == 1).all()
+    _check_written(written, ctas)
     return out.reshape(M, Nw)
 
 
@@ -355,12 +361,15 @@ def _operands(M, Kx, Nw, dt, seed):
     return x.float().numpy(), w.float().numpy(), x, w
 
 
-def _check(plan, dt, xn, wn, xt, wt):
+def _emulate(plan, dt, xn, wn, ctas=None):
     if dt == "f32":
-        got = emulate(plan, xn, wn)
-    else:
-        got = emulate_mma(plan, xn, wn, *{"bf16": (2, 16),
-                                         "int8": (4, 32)}[dt])
+        return emulate(plan, xn, wn, ctas)
+    return emulate_mma(plan, xn, wn, *{"bf16": (2, 16), "int8": (4, 32)}[dt],
+                       ctas=ctas)
+
+
+def _check(plan, dt, xn, wn, xt, wt):
+    got = _emulate(plan, dt, xn, wn)
     if dt == "int8":
         np.testing.assert_array_equal(
             got, sm.score_matmul_int8_plain(xt, wt).numpy())
@@ -407,3 +416,55 @@ def test_emulation_sees_a_tiling_error():
     narrow = dataclasses.replace(plan, threads=plan.threads - 32)
     with pytest.raises(AssertionError):
         _check(narrow, "f32", *_operands(1813, K, N, "f32", seed=1))
+
+
+# ------------------------------------------------------- batches of frames
+
+BATCHES = [(size, B) for size in LEVELS for B in (4, 8)]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("size,B", BATCHES,
+                         ids=[f"{s}-B{b}" for s, b in BATCHES])
+def test_plan_at_a_batch_gives_each_frame_its_own_rows(size, B, dt):
+    """The detector scores B frames' block rows as one (B*M, 36) product.
+    At B 4 and 8 frames of each 640x480 and 1280x720 level the plan covers
+    every row once and fills the card; the CTAs on either side of each
+    frame's seam, or across it (and the first and last), are emulated,
+    and each of their
+    rows equals, bit for bit, the row the single frame's plan gives that
+    frame alone (and the plain version, within chip_smoke.py's limits)."""
+    for m in LEVELS[size]:
+        M = B * m
+        plan = sm.score_plan(M, N, DTYPES[dt])
+        assert plan.grid == build.SMS
+        spans = [plan.span(c) for c in range(plan.grid)]
+        assert spans[0][0] == 0 and spans[-1][1] == M
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        # the CTAs holding the last row of a frame or the first of the next
+        edges = [f * m + d for f in range(1, B) for d in (-1, 0)]
+        seam = sorted({0, plan.grid - 1} | {
+            c for c, (r0, r1) in enumerate(spans)
+            if any(r0 <= e < r1 for e in edges)})
+        assert len(seam) >= B
+        xn, wn, xt, wt = _operands(M, K, N, dt, seed=m + B)
+        got = _emulate(plan, dt, xn, wn, ctas=seam)
+        single = sm.score_plan(m, N, DTYPES[dt])
+        for c in seam:
+            r0, r1 = spans[c]
+            for f in range(r0 // m, (r1 - 1) // m + 1):
+                a, b = max(r0, f * m) - f * m, min(r1, (f + 1) * m) - f * m
+                cover = [s for s in range(single.grid)
+                         if single.span(s)[0] < b and single.span(s)[1] > a]
+                alone = _emulate(single, dt, xn[f * m:(f + 1) * m], wn,
+                                 ctas=cover)
+                np.testing.assert_array_equal(got[f * m + a:f * m + b],
+                                              alone[a:b])
+        rows = np.concatenate([np.arange(*spans[c]) for c in seam])
+        if dt == "int8":
+            want = sm.score_matmul_int8_plain(xt[rows], wt).numpy()
+            np.testing.assert_array_equal(got[rows], want)
+        else:
+            want = sm.score_matmul_plain(xt[rows], wt).numpy()
+            np.testing.assert_allclose(got[rows], want, rtol=0,
+                                       atol=chip_smoke.MATMUL_ATOL[dt])
