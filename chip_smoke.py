@@ -87,6 +87,26 @@ Phases, each of which exits non-zero on failure:
      dense score_map of the same level at the same position); time
      windows/s, ms per batch, launches and device-busy share per batch
      at B = 64, 512 and 5,949;
+  4e. train: Table I at the paper's split (make_dataset: 4,202 + 2,795
+     training and 160 + 134 test windows, 3,780 features) in the fp32
+     (PAPER_HOG) and fixed (QUANT) modes -- descriptors on the card's ref
+     stages, Pegasos on the card with bench_accuracy.py's schedule
+     (4,000 steps, neg_weight 3) -- failing unless each total is >= 0.80
+     and |fixed - fp32| <= 1.5 points (that bench's gate); the rows beside
+     BENCH_detect.json's CPU rows, extract and train seconds, launches and
+     device us per Pegasos step; the same features and schedule trained
+     on the CPU (w's relative L2 against the card's, the rows) and the
+     test descriptors counted where the card's ref stages differ from the
+     CPU's; the test split through classify_windows' kernel and fused
+     paths with the card-trained SVM, human equal to predict on the ref
+     features beyond a score tolerance scaled from the golden weights';
+     then DetectionSession.train (paper, kernel backend, one mining round
+     of 4 scenes) on the card and the CPU from one seed -- the same
+     number of mined crops, and with one SVM the same crops within one
+     code -- save / load with the same boxes, and the detect CLI's
+     --save then --load printing the same detections without training;
+     counters reset before each path (evaluation, mining, CLI) and read
+     after it;
   3c. flash_attention against its plain version on the card (and, causal,
      against the port's _sdpa with the causal mask) at the reference's
      flash-test shapes, a ragged S = 100, one bf16 shape at hd 32, and
@@ -253,6 +273,12 @@ CONSIST_TOL = 5e-2
 # (1.1e-6 on the CPU twin, planted decode faults 5.5e-2 and more)
 CONSIST_TOL_F32 = 1e-3
 LM_SMOKE_TOL = 1e-4      # card vs CPU at smoke size, f32 logits
+# Table I (benchmarks/bench_accuracy.py): the schedule it trains with,
+# and its gate: every mode's total accuracy, and |fixed - fp32| in points
+TABLE1_TRAIN = {"steps": 4000, "neg_weight": 3.0}
+TABLE1_MIN_TOTAL, TABLE1_MAX_GAP_PTS = 0.80, 1.5
+PEGASOS_PROFILE_STEPS = 20     # launches per step: a profiled 20 steps
+MINE_SCENES = 4
 
 # the kernels each main-path configuration must launch, and no others
 PATH_KERNELS = {
@@ -274,6 +300,18 @@ PATH_KERNELS = {
 DENSE_CONFIGS = ("paper+kernel", "perf", "quant", "quant+kernel")
 PATH_KERNELS.update({f"batch {c}": PATH_KERNELS[c] for c in DENSE_CONFIGS})
 PATH_KERNELS["stream paper+kernel"] = PATH_KERNELS["paper+kernel"]
+# the train phase: the test split through the window kernels with the
+# card-trained SVM, per Table I mode; mining and the detect CLI on the
+# dense "kernel" backend
+TRAIN_EVAL = {"eval fp32+kernel": ("fp32", "kernel"),
+              "eval fp32+fused": ("fp32", "fused"),
+              "eval fixed+kernel": ("fixed", "kernel"),
+              "eval fixed+fused": ("fixed", "fused")}
+PATH_KERNELS.update({n: PATH_KERNELS["window perf"] if path == "fused"
+                     else PATH_KERNELS["window paper+kernel"]
+                     for n, (_, path) in TRAIN_EVAL.items()})
+PATH_KERNELS["mining paper+kernel"] = PATH_KERNELS["paper+kernel"]
+PATH_KERNELS["cli kernel"] = PATH_KERNELS["paper+kernel"]
 # window configuration -> (preset, classify_windows path)
 WINDOW_CONFIGS = {"window paper+kernel": ("paper", "kernel"),
                   "window perf": ("perf", "fused"),
@@ -702,7 +740,7 @@ def pair_levels(torch, rows, shapes) -> None:
           + "; dense_block_norm " + _by_group(shapes, lambda s: "{}x{}:{}"
                                               .format(*sector[s][1].tile,
                                                       sector[s][1].ctas))
-          + "; pair == dense_fused_hog everywhere; below: us, warps/SM, "
+          + "; == dense_fused_hog everywhere; below: us, warps/SM, "
           "grad_hist/block_norm", flush=True)
     frames = [(w, s) for w, s in shapes if w != "ragged"]
     for mode, norm in MODE_NORMS.items():
@@ -777,8 +815,9 @@ def score_levels(torch, rows, shapes) -> None:
                     for x in (r["device_ms"], r["library_ms"]))
                     + f" {plan.grid}x{plan.rows}")
             text.append(f"{g} " + " ".join(parts))
-        print(f"  {kernel} {mode} per level, device/library us, CTAs x "
-              f"rows: " + " | ".join(text), flush=True)
+        legend = " per level, device/library us, CTAs x rows" \
+            if mode == "f32" else ""
+        print(f"  {kernel} {mode}{legend}: " + " | ".join(text), flush=True)
 
 
 def check_scorer_edges(torch, np) -> None:
@@ -855,9 +894,9 @@ def int8_library(torch, q, wq, want, refusals):
             out = torch._int_mm(qp, w)
             torch.cuda.synchronize()
         except RuntimeError as exc:
-            why = (f"torch._int_mm refused {tuple(qp.shape)} @ "
+            why = (f"torch._int_mm refused {tuple(qp.shape)}@"
                    f"{tuple(w.shape)} {layout}: "
-                   f"{str(exc).splitlines()[0][:40]}")
+                   f"{str(exc).splitlines()[0][12:40]}")
             if layout not in refusals:
                 refusals.add(layout)
                 print(f"  score_matmul_int8 library: {why}", flush=True)
@@ -877,12 +916,13 @@ def _g(x) -> str:
     return "-" if x is None else f"{x:.4g}"
 
 
-def summarize(rows, names, groups, per_group: int) -> dict:
+def summarize(rows, names, groups, per_group: int, shown=None) -> dict:
     """One line per kernel x mode: the worst error over every shape and,
-    per group (a frame size: the sum over its three pyramid levels; or a
-    window batch), device / plain / bound / library ms (the call's
-    CUDA-event ms is in the kernels line). Returns {kernel: {mode: {group:
-    sums}, "max_abs_err": worst}}."""
+    per group of ``shown`` (default all; a frame size: the sum over its
+    three pyramid levels; or a window batch), device / plain / bound /
+    library ms (the call's CUDA-event ms is in the kernels line). Returns
+    {kernel: {mode: {group: sums}, "max_abs_err": worst}}."""
+    shown = groups if shown is None else shown
     out = {}
     for k in names:
         out[k] = {"max_abs_err": 0.0}
@@ -904,10 +944,11 @@ def summarize(rows, names, groups, per_group: int) -> dict:
                         for key in GROUP_FIELDS[:-1] + ("library_call_ms",)}
                 sums["bound_by"] = fr[0]["bound_by"]
                 out[k][mode][group] = sums
-                text.append(f"{group} " + "/".join(
-                    _g(sums[key]) for key in GROUP_FIELDS[1:-1])
-                    + f" ({sums['bound_by'][:3]})")
-            by = {out[k][mode][g]["bound_by"] for g in groups}
+                if group in shown:
+                    text.append(f"{group} " + "/".join(
+                        _g(sums[key]) for key in GROUP_FIELDS[1:-1])
+                        + f" ({sums['bound_by'][:3]})")
+            by = {out[k][mode][g]["bound_by"] for g in shown}
             if len(by) == 1:             # one bound for every group: once
                 text = [t.rsplit(" (", 1)[0] for t in text]
             print(f"  {k} {mode} err {e:.2e}"
@@ -1062,7 +1103,9 @@ def check_window_kernels(torch, np) -> dict:
                    "svm_scores_kernel")
         if B in (11, 512):
             tail_inputs[B] = (hists, descs["sector"])
-    out = summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1)
+    # B 11 is checked (its error is in err) but its times are not printed
+    out = summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1,
+                    shown=("B64", "B512"))
     window_plans(torch, np, rows)
     out["plans"] = tail_plans(torch, np, rows, tail_inputs, w, bias)
     return out
@@ -1095,8 +1138,8 @@ def window_plans(torch, np, rows) -> None:
                   p.band, p.ctas, p.recompute())
                   for p in (plans[k, "sector", B] for B in sizes))
               for k in ("hog_gradient", "fused_hog"))
-          + "; fused_hog == dense_fused_hog at B 64/512/11, every band at "
-          "B 11; below: us B64/B512/B5949, B5949 bound, warps/SM per B",
+          + "; == dense_fused_hog at B 64/512/11, every band at B 11; "
+          "below: us B64/512/5949, bound, warps/SM",
           flush=True)
     # every compiled band, not only the plans' picks: hog_gradient's equal
     # to the wrapper's output, fused_hog's to dense_fused_hog's, at B 11
@@ -1220,8 +1263,8 @@ def tail_plans(torch, np, rows, inputs, w, bias) -> dict:
     print("  tail plans at B " + "/".join(map(str, sizes)) + ": "
           + "; ".join(f"{k} {' '.join(v.values())}"
                       for k, v in shown.items())
-          + " (rows/threads/body:CTAs; f32,bf16 rows:CTAs); == "
-          "dense_block_norm every band, svm rows batch-free, others refused",
+          + " (rows/threads/body:CTAs; f32,bf16 rows:CTAs); bands == "
+          "dense_block_norm, rows batch-free, others refused",
           flush=True)
     rng = np.random.default_rng(6)
     shape = (N_FRAME_WINDOWS, 130, 66)
@@ -1414,8 +1457,8 @@ def check_flash(torch, np) -> dict:
                 lambda fn=fn: fn(q, k, v),
                 lambda: fa.flash_attention_plain(q, k, v), library,
                 nbytes, ops / BF16_FLOPS, "flash_attention_kernel"))
-    print(f"  flash_attention full width, (B, S, H, hd) strides, max err "
-          f"vs plain (tol + tol x |want|), matched limit share: "
+    print(f"  flash_attention full width, (B, S, H, hd) strides, err vs "
+          f"plain (tol + tol x |want|), matched share: "
           + "; ".join(full), flush=True)
     out = summarize(rows, ("flash_attention",),
                     [g for g, _, _ in LM_BATCHES], 1)
@@ -1512,8 +1555,9 @@ def main_path(torch, np) -> dict:
         for name in names:
             ms = total[name] * 1e3 / (TIMING_REPS * len(fs))
             per_frame[f"{name} {hw[1]}x{hw[0]}"] = ms
-        print(f"  ms/frame {hw[1]}x{hw[0]} (detect + synchronize, host "
-              f"clock, in turns): " + ", ".join(
+        legend = (" (detect + synchronize, host clock, in turns)"
+                  if hw == FRAME_SIZES[0] else "")
+        print(f"  ms/frame {hw[1]}x{hw[0]}{legend}: " + ", ".join(
                   f"{n} {per_frame[f'{n} {hw[1]}x{hw[0]}']:.3f}"
                   for n in names), flush=True)
 
@@ -1537,8 +1581,9 @@ def main_path(torch, np) -> dict:
             text.append(f"{name} {prof['device_launches_per_frame']:.0f} "
                         f"{prof['device_busy_ms']:.4f} {ms:.4f} "
                         f"{1 - prof['device_busy_ms'] / ms:.4f}")
-        print(f"  profile {key}, launches/frame, busy ms, ms/frame, idle: "
-              + "; ".join(text), flush=True)
+        legend = (", launches/frame, busy ms, ms/frame, idle"
+                  if (h, w) == FRAME_SIZES[0] else "")
+        print(f"  profile {key}{legend}: " + "; ".join(text), flush=True)
     return launches, configs, svm
 
 
@@ -1546,11 +1591,11 @@ def check_launches(name: str, counts: dict) -> dict:
     """Print one path's launch counts (read right after its run) and
     require its own kernels > 0 and every other kernel 0."""
     own = {k: n for k, n in counts.items() if k in PATH_KERNELS[name]}
-    print(f"main path {name} launches: "
+    print(f"launches {name}: "
           + ", ".join(f"{k} {n}" for k, n in own.items())
-          + f"; other {len(counts) - len(own)}: "
-          + ("0" if not any(n for k, n in counts.items() if k not in own)
-             else str({k: n for k, n in counts.items() if k not in own})),
+          + "; others " + ("0" if not any(
+              n for k, n in counts.items() if k not in own)
+              else str({k: n for k, n in counts.items() if k not in own})),
           flush=True)
     for k, n in counts.items():
         if k in PATH_KERNELS[name]:
@@ -1774,10 +1819,9 @@ def batch_path(torch, np, configs, svm) -> dict:
             kept += sum(len(a) for a in got)
         need(kept >= 3 * sum(len(f) for f in batches.values()),
              f"batch {name}: only {kept} boxes kept; the check is vacuous")
-        lines[name] = (f"launches a batch: {_per_kernel(steps, own)}; "
-                       f"same boxes as card and CPU: {n_frames} pairs, "
-                       f"{kept} boxes, scores differ in {differ} (max "
-                       f"{worst:.1e})")
+        lines[name] = (f"{_per_kernel(steps, own)} a batch; boxes = "
+                       f"card's, CPU's: {n_frames} pairs, {kept} boxes, "
+                       f"scores differ in {differ} (max {worst:.1e})")
 
     # ms/frame, each batch size, the configurations in turns
     names = list(gpu)
@@ -1847,8 +1891,8 @@ def batch_path(torch, np, configs, svm) -> dict:
             pixels += sum(off)
         text.append(f"B{b} {vs_alone}/{vs_cpu} px; f32 {frames_off}/{b} "
                     f"frames ({pixels} px, {rints} whole levels)")
-    print("  batched resize (f64) px unlike each frame's alone/the CPU's; "
-          "f32 GEMMs of the batch's shape unlike each frame's: "
+    print("  batched resize (f64) px unlike each frame's/the CPU's; f32 "
+          "GEMMs of the batch's shape unlike each frame's: "
           + "; ".join(text), flush=True)
     return launches
 
@@ -1969,7 +2013,7 @@ def window_path(torch, np) -> dict:
         sure = ref["score"].abs() > tol
         need(torch.equal(got["human"][sure], ref["human"][sure]),
              f"{name}: human differs from the CPU where |score| > {tol}")
-        print(f"  {name}: 294 split windows, score delta vs CPU "
+        print(f"  {name}: 294 split windows, delta vs CPU "
               f"{de:.2e} (tol {tol:g}), human same on "
               f"{int(sure.sum())} beyond tol, "
               f"{int(got['human'].sum())} humans", flush=True)
@@ -2014,6 +2058,225 @@ def window_path(torch, np) -> dict:
             parts.append(f"B{B} {ms:.4f} {B / ms * 1e3:.0f} {n_launch:.0f} "
                          f"{busy:.4f} ({busy / ms:.3f}) {kern:.4f}")
         print(f"  {name}: " + "; ".join(parts), flush=True)
+    return launches
+
+
+# ------------------------------------------------------------ phase 4e
+
+def _table1_rows(acc) -> str:
+    return "/".join(f"{acc[k]:.4f}" for k in (
+        "with_person_acc", "without_person_acc", "total_acc"))
+
+
+def _path_launches(name: str, counts: dict) -> str:
+    """Require a train-phase path's own kernels > 0 and every other 0;
+    its launches as _per_kernel gives them."""
+    for k, n in counts.items():
+        need((n > 0) == (k in PATH_KERNELS[name]),
+             f"{name}: kernel {k} launched {n} times")
+    return _per_kernel([counts], PATH_KERNELS[name])
+
+
+def train_path(torch, np) -> dict:
+    """Phase 4e: Table I on the card at the paper's split in both numerics
+    modes (gated as benchmarks/bench_accuracy.py), the card against the
+    CPU on the same schedule, the trained SVM through the window kernels,
+    then a session trained with a mining round, save / load, and the
+    detect CLI's --save / --load round trip; counters reset before each
+    path and read after it."""
+    import contextlib
+    import io
+    import tempfile
+
+    import repro_torch.api as api
+    import repro_torch.configs.hog_svm as hog_svm
+    import repro_torch.core.pipeline as pipe
+    import repro_torch.core.svm as tsvm
+    import repro_torch.data.synth_pedestrian as synth
+    import repro_torch.kernels as kernels
+    from repro_torch.core.hog import PAPER_HOG, hog_descriptor
+    from repro_torch.data.mining import mine_hard_negatives
+    from repro_torch.launch import detect as cli
+
+    bench = json.loads((ROOT / "BENCH_detect.json").read_text())["accuracy"]
+    golden_wmax = float(np.abs(np.load(ROOT / "tests" / "golden"
+                                       / "hog_golden.npz")["svm_w"]).max())
+    modes = {"fp32": (PAPER_HOG, "f32"), "fixed": (hog_svm.QUANT, "int8")}
+    tcfg = tsvm.SVMTrainConfig(**TABLE1_TRAIN)
+    t0 = time.perf_counter()
+    x_tr, y_tr, x_te, y_te = synth.make_dataset()
+    need((len(y_tr), len(y_te)) == (6997, 294), "not the paper's split")
+    data_s = time.perf_counter() - t0
+    xtr, xte = (torch.from_numpy(a).to(DEV) for a in (x_tr, x_te))
+    ytr, yte = (torch.from_numpy(a).to(DEV) for a in (y_tr, y_te))
+    ytr_cpu = torch.from_numpy(y_tr)
+    launches, totals = {}, {}
+    print(f"  Table I, make_dataset 4202+2795/160+134 ({data_s:.1f} s), "
+          f"{tcfg.steps} steps, neg_weight {tcfg.neg_weight:g}: with/"
+          f"without/total (BENCH's CPU rows, n_train {bench['n_train']})",
+          flush=True)
+    for mode, (hcfg, dt) in modes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_tr, f_te = hog_descriptor(xtr, hcfg), hog_descriptor(xte, hcfg)
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+        steps20 = dataclasses.replace(tcfg, steps=PEGASOS_PROFILE_STEPS)
+        idx20 = tsvm.train_schedule(len(y_tr), steps20)
+        y_pm1 = ytr.to(torch.float32) * 2.0 - 1.0
+        prof = device_times(torch, lambda: tsvm.pegasos(f_tr, y_pm1, idx20,
+                                                        steps20), 1)
+        per_step = sum(c for c, _ in prof.values()) / PEGASOS_PROFILE_STEPS
+        busy_step = sum(t for _, t in prof.values()) / PEGASOS_PROFILE_STEPS
+        t0 = time.perf_counter()
+        params, losses = tsvm.train_svm(f_tr, ytr, tcfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        need(bool(torch.isfinite(losses).all())
+             and bool(torch.isfinite(params["w"]).all()),
+             f"Table I {mode}: non-finite loss or weights")
+        acc = tsvm.accuracy_table(params, f_te, yte)
+        totals[mode] = acc["total_acc"]
+        need(acc["total_acc"] >= TABLE1_MIN_TOTAL,
+             f"Table I {mode}: total {acc['total_acc']:.4f} < "
+             f"{TABLE1_MIN_TOTAL}")
+        bench_rows = "/".join(f"{bench[f'{mode}_{k}']:.4f}" for k in (
+            "with_person_acc", "without_person_acc", "total_acc"))
+        print(f"  table1 {mode} {_table1_rows(acc)} ({bench_rows}); "
+              f"extract {extract_s:.2f} s, train {train_s:.2f} s, "
+              f"{per_step:.0f} launches, {busy_step:.1f} device us/step",
+              flush=True)
+
+        # (b) the card's features on the CPU, the same schedule
+        params_cpu, _ = tsvm.train_svm(f_tr.cpu(), ytr_cpu, tcfg)
+        rel = float(torch.linalg.vector_norm(params["w"].cpu()
+                                             - params_cpu["w"])
+                    / torch.linalg.vector_norm(params_cpu["w"]))
+        acc_cpu = tsvm.accuracy_table(params_cpu, f_te.cpu(),
+                                      torch.from_numpy(y_te))
+        f_te_cpu = hog_descriptor(torch.from_numpy(x_te), hcfg)
+        off = f_te.cpu() != f_te_cpu
+        dmax = float((f_te.cpu() - f_te_cpu).abs().max())
+        cpu_line = (f"CPU, same schedule: w rel L2 {rel:.1e}, "
+                    f"{_table1_rows(acc_cpu)}; test descriptors off CPU's "
+                    f"{int(off.sum())}/{off.numel()} (max {dmax:.1e})")
+
+        # (c) the trained SVM through the window kernels: human equals
+        # predict on the ref features beyond the score tolerance, scaled
+        # from the golden weights' to these (one code step, or the same
+        # f32 order, moves a score in proportion to max |w|)
+        want = tsvm.svm_score(params, f_te)
+        tol = SCORE_TOL[dt] * float(params["w"].abs().max()) / golden_wmax
+        parts = []
+        for name, (m, path) in TRAIN_EVAL.items():
+            if m != mode:
+                continue
+            kernels.reset_launches()
+            out = pipe.classify_windows(params, xte, hcfg, path)
+            torch.cuda.synchronize()
+            launches[name] = kernels.launch_counts()
+            de = float((out["score"] - want).abs().max())
+            need(de <= tol, f"{name}: score delta {de} > {tol}")
+            sure = want.abs() > tol
+            need(torch.equal(out["human"][sure],
+                             (want[sure] > 0).to(torch.int32)),
+                 f"{name}: human differs from predict beyond {tol}")
+            parts.append(f"{path} {de:.1e} ({int((~sure).sum())} in tol)")
+        print(f"    {cpu_line}; kernels: human = predict beyond {tol:.1e}, "
+              f"delta " + ", ".join(parts) + "; " + ", ".join(dict.fromkeys(
+                  _path_launches(n, launches[n]) for n in TRAIN_EVAL
+                  if TRAIN_EVAL[n][0] == mode)), flush=True)
+    gap = (totals["fixed"] - totals["fp32"]) * 100
+    need(abs(gap) <= TABLE1_MAX_GAP_PTS,
+         f"Table I: |fixed - fp32| {abs(gap):.2f} > {TABLE1_MAX_GAP_PTS} pts")
+    print(f"  table1 gap fixed-fp32 {gap:+.2f} pts ("
+          f"{bench['fixed_vs_fp32_gap_pts']:+.2f}); gate >= "
+          f"{TABLE1_MIN_TOTAL}, <= {TABLE1_MAX_GAP_PTS} pts met", flush=True)
+    del xtr, f_tr
+
+    # (d) a session trained with one mining round, on the card and on the
+    # CPU from the same rng
+    base = api.presets("paper")
+    cfg = base.replace(detector=dataclasses.replace(base.detector,
+                                                    backend="kernel"))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    gpu = api.DetectionSession.train(cfg, rng=np.random.default_rng(0),
+                                     hard_negative_rounds=1,
+                                     mine_scenes=MINE_SCENES, device=DEV)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches["mining paper+kernel"] = kernels.launch_counts()
+    own = _path_launches("mining paper+kernel",
+                         launches["mining paper+kernel"])
+    t0 = time.perf_counter()
+    cpu = api.DetectionSession.train(cfg, rng=np.random.default_rng(0),
+                                     hard_negative_rounds=1,
+                                     mine_scenes=MINE_SCENES, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    need(gpu.mined_negatives > 0, "mining found no hard negatives")
+    need(gpu.mined_negatives == cpu.mined_negatives,
+         f"mined {gpu.mined_negatives} crops on the card, "
+         f"{cpu.mined_negatives} on the CPU")
+    rng = np.random.default_rng(1)
+    crops = mine_hard_negatives(gpu.svm, cfg.detector, MINE_SCENES, rng,
+                                device=DEV)
+    crops_cpu = mine_hard_negatives(
+        {k: v.cpu() for k, v in gpu.svm.items()}, cfg.detector, MINE_SCENES,
+        np.random.default_rng(1), device="cpu")
+    need(crops.shape == crops_cpu.shape and len(crops) > 0,
+         f"mining with one SVM: {crops.shape} crops on the card, "
+         f"{crops_cpu.shape} on the CPU")
+    diff = np.abs(crops.astype(np.int16) - crops_cpu.astype(np.int16))
+    need(int(diff.max()) <= 1, f"mined crops differ by {int(diff.max())}")
+    rel = float(torch.linalg.vector_norm(gpu.svm["w"].cpu() - cpu.svm["w"])
+                / torch.linalg.vector_norm(cpu.svm["w"]))
+    print(f"  train paper+kernel 1500+1000, 1 mining round of {MINE_SCENES} "
+          f"scenes: {gpu_s:.1f} s (CPU {cpu_s:.1f}); mined "
+          f"{gpu.mined_negatives} = CPU; w rel L2 {rel:.2e}; card SVM, "
+          f"{MINE_SCENES} scenes: {len(crops)} crops = CPU, "
+          f"{int((diff > 0).sum())}/{diff.size} px one code off; {own}",
+          flush=True)
+
+    scene = synth.make_scene(np.random.default_rng(2), 480, 640,
+                             n_people=3)[0]
+    with tempfile.TemporaryDirectory() as d:
+        gpu.save(d)
+        loaded = api.DetectionSession.load(d, cfg, device=DEV)
+        need(torch.equal(loaded.svm["w"], gpu.svm["w"])
+             and torch.equal(loaded.svm["b"], gpu.svm["b"]),
+             "load(save(svm)) is not the same SVM")
+        a = [x["box"] for x in gpu.detect(scene).to_list()]
+        b = [x["box"] for x in loaded.detect(scene).to_list()]
+        need(a == b and len(a) > 0, f"save/load: kept boxes {len(a)} vs "
+                                    f"{len(b)} differ")
+
+        # the detect CLI: --save, then --load skips the train and prints
+        # the same detections
+        outs = []
+        kernels.reset_launches()
+        for flag in ("--save", "--load"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["--fast", "--scenes", "2", "--backend",
+                               "kernel", flag, os.path.join(d, "cli")])
+            need(rc == 0, f"detect CLI {flag} exited {rc}")
+            outs.append(buf.getvalue().splitlines())
+        torch.cuda.synchronize()
+        launches["cli kernel"] = kernels.launch_counts()
+        cli_own = _path_launches("cli kernel", launches["cli kernel"])
+    dets = [[ln.split(" (")[0] if ln.startswith("scene ") else ln
+             for ln in out if ln.startswith(("scene ", "   (", "recall"))]
+            for out in outs]
+    need(dets[0] == dets[1] and len(dets[0]) >= 3,
+         "detect CLI: --load printed other detections than --save")
+    need(any("loaded SVM params" in ln for ln in outs[1])
+         and not any(ln.startswith("training") for ln in outs[1]),
+         "detect CLI: --load did not skip the train")
+    print(f"  save/load: same w, b, {len(a)} boxes; CLI --fast --scenes 2 "
+          f"--backend kernel --save, --load: same {len(dets[0]) - 1} lines, "
+          f"train skipped, {dets[0][-1].replace('recall over scenes', 'recall')}"
+          f"; {cli_own}", flush=True)
     return launches
 
 
@@ -2141,8 +2404,8 @@ def lm_path(torch, np) -> dict:
                                       f"relative L2 {rel} > {CONSIST_TOL}")
     print(f"  lm {LM_ARCH} full width ({cfg.n_layers} layers, {n:,} "
           f"parameters, init {t_init:.1f} s, peak {peak:.2f} GiB): tokens "
-          f"in range, rerun the same; prefill vs prefill[:-1] + "
-          f"decode_step, last logits' relative L2 {rel['sound']:.2e} (tol "
+          f"in range, rerun same; prefill vs prefill[:-1] + decode_step "
+          f"rel L2 {rel['sound']:.2e} (tol "
           f"{CONSIST_TOL:g}; planted: " + _faults(rel) + "), max delta "
           f"{float((a - b).abs().max()):.3f} of max |logit| "
           f"{float(a.abs().max()):.2f}, argmax same in "
@@ -2193,8 +2456,8 @@ def lm_path(torch, np) -> dict:
                       generate_ms=ms_gen)
         print(f"  lm {g}+{LM_NEW}: prefill {ms_prefill:.2f} ms (bound "
               f"{bound_pre:.2f}; {B * S / ms_prefill * 1e3:.0f} tok/s; "
-              f"device busy {busy:.2f} ms, flash_attention {flash:.2f} ms "
-              f"= {flash / busy:.3f} of it, {out[g]['prefill_launches']} "
+              f"busy {busy:.2f} ms, flash {flash:.2f} ms = "
+              f"{flash / busy:.3f} of it, {out[g]['prefill_launches']} "
               f"launches); decode {ms_decode:.3f} ms/step (bound "
               f"{bound_dec:.3f}; {B / ms_decode * 1e3:.1f} tok/s; busy "
               f"{dbusy:.3f} ms, {out[g]['decode_launches']:.0f} launches); "
@@ -2218,9 +2481,9 @@ def lm_path(torch, np) -> dict:
          f"f32 prefill vs prefill + decode_step: relative L2 {rel}, limit "
          f"{CONSIST_TOL_F32} (sound under it, planted faults over it)")
     print(f"  lm {LM_ARCH} full width f32 ({4 * n / 1e9:.1f} GB; flash "
-          f"cuda_core {r32['cuda_core']}, sm90 {r32['sm90']}): prefill "
-          f"vs prefill[:-1] + decode_step relative L2 {rel['sound']:.2e} "
-          f"(limit {CONSIST_TOL_F32:g}; planted faults over it: "
+          f"cuda_core {r32['cuda_core']}, sm90 {r32['sm90']}): the same "
+          f"rel L2 {rel['sound']:.2e} (limit {CONSIST_TOL_F32:g}; planted "
+          f"over it: "
           + _faults(rel) + ")", flush=True)
     del params
     torch.cuda.empty_cache()
@@ -2313,17 +2576,15 @@ def _r(x):
     return float(f"{x:.4g}") if isinstance(x, float) else x
 
 
-def compact_mode(v: dict, group: str, main: bool) -> dict:
-    """A mode's entry for the kernels line: its error ("err") and code
-    flips ("flips") and, but for the main mode (whose numbers stand at the kernel's top
-    level), the main group's CUDA-event ms per call, to 4 significant
-    digits (its device, plain, bound and library ms are on its check
-    line)."""
+def compact_mode(v: dict, group: str) -> dict:
+    """A non-main mode's entry for the kernels line: its error ("err"),
+    code flips ("flips") and the main group's CUDA-event ms per call, to 4
+    significant digits (its device, plain, bound and library ms are on
+    its check line)."""
     short = {"max_abs_err": "err", "code_flips": "flips"}
     out = {short.get(k, k): _r(d) for k, d in v.items()
            if not isinstance(d, dict)}
-    if not main:
-        out["ms"] = _r(v[group]["ms"])
+    out["ms"] = _r(v[group]["ms"])
     return out
 
 
@@ -2377,8 +2638,8 @@ def main() -> int:
         one = torch.zeros(1, device=DEV)
         floor = kernel_device_ms(torch, lambda: one.add_(1), "")
         print("kernel checks vs plain (err: worst shape), per frame or "
-              "window batch: device/plain/bound/library ms (device time); "
-              f"launch floor (1-element add_): {_fmt(floor)}", flush=True)
+              "window batch: device/plain/bound/library ms; launch floor "
+              f"(1-element add_): {_fmt(floor)}", flush=True)
         summary = check_kernels(torch, np)
         check_batched_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
@@ -2390,6 +2651,8 @@ def main() -> int:
         launches.update(stream_path(torch, np, configs, svm))
         print("window path:", flush=True)
         launches.update(window_path(torch, np))
+        print("train path:", flush=True)
+        launches.update(train_path(torch, np))
         print("LM path:", flush=True)
         lm_launches, flash_routes = lm_path(torch, np)
         launches.update(lm_launches)
@@ -2418,9 +2681,11 @@ def main() -> int:
             # the library call's CUDA-event ms, where there is one
             **({"library_call_ms": _r(main["library_call_ms"])}
                if main["library_call_ms"] is not None else {}),
-            "modes": {m: compact_mode(v, MAIN_GROUP[k], m == MAIN_MODE[k])
+            # the other modes' err (and flips) and ms; the main mode's
+            # err is on its check line
+            "modes": {m: compact_mode(v, MAIN_GROUP[k])
                       for m, v in summary[k].items()
-                      if m != "max_abs_err"},
+                      if m not in ("max_abs_err", MAIN_MODE[k])},
             })
     flash = next(e for e in kernels_line["kernels"]
                  if e["name"] == "flash_attention")

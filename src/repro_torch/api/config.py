@@ -1,15 +1,15 @@
 """The configuration tree of the port's detection API -- the port of
 repro/api/config.py.
 
-``PipelineConfig`` nests the typed ``hog``, ``detector`` and ``tracker``
-(core/video.py:TrackerConfig) configs the port runs. The ``train``,
-``service`` and ``cascade`` sub-trees belong to paths a later slice
-ports; they are kept as plain dicts and round-trip unchanged, so a
-reference ``PipelineConfig.to_dict()`` loads and dumps back equal. Their
-defaults are copies of the reference dataclasses' defaults
-(repro/core/svm.py:57 SVMTrainConfig, repro/api/config.py:66
-ServiceConfig with serve/resilience.py and obs/metrics.py nested,
-repro/core/cascade.py:60 CascadeConfig).
+``PipelineConfig`` nests the typed ``hog``, ``detector``, ``tracker``
+(core/video.py:TrackerConfig) and ``train`` (core/svm.py:SVMTrainConfig)
+configs the port runs. The ``service`` and ``cascade`` sub-trees belong
+to paths a later slice ports; they are kept as plain dicts and
+round-trip unchanged, so a reference ``PipelineConfig.to_dict()`` loads
+and dumps back equal. Their defaults are copies of the reference
+dataclasses' defaults (repro/api/config.py:66 ServiceConfig with
+serve/resilience.py and obs/metrics.py nested, repro/core/cascade.py:60
+CascadeConfig).
 
 Presets: "default", "paper", "faithful", "perf", "quant" (from
 configs/hog_svm.py).
@@ -24,12 +24,9 @@ from typing import Any, Dict, Optional
 from ..configs import hog_svm
 from ..core.detector import DetectorConfig
 from ..core.hog import HOGConfig, PAPER_HOG
+from ..core.svm import SVMTrainConfig
 from ..core.video import TrackerConfig
 
-TRAIN_DEFAULT = {"steps": 2000, "batch": 256, "lam": 0.0001, "seed": 0,
-                 "pegasos_lr": True, "neg_weight": 1.0}
-#: the paper presets' schedule (repro/configs/hog_svm.py:24 TRAIN)
-TRAIN_PAPER = dict(TRAIN_DEFAULT, steps=4000, neg_weight=6.0)
 SERVICE_DEFAULT = {
     "window_batch": 64, "max_wait_ms": 2.0, "frame_batch": 8,
     "max_pending_frames": 256,
@@ -65,7 +62,7 @@ class PipelineConfig:
     hog: HOGConfig = PAPER_HOG
     detector: DetectorConfig = DetectorConfig()
     tracker: TrackerConfig = TrackerConfig()
-    train: Dict[str, Any] = _default(TRAIN_DEFAULT)
+    train: SVMTrainConfig = SVMTrainConfig()
     service: Dict[str, Any] = _default(SERVICE_DEFAULT)
     cascade: Dict[str, Any] = _default(CASCADE_DEFAULT)
 
@@ -139,21 +136,21 @@ _PRESETS: Dict[str, PipelineConfig] = {
     "paper": PipelineConfig(
         name="paper", hog=hog_svm.CONFIG,
         detector=DetectorConfig(hog=hog_svm.CONFIG, score_threshold=0.5),
-        train=dict(TRAIN_PAPER)),
+        train=hog_svm.TRAIN),
     "faithful": PipelineConfig(
         name="faithful", hog=hog_svm.FAITHFUL,
         detector=DetectorConfig(hog=hog_svm.FAITHFUL, score_threshold=0.5),
-        train=dict(TRAIN_PAPER)),
+        train=hog_svm.TRAIN),
     "perf": PipelineConfig(
         name="perf", hog=hog_svm.PERF,
         detector=DetectorConfig(hog=hog_svm.PERF, score_threshold=0.5,
                                 backend="fused", batch_chunk=0),
-        train=dict(TRAIN_PAPER)),
+        train=hog_svm.TRAIN),
     # the fixed-point datapath, fused dense backend
     # (repro/api/config.py:229-233)
     "quant": PipelineConfig(
         name="quant", hog=hog_svm.QUANT,
         detector=DetectorConfig(hog=hog_svm.QUANT, score_threshold=0.5,
                                 backend="fused", batch_chunk=0),
-        train=dict(TRAIN_PAPER)),
+        train=hog_svm.TRAIN),
 }

@@ -1,9 +1,10 @@
 """The paper's own workload config: the HOG+SVM detection co-processor
-(a copy of repro/configs/hog_svm.py). The training schedule rides in
-PipelineConfig.train as a plain dict (api/config.py)."""
+(a copy of repro/configs/hog_svm.py; the window set's split is
+data/synth_pedestrian.py:PedestrianDataConfig's default)."""
 import dataclasses
 
 from ..core.hog import HOGConfig
+from ..core.svm import SVMTrainConfig
 
 # faithful: fp32 datapath, CORDIC magnitude/angle, NR rsqrt
 FAITHFUL = HOGConfig(mode="cordic")
@@ -18,3 +19,6 @@ PERF = dataclasses.replace(CONFIG, feat_dtype="bf16")
 # histograms, int8 block descriptors, int8 scoring matmul
 # (repro/configs/hog_svm.py:24)
 QUANT = HOGConfig(mode="cordic", numerics="fixed")
+
+# the paper presets' training schedule (repro/configs/hog_svm.py:26)
+TRAIN = SVMTrainConfig(steps=4000, neg_weight=6.0)

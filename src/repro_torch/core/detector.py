@@ -641,14 +641,18 @@ class FrameDetector:
         self.device = resolve_device(device)
         self.svm = as_svm(svm, self.device, self.cfg.hog.n_features)
         self._programs: Dict[Tuple[int, int], FrameProgram] = {}
+        self.program_stats = {"hits": 0, "misses": 0}
 
     def program_for(self, h: int, w: int) -> Tuple[FrameProgram, int, int]:
         b = max(1, self.cfg.shape_bucket)
         ph, pw = _round_up(h, b), _round_up(w, b)
         prog = self._programs.get((ph, pw))
         if prog is None:
+            self.program_stats["misses"] += 1
             prog = _frame_program(ph, pw, self.cfg, self.device)
             self._programs[(ph, pw)] = prog
+        else:
+            self.program_stats["hits"] += 1
         return prog, ph, pw
 
     def bucket_for(self, frame) -> Tuple[int, int]:

@@ -2,8 +2,8 @@
 tests.
 
 A copy of the generators of repro/data/synth_pedestrian.py
-(``make_windows``, ``make_scene``, ``ClipConfig`` / ``make_clip`` and
-the helpers they draw from, numpy only), so the port needs nothing of the
+(``make_windows``, ``make_dataset``, ``make_scene``, ``ClipConfig`` /
+``make_clip`` and the helpers they draw from, numpy only), so the port needs nothing of the
 reference package. The same ``rng`` state gives the same arrays as the
 reference.
 """
@@ -197,6 +197,14 @@ def make_windows(n_pos: int, n_neg: int, cfg: PedestrianDataConfig,
         xs[n_pos + i] = _to_rgb(rng, _negative(rng, cfg), cfg.noise_std)
     perm = rng.permutation(len(ys))
     return xs[perm], ys[perm]
+
+
+def make_dataset(cfg: PedestrianDataConfig = PedestrianDataConfig()):
+    """Returns (x_train, y_train, x_test, y_test) with the paper's split sizes."""
+    rng = np.random.default_rng(cfg.seed)
+    x_tr, y_tr = make_windows(cfg.n_pos, cfg.n_neg, cfg, rng)
+    x_te, y_te = make_windows(cfg.n_test_pos, cfg.n_test_neg, cfg, rng)
+    return x_tr, y_tr, x_te, y_te
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 """The port stands alone: importing every repro_torch module, and what
 chip_smoke.py imports, loads neither JAX nor the reference package."""
+import os
 import pathlib
 import re
 import subprocess
@@ -20,8 +21,12 @@ import chip_smoke                     # its top level, then what it runs
 import repro_torch.api, repro_torch.core.detector, repro_torch.core.stages
 import repro_torch.data.synth_pedestrian, repro_torch.kernels.build
 import repro_torch.core.video, repro_torch.core.autotune_cache
+import repro_torch.checkpoint.manager, repro_torch.data.mining
+import repro_torch.platform, repro_torch.launch.detect
 import torch.profiler
-assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache"}} \
+assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
+         "repro_torch.checkpoint.manager", "repro_torch.data.mining",
+         "repro_torch.platform", "repro_torch.launch.detect"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -59,6 +64,30 @@ def test_batch_and_video_modules_stand_alone():
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "repro_torch []", out.stdout
+
+
+def test_training_and_checkpoint_modules_stand_alone():
+    """Training, mining, checkpoints, the platform snapshot and the detect
+    CLI, imported on their own, load neither JAX nor the reference
+    package, and the CLI's --help runs without either."""
+    probe = ("import sys; sys.path.insert(0, {src!r}); "
+             "import repro_torch.core.svm, repro_torch.data.mining, "
+             "repro_torch.checkpoint.manager, repro_torch.platform as p, "
+             "repro_torch.launch.detect; "
+             "print(p.default_seed({{'REPRO_SEED': '7'}}), sorted(m for m "
+             "in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+             "'repro')))")
+    out = subprocess.run([sys.executable, "-c",
+                          probe.format(src=str(ROOT / "src"))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "7 []", out.stdout
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.detect",
+                          "--help"], capture_output=True, text=True,
+                         timeout=120, cwd=ROOT, env=env)
+    assert out.returncode == 0 and "--device" in out.stdout, out.stderr
 
 
 def test_port_sources_name_no_reference_import():
