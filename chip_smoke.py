@@ -312,6 +312,21 @@ PATH_KERNELS.update({n: PATH_KERNELS["window perf"] if path == "fused"
                      for n, (_, path) in TRAIN_EVAL.items()})
 PATH_KERNELS["mining paper+kernel"] = PATH_KERNELS["paper+kernel"]
 PATH_KERNELS["cli kernel"] = PATH_KERNELS["paper+kernel"]
+# the serve phase: session.serve() of each configuration answers frames
+# through its dense kernels and windows through its window path
+SERVE_CONFIGS = {"serve paper+kernel": ("paper+kernel",
+                                        "window paper+kernel"),
+                 "serve quant": ("quant", "window quant")}
+PATH_KERNELS.update({n: PATH_KERNELS[d] + PATH_KERNELS[w]
+                     for n, (d, w) in SERVE_CONFIGS.items()})
+# each client thread's traffic: 640x480 and 1280x720 seeded scenes (the
+# second bucket parks in the backlog), make_windows windows, and one
+# malformed frame of each of serve/faults.py:malformed_frame's kinds
+# (the rng seeds that draw rank 1, empty, rank 4 and tiny f64)
+SERVE_CLIENTS, SERVE_VGA, SERVE_HD, SERVE_WINDOWS = 3, 8, 2, 64
+MALFORMED_SEEDS = (11, 1, 4, 0)
+SERVE_REPS = 3                 # timing: reps in turns after a warm-up
+CHAOS_FRAMES = 10
 # window configuration -> (preset, classify_windows path)
 WINDOW_CONFIGS = {"window paper+kernel": ("paper", "kernel"),
                   "window perf": ("perf", "fused"),
@@ -1503,6 +1518,7 @@ def main_path(torch, np) -> dict:
                                    for f in fs]
         torch.cuda.synchronize()
         launches[name] = check_launches(name, kernels.launch_counts())
+    print(launch_line(launches), flush=True)
 
     # one line per configuration: each frame size's frames, "/" between
     # frames and " " between sizes
@@ -1530,13 +1546,13 @@ def main_path(torch, np) -> dict:
                           ("rint", rints)):
             report.setdefault((name, key), []).append("/".join(part))
     for name, (_, dt) in configs.items():
-        flips = (f"; resized gray pixels rounded unlike the CPU's: "
+        flips = (f"; rint px unlike CPU "
                  + " ".join(report[(name, "rint")])
                  if dt == "int8" else "")
         print(f"  {name} " + "/".join(f"{w}x{h}" for h, w in frames)
-              + f", {len(frames[FRAME_SIZES[0]])} frames each: "
-              + " ".join(report[(name, "kept")]) + " boxes kept, same as "
-              "CPU; max score delta " + " ".join(report[(name, "delta")])
+              + f" x{len(frames[FRAME_SIZES[0]])}: kept "
+              + " ".join(report[(name, "kept")]) + " = CPU, score delta "
+              + " ".join(report[(name, "delta")])
               + f" (tol {SCORE_TOL[dt]:g}){flips}", flush=True)
 
     # ms/frame: the configurations in turns (the order rotating every
@@ -1588,15 +1604,8 @@ def main_path(torch, np) -> dict:
 
 
 def check_launches(name: str, counts: dict) -> dict:
-    """Print one path's launch counts (read right after its run) and
-    require its own kernels > 0 and every other kernel 0."""
-    own = {k: n for k, n in counts.items() if k in PATH_KERNELS[name]}
-    print(f"launches {name}: "
-          + ", ".join(f"{k} {n}" for k, n in own.items())
-          + "; others " + ("0" if not any(
-              n for k, n in counts.items() if k not in own)
-              else str({k: n for k, n in counts.items() if k not in own})),
-          flush=True)
+    """Require one path's own kernels > 0 and every other kernel 0, its
+    counts read right after its run (launch_line prints them)."""
     for k, n in counts.items():
         if k in PATH_KERNELS[name]:
             need(n > 0, f"kernel {k} was not launched on the {name} path")
@@ -1604,6 +1613,16 @@ def check_launches(name: str, counts: dict) -> dict:
             need(n == 0, f"kernel {k} launched {n} times on the {name} "
                          f"path, which should not run it")
     return counts
+
+
+def launch_line(launches: dict) -> str:
+    """Paths' launches, each checked by check_launches: each path's own
+    kernels as _per_kernel gives them; every other kernel launched 0
+    times on each."""
+    return ("launches of each own kernel (others 0): " + "; ".join(
+        f"{n.replace('window ', '')} " + _per_kernel(
+            [c], PATH_KERNELS[n]).replace(" of each kernel", "")
+        for n, c in launches.items()))
 
 
 def rint_flips(torch, gpu_sess, cpu_sess, frame) -> int:
@@ -1819,9 +1838,9 @@ def batch_path(torch, np, configs, svm) -> dict:
             kept += sum(len(a) for a in got)
         need(kept >= 3 * sum(len(f) for f in batches.values()),
              f"batch {name}: only {kept} boxes kept; the check is vacuous")
-        lines[name] = (f"{_per_kernel(steps, own)} a batch; boxes = "
-                       f"card's, CPU's: {n_frames} pairs, {kept} boxes, "
-                       f"scores differ in {differ} (max {worst:.1e})")
+        lines[name] = (f"{_per_kernel(steps, own)} a batch; = card, CPU:"
+                       f" {n_frames} pairs, {kept} boxes, {differ} scores "
+                       f"differ (max {worst:.1e})")
 
     # ms/frame, each batch size, the configurations in turns
     names = list(gpu)
@@ -1889,11 +1908,11 @@ def batch_path(torch, np, configs, svm) -> dict:
                          for w, a in zip(f32_wide, f32_alone))
             frames_off += any(off)
             pixels += sum(off)
-        text.append(f"B{b} {vs_alone}/{vs_cpu} px; f32 {frames_off}/{b} "
-                    f"frames ({pixels} px, {rints} whole levels)")
-    print("  batched resize (f64) px unlike each frame's/the CPU's; f32 "
-          "GEMMs of the batch's shape unlike each frame's: "
-          + "; ".join(text), flush=True)
+        text.append(f"B{b} {vs_alone}/{vs_cpu}, f32 {frames_off}/{b} "
+                    f"({pixels} px, {rints} levels)")
+    print("  batched resize (f64), px unlike each frame's/the CPU's, and f32"
+          " GEMMs of the batch shape, frames unlike: " + "; ".join(text),
+          flush=True)
     return launches
 
 
@@ -2000,7 +2019,9 @@ def window_path(torch, np) -> dict:
                 for i in range(0, len(wins), WINDOW_CHUNK)])
         torch.cuda.synchronize()
         launches[name] = check_launches(name, kernels.launch_counts())
+    print("window " + launch_line(launches), flush=True)
 
+    parts = []
     for name, (preset, path) in WINDOW_CONFIGS.items():
         cfg = api.presets(preset).hog
         tol = WINDOW_SCORE_TOL[preset]
@@ -2013,10 +2034,10 @@ def window_path(torch, np) -> dict:
         sure = ref["score"].abs() > tol
         need(torch.equal(got["human"][sure], ref["human"][sure]),
              f"{name}: human differs from the CPU where |score| > {tol}")
-        print(f"  {name}: 294 split windows, delta vs CPU "
-              f"{de:.2e} (tol {tol:g}), human same on "
-              f"{int(sure.sum())} beyond tol, "
-              f"{int(got['human'].sum())} humans", flush=True)
+        parts.append(f"{name[7:]} {de:.2e} ({tol:g}) {int(sure.sum())} "
+                     f"{int(got['human'].sum())}")
+    print("  294 split windows, delta vs CPU (tol), human same beyond tol, "
+          "humans: " + "; ".join(parts), flush=True)
 
     # numpy windows without a device go to the card
     out = pipe.classify_windows(svm_np, split[:8], api.presets("perf").hog,
@@ -2280,6 +2301,325 @@ def train_path(torch, np) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 4f
+
+def _client(svc, items, barrier, out, errors):
+    """One client thread: submit ``items`` ((kind, key, array); kind
+    "window" goes to submit, the rest to submit_frame) back to back, then
+    wait on each answer in submission order, recording (kind, key,
+    payload, ms from submit to answer). The service answers one bucket's
+    frames and the windows in arrival order, so in-order waits time each
+    such answer when it lands; waits are bounded."""
+    try:
+        barrier.wait(timeout=60)
+        pend = []
+        for kind, key, x in items:
+            t0 = time.perf_counter()
+            fut = svc.submit(x) if kind == "window" else svc.submit_frame(x)
+            pend.append((kind, key, fut, t0))
+        for kind, key, fut, t0 in pend:
+            payload = fut.get(timeout=300)
+            out.append((kind, key, payload,
+                        (time.perf_counter() - t0) * 1e3))
+    except Exception as exc:                      # reported by the caller
+        errors.append(f"{type(exc).__name__}: {exc}")
+
+
+def run_clients(svc, per_client) -> tuple:
+    """Run one client thread per item list at once; returns (answers,
+    seconds from the common start to the last answer)."""
+    import threading
+    barrier = threading.Barrier(len(per_client) + 1)
+    out, errors = [], []
+    threads = [threading.Thread(target=_client, args=(svc, items, barrier,
+                                                      out, errors))
+               for items in per_client]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=400)
+        need(not t.is_alive(), "a serve client hung")
+    wall = time.perf_counter() - t0
+    need(not errors, f"serve clients failed: {errors}")
+    return out, wall
+
+
+def _pct(xs, q) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def serve_traffic(np):
+    """Each client's requests, interleaved: SERVE_VGA 640x480 and SERVE_HD
+    1280x720 seeded scenes, SERVE_WINDOWS make_windows windows in four
+    runs, and the four malformed frames."""
+    import repro_torch.data.synth_pedestrian as synth
+    from repro_torch.serve.faults import malformed_frame
+    per_client = []
+    for c in range(SERVE_CLIENTS):
+        vga = [("vga", (c, i), synth.make_scene(np.random.default_rng(
+            500 + 16 * c + i), 480, 640, n_people=3)[0])
+            for i in range(SERVE_VGA)]
+        hd = [("hd", (c, i), synth.make_scene(np.random.default_rng(
+            600 + 16 * c + i), 720, 1280, n_people=3)[0])
+            for i in range(SERVE_HD)]
+        wins = synth.make_windows(SERVE_WINDOWS // 2, SERVE_WINDOWS // 2,
+                                  synth.PedestrianDataConfig(),
+                                  np.random.default_rng(700 + c))[0]
+        wins = [("window", (c, i), w) for i, w in enumerate(wins)]
+        bad = [("bad", (c, i), malformed_frame(np.random.default_rng(s)))
+               for i, s in enumerate(MALFORMED_SEEDS)]
+        q = len(wins) // 4
+        items = (vga[:2] + wins[:q] + vga[2:3] + hd[:1] + bad[:1]
+                 + vga[3:4] + wins[q:2 * q] + bad[1:2] + vga[4:5] + hd[1:]
+                 + wins[2 * q:3 * q] + vga[5:6] + bad[2:3] + vga[6:7]
+                 + wins[3 * q:] + vga[7:] + bad[3:])
+        per_client.append(items)
+    return per_client
+
+
+def serve_path(torch, np, configs, svm) -> dict:
+    """Phase 4f: session.serve() on the card for paper + kernel and quant
+    (fused), warmed at the 640x480 single and B 8 shapes, under
+    SERVE_CLIENTS client threads of mixed traffic, every launch counter
+    reset just before and read just after; every accepted request
+    answered once, frames equal to the card's single-frame detect bit
+    for bit and to the CPU service's boxes, windows to the card's
+    classify_windows bit for bit and to the CPU's within tolerance,
+    malformed frames erring where the CPU service's do. Then the timing
+    (the service and direct detect_batch B 8 in turns), the chaos
+    schedule and a degradation episode on paper + kernel."""
+    import repro_torch.api as api
+    import repro_torch.core.pipeline as pipe
+    import repro_torch.kernels as kernels
+    from repro_torch.core.cascade import reduced_detector
+    from repro_torch.serve.faults import (FaultInjector, FaultSpec,
+                                          chaos_specs)
+    from repro_torch.serve.resilience import ResilienceConfig
+
+    traffic = serve_traffic(np)
+    flat = {(kind, key): x for items in traffic for kind, key, x in items}
+    frame_keys = [k for k in flat if k[0] != "window"]
+    win_keys = [k for k in flat if k[0] == "window"]
+    wins_np = np.stack([flat[k] for k in win_keys])
+    launches, sessions, lines = {}, {}, []
+    for name, (dense, window) in SERVE_CONFIGS.items():
+        cfg, dt = configs[dense]
+        preset = WINDOW_CONFIGS[window][0]
+        gpu = api.DetectionSession(svm, cfg, device=DEV)
+        gpu.warmup([(480, 640), (8, 480, 640)])
+        sessions[name] = gpu
+        svc = gpu.serve().start()
+        kernels.reset_launches()
+        answers, _ = run_clients(svc, traffic)
+        torch.cuda.synchronize()
+        launches[name] = check_launches(name, kernels.launch_counts())
+        svc.stop()               # joins the worker, whose counters follow
+        stats = dict(svc.stats)  # its answers
+        n_frames = sum(len([i for i in c if i[0] != "window"])
+                       for c in traffic)
+        need(len(answers) == sum(map(len, traffic)),
+             f"{name}: {len(answers)} answers to {sum(map(len, traffic))} "
+             f"requests")
+        need(stats["frame_answers"] == n_frames,
+             f"{name}: frame_answers {stats['frame_answers']} != "
+             f"{n_frames} accepted")
+        got = {(kind, key): p for kind, key, p, _ in answers}
+        need(len(got) == len(answers), f"{name}: a request answered twice")
+
+        # the CPU service on the same frames (one wide batch step, so no
+        # autotune probe runs on the CPU)
+        cpu = api.DetectionSession(svm, cfg.replace(
+            detector=dataclasses.replace(cfg.detector,
+                                         batch_chunk=1 << 10)),
+            device="cpu")
+        csvc = cpu.serve().start()
+        cres = dict(zip(frame_keys, csvc.detect_frames(
+            [flat[k] for k in frame_keys], timeout=600)))
+        csvc.stop()
+        deltas, boxes = [0.0], 0
+        for k in frame_keys:
+            p, c = got[k], cres[k]
+            need(("error" in p) == ("error" in c),
+                 f"{name} {k}: error {p.get('error')!r} on the card, "
+                 f"{c.get('error')!r} on the CPU")
+            if k[0] == "bad":
+                continue
+            need("error" not in p, f"{name} {k}: {p.get('error')}")
+            want = gpu.detect(flat[k]).to_list()
+            need(p["detections"] == want,
+                 f"{name} {k}: service detections differ from the card's "
+                 f"single-frame detect")
+            need([x["box"] for x in want] == [x["box"] for x in
+                                               c["detections"]],
+                 f"{name} {k}: kept boxes differ from the CPU service's")
+            boxes += len(want)
+            deltas += [abs(a["score"] - b["score"])
+                       for a, b in zip(want, c["detections"])]
+        need(boxes >= 3 * n_frames // 2, f"{name}: only {boxes} boxes")
+        need(max(deltas) <= SCORE_TOL[dt],
+             f"{name}: frame score delta {max(deltas)} > {SCORE_TOL[dt]}")
+        n_err = sum("error" in got[k] for k in frame_keys)
+
+        out = pipe.classify_windows(gpu.svm, torch.from_numpy(wins_np).to(
+            DEV), cfg.hog, cfg.detector.backend)
+        want = out["score"].cpu().numpy()
+        score = np.array([got[k]["score"] for k in win_keys])
+        human = np.array([got[k]["human"] for k in win_keys])
+        need(np.array_equal(score, want.astype(np.float64))
+             and np.array_equal(human, out["human"].cpu().numpy()),
+             f"{name}: window answers differ from classify_windows on the "
+             f"card ({int((score != want).sum())} scores)")
+        ref = pipe.classify_windows(svm, wins_np, cfg.hog,
+                                    cfg.detector.backend, device="cpu")
+        tol = WINDOW_SCORE_TOL[preset]
+        wde = float(np.abs(score - ref["score"].numpy()).max())
+        need(wde <= tol, f"{name}: window delta vs CPU {wde} > {tol}")
+        sure = np.abs(ref["score"].numpy()) > tol
+        need(np.array_equal(human[sure], ref["human"].numpy()[sure]),
+             f"{name}: human differs from the CPU beyond {tol}")
+        per = [_per_kernel([launches[name]], PATH_KERNELS[p])
+               for p in (dense, window)]
+        lines.append((name, len(answers), stats, max(deltas), wde, n_err,
+                      boxes, " / ".join(
+                          p.replace(" of each kernel", "") for p in per)))
+    print(f"  serve {SERVE_CLIENTS} clients x ({SERVE_VGA}+{SERVE_HD} "
+          f"frames, {SERVE_WINDOWS} windows, 4 malformed), answered once "
+          f"= card detect / classify_windows bit for bit, CPU boxes; "
+          f"launches of each frame / window kernel, others 0: "
+          + "; ".join(f"{n[6:]} {a} ({s['frame_batches']}+{s['batches']} "
+                      f"batches), {b} boxes, CPU delta {d:.1e}/{w:.1e}, "
+                      f"{e} err = CPU, launches {k}"
+                      for n, a, s, d, w, e, b, k in lines), flush=True)
+
+    # timing, paper + kernel: the service under SERVE_CLIENTS clients of
+    # SERVE_VGA 640x480 frames (open loop) and direct detect_batch B 8 on
+    # the same frames, in turns; every batch size warmed first, so no
+    # autotune probe falls in a timed run
+    gpu = sessions["serve paper+kernel"]
+    gpu.warmup([(b, 480, 640) for b in range(1, 9)])
+    vga = [[i for i in items if i[0] == "vga"] for items in traffic]
+    frames = [x for items in vga for _, _, x in items]
+    stacks = [np.stack(frames[i:i + 8]) for i in range(0, len(frames), 8)]
+    svc = gpu.serve().start()
+    lat, svc_s, direct_s = [], 0.0, 0.0
+    for rep in range(-1, SERVE_REPS):             # rep -1 warms up
+        for turn in ((0, 1) if rep % 2 else (1, 0)):
+            if turn == 0:
+                res, wall = run_clients(svc, vga)
+                need(all("error" not in p for _, _, p, _ in res),
+                     "serve timing: an error")
+                if rep >= 0:
+                    svc_s += wall
+                    lat += [ms for _, _, _, ms in res]
+            else:
+                t0 = time.perf_counter()
+                for st in stacks:
+                    gpu.detect_batch(st).to_list()
+                if rep >= 0:
+                    direct_s += time.perf_counter() - t0
+    prof = device_times(torch, lambda: run_clients(svc, vga), 1)
+    n = len(frames)
+    per_frame = sum(c for c, _ in prof.values()) / n
+    busy = sum(t for _, t in prof.values()) / n / 1e3
+    wlat, wins_s = [], 0.0
+    wtraffic = [[i for i in items if i[0] == "window"] for items in traffic]
+    for rep in range(-1, SERVE_REPS):
+        res, wall = run_clients(svc, wtraffic)
+        if rep >= 0:
+            wins_s += wall
+            wlat += [ms for _, _, _, ms in res]
+    svc.stop()
+    wstats = dict(svc.stats)
+    svc_fps = n * SERVE_REPS / svc_s
+    ms_frame = svc_s * 1e3 / (n * SERVE_REPS)
+    print(f"  serve 640x480 paper+kernel, {SERVE_CLIENTS} clients x "
+          f"{SERVE_VGA} frames, {SERVE_REPS} reps in turns: "
+          f"{svc_fps:.1f} frames/s ({ms_frame:.3f} ms/frame), request p50/"
+          f"p99 {_pct(lat, 50):.2f}/{_pct(lat, 99):.2f} ms, occupancy "
+          f"{wstats['frame_occupancy']:.3f}, {per_frame:.0f} launches and {busy:.4f} busy ms a "
+          f"frame (idle {1 - busy / ms_frame:.3f}); detect_batch B8 "
+          f"{n * SERVE_REPS / direct_s:.1f} frames/s "
+          f"({direct_s * 1e3 / (n * SERVE_REPS):.3f} ms/frame); windows "
+          f"B{gpu.config.service.window_batch}: p50/p99 "
+          f"{_pct(wlat, 50):.2f}/{_pct(wlat, 99):.2f} ms, "
+          f"{len(wlat) / wins_s:.0f} windows/s, occupancy "
+          f"{wstats['occupancy']:.3f}", flush=True)
+
+    # chaos: the standard schedule, one frame a batch so every fault fires
+    chaos = frames[:CHAOS_FRAMES]
+    base = [gpu.detect(f).to_list() for f in chaos]
+    inj = FaultInjector(chaos_specs(), seed=0)
+    svc = gpu.serve(faults=inj, frame_batch=1).start()
+    res = svc.detect_frames(chaos, timeout=120)
+    t0 = time.perf_counter()
+    svc.stop()
+    stop_s = time.perf_counter() - t0
+    cstats = dict(svc.stats)
+    fired = sorted({k for _, k in inj.fired})
+    need(fired == ["device_loss", "kill_worker", "latency"],
+         f"chaos: fired {inj.fired}")
+    need(cstats["restarts"] >= 2, f"chaos: {cstats['restarts']} restarts")
+    need(cstats["frame_answers"] == len(chaos)
+         and [r.get("detections") for r in res] == base,
+         "chaos: results differ from the unperturbed run")
+    need(stop_s < 15, f"chaos: stop() took {stop_s:.1f} s")
+
+    # degradation: thresholds from this run's unperturbed p99, one frame
+    # at a time on a service of one frame a batch
+    svc = gpu.serve(frame_batch=1).start()
+    for f in chaos:
+        svc.detect_frames([f], timeout=60)
+    svc.stop()
+    p99 = svc.stats["latency_ms"]["p99"]
+    spike = max(20.0, 10 * p99)
+    inj = FaultInjector((FaultSpec("latency", at_batches=(2, 3, 4, 5),
+                                   latency_ms=spike),), seed=0)
+    svc = gpu.serve(faults=inj, frame_batch=1, resilience=ResilienceConfig(
+        degrade_p99_ms=5 * p99, recover_p99_ms=2.5 * p99, recover_dwell=2,
+        latency_window=4)).start()
+    cpu = api.DetectionSession(svm, gpu.config, device="cpu")
+    red = reduced_detector(cpu.detector)
+    rungs, rdelta = [], [0.0]
+    for f in chaos:
+        r = svc.detect_frames([f], timeout=60)[0]
+        rungs.append(r["degraded_mode"])
+        if r["degraded_mode"] == "reduced":
+            want = red(f)
+            need([x["box"] for x in r["detections"]]
+                 == [x["box"] for x in want],
+                 "degraded: reduced-rung boxes differ from the CPU's")
+            rdelta += [abs(a["score"] - b["score"])
+                       for a, b in zip(r["detections"], want)]
+    need("reduced" in rungs, f"degradation never reached reduced: {rungs}")
+    need(max(rdelta) <= SCORE_TOL["f32"], f"reduced delta {max(rdelta)}")
+    deadline, extra = time.monotonic() + 60, 0
+    while svc.stats["degraded_mode"] != "full":
+        need(time.monotonic() < deadline,
+             f"never recovered: {svc.stats['ladder']}")
+        svc.detect_frames([chaos[0]], timeout=60)
+        extra += 1
+    # one at a time, as the thresholds were measured: a queue of ten
+    # would raise p99 over the degrade line by itself
+    res = [svc.detect_frames([f], timeout=60)[0] for f in chaos]
+    svc.stop()
+    trans = svc.stats["ladder"]["transitions"]
+    need([r["degraded_mode"] for r in res] == ["full"] * len(chaos)
+         and [r["detections"] for r in res] == base,
+         "after recovery: results differ from the unperturbed run")
+    print(f"  serve chaos paper+kernel, {len(chaos)} frames one a batch: "
+          f"fired {'/'.join(fired)}, {cstats['restarts']} restarts, "
+          f"{cstats['retries']} retries, same results, stop {stop_s:.2f} s;"
+          f" degradation (p99 {p99:.2f} ms: spike {spike:.1f}, lines "
+          f"{5 * p99:.1f}/{2.5 * p99:.1f}): {rungs.count('reduced')} frames "
+          f"reduced = CPU reduced_detector (delta {max(rdelta):.1e}), full "
+          f"after {extra} more, {trans} transitions, same results",
+          flush=True)
+    return launches
+
+
 # ------------------------------------------------------------- phase 5
 
 def smoke_leaves(np, cfg, seed: int) -> dict:
@@ -2376,6 +2716,7 @@ def lm_path(torch, np) -> dict:
     toks = {g: generate(params, cfg, x, LM_NEW) for g, x in prompts.items()}
     torch.cuda.synchronize()
     launches = check_launches(f"lm {LM_ARCH}", kernels.launch_counts())
+    print(launch_line({f"lm {LM_ARCH}": launches}), flush=True)
     want = cfg.n_layers * len(LM_BATCHES)
     need(launches["flash_attention"] == want,
          f"flash_attention launched {launches['flash_attention']} times in "
@@ -2653,6 +2994,8 @@ def main() -> int:
         launches.update(window_path(torch, np))
         print("train path:", flush=True)
         launches.update(train_path(torch, np))
+        print("serve path:", flush=True)
+        launches.update(serve_path(torch, np, configs, svm))
         print("LM path:", flush=True)
         lm_launches, flash_routes = lm_path(torch, np)
         launches.update(lm_launches)

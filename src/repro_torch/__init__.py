@@ -11,7 +11,11 @@ What runs: SVM training with hard-negative mining and checkpoints --
 ``data.mining`` and ``checkpoint.manager``, and the detect CLI
 (``launch.detect``); dense multi-scale detection of a frame, a batch and
 a tracked clip -- ``api.DetectionSession.detect`` / ``detect_batch`` /
-``stream`` -> ``core.detector.FrameDetector`` -- and window
+``stream`` -> ``core.detector.FrameDetector`` -- the detection
+service -- ``api.DetectionSession.serve`` -> ``serve.engine
+.DetectionService`` (deadlines, a supervised worker, the breaker, the
+reduced-rung ladder, fault injection and metrics export through
+``obs.metrics``) and the serve CLI (``launch.serve``) -- and window
 classification -- ``core.pipeline.classify_windows`` and
 ``extract_features`` -- for the float presets (default, paper, faithful,
 perf) and the fixed-point ``quant`` preset; and LM serving for the dense

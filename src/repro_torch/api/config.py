@@ -2,17 +2,17 @@
 repro/api/config.py.
 
 ``PipelineConfig`` nests the typed ``hog``, ``detector``, ``tracker``
-(core/video.py:TrackerConfig) and ``train`` (core/svm.py:SVMTrainConfig)
-configs the port runs. The ``service`` and ``cascade`` sub-trees belong
-to paths a later slice ports; they are kept as plain dicts and
-round-trip unchanged, so a reference ``PipelineConfig.to_dict()`` loads
-and dumps back equal. Their defaults are copies of the reference
-dataclasses' defaults (repro/api/config.py:66 ServiceConfig with
-serve/resilience.py and obs/metrics.py nested, repro/core/cascade.py:60
-CascadeConfig).
+(core/video.py:TrackerConfig), ``train`` (core/svm.py:SVMTrainConfig)
+and ``service`` (``ServiceConfig``, with serve/resilience.py's
+``ResilienceConfig`` and obs/metrics.py's ``MetricsConfig`` nested)
+configs the port runs. The ``cascade`` sub-tree belongs to a later slice
+(cascade); it is kept as a plain dict and round-trips unchanged, so a
+reference ``PipelineConfig.to_dict()`` loads and dumps back equal. Its
+default is a copy of the reference dataclass's defaults
+(repro/core/cascade.py:60 CascadeConfig).
 
 Presets: "default", "paper", "faithful", "perf", "quant" (from
-configs/hog_svm.py).
+configs/hog_svm.py); ``register_preset`` adds deployment-local ones.
 """
 from __future__ import annotations
 
@@ -26,19 +26,9 @@ from ..core.detector import DetectorConfig
 from ..core.hog import HOGConfig, PAPER_HOG
 from ..core.svm import SVMTrainConfig
 from ..core.video import TrackerConfig
+from ..obs.metrics import MetricsConfig
+from ..serve.resilience import ResilienceConfig
 
-SERVICE_DEFAULT = {
-    "window_batch": 64, "max_wait_ms": 2.0, "frame_batch": 8,
-    "max_pending_frames": 256,
-    "resilience": {
-        "deadline_ms": 0.0,
-        "retry": {"max_attempts": 3, "backoff_base_ms": 5.0,
-                  "backoff_cap_ms": 200.0, "jitter": 0.5, "seed": 0},
-        "breaker_failures": 5, "breaker_reset_s": 5.0,
-        "degrade_p99_ms": 0.0, "recover_p99_ms": 0.0, "degrade_depth": 0,
-        "recover_dwell": 3, "latency_window": 64},
-    "metrics": {"jsonl_path": "", "ring": 0, "rank0_only": True,
-                "stage_timing": False}}
 CASCADE_DEFAULT = {"enabled": False, "coarse_scales": (0.5, 0.4, 0.32),
                    "coarse_threshold": 0.0, "coarse_max_detections": 64,
                    "margin": 24, "snap": 36, "max_regions": 4,
@@ -47,6 +37,24 @@ CASCADE_DEFAULT = {"enabled": False, "coarse_scales": (0.5, 0.4, 0.32),
 
 def _default(d: Dict[str, Any]):
     return dataclasses.field(default_factory=lambda: copy.deepcopy(d))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """Knobs of the DetectionService front-end (serve/engine.py), the
+    reference's fields and defaults (repro/api/config.py:76)."""
+
+    window_batch: int = 64        # padded micro-batch of the window path
+    max_wait_ms: float = 2.0      # straggler deadline when coalescing
+    frame_batch: int = 8          # frames per batched detection step
+    max_pending_frames: int = 256  # backpressure bound (ServiceOverloaded)
+    # deadlines / retry / breaker / degradation ladder (DESIGN.md §14);
+    # the defaults are inert -- supervision and transient retry are
+    # always on, deadlines and the ladder only when configured
+    resilience: ResilienceConfig = ResilienceConfig()
+    # structured-event export (obs/metrics.py, DESIGN.md §15); the
+    # default is disabled -- a jsonl_path or ring size turns it on
+    metrics: MetricsConfig = MetricsConfig()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +71,7 @@ class PipelineConfig:
     detector: DetectorConfig = DetectorConfig()
     tracker: TrackerConfig = TrackerConfig()
     train: SVMTrainConfig = SVMTrainConfig()
-    service: Dict[str, Any] = _default(SERVICE_DEFAULT)
+    service: ServiceConfig = ServiceConfig()
     cascade: Dict[str, Any] = _default(CASCADE_DEFAULT)
 
     def __post_init__(self):
@@ -116,6 +124,11 @@ def _build(cls, d: Dict[str, Any]):
             v = _tuples(v)
         kwargs[f.name] = v
     return cls(**kwargs)
+
+
+def register_preset(name: str, cfg: PipelineConfig) -> PipelineConfig:
+    _PRESETS[name] = cfg
+    return cfg
 
 
 def presets(name: Optional[str] = None):

@@ -8,6 +8,7 @@ and tracked clips).
     dets = session.detect(frame)          # -> Detections (lazy decode)
     batch = session.detect_batch(frames)  # -> batched Detections
     tracked = session.stream(clip)        # -> [Detections] with track ids
+    service = session.serve().start()     # -> DetectionService
 
 The session owns the SVM parameters, as tensors on its device, and one
 FrameDetector, whose per-bucket programs it reuses across calls. It runs
@@ -15,8 +16,10 @@ on CUDA unless built with ``device="cpu"``; without a GPU anything else
 raises RuntimeError. ``train`` extracts HOG features, runs Pegasos
 (core/svm.py) and mines hard negatives (data/mining.py) on that device;
 ``save`` / ``load`` use the reference's checkpoint layout
-(checkpoint/manager.py), so either package loads the other's. Serving,
-the cascade and multi-head registries are later slices.
+(checkpoint/manager.py), so either package loads the other's. ``serve``
+builds the micro-batching DetectionService (serve/engine.py) on the
+session's detector and device. The cascade and multi-head registries
+are later slices.
 """
 from __future__ import annotations
 
@@ -177,12 +180,40 @@ class DetectionSession:
                        for d in per_frame)
         return out
 
-    # ------------------------------------------------------ later slices
-    def serve(self, **overrides):
-        raise NotImplementedError(
-            "DetectionSession.serve (serve/engine.py:DetectionService): a "
-            "later slice of the port (serving)")
+    def serve(self, **overrides) -> "DetectionService":
+        """Build a DetectionService on THIS session's detector, device and
+        config (service knobs, resilience and metrics from
+        config.service; any engine kwarg can be overridden). A
+        cascade-enabled config raises NotImplementedError: its ladder
+        rungs come with the cascade slice. Caller starts/stops it."""
+        from ..serve.engine import DetectionService
+        if self.config.cascade.get("enabled") and "cascade" not in overrides:
+            raise NotImplementedError(
+                "DetectionSession.serve on a cascade-enabled config: the "
+                "service's cascade and coarse rungs (core/cascade.py:"
+                "CascadeDetector) are a later slice of the port (cascade)")
+        sc = self.config.service
+        opts = dict(batch_size=sc.window_batch,
+                    cfg=self.config.hog,
+                    path=self.config.detector.backend,
+                    max_wait_ms=sc.max_wait_ms,
+                    detector=self.config.detector,
+                    frame_batch=sc.frame_batch,
+                    max_pending_frames=sc.max_pending_frames,
+                    resilience=sc.resilience,
+                    metrics=sc.metrics,
+                    device=self.device)
+        # an explicit detector override builds its own FrameDetector on
+        # the session's device; otherwise the service shares this
+        # session's handle (and with it every per-bucket program).
+        # frame_detector rides in opts so callers can override it like
+        # any other engine kwarg.
+        opts["frame_detector"] = \
+            None if "detector" in overrides else self.detector
+        opts.update(overrides)
+        return DetectionService(self.svm, **opts)
 
+    # ------------------------------------------------------ later slices
     def cascade(self, coarse_svm=None, rng=None):
         raise NotImplementedError(
             "DetectionSession.cascade (core/cascade.py): a later slice of "

@@ -24,6 +24,9 @@ flags, so an edited kernel rebuilds and an unchanged one is reused.
 
 The build and the library load happen inside the launching call, never
 at import: the CPU tests import every module on a machine with no nvcc.
+One lock serializes them across threads (a service's worker and its
+caller can both reach a kernel's first launch), so no two threads run
+nvcc for one kernel or write one temporary file.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Optional
 
@@ -71,6 +75,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, "ctypes._CFuncPtr"] = {}
+#: held while kernels build and load (temporary files are named by pid)
+_BUILD_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,7 +116,11 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     one nvcc process per source, all started together. Returns seconds
     per kernel built; raises RuntimeError with nvcc's output on failure.
     ptxas's register/shared-memory report goes to ``<library>.log``."""
-    names = list(SOURCES if names is None else names)
+    with _BUILD_LOCK:
+        return _build(list(SOURCES if names is None else names))
+
+
+def _build(names) -> Dict[str, float]:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -144,9 +154,12 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        with _BUILD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                _build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _LIBS[name] = lib
     return lib
 
 

@@ -8,6 +8,7 @@ here).
 
 ``describe()`` records torch's and CUDA's versions and the device's name
 and count, so a printed number carries the environment it came from.
+``is_main()`` is the rank-0 guard the metrics emitter applies.
 """
 from __future__ import annotations
 
@@ -25,6 +26,16 @@ def default_seed(env: Optional[MutableMapping] = None) -> int:
         return int(env.get("REPRO_SEED", "0"))
     except ValueError:
         return 0
+
+
+def is_main() -> bool:
+    """Rank-0 guard (the port of repro/platform.py:is_main): only the main
+    process of a multi-process run emits metrics. True when no
+    torch.distributed process group is initialized."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return True
 
 
 def describe() -> dict:

@@ -23,10 +23,16 @@ import repro_torch.data.synth_pedestrian, repro_torch.kernels.build
 import repro_torch.core.video, repro_torch.core.autotune_cache
 import repro_torch.checkpoint.manager, repro_torch.data.mining
 import repro_torch.platform, repro_torch.launch.detect
+import repro_torch.serve.engine, repro_torch.serve.resilience
+import repro_torch.serve.faults, repro_torch.obs.metrics
+import repro_torch.core.cascade, repro_torch.launch.serve
 import torch.profiler
 assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.checkpoint.manager", "repro_torch.data.mining",
-         "repro_torch.platform", "repro_torch.launch.detect"}} \
+         "repro_torch.platform", "repro_torch.launch.detect",
+         "repro_torch.serve.engine", "repro_torch.serve.resilience",
+         "repro_torch.serve.faults", "repro_torch.obs.metrics",
+         "repro_torch.core.cascade", "repro_torch.launch.serve"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -112,3 +118,46 @@ def test_configs_import_no_model_or_kernel():
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+_SERVE_PROBE = r"""
+import sys
+sys.path.insert(0, {src!r})
+import numpy as np
+import torch
+from repro_torch.serve.engine import DetectionService
+assert not torch.cuda.is_available()
+svm = {{"w": np.random.default_rng(0).normal(size=3780).astype(np.float32)
+        * .01, "b": np.float32(0.0)}}
+try:
+    DetectionService(svm)
+    raise SystemExit("the default device fell back to the CPU")
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+svc = DetectionService(svm, device="cpu", frame_batch=2).start()
+rng = np.random.default_rng(1)
+frames = [rng.integers(0, 256, (160, 128, 3)).astype(np.uint8)
+          for _ in range(3)]
+res = svc.detect_frames(frames, timeout=120)
+win = svc.detect([rng.integers(0, 256, (130, 66, 3)).astype(np.uint8)
+                  for _ in range(3)], timeout=120)
+svc.stop()
+assert all("error" not in r and r["degraded_mode"] == "full" for r in res)
+assert all(w["human"] in (0, 1) and np.isfinite(w["score"]) for w in win)
+print(svc.device.type, svc.stats["frames"], svc.stats["requests"],
+      sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                          "repro")))
+"""
+
+
+def test_cpu_service_answers_on_a_host_without_a_gpu():
+    """A DetectionService on device="cpu" answers frame and window
+    requests with every GPU hidden, importing neither JAX nor the
+    reference package; without device="cpu" it refuses to start."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c",
+                          _SERVE_PROBE.format(src=str(ROOT / "src"))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "cpu 3 3 []", out.stdout

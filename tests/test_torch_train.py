@@ -432,9 +432,15 @@ def test_platform_seed_and_describe():
 
 
 def test_later_slices_raise_naming_their_slice():
-    sess = DetectionSession({"w": GOLDEN["svm_w"], "b": GOLDEN["svm_b"]},
-                            "paper", device="cpu")
-    with pytest.raises(NotImplementedError, match="serving"):
-        sess.serve()
+    """The cascade is a later slice: session.cascade() and serving a
+    cascade-enabled config (whose ladder would need the cascade rungs)
+    raise naming it; serving any other config builds the service
+    (tests/test_torch_serve.py)."""
+    svm = {"w": GOLDEN["svm_w"], "b": GOLDEN["svm_b"]}
+    sess = DetectionSession(svm, "paper", device="cpu")
+    assert sess.serve().device.type == "cpu"
+    cascade = config_from_reference_dict(j_presets("cascade").to_dict())
+    with pytest.raises(NotImplementedError, match="cascade"):
+        DetectionSession(svm, cascade, device="cpu").serve()
     with pytest.raises(NotImplementedError, match="cascade"):
         sess.cascade()
