@@ -219,6 +219,37 @@ MATMUL_ATOL = {"f32": 1e-5, "bf16": 1e-4}
 # scorer rows where the launch plan has edges: one CTA of one unit, a
 # ragged unit, two CTAs, 33 and 34 CTAs of one unit each
 SCORER_TAILS = (1, 3, 5, 131, 133)
+# stacked heads: the golden SVM and two heads drawn from a numpy seed (with
+# the golden weights' spread), their own thresholds; one widened scorer
+# launch scores all MH_K at every level (modes "f32x3", "bf16x3", "int8x3")
+MH_SEED = 25
+MH_SEEDED = {"seeded_a": 0.45, "seeded_b": 0.3}
+MH_K = 1 + len(MH_SEEDED)
+MH_CONFIGS = ("paper+kernel", "perf", "quant")
+MH_BATCH = 8
+# the cascade: its preset (golden fine head at THRESHOLD, the "kernel"
+# backend) on seeded 640x480 scenes, people 0-3 each; the coarse head
+# trained on the card with the reference's schedule (1500 + 1000 windows,
+# one mining round of 12 scenes) and repeated step by step on the CPU:
+# the windows' descriptors within COARSE_FEAT_TOL, the card's mining round
+# the same crops within one code, and Pegasos on the card's features
+# step for step on both: w within PEGASOS_TOL relative L2 at every step
+# until the active sets first differ, and there only on margins within
+# PEGASOS_TIE of the hinge. Pegasos's active set is a threshold on each
+# margin (exactly 0 passes 0.5) and its step stays 1.0 for the first
+# 1/lam steps, so one such tie (0.0 on the CPU, -2.4e-7 on the card, at
+# step 1,011 on an H100 80GB HBM3) parts the runs for good: 3.6e-2
+# relative L2 and 0.84 / 0.87 training accuracy at the end, printed, not
+# gated (the train phase's heads happened to meet no tie: 7.8e-7)
+CASCADE_SEED = 41
+COARSE_N = (1500, 1000)        # train_coarse_head's defaults: windows,
+COARSE_MINE_SCENES = 12        # mined scenes
+CASCADE_SCENES = 12
+CASCADE_CPU_SCENES = 4
+CASCADE_CLIP = 6
+COARSE_FEAT_TOL = 1e-5
+PEGASOS_TOL, PEGASOS_TIE = 1e-5, 1e-5
+RESILIENT_FRAMES = 10
 
 # window path: kernel checks at the service's window_batch
 # (repro/api/config.py:79), the timing bench's chunk
@@ -319,6 +350,12 @@ SERVE_CONFIGS = {"serve paper+kernel": ("paper+kernel",
                  "serve quant": ("quant", "window quant")}
 PATH_KERNELS.update({n: PATH_KERNELS[d] + PATH_KERNELS[w]
                      for n, (d, w) in SERVE_CONFIGS.items()})
+# stacked heads run their configuration's dense kernels; the cascade (its
+# coarse and fine stages) and the resilient service on every rung the
+# "kernel" backend's
+PATH_KERNELS.update({f"multihead {c}": PATH_KERNELS[c] for c in MH_CONFIGS})
+PATH_KERNELS["cascade+kernel"] = PATH_KERNELS["paper+kernel"]
+PATH_KERNELS["resilient+kernel"] = PATH_KERNELS["paper+kernel"]
 # each client thread's traffic: 640x480 and 1280x720 seeded scenes (the
 # second bucket parks in the backlog), make_windows windows, and one
 # malformed frame of each of serve/faults.py:malformed_frame's kinds
@@ -391,6 +428,13 @@ class SmokeFailure(Exception):
 def need(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def level_line(text: str, flush: bool = True) -> None:
+    """The per-level and launch-plan lines of the kernel checks (device us
+    per level, tiles, CTAs, bands, warps per SM) go to standard error, to
+    keep the standard output under 20 KB."""
+    print(text, file=sys.stderr, flush=flush)
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -590,6 +634,13 @@ def check_kernels(torch, np) -> dict:
     wt32 = torch.from_numpy(gw).to(dev).reshape(105, 36).T.contiguous()
     wq, _ = quant.quantize_weight_columns(wt32)
     wq = wq.contiguous()
+    # MH_K stacked heads, head-major columns: the golden head's, then the
+    # seeded heads' (36, 105) each
+    wt_k = torch.cat([wt32] + [
+        torch.from_numpy(h).to(dev).reshape(105, 36).T
+        for h in mh_seeded_heads(np, gw)], dim=1).contiguous()
+    wq_k, _ = quant.quantize_weight_columns(wt_k)
+    wq_k = wq_k.contiguous()
     refusals = set()
     for where, shape in shapes:
         B, H, W = shape
@@ -703,7 +754,43 @@ def check_kernels(torch, np) -> dict:
                lambda: sm.score_matmul_int8_plain(q, wq), lib,
                M * 36 + 36 * 105 + 4 * M * 105, 2 * M * 36 * 105 / INT8_OPS,
                "score_matmul_int8_kernel")
-    out = summarize(rows, DENSE_KERNELS, ("640x480", "1280x720"), 3)
+
+        # the widened scorer: MH_K heads in one launch, each head's block
+        # equal to its one-head launch bit for bit
+        for dname, dt, peak in (("f32", torch.float32, F32_FLOPS),
+                                ("bf16", torch.bfloat16, BF16_FLOPS),
+                                ("int8", torch.int8, INT8_OPS)):
+            x = q if dt == torch.int8 else blocks.to(dt).contiguous()
+            wk = wq_k if dt == torch.int8 else wt_k.to(dt).contiguous()
+            fn = sm.score_matmul_int8 if dt == torch.int8 else sm.score_matmul
+            plain = (sm.score_matmul_int8_plain if dt == torch.int8
+                     else sm.score_matmul_plain)
+            got = fn(x, wk, MH_K)
+            for k in range(MH_K):
+                one = fn(x, wk[:, 105 * k:105 * (k + 1)].contiguous())
+                need(torch.equal(got[:, 105 * k:105 * (k + 1)], one),
+                     f"{fn.__name__} {dname} {shape}: head {k} of "
+                     f"{MH_K} is not its one-head launch's")
+            wantk = plain(x, wk)
+            torch.cuda.synchronize()
+            e = float((got.double() - wantk.double()).abs().max())
+            need(e == 0 if dt == torch.int8 else e <= MATMUL_ATOL[dname],
+                 f"{fn.__name__} {dname}x{MH_K} {shape}: {e}")
+            lib = (functools.partial(torch.matmul, x, wk)
+                   if dt == torch.float32 else
+                   bf16_library(torch, x, wk, wantk, refusals)
+                   if dt == torch.bfloat16 else
+                   int8_library(torch, x, wk, got, refusals))
+            n = 105 * MH_K
+            record(fn.__name__, where, (M, 36, n), f"{dname}x{MH_K}", e,
+                   functools.partial(fn, x, wk, MH_K),
+                   functools.partial(plain, x, wk), lib,
+                   x.element_size() * (M * 36 + 36 * n) + 4 * M * n,
+                   2 * M * 36 * n / peak, fn.__name__ + "_kernel")
+    # 640x480's numbers printed (1280x720's device us are on the level
+    # lines below)
+    out = summarize(rows, DENSE_KERNELS, ("640x480", "1280x720"), 3,
+                    shown=("640x480",))
     pair_levels(torch, rows, shapes)
     fused_levels(torch, rows, shapes)
     score_levels(torch, rows, shapes)
@@ -747,7 +834,7 @@ def pair_levels(torch, rows, shapes) -> None:
                                           norm, sms))
 
     sector = {s: plans("sector", "rsqrt", s) for _, s in shapes}
-    print(f"  dense pair plans ({sms} SMs), tile:CTAs per level ("
+    level_line(f"  dense pair plans ({sms} SMs), tile:CTAs per level ("
           + " | ".join(dict.fromkeys(w for w, _ in shapes))
           + "): dense_grad_hist " + _by_group(shapes, lambda s: "{}x{}:{}"
                                               .format(*sector[s][0].tile,
@@ -769,7 +856,7 @@ def pair_levels(torch, rows, shapes) -> None:
                      ps[s][1].resident_warps(tp.occupancy(
                          "dense_block_norm", dbn.norm_code(norm), ps[s][1]),
                          sms)) for _, s in frames}
-        print(f"  dense pair {mode}/{norm}: " + _by_group(
+        level_line(f"  dense pair {mode}/{norm}: " + _by_group(
             shapes, lambda s: _dev_us(rows, "dense_grad_hist", mode, s) + "/"
             + _dev_us(rows, "dense_block_norm", norm, s)) + "; "
             + _by_group(frames, lambda s: "{:.1f}/{:.1f}".format(*warps[s])),
@@ -787,7 +874,7 @@ def fused_levels(torch, rows, shapes) -> None:
     plans = {(m, s): fh.dense_plan(*s, m, sms=sms) for m in MODE_NORMS
              for _, s in shapes}
     sector = {s: plans["sector", s] for _, s in shapes}
-    print(f"  dense_fused_hog plan ({sms} SMs), per level: tile "
+    level_line(f"  dense_fused_hog plan ({sms} SMs), per level: tile "
           + _by_group(shapes, lambda s: "{}x{}".format(*sector[s].tile))
           + "; CTAs " + _by_group(shapes, lambda s: str(sector[s].ctas))
           + "; recompute "
@@ -801,56 +888,70 @@ def fused_levels(torch, rows, shapes) -> None:
                                              f"{i}: {plans[mode, s].ctas} CTAs")
         need(warps[shapes[0][1]] >= 16, f"dense_fused_hog {mode} "
              f"{shapes[0][0]} level 0: {warps[shapes[0][1]]:.1f} warps/SM")
-        print(f"  dense_fused_hog {mode}: " + _by_group(
+        level_line(f"  dense_fused_hog {mode}: " + _by_group(
             shapes, lambda s: _dev_us(rows, "dense_fused_hog", mode, s))
             + "; " + _by_group(shapes, lambda s: f"{warps[s]:.1f}"),
             flush=True)
 
 
 def score_levels(torch, rows, shapes) -> None:
-    """One line per scorer dtype, level by level: the kernel's device us
-    and the library call's (torch.profiler, every kernel it launches; -
-    where the profiler saw nothing), and the launch plan's CTAs x rows of
-    the busiest CTA (kernels/svm_matmul.py:score_plan)."""
+    """One line per scorer dtype and width (one head, N = 105; MH_K heads,
+    N = 315), level by level: the kernel's device us and the library
+    call's (torch.profiler, every kernel it launches; - where the profiler
+    saw nothing), and the launch plan's CTAs x rows of the busiest CTA
+    (kernels/svm_matmul.py:score_plan)."""
     import repro_torch.kernels.svm_matmul as sm
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     groups = list(dict.fromkeys(w for w, _ in shapes))
     for kernel, mode, dt in (("score_matmul", "f32", torch.float32),
                              ("score_matmul", "bf16", torch.bfloat16),
                              ("score_matmul_int8", "int8", torch.int8)):
-        text = []
-        for g in groups:
-            parts = []
-            for r in rows:
-                if (r["kernel"], r["mode"], r["frame"]) != (kernel, mode, g):
-                    continue
-                plan = sm.score_plan(r["shape"][0], 105, dt, sms)
-                parts.append("/".join(
-                    "-" if x is None else f"{x * 1e3:.2f}"
-                    for x in (r["device_ms"], r["library_ms"]))
-                    + f" {plan.grid}x{plan.rows}")
-            text.append(f"{g} " + " ".join(parts))
-        legend = " per level, device/library us, CTAs x rows" \
-            if mode == "f32" else ""
-        print(f"  {kernel} {mode}{legend}: " + " | ".join(text), flush=True)
+        for heads, m in ((1, mode), (MH_K, f"{mode}x{MH_K}")):
+            text = []
+            for g in groups:
+                parts = []
+                for r in rows:
+                    if (r["kernel"], r["mode"], r["frame"]) != (kernel, m,
+                                                                g):
+                        continue
+                    plan = sm.score_plan(r["shape"][0], 105 * heads, dt,
+                                         sms, heads=heads)
+                    parts.append("/".join(
+                        "-" if x is None else f"{x * 1e3:.1f}"
+                        for x in (r["device_ms"], r["library_ms"]))
+                        + f" {plan.ctas}x{plan.rows}")
+                text.append(f"{g[:4]} " + " ".join(parts))
+            legend = (f" per level, device/library us, CTAs x rows (x{MH_K}:"
+                      f" {MH_K} heads, N {105 * MH_K}, one launch)"
+                      if m == "f32" else "")
+            print(f"  {kernel} {m}{legend}: " + " | ".join(text),
+                  flush=True)
 
 
 def check_scorer_edges(torch, np) -> None:
     """The scorers against their plain versions where the plan and the
     copies have edges: M = SCORER_TAILS (one to 34 CTAs, a ragged last
     unit), x and w at odd offsets of a flat buffer (the element-wise
-    copies), and two other widths (a partial int8 word at K = 35; the
-    widest shape the wrapper takes, K = 64 and N = 128). The 1280x720
-    levels take the shared-memory opt-in above 48 KB."""
+    copies), two other widths (a partial int8 word at K = 35; the widest
+    head, K = 64 and N = 128), and stacked heads (105 columns a head,
+    whose rows stage and store element by element, at odd offsets too;
+    8 heads; 128 and 16 columns a head, whose rows take 16-byte copies),
+    each head's columns equal to its one-head launch. The 1280x720 levels
+    take the shared-memory opt-in above 48 KB."""
     import repro_torch.kernels.svm_matmul as sm
     rng = np.random.default_rng(5)
     worst = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16),
                      ("int8", torch.int8)):
-        cases = [(m, 36, 105, False) for m in SCORER_TAILS]
-        cases += [(133, 36, 105, True), (4524, 36, 105, True),
-                  (133, 35, 50, False), (133, 64, 128, False)]
-        for M, K, N, odd in cases:
+        cases = [(m, 36, 105, False, 1) for m in SCORER_TAILS]
+        cases += [(133, 36, 105, True, 1), (4524, 36, 105, True, 1),
+                  (133, 35, 50, False, 1), (133, 64, 128, False, 1)]
+        # heads: 105 columns a head (strided element copies), at odd
+        # offsets too, 8 of them; 128 and 16 a head (16-byte rows)
+        cases += [(133, 36, 315, False, 3), (133, 36, 315, True, 3),
+                  (4524, 36, 840, False, 8), (133, 36, 256, False, 2),
+                  (133, 36, 32, False, 2), (5, 36, 63, False, 3)]
+        for M, K, N, odd, heads in cases:
             def draw(n, lo, hi):
                 if name == "int8":
                     a = rng.integers(-127, 128, n).astype(np.int8)
@@ -860,23 +961,32 @@ def check_scorer_edges(torch, np) -> None:
                 return buf[1:] if odd else buf[:n - 1]
             x = draw(M * K + 1, 0, 0.5).view(M, K)
             w = draw(K * N + 1, -0.1, 0.1).view(K, N)
-            what = f"{name} M={M} K={K} N={N}" + (" odd" if odd else "")
+            what = (f"{name} M={M} K={K} N={N} heads={heads}"
+                    + (" odd" if odd else ""))
             need((x.data_ptr() % 16 != 0) == odd, f"{what}: alignment")
+            fn = sm.score_matmul_int8 if name == "int8" else sm.score_matmul
             if name == "int8":
-                got = sm.score_matmul_int8(x, w)
+                got = fn(x, w, heads)
                 need(torch.equal(got, sm.score_matmul_int8_plain(x, w)),
                      f"score_matmul_int8 {what}: not equal")
                 e = 0.0
             else:
-                got = sm.score_matmul(x, w)
+                got = fn(x, w, heads)
                 e = float((got - sm.score_matmul_plain(x, w)).abs().max())
                 need(e <= MATMUL_ATOL[name], f"score_matmul {what}: {e}")
+            nh = N // heads
+            for k in range(heads if heads > 1 else 0):
+                one = fn(x, w[:, nh * k:nh * (k + 1)].contiguous())
+                need(torch.equal(got[:, nh * k:nh * (k + 1)], one),
+                     f"{fn.__name__} {what}: head {k} is not its one-head "
+                     f"launch's")
             torch.cuda.synchronize()
             worst[name] = max(worst.get(name, 0.0), e)
     print(f"  scorer edges (M {'/'.join(map(str, SCORER_TAILS))}; x and w "
-          f"at odd offsets, M 133 and 4524; K35xN50; K64xN128), max err vs "
-          f"plain: f32 {worst['f32']:.2e}, bf16 {worst['bf16']:.2e}, int8 "
-          f"equal", flush=True)
+          f"at odd offsets, M 133 and 4524; K35xN50; K64xN128; heads "
+          f"3x105 (odd too), 8x105, 2x128, 2x16, 3x21), max err vs plain: "
+          f"f32 {worst['f32']:.2e}, bf16 {worst['bf16']:.2e}, int8 equal; "
+          f"each head = its one-head launch", flush=True)
 
 
 def bf16_library(torch, flat, wt, want, refusals):
@@ -896,13 +1006,15 @@ def bf16_library(torch, flat, wt, want, refusals):
 
 
 def int8_library(torch, q, wq, want, refusals):
-    """torch._int_mm on K padded to 40 and N to 112 (its int8 GEMM wants
-    multiples of 8), the padding made outside the timing, with the weights
+    """torch._int_mm on K padded to 40 and N to a multiple of 8 (112, 320:
+    its int8 GEMM wants multiples of 8), the padding made outside the
+    timing, with the weights
     row-major and, where cuBLASLt refuses that, column-major; None where
     it refuses both. Each reason is printed once."""
     import torch.nn.functional as F
+    n8 = -(-wq.shape[1] // 8) * 8
     qp = F.pad(q, (0, 40 - q.shape[1])).contiguous()
-    wp = F.pad(wq, (0, 112 - wq.shape[1], 0, 40 - wq.shape[0])).contiguous()
+    wp = F.pad(wq, (0, n8 - wq.shape[1], 0, 40 - wq.shape[0])).contiguous()
     for layout, w in (("row-major", wp),
                       ("column-major", wp.t().contiguous().t())):
         try:
@@ -928,7 +1040,7 @@ def _sum(rows, key):
 
 
 def _g(x) -> str:
-    return "-" if x is None else f"{x:.4g}"
+    return "-" if x is None else f"{x:.3g}"
 
 
 def summarize(rows, names, groups, per_group: int, shown=None) -> dict:
@@ -1118,9 +1230,10 @@ def check_window_kernels(torch, np) -> dict:
                    "svm_scores_kernel")
         if B in (11, 512):
             tail_inputs[B] = (hists, descs["sector"])
-    # B 11 is checked (its error is in err) but its times are not printed
+    # B 11 is checked (its error is in err) but its times are not printed,
+    # nor B 64's here (its device us are on the plan lines below)
     out = summarize(rows, WINDOW_KERNELS, [g for g, _ in WINDOW_BATCHES], 1,
-                    shown=("B64", "B512"))
+                    shown=("B512",))
     window_plans(torch, np, rows)
     out["plans"] = tail_plans(torch, np, rows, tail_inputs, w, bias)
     return out
@@ -1147,7 +1260,7 @@ def window_plans(torch, np, rows) -> None:
                   for m in MODE_NORMS for B in sizes})
     for (k, m, B), p in plans.items():
         need(B < 64 or p.ctas >= sms, f"{k} {m} B={B}: {p.ctas} CTAs")
-    print(f"  window plans ({sms} SMs), band:CTAs:recompute at B "
+    level_line(f"  window plans ({sms} SMs), band:CTAs:recompute at B "
           + "/".join(map(str, sizes)) + ": " + "; ".join(
               k + " " + " ".join("{}:{}:{:.3g}".format(
                   p.band, p.ctas, p.recompute())
@@ -1197,7 +1310,7 @@ def window_plans(torch, np, rows) -> None:
             warps = [plans[kernel, mode, B].resident_warps(tp.occupancy(
                 kernel, mode_code(mode), plans[kernel, mode, B]), sms)
                      for B in sizes]
-            print(f"  {kernel} {mode}: " + "/".join(dev) + "/"
+            level_line(f"  {kernel} {mode}: " + "/".join(dev) + "/"
                   + ("-" if big is None else f"{big * 1e3:.2f}")
                   + f" us; {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
                   + "; " + " ".join(f"{w:.1f}" for w in warps), flush=True)
@@ -1275,7 +1388,7 @@ def tail_plans(torch, np, rows, inputs, w, bias) -> dict:
         except RuntimeError:
             continue
         need(False, f"{what}: a plan the kernel is not built for ran")
-    print("  tail plans at B " + "/".join(map(str, sizes)) + ": "
+    level_line("  tail plans at B " + "/".join(map(str, sizes)) + ": "
           + "; ".join(f"{k} {' '.join(v.values())}"
                       for k, v in shown.items())
           + " (rows/threads/body:CTAs; f32,bf16 rows:CTAs); bands == "
@@ -1323,7 +1436,7 @@ def tail_plans(torch, np, rows, inputs, w, bias) -> dict:
                   sm.svm_scores_plan(B, 3780, dts[mode]) for B in sizes]
             warps = "; " + " ".join("{:.1f}".format(p.resident_warps(
                 tp.occupancy(kernel, code, p), sms)) for p in ps)
-        print(f"  {kernel} {mode}: " + "/".join(dev) + "/"
+        level_line(f"  {kernel} {mode}: " + "/".join(dev) + "/"
               + ("-" if t is None else f"{t * 1e3:.2f}")
               + f" us; {max(nbytes / HBM_BPS, op_s) * 1e6:.2f}"
               + warps, flush=True)
@@ -1759,7 +1872,7 @@ def _autotuned(det_mod, det, B: int) -> str:
     for k, v in det_mod._AUTOTUNE.items():
         if k[4] == B and k[5] == det.cfg and k[10] == "cuda":
             return f"{v['chunk']} (" + " ".join(
-                f"{c}:{ms:.2f}" for c, ms in v["probe_ms"].items()) + ")"
+                f"{c}:{ms:.1f}" for c, ms in v["probe_ms"].items()) + ")"
     raise SmokeFailure(f"no autotune decision for B {B}")
 
 
@@ -1951,6 +2064,368 @@ def stream_path(torch, np, configs, svm) -> dict:
           f"{ids[0]}-{ids[-1]}, same as CPU; launches: "
           f"{_per_kernel([counts], own)}, others 0", flush=True)
     return {"stream paper+kernel": counts}
+
+
+def mh_seeded_heads(np, gw):
+    """The multihead phase's seeded heads: (3780,) f32 each, drawn from
+    MH_SEED with the golden weights' spread."""
+    rng = np.random.default_rng(MH_SEED)
+    return [rng.normal(0, float(np.std(gw)), gw.shape).astype(np.float32)
+            for _ in MH_SEEDED]
+
+
+def _raw(torch, d):
+    return (d._scores, d._index, d._keep, torch.as_tensor(d._n_valid).cpu())
+
+
+def multihead_path(torch, np, configs, svm) -> dict:
+    """Phase 4g: MH_K stacked heads (the golden SVM and the seeded ones, a
+    HeadRegistry with per-head thresholds) through DetectionSession on the
+    card in each MH_CONFIGS configuration, one 640x480 and one 1280x720
+    frame and a batch of MH_BATCH of each (one step: batch_chunk above
+    the batch), counters reset just before and read just after: the
+    widened scorer launched once per level for all heads; each head's
+    scores, indices, keep mask and count equal to that head's own
+    detector on the card bit for bit; kept boxes with class ids equal to
+    the CPU session's, scores within SCORE_TOL."""
+    import repro_torch.api as api
+    import repro_torch.data.synth_pedestrian as synth
+    import repro_torch.kernels as kernels
+    from repro_torch.core.detector import FrameDetector
+    from repro_torch.core.heads import HeadRegistry
+
+    reg = HeadRegistry()
+    reg.add("person", svm, threshold=THRESHOLD)
+    for (name, thr), w in zip(MH_SEEDED.items(),
+                              mh_seeded_heads(np, svm["w"])):
+        reg.add(name, {"w": w, "b": np.float32(0.0)}, threshold=thr)
+    frames = {hw: [synth.make_scene(np.random.default_rng(60 + i), *hw,
+                                    n_people=3)[0] for i in range(MH_BATCH)]
+              for hw in FRAME_SIZES}
+    launches, text = {}, []
+    for cname in MH_CONFIGS:
+        base, dt = configs[cname]
+        cfg = base.replace(detector=dataclasses.replace(
+            base.detector, batch_chunk=1 << 10))
+        name = f"multihead {cname}"
+        gpu = api.DetectionSession(reg, cfg, device=DEV)
+        dcfg = gpu.detector.cfg
+        kernels.reset_launches()
+        got = {hw: (gpu.detect(fs[0]), gpu.detect_batch(fs))
+               for hw, fs in frames.items()}
+        torch.cuda.synchronize()
+        launches[name] = check_launches(name, kernels.launch_counts())
+        scorer = "score_matmul_int8" if dt == "int8" else "score_matmul"
+        need(launches[name][scorer] == 3 * 2 * len(frames),
+             f"{name}: {launches[name][scorer]} scorer launches for "
+             f"{2 * len(frames)} frames or batches of 3 levels")
+        # each head alone on the card: bit for bit
+        for k, (hname, thr) in enumerate(zip(gpu.detector.classes,
+                                             dcfg.class_thresholds)):
+            one = FrameDetector(reg.single(hname), dataclasses.replace(
+                dcfg, score_threshold=thr, class_thresholds=()), DEV)
+            for hw, fs in frames.items():
+                for mine, theirs in ((got[hw][0], one.detect_raw(fs[0])),
+                                     (got[hw][1],
+                                      one.detect_batch_raw(fs))):
+                    need(all(torch.equal(a, b) for a, b in zip(
+                        _raw(torch, mine.for_class(k)),
+                        _raw(torch, theirs))),
+                         f"{name} {hw}: head {hname} is not its own "
+                         f"detector's bit for bit")
+        # the CPU session: kept boxes by class, scores within SCORE_TOL
+        cpu = api.DetectionSession(reg, cfg, device="cpu")
+        kept, worst = [], 0.0
+        for hw, fs in frames.items():
+            want = [cpu.detect(fs[0]).to_list()] + \
+                cpu.detect_batch(fs).to_list()
+            for i, (a, b) in enumerate(zip(
+                    [got[hw][0].to_list()] + got[hw][1].to_list(), want)):
+                # each head's boxes in its order (the merge across heads
+                # orders by score, and scores agree within SCORE_TOL only)
+                for k in range(MH_K):
+                    ak = [x for x in a if x["class_id"] == k]
+                    bk = [x for x in b if x["class_id"] == k]
+                    need([x["box"] for x in ak] == [x["box"] for x in bk],
+                         f"{name} {hw} frame {i} head {k}: kept boxes "
+                         f"differ from the CPU session's ({len(ak)} vs "
+                         f"{len(bk)})")
+                    worst = max([worst] + [abs(x["score"] - y["score"])
+                                           for x, y in zip(ak, bk)])
+            per = [sum(x["class_id"] == k for x in want[0])
+                   for k in range(MH_K)]
+            kept.append("+".join(map(str, per))
+                        + f" ({sum(len(x) for x in want[1:])})")
+        need(worst <= SCORE_TOL[dt], f"{name}: score delta {worst}")
+        text.append(f"{cname} {' / '.join(kept)} d {worst:.1e}, "
+                    f"{launches[name][scorer]} {scorer}")
+    print(f"  multihead K={MH_K} (person {THRESHOLD:g}, " + ", ".join(
+        f"{n} {t:g}" for n, t in MH_SEEDED.items())
+        + "), a frame and a B8 batch each of 640x480 / 1280x720: each head "
+        "= its own detector on the card bit for bit; kept by head (B8 "
+        "total) = CPU, score delta, scorer launches (3 a frame or batch "
+        "for all heads): " + "; ".join(text), flush=True)
+    return launches
+
+
+def _iou(a, b) -> float:
+    y0, x0 = max(a[0], b[0]), max(a[1], b[1])
+    y1, x1 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(0.0, y1 - y0) * max(0.0, x1 - x0)
+    ua = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+    return inter / (ua - inter + 1e-9)
+
+
+def _same_dets(a, b, what: str) -> float:
+    """Kept boxes (and class ids, stages) equal, in order; returns the
+    worst score delta."""
+    key = (lambda d: (d.get("class_id"), d.get("stage"), d["box"]))
+    need([key(x) for x in a] == [key(x) for x in b],
+         f"{what}: kept boxes differ ({len(a)} vs {len(b)})")
+    return max([0.0] + [abs(x["score"] - y["score"]) for x, y in zip(a, b)])
+
+
+def pegasos_until_tie(torch, feats, labels, cfg):
+    """Pegasos (core/svm.py) on the card's features, on the card and the
+    CPU step by step from one schedule: w must stay within PEGASOS_TOL
+    relative L2 until the first step whose active sets differ, and differ
+    there only on margins within PEGASOS_TIE of the hinge. Returns
+    ((step, CPU margin, card margin) of that tie or None, the CPU run's
+    params)."""
+    import repro_torch.core.svm as S
+    f_c, f_g = feats.cpu(), feats
+    y_c = labels.cpu().to(torch.float32) * 2 - 1
+    y_g = y_c.to(feats.device)
+    idx = S.train_schedule(len(f_c), cfg)
+    lrs = torch.from_numpy(S.learning_rates(cfg))
+    w_c, b_c = torch.zeros(f_c.shape[1]), torch.zeros(())
+    w_g, b_g = w_c.to(feats.device), b_c.to(feats.device)
+    tie = None
+    for t in range(len(idx)):
+        i_c, i_g = idx[t], idx[t].to(feats.device)
+        if tie is None:
+            v_c = 1.0 - y_c[i_c] * (f_c[i_c] @ w_c + b_c)
+            v_g = (1.0 - y_g[i_g] * (f_g[i_g] @ w_g + b_g)).cpu()
+            off = S.hinge_active(v_c) != S.hinge_active(v_g)
+            if bool(off.any()):
+                tie = (t, float(v_c[off][0]), float(v_g[off][0]))
+                need(float(v_c[off].abs().max()) <= PEGASOS_TIE
+                     and float(v_g[off].abs().max()) <= PEGASOS_TIE,
+                     f"Pegasos step {t}: active sets differ on margins "
+                     f"{v_c[off].tolist()} / {v_g[off].tolist()}")
+            w_g, b_g, _ = S.pegasos_step(w_g, b_g, f_g[i_g], y_g[i_g],
+                                         lrs[t].to(feats.device), cfg)
+        w_c, b_c, _ = S.pegasos_step(w_c, b_c, f_c[i_c], y_c[i_c], lrs[t],
+                                     cfg)
+        if tie is None:
+            rel = float(torch.linalg.vector_norm(w_g.cpu() - w_c)
+                        / torch.linalg.vector_norm(w_c))
+            need(rel <= PEGASOS_TOL, f"Pegasos step {t}: card vs CPU w rel "
+                                     f"L2 {rel} before any tie")
+    return tie, {"w": w_c, "b": b_c}
+
+
+def cascade_path(torch, np, svm) -> dict:
+    """Phase 4h: the cascade preset ("kernel" backend, the golden fine
+    head at THRESHOLD). The coarse head trained on the card and on the CPU
+    from one rng (the reference's schedule), within COARSE_W_TOL;
+    CascadeDetector.detect on CASCADE_SCENES seeded 640x480 scenes and
+    stream on a seeded clip on the card, counters reset just before and
+    read just after, held against the CPU cascade (boxes equal, scores
+    within SCORE_TOL); retention of the dense pass's pedestrian boxes,
+    region_area_frac and the empty / dense frame counts. Then a resilient
+    service (a registry of the fine head and the "_coarse" head) driven
+    down to the cascade and coarse rungs by latency faults and back:
+    every request answered, each rung's answers the card's own entry
+    point's, the results after recovery the unperturbed ones."""
+    import repro_torch.api as api
+    import repro_torch.data.synth_pedestrian as synth
+    import repro_torch.kernels as kernels
+    from repro_torch.core.cascade import resize_windows, train_coarse_head
+    from repro_torch.core.detector import DetectorConfig
+    from repro_torch.core.heads import HeadRegistry
+    from repro_torch.core.hog import hog_descriptor
+    from repro_torch.data.mining import mine_hard_negatives
+    from repro_torch.serve.faults import FaultInjector, FaultSpec
+
+    def preset(name):
+        cfg = api.presets(name)
+        return cfg.replace(detector=dataclasses.replace(
+            cfg.detector, score_threshold=THRESHOLD, backend="kernel"))
+
+    cfg = preset("cascade")
+    t0 = time.perf_counter()
+    rec = {}
+    coarse, ch = train_coarse_head(cfg.hog, cfg.train, *COARSE_N,
+                                   rng=np.random.default_rng(CASCADE_SEED),
+                                   mine_scenes=COARSE_MINE_SCENES,
+                                   device=DEV, record=rec)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    # the CPU repeats the card's run as the train phase does: the same
+    # windows' descriptors, its mining round with the card's first head
+    # from the same rng state, and Pegasos on the card's final features
+    # (a window within an ulp of the loose gate can fall on the other side
+    # of it on the other device, so the CPU's own chain may mine another
+    # crop and train another head: that is not compared)
+    t0 = time.perf_counter()
+    x, _ = synth.make_windows(*COARSE_N, synth.PedestrianDataConfig(),
+                              np.random.default_rng(CASCADE_SEED))
+    f_cpu = hog_descriptor(resize_windows(x, ch.window_h, ch.window_w,
+                                          torch.device("cpu")), ch)
+    f_card = rec["feats"][:len(x)].cpu()
+    f_off = int((f_cpu != f_card).sum())
+    need(float((f_cpu - f_card).abs().max()) <= COARSE_FEAT_TOL,
+         "coarse head: the windows' descriptors differ on the CPU")
+    (state, mined), = rec["rounds"]
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
+    mined_cpu = mine_hard_negatives(
+        {k: v.cpu() for k, v in rec["first"].items()},
+        DetectorConfig(hog=ch, scales=cfg.cascade.coarse_scales),
+        COARSE_MINE_SCENES, rng, device="cpu")
+    need(mined.shape == mined_cpu.shape and len(mined) > 0,
+         f"coarse mining with the card's head: {mined.shape} crops on the "
+         f"card, {mined_cpu.shape} on the CPU")
+    crop_off = int((mined != mined_cpu).sum())
+    need(int(np.abs(mined.astype(np.int16)
+                    - mined_cpu.astype(np.int16)).max()) <= 1,
+         "coarse mining: crops differ by more than one code")
+    tie, params_cpu = pegasos_until_tie(torch, rec["feats"],
+                                        rec["labels"], cfg.train)
+    cpu_s = time.perf_counter() - t0
+    rel = float(torch.linalg.vector_norm(coarse["w"].cpu() - params_cpu["w"])
+                / torch.linalg.vector_norm(params_cpu["w"]))
+    feats = rec["feats"].cpu()
+    acc = [float(((feats @ p["w"].cpu() + p["b"].cpu() > 0)
+                  == rec["labels"].cpu().bool()).float().mean())
+           for p in (coarse, params_cpu)]
+
+    gpu = api.DetectionSession(svm, cfg, device=DEV)
+    casc = gpu.cascade(coarse_svm=coarse)
+    ccasc = api.DetectionSession(svm, cfg, device="cpu").cascade(
+        coarse_svm={k: v.cpu() for k, v in coarse.items()})
+    rng = np.random.default_rng(CASCADE_SEED)
+    scenes = [synth.make_scene(rng, 480, 640, n_people=i % 4)
+              for i in range(CASCADE_SCENES)]
+    clip, _ = synth.make_clip(np.random.default_rng(CASCADE_SEED),
+                              synth.ClipConfig(n_frames=CASCADE_CLIP, h=480,
+                                               w=640, n_people=2))
+    kernels.reset_launches()
+    got = [casc.detect(s) for s, _ in scenes]
+    stats = dict(casc.stats)
+    tracked = casc.stream(list(clip))
+    torch.cuda.synchronize()
+    launches = {"cascade+kernel": check_launches("cascade+kernel",
+                                                 kernels.launch_counts())}
+    worst = max(_same_dets(got[i], ccasc.detect(scenes[i][0]),
+                           f"cascade scene {i}")
+                for i in range(CASCADE_CPU_SCENES))
+    want = ccasc.stream(list(clip))
+    for t, (a, b) in enumerate(zip(tracked, want)):
+        need([(x["track_id"], x["box"]) for x in a]
+             == [(x["track_id"], x["box"]) for x in b],
+             f"cascade stream frame {t}: tracks differ from the CPU's")
+    need(worst <= SCORE_TOL["f32"], f"cascade: score delta {worst}")
+    kept = total = 0
+    for (scene, truth), dets in zip(scenes, got):
+        tboxes = [(y, x, y + th, x + tw) for y, x, th, tw in truth]
+        full = [d for d in gpu.detect(scene).to_list()
+                if any(_iou(d["box"], t) >= 0.4 for t in tboxes)]
+        total += len(full)
+        for f in full:
+            gt = max(range(len(tboxes)),
+                     key=lambda j: _iou(f["box"], tboxes[j]))
+            kept += any(_iou(f["box"], c["box"]) >= 0.5
+                        or _iou(c["box"], tboxes[gt]) >= 0.4 for c in dets)
+    need(total > 0, "cascade: the dense pass found no pedestrian")
+    print(f"  cascade+kernel 640x480: coarse head on the card {gpu_s:.1f} s;"
+          f" CPU ({cpu_s:.1f} s): descriptors off {f_off}/{f_cpu.numel()}, "
+          f"{len(mined)} mined = card ({crop_off} px a code off), Pegasos "
+          f"on the card's features = card's to {PEGASOS_TOL:g} "
+          + (f"until a tie at step {tie[0]} (margins {tie[1]:.1e} / "
+             f"{tie[2]:.1e}), then w rel L2 {rel:.1e}, training accuracy "
+             f"{acc[1]:.4f} (card {acc[0]:.4f})" if tie else
+             f"through every step (w rel L2 {rel:.1e})")
+          + f"; {CASCADE_SCENES} scenes"
+          f" + {CASCADE_CLIP}-frame stream: {CASCADE_CPU_SCENES} scenes "
+          f"and the stream = CPU (d {worst:.1e}); retained {kept}/{total}"
+          f" dense pedestrian boxes; region_area_frac "
+          f"{stats['region_area_frac'] / stats['frames']:.3f}, "
+          f"{stats['regions']} regions, empty {stats['frames_empty']}, "
+          f"dense {stats['frames_dense']}; "
+          + _per_kernel([launches["cascade+kernel"]],
+                        PATH_KERNELS["cascade+kernel"]), flush=True)
+
+    # the resilient service: a registry session (fine head + "_coarse"),
+    # lines from the slower of the full rung's p99 and the cascade's ms
+    rcfg = preset("resilient")
+    reg = HeadRegistry()
+    reg.add("person", svm)
+    reg.add("_coarse", coarse, metadata={"role": "cascade-coarse"})
+    sess = api.DetectionSession(reg, rcfg, device=DEV)
+    frames = [synth.make_scene(np.random.default_rng(70 + i), 480, 640,
+                               n_people=2)[0]
+              for i in range(RESILIENT_FRAMES)]
+    base = [sess.detect(f).to_list() for f in frames]
+    svc = sess.serve(frame_batch=1).start()
+    for f in frames:
+        svc.detect_frames([f], timeout=60)
+    svc.stop()
+    p99 = svc.stats["latency_ms"]["p99"]
+    direct = sess.cascade()
+    t0 = time.perf_counter()
+    for f in frames:
+        direct.detect(f)
+    casc_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    line = max(p99, 2 * casc_ms)
+    spike = 10 * line
+    res_cfg = dataclasses.replace(
+        rcfg.service.resilience, degrade_p99_ms=5 * line,
+        recover_p99_ms=2.5 * line, recover_dwell=2, latency_window=4,
+        deadline_ms=max(rcfg.service.resilience.deadline_ms, 4 * spike))
+    inj = FaultInjector((FaultSpec("latency", at_batches=(2, 3, 4, 5),
+                                   latency_ms=spike),), seed=0)
+    kernels.reset_launches()
+    svc = sess.serve(faults=inj, frame_batch=1, resilience=res_cfg).start()
+    rungs = []
+    for f in frames:
+        r = svc.detect_frames([f], timeout=120)[0]
+        need("detections" in r, f"resilient: unanswered: {r}")
+        rung = r["degraded_mode"]
+        rungs.append(rung)
+        if rung != "full":
+            want = direct.detect_degraded(f, rung)
+            need(r["detections"] == want,
+                 f"resilient: the {rung} rung's answer is not the "
+                 f"cascade's own")
+    need("cascade" in rungs and "coarse" in rungs,
+         f"resilient: the ladder never reached cascade and coarse: {rungs}")
+    deadline, extra = time.monotonic() + 120, 0
+    while svc.stats["degraded_mode"] != "full":
+        need(time.monotonic() < deadline,
+             f"resilient: never recovered: {svc.stats['ladder']}")
+        r = svc.detect_frames([frames[0]], timeout=120)[0]
+        need("detections" in r, f"resilient: unanswered: {r}")
+        extra += 1
+    res = [svc.detect_frames([f], timeout=120)[0] for f in frames]
+    svc.stop()
+    torch.cuda.synchronize()
+    launches["resilient+kernel"] = check_launches(
+        "resilient+kernel", kernels.launch_counts())
+    need([r["degraded_mode"] for r in res] == ["full"] * len(frames)
+         and [r["detections"] for r in res] == base,
+         "resilient: results after recovery differ from the unperturbed")
+    print(f"  resilient+kernel service (person + _coarse registry), "
+          f"{len(frames)} frames one a batch, lines from max(p99 "
+          f"{p99:.1f}, 2 x cascade {casc_ms:.1f}) ms: spike {spike:.0f}, "
+          f"degrade/recover {5 * line:.0f}/{2.5 * line:.0f}: rungs "
+          + " ".join(f"{r} {rungs.count(r)}" for r in ("full", "cascade",
+                                                       "coarse"))
+          + f", each answer = the card's own rung; full after {extra} "
+          f"more, {svc.stats['ladder']['transitions']} transitions, same "
+          f"results", flush=True)
+    return launches
 
 
 def frame_windows(torch, np, svm_np, svm):
@@ -2917,16 +3392,13 @@ def _r(x):
     return float(f"{x:.4g}") if isinstance(x, float) else x
 
 
-def compact_mode(v: dict, group: str) -> dict:
-    """A non-main mode's entry for the kernels line: its error ("err"),
-    code flips ("flips") and the main group's CUDA-event ms per call, to 4
-    significant digits (its device, plain, bound and library ms are on
-    its check line)."""
+def compact_mode(v: dict) -> dict:
+    """A non-main mode's entry for the kernels line: its error ("err") and
+    code flips ("flips"), to 4 significant digits (its device, plain,
+    bound and library ms are on its check line)."""
     short = {"max_abs_err": "err", "code_flips": "flips"}
-    out = {short.get(k, k): _r(d) for k, d in v.items()
-           if not isinstance(d, dict)}
-    out["ms"] = _r(v[group]["ms"])
-    return out
+    return {short.get(k, k): _r(d) for k, d in v.items()
+            if not isinstance(d, dict)}
 
 
 def main() -> int:
@@ -2984,18 +3456,24 @@ def main() -> int:
         summary = check_kernels(torch, np)
         check_batched_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
+        print("  level and plan lines (dense pair, dense_fused_hog, window "
+              "and tail plans: device us per level, tiles, CTAs, bands, "
+              "warps/SM): on standard error", flush=True)
         summary.update(check_flash(torch, np))
         print("main path:", flush=True)
         launches, configs, svm = main_path(torch, np)
         print("batch path:", flush=True)
         launches.update(batch_path(torch, np, configs, svm))
         launches.update(stream_path(torch, np, configs, svm))
+        launches.update(multihead_path(torch, np, configs, svm))
         print("window path:", flush=True)
         launches.update(window_path(torch, np))
         print("train path:", flush=True)
         launches.update(train_path(torch, np))
         print("serve path:", flush=True)
         launches.update(serve_path(torch, np, configs, svm))
+        print("cascade path:", flush=True)
+        launches.update(cascade_path(torch, np, svm))
         print("LM path:", flush=True)
         lm_launches, flash_routes = lm_path(torch, np)
         launches.update(lm_launches)
@@ -3008,8 +3486,9 @@ def main() -> int:
     # numbers are the main mode's sums at the main group (640x480 for the
     # dense kernels, B = 512 for the window kernels, B 4 x S 512 for
     # flash_attention), to 4 digits; every other mode's error and ms at the
-    # main group are under "modes" (every group's device, plain, bound and
-    # library ms are on the kernel-check lines above)
+    # main group are under "modes" (the main group's device, plain, bound
+    # and library ms are on the kernel-check lines above, the other
+    # groups' device us on the level and plan lines)
     kernels_line = {"kernels": []}
     for k in KERNELS:
         main = summary[k][MAIN_MODE[k]][MAIN_GROUP[k]]
@@ -3018,15 +3497,11 @@ def main() -> int:
             "replaces": KERNELS[k][1],
             "launches": sum(c[k] for c in launches.values()),
             "max_abs_err": _r(summary[k]["max_abs_err"]),
-            **{key: _r(main[key]) for key in ("ms", "device_ms",
-                                              "plain_ms", "bound_ms",
+            **{key: _r(main[key]) for key in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")},
-            # the library call's CUDA-event ms, where there is one
-            **({"library_call_ms": _r(main["library_call_ms"])}
-               if main["library_call_ms"] is not None else {}),
             # the other modes' err (and flips) and ms; the main mode's
             # err is on its check line
-            "modes": {m: compact_mode(v, MAIN_GROUP[k])
+            "modes": {m: compact_mode(v)
                       for m, v in summary[k].items()
                       if m not in ("max_abs_err", MAIN_MODE[k])},
             })

@@ -2,41 +2,34 @@
 repro/api/config.py.
 
 ``PipelineConfig`` nests the typed ``hog``, ``detector``, ``tracker``
-(core/video.py:TrackerConfig), ``train`` (core/svm.py:SVMTrainConfig)
-and ``service`` (``ServiceConfig``, with serve/resilience.py's
-``ResilienceConfig`` and obs/metrics.py's ``MetricsConfig`` nested)
-configs the port runs. The ``cascade`` sub-tree belongs to a later slice
-(cascade); it is kept as a plain dict and round-trips unchanged, so a
-reference ``PipelineConfig.to_dict()`` loads and dumps back equal. Its
-default is a copy of the reference dataclass's defaults
-(repro/core/cascade.py:60 CascadeConfig).
+(core/video.py:TrackerConfig), ``train`` (core/svm.py:SVMTrainConfig),
+``service`` (``ServiceConfig``, with serve/resilience.py's
+``ResilienceConfig`` and obs/metrics.py's ``MetricsConfig`` nested) and
+``cascade`` (core/cascade.py:CascadeConfig) configs, so a reference
+``PipelineConfig.to_dict()`` loads and dumps back equal.
 
-Presets: "default", "paper", "faithful", "perf", "quant" (from
-configs/hog_svm.py); ``register_preset`` adds deployment-local ones.
+Presets: "default", "paper", "faithful", "perf", "quant", "cascade" and
+"resilient" (from configs/hog_svm.py); ``register_preset`` adds
+deployment-local ones. "cascade" turns on the two-stage scheduler
+(``DetectionSession.cascade``); "resilient" is the serving-SLO
+deployment: 500 ms request budgets, retry with backoff, a 5-failure
+breaker, and the cascade-backed ladder full -> cascade -> coarse (p99 >=
+120 ms or 32 pending frames drops a rung).
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 from typing import Any, Dict, Optional
 
 from ..configs import hog_svm
+from ..core.cascade import CascadeConfig
 from ..core.detector import DetectorConfig
 from ..core.hog import HOGConfig, PAPER_HOG
 from ..core.svm import SVMTrainConfig
 from ..core.video import TrackerConfig
 from ..obs.metrics import MetricsConfig
-from ..serve.resilience import ResilienceConfig
-
-CASCADE_DEFAULT = {"enabled": False, "coarse_scales": (0.5, 0.4, 0.32),
-                   "coarse_threshold": 0.0, "coarse_max_detections": 64,
-                   "margin": 24, "snap": 36, "max_regions": 4,
-                   "min_frame_area": 0, "fine_hysteresis": 0.0}
-
-
-def _default(d: Dict[str, Any]):
-    return dataclasses.field(default_factory=lambda: copy.deepcopy(d))
+from ..serve.resilience import ResilienceConfig, RetryPolicy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +65,7 @@ class PipelineConfig:
     tracker: TrackerConfig = TrackerConfig()
     train: SVMTrainConfig = SVMTrainConfig()
     service: ServiceConfig = ServiceConfig()
-    cascade: Dict[str, Any] = _default(CASCADE_DEFAULT)
+    cascade: CascadeConfig = CascadeConfig()
 
     def __post_init__(self):
         if self.detector.hog != self.hog:
@@ -102,17 +95,15 @@ class PipelineConfig:
 
 def _tuples(v):
     """JSON lists back to the tuples the config tree holds, recursively."""
-    if isinstance(v, dict):
-        return {k: _tuples(x) for k, x in v.items()}
     if isinstance(v, (list, tuple)):
         return tuple(_tuples(x) for x in v)
     return v
 
 
 def _build(cls, d: Dict[str, Any]):
-    """Rebuild a (nested) config dataclass from a plain dict. Typed
-    sub-trees are rebuilt from their class defaults; the plain-dict
-    sub-trees are copied with lists turned back into tuples."""
+    """Rebuild a (nested) config dataclass from a plain dict; typed
+    sub-trees are rebuilt from their class defaults, JSON lists turned
+    back into tuples."""
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:
@@ -120,7 +111,7 @@ def _build(cls, d: Dict[str, Any]):
         v = d[f.name]
         if dataclasses.is_dataclass(f.default) and isinstance(v, dict):
             v = _build(type(f.default), v)
-        elif isinstance(v, (dict, list)):    # JSON has no tuples
+        elif isinstance(v, list):            # JSON has no tuples
             v = _tuples(v)
         kwargs[f.name] = v
     return cls(**kwargs)
@@ -166,4 +157,23 @@ _PRESETS: Dict[str, PipelineConfig] = {
         detector=DetectorConfig(hog=hog_svm.QUANT, score_threshold=0.5,
                                 backend="fused", batch_chunk=0),
         train=hog_svm.TRAIN),
+    # the two-stage scheduler (repro/api/config.py:235-242)
+    "cascade": PipelineConfig(
+        name="cascade", hog=hog_svm.CONFIG,
+        detector=DetectorConfig(hog=hog_svm.CONFIG, score_threshold=0.5),
+        train=hog_svm.TRAIN,
+        cascade=CascadeConfig(enabled=True)),
+    # the serving-SLO deployment (repro/api/config.py:243-260)
+    "resilient": PipelineConfig(
+        name="resilient", hog=hog_svm.CONFIG,
+        detector=DetectorConfig(hog=hog_svm.CONFIG, score_threshold=0.5),
+        train=hog_svm.TRAIN,
+        cascade=CascadeConfig(enabled=True),
+        service=ServiceConfig(resilience=ResilienceConfig(
+            deadline_ms=500.0,
+            retry=RetryPolicy(max_attempts=3, backoff_base_ms=5.0,
+                              backoff_cap_ms=200.0),
+            breaker_failures=5, breaker_reset_s=5.0,
+            degrade_p99_ms=120.0, degrade_depth=32,
+            recover_dwell=3))),
 }

@@ -1,13 +1,15 @@
 """DetectionSession -- the host-facing entry point of the port (the port
-of repro/api/session.py: training, checkpoints, single frames, batches
-and tracked clips).
+of repro/api/session.py: training, checkpoints, single frames, batches,
+tracked clips, stacked heads, the cascade and the service).
 
     session = DetectionSession.train(presets("paper"))        # on the card
     session = DetectionSession(svm, presets("paper"))         # given weights
+    session = DetectionSession(registry, presets("paper"))    # K named heads
     session.save(path); session = DetectionSession.load(path, "paper")
     dets = session.detect(frame)          # -> Detections (lazy decode)
     batch = session.detect_batch(frames)  # -> batched Detections
     tracked = session.stream(clip)        # -> [Detections] with track ids
+    cascade = session.cascade()           # -> CascadeDetector
     service = session.serve().start()     # -> DetectionService
 
 The session owns the SVM parameters, as tensors on its device, and one
@@ -16,14 +18,19 @@ on CUDA unless built with ``device="cpu"``; without a GPU anything else
 raises RuntimeError. ``train`` extracts HOG features, runs Pegasos
 (core/svm.py) and mines hard negatives (data/mining.py) on that device;
 ``save`` / ``load`` use the reference's checkpoint layout
-(checkpoint/manager.py), so either package loads the other's. ``serve``
-builds the micro-batching DetectionService (serve/engine.py) on the
-session's detector and device. The cascade and multi-head registries
-are later slices.
+(checkpoint/manager.py), so either package loads the other's -- a
+``HeadRegistry`` (core/heads.py) as the multi-head layout with its
+``heads.json``. A registry session stacks every public head into one
+detector whose results carry class labels; ``detect(frame, classes=...)``
+scores a subset. ``cascade`` builds the two-stage scheduler
+(core/cascade.py) over the session's detector, and ``serve`` the
+micro-batching DetectionService (serve/engine.py) on the session's
+detector and device, with the cascade's ladder rungs when the config
+enables it.
 """
 from __future__ import annotations
 
-import os
+import dataclasses
 from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -32,12 +39,10 @@ import torch
 from .config import PipelineConfig, presets
 from .results import Detections
 from ..core.detector import FrameDetector, resolve_device
+from ..core.heads import HeadRegistry
 from ..core.video import Tracker
 
 ConfigLike = Union[PipelineConfig, str, None]
-
-#: the multi-head registry's manifest (repro/core/heads.py:37)
-HEADS_MANIFEST = "heads.json"
 
 
 def _as_config(config: ConfigLike) -> PipelineConfig:
@@ -60,14 +65,23 @@ class DetectionSession:
     """SVM params + one PipelineConfig -> frame, batch and clip detection.
 
     ``svm`` is a mapping {"w": (3780,), "b": ()} of numpy arrays or
-    tensors (see repro_torch.convert.svm_from_numpy).
+    tensors (see repro_torch.convert.svm_from_numpy), or a HeadRegistry
+    whose public heads stack into one multi-head detector (per-head
+    thresholds into ``class_thresholds``, head names into the class
+    labels).
     """
 
     def __init__(self, svm, config: ConfigLike = None, device=None):
         self.config = _as_config(config)
-        self.detector = FrameDetector(svm, self.config.detector, device)
+        if isinstance(svm, HeadRegistry):
+            self.registry: Optional[HeadRegistry] = svm
+            self.detector = self._stacked_detector(None, device)
+        else:
+            self.registry = None
+            self.detector = FrameDetector(svm, self.config.detector, device)
         self.device = self.detector.device
         self.svm = self.detector.svm
+        self._class_detectors: Dict[Tuple[str, ...], FrameDetector] = {}
         self.train_losses = None       # set by train()
         self.mined_negatives = 0       # hard negatives added by train()
         self._warm: set = set()
@@ -121,16 +135,13 @@ class DetectionSession:
              step: Optional[int] = None, device=None) -> "DetectionSession":
         """Restore SVM params saved by ``save`` (checkpoint/manager.py
         layout, either package's); ``step=None`` takes the latest
-        committed step. A multi-head directory (a ``heads.json``
-        manifest) raises NotImplementedError."""
+        committed step. A directory with a ``heads.json`` manifest
+        restores as a multi-head (HeadRegistry) session."""
         from ..checkpoint.manager import CheckpointManager
         config = _as_config(config)
         dev = resolve_device(device)
-        if os.path.exists(os.path.join(path, HEADS_MANIFEST)):
-            raise NotImplementedError(
-                f"{path} holds a multi-head registry ({HEADS_MANIFEST}): "
-                f"multi-head sessions are a later slice of the port "
-                f"(multi-head)")
+        if HeadRegistry.is_registry_checkpoint(path):
+            return cls(HeadRegistry.load(path, step), config, device=dev)
         mgr = CheckpointManager(path)
         if step is None:
             step = mgr.latest_step()
@@ -142,22 +153,55 @@ class DetectionSession:
 
     def save(self, path: str, step: int = 0) -> None:
         """Persist the SVM params (the reference's atomic-commit
-        checkpoint layout)."""
+        checkpoint layout); a registry session writes the multi-head
+        layout (parameter tree + heads.json) that ``load`` detects."""
         from ..checkpoint.manager import CheckpointManager
+        if self.registry is not None:
+            self.registry.save(path, step)
+            return
         CheckpointManager(path).save(step, self.svm)
 
-    def detect(self, image) -> Detections:
-        """One frame ((H, W) gray or (H, W, 3) RGB, numpy or tensor) ->
-        Detections, device-resident until decoded."""
-        self._stats["frames"] += 1
-        return self.detector.detect_raw(image)
+    # ------------------------------------------------------------ facade
+    def _stacked_detector(self, names, device) -> FrameDetector:
+        """A detector over the registry's heads ``names`` (None: every
+        public head), their thresholds resolved into class_thresholds."""
+        stacked, names, thresholds = self.registry.stacked(names)
+        det_cfg = self.config.detector
+        resolved = tuple(det_cfg.score_threshold if t is None else t
+                         for t in thresholds)
+        det_cfg = dataclasses.replace(det_cfg, class_thresholds=resolved)
+        return FrameDetector(stacked, det_cfg, device, classes=names)
 
-    def detect_batch(self, frames) -> Detections:
+    def _detector_for(self, classes) -> FrameDetector:
+        """The detector scoring ``classes``: the session's for None, else
+        one per class tuple, built once (a registry session only)."""
+        if classes is None:
+            return self.detector
+        if self.registry is None:
+            raise ValueError(
+                "detect(classes=...) needs a HeadRegistry-backed session; "
+                "this one holds plain single-head params")
+        names = (classes,) if isinstance(classes, str) else tuple(classes)
+        det = self._class_detectors.get(names)
+        if det is None:
+            det = self._stacked_detector(names, self.device)
+            self._class_detectors[names] = det
+        return det
+
+    def detect(self, image, classes=None) -> Detections:
+        """One frame ((H, W) gray or (H, W, 3) RGB, numpy or tensor) ->
+        Detections, device-resident until decoded. ``classes`` picks a
+        head subset on a registry session (a name or a sequence of names;
+        None: every public head)."""
+        self._stats["frames"] += 1
+        return self._detector_for(classes).detect_raw(image)
+
+    def detect_batch(self, frames, classes=None) -> Detections:
         """Stacked (B, H, W[, 3]) array or frame list -> one batched
         Detections; all frames in one shape bucket (the detector's
-        contract)."""
+        contract). ``classes`` as in ``detect``."""
         self._stats["batches"] += 1
-        return self.detector.detect_batch_raw(frames)
+        return self._detector_for(classes).detect_batch_raw(frames)
 
     def stream(self, frames, batch_size: int = 8,
                tracker: Optional[Tracker] = None) -> List[Detections]:
@@ -180,18 +224,42 @@ class DetectionSession:
                        for d in per_frame)
         return out
 
+    def cascade(self, coarse_svm=None,
+                rng: Optional[np.random.Generator] = None):
+        """The two-stage CascadeDetector (core/cascade.py) over THIS
+        session's detector: a half-resolution coarse head sweeps each
+        frame at ``config.cascade.coarse_threshold`` and only its hit
+        neighbourhoods run the dense chain. The coarse params come from,
+        in order, ``coarse_svm``, the registry's auxiliary "_coarse"
+        head, or a synthetic training run on the session's device
+        (``rng`` its draws; cached back into the registry when there is
+        one)."""
+        from ..core.cascade import (_COARSE_NAME, CascadeDetector,
+                                    coarse_detector, train_coarse_head)
+        ccfg = self.config.cascade
+        if coarse_svm is None:
+            if self.registry is not None and _COARSE_NAME in self.registry:
+                coarse_svm = self.registry.single(_COARSE_NAME)
+            else:
+                coarse_svm, _ = train_coarse_head(
+                    self.config.hog, self.config.train, rng=rng,
+                    device=self.device)
+                if self.registry is not None:
+                    self.registry.add(_COARSE_NAME, coarse_svm,
+                                      metadata={"role": "cascade-coarse"},
+                                      replace=True)
+        coarse = coarse_detector(coarse_svm, self.detector.cfg, ccfg,
+                                 self.device)
+        return CascadeDetector(self.detector, coarse, ccfg)
+
     def serve(self, **overrides) -> "DetectionService":
         """Build a DetectionService on THIS session's detector, device and
         config (service knobs, resilience and metrics from
         config.service; any engine kwarg can be overridden). A
-        cascade-enabled config raises NotImplementedError: its ladder
-        rungs come with the cascade slice. Caller starts/stops it."""
+        cascade-enabled config wires the session's CascadeDetector as
+        the service's degradation rungs (full -> cascade -> coarse).
+        Caller starts/stops it."""
         from ..serve.engine import DetectionService
-        if self.config.cascade.get("enabled") and "cascade" not in overrides:
-            raise NotImplementedError(
-                "DetectionSession.serve on a cascade-enabled config: the "
-                "service's cascade and coarse rungs (core/cascade.py:"
-                "CascadeDetector) are a later slice of the port (cascade)")
         sc = self.config.service
         opts = dict(batch_size=sc.window_batch,
                     cfg=self.config.hog,
@@ -210,14 +278,10 @@ class DetectionSession:
         # any other engine kwarg.
         opts["frame_detector"] = \
             None if "detector" in overrides else self.detector
+        if self.config.cascade.enabled and "cascade" not in overrides:
+            opts["cascade"] = self.cascade()
         opts.update(overrides)
         return DetectionService(self.svm, **opts)
-
-    # ------------------------------------------------------ later slices
-    def cascade(self, coarse_svm=None, rng=None):
-        raise NotImplementedError(
-            "DetectionSession.cascade (core/cascade.py): a later slice of "
-            "the port (cascade)")
 
     # ------------------------------------------------ per-bucket programs
     def warmup(self, shapes: Iterable[Tuple[int, ...]]) -> Dict:
@@ -257,4 +321,5 @@ class DetectionSession:
     def clear_cache(self) -> None:
         """Drop this session's per-bucket programs (rebuilt at next use)."""
         self.detector._programs.clear()
+        self._class_detectors.clear()
         self._warm.clear()

@@ -1,8 +1,12 @@
 """Carry weights and configuration across from the JAX reference.
 
   * ``svm_from_numpy({"w": (3780,), "b": ()}, device)`` -- the SVM leaves
-    (numpy arrays, as the reference's checkpoint stores them) as f32
-    tensors on ``device`` (CUDA unless the CPU is asked for);
+    (numpy arrays, as the reference's checkpoint stores them), or K
+    stacked heads ({"w": (K, 3780), "b": (K,)}), as f32 tensors on
+    ``device`` (CUDA unless the CPU is asked for);
+  * ``registry_from_numpy(heads)`` -- the reference's named heads (a
+    reference ``HeadRegistry``, or any sequence of its heads: name,
+    numpy params, threshold, metadata) as the port's HeadRegistry;
   * ``config_from_reference_dict(d)`` -- a reference
     ``PipelineConfig.to_dict()`` as the port's PipelineConfig;
   * ``model_config_from_reference_dict(d)`` -- a reference LM
@@ -23,14 +27,35 @@ import torch
 
 from .api.config import PipelineConfig
 from .core.detector import as_svm, resolve_device
+from .core.heads import HeadRegistry
 from .models.configs import ModelConfig
 from .models.model import DenseLM, from_leaves
 
 
 def svm_from_numpy(leaves: Dict[str, Any], device=None
                    ) -> Dict[str, torch.Tensor]:
-    """{"w": (3780,), "b": ()} numpy leaves -> f32 tensors on ``device``."""
+    """{"w": (3780,), "b": ()} (or stacked {"w": (K, 3780), "b": (K,)})
+    numpy leaves -> f32 tensors on ``device``."""
     return as_svm(leaves, resolve_device(device))
+
+
+def _field(head, key: str, default=None):
+    return head.get(key, default) if isinstance(head, dict) \
+        else getattr(head, key, default)
+
+
+def registry_from_numpy(heads) -> HeadRegistry:
+    """The reference's heads, in order -- each with ``name``, ``params``
+    ({"w": (F,), "b": ()} numpy leaves), ``threshold`` and ``metadata``,
+    as attributes (a reference HeadRegistry iterates its SVMHeads) or
+    dict keys -- as the port's HeadRegistry (host f32 parameters)."""
+    reg = HeadRegistry()
+    for h in heads:
+        params = _field(h, "params")
+        reg.add(_field(h, "name"), {"w": np.asarray(params["w"]),
+                                    "b": np.asarray(params["b"])},
+                _field(h, "threshold"), _field(h, "metadata"))
+    return reg
 
 
 def config_from_reference_dict(d: Dict[str, Any]) -> PipelineConfig:

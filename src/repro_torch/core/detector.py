@@ -22,9 +22,14 @@ reference vmaps its program). ``detect_raw`` is a batch of one;
 (``_chunked_schedule``), the width measured at first use when it is 0
 (``_autotune_chunk``).
 
+Stacked heads: ``w`` (K, F) and ``b`` (K,) score K SVMs in one widened
+(BH*BW, 36) @ (36, 105*K) product per level (one scorer launch for all K,
+head-major columns), each head's plane collated in the one-head order;
+threshold (``class_thresholds``), top-k and NMS run per head, and the
+results carry a class axis (api/results.py).
+
 What the port does not run yet raises NotImplementedError naming the
-later slice: stacked multi-head weights, the banded resize and
-data/frame parallelism.
+later slice: the banded resize and data/frame parallelism.
 """
 from __future__ import annotations
 
@@ -43,10 +48,6 @@ from .hog import HOGConfig, PAPER_HOG, grayscale, grayscale_fused
 from .stages import BACKENDS, dense_blocks
 
 Tensor = torch.Tensor
-
-MULTI_HEAD_LATER = ("stacked multi-head SVM weights (2-D w): a later slice "
-                    "of the port (multi-head)")
-
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
@@ -67,7 +68,8 @@ class DetectorConfig:
     tile_mode: str = "slab"               # intra-frame tiling (later)
     frame_parallel_min_area: int = 0      # intra-frame tiling (later)
     pyramid_resize: str = "matmul"        # "matmul"; "banded" later
-    class_thresholds: Tuple[float, ...] = ()  # multi-head (later slice)
+    class_thresholds: Tuple[float, ...] = ()  # per stacked head; () = all
+    #                                             score_threshold
 
 
 def resolve_device(device=None) -> torch.device:
@@ -120,7 +122,8 @@ def scene_blocks(gray: Tensor, cfg: HOGConfig, backend: str = "ref") -> Tensor:
 def score_blocks(blocks: Tensor, w: Tensor, b: Tensor,
                  cfg: HOGConfig = PAPER_HOG,
                  use_kernel: bool = False) -> Tensor:
-    """Score the dense block grid: (..., BH, BW, 36) -> (..., PH, PW).
+    """Score the dense block grid: (..., BH, BW, 36) -> (..., PH, PW), or
+    (..., K, PH, PW) for K stacked heads (w (K, F), b (K,)).
 
     score[i, j] = <blocks[i:i+15, j:j+7, :], W> + b, factored as ONE
     (N*BH*BW, 36) @ (36, 105) matmul of per-offset partial scores over
@@ -134,34 +137,44 @@ def score_blocks(blocks: Tensor, w: Tensor, b: Tensor,
     codes exactly; the weights quantize per offset column; the int8
     product (the score_matmul_int8 kernel when ``use_kernel``) is exact
     int32, and the rank-1 rescale has a fixed multiply order.
+
+    Stacked heads (repro/core/detector.py:_score_blocks_multi): the
+    weights lay out head-major, (36, 105*K), column k*105 + o being head
+    k's offset o, and go through ONE kernel launch of K heads; int8
+    weights quantize per column, so each head's codes are its one-head
+    codes. Each head's plane is collated in the one-head order, then its
+    bias added.
     """
-    if w.dim() == 2:
-        raise NotImplementedError(MULTI_HEAD_LATER)
     bh, bw = cfg.blocks_hw                              # 15, 7
+    heads = w.shape[0] if w.dim() == 2 else 1
     lead = tuple(blocks.shape[:-3])
     BH, BW, bd = blocks.shape[-3:]
     flat = blocks.reshape(-1, bd).contiguous()
     if N.spec_for(cfg).quantized:
         q, s_rows = quant.quantize_blocks(flat)
-        wt = w.reshape(bh * bw, bd).T.to(torch.float32)
+        wt = w.reshape(heads * bh * bw, bd).T.to(torch.float32)
         wq, s_cols = quant.quantize_weight_columns(wt)
         wq = wq.contiguous()
-        ci = (sm.score_matmul_int8(q, wq) if use_kernel
+        ci = (sm.score_matmul_int8(q, wq, heads) if use_kernel
               else sm.score_matmul_int8_plain(q, wq))
         contrib = quant.rescale_scores(ci, s_rows, s_cols)
     else:
-        wt = w.reshape(bh * bw, bd).T.to(blocks.dtype).contiguous()
-        contrib = (sm.score_matmul(flat, wt) if use_kernel
+        wt = w.reshape(heads * bh * bw, bd).T.to(blocks.dtype).contiguous()
+        contrib = (sm.score_matmul(flat, wt, heads) if use_kernel
                    else sm.score_matmul_plain(flat, wt))
-    return collate_scores(contrib.reshape(lead + (BH, BW, bh * bw)),
-                          bh, bw) + b
+    if w.dim() == 1:
+        return collate_scores(contrib.reshape(lead + (BH, BW, bh * bw)),
+                              bh, bw) + b
+    # (..., BH, BW, K, 105) -> (..., K, BH, BW, 105): a plane per head
+    planes = contrib.reshape(lead + (BH, BW, heads, bh * bw)).movedim(-2, -4)
+    return collate_scores(planes, bh, bw) + b[:, None, None]
 
 
 def collate_scores(contrib: Tensor, bh: int, bw: int) -> Tensor:
     """Sum the per-offset partial scores into the window score map:
     (..., BH, BW, bh*bw) -> (..., BH-bh+1, BW-bw+1), from zeros, offsets
     (di, dj) row-major, as the reference accumulates them (bias not
-    added)."""
+    added); every leading index (frame, head) its own plane."""
     ph, pw = contrib.shape[-3] - bh + 1, contrib.shape[-2] - bw + 1
     out = torch.zeros(tuple(contrib.shape[:-3]) + (ph, pw),
                       dtype=torch.float32, device=contrib.device)
@@ -174,7 +187,7 @@ def collate_scores(contrib: Tensor, bh: int, bw: int) -> Tensor:
 def score_map(gray: Tensor, w: Tensor, b: Tensor, cfg: HOGConfig = PAPER_HOG,
               backend: str = "ref") -> Tensor:
     """Dense SVM score map at cell (8-px) stride. gray: (..., H, W) ->
-    (..., PH, PW)."""
+    (..., PH, PW), or (..., K, PH, PW) for K stacked heads."""
     blocks = scene_blocks(gray, cfg, backend)
     return score_blocks(blocks, w, b, cfg, use_kernel=(backend != "ref"))
 
@@ -458,17 +471,42 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
                               .reshape(lead + (sh, sw)))
         return levels
 
+    thresholds: Dict[int, Tensor] = {}
+
+    def threshold(heads: int):
+        # the per-head gates of stacked heads, (K, 1), made once
+        if not heads:
+            return cfg.score_threshold
+        thr = thresholds.get(heads)
+        if thr is None:
+            if cfg.class_thresholds and len(cfg.class_thresholds) != heads:
+                raise ValueError(
+                    f"class_thresholds has {len(cfg.class_thresholds)} "
+                    f"entries but the stacked params carry {heads} heads")
+            thr = torch.tensor(cfg.class_thresholds
+                               or (cfg.score_threshold,) * heads,
+                               dtype=torch.float32, device=device)[:, None]
+            thresholds[heads] = thr
+        return thr
+
     def fn(gray: Tensor, w: Tensor, b: Tensor,
            hws: Sequence[Tuple[int, int]]):
+        # stacked (K, F) heads add a class axis after the batch's: the
+        # scores (B, K, N), one threshold, top-k and NMS per head
         B = gray.shape[0]
-        parts = [score_map(g, w, b, hcfg, cfg.backend).reshape(B, -1)
+        heads = w.shape[0] if w.dim() == 2 else 0
+        thr = threshold(heads)
+        lead = (B, heads) if heads else (B,)
+        parts = [score_map(g, w, b, hcfg, cfg.backend).reshape(lead + (-1,))
                  for g in pyramid(gray)]
-        scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         if len(set(hws)) == 1:
             inside = inside_mask(*hws[0])[None]
         else:
             inside = torch.stack([inside_mask(*hw) for hw in hws])
-        valid = inside & (scores > cfg.score_threshold)
+        if heads:
+            inside = inside[:, None]
+        valid = inside & (scores > thr)
         masked = torch.where(valid, scores, float("-inf"))
         top, idx = top_k(masked, k)
         keep = nms_keep(boxes_dev[idx], top, cfg.nms_iou)
@@ -545,15 +583,16 @@ def _sync(device: torch.device) -> None:
 def _autotune_chunk(prog: FrameProgram, h: int, w: int, ph: int, pw: int,
                     batch: int, cfg: DetectorConfig,
                     frame_shape: Tuple[int, ...], frame_dtype: torch.dtype,
-                    device: torch.device) -> int:
+                    device: torch.device, heads: int = 0) -> int:
     import time
 
     from . import autotune_cache
     dtype = str(frame_dtype).replace("torch.", "")
     layout = f"{'rgb' if len(frame_shape) == 4 else 'gray'}-{dtype}"
-    # the reference's key (dp = fp = 1, heads = 0), then the device type:
-    # one process may run detectors on the card and on the CPU
-    key = (h, w, ph, pw, batch, cfg, layout, 1, 1, 0, device.type)
+    # the reference's key (dp = fp = 1; heads: 0 for one (F,) head, K for
+    # stacked (K, F) heads), then the device type: one process may run
+    # detectors on the card and on the CPU
+    key = (h, w, ph, pw, batch, cfg, layout, 1, 1, heads, device.type)
     hit = _AUTOTUNE.get(key)
     if hit is not None:
         autotune_cache.note_memory_hit()
@@ -568,8 +607,11 @@ def _autotune_chunk(prog: FrameProgram, h: int, w: int, ph: int, pw: int,
         _AUTOTUNE[key] = {**disk, "source": "disk"}
         return disk["chunk"]
     frames = torch.zeros(frame_shape, dtype=frame_dtype, device=device)
-    wv = torch.zeros(cfg.hog.n_features, dtype=torch.float32, device=device)
-    bv = torch.zeros((), dtype=torch.float32, device=device)
+    wv = torch.zeros((heads, cfg.hog.n_features) if heads
+                     else cfg.hog.n_features, dtype=torch.float32,
+                     device=device)
+    bv = torch.zeros((heads,) if heads else (), dtype=torch.float32,
+                     device=device)
     hws = ((h, w),) * batch
     probe_ms = {}
     for c in candidates:
@@ -607,14 +649,16 @@ def autotune_report() -> dict:
 
 def as_svm(svm, device: torch.device,
            n_features: int = PAPER_HOG.n_features) -> Dict[str, Tensor]:
-    """{"w": (F,), "b": ()} numpy arrays or tensors -> f32 tensors on
-    ``device``; stacked (2-D) heads are a later slice."""
+    """{"w": (F,), "b": ()} -- or K stacked heads, {"w": (K, F), "b":
+    (K,)} -- numpy arrays or tensors -> f32 tensors on ``device``."""
     w = torch.as_tensor(svm["w"], dtype=torch.float32).to(device)
     b = torch.as_tensor(svm["b"], dtype=torch.float32).to(device)
-    if w.dim() == 2:
-        raise NotImplementedError(MULTI_HEAD_LATER)
+    if w.dim() == 2 and w.shape[0] >= 1 and w.shape[1] == n_features \
+            and tuple(b.shape) == (w.shape[0],):
+        return {"w": w.contiguous(), "b": b.contiguous()}
     if tuple(w.shape) != (n_features,) or b.numel() != 1:
-        raise ValueError(f"expected w ({n_features},) and b (), got "
+        raise ValueError(f"expected w ({n_features},) and b (), or stacked "
+                         f"w (K, {n_features}) and b (K,), got "
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
     return {"w": w, "b": b.reshape(())}
 
@@ -632,14 +676,28 @@ class FrameDetector:
     final box decode touches host numpy. Runs on CUDA unless
     ``device="cpu"``; raises RuntimeError when no GPU is present and the
     CPU was not asked for.
+
+    Stacked (K, F) params score K heads in one widened product;
+    ``heads`` is K (0 for one (F,) head) and ``classes`` names them
+    ("head0", ... by default), riding into every Detections it builds so
+    decoded boxes carry class_id and label.
     """
 
     def __init__(self, svm, cfg: Optional[DetectorConfig] = None,
-                 device=None):
+                 device=None, classes: Optional[Sequence[str]] = None):
         self.cfg = DetectorConfig() if cfg is None else cfg
         check_supported(self.cfg)
         self.device = resolve_device(device)
         self.svm = as_svm(svm, self.device, self.cfg.hog.n_features)
+        self.heads = int(self.svm["w"].shape[0]) \
+            if self.svm["w"].dim() == 2 else 0
+        if classes is not None and self.heads \
+                and len(classes) != self.heads:
+            raise ValueError(
+                f"{len(classes)} class names for {self.heads} heads")
+        self.classes = tuple(classes) if classes is not None else (
+            tuple(f"head{i}" for i in range(self.heads))
+            if self.heads else None)
         self._programs: Dict[Tuple[int, int], FrameProgram] = {}
         self.program_stats = {"hits": 0, "misses": 0}
 
@@ -688,11 +746,12 @@ class FrameDetector:
         frame = torch.as_tensor(image).to(self.device)
         prog, ph, pw = self.program_for(h, w)
         if prog.fn is None:
-            return Detections.empty(prog.tables)
+            return Detections.empty(prog.tables, self.classes)
         top, idx, keep, n_valid = prog.fn(
             _prep_frame(frame, h, w, ph, pw)[None], self.svm["w"],
             self.svm["b"], ((h, w),))
-        return Detections(top[0], idx[0], keep[0], n_valid[0], prog.tables)
+        return Detections(top[0], idx[0], keep[0], n_valid[0], prog.tables,
+                          classes=self.classes)
 
     def __call__(self, image) -> List[dict]:
         """Legacy per-frame contract (list of dicts)."""
@@ -723,7 +782,7 @@ class FrameDetector:
         """
         from ..api.results import Detections
         if isinstance(frames, (list, tuple)) and not frames:
-            return Detections.empty_batch(_empty_tables(), 0)
+            return Detections.empty_batch(_empty_tables(), 0, self.classes)
         uniform = not isinstance(frames, (list, tuple)) or \
             len({tuple(f.shape) for f in frames}) == 1
         if uniform:
@@ -744,7 +803,8 @@ class FrameDetector:
                     f"{shape}")
             n, h, w = shape[:3]
             if n == 0:
-                return Detections.empty_batch(_empty_tables(), 0)
+                return Detections.empty_batch(_empty_tables(), 0,
+                                              self.classes)
             hws = ((h, w),) * n
         else:
             grays = [self._to_gray(f) for f in frames]
@@ -757,7 +817,7 @@ class FrameDetector:
                 f"{sorted(buckets)}; group frames by bucket first")
         prog, ph, pw = self.program_for(*hws[0])
         if prog.fn is None:
-            return Detections.empty_batch(prog.tables, n)
+            return Detections.empty_batch(prog.tables, n, self.classes)
         if uniform:
             th, tw = hws[0]
             frames_b = self._stack(frames)
@@ -768,11 +828,12 @@ class FrameDetector:
         if chunk == 0:
             chunk = _autotune_chunk(prog, th, tw, ph, pw, n, self.cfg,
                                     tuple(frames_b.shape), frames_b.dtype,
-                                    self.device)
+                                    self.device, self.heads)
         fn = _batch_fn(prog, th, tw, ph, pw, n, chunk)
         top, idx, keep, n_valid = fn(frames_b, self.svm["w"],
                                      self.svm["b"], hws)
-        return Detections(top, idx, keep, n_valid, prog.tables)
+        return Detections(top, idx, keep, n_valid, prog.tables,
+                          classes=self.classes)
 
     def detect_batch(self, frames) -> List[List[dict]]:
         """Legacy batched contract (B per-frame dict lists)."""

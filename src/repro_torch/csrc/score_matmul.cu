@@ -40,6 +40,14 @@
 //  * Misaligned inputs (a view at an odd offset) take the element-wise
 //    copies the wrapper selects from data_ptr() % 16.
 //
+//  * Stacked heads (N = 105 x H, head-major columns): a second grid axis
+//    over heads, each CTA running the one-head body on its head's
+//    staged (36, 105) weights, so shared memory stays the one-head size
+//    and head h's columns equal its one-head launch's bit for bit; the
+//    SMs split between the heads (132 / H CTAs each). A head's columns
+//    start at h * 420 bytes, off the 16-byte grid, so its weights stage
+//    and its outputs leave element by element.
+//
 // ptxas (sm_90a): 96 registers (f32) and 96 (bf16), no spills.
 #include "score_tile.cuh"
 
@@ -49,29 +57,31 @@ template <typename T>
 __global__ void __launch_bounds__(score::MAX_THREADS, 1)
 score_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     float* __restrict__ out, int M, int K, int N,
-                    int pass_units, int vec) {
-  score::run<T>(x, w, out, M, K, N, pass_units, vec);
+                    int heads, int pass_units, int vec) {
+  score::run<T>(x, w, out, M, K, N, heads, pass_units, vec);
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (x and w share it). grid, pass_units, threads
-// and smem_bytes are kernels/svm_matmul.py:score_plan's; vec holds
-// score::VEC_X / VEC_W / VEC_OUT for the 16-byte-aligned operands.
+// dtype: 0 = f32, 1 = bf16 (x and w share it). grid, heads, pass_units,
+// threads and smem_bytes are kernels/svm_matmul.py:score_plan's (N =
+// heads x the columns of a head); vec holds score::VEC_X / VEC_W /
+// VEC_OUT for the 16-byte-aligned operands.
 extern "C" int score_matmul_launch(const void* x, const void* w, float* out,
                                    int M, int K, int N, int dtype, int grid,
-                                   int pass_units, int threads,
+                                   int heads, int pass_units, int threads,
                                    int smem_bytes, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return score::launch(score_matmul_kernel<__nv_bfloat16>,
                          static_cast<const __nv_bfloat16*>(x),
                          static_cast<const __nv_bfloat16*>(w), out, M, K, N,
-                         grid, pass_units, threads, smem_bytes, vec, s);
+                         grid, heads, pass_units, threads, smem_bytes, vec,
+                         s);
   if (dtype == 0)
     return score::launch(score_matmul_kernel<float>,
                          static_cast<const float*>(x),
                          static_cast<const float*>(w), out, M, K, N, grid,
-                         pass_units, threads, smem_bytes, vec, s);
+                         heads, pass_units, threads, smem_bytes, vec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

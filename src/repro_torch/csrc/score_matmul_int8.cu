@@ -24,6 +24,9 @@
 // register, K padded to 64 with zeros) from the raw weights once, and
 // reads the A fragments straight from the staged rows.
 //
+// Stacked heads (N = 105 x H): score_matmul.cu's head axis, each head's
+// int8 codes and int32 sums those of its one-head launch.
+//
 // ptxas (sm_90a): 96 registers, no spills.
 #include "score_tile.cuh"
 
@@ -33,20 +36,20 @@ __global__ void __launch_bounds__(score::MAX_THREADS, 1)
 score_matmul_int8_kernel(const int8_t* __restrict__ x,
                          const int8_t* __restrict__ w,
                          int32_t* __restrict__ out, int M, int K, int N,
-                         int pass_units, int vec) {
-  score::run<int8_t>(x, w, out, M, K, N, pass_units, vec);
+                         int heads, int pass_units, int vec) {
+  score::run<int8_t>(x, w, out, M, K, N, heads, pass_units, vec);
 }
 
 }  // namespace
 
-// grid, pass_units, threads and smem_bytes are
+// grid, heads, pass_units, threads and smem_bytes are
 // kernels/svm_matmul.py:score_plan's; vec as in score_matmul.cu.
 extern "C" int score_matmul_int8_launch(const int8_t* x, const int8_t* w,
                                         int32_t* out, int M, int K, int N,
-                                        int grid, int pass_units,
+                                        int grid, int heads, int pass_units,
                                         int threads, int smem_bytes, int vec,
                                         void* stream) {
   return score::launch(score_matmul_int8_kernel, x, w, out, M, K, N, grid,
-                       pass_units, threads, smem_bytes, vec,
+                       heads, pass_units, threads, smem_bytes, vec,
                        static_cast<cudaStream_t>(stream));
 }

@@ -2,15 +2,24 @@
 // bf16 in, f32 out) and score_matmul_int8.cu (int8 in, exact int32 out):
 // (M, K) block rows @ (K, N) per-offset weights -> (M, N).
 //
+// Heads: the N columns may be H equal groups (stacked SVM heads, each
+// NH = N / H <= MAX_N columns wide, head-major: column h*NH + o is head
+// h's offset o). The grid's second axis is the head: CTA (b, h) stages
+// only head h's (K, NH) weights and runs the one-head body on them, then
+// writes its NH columns at column h*NH of each row. Shared memory is the
+// one-head size whatever H, and head h's outputs are, by construction,
+// those of scoring head h alone. H = 1 is the plain (M, K) @ (K, N).
+//
 // Launch plan (kernels/svm_matmul.py:score_plan, checked by
 // tests/test_torch_score_plan.py; the launcher refuses any other): rows
 // go in units of 4, U = ceil(M / 4) of them, and the grid is
-// G = min(SMs, U) CTAs, one per SM. CTA b owns the contiguous units
-// [b*U/G, (b+1)*U/G) (floor division), so every CTA has floor(U/G) or
-// ceil(U/G) units and the busiest SM 4*ceil(U/G) rows, the fewest
-// possible; only the last unit of the last CTA is ragged. A CTA walks its
-// span in passes of at most pass_units units, as many as its threads
-// hold f32 micro-tiles (512 / ceil(N/4): 18 units, 72 rows at N = 105).
+// G = min(max(1, SMs / H), U) CTAs per head, one per SM in all. CTA b
+// owns the contiguous units [b*U/G, (b+1)*U/G) (floor division), so
+// every CTA has floor(U/G) or ceil(U/G) units and the busiest SM
+// 4*ceil(U/G) rows, the fewest possible; only the last unit of the last
+// CTA is ragged. A CTA walks its span in passes of at most pass_units
+// units, as many as its threads hold f32 micro-tiles
+// (512 / ceil(NH/4): 18 units, 72 rows at NH = 105).
 //
 // Per pass, the product runs on
 //  * f32: the CUDA cores. Each thread owns a 4-row x 4-column micro-tile
@@ -34,10 +43,14 @@
 //           K = 36), the next pass's prefetched during this one;
 //   outs    the pass's (rows x N) outputs, row-major: the span they
 //           occupy in the output, written with 16-byte stores.
-// Raw bytes arrive by 16-byte cp.async where the source is 16-byte
-// aligned (the wrapper's vec flags, from data_ptr() % 16), a tail by
-// 4-byte cp.async; a misaligned source and rows whose K is no multiple
-// of 4 go element by element.
+// (With heads, N is NH there: the head's weights are staged packed, row
+// by row, and its outputs leave row by row, NH values at a row pitch of
+// N.) Raw bytes arrive by 16-byte cp.async where the source is 16-byte
+// aligned (the wrapper's vec flags, from data_ptr() % 16 and, with
+// heads, NH), a tail by 4-byte cp.async; a misaligned source and rows
+// whose K is no multiple of 4 go element by element, and so do the
+// outputs of heads whose NH values are no multiple of 16 bytes (NH =
+// 105: a head's columns start at h*420 bytes).
 //
 // Each phase runs a few iterations per launch: loops stay rolled
 // (#pragma unroll 1) unless unrolling batches loads, and loads that may
@@ -176,6 +189,58 @@ __device__ __forceinline__ void store(C* dst, const C* src, int n,
     done = 4 * nv;
   }
   for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// rows x cols elements at a row pitch of `pitch` in global src, packed
+// into shared dst (cols apart): the flat copy where they are contiguous;
+// else, when vec (src, cols and pitch all on 16 bytes), 16-byte cp.async
+// chunks row by row; else element by element.
+template <typename T>
+__device__ __forceinline__ void stage_cols(T* dst, const T* src, int rows,
+                                           int cols, int pitch, bool vec) {
+  if (cols == pitch) {
+    stage(dst, src, rows * cols, vec);
+    return;
+  }
+  if (vec) {
+    const int c16 = cols * static_cast<int>(sizeof(T)) / 16;
+    for (int i = threadIdx.x; i < rows * c16; i += blockDim.x) {
+      const int r = i / c16, c = i - r * c16;
+      cp_async16(reinterpret_cast<char*>(dst + r * cols) + 16 * c,
+                 reinterpret_cast<const char*>(src + r * pitch) + 16 * c);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int r = i / cols, c = i - r * cols;
+    dst[i] = src[r * pitch + c];
+  }
+}
+
+// rows x cols outputs packed in shared src to global dst at a row pitch
+// of `pitch`: the flat store where they are contiguous; else, when vec
+// (dst, cols and pitch on 16 bytes), 16-byte stores row by row; else
+// element by element, consecutive threads on consecutive columns.
+template <typename C>
+__device__ __forceinline__ void store_cols(C* dst, const C* src, int rows,
+                                           int cols, int pitch, bool vec) {
+  if (cols == pitch) {
+    store(dst, src, rows * cols, vec);
+    return;
+  }
+  if (vec) {
+    const int c4 = cols / 4;
+    for (int i = threadIdx.x; i < rows * c4; i += blockDim.x) {
+      const int r = i / c4, c = i - r * c4;
+      reinterpret_cast<int4*>(dst + r * pitch)[c] =
+          reinterpret_cast<const int4*>(src + r * cols)[c];
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int r = i / cols, c = i - r * cols;
+    dst[static_cast<long long>(r) * pitch + c] = src[i];
+  }
 }
 
 // A B fragment register from the raw weights w (K x N): column col, k
@@ -357,16 +422,23 @@ __device__ __forceinline__ void mma_pass(const T* slab, int rows, int Kp,
     mma_tiles<T, 4>(slab, rows, Kp, w, K, N, outs);
 }
 
-// The kernel body. out points at the (M, N) output; pass_units and vec
+// The kernel body. out points at the (M, N) output, N = heads * NH;
+// this CTA scores head blockIdx.y, its NH columns. pass_units and vec
 // come from the plan and the wrapper.
 template <typename T>
 __device__ __forceinline__ void run(const T* __restrict__ x,
                                     const T* __restrict__ w,
                                     typename Elem<T>::C* __restrict__ out,
-                                    int M, int K, int N, int pass_units,
-                                    int vec) {
+                                    int M, int K, int N, int heads,
+                                    int pass_units, int vec) {
   using C = typename Elem<T>::C;
   extern __shared__ __align__(16) unsigned char smem[];
+  // from here on the one-head body: N is the head's width, and w and out
+  // point at its first column (row pitch ldo)
+  const int ldo = N;
+  N /= heads;
+  w += static_cast<int>(blockIdx.y) * N;
+  out += static_cast<int>(blockIdx.y) * N;
   const Layout L = layout<T>(K, N, pass_units);
   T* ws = reinterpret_cast<T*>(smem + L.ws);
   // slab s of the pass rows, from the shared base each time: an array of
@@ -390,7 +462,7 @@ __device__ __forceinline__ void run(const T* __restrict__ x,
 
   // 1. the weights (every CTA reads the same tile, so they go first) and
   // the first pass's rows
-  stage(ws, w, K * N, vec & VEC_W);
+  stage_cols(ws, w, K, N, ldo, vec & VEC_W);
   stage_rows(slab(0), x + static_cast<long long>(r0) * K, min(P, r1 - r0), K,
              Kp, vec & VEC_X);
   cp_async_commit();
@@ -440,9 +512,10 @@ __device__ __forceinline__ void run(const T* __restrict__ x,
     }
     __syncthreads();
 
-    // 4. the pass's outputs: one contiguous span of rows * N
-    store(out + static_cast<long long>(row0) * N, outs, rows * N,
-          vec & VEC_OUT);
+    // 4. the pass's outputs: one contiguous span of rows * N (one head:
+    // rows of N at a pitch of ldo)
+    store_cols(out + static_cast<long long>(row0) * ldo, outs, rows, N, ldo,
+               vec & VEC_OUT);
   }
 }
 
@@ -450,13 +523,16 @@ __device__ __forceinline__ void run(const T* __restrict__ x,
 // them is refused with cudaErrorInvalidValue.
 template <typename T, typename Kernel>
 int launch(Kernel kernel, const T* x, const T* w, typename Elem<T>::C* out,
-           int M, int K, int N, int grid, int pass_units, int threads,
-           int smem_bytes, int vec, cudaStream_t stream) {
+           int M, int K, int N, int grid, int heads, int pass_units,
+           int threads, int smem_bytes, int vec, cudaStream_t stream) {
   if (M <= 0) return 0;
-  if (K < 1 || K > MAX_K || N < 1 || N > MAX_N)
+  if (heads < 1 || heads > 65535 || N < 1 || N % heads != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int NH = N / heads;
+  if (K < 1 || K > MAX_K || NH > MAX_N)
     return static_cast<int>(cudaErrorInvalidValue);
   const int units = (M + 3) / 4;
-  const int NG = (N + 3) / 4;
+  const int NG = (NH + 3) / 4;
   if (grid < 1 || grid > units ||
       static_cast<long long>(units) * grid >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -465,15 +541,15 @@ int launch(Kernel kernel, const T* x, const T* w, typename Elem<T>::C* out,
   const int npass = (umax + most - 1) / most;
   if (pass_units != (umax + npass - 1) / npass ||
       threads != (pass_units * NG + 31) / 32 * 32 ||
-      smem_bytes != layout<T>(K, N, pass_units).total || (vec & ~7) != 0)
+      smem_bytes != layout<T>(K, NH, pass_units).total || (vec & ~7) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem_bytes > SMEM_DEFAULT) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  kernel<<<grid, threads, smem_bytes, stream>>>(x, w, out, M, K, N,
-                                                pass_units, vec);
+  kernel<<<dim3(grid, heads), threads, smem_bytes, stream>>>(
+      x, w, out, M, K, N, heads, pass_units, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,6 +33,14 @@ written as one contiguous span of 16-byte stores. f32 multiplies on the
 CUDA cores (a 4 x 4 register micro-tile per thread, fmaf in k order),
 bf16 and int8 on the tensor cores (mma.sync).
 
+Stacked SVM heads widen the product to (M, K) @ (K, NH * heads), the
+columns head-major (column h*NH + o is head h's offset o, as
+repro/core/detector.py:_score_blocks_multi lays them out). ``heads``
+adds a second grid axis: each CTA stages one head's (K, NH) weights and
+runs the one-head body, the SMs split between the heads, so one launch
+scores every head, any number of them, in one head's shared memory, and
+head h's columns equal its one-head launch's bit for bit.
+
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (``svm_scores_plain``, ``score_matmul_plain``,
 ``score_matmul_int8_plain``) for a CPU tensor; nothing else.
@@ -53,7 +61,7 @@ from .tile_plan import Resident
 Tensor = torch.Tensor
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_K, _MAX_N = 64, 128        # csrc/score_tile.cuh: MAX_K, MAX_N
+_MAX_K, _MAX_N = 64, 128        # csrc/score_tile.cuh: MAX_K, MAX_N (a head)
 #: threads a scorer CTA may have (score::MAX_THREADS): one per 4 x 4
 #: micro-tile of a pass, so a pass holds SCORE_THREADS // ceil(N/4) units
 SCORE_THREADS = 512
@@ -61,10 +69,10 @@ SCORE_THREADS = 512
 #: in 16-byte chunks
 VEC_X, VEC_W, VEC_OUT = 1, 2, 4
 
-# x, w, out, M, K, N, then the plan's grid, pass_units, threads,
+# x, w, out, M, K, N, then the plan's grid, heads, pass_units, threads,
 # smem_bytes and the vec flags; the f32/bf16 kernel also takes its dtype
 # code after N
-_PLAN_ARGS = (ctypes.c_int,) * 5
+_PLAN_ARGS = (ctypes.c_int,) * 6
 _ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + _PLAN_ARGS
              + (ctypes.c_void_p,))
 
@@ -74,16 +82,28 @@ class ScorePlan:
     """How the scorer covers an (M, K) @ (K, N) product: rows in units of
     4, ``units`` of them; CTA b of ``grid`` owns the contiguous units
     [b*units // grid, (b+1)*units // grid) and walks them in passes of at
-    most ``pass_units`` (csrc/score_tile.cuh:run)."""
+    most ``pass_units`` (csrc/score_tile.cuh:run), for each of ``heads``
+    column groups of ``nh`` columns (the grid's second axis)."""
     M: int
     K: int
-    N: int
+    N: int                          # every head's columns
     itemsize: int                   # bytes of an input element
     units: int
-    grid: int
+    grid: int                       # CTAs of one head
     pass_units: int
     threads: int
     smem_bytes: int
+    heads: int = 1
+
+    @property
+    def nh(self) -> int:
+        """Columns of one head."""
+        return self.N // self.heads
+
+    @property
+    def ctas(self) -> int:
+        """CTAs of the launch, every head's."""
+        return self.grid * self.heads
 
     @property
     def rows(self) -> int:
@@ -118,51 +138,77 @@ def score_smem_bytes(K: int, N: int, itemsize: int, pass_units: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def score_plan(M: int, N: int, dtype: torch.dtype, sms: int = SMS,
-               K: int = 36) -> ScorePlan:
+               K: int = 36, heads: int = 1) -> ScorePlan:
     """The launch plan of ``score_matmul`` / ``score_matmul_int8`` for an
-    (M, K) @ (K, N) product of ``dtype`` inputs on a card of ``sms`` SMs:
-    one CTA per SM (fewer only when M has fewer 4-row units), each over a
-    span of floor or ceil(units / grid) units, so the busiest SM has the
-    fewest rows possible; passes as even as the micro-tiles a CTA's
-    SCORE_THREADS hold allow."""
-    if M < 1 or not (1 <= K <= _MAX_K and 1 <= N <= _MAX_N):
-        raise ValueError(f"no scorer plan for M={M}, K={K}, N={N}")
+    (M, K) @ (K, N) product of ``dtype`` inputs, N = ``heads`` groups of
+    at most _MAX_N columns, on a card of ``sms`` SMs: one CTA per SM in
+    all (sms // heads a head, at least one; fewer only when M has fewer
+    4-row units), each over a span of floor or ceil(units / grid) units,
+    so the busiest SM has the fewest rows possible; passes as even as the
+    micro-tiles a CTA's SCORE_THREADS hold allow."""
+    if heads < 1 or heads > 65535 or N % heads:
+        raise ValueError(f"no scorer plan for N={N} in {heads} heads")
+    nh = N // heads
+    if M < 1 or not (1 <= K <= _MAX_K and 1 <= nh <= _MAX_N):
+        raise ValueError(f"no scorer plan for M={M}, K={K}, N={N} "
+                         f"({heads} heads of {nh}; a head takes at most "
+                         f"{_MAX_N} columns, K at most {_MAX_K})")
     itemsize = dtype.itemsize
     units = -(-M // 4)
-    grid = min(sms, units)
+    grid = min(max(1, sms // heads), units)
     if units * grid >= 2 ** 31:        # the kernel's span arithmetic is int
         raise ValueError(f"no scorer plan for M={M} on {sms} SMs")
     most = -(-units // grid)                # units of the busiest CTA
-    ng = -(-N // 4)
+    ng = -(-nh // 4)
     npass = -(-most // (SCORE_THREADS // ng))
     pass_units = -(-most // npass)
     return ScorePlan(M, K, N, itemsize, units, grid, pass_units,
                      -(-pass_units * ng // 32) * 32,
-                     score_smem_bytes(K, N, itemsize, pass_units))
+                     score_smem_bytes(K, nh, itemsize, pass_units), heads)
 
 
-def vec_flags(x: Tensor, w: Tensor, out: Tensor) -> int:
+def vec_flags(x: Tensor, w: Tensor, out: Tensor, heads: int = 1) -> int:
     """The operands the kernel may copy in 16-byte chunks: x when its
     base is 16-byte aligned and its rows hold a multiple of 4 elements
     (then every 4-row unit starts aligned and the staged rows need no
-    padding), w and out when their base is aligned; the others go element
-    by element."""
+    padding), w and out when their base is aligned and, with several
+    heads, a head's columns fill whole 16-byte chunks (then each head's
+    rows start aligned); the others go element by element."""
+    nh = w.shape[1] // heads
+
+    def whole(t, itemsize):
+        return t.data_ptr() % 16 == 0 and (heads == 1
+                                           or nh * itemsize % 16 == 0)
+
     return ((VEC_X if x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0
              else 0)
-            | (VEC_W if w.data_ptr() % 16 == 0 else 0)
-            | (VEC_OUT if out.data_ptr() % 16 == 0 else 0))
+            | (VEC_W if whole(w, w.element_size()) else 0)
+            | (VEC_OUT if whole(out, 4) else 0))
 
 
 def _launch_scorer(name: str, argtypes, x: Tensor, w: Tensor, out: Tensor,
-                   *extra) -> None:
+                   heads: int, *extra) -> None:
     """Launch ``name`` on the plan of its shape and the card's SMs."""
     M, K = x.shape
     N = w.shape[1]
-    plan = score_plan(M, N, x.dtype, build.sm_count(x.device.index), K)
+    plan = score_plan(M, N, x.dtype, build.sm_count(x.device.index), K,
+                      heads)
     build.launch(name, argtypes, x, x.data_ptr(), w.data_ptr(),
-                 out.data_ptr(), M, K, N, *extra, plan.grid,
+                 out.data_ptr(), M, K, N, *extra, plan.grid, heads,
                  plan.pass_units, plan.threads, plan.smem_bytes,
-                 vec_flags(x, w, out))
+                 vec_flags(x, w, out, heads))
+
+
+def _check_heads(name: str, K: int, N: int, heads: int) -> None:
+    """The widths the CUDA kernel takes: K <= _MAX_K, and N in ``heads``
+    equal groups of at most _MAX_N columns; a ValueError names the limit
+    (there is no fallback)."""
+    if heads < 1 or N % heads:
+        raise ValueError(f"{name}: N={N} does not split into {heads} heads")
+    if K > _MAX_K or N // heads > _MAX_N:
+        raise ValueError(f"the CUDA kernel takes K <= {_MAX_K} and at most "
+                         f"{_MAX_N} columns a head; got K={K}, N={N} in "
+                         f"{heads} heads (pass heads= to split N)")
 
 
 def score_matmul_plain(flat: Tensor, wt: Tensor) -> Tensor:
@@ -173,27 +219,27 @@ def score_matmul_plain(flat: Tensor, wt: Tensor) -> Tensor:
     return torch.matmul(flat.to(torch.float32), wt.to(torch.float32))
 
 
-def score_matmul(flat: Tensor, wt: Tensor) -> Tensor:
-    """(M, K) block rows @ (K, N) per-offset weights -> (M, N) f32."""
+def score_matmul(flat: Tensor, wt: Tensor, heads: int = 1) -> Tensor:
+    """(M, K) block rows @ (K, N) per-offset weights -> (M, N) f32; N in
+    ``heads`` head-major groups, all scored by one launch."""
     _check_pair("score_matmul", flat, wt)
     if flat.dtype != wt.dtype or flat.dtype not in _DTYPE_CODES:
         raise ValueError(f"score_matmul takes two f32 or two bf16 inputs, "
                          f"got {flat.dtype} and {wt.dtype}")
     if flat.device.type == "cpu":
+        _check_heads("score_matmul", *wt.shape, heads)
         return score_matmul_plain(flat, wt)
     if flat.device.type != "cuda":
         raise ValueError(f"score_matmul: unsupported device {flat.device}")
     M, K = flat.shape
     N = wt.shape[1]
-    if K > _MAX_K or N > _MAX_N:
-        raise ValueError(f"the CUDA kernel takes K <= {_MAX_K}, N <= "
-                         f"{_MAX_N}; got K={K}, N={N}")
+    _check_heads("score_matmul", K, N, heads)
     if not (flat.is_contiguous() and wt.is_contiguous()):
         raise ValueError("score_matmul: inputs must be contiguous")
     out = torch.empty((M, N), dtype=torch.float32, device=flat.device)
     if M == 0:
         return out
-    _launch_scorer("score_matmul", _ARGTYPES, flat, wt, out,
+    _launch_scorer("score_matmul", _ARGTYPES, flat, wt, out, heads,
                    _DTYPE_CODES[flat.dtype])
     score_matmul.launches += 1
     return out
@@ -224,28 +270,27 @@ def score_matmul_int8_plain(q: Tensor, wq: Tensor) -> Tensor:
                         wq.to(torch.float32)).to(torch.int32)
 
 
-def score_matmul_int8(q: Tensor, wq: Tensor) -> Tensor:
+def score_matmul_int8(q: Tensor, wq: Tensor, heads: int = 1) -> Tensor:
     """(M, K) int8 block codes @ (K, N) int8 weight codes -> (M, N) int32,
-    exact."""
+    exact; N in ``heads`` head-major groups, all scored by one launch."""
     _check_pair("score_matmul_int8", q, wq)
     if q.dtype != torch.int8 or wq.dtype != torch.int8:
         raise ValueError(f"score_matmul_int8 takes two int8 inputs, got "
                          f"{q.dtype} and {wq.dtype}")
     if q.device.type == "cpu":
+        _check_heads("score_matmul_int8", *wq.shape, heads)
         return score_matmul_int8_plain(q, wq)
     if q.device.type != "cuda":
         raise ValueError(f"score_matmul_int8: unsupported device {q.device}")
     M, K = q.shape
     N = wq.shape[1]
-    if K > _MAX_K or N > _MAX_N:
-        raise ValueError(f"the CUDA kernel takes K <= {_MAX_K}, N <= "
-                         f"{_MAX_N}; got K={K}, N={N}")
+    _check_heads("score_matmul_int8", K, N, heads)
     if not (q.is_contiguous() and wq.is_contiguous()):
         raise ValueError("score_matmul_int8: inputs must be contiguous")
     out = torch.empty((M, N), dtype=torch.int32, device=q.device)
     if M == 0:
         return out
-    _launch_scorer("score_matmul_int8", _ARGTYPES_I8, q, wq, out)
+    _launch_scorer("score_matmul_int8", _ARGTYPES_I8, q, wq, out, heads)
     score_matmul_int8.launches += 1
     return out
 

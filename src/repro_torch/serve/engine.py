@@ -46,10 +46,9 @@ microbatcher, all configured by `ResilienceConfig` (inert defaults):
     after N consecutive failures, half-opens after a cooldown, and
     closes on the first healthy batch.
   * Degradation ladder: rolling p99 latency / queue depth drive a
-    hysteresis ladder full -> reduced pyramid scales; every response
-    carries `degraded_mode` and `stats` tracks the rung. (The
-    reference's full -> cascade -> coarse ladder, wired from a
-    CascadeDetector, is a later slice of the port: cascade.)
+    hysteresis ladder full -> cascade -> coarse (when a CascadeDetector
+    is wired) or full -> reduced pyramid scales (otherwise); every
+    response carries `degraded_mode` and `stats` tracks the rung.
   * Fault injection: `faults=FaultInjector(...)` (serve/faults.py)
     drives all of the above deterministically in the chaos tests;
     `faults=None` (default) is a no-op.
@@ -156,11 +155,6 @@ class DetectionService:
                  cascade: Optional[Any] = None,
                  metrics: Optional[MetricsConfig] = None,
                  device=None):
-        if cascade is not None:
-            raise NotImplementedError(
-                "DetectionService(cascade=...): the cascade and coarse "
-                "ladder rungs (core/cascade.py:CascadeDetector) are a "
-                "later slice of the port (cascade)")
         self.svm = svm
         self.batch = batch_size
         self.cfg = cfg
@@ -214,11 +208,16 @@ class DetectionService:
         self._breaker = CircuitBreaker(self.res.breaker_failures,
                                        self.res.breaker_reset_s)
         self._latency = RollingLatency(self.res.latency_window)
-        # ladder rungs from what this deployment can fall back to: the
-        # reduced-pyramid detector (same head, first scale only); the
-        # cascade -> coarse rungs come with the cascade slice
-        rungs = ("full", "reduced")
-        self._reduced = reduced_detector(self._detector)
+        # ladder rungs from what this deployment can fall back to: a
+        # wired CascadeDetector opens the cascade -> coarse rungs, else
+        # the reduced-pyramid detector (same head, first scale only)
+        self._cascade = cascade
+        if cascade is not None:
+            rungs = ("full", "cascade", "coarse")
+            self._reduced = None
+        else:
+            rungs = ("full", "reduced")
+            self._reduced = reduced_detector(self._detector)
         self._ladder = DegradationLadder(
             rungs, degrade_p99_ms=self.res.degrade_p99_ms,
             recover_p99_ms=self.res.recover_p99_ms,
@@ -640,8 +639,11 @@ class DetectionService:
     def _degraded_result(self, rung: str, frame: np.ndarray
                          ) -> Tuple[List[dict], bool]:
         """Serve one frame on a non-full ladder rung (core/cascade.py
-        degraded entry point; "reduced" is the only one until the
-        cascade slice). Returns (detections, saturated)."""
+        degraded entry points). Returns (detections, saturated)."""
+        if rung == "cascade":
+            return self._cascade.detect(frame), False
+        if rung == "coarse":
+            return self._cascade.detect_degraded(frame, "coarse"), False
         res = self._reduced.detect_raw(frame)
         return res.to_list(), bool(np.any(res.saturated))
 

@@ -270,12 +270,22 @@ def test_port_session_loads_in_the_reference(tmp_path):
 
 
 def test_multi_head_directory_is_refused(tmp_path):
+    """A reference registry directory (heads.json) is no longer refused:
+    it loads as a multi-head session with the reference's heads, and
+    detects what the reference's session loaded from it does."""
+    jcfg, tcfg = _configs()
     reg = HeadRegistry()
     reg.add("person", {"w": jnp.asarray(GOLDEN["svm_w"]),
-                       "b": jnp.asarray(GOLDEN["svm_b"])})
+                       "b": jnp.asarray(GOLDEN["svm_b"])}, threshold=0.2)
     reg.save(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="multi-head"):
-        DetectionSession.load(str(tmp_path), "paper", device="cpu")
+    sess = DetectionSession.load(str(tmp_path), tcfg, device="cpu")
+    assert sess.registry is not None and sess.registry.names == ("person",)
+    assert sess.detector.cfg.class_thresholds == (0.2,)
+    frame = _scene()
+    want = JSession.load(str(tmp_path), jcfg).detect(frame).to_list()
+    got = sess.detect(frame).to_list()
+    assert [(d["box"], d["label"]) for d in got] == \
+        [(d["box"], d["label"]) for d in want]
 
 
 def test_empty_directory_raises_file_not_found(tmp_path):

@@ -204,8 +204,13 @@ def test_svm_from_numpy_shapes_and_device():
     assert svm["b"].shape == () and svm["w"].device.type == "cpu"
     with pytest.raises(ValueError, match="expected w"):
         svm_from_numpy({"w": np.zeros(100), "b": 0.0}, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-head"):
-        svm_from_numpy({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
+    # K stacked heads: (K, F) weights and (K,) biases
+    stacked = svm_from_numpy({"w": g.normal(size=(2, 3780)),
+                              "b": np.asarray([0.5, -0.5])}, device="cpu")
+    assert stacked["w"].shape == (2, 3780) and stacked["b"].shape == (2,)
+    assert stacked["w"].dtype == torch.float32
+    with pytest.raises(ValueError, match="stacked"):
+        svm_from_numpy({"w": np.zeros((2, 3780)), "b": np.zeros(3)},
                        device="cpu")
 
 
@@ -239,11 +244,19 @@ def test_fixed_numerics_run_on_every_backend(backend):
 
 
 def test_unported_entry_points_raise():
-    """Multi-head weights and multi-device batches still raise, naming
-    their slice; the batched path runs (tests/test_torch_batch.py)."""
-    with pytest.raises(NotImplementedError, match="multi-head"):
+    """Multi-device batches still raise, naming their slice; stacked
+    multi-head weights run (tests/test_torch_multihead.py), and so does
+    the batched path (tests/test_torch_batch.py)."""
+    det = FrameDetector({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
+                        device="cpu")
+    assert det.heads == 2 and det.classes == ("head0", "head1")
+    assert det.detect_raw(np.zeros((200, 100), np.uint8)).to_list() == []
+    with pytest.raises(ValueError, match="class names"):
         FrameDetector({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
-                      device="cpu")
+                      device="cpu", classes=("a",))
+    with pytest.raises(NotImplementedError, match="frame_parallel"):
+        FrameDetector({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
+                      DetectorConfig(frame_parallel=0), device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
         FrameDetector(_svm(), DetectorConfig(data_parallel=2), device="cpu")
     det = FrameDetector(_svm(), device="cpu")

@@ -26,13 +26,15 @@ import repro_torch.platform, repro_torch.launch.detect
 import repro_torch.serve.engine, repro_torch.serve.resilience
 import repro_torch.serve.faults, repro_torch.obs.metrics
 import repro_torch.core.cascade, repro_torch.launch.serve
+import repro_torch.core.heads, repro_torch.convert
 import torch.profiler
 assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.checkpoint.manager", "repro_torch.data.mining",
          "repro_torch.platform", "repro_torch.launch.detect",
          "repro_torch.serve.engine", "repro_torch.serve.resilience",
          "repro_torch.serve.faults", "repro_torch.obs.metrics",
-         "repro_torch.core.cascade", "repro_torch.launch.serve"}} \
+         "repro_torch.core.cascade", "repro_torch.launch.serve",
+         "repro_torch.core.heads", "repro_torch.convert"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -94,6 +96,29 @@ def test_training_and_checkpoint_modules_stand_alone():
                           "--help"], capture_output=True, text=True,
                          timeout=120, cwd=ROOT, env=env)
     assert out.returncode == 0 and "--device" in out.stdout, out.stderr
+
+
+def test_multihead_and_cascade_modules_stand_alone():
+    """The registry, the cascade, results with a class axis and convert,
+    imported on their own, load neither JAX nor the reference package;
+    a registry stacks and a CPU cascade plans without either."""
+    probe = ("import sys; sys.path.insert(0, {src!r}); "
+             "import numpy as np; "
+             "from repro_torch.core.heads import HeadRegistry; "
+             "from repro_torch.core import cascade as c; "
+             "import repro_torch.api.results, repro_torch.convert; "
+             "r = HeadRegistry(); r.add('a', {{'w': np.ones(4), 'b': 0.0}}); "
+             "r.add('_b', {{'w': np.ones(4), 'b': 1.0}}); "
+             "print(r.stacked()[0]['w'].shape, c.plan_regions("
+             "np.asarray([[10., 10., 50., 40.]]), (100, 100)), "
+             "sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c",
+                          probe.format(src=str(ROOT / "src"))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "(1, 4) [(0, 0, 100, 72)] []", out.stdout
 
 
 def test_port_sources_name_no_reference_import():

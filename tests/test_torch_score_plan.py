@@ -10,8 +10,11 @@ thread makes a 4 x 4 micro-tile, and each bf16 or int8 warp mma tiles of
 Here ``emulate`` and ``emulate_mma`` run the same index arithmetic in
 numpy -- the staged rows, the micro-tile of each thread id with k in
 order, the fragments each lane loads, the padding of K and N, the flat
-store of each pass -- so a tiling error fails without a card.
+store of each pass -- so a tiling error fails without a card. Stacked
+heads (N = 105 K, a second grid axis) are checked the same way: every
+head's columns against that head scored alone.
 """
+import dataclasses
 import importlib.util
 import pathlib
 import re
@@ -164,7 +167,8 @@ def test_plan_matches_the_compiled_kernel():
                  r"units\) \* grid >= \(1LL << 31\)",
                  r"pass_units != \(umax \+ npass - 1\) / npass",
                  r"threads != \(pass_units \* NG \+ 31\) / 32 \* 32",
-                 r"smem_bytes != layout<T>\(K, N, pass_units\).total"):
+                 r"smem_bytes != layout<T>\(K, NH, pass_units\).total",
+                 r"dim3\(grid, heads\)", r"N /= heads;"):
         assert re.search(expr, src), expr
     for name, argtypes in (("score_matmul", sm._ARGTYPES),
                            ("score_matmul_int8", sm._ARGTYPES_I8)):
@@ -173,7 +177,7 @@ def test_plan_matches_the_compiled_kernel():
         assert "__launch_bounds__(score::MAX_THREADS, 1)" in cu
         args = re.search(rf"int {name}_launch\(([^)]*)\)", cu)[1]
         assert len(args.split(",")) == len(argtypes)
-    assert len(sm._ARGTYPES) == 13 and len(sm._ARGTYPES_I8) == 12
+    assert len(sm._ARGTYPES) == 14 and len(sm._ARGTYPES_I8) == 13
 
 
 def test_vec_flags_follow_alignment():
@@ -468,3 +472,138 @@ def test_plan_at_a_batch_gives_each_frame_its_own_rows(size, B, dt):
             want = sm.score_matmul_plain(xt[rows], wt).numpy()
             np.testing.assert_allclose(got[rows], want, rtol=0,
                                        atol=chip_smoke.MATMUL_ATOL[dt])
+
+
+# ------------------------------------------------------- stacked heads
+
+def _coarse_rows():
+    """Block rows of each level of the cascade's coarse sweep of a
+    640x480 frame (scales 0.5, 0.4, 0.32 of the 480x640 bucket)."""
+    out = []
+    for sc in (0.5, 0.4, 0.32):
+        sh, sw = int(480 * sc), int(640 * sc)
+        out.append(_rows(1, (sh - 2) // 8 * 8 + 2, (sw - 2) // 8 * 8 + 2))
+    return out
+
+
+COARSE_N = 21                           # 7 x 3 blocks of a 66x34 window
+HEAD_MS = LEVELS["640x480"] + LEVELS["1280x720"]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("heads", range(1, 9))
+def test_widened_plan_splits_the_card_between_heads(heads, dt):
+    """K = 1..8 heads of 105 columns at every 640x480 and 1280x720 level:
+    one launch of K x grid CTAs, at most one per SM, each head's grid
+    covering every row once; a CTA's shared memory and threads are the
+    one-head plan's at its pass size, whatever K."""
+    for M in HEAD_MS:
+        plan = sm.score_plan(M, N * heads, DTYPES[dt], heads=heads)
+        units = -(-M // 4)
+        assert plan.nh == N and plan.heads == heads
+        assert plan.grid == min(max(1, sm.SMS // heads), units)
+        assert plan.ctas <= sm.SMS and plan.ctas > sm.SMS - heads
+        one = sm.score_plan(M, N, DTYPES[dt], sms=plan.grid)
+        assert (one.grid, one.pass_units, one.threads, one.smem_bytes) == \
+            (plan.grid, plan.pass_units, plan.threads, plan.smem_bytes)
+        seen = np.zeros(M, np.int32)
+        for b in range(plan.grid):
+            r0, r1 = plan.span(b)
+            seen[r0:r1] += 1
+        assert (seen == 1).all()
+        assert plan.smem_bytes <= build.SMEM_OPTIN
+        if heads == 1:
+            assert plan == sm.score_plan(M, N, DTYPES[dt])
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_coarse_head_plan(dt):
+    """The cascade's coarse head scores 21 columns: one head of 21, its
+    levels' rows over the card as any single head's."""
+    rows = _coarse_rows()
+    assert rows == [1064, 660, 408]
+    for M in rows:
+        plan = sm.score_plan(M, COARSE_N, DTYPES[dt])
+        assert plan.grid == min(sm.SMS, -(-M // 4)) and plan.heads == 1
+        assert plan.smem_bytes <= build.SMEM_DEFAULT
+        _check(plan, dt, *_operands(M, K, COARSE_N, dt, seed=M))
+
+
+def _emulate_heads(plan, dt, xn, wn, ctas=None):
+    """score::run with the head axis in numpy: CTA (b, h) is the one-head
+    body on head h's (K, NH) weights, its outputs at columns h*NH on."""
+    nh = plan.nh
+    one = dataclasses.replace(plan, N=nh, heads=1)
+    return np.concatenate([_emulate(one, dt, xn, wn[:, h * nh:(h + 1) * nh],
+                                    ctas) for h in range(plan.heads)], axis=1)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("heads", [2, 3, 8])
+def test_widened_heads_equal_each_head_alone(heads, dt):
+    """Each head's (M, 105) block of the widened product equals, bit for
+    bit, that head scored alone on the one-head plan (the emulated CTAs:
+    first, middle, last of the widened grid; every row at the smallest
+    level), and the plain version of the widened product within
+    chip_smoke.py's limits (int8 exactly)."""
+    for M in LEVELS["640x480"]:
+        plan = sm.score_plan(M, N * heads, DTYPES[dt], heads=heads)
+        xn, wn, xt, wt = _operands(M, K, N * heads, dt, seed=M + heads)
+        ctas = None if M == LEVELS["640x480"][-1] else \
+            sorted({0, plan.grid // 2, plan.grid - 1})
+        got = _emulate_heads(plan, dt, xn, wn, ctas)
+        rows = np.concatenate([np.arange(*plan.span(c)) for c in (
+            ctas if ctas is not None else range(plan.grid))])
+        single = sm.score_plan(M, N, DTYPES[dt])
+        cover = [s for s in range(single.grid)
+                 if single.span(s)[0] < rows.max() + 1
+                 and single.span(s)[1] > rows.min()]
+        for h in range(heads):
+            alone = _emulate(single, dt, xn, wn[:, h * N:(h + 1) * N], cover)
+            np.testing.assert_array_equal(got[rows, h * N:(h + 1) * N],
+                                          alone[rows])
+        if dt == "int8":
+            np.testing.assert_array_equal(
+                got[rows], sm.score_matmul_int8_plain(xt[rows], wt).numpy())
+        else:
+            np.testing.assert_allclose(
+                got[rows], sm.score_matmul_plain(xt[rows], wt).numpy(),
+                rtol=0, atol=chip_smoke.MATMUL_ATOL[dt])
+
+
+def test_vec_flags_with_heads():
+    """A head's 105 columns start at h * 420 bytes (f32 outputs, f32
+    weights), off the 16-byte grid: its weights and outputs go element by
+    element; heads of 128 columns keep their 16-byte copies, and so does
+    one head of any width."""
+    x = torch.zeros((133, K))
+    for heads, nh, want in ((3, 105, sm.VEC_X), (2, 128, 7), (1, 315, 7)):
+        w = torch.zeros((K, nh * heads))
+        out = torch.zeros((133, nh * heads))
+        assert sm.vec_flags(x, w, out, heads) == want
+    # int8 weights of 16 columns a head fill whole chunks; the int32
+    # outputs of 16 columns do too
+    w8 = torch.zeros((K, 32), dtype=torch.int8)
+    assert sm.vec_flags(torch.zeros((8, K), dtype=torch.int8), w8,
+                        torch.zeros((8, 32), dtype=torch.int32), 2) == 7
+
+
+def test_widened_shapes_the_kernel_does_not_take():
+    """N must split into the heads, each of at most 128 columns; the
+    wrappers refuse the rest on any device, naming the limit."""
+    with pytest.raises(ValueError, match="plan"):
+        sm.score_plan(4524, 316, torch.float32, heads=3)
+    with pytest.raises(ValueError, match="128 columns"):
+        sm.score_plan(4524, 129 * 2, torch.float32, heads=2)
+    x = torch.zeros((8, K))
+    with pytest.raises(ValueError, match="128 columns a head"):
+        sm.score_matmul(x, torch.zeros((K, 210)))
+    with pytest.raises(ValueError, match="split"):
+        sm.score_matmul(x, torch.zeros((K, 210)), heads=4)
+    got = sm.score_matmul(x, torch.zeros((K, 210)), heads=2)
+    assert got.shape == (8, 210)
+    q = torch.zeros((8, K), dtype=torch.int8)
+    with pytest.raises(ValueError, match="128 columns a head"):
+        sm.score_matmul_int8(q, torch.zeros((K, 315), dtype=torch.int8))
+    assert sm.score_matmul_int8(q, torch.zeros((K, 315), dtype=torch.int8),
+                                heads=3).shape == (8, 315)

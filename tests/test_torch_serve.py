@@ -42,8 +42,9 @@ from repro.core.pipeline import classify_windows as j_classify
 from repro_torch.api import (DetectionSession, PipelineConfig,
                              ServiceConfig, presets, register_preset)
 from repro_torch.convert import config_from_reference_dict
-from repro_torch.core.cascade import reduced_detector
+from repro_torch.core.cascade import CascadeConfig, reduced_detector
 from repro_torch.core.detector import FrameDetector
+from repro_torch.core.heads import HeadRegistry
 from repro_torch.data.synth_pedestrian import make_scene, make_windows
 from repro_torch.data.synth_pedestrian import PedestrianDataConfig
 from repro_torch.obs.metrics import MetricsConfig
@@ -219,11 +220,19 @@ def test_session_serve_wiring():
                      frame_batch=5)
     assert own._detector is not sess.detector and own.frame_batch == 5
     assert own.device == sess.device
-    with pytest.raises(NotImplementedError, match="cascade"):
-        sess.serve(cascade=object())
+    # a wired cascade opens the cascade and coarse rungs; a cascade
+    # config wires the session's own, its coarse head from the registry
+    casc = sess.serve(cascade=object())
+    assert casc._ladder.rungs == ("full", "cascade", "coarse")
+    assert casc._reduced is None
     cascade = config_from_reference_dict(j_presets("cascade").to_dict())
-    with pytest.raises(NotImplementedError, match="cascade"):
-        DetectionSession(SVM, cascade, device="cpu").serve()
+    reg = HeadRegistry()
+    reg.add("person", SVM)
+    reg.add("_coarse", {"w": np.zeros(756, np.float32), "b": 0.0})
+    svc = DetectionSession(reg, cascade, device="cpu").serve()
+    assert svc._ladder.rungs == ("full", "cascade", "coarse")
+    assert svc._cascade.coarse.cfg.hog.window_h == 66
+    assert svc._cascade.fine is svc._detector
     assert DetectionService(SVM, frame_detector=sess.detector,
                             device="cpu")._detector is sess.detector
 
@@ -247,7 +256,8 @@ def test_every_reference_preset_round_trips(name):
     if name == "resilient":
         assert cfg.service.resilience.deadline_ms == 500.0
         assert cfg.service.resilience.degrade_p99_ms == 120.0
-        assert cfg.cascade["enabled"] is True
+        assert cfg.cascade.enabled is True
+        assert isinstance(cfg.cascade, CascadeConfig)
 
 
 def test_register_preset():

@@ -432,15 +432,20 @@ def test_platform_seed_and_describe():
 
 
 def test_later_slices_raise_naming_their_slice():
-    """The cascade is a later slice: session.cascade() and serving a
-    cascade-enabled config (whose ladder would need the cascade rungs)
-    raise naming it; serving any other config builds the service
-    (tests/test_torch_serve.py)."""
+    """The cascade runs: session.cascade() with given coarse params builds
+    the scheduler over the session's detector, and serving a
+    cascade-enabled config opens the cascade rungs (a coarse head trained
+    on the session's device when none is given;
+    tests/test_torch_cascade.py holds both to the reference)."""
     svm = {"w": GOLDEN["svm_w"], "b": GOLDEN["svm_b"]}
     sess = DetectionSession(svm, "paper", device="cpu")
     assert sess.serve().device.type == "cpu"
+    casc = sess.cascade(coarse_svm={"w": np.zeros(756, np.float32),
+                                    "b": np.float32(-1.0)})
+    assert casc.fine is sess.detector and casc.coarse.device == sess.device
+    assert casc.detect(np.zeros((240, 320, 3), np.uint8)) == []
+    assert casc.stats["frames_empty"] == 1
     cascade = config_from_reference_dict(j_presets("cascade").to_dict())
-    with pytest.raises(NotImplementedError, match="cascade"):
-        DetectionSession(svm, cascade, device="cpu").serve()
-    with pytest.raises(NotImplementedError, match="cascade"):
-        sess.cascade()
+    svc = DetectionSession(svm, cascade, device="cpu").serve()
+    assert svc._ladder.rungs == ("full", "cascade", "coarse")
+    assert svc._cascade.coarse.svm["w"].shape == (756,)
