@@ -107,6 +107,21 @@ Phases, each of which exits non-zero on failure:
      --save then --load printing the same detections without training;
      counters reset before each path (evaluation, mining, CLI) and read
      after it;
+  4i. the tiled path: each dense kernel against its plain version at the
+     three levels of a 3840x2160 frame, the slabs a tile computes and a
+     batch of 8 level-1.0 frames, in every mode; the uhd preset (banded
+     resize, auto-K 954) on one seeded 3840x2160 scene, untiled on the
+     card with the "kernel" backend and with perf's and quant's numerics
+     on the fused one, counters reset before each and read after: kept
+     boxes against the CPU session (near-ties within the tolerance
+     allowed to swap, and counted), every banded level equal to the
+     CPU's bit for bit, ms/frame, launches, busy ms, n_valid, saturation,
+     each dense kernel's device ms a frame and the 954-step NMS alone;
+     the same frame tiled over 4 logical devices (REPRO_TEST_DEVICES;
+     slab fp 2 and 4, scale fp 2, banded and matmul) equal to the untiled
+     card result bit for bit; sharded batches of 7 640x480 scenes (dp =
+     the cards, and dp 2 with a pad frame) equal to the paper preset's
+     detect_batch bit for bit;
   3c. flash_attention against its plain version on the card (and, causal,
      against the port's _sdpa with the causal mask) at the reference's
      flash-test shapes, a ragged S = 100, one bf16 shape at hd 32, and
@@ -356,6 +371,23 @@ PATH_KERNELS.update({n: PATH_KERNELS[d] + PATH_KERNELS[w]
 PATH_KERNELS.update({f"multihead {c}": PATH_KERNELS[c] for c in MH_CONFIGS})
 PATH_KERNELS["cascade+kernel"] = PATH_KERNELS["paper+kernel"]
 PATH_KERNELS["resilient+kernel"] = PATH_KERNELS["paper+kernel"]
+# the tiled path: the uhd preset (banded resize, auto-K) on one seeded
+# 3840x2160 scene, untiled on the card (frame_parallel 0 resolves to the
+# one card) in three numerics, then tiled over REPRO_TEST_DEVICES logical
+# devices on the card, tiles one after another; and sharded batches
+UHD_CONFIGS = {"uhd+kernel": ("paper", "kernel", "f32"),
+               "uhd perf": ("perf", "fused", "bf16"),
+               "uhd quant": ("quant", "fused", "int8")}
+PATH_KERNELS.update({n: PATH_KERNELS[{"kernel": "paper+kernel"}.get(
+    b, p)] for n, (p, b, _) in UHD_CONFIGS.items()})
+PATH_KERNELS["tiled uhd+kernel"] = PATH_KERNELS["paper+kernel"]
+PATH_KERNELS["sharded paper+kernel"] = PATH_KERNELS["paper+kernel"]
+UHD = (2160, 3840)
+UHD_SEED, UHD_PEOPLE = 42, 8
+UHD_REPS = 3                   # ms/frame: warm-up, then 3 frames
+TILE_DEVICES = 4               # REPRO_TEST_DEVICES of the tiled runs
+TILED_CASES = (("slab", 2), ("slab", 4), ("scale", 2))
+SHARDED_B, SHARDED_DP = 7, 2   # the pad path: 7 frames over 2 devices
 # each client thread's traffic: 640x480 and 1280x720 seeded scenes (the
 # second bucket parks in the backlog), make_windows windows, and one
 # malformed frame of each of serve/faults.py:malformed_frame's kinds
@@ -3097,6 +3129,296 @@ def serve_path(torch, np, configs, svm) -> dict:
 
 # ------------------------------------------------------------- phase 5
 
+# ------------------------------------------------------------- phase 4i
+
+def check_uhd_kernels(torch, np, summary) -> None:
+    """Each dense kernel against its plain version at the shapes the tiled
+    path gives it: the three levels of a 3840x2160 frame, the slabs a tile
+    computes (fp 4 and 2 at level 1.0: 634 and 1,146 rows; fp 4 at 0.64)
+    and a batch of KERNEL_BATCH level-1.0 frames (a scorer output of
+    108M floats), in every mode; the limits of phase 3, fused equal to the
+    pair bit for bit. The worst errors join ``summary`` (the kernels
+    line's err is the worst at any shape)."""
+    import repro_torch.core.quant as quant
+    import repro_torch.kernels.dense_block_norm as dbn
+    import repro_torch.kernels.dense_grad_hist as dgh
+    import repro_torch.kernels.fused_hog as fh
+    import repro_torch.kernels.svm_matmul as sm
+
+    gw = np.load(ROOT / "tests" / "golden" / "hog_golden.npz")["svm_w"]
+    wt32 = torch.from_numpy(gw).to(DEV).reshape(105, 36).T.contiguous()
+    wq = quant.quantize_weight_columns(wt32)[0].contiguous()
+    levels = level_shapes(*UHD)
+    shapes = [(1,) + s for s in levels]
+    for fp, i in ((4, 0), (2, 0), (4, 2)):
+        sph = (levels[i][0] - 2) // 8 - 15
+        shapes.append((1, (-(-sph // fp) + 15) * 8 + 2, levels[i][1]))
+    shapes.append((KERNEL_BATCH,) + levels[0])
+    rng = np.random.default_rng(3)
+    worst = {}
+
+    def note(k, mode, e):
+        worst[(k, mode)] = max(worst.get((k, mode), 0.0), e)
+
+    for shape in shapes:
+        # the batch checks the two modes that feed the scorers; every
+        # mode at one frame's shapes
+        modes = (("sector", "fixed") if shape[0] > 1 else tuple(MODE_NORMS))
+        for mode in modes:
+            norm = MODE_NORMS[mode]
+            gray = torch.from_numpy(
+                (rng.integers(0, 256, shape) if mode == "fixed"
+                 else rng.uniform(0, 255, shape)).astype(np.float32)).to(DEV)
+            hist = dgh.dense_grad_hist(gray, mode=mode)
+            want = dgh.dense_grad_hist_plain(gray, mode=mode)
+            diff = (hist.float() - want.float()).abs()
+            note("dense_grad_hist", mode, float(diff.max()))
+            need(torch.equal(hist, want) if mode == "fixed" else
+                 bool((diff <= HIST_ATOL + HIST_RTOL * want.abs()).all()),
+                 f"dense_grad_hist {mode} {shape}: max err {diff.max()}")
+            blocks = dbn.dense_block_norm(hist, mode=norm)
+            fused = fh.dense_fused_hog(gray, mode=mode)
+            need(torch.equal(fused, blocks), f"dense_fused_hog {mode} "
+                 f"{shape}: not the pair's output bit for bit")
+            for k, m, want in (
+                    ("dense_block_norm", norm,
+                     dbn.dense_block_norm_plain(hist, mode=norm)),
+                    ("dense_fused_hog", mode,
+                     fh.dense_fused_hog_plain(gray, mode=mode))):
+                e = float((blocks - want).abs().max())
+                note(k, m, e)
+                need(code_flips(blocks, want) <= 1e-3 * want.numel()
+                     if mode == "fixed" else e <= BLOCK_ATOL,
+                     f"{k} {m} {shape}: max err {e}")
+            flat = blocks.reshape(-1, 36)
+            if mode == "fixed":
+                q = quant.quantize_blocks(flat)[0]
+                need(torch.equal(sm.score_matmul_int8(q, wq),
+                                 sm.score_matmul_int8_plain(q, wq)),
+                     f"score_matmul_int8 {shape}: not its plain version")
+                note("score_matmul_int8", "int8", 0.0)
+                continue
+            for dname, dt in (("f32", torch.float32),
+                              ("bf16", torch.bfloat16)):
+                x, w = flat.to(dt).contiguous(), wt32.to(dt).contiguous()
+                e = float((sm.score_matmul(x, w)
+                           - sm.score_matmul_plain(x, w)).abs().max())
+                note("score_matmul", dname, e)
+                need(e <= MATMUL_ATOL[dname],
+                     f"score_matmul {dname} {shape}: {e}")
+            del gray, hist, want, blocks, fused, flat
+    torch.cuda.synchronize()
+    for (k, mode), e in worst.items():
+        entry = summary[k].setdefault(mode, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], e)
+    print(f"  uhd kernels = plain at {len(levels)} levels of "
+          f"{UHD[1]}x{UHD[0]}, slabs of " + "/".join(
+              str(s[1]) for s in shapes[3:-1]) + f" rows, B{KERNEL_BATCH} "
+          f"level 1.0, every mode (fused = pair bit for bit); worst err "
+          + ", ".join(f"{k.replace('dense_', '')} " + format(max(
+              e for (kk, _), e in worst.items() if kk == k), ".1e")
+                      for k in dict.fromkeys(k for k, _ in worst)),
+          flush=True)
+
+
+def same_kept(got, ref, tol: float, iou_thr: float) -> int:
+    """The card's kept boxes (``got``, a Detections) against the CPU's
+    (``ref``): the same boxes in the same order, scores within ``tol``;
+    or, where two candidates' scores lie within 2 tol (a near-tie the
+    tolerance allows to swap), the same boxes but for such pairs: a
+    pair in the other order, one of an overlapping pair (IoU > the NMS
+    threshold) kept instead of the other, or a box at the top-k's edge
+    (within 2 tol of the other side's last candidate). Returns the boxes
+    a near-tie placed; fails on anything else."""
+    g, c = got.to_list(), ref.to_list()
+    sg = {d["box"]: d["score"] for d in g}
+    sc = {d["box"]: d["score"] for d in c}
+    for b in sg.keys() & sc.keys():
+        need(abs(sg[b] - sc[b]) <= tol, f"box {b}: score {sg[b]} on the "
+             f"card, {sc[b]} on the CPU (tol {tol})")
+    if [d["box"] for d in g] == [d["box"] for d in c]:
+        return 0
+    placed = set()
+    pg = {d["box"]: i for i, d in enumerate(g)}
+    pc = {d["box"]: i for i, d in enumerate(c)}
+    common = sorted(sg.keys() & sc.keys(), key=pg.get)
+    for i, a in enumerate(common):          # pairs in the other order
+        for b in common[i + 1:]:
+            if pc[a] > pc[b]:
+                need(abs(sg[a] - sg[b]) <= 2 * tol, f"boxes {a} and {b} "
+                     f"swap order with scores {sg[a]} and {sg[b]}")
+                placed.update((a, b))
+
+    def iou(a, b):
+        h = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+        w = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+        inter = h * w
+        area = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0])
+                * (b[3] - b[1]) - inter)
+        return inter / max(area, 1e-9)
+
+    for mine, other, det in ((sg, sc, ref), (sc, sg, got)):
+        edge = float(det._scores.cpu().min())
+        for a in mine.keys() - other.keys():
+            partner = any(iou(a, b) > iou_thr
+                          and abs(mine[a] - other[b]) <= 2 * tol
+                          for b in other.keys() - mine.keys())
+            need(partner or abs(mine[a] - edge) <= 2 * tol,
+                 f"box {a} (score {mine[a]}) kept on one side only, with "
+                 f"no near-tie that explains it ({len(sg)} vs {len(sc)} "
+                 f"kept)")
+            placed.add(a)
+    return len(placed)
+
+
+def tiled_path(torch, np, svm, summary) -> dict:
+    """Phase 4i: the uhd preset on one seeded 3840x2160 scene, untiled on
+    the card (frame_parallel 0 is the one card) with the "kernel"
+    backend, perf's and quant's numerics on the fused one, counters reset
+    before each and read after; kept boxes against the CPU session
+    (SCORE_TOL), each banded level equal to the CPU's bit for bit;
+    ms/frame, launches, busy ms, K, n_valid, saturation, each dense
+    kernel's device ms a frame and the K-step NMS alone. Then the same
+    frame tiled over TILE_DEVICES logical devices (REPRO_TEST_DEVICES):
+    slab fp 2 and 4 and scale fp 2, banded and matmul, each equal to the
+    untiled card result bit for bit; then sharded batches of 640x480
+    scenes (the sharded preset over the cards there are, and dp 2 over
+    7 frames) equal to the paper preset's detect_batch bit for bit."""
+    import repro_torch.api as api
+    import repro_torch.data.synth_pedestrian as synth
+    import repro_torch.kernels as kernels
+    from repro_torch.core.detector import FrameDetector, _prep_frame
+
+    check_uhd_kernels(torch, np, summary)
+    scene = synth.make_scene(np.random.default_rng(UHD_SEED), *UHD,
+                             n_people=UHD_PEOPLE)[0]
+
+    def config(base, preset, backend):
+        cfg = api.presets(preset)
+        return base.replace(hog=cfg.hog, detector=dataclasses.replace(
+            base.detector, hog=cfg.hog, backend=backend,
+            score_threshold=THRESHOLD))
+
+    launches, untiled, text, dev_ms, first = {}, {}, [], [], None
+    for name, (preset, backend, dt) in UHD_CONFIGS.items():
+        cfg = config(api.presets("uhd"), preset, backend)
+        gpu = api.DetectionSession(svm, cfg, device=DEV)
+        cpu = api.DetectionSession(svm, cfg, device="cpu")
+        need(gpu.detector.frame_devices == torch.cuda.device_count(),
+             f"{name}: frame_parallel 0 did not resolve to the cards")
+        kernels.reset_launches()
+        d = gpu.detect(scene).block_until_ready()
+        launches[name] = check_launches(name, kernels.launch_counts())
+        on_cpu = cpu.detect(scene)
+        got, ref = d.to_list(), on_cpu.to_list()
+        need(len(got) >= 3, f"{name}: only {len(got)} boxes kept")
+        ties = same_kept(d, on_cpu, SCORE_TOL[dt], cfg.detector.nms_iou)
+        sc = {x["box"]: x["score"] for x in ref}
+        de = max(abs(x["score"] - sc[x["box"]]) for x in got
+                 if x["box"] in sc)
+        untiled[name] = got
+        lv = []
+        for sess in (gpu, cpu):
+            prog, ph, pw = sess.detector.program_for(*UHD)
+            gray = _prep_frame(torch.as_tensor(scene).to(sess.device),
+                               *UHD, ph, pw)
+            lv.append([g.cpu() for g in [gray] + prog.pyramid(gray)[1:]])
+        need(all(torch.equal(a, b) for a, b in zip(*lv)),
+             f"{name}: a banded level differs from the CPU's")
+        t0 = time.perf_counter()
+        for _ in range(UHD_REPS):
+            gpu.detect(scene).block_until_ready()
+        ms = (time.perf_counter() - t0) * 1e3 / UHD_REPS
+        times = device_times(
+            torch, lambda: gpu.detect(scene).block_until_ready(), 1)
+        busy = sum(t for _, t in times.values()) / 1e3
+        text.append(f"{name} {ms:.1f} {sum(c for c, _ in times.values())} "
+                    f"{busy:.2f} {len(got)} ({ties}) {de:.0e} "
+                    f"{int(d._n_valid)} {int(d.saturated)}")
+        first = first or gpu
+        per = {k: sum(t for n, (_, t) in times.items() if k + "_kernel" in n)
+               for k in PATH_KERNELS[name]}
+        dev_ms.append(" ".join(f"{k.replace('dense_', '')} {us / 1e3:.3f}"
+                               for k, us in per.items()))
+    prog = gpu.detector.program_for(*UHD)[0]
+    print(f"  uhd {UHD[1]}x{UHD[0]} K {prog.k} of {prog.n_positions}, "
+          f"levels = CPU bit for bit; ms/frame launches busy-ms kept (= "
+          f"CPU; near-tie swaps) delta n_valid saturated: " + "; ".join(text),
+          flush=True)
+    # each stage alone (the K-step top-k + NMS on K of the frame's
+    # positions), and each dense kernel's device ms in a frame
+    split = frame_split(torch, np, first, *UHD)
+    print("  uhd split ms (uhd+kernel): " + " ".join(
+        f"{k[:-3]} {v:.3f}" for k, v in split.items())
+          + "; kernels' device ms/frame: " + "; ".join(dev_ms), flush=True)
+
+    # tiled on the card: every tile, one after another, on the one card
+    base = config(api.presets("uhd"), "paper", "kernel").detector
+    want = {"banded": untiled["uhd+kernel"],
+            "matmul": FrameDetector(svm, dataclasses.replace(
+                base, pyramid_resize="matmul"), device=DEV)
+            .detect_raw(scene).to_list()}
+    os.environ["REPRO_TEST_DEVICES"] = str(TILE_DEVICES)
+    try:
+        kernels.reset_launches()
+        tiled_ms = {}
+        for resize in ("banded", "matmul"):
+            for mode, fp in TILED_CASES:
+                det = FrameDetector(svm, dataclasses.replace(
+                    base, pyramid_resize=resize, tile_mode=mode,
+                    frame_parallel=fp), device=DEV)
+                t0 = time.perf_counter()
+                got = det.detect_raw(scene).to_list()
+                tiled_ms[(resize, mode, fp)] = (time.perf_counter()
+                                                - t0) * 1e3
+                need(det._tiled_steps, f"{resize} {mode} fp {fp}: untiled")
+                need(got == want[resize], f"tiled {resize} {mode} fp {fp}: "
+                     f"not the untiled card result bit for bit")
+        launches["tiled uhd+kernel"] = check_launches(
+            "tiled uhd+kernel", kernels.launch_counts())
+    finally:
+        os.environ.pop("REPRO_TEST_DEVICES")
+    print(f"  tiled uhd+kernel, {TILE_DEVICES} logical devices on one card:"
+          f" " + ", ".join(f"{m} fp{fp}" for m, fp in TILED_CASES)
+          + " x banded/matmul = untiled card to_list() bit for bit "
+          f"({len(want['banded'])}/{len(want['matmul'])} kept); first-call "
+          f"ms " + " ".join(f"{v:.0f}" for v in tiled_ms.values()),
+          flush=True)
+
+    # sharded batches: the cards there are, then dp 2 with a pad frame
+    frames = [synth.make_scene(np.random.default_rng(50 + i), 480, 640,
+                               n_people=3)[0] for i in range(SHARDED_B)]
+    want = api.DetectionSession(svm, config(
+        api.presets("paper"), "paper", "kernel"), device=DEV
+    ).detect_batch(frames).to_list()
+    sharded = config(api.presets("sharded"), "paper", "kernel")
+    sess = api.DetectionSession(svm, sharded, device=DEV)
+    need(sess.data_devices == torch.cuda.device_count(),
+         "the sharded preset did not resolve to the cards")
+    kernels.reset_launches()
+    got = [sess.detect_batch(frames).to_list()]
+    os.environ["REPRO_TEST_DEVICES"] = str(SHARDED_DP)
+    try:
+        two = api.DetectionSession(svm, sharded.replace(
+            detector=dataclasses.replace(sharded.detector,
+                                         data_parallel=SHARDED_DP)),
+            device=DEV)
+        got.append(two.detect_batch(frames).to_list())
+        launches["sharded paper+kernel"] = check_launches(
+            "sharded paper+kernel", kernels.launch_counts())
+    finally:
+        os.environ.pop("REPRO_TEST_DEVICES")
+    need(all(g == want for g in got),
+         "a sharded batch differs from the paper preset's detect_batch")
+    print(f"  sharded paper+kernel 640x480 B{SHARDED_B}: dp "
+          f"{torch.cuda.device_count()} (the cards) and dp {SHARDED_DP} "
+          f"(one pad frame) = paper detect_batch bit for bit "
+          f"({sum(map(len, want))} kept)", flush=True)
+    print("  " + launch_line(launches), flush=True)
+    return launches
+
+
 def smoke_leaves(np, cfg, seed: int) -> dict:
     """The reference's LM parameter tree at ``cfg``'s size as numpy
     arrays, layers stacked on axis 0, with its distributions (normal x
@@ -3474,6 +3796,8 @@ def main() -> int:
         launches.update(serve_path(torch, np, configs, svm))
         print("cascade path:", flush=True)
         launches.update(cascade_path(torch, np, svm))
+        print("tiled path:", flush=True)
+        launches.update(tiled_path(torch, np, svm, summary))
         print("LM path:", flush=True)
         lm_launches, flash_routes = lm_path(torch, np)
         launches.update(lm_launches)

@@ -8,9 +8,11 @@ repro/api/config.py.
 ``cascade`` (core/cascade.py:CascadeConfig) configs, so a reference
 ``PipelineConfig.to_dict()`` loads and dumps back equal.
 
-Presets: "default", "paper", "faithful", "perf", "quant", "cascade" and
-"resilient" (from configs/hog_svm.py); ``register_preset`` adds
-deployment-local ones. "cascade" turns on the two-stage scheduler
+Presets: "default", "paper", "faithful", "perf", "sharded", "uhd",
+"quant", "cascade" and "resilient" (from configs/hog_svm.py);
+``register_preset`` adds deployment-local ones. "sharded" lays batches
+over every visible device, "uhd" tiles one big frame over them with the
+banded resize (core/detector.py). "cascade" turns on the two-stage scheduler
 (``DetectionSession.cascade``); "resilient" is the serving-SLO
 deployment: 500 ms request budgets, retry with backoff, a 5-failure
 breaker, and the cascade-backed ladder full -> cascade -> coarse (p99 >=
@@ -149,6 +151,26 @@ _PRESETS: Dict[str, PipelineConfig] = {
         name="perf", hog=hog_svm.PERF,
         detector=DetectorConfig(hog=hog_svm.PERF, score_threshold=0.5,
                                 backend="fused", batch_chunk=0),
+        train=hog_svm.TRAIN),
+    # the paper numerics on every visible device: the frame batch over
+    # the data axis, each device's schedule autotuned
+    # (repro/api/config.py:205-211)
+    "sharded": PipelineConfig(
+        name="sharded", hog=hog_svm.CONFIG,
+        detector=DetectorConfig(hog=hog_svm.CONFIG, score_threshold=0.5,
+                                data_parallel=0, batch_chunk=0),
+        train=hog_svm.TRAIN),
+    # single-frame latency on big frames: every visible device tiles one
+    # frame's pyramid (row slabs) with the banded resize; frames below
+    # 1280x720 keep the untiled program, and auto-K grows top-k with the
+    # window grid (repro/api/config.py:212-221)
+    "uhd": PipelineConfig(
+        name="uhd", hog=hog_svm.CONFIG,
+        detector=DetectorConfig(hog=hog_svm.CONFIG, score_threshold=0.5,
+                                frame_parallel=0, tile_mode="slab",
+                                pyramid_resize="banded",
+                                frame_parallel_min_area=1280 * 720,
+                                batch_chunk=0),
         train=hog_svm.TRAIN),
     # the fixed-point datapath, fused dense backend
     # (repro/api/config.py:229-233)

@@ -199,9 +199,17 @@ class DetectionSession:
     def detect_batch(self, frames, classes=None) -> Detections:
         """Stacked (B, H, W[, 3]) array or frame list -> one batched
         Detections; all frames in one shape bucket (the detector's
-        contract). ``classes`` as in ``detect``."""
+        contract). With ``config.detector.data_parallel != 1`` the batch
+        runs sharded, B / n_devices frames a device (zero frames pad a B
+        that does not divide; results equal one device's bit for bit).
+        ``classes`` as in ``detect``."""
         self._stats["batches"] += 1
         return self._detector_for(classes).detect_batch_raw(frames)
+
+    @property
+    def data_devices(self) -> int:
+        """Devices the batch axis resolves to (1 = unsharded)."""
+        return self.detector.data_devices
 
     def stream(self, frames, batch_size: int = 8,
                tracker: Optional[Tracker] = None) -> List[Detections]:
@@ -309,9 +317,21 @@ class DetectionSession:
         session's call and warmup bookkeeping."""
         from .. import platform
         from ..core import autotune_cache
+        try:
+            devices = self.detector.data_devices
+        except ValueError:        # the config names more devices than exist
+            devices = None
+        try:
+            tiles = self.detector.frame_devices
+        except ValueError:
+            tiles = None
         return {
             "frame_programs": {**self.detector.program_stats,
                                "size": len(self.detector._programs)},
+            "mesh": {"data_parallel": self.config.detector.data_parallel,
+                     "devices": devices,
+                     "frame_parallel": self.config.detector.frame_parallel,
+                     "tile_devices": tiles},
             "autotune": autotune_cache.stats(),
             "platform": platform.describe(),
             "warmed": sorted(self._warm),
@@ -321,5 +341,7 @@ class DetectionSession:
     def clear_cache(self) -> None:
         """Drop this session's per-bucket programs (rebuilt at next use)."""
         self.detector._programs.clear()
+        self.detector._device_programs.clear()
+        self.detector._tiled_steps.clear()
         self._class_detectors.clear()
         self._warm.clear()

@@ -28,8 +28,21 @@ head-major columns), each head's plane collated in the one-head order;
 threshold (``class_thresholds``), top-k and NMS run per head, and the
 results carry a class axis (api/results.py).
 
-What the port does not run yet raises NotImplementedError naming the
-later slice: the banded resize and data/frame parallelism.
+``pyramid_resize="banded"`` resizes with the same taps as the matmul
+form, applied per output element in f32 (core/tiling.py:resize_banded),
+instead of the f64 products.
+
+Several devices (launch/mesh.py grids; ``REPRO_TEST_DEVICES`` repeats one
+device): with ``data_parallel != 1`` a batch is padded to a multiple of
+the data axis with zero frames whose true size is (0, 0), split into one
+sub-batch per device, each run by that device's copy of the program
+under the same chunk schedule, and gathered back onto the detector's
+device. With ``frame_parallel != 1`` a frame whose bucket area clears
+``frame_parallel_min_area`` is tiled: each tile, on its own device of
+the grid's row, takes its local top-k over the window positions it owns
+(a row slab of every scale, or whole scales), and one exact merge
+(``tiling.merge_topk``) and one NMS on the frame's device give the
+untiled result bit for bit.
 """
 from __future__ import annotations
 
@@ -42,18 +55,20 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import svm_matmul as sm
+from ..launch.mesh import (make_detection_mesh, make_tiled_mesh,
+                           visible_devices)
 from . import numerics as N
 from . import quant
 from .hog import HOGConfig, PAPER_HOG, grayscale, grayscale_fused
 from .stages import BACKENDS, dense_blocks
+from . import tiling
 
 Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """Same fields and defaults as repro/core/detector.py:100, so a
-    reference configuration loads unchanged. Fields this slice does not
-    run are rejected by ``FrameDetector`` with NotImplementedError."""
+    reference configuration loads unchanged."""
 
     hog: HOGConfig = PAPER_HOG
     scales: Tuple[float, ...] = (1.0, 0.8, 0.64)
@@ -63,11 +78,15 @@ class DetectorConfig:
     backend: str = "ref"                  # "ref" | "kernel" | "fused"
     shape_bucket: int = 32                # frames pad up to multiples
     batch_chunk: int = 0                  # frames a batch step; 0 = autotune
-    data_parallel: int = 1                # multi-device (later slice)
-    frame_parallel: int = 1               # intra-frame tiling (later)
-    tile_mode: str = "slab"               # intra-frame tiling (later)
-    frame_parallel_min_area: int = 0      # intra-frame tiling (later)
-    pyramid_resize: str = "matmul"        # "matmul"; "banded" later
+    data_parallel: int = 1                # devices on the batch axis:
+    #                                       1 = one, 0 = every visible one
+    frame_parallel: int = 1               # tiles of one frame: 1 = off,
+    #                                       0 = every device left over
+    tile_mode: str = "slab"               # "slab" (row slabs) | "scale"
+    frame_parallel_min_area: int = 0      # bucket area below which a
+    #                                       frame runs untiled
+    pyramid_resize: str = "matmul"        # "matmul" (f64 products) |
+    #                                       "banded" (f32 taps per pixel)
     class_thresholds: Tuple[float, ...] = ()  # per stacked head; () = all
     #                                             score_threshold
 
@@ -90,25 +109,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
 def check_supported(cfg: DetectorConfig) -> None:
-    """Raise NotImplementedError for every setting the port accepts in a
-    configuration but does not run yet, and ValueError for invalid ones."""
-    if cfg.pyramid_resize == "banded":
-        raise NotImplementedError(
-            "pyramid_resize='banded' (core/tiling.py:resize_banded): a later "
-            "slice of the port (multi-device and tiling)")
-    if cfg.pyramid_resize != "matmul":
+    """Raise ValueError for settings no program runs."""
+    if cfg.pyramid_resize not in ("matmul", "banded"):
         raise ValueError(
             f"DetectorConfig.pyramid_resize={cfg.pyramid_resize!r}: "
             f"expected 'matmul' or 'banded'")
-    if cfg.data_parallel != 1:
-        raise NotImplementedError(
-            f"data_parallel={cfg.data_parallel}: multi-device sharding is a "
-            f"later slice of the port")
-    if cfg.frame_parallel != 1:
-        raise NotImplementedError(
-            f"frame_parallel={cfg.frame_parallel}: intra-frame tiling is a "
-            f"later slice of the port")
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown stage backend {cfg.backend!r}; "
                          f"expected one of {sorted(BACKENDS)}")
@@ -377,6 +388,9 @@ class FrameProgram:
     #                (scale, score-map PH, score-map PW) per pyramid level
     tables: Optional[DecodeTables] = None
     pyramid: Optional[Callable] = None  # gray (..., ph, pw) -> levels
+    level: Optional[Callable] = None    # (gray (B, ph, pw), i) -> level i
+    inside: Optional[Callable] = None   # true sizes -> (1 or B, N) mask
+    boxes_dev: Optional[Tensor] = None  # the box table on the device
 
 
 def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
@@ -420,10 +434,12 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
     n = len(boxes_tab)
     k = _resolve_k(cfg, n)
     boxes_dev = torch.from_numpy(boxes_tab).to(device)
+    banded = cfg.pyramid_resize == "banded"
     # the weights in f64 (exact: they are f32 values); the resize sums in
     # f64 and rounds once to f32, so the card's GEMM and the CPU's give
-    # the same level whatever order each sums in
-    resize_w = {(sh, sw): (
+    # the same level whatever order each sums in. The banded mode builds
+    # its own tap tables (core/tiling.py)
+    resize_w = {} if banded else {(sh, sw): (
         torch.tensor(_resize_weights(ph, sh), dtype=torch.float64,
                      device=device),
         torch.tensor(_resize_weights(pw, sw), dtype=torch.float64,
@@ -444,6 +460,12 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
             inside_masks[(h, w)] = m
         return m
 
+    def inside(hws: Sequence[Tuple[int, int]]) -> Tensor:
+        # (1, N) for a batch of one true size, else (B, N)
+        if len(set(hws)) == 1:
+            return inside_mask(*hws[0])[None]
+        return torch.stack([inside_mask(*hw) for hw in hws])
+
     def resize(gray: Tensor, wy: Tensor, wx: Tensor) -> Tensor:
         # (B, ph, pw) -> (B, sh, sw): both products in f64 over the whole
         # batch, rounded to f32 once. Each output sums at most 4 x 4 taps
@@ -459,17 +481,20 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
         x = x.reshape(sh, B, pw).permute(1, 0, 2).reshape(B * sh, pw)
         return (x @ wx.T).to(torch.float32).reshape(B, sh, sw)
 
+    def level(gray: Tensor, i: int) -> Tensor:
+        # pyramid level i of a (B, ph, pw) gray, the whole frame
+        sh, sw, _ = specs[i]
+        if (sh, sw) == (ph, pw):
+            return gray
+        if banded:
+            return tiling.resize_banded(gray, sh, sw)
+        return resize(gray, *resize_w[(sh, sw)])
+
     def pyramid(gray: Tensor) -> List[Tensor]:
         lead = tuple(gray.shape[:-2])
         g = gray.reshape((-1, ph, pw))
-        levels = []
-        for sh, sw, _ in specs:
-            if (sh, sw) == (ph, pw):
-                levels.append(gray)
-            else:
-                levels.append(resize(g, *resize_w[(sh, sw)])
-                              .reshape(lead + (sh, sw)))
-        return levels
+        return [level(g, i).reshape(lead + (sh, sw))
+                for i, (sh, sw, _) in enumerate(specs)]
 
     thresholds: Dict[int, Tensor] = {}
 
@@ -500,13 +525,10 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
         parts = [score_map(g, w, b, hcfg, cfg.backend).reshape(lead + (-1,))
                  for g in pyramid(gray)]
         scores = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        if len(set(hws)) == 1:
-            inside = inside_mask(*hws[0])[None]
-        else:
-            inside = torch.stack([inside_mask(*hw) for hw in hws])
+        mask = inside(hws)
         if heads:
-            inside = inside[:, None]
-        valid = inside & (scores > thr)
+            mask = mask[:, None]
+        valid = mask & (scores > thr)
         masked = torch.where(valid, scores, float("-inf"))
         top, idx = top_k(masked, k)
         keep = nms_keep(boxes_dev[idx], top, cfg.nms_iou)
@@ -514,7 +536,153 @@ def _frame_program(ph: int, pw: int, cfg: DetectorConfig,
 
     return FrameProgram(fn, boxes_tab, scale_tab, n, k, tuple(per_scale),
                         tables=DecodeTables(boxes_tab, scale_tab, k),
-                        pyramid=pyramid)
+                        pyramid=pyramid, level=level, inside=inside,
+                        boxes_dev=boxes_dev)
+
+
+# --------------------------------------------- intra-frame tiled program
+# One frame's pyramid over the "tile" axis of a device grid: each tile
+# computes the window positions it owns and its LOCAL top-k over them (the
+# reference's _tile_local_fn, repro/core/detector.py:736), and one exact
+# merge plus one NMS pass give the untiled result bit for bit
+# (FrameDetector._tiled_step).
+
+def _tile_local_fn(prog: FrameProgram, ph: int, pw: int, fp: int, d: int,
+                   cfg: DetectorConfig) -> Callable:
+    """Tile d of fp: (gray (B, ph, pw), w, b, hws) -> (top (B, k), idx
+    (B, k), n_valid (B,)) on ``prog``'s device, where top / idx are the
+    tile's local top-k over the global K (scores descending, -inf padded;
+    idx the global flat window index, n for phantom rows).
+
+    tile_mode "slab": every scale splits into row slabs of its score grid.
+    Tile d computes hs = (slab + wbh + block - 2) * cell + 2 scaled-pixel
+    rows from the cell-aligned offset d * slab * cell: its slab, the
+    descriptor halo and the gradient border, so each owned descriptor is
+    made of the pixels the untiled program uses. The banded taps are
+    zero-extended so the last tile's overhang computes exact zeros, and
+    overhang score rows become (-inf, n) phantoms; the matmul resize runs
+    the untiled product (the same call on the same shapes) and slices
+    its result rows, since a GEMM's summation order depends on the
+    operands' shapes.
+
+    tile_mode "scale": pyramid scales are balanced over tiles by window
+    count (tiling.scale_groups; a group may be empty) and each tile runs
+    its scales whole, with the untiled program's own level expression.
+
+    Candidates are laid out scale by scale, owned rows first and phantom
+    rows after, and the local top-k is the stable one (``top_k``), so
+    equal scores keep ascending global index within a tile, as
+    tiling.merge_topk needs.
+    """
+    if cfg.tile_mode not in ("slab", "scale"):
+        raise ValueError(
+            f"DetectorConfig.tile_mode={cfg.tile_mode!r}: expected "
+            f"'slab' or 'scale'")
+    hcfg = cfg.hog
+    cell = hcfg.cell
+    n, k = prog.n_positions, prog.k
+    dev = prog.boxes_dev.device
+    thr = cfg.score_threshold
+    banded = cfg.pyramid_resize == "banded"
+    specs = []
+    off = 0
+    for i, (s, sph, spw) in enumerate(prog.per_scale):
+        specs.append((i, int(ph * s), int(pw * s), sph, spw, off))
+        off += sph * spw
+    assert off == n, (off, n)
+
+    def finish(parts_s, parts_i, nv, B):
+        padn = k - sum(p.shape[-1] for p in parts_s)
+        if padn > 0:
+            parts_s.append(torch.full((B, padn), float("-inf"), device=dev))
+            parts_i.append(torch.full((B, padn), n, dtype=torch.int64,
+                                      device=dev))
+        top, pos = top_k(torch.cat(parts_s, dim=-1), k)
+        return top, torch.cat(parts_i, dim=-1).gather(-1, pos), nv
+
+    if cfg.tile_mode == "scale":
+        group = [specs[i] for i in tiling.scale_groups(prog.per_scale,
+                                                       fp)[d]]
+        ranges = {i: torch.arange(base, base + sph * spw, device=dev)
+                  for i, _, _, sph, spw, base in group}
+
+        def local(gray: Tensor, w: Tensor, b: Tensor, hws):
+            B = gray.shape[0]
+            mask = prog.inside(hws)
+            parts_s, parts_i = [], []
+            nv = torch.zeros(B, dtype=torch.int64, device=dev)
+            for i, _, _, sph, spw, base in group:
+                flat = score_map(prog.level(gray, i), w, b, hcfg,
+                                 cfg.backend).reshape(B, -1)
+                valid = mask[:, base:base + sph * spw] & (flat > thr)
+                parts_s.append(torch.where(valid, flat, float("-inf")))
+                parts_i.append(ranges[i].expand(B, -1))
+                nv = nv + torch.sum(valid, dim=-1)
+            return finish(parts_s, parts_i, nv, B)
+
+        return local
+
+    plans = []
+    for i, sh, sw, sph, spw, base in specs:
+        slab = tiling.slab_rows(sph, fp)
+        hs = tiling.slab_pixel_rows(slab, hcfg)
+        # every tile's rows fit in L: the resize tables cover the last
+        # tile's slab, so no slice is ever cut short (lax.dynamic_slice
+        # would clamp its start there)
+        L = max(sh, (fp - 1) * slab * cell + hs)
+        poff = d * slab * cell
+        assert poff + hs <= L, (poff, hs, L)
+        rows = d * slab + torch.arange(slab, device=dev)
+        idx = (base + rows[:, None] * spw
+               + torch.arange(spw, device=dev)[None, :]).reshape(-1)
+        owned = torch.repeat_interleave(rows < sph, spw)
+        p = dict(i=i, L=L, poff=poff, hs=hs, owned=owned,
+                 # the gather index: overhang rows of the last scale
+                 # point past the table (JAX clamps there; torch raises)
+                 at=idx.clamp(max=n - 1),
+                 cand=torch.where(owned, idx, torch.full_like(idx, n)))
+        if (sh, sw) == (ph, pw):
+            p["mode"] = "direct"
+        elif banded:
+            lo_r, w_r = tiling.band_tensors(ph, sh, L, dev)
+            p.update(mode="banded", lo=lo_r[poff:poff + hs],
+                     w=w_r[poff:poff + hs],
+                     col=(tiling.band_tensors(pw, sw, sw, dev)
+                          if sw != pw else None))
+        else:
+            p.update(mode="matmul", sh=sh)
+        plans.append(p)
+
+    def slab_gray(gray: Tensor, p: dict) -> Tensor:
+        poff, hs = p["poff"], p["hs"]
+        if p["mode"] == "direct":
+            return F.pad(gray, (0, 0, 0, p["L"] - ph))[:, poff:poff + hs]
+        if p["mode"] == "banded":
+            g_pad = F.pad(gray, (0, 0, 0, p["w"].shape[1]))
+            gs = tiling.band_rows(g_pad, p["lo"], p["w"])
+            if p["col"] is not None:
+                lo_c, w_c = p["col"]
+                gs = tiling.band_cols(F.pad(gs, (0, w_c.shape[1])), lo_c, w_c)
+            return gs
+        # the untiled expression verbatim, then its result rows
+        gs = F.pad(prog.level(gray, p["i"]), (0, 0, 0, p["L"] - p["sh"]))
+        return gs[:, poff:poff + hs]
+
+    def local(gray: Tensor, w: Tensor, b: Tensor, hws):
+        B = gray.shape[0]
+        mask = prog.inside(hws)
+        parts_s, parts_i = [], []
+        nv = torch.zeros(B, dtype=torch.int64, device=dev)
+        for p in plans:
+            flat = score_map(slab_gray(gray, p), w, b, hcfg,
+                             cfg.backend).reshape(B, -1)
+            valid = p["owned"] & mask[:, p["at"]] & (flat > thr)
+            parts_s.append(torch.where(valid, flat, float("-inf")))
+            parts_i.append(p["cand"].expand(B, -1))
+            nv = nv + torch.sum(valid, dim=-1)
+        return finish(parts_s, parts_i, nv, B)
+
+    return local
 
 
 def _prep_batch(frames: Tensor, h: int, w: int, ph: int, pw: int) -> Tensor:
@@ -537,12 +705,13 @@ def _prep_frame(frame: Tensor, h: int, w: int, ph: int, pw: int) -> Tensor:
     return _prep_batch(frame[None], h, w, ph, pw)[0]
 
 
-def _batch_fn(prog: FrameProgram, h: int, w: int, ph: int, pw: int,
+def _batch_fn(step: Callable, h: int, w: int, ph: int, pw: int,
               batch: int, chunk: int) -> Callable:
-    """The bucket's program over raw (batch, h, w[, 3]) frames, prep
-    included, in ``chunk``-wide steps (``_chunked_schedule``)."""
+    """A bucket's ``step`` (a program's ``fn``, or a tiled step) over raw
+    (batch, h, w[, 3]) frames, prep included, in ``chunk``-wide steps
+    (``_chunked_schedule``)."""
     def one(frames: Tensor, wv: Tensor, bv: Tensor, hws):
-        return prog.fn(_prep_batch(frames, h, w, ph, pw), wv, bv, hws)
+        return step(_prep_batch(frames, h, w, ph, pw), wv, bv, hws)
 
     return _chunked_schedule(one, max(1, chunk), batch)
 
@@ -580,24 +749,30 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _autotune_chunk(prog: FrameProgram, h: int, w: int, ph: int, pw: int,
-                    batch: int, cfg: DetectorConfig,
+def _autotune_chunk(build: Callable[[int], Callable], h: int, w: int,
+                    ph: int, pw: int, batch: int, cfg: DetectorConfig,
                     frame_shape: Tuple[int, ...], frame_dtype: torch.dtype,
-                    device: torch.device, heads: int = 0) -> int:
+                    device: torch.device, heads: int = 0, dp: int = 1,
+                    fp: int = 1) -> int:
+    """The chunk of the (padded) ``batch``'s schedule: ``build(chunk)``
+    is the program the batch takes (routed over dp x fp devices), so the
+    probe times exactly what the call will run."""
     import time
 
     from . import autotune_cache
     dtype = str(frame_dtype).replace("torch.", "")
     layout = f"{'rgb' if len(frame_shape) == 4 else 'gray'}-{dtype}"
-    # the reference's key (dp = fp = 1; heads: 0 for one (F,) head, K for
-    # stacked (K, F) heads), then the device type: one process may run
-    # detectors on the card and on the CPU
-    key = (h, w, ph, pw, batch, cfg, layout, 1, 1, heads, device.type)
+    # the reference's key (the resolved data and tile axes; heads: 0 for
+    # one (F,) head, K for stacked (K, F) heads), then the device type:
+    # one process may run detectors on the card and on the CPU
+    key = (h, w, ph, pw, batch, cfg, layout, dp, fp, heads, device.type)
     hit = _AUTOTUNE.get(key)
     if hit is not None:
         autotune_cache.note_memory_hit()
         return hit["chunk"]
-    candidates = sorted({1, batch} | ({4} if 1 < 4 < batch else set()))
+    # under sharding the chunk schedules each device's local sub-batch
+    local = batch // dp
+    candidates = sorted({1, local} | ({4} if 1 < 4 < local else set()))
     if len(candidates) == 1:
         _AUTOTUNE[key] = {"chunk": candidates[0], "probe_ms": {}}
         return candidates[0]
@@ -615,7 +790,7 @@ def _autotune_chunk(prog: FrameProgram, h: int, w: int, ph: int, pw: int,
     hws = ((h, w),) * batch
     probe_ms = {}
     for c in candidates:
-        fn = _batch_fn(prog, h, w, ph, pw, batch, c)
+        fn = build(c)
         fn(frames, wv, bv, hws)                               # warm-up
         _sync(device)
         best = float("inf")
@@ -700,6 +875,11 @@ class FrameDetector:
             if self.heads else None)
         self._programs: Dict[Tuple[int, int], FrameProgram] = {}
         self.program_stats = {"hits": 0, "misses": 0}
+        # the multi-device paths: each device's copy of a bucket's
+        # program, the tiled steps, and the device grids
+        self._device_programs: Dict[tuple, FrameProgram] = {}
+        self._tiled_steps: Dict[tuple, Callable] = {}
+        self._grids: Dict[Tuple[int, int], tuple] = {}
 
     def program_for(self, h: int, w: int) -> Tuple[FrameProgram, int, int]:
         b = max(1, self.cfg.shape_bucket)
@@ -719,6 +899,161 @@ class FrameDetector:
         h, w = _frame_hw(tuple(frame.shape))
         _, ph, pw = self.program_for(h, w)
         return ph, pw
+
+    # ------------------------------------------- devices, grids, tiles
+    def _resolve_dp(self) -> int:
+        """cfg.data_parallel as a device count (repro/core/detector.py:632):
+        1 stays 1 without a device query, 0 is every visible device
+        (launch/mesh.py:visible_devices), and more than the host has
+        raises ValueError."""
+        dp = self.cfg.data_parallel
+        if dp == 1:
+            return 1
+        n = len(visible_devices(self.device))
+        if dp == 0:
+            return n
+        if not 1 <= dp <= n:
+            raise ValueError(
+                f"DetectorConfig.data_parallel={dp}: the host has {n} "
+                f"visible device(s) (visible_devices()); use 0 (= all) or "
+                f"a value in [1, {n}]")
+        return dp
+
+    def _resolve_fp(self, dp: Optional[int] = None) -> int:
+        """cfg.frame_parallel as a tile count (repro/core/detector.py:704):
+        1 stays 1, 0 is every device left over after the data axis (at
+        least 1), and an explicit n must fit beside the data axis."""
+        fp = self.cfg.frame_parallel
+        if fp == 1:
+            return 1
+        if dp is None:
+            dp = self._resolve_dp()
+        n = len(visible_devices(self.device))
+        if fp == 0:
+            return max(1, n // dp)
+        if fp < 1 or dp * fp > n:
+            raise ValueError(
+                f"DetectorConfig.frame_parallel={fp}: with data_parallel="
+                f"{dp} the host's {n} visible device(s) allow at most "
+                f"{max(1, n // dp)} tiles; use 0 (= all remaining) or a "
+                f"value in [1, {max(1, n // dp)}]")
+        return fp
+
+    @property
+    def data_devices(self) -> int:
+        """Devices of the batch ("data") axis: 1 on one device. The
+        service scales its per-dispatch frame target by it."""
+        return self._resolve_dp()
+
+    @property
+    def frame_devices(self) -> int:
+        """Devices of the intra-frame ("tile") axis: 1 when tiling is off.
+        Whether a frame runs tiled also depends on its bucket's area
+        (``_tiled_for``)."""
+        return self._resolve_fp()
+
+    def _tiled_for(self, ph: int, pw: int, dp: int = 1) -> int:
+        """Tiles a (ph, pw)-bucket frame runs under: the resolved tile
+        axis when the bucket's area clears frame_parallel_min_area, else
+        1 (the untiled program)."""
+        fp = self._resolve_fp(dp)
+        if fp > 1 and ph * pw >= self.cfg.frame_parallel_min_area:
+            if self.heads:
+                raise ValueError(
+                    "multi-head (stacked) params do not compose with "
+                    "frame_parallel tiling yet; run the stacked heads "
+                    "with frame_parallel=1 (the data axis still shards)")
+            return fp
+        return 1
+
+    def _grid(self, dp: int, fp: int) -> tuple:
+        """dp rows of fp devices each: the data axis's devices
+        (launch/mesh.py:make_detection_mesh) or, tiled, the rows of
+        make_tiled_mesh."""
+        rows = self._grids.get((dp, fp))
+        if rows is None:
+            if fp == 1:
+                rows = tuple((d,) for d in
+                             make_detection_mesh(dp, self.device).devices)
+            else:
+                rows = make_tiled_mesh(dp, fp, self.device).devices
+            self._grids[(dp, fp)] = rows
+        return rows
+
+    def _program_on(self, ph: int, pw: int,
+                    device: torch.device) -> FrameProgram:
+        """The (ph, pw) bucket's program on ``device``: the detector's own
+        there (built by ``program_for``), else a copy made once."""
+        if _same_device(device, self.device):
+            return self._programs[(ph, pw)]
+        key = (ph, pw, device)
+        prog = self._device_programs.get(key)
+        if prog is None:
+            prog = _frame_program(ph, pw, self.cfg, device)
+            self._device_programs[key] = prog
+        return prog
+
+    def _tiled_step(self, ph: int, pw: int, fp: int,
+                    devices: tuple) -> Callable:
+        """One frame batch's tiled program over ``devices`` (a grid row):
+        gray (B, ph, pw) -> (top, idx, keep, n_valid) on devices[0], the
+        frames' device. Tile d runs on devices[d] (tiles sharing a device
+        run one after another); the merge (tiling.merge_topk) and the one
+        NMS pass run on devices[0], as repro/core/detector.py:947."""
+        step = self._tiled_steps.get((ph, pw, devices))
+        if step is not None:
+            return step
+        home = devices[0]
+        prog = self._program_on(ph, pw, home)
+        tiles = [(dev, _tile_local_fn(self._program_on(ph, pw, dev), ph, pw,
+                                      fp, d, self.cfg))
+                 for d, dev in enumerate(devices)]
+        last = prog.n_positions - 1
+
+        def step(gray: Tensor, wv: Tensor, bv: Tensor, hws):
+            outs = [local(gray.to(dev), wv.to(dev), bv.to(dev), hws)
+                    for dev, local in tiles]
+            top, idx = tiling.merge_topk(
+                torch.stack([o[0].to(home) for o in outs], dim=-2),
+                torch.stack([o[1].to(home) for o in outs], dim=-2), prog.k)
+            # a merged phantom (idx n) is -inf and never kept; clamp its
+            # gather as JAX does
+            keep = nms_keep(prog.boxes_dev[idx.clamp(max=last)], top,
+                            self.cfg.nms_iou)
+            nv = torch.stack([o[2].to(home) for o in outs]).sum(0)
+            return top, idx, keep, nv
+
+        self._tiled_steps[(ph, pw, devices)] = step
+        return step
+
+    def _batch_program(self, prog: FrameProgram, h: int, w: int, ph: int,
+                       pw: int, batch: int, dp: int, fp: int,
+                       chunk: int) -> Callable:
+        """The (padded) batch's program over dp x fp devices. One device:
+        the bucket's program in ``chunk``-wide steps. Otherwise the batch
+        splits into dp contiguous sub-batches, each run on its grid row
+        by that device's program (tiled over the row when fp > 1) under
+        the same chunk schedule, and the outputs are gathered onto the
+        detector's device (repro/core/detector.py:654, :983); nothing is
+        read back to the host."""
+        if dp == 1 and fp == 1:
+            return _batch_fn(prog.fn, h, w, ph, pw, batch, chunk)
+        local = batch // dp
+        rows = [(devs[0], _batch_fn(
+            self._tiled_step(ph, pw, fp, devs) if fp > 1
+            else self._program_on(ph, pw, devs[0]).fn,
+            h, w, ph, pw, local, chunk)) for devs in self._grid(dp, fp)]
+        home = self.device
+
+        def fn(frames: Tensor, wv: Tensor, bv: Tensor, hws):
+            outs = [run(frames[r * local:(r + 1) * local].to(dev),
+                        wv.to(dev), bv.to(dev),
+                        hws[r * local:(r + 1) * local])
+                    for r, (dev, run) in enumerate(rows)]
+            return tuple(torch.cat([o[j].to(home) for o in outs])
+                         for j in range(4))
+
+        return fn
 
     def _to_gray(self, image) -> Tensor:
         """One frame -> f32 gray on the device, the EAGER luma, as the
@@ -747,10 +1082,13 @@ class FrameDetector:
         prog, ph, pw = self.program_for(h, w)
         if prog.fn is None:
             return Detections.empty(prog.tables, self.classes)
-        top, idx, keep, n_valid = prog.fn(
-            _prep_frame(frame, h, w, ph, pw)[None], self.svm["w"],
-            self.svm["b"], ((h, w),))
-        return Detections(top[0], idx[0], keep[0], n_valid[0], prog.tables,
+        fp = self._tiled_for(ph, pw)
+        step = prog.fn if fp == 1 else \
+            self._tiled_step(ph, pw, fp, self._grid(1, fp)[0])
+        out = step(_prep_frame(frame, h, w, ph, pw)[None], self.svm["w"],
+                   self.svm["b"], ((h, w),))
+        top, idx, keep, n_valid = (t[0].to(self.device) for t in out)
+        return Detections(top, idx, keep, n_valid, prog.tables,
                           classes=self.classes)
 
     def __call__(self, image) -> List[dict]:
@@ -824,14 +1162,28 @@ class FrameDetector:
         else:
             th, tw = ph, pw
             frames_b = torch.stack([self._pad_to(g, ph, pw) for g in grays])
+        dp = self._resolve_dp()
+        n_pad = _round_up(n, dp)
+        if n_pad != n:
+            # pad up to the data axis with zero frames whose true size is
+            # (0, 0): every window fails the inside test, and the pad
+            # rows are sliced off below
+            frames_b = torch.cat([frames_b, frames_b.new_zeros(
+                (n_pad - n,) + tuple(frames_b.shape[1:]))])
+            hws = tuple(hws) + ((0, 0),) * (n_pad - n)
+        fp = self._tiled_for(ph, pw, dp)
+
+        def build(chunk: int) -> Callable:
+            return self._batch_program(prog, th, tw, ph, pw, n_pad, dp, fp,
+                                       chunk)
+
         chunk = self.cfg.batch_chunk
         if chunk == 0:
-            chunk = _autotune_chunk(prog, th, tw, ph, pw, n, self.cfg,
+            chunk = _autotune_chunk(build, th, tw, ph, pw, n_pad, self.cfg,
                                     tuple(frames_b.shape), frames_b.dtype,
-                                    self.device, self.heads)
-        fn = _batch_fn(prog, th, tw, ph, pw, n, chunk)
-        top, idx, keep, n_valid = fn(frames_b, self.svm["w"],
-                                     self.svm["b"], hws)
+                                    self.device, self.heads, dp, fp)
+        top, idx, keep, n_valid = (t[:n] for t in build(chunk)(
+            frames_b, self.svm["w"], self.svm["b"], hws))
         return Detections(top, idx, keep, n_valid, prog.tables,
                           classes=self.classes)
 

@@ -25,16 +25,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .detector import resolve_device
+from .detector import _same_device, resolve_device
 from .hog import HOGConfig, PAPER_HOG
 from .svm import SVMParams, svm_score
 
 Tensor = torch.Tensor
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    return a.type == b.type and (a.index is None or b.index is None
-                                 or a.index == b.index)
 
 
 def _windows_on(windows, device) -> Tensor:

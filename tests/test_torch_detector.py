@@ -1,7 +1,7 @@
 """The port's detector pieces (repro_torch.core.detector, api.config,
 convert) against the JAX reference: resize weights, top-k order, NMS,
-scoring (float and fixed), configuration carry-over, and the settings the
-port refuses.
+scoring (float and fixed), configuration carry-over, and the reference's
+guards on settings.
 """
 import dataclasses
 import json
@@ -224,10 +224,31 @@ def _svm():
     (dict(data_parallel=2), "data_parallel"),
     (dict(frame_parallel=0), "frame_parallel"),
 ])
-def test_unported_settings_raise(change, match):
-    cfg = dataclasses.replace(DetectorConfig(), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        FrameDetector(_svm(), cfg, device="cpu")
+def test_unported_settings_raise(change, match, monkeypatch):
+    """The settings earlier slices refused now behave as the reference's
+    (repro/core/detector.py:632, :704): the banded resize runs,
+    data_parallel=0 takes the one visible CPU, frame_parallel=0 resolves
+    to one tile, and data_parallel=2 on one visible device raises the
+    reference's ValueError when a batch asks for the second device."""
+    monkeypatch.delenv("REPRO_TEST_DEVICES", raising=False)
+    cfg = dataclasses.replace(DetectorConfig(score_threshold=-1.0),
+                              **change)
+    det = FrameDetector({"w": np.zeros(3780, np.float32),
+                         "b": np.float32(0.25)}, cfg, device="cpu")
+    frames = [np.zeros((160, 128, 3), np.uint8)] * 2
+    if change.get("data_parallel") == 2:
+        with pytest.raises(ValueError, match=match) as ei:
+            det.detect_batch(frames)
+        jcfg = dataclasses.replace(jdet.DetectorConfig(), **change)
+        with pytest.raises(ValueError) as ej:
+            jdet.FrameDetector(_svm(), jcfg).detect_batch(frames)
+        assert str(ei.value) == str(ej.value).replace("jax.devices()",
+                                                      "visible_devices()")
+        return
+    assert (det.data_devices, det.frame_devices) == (1, 1)
+    out = det.detect_batch(frames)
+    assert out[0] and out[0] == out[1] == det(frames[0])
+    assert all(d["score"] == np.float32(0.25) for d in out[0])
 
 
 @pytest.mark.parametrize("backend", ["ref", "kernel", "fused"])
@@ -243,10 +264,14 @@ def test_fixed_numerics_run_on_every_backend(backend):
     assert out and all(d["score"] == np.float32(0.25) for d in out)
 
 
-def test_unported_entry_points_raise():
-    """Multi-device batches still raise, naming their slice; stacked
-    multi-head weights run (tests/test_torch_multihead.py), and so does
-    the batched path (tests/test_torch_batch.py)."""
+def test_entry_points_accept_every_reference_setting(monkeypatch):
+    """Stacked heads, the batched path and the multi-device settings run
+    (tests/test_torch_multihead.py, test_torch_batch.py,
+    test_torch_tiled.py, test_torch_sharded.py): stacked heads under
+    frame_parallel=0 on one visible device run untiled, as the
+    reference's (its guard fires only when a frame would tile), and
+    data_parallel=2 is refused only when a batch needs the devices."""
+    monkeypatch.delenv("REPRO_TEST_DEVICES", raising=False)
     det = FrameDetector({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
                         device="cpu")
     assert det.heads == 2 and det.classes == ("head0", "head1")
@@ -254,11 +279,15 @@ def test_unported_entry_points_raise():
     with pytest.raises(ValueError, match="class names"):
         FrameDetector({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
                       device="cpu", classes=("a",))
-    with pytest.raises(NotImplementedError, match="frame_parallel"):
-        FrameDetector({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
-                      DetectorConfig(frame_parallel=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        FrameDetector(_svm(), DetectorConfig(data_parallel=2), device="cpu")
+    stacked = FrameDetector({"w": np.zeros((2, 3780)), "b": np.zeros(2)},
+                            DetectorConfig(frame_parallel=0), device="cpu")
+    assert stacked.frame_devices == 1
+    assert stacked.detect_raw(np.zeros((200, 100), np.uint8)).to_list() \
+        == []
+    sharded = FrameDetector(_svm(), DetectorConfig(data_parallel=2),
+                            device="cpu")
+    with pytest.raises(ValueError, match="data_parallel=2"):
+        sharded.data_devices
     det = FrameDetector(_svm(), device="cpu")
     assert det.detect_batch([np.zeros((200, 100), np.uint8)]) == [[]]
     sess = DetectionSession(_svm(), "paper", device="cpu")

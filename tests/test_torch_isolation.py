@@ -27,6 +27,7 @@ import repro_torch.serve.engine, repro_torch.serve.resilience
 import repro_torch.serve.faults, repro_torch.obs.metrics
 import repro_torch.core.cascade, repro_torch.launch.serve
 import repro_torch.core.heads, repro_torch.convert
+import repro_torch.core.tiling, repro_torch.launch.mesh
 import torch.profiler
 assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.checkpoint.manager", "repro_torch.data.mining",
@@ -34,7 +35,8 @@ assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.serve.engine", "repro_torch.serve.resilience",
          "repro_torch.serve.faults", "repro_torch.obs.metrics",
          "repro_torch.core.cascade", "repro_torch.launch.serve",
-         "repro_torch.core.heads", "repro_torch.convert"}} \
+         "repro_torch.core.heads", "repro_torch.convert",
+         "repro_torch.core.tiling", "repro_torch.launch.mesh"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

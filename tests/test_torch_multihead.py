@@ -337,14 +337,36 @@ def test_session_class_subsets_and_round_trip(tmp_path):
     assert back.detect(frame).to_list() == both
 
 
-def test_multihead_rejects_frame_parallel():
-    """Stacked heads and intra-frame tiling: the port refuses every
-    frame_parallel setting but 1 (a later slice), heads or not."""
+def test_multihead_rejects_frame_parallel(monkeypatch):
+    """Stacked heads and intra-frame tiling: a frame that would tile over
+    fp > 1 devices raises the reference's ValueError
+    (repro/core/detector.py:1172 _tiled_for), one frame or a batch; with
+    one visible device frame_parallel=0 resolves to 1 and runs."""
+    from repro.core.detector import FrameDetector as JFrameDetector
+    monkeypatch.setenv("REPRO_TEST_DEVICES", "2")
     cfg = DetectorConfig(score_threshold=-1.0, frame_parallel=0,
                          frame_parallel_min_area=0)
     heads = _mk_heads(2, cfg.hog.n_features, np.random.default_rng(SEED + 8))
-    with pytest.raises(NotImplementedError, match="frame_parallel"):
-        FrameDetector(_stack(heads), cfg, "cpu")
+    det = FrameDetector(_stack(heads), cfg, "cpu")
+    frame = np.zeros((160, 128, 3), np.uint8)
+    with pytest.raises(ValueError, match="frame_parallel") as ei:
+        det.detect_raw(frame)
+    with pytest.raises(ValueError, match="frame_parallel"):
+        det.detect_batch([frame, frame])
+    # the reference's guard, its tile axis resolved to 2 as here
+    import repro.core.detector as jdet
+    monkeypatch.setattr(jdet, "_resolve_fp", lambda cfg, dp=None: 2)
+    ref = JFrameDetector({"w": jnp.zeros((2, 3780)), "b": jnp.zeros(2)},
+                         jdet.DetectorConfig(frame_parallel=0))
+    with pytest.raises(ValueError) as ej:
+        ref._tiled_for(160, 128)
+    assert str(ei.value) == str(ej.value)
+    monkeypatch.delenv("REPRO_TEST_DEVICES")
+    assert det.frame_devices == 1
+    plain = FrameDetector(_stack(heads), dataclasses.replace(
+        cfg, frame_parallel=1), "cpu")
+    assert det.detect_raw(frame).to_list() == \
+        plain.detect_raw(frame).to_list()
 
 
 # ------------------------------------------------ tracker class gating

@@ -431,7 +431,7 @@ def test_platform_seed_and_describe():
     assert d["seed"] == platform.default_seed()
 
 
-def test_later_slices_raise_naming_their_slice():
+def test_session_cascade_and_its_service_rungs_build():
     """The cascade runs: session.cascade() with given coarse params builds
     the scheduler over the session's detector, and serving a
     cascade-enabled config opens the cascade rungs (a coarse head trained
