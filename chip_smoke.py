@@ -146,6 +146,23 @@ Phases, each of which exits non-zero on failure:
      at full width (its prefills on the cuda_core route), where the sound
      decode must land under a tight limit and both planted faults over
      it;
+  5b. lm families: the MoE, SSM and hybrid families. At smoke size in
+     f32 (weights through lm_params_from_numpy) olmoe-1b-7b, mamba2-130m,
+     hymba-1.5b and llama4-scout-17b-a16e give the CPU port's greedy
+     tokens and logits on the card; at full width in bf16 (seeded random
+     weights made on the card) olmoe-1b-7b, mamba2-130m and hymba-1.5b
+     (hymba also at B 1 x S 2,048, past its window) generate with the
+     counters reset before and read after (flash_attention once per layer
+     without a window, on the sm90 route: 16, 0 and 3 a prefill, no other
+     kernel), the same tokens on a rerun, parameters = param_count(),
+     prefill against prefill + decode_step in bf16 and in f32 with
+     planted faults over the f32 limit (the SSM's: a conv window missing
+     its newest entry, a state update without the decay), the MoE's
+     dropped choices per prefill (checked at a capacity factor where none
+     can drop when the configured one drops a last position), and ms,
+     bound, busy ms and launches per prefill and decode step, peak GiB;
+     phase 3c holds flash_attention to its plain version at olmoe's and
+     hymba's prefill shapes too;
   6. print the kernels line (JSON) and, last, the ok line (JSON).
 
 It imports no JAX and nothing of the reference package. Without a GPU,
@@ -300,6 +317,10 @@ FLASH_SMALL += [(2, 8, 2, 100, 16, causal, dt) for causal in (True, False)
 # CUDA-core route stays checked in bf16
 FLASH_OTHER_HD = [(2, 8, 2, 100, 32, True, "bf16")]
 FLASH_TOL = {"f32": 1e-5, "bf16": 3e-2}
+# the families' prefill shapes, bf16 (sm90), (B, S, H, hd) strides: olmoe
+# (H 16, K 16, hd 128) at B 4 x S 512 and hymba's global layers (H 25,
+# K 5, hd 64) at B 1 x S 2,048 + 128 meta tokens
+FLASH_FAMILIES = (("olmoe", 4, 16, 16, 512, 128), ("hymba", 1, 25, 5, 2176, 64))
 # bf16 kernel vs flash_bf16_matched (the same roundings in f32): (atol,
 # rtol); the output's own rounding is 2^-9 relative, and f32 summation
 # order can flip a rare p by one bf16 ulp
@@ -319,6 +340,15 @@ CONSIST_TOL = 5e-2
 # (1.1e-6 on the CPU twin, planted decode faults 5.5e-2 and more)
 CONSIST_TOL_F32 = 1e-3
 LM_SMOKE_TOL = 1e-4      # card vs CPU at smoke size, f32 logits
+# the lm families phase: the MoE, SSM and hybrid families at full width in
+# bf16 (llama4-scout at smoke size only: about 108 B parameters); hymba
+# also at B 1 x S 2,048, whose 2,176 positions (its 128 meta tokens first)
+# reach past its 1,024-position window
+LM_FAMILIES = ("olmoe-1b-7b", "mamba2-130m", "hymba-1.5b")
+LM_SMOKE_ONLY = ("llama4-scout-17b-a16e",)
+LM_FAMILY_BATCHES = {"hymba-1.5b": LM_BATCHES}
+# smoke prompts longer than hymba's smoke window and meta tokens (16 + 8)
+LM_SMOKE_PROMPT = (3, 40)
 # Table I (benchmarks/bench_accuracy.py): the schedule it trains with,
 # and its gate: every mode's total accuracy, and |fixed - fp32| in points
 TABLE1_TRAIN = {"steps": 4000, "neg_weight": 3.0}
@@ -340,6 +370,11 @@ PATH_KERNELS = {
                             "svm_scores"),
     "window quant": ("fused_hog", "svm_scores"),
     "lm qwen3-14b": ("flash_attention",),
+    # prefill attention without a window takes flash: every olmoe layer,
+    # hymba's three global layers; mamba2 attends nowhere
+    "lm olmoe-1b-7b": ("flash_attention",),
+    "lm hymba-1.5b": ("flash_attention",),
+    "lm mamba2-130m": (),
 }
 # the batched path and the tracked clip run the dense kernels of their
 # configuration
@@ -464,8 +499,9 @@ def need(cond: bool, msg: str) -> None:
 
 def level_line(text: str, flush: bool = True) -> None:
     """The per-level and launch-plan lines of the kernel checks (device us
-    per level, tiles, CTAs, bands, warps per SM) go to standard error, to
-    keep the standard output under 20 KB."""
+    per level, tiles, CTAs, bands, warps per SM), the scorers' level lines,
+    the main path's profile lines and the batched resize's counts go to
+    standard error, to keep the standard output under 20 KB."""
     print(text, file=sys.stderr, flush=flush)
 
 
@@ -956,8 +992,7 @@ def score_levels(torch, rows, shapes) -> None:
             legend = (f" per level, device/library us, CTAs x rows (x{MH_K}:"
                       f" {MH_K} heads, N {105 * MH_K}, one launch)"
                       if m == "f32" else "")
-            print(f"  {kernel} {m}{legend}: " + " | ".join(text),
-                  flush=True)
+            level_line(f"  {kernel} {m}{legend}: " + " | ".join(text))
 
 
 def check_scorer_edges(torch, np) -> None:
@@ -1620,6 +1655,20 @@ def check_flash(torch, np) -> dict:
     print(f"  flash_attention full width, (B, S, H, hd) strides, err vs "
           f"plain (tol + tol x |want|), matched share: "
           + "; ".join(full), flush=True)
+    fam = []
+    for name, B, H, K, S, hd in FLASH_FAMILIES:
+        q, k, v, got, e, m = case(draw(B, H, K, S, hd), True, "bf16",
+                                  bshd=True)
+        need(fa.route(q.dtype, hd) == "sm90", f"{name}: not the sm90 route")
+        dev = kernel_device_ms(torch, lambda: fa.launch_sm90(q, k, v),
+                               "flash_attention_kernel")
+        bound = max(2 * B * S * (2 * H + 2 * K) * hd / HBM_BPS,
+                    4 * B * H * hd * S * (S + 1) / 2 / BF16_FLOPS) * 1e3
+        fam.append(f"{name} B{B}xS{S} H{H} K{K} hd{hd} {e:.1e} ({m:.2f}) "
+                   f"{_fmt(dev)} (bound {bound:.4g})")
+    print("  flash_attention sm90 bf16, lm families' prefill shapes and "
+          "strides, err (matched share) device ms: " + "; ".join(fam),
+          flush=True)
     out = summarize(rows, ("flash_attention",),
                     [g for g, _, _ in LM_BATCHES], 1)
     out["flash_attention"]["max_abs_err"] = max(worst.values())
@@ -1744,7 +1793,7 @@ def main_path(torch, np) -> dict:
                         f"{1 - prof['device_busy_ms'] / ms:.4f}")
         legend = (", launches/frame, busy ms, ms/frame, idle"
                   if (h, w) == FRAME_SIZES[0] else "")
-        print(f"  profile {key}{legend}: " + "; ".join(text), flush=True)
+        level_line(f"  profile {key}{legend}: " + "; ".join(text))
     return launches, configs, svm
 
 
@@ -2055,9 +2104,9 @@ def batch_path(torch, np, configs, svm) -> dict:
             pixels += sum(off)
         text.append(f"B{b} {vs_alone}/{vs_cpu}, f32 {frames_off}/{b} "
                     f"({pixels} px, {rints} levels)")
-    print("  batched resize (f64), px unlike each frame's/the CPU's, and f32"
-          " GEMMs of the batch shape, frames unlike: " + "; ".join(text),
-          flush=True)
+    level_line("  batched resize (f64), px unlike each frame's/the CPU's, and "
+               "f32 GEMMs of the batch shape, frames unlike: "
+               + "; ".join(text))
     return launches
 
 
@@ -3420,10 +3469,12 @@ def tiled_path(torch, np, svm, summary) -> dict:
 
 
 def smoke_leaves(np, cfg, seed: int) -> dict:
-    """The reference's LM parameter tree at ``cfg``'s size as numpy
+    """The reference's LM parameter tree at ``cfg``'s size as f32 numpy
     arrays, layers stacked on axis 0, with its distributions (normal x
-    fan_in^-0.5, x 0.02 for embed and lm_head, ones for the norms), from
-    a seeded numpy generator."""
+    fan_in^-0.5, x 0.02 for embed, lm_head, the router and the meta
+    tokens, x ssm_conv^-0.5 for the conv, ones for the norms, the SSM's
+    A_log, D_skip and dt_bias as the reference sets them), from a seeded
+    numpy generator."""
     rng = np.random.default_rng(seed)
     L, D, H, K, hd, Fd, V = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab)
@@ -3435,17 +3486,50 @@ def smoke_leaves(np, cfg, seed: int) -> dict:
     def ones(*shape):
         return np.ones(shape, np.float32)
 
-    attn = {"wq": dense((L, D, H * hd)), "wk": dense((L, D, K * hd)),
-            "wv": dense((L, D, K * hd)), "wo": dense((L, H * hd, D))}
-    if cfg.qk_norm:
-        attn.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
-    return {"embed": dense((V, D), 0.02), "final_norm": {"scale": ones(D)},
-            "layers": {"ln1": {"scale": ones(L, D)},
-                       "ln2": {"scale": ones(L, D)}, "attn": attn,
-                       "mlp": {"w_gate": dense((L, D, Fd)),
-                               "w_up": dense((L, D, Fd)),
-                               "w_down": dense((L, Fd, D))}},
-            "lm_head": dense((D, V), 0.02)}
+    def swiglu():
+        return {"w_gate": dense((L, D, Fd)), "w_up": dense((L, D, Fd)),
+                "w_down": dense((L, Fd, D))}
+
+    lay = {"ln1": {"scale": ones(L, D)}, "ln2": {"scale": ones(L, D)}}
+    if cfg.has_attention:
+        lay["attn"] = {"wq": dense((L, D, H * hd)), "wk": dense((L, D, K * hd)),
+                       "wv": dense((L, D, K * hd)), "wo": dense((L, H * hd, D))}
+        if cfg.qk_norm:
+            lay["attn"].update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+    if cfg.has_ssm:
+        Hs, di = cfg.ssm_heads, cfg.d_inner
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (L, Hs))
+                    ).astype(np.float32)
+        lay["ssm"] = {
+            "in_proj": dense((L, D, 2 * di + 2 * cfg.ssm_groups
+                              * cfg.ssm_state + Hs)),
+            "conv_w": dense((L, cfg.conv_dim, cfg.ssm_conv),
+                            cfg.ssm_conv ** -0.5),
+            "conv_b": np.zeros((L, cfg.conv_dim), np.float32),
+            "A_log": np.log(np.broadcast_to(np.arange(
+                1, Hs + 1, dtype=np.float32), (L, Hs))),
+            "D_skip": ones(L, Hs), "dt_bias": dt + np.log(-np.expm1(-dt)),
+            "norm_scale": ones(L, di), "out_proj": dense((L, di, D))}
+        if cfg.family == "hybrid":
+            lay["bn_attn"] = {"scale": ones(L, D)}
+            lay["bn_ssm"] = {"scale": ones(L, D)}
+    if cfg.is_moe:
+        E = cfg.n_experts
+        lay["moe"] = {"router": dense((L, D, E), 0.02),
+                      "w_gate": dense((L, E, D, Fd)),
+                      "w_up": dense((L, E, D, Fd)),
+                      "w_down": dense((L, E, Fd, D))}
+        if cfg.shared_expert:
+            lay["moe"]["shared"] = swiglu()
+    elif cfg.family != "ssm":
+        lay["mlp"] = swiglu()
+    tree = {"embed": dense((V, D), 0.02), "final_norm": {"scale": ones(D)},
+            "layers": lay}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = dense((D, V), 0.02)
+    if cfg.meta_tokens:
+        tree["meta"] = dense((cfg.meta_tokens, D), 0.02)
+    return tree
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -3631,36 +3715,292 @@ def lm_path(torch, np) -> dict:
 def decode_consistency(torch, params, cfg, x):
     """The last logits of prefill(x), of prefill(x[:, :-1]) +
     decode_step, and their relative L2 distance for the sound decode and
-    for two planted decode faults: RoPE at one position past the token's
-    ("pos+1"), and the new key and value written one slot early
-    ("kv@idx-1"). Each decode starts from the prefill's cache: the two
-    slots a decode can write are put back after it."""
+    for two planted decode faults. Attention families: RoPE at one
+    position past the token's ("pos+1"), and the new key and value
+    written one slot early ("kv@idx-1"); the SSM family: the conv window
+    missing its newest entry (zeros in its place, "conv-new"), and the
+    state update without the decay ("no-decay"). Each decode starts from
+    the prefill's cache: what a decode can write (the two last key and
+    value slots, the SSM state and conv) is put back after it."""
     import repro_torch.models.model as mm
+    import repro_torch.models.ssm as ssm
 
     n = x.shape[1]
     full, _ = mm.prefill(params, {"tokens": x}, cfg, n)
     a = full[:, -1].float()
     _, cache = mm.prefill(params, {"tokens": x[:, :-1]}, cfg, n)
-    kept = {t: cache[t][:, :, n - 2:].clone() for t in ("k", "v")}
-    sound, rel, b = mm._decode_layer, {}, None
-    for name, dpos, didx in (("sound", 0, 0), ("pos+1", 1, 0),
-                             ("kv@idx-1", 0, -1)):
-        mm._decode_layer = lambda h, lp, c, cl, pos: sound(
-            h, lp, c, {**cl, "idx": cl["idx"] + didx}, pos + dpos)
+    i0 = cache["idx"] - 1
+    kept = {t: (cache[t][:, :, i0:] if t in ("k", "v") else cache[t]).clone()
+            for t in ("k", "v", "state", "conv") if t in cache}
+    layer, window, update = mm._decode_layer, ssm._conv_window, \
+        ssm._state_update
+    if cfg.has_attention:
+        faults = {
+            "pos+1": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w:
+                      layer(h, lp, c, cl, pos + 1, w)),
+            "kv@idx-1": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w:
+                         layer(h, lp, c, {**cl, "idx": cl["idx"] - 1}, pos,
+                               w))}
+    else:
+        faults = {
+            "conv-new": (ssm, "_conv_window", lambda conv, new:
+                         window(conv, torch.zeros_like(new))),
+            "no-decay": (ssm, "_state_update", lambda st, dec, upd:
+                         st + upd)}
+    rel, b = {}, None
+    for name, fault in [("sound", None)] + list(faults.items()):
+        if fault:
+            setattr(*fault)
         try:
             step = mm.decode_step(params, x[:, -1:], cache, cfg)[0]
         finally:
-            mm._decode_layer = sound
+            mm._decode_layer, ssm._conv_window, ssm._state_update = \
+                layer, window, update
         with torch.inference_mode():
-            for t in kept:
-                cache[t][:, :, n - 2:] = kept[t]
+            for t, v in kept.items():
+                (cache[t][:, :, i0:] if t in ("k", "v") else cache[t]
+                 ).copy_(v)
         rel[name] = float((a - step[:, -1].float()).norm() / a.norm())
         b = step[:, -1].float() if b is None else b
     return a, b, rel
 
 
-def _faults(rel) -> str:
-    return ", ".join(f"{k} {v:.2e}" for k, v in rel.items() if k != "sound")
+def moe_drops(torch, fn):
+    """Run ``fn()`` recording each MoE layer's dropped choices: -> (fn's
+    result, one (T, top_k) bool tensor per moe._route call, True where
+    that choice of that token overflowed its expert)."""
+    import repro_torch.models.moe as moe
+
+    route, calls = moe._route, []
+
+    def recording(x_flat, gates, cfg, capacity):
+        out = route(x_flat, gates, cfg, capacity)
+        calls.append((out[2] == capacity).view(-1, cfg.top_k))
+        return out
+
+    moe._route = recording
+    try:
+        return fn(), calls
+    finally:
+        moe._route = route
+
+
+def attended_pairs(S: int, window: int, n_meta: int) -> int:
+    """(query, key) pairs a causal mask over S positions keeps, within
+    ``window`` keys and the first ``n_meta`` (make_mask's rule)."""
+    if not window:
+        return S * (S + 1) // 2
+    return sum(min(q + 1, window) + max(0, min(n_meta, q - window + 1))
+               for q in range(S))
+
+
+def lm_bounds(cfg, B: int, S: int):
+    """The least milliseconds of one prefill of B x S tokens and of one
+    decode step after it on the card. Prefill: the larger of the weights'
+    bytes and each type's operations -- the bf16 matmuls (projections,
+    the attended (query, key) pairs of each layer's mask, the MoE's
+    router and every expert's capacity buffer, as the reference computes
+    them, the SSD's y_intra) at the bf16 rate, the SSD's f32 einsums at
+    the f32 rate. Decode: bytes -- every weight (all experts: the
+    expert matmuls multiply every buffer), the live KV cache, the SSM
+    state read and written."""
+    from repro_torch.models.model import layer_windows
+    from repro_torch.models.moe import _capacity
+
+    D, V, L, M = cfg.d_model, cfg.vocab, cfg.n_layers, cfg.meta_tokens
+    Sm = S + M
+    T = B * Sm
+    H, K, hd, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    weights = 2 * (cfg.param_count()
+                   - (0 if cfg.tie_embeddings else V * D))
+    bf = 2 * B * D * V                               # the last logits
+    f32 = kv = state = 0
+    for window in layer_windows(cfg):
+        if cfg.has_attention:
+            bf += 4 * T * D * (H + K) * hd \
+                + 4 * B * H * hd * attended_pairs(Sm, window, M)
+            kv += 4 * B * (Sm + 1) * K * hd
+        if cfg.has_ssm:
+            di, G, N, Hs, P = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
+                               cfg.ssm_heads, cfg.ssm_headdim)
+            Q = min(cfg.ssm_chunk, Sm)
+            nq = -(-Sm // Q) * Q
+            bf += 2 * T * D * (2 * di + 2 * G * N + Hs) + 2 * T * di * D \
+                + 2 * B * nq * Q * Hs * P
+            f32 += 2 * B * nq * Q * G * N + 4 * B * nq * Hs * N * P
+            state += 8 * B * Hs * N * P
+        if cfg.is_moe:
+            bf += 2 * T * D * cfg.n_experts \
+                + 6 * cfg.n_experts * _capacity(T, cfg) * D * Fd \
+                + (6 * T * D * Fd if cfg.shared_expert else 0)
+        elif cfg.family != "ssm":
+            bf += 6 * T * D * Fd
+    pre = max(weights / HBM_BPS, bf / BF16_FLOPS, f32 / F32_FLOPS) * 1e3
+    return pre, (weights + kv + state) / HBM_BPS * 1e3
+
+
+def lm_families(torch, np):
+    """The lm families phase: the MoE, SSM and hybrid families. At smoke
+    size (f32, weights through lm_params_from_numpy; llama4-scout too)
+    the card's greedy tokens and logits against the CPU port's; at full
+    width in bf16 (seeded random weights made on the card) for each of
+    LM_FAMILIES: parameters = param_count(), generate for its prompts
+    with the counters reset just before and read just after (flash
+    launches per prefill = its layers without a window, all sm90), the
+    same tokens on a rerun, the MoE's dropped choices per prefill,
+    prefill vs prefill[:-1] + decode_step in bf16 and, with its planted
+    faults, in f32, ms and bounds per prefill and decode step, busy ms,
+    launches and peak GiB."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models.model import (decode_step, init_params,
+                                          layer_windows, prefill)
+    from repro_torch.serve.engine import generate
+
+    B0, S0 = LM_SMOKE_PROMPT
+    smoke = []
+    for arch in LM_FAMILIES + LM_SMOKE_ONLY:
+        scfg = dc.replace(get_config(arch, smoke=True), dtype=torch.float32)
+        leaves = smoke_leaves(np, scfg, 0)
+        prompt = np.random.default_rng(1).integers(0, scfg.vocab, (B0, S0))
+        outs = {}
+        for dev in (DEV, "cpu"):
+            p = lm_params_from_numpy(leaves, scfg, dev)
+            toks = generate(p, scfg, prompt, max_new_tokens=8)
+            first, cache = prefill(p, {"tokens": toks[:, :S0]}, scfg, S0 + 8)
+            step, _ = decode_step(p, toks[:, S0:S0 + 1], cache, scfg)
+            outs[dev] = [x.cpu() for x in (toks, first, step)]
+        need(torch.equal(outs[DEV][0], outs["cpu"][0]),
+             f"{arch} smoke: greedy tokens differ between the card and CPU")
+        de = max(float((a.float() - b.float()).abs().max())
+                 for a, b in zip(outs[DEV][1:], outs["cpu"][1:]))
+        need(de <= LM_SMOKE_TOL, f"{arch} smoke logits card vs CPU: {de}")
+        smoke.append(f"{arch.split('-')[0]} {de:.1e}")
+    print(f"  smoke f32 {B0}x{S0}+8, greedy tokens = CPU, logits max delta "
+          f"(tol {LM_SMOKE_TOL:g}): " + ", ".join(smoke), flush=True)
+
+    launches, routes = {}, dict.fromkeys(fa.ROUTES, 0)
+    for arch in LM_FAMILIES:
+        cfg = get_config(arch)
+        groups = LM_FAMILY_BATCHES.get(arch, LM_BATCHES[:1])
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+        n = sum(t.numel() for t in params.parameters())
+        need(n == cfg.param_count(), f"{arch}: {n} parameters, config "
+                                     f"{cfg.param_count()}")
+        rng = np.random.default_rng(2)
+        prompts = {g: rng.integers(0, cfg.vocab, (B, S)) for g, B, S in groups}
+        kernels.reset_launches()
+        toks = {g: generate(params, cfg, x, LM_NEW) for g, x in prompts.items()}
+        torch.cuda.synchronize()
+        name = f"lm {arch}"
+        launches[name] = check_launches(name, kernels.launch_counts())
+        per = sum(w == 0 for w in layer_windows(cfg)) if cfg.has_attention \
+            else 0
+        got = dict(fa.flash_attention.route_launches)
+        need(got == {"sm90": per * len(groups), "cuda_core": 0},
+             f"{arch}: flash routes {got} in {len(groups)} bf16 prefills, "
+             f"want sm90 {per} each")
+        routes["sm90"] += got["sm90"]
+        for g, B, S in groups:
+            t = toks[g]
+            need(t.shape == (B, S + LM_NEW) and bool(((t >= 0)
+                                                      & (t < cfg.vocab)).all())
+                 and torch.equal(t[:, :S].cpu(), torch.from_numpy(prompts[g])),
+                 f"{arch} {g}: tokens out of shape or range, or prompt changed")
+        g0 = groups[0][0]
+        need(torch.equal(generate(params, cfg, prompts[g0], LM_NEW), toks[g0]),
+             f"{arch} {g0}: a second generate gave other tokens")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # the consistency prompt: the last group's (hymba's B 1 x S 2,048,
+        # where decode reads past the window)
+        gc = groups[-1][0]
+        x = torch.as_tensor(prompts[gc], device=DEV)
+        ccfg, drops = cfg, ""
+        if cfg.is_moe:
+            # a prefill ranks tokens in order, so an overflowing expert
+            # drops the last positions first: prefill vs prefill[:-1] +
+            # decode_step is sound only where no row's last position lost
+            # a choice in any layer. The checks run at capacity factor
+            # E / k, where no drop is possible (the reference's smoke
+            # configs use 8.0 for this)
+            calls = moe_drops(torch, lambda: prefill(params, {"tokens": x},
+                                                     cfg, x.shape[1]))[1]
+            lost = torch.stack(calls).view(len(calls), x.shape[0],
+                                           x.shape[1], -1)
+            n_last = int(lost[:, :, -1].any(-1).sum())
+            r = decode_consistency(torch, params, cfg, x)[2]["sound"]
+            need(n_last or r <= CONSIST_TOL, f"{arch}: prefill vs prefill "
+                 f"+ decode_step at cf {cfg.capacity_factor:g}, no last "
+                 f"position dropped: relative L2 {r} > {CONSIST_TOL}")
+            ccfg = dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            drops = (f"; cf {cfg.capacity_factor:g}: {int(lost.sum())} "
+                     f"choices dropped, {n_last} at a row's last position "
+                     f"({'unsound' if n_last else 'sound'}, {r:.1e}); "
+                     f"checked at cf {ccfg.capacity_factor:g}")
+        rel = decode_consistency(torch, params, ccfg, x)[2]
+        need(rel["sound"] <= CONSIST_TOL,
+             f"{arch}: prefill vs prefill + decode_step relative L2 {rel} > "
+             f"{CONSIST_TOL}")
+
+        timing = []
+        for g, B, S in groups:
+            xg = torch.as_tensor(prompts[g], device=DEV)
+
+            def run_prefill():
+                return prefill(params, {"tokens": xg}, cfg, S + LM_NEW)
+
+            ms_pre = host_ms(torch, run_prefill, 3)
+            _, cache = run_prefill()
+            tok = xg[:, -1:]
+
+            def run_decode():
+                return decode_step(params, tok, cache, cfg)
+
+            ms_dec = host_ms(torch, run_decode, LM_NEW - 1)
+            pre = device_times(torch, run_prefill, 1)
+            dec = device_times(torch, run_decode, 4)
+            b_pre, b_dec = lm_bounds(cfg, B, S)
+            timing.append(
+                f"{g}+{LM_NEW} prefill {ms_pre:.2f} ms (bound {b_pre:.3f}, "
+                f"busy {sum(u for _, u in pre.values()) / 1e3:.2f}, "
+                f"{sum(c for c, _ in pre.values())} launches) decode "
+                f"{ms_dec:.3f} ({b_dec:.3f}, "
+                f"{sum(u for _, u in dec.values()) / 4e3:.3f}, "
+                f"{sum(c for c, _ in dec.values()) / 4:.0f})")
+        del params, cache
+        torch.cuda.empty_cache()
+
+        # the same consistency in f32, where prefill and decode agree to
+        # summation order and each planted fault must land over the limit
+        cfg32 = dc.replace(ccfg, dtype=torch.float32)
+        params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+        rel32 = decode_consistency(torch, params, cfg32, x)[2]
+        faults = min(v for k, v in rel32.items() if k != "sound")
+        need(rel32["sound"] <= CONSIST_TOL_F32 < faults,
+             f"{arch} f32 prefill vs prefill + decode_step: {rel32}, limit "
+             f"{CONSIST_TOL_F32} (sound under it, planted faults over it)")
+        del params
+        torch.cuda.empty_cache()
+        print(f"  {arch} bf16: {n:,} params = config, {peak:.2f} GiB, "
+              f"sm90 {per}/prefill, rerun same; " + "; ".join(timing)
+              + f"; {gc} prefill vs decode bf16 {rel['sound']:.1e} < "
+              f"{CONSIST_TOL:g} (" + _faults(rel, 1) + f"), f32 "
+              f"{rel32['sound']:.1e} < {CONSIST_TOL_F32:g} < "
+              + _faults(rel32, 1) + drops, flush=True)
+    return launches, routes
+
+
+def _faults(rel, digits: int = 2) -> str:
+    return ", ".join(f"{k} {v:.{digits}e}" for k, v in rel.items()
+                     if k != "sound")
 
 
 def ptxas_report(name: str, log) -> str:
@@ -3778,9 +4118,8 @@ def main() -> int:
         summary = check_kernels(torch, np)
         check_batched_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
-        print("  level and plan lines (dense pair, dense_fused_hog, window "
-              "and tail plans: device us per level, tiles, CTAs, bands, "
-              "warps/SM): on standard error", flush=True)
+        print("  level, plan, scorer level, profile and batched-resize "
+              "lines: on standard error", flush=True)
         summary.update(check_flash(torch, np))
         print("main path:", flush=True)
         launches, configs, svm = main_path(torch, np)
@@ -3801,6 +4140,11 @@ def main() -> int:
         print("LM path:", flush=True)
         lm_launches, flash_routes = lm_path(torch, np)
         launches.update(lm_launches)
+        print("lm families:", flush=True)
+        family_launches, family_routes = lm_families(torch, np)
+        launches.update(family_launches)
+        flash_routes = {r: n + family_routes[r]
+                        for r, n in flash_routes.items()}
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3832,6 +4176,9 @@ def main() -> int:
     flash = next(e for e in kernels_line["kernels"]
                  if e["name"] == "flash_attention")
     flash["launches_by_route"] = flash_routes
+    flash["launches_by_path"] = {n: c["flash_attention"]
+                                 for n, c in launches.items()
+                                 if n.startswith("lm ")}
     for m, v in flash["modes"].items():
         v["source"] = FLASH_SOURCES[m]
     print(json.dumps(kernels_line, separators=(",", ":")))

@@ -1,5 +1,5 @@
 """Workload configurations of the port: the HOG presets (hog_svm.py) and
-the dense LM architectures (registry.py)."""
+the LM architectures (registry.py)."""
 from .registry import ARCH_IDS, get_config
 
 __all__ = ["ARCH_IDS", "get_config"]

@@ -1,8 +1,9 @@
 """Architecture registry: arch id -> config and smoke config (port of
 repro/configs/registry.py:get_config).
 
-The port runs the dense family; the other families raise
-NotImplementedError naming the slice that brings them
+The port runs the dense, MoE, SSM and hybrid families; the
+encoder-decoder and VLM families raise NotImplementedError naming the
+slice that brings them
 (``models/configs.py:LATER_FAMILY``). ``input_specs`` and
 ``cache_specs`` come with the dry-run port.
 """

@@ -14,7 +14,7 @@
     ModelConfig, ``dtype`` mapped to a torch dtype;
   * ``lm_params_from_numpy(leaves, cfg, device)`` -- the reference's LM
     parameter tree as numpy arrays (layer leaves stacked on axis 0) as
-    the port's ``DenseLM`` on ``device`` (CUDA unless the CPU is asked
+    the port's ``CausalLM`` on ``device`` (CUDA unless the CPU is asked
     for).
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ from .api.config import PipelineConfig
 from .core.detector import as_svm, resolve_device
 from .core.heads import HeadRegistry
 from .models.configs import ModelConfig
-from .models.model import DenseLM, from_leaves
+from .models.model import F32_LEAVES, CausalLM, from_leaves
 
 
 def svm_from_numpy(leaves: Dict[str, Any], device=None
@@ -104,16 +104,19 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def lm_params_from_numpy(leaves: Dict[str, Any], cfg: ModelConfig,
-                         device=None) -> DenseLM:
+                         device=None) -> CausalLM:
     """The reference's parameter tree ({"embed", "final_norm": {"scale"},
-    "layers": {"ln1", "ln2": {"scale"}, "attn": {"wq", ...}, "mlp":
-    {...}}, "lm_head"}) as numpy arrays, layers stacked on axis 0 -> the
-    port's DenseLM on ``device``, every leaf in the config's dtype."""
+    "layers": {"ln1", "ln2": {"scale"}, "attn": {"wq", ...}, "mlp" or
+    "moe" or "ssm": {...}, ...}, "lm_head", "meta"}) as numpy arrays,
+    layers stacked on axis 0 -> the port's CausalLM on ``device``. Every
+    leaf takes the config's dtype but the SSM's ``A_log``, ``D_skip`` and
+    ``dt_bias``, which stay f32, as the reference keeps them."""
     dev = resolve_device(device)
 
-    def conv(x):
+    def conv(x, name=""):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _tensor(x, cfg.dtype, dev)
+            return {k: conv(v, k) for k, v in x.items()}
+        dtype = torch.float32 if name in F32_LEAVES else cfg.dtype
+        return _tensor(x, dtype, dev)
 
     return from_leaves(cfg, conv(leaves))

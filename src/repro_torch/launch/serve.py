@@ -2,8 +2,9 @@
 smokes behind one CLI:
 
 LM mode (default): --arch <id> prefill + decode a batch of prompts with
-the KV cache at smoke size and print tokens/s. The dense family runs;
-the other families raise the registry's NotImplementedError.
+the KV (and SSM) cache at smoke size and print tokens/s. The dense, MoE,
+SSM and hybrid families run; whisper-large-v3 and qwen2-vl-72b raise the
+registry's NotImplementedError naming their slice.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
         --batch 4 --prompt-len 16 --new-tokens 32 [--device cpu]
@@ -125,7 +126,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
                     help="LM serving smoke: arch id (see repro_torch."
-                         "configs; the dense family runs)")
+                         "configs; whisper and qwen2-vl raise)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)

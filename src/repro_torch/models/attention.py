@@ -1,22 +1,29 @@
-"""Attention: GQA, qk-norm, RoPE and KV-cache decode (port of
-repro/models/attention.py, the dense family's part).
+"""Attention: GQA, qk-norm, RoPE, sliding windows with meta-token
+sinks, and KV-cache decode (port of repro/models/attention.py, its
+decoder-only part).
 
-Prefill and full-sequence attention are causal over ``arange``
-positions, the queries and keys the same sequence -- every prefill of
-the dense family -- and take the hand-written flash kernel
-(``kernels/flash_attention.py``). Single-token decode against the
-padded cache takes ``_sdpa``, the reference's einsum attention in plain
-torch, with the causal ``make_mask``.
+Prefill and full-sequence attention run at ``arange`` positions, the
+queries and keys the same sequence. Causal attention with no window --
+every layer of the dense and MoE families and hymba's global layers,
+whose meta tokens are plain causal positions -- takes the hand-written
+flash kernel (``kernels/flash_attention.py``). A windowed layer takes
+``_sdpa``, the reference's einsum attention in plain torch, under the
+windowed ``make_mask`` (the reference's default path), or, when asked,
+``banded_core``: block-banded attention whose band and meta-prefix
+partial softmaxes merge by log-sum-exp (the reference's ``ctx.banded``).
+Single-token decode against the padded cache takes ``_sdpa`` with the
+(windowed) causal mask; ``attention_decode_windowed`` reads only the
+live window and the meta prefix.
 
-Sliding windows, meta tokens, explicit and M-RoPE positions,
-cross-attention and the banded and split-softmax variants come with the
-hybrid, VLM and encoder-decoder slices.
+Explicit and M-RoPE positions, non-causal and cross-attention come with
+the VLM and encoder-decoder slices.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
 from .configs import ModelConfig
@@ -46,10 +53,18 @@ def _project_qkv(x: Tensor, p, cfg: ModelConfig,
     return q, k, v
 
 
-def make_mask(q_pos: Tensor, k_pos: Tensor) -> Tensor:
+def make_mask(q_pos: Tensor, k_pos: Tensor, *, window: int = 0,
+              n_meta: int = 0) -> Tensor:
     """The causal boolean mask (..., Sq, Sk): True = attend (the key's
-    position is at most the query's)."""
-    return k_pos[..., None, :] <= q_pos[..., :, None]
+    position is at most the query's). ``window`` > 0 restricts it to the
+    last ``window`` keys; the first ``n_meta`` keys (hymba's meta tokens)
+    stay visible through the window (attention sinks)."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    m = dk <= dq
+    if window > 0:
+        m = m & ((dk > dq - window) | (dk < n_meta))
+    return m
 
 
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
@@ -81,22 +96,42 @@ def attend(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
                            v.transpose(1, 2)).transpose(1, 2)
 
 
+def self_attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig, *,
+                window: int = 0, n_meta: int = 0,
+                banded: bool = False) -> Tensor:
+    """Self-attention of a sequence at arange positions (q (B, S, H, hd),
+    k and v (B, S, K, hd)) with the layer's window: none -> the flash
+    kernel; a window -> ``banded_core`` if ``banded``, else ``_sdpa``
+    under the windowed mask."""
+    if not window:
+        return attend(q, k, v)
+    B, S = q.shape[:2]
+    pos = arange_positions(B, S, q.device)
+    if banded:
+        return banded_core(q, k, v, pos, cfg, window=window, n_meta=n_meta)
+    return _sdpa(q, k, v, make_mask(pos, pos, window=window,
+                                    n_meta=n_meta), cfg)
+
+
 def arange_positions(B: int, S: int, device) -> Tensor:
     """(B, S) positions 0..S-1 for every row."""
     return torch.arange(S, device=device).expand(B, S)
 
 
-def attention(x: Tensor, p, cfg: ModelConfig) -> Tensor:
+def attention(x: Tensor, p, cfg: ModelConfig, *, window: int = 0,
+              n_meta: int = 0, banded: bool = False) -> Tensor:
     """Full-sequence causal attention at arange positions (training /
-    prefill without cache)."""
+    prefill without cache), windowed if ``window`` > 0."""
     B, S, D = x.shape
     q, k, v = _project_qkv(x, p, cfg, arange_positions(B, S, x.device))
-    out = attend(q, k, v)
+    out = self_attend(q, k, v, cfg, window=window, n_meta=n_meta,
+                      banded=banded)
     return torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), p.wo)
 
 
 def attention_decode(x: Tensor, p, cfg: ModelConfig,
-                     cache: Dict[str, Tensor], positions: Tensor
+                     cache: Dict[str, Tensor], positions: Tensor, *,
+                     window: int = 0, n_meta: int = 0
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Single-token decode against a KV cache.
 
@@ -104,17 +139,144 @@ def attention_decode(x: Tensor, p, cfg: ModelConfig,
     ``idx`` is the current length (the same for the whole batch). The new
     key and value are written into the cache tensors in place (the
     reference returns updated copies); the returned cache holds the same
-    tensors and ``idx + 1``.
+    tensors and ``idx + 1``. The mask reads the whole padded cache,
+    windowed if ``window`` > 0.
     """
     B, _, D = x.shape
+    q, k, v, idx = _decode_qkv(x, p, cfg, cache, positions)
+    Smax = k.shape[1]
+    k_pos = torch.arange(Smax, device=x.device)[None, :]
+    mask = make_mask(positions[:, -1:], k_pos, window=window, n_meta=n_meta)
+    out = _sdpa(q, k, v, mask, cfg)
+    y = torch.matmul(out.reshape(B, 1, cfg.n_heads * cfg.hd), p.wo)
+    return y, {"k": k, "v": v, "idx": idx + 1}
+
+
+def _decode_qkv(x: Tensor, p, cfg: ModelConfig, cache: Dict[str, Tensor],
+                positions: Tensor):
+    """Project one token and write its key and value into the cache at
+    ``idx``, in place -> (q, the cache's k and v, idx)."""
     q, k_new, v_new = _project_qkv(x, p, cfg, positions)
     idx = cache["idx"]
     k, v = cache["k"], cache["v"]
     k[:, idx:idx + 1] = k_new.to(k.dtype)
     v[:, idx:idx + 1] = v_new.to(v.dtype)
+    return q, k, v, idx
+
+
+def _sdpa_lse(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]
+              ) -> Tuple[Tensor, Tensor]:
+    """SDPA returning (normalized out (B, Sq, H, hd), lse (B, Sq, H)) for
+    split-softmax merging, the reference's f32 branch: f32 scores of the
+    inputs' exact products, masked to -3e4, p = exp(s - max) rounded to
+    v's dtype before the P.V product, its f32 sum the normalizer."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    q5 = q.reshape(B, Sq, K, H // K, hd)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", q5.to(torch.float32),
+                          k.to(torch.float32))
+    scores = scores * hd ** -0.5
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :, :], -3e4)
+    m = scores.amax(-1)                                     # (B,K,rep,Sq)
+    p = torch.exp(scores - m[..., None]).to(v.dtype)
+    l = p.sum(-1, dtype=torch.float32)
+    out = torch.einsum("bkrqs,bskh->bqkrh", p, v).reshape(B, Sq, H, hd)
+    lc = torch.clamp(l, min=1e-30)
+    out = out / lc.reshape(B, H, Sq).transpose(1, 2)[..., None].to(
+        out.dtype)
+    lse = (m + torch.log(lc)).reshape(B, H, Sq).transpose(1, 2)
+    return out, lse
+
+
+def banded_attention(x: Tensor, p, cfg: ModelConfig, *, window: int,
+                     n_meta: int = 0) -> Tensor:
+    """Block-banded sliding-window attention of x (B, S, D) at arange
+    positions: each block of ``window`` queries attends to the key band
+    [previous block; its block] and, apart, to the meta prefix; the two
+    partial softmaxes merge by log-sum-exp. The masked baseline's
+    function at O(S (2 window + n_meta)) instead of O(S^2)."""
+    B, S, D = x.shape
+    q, k, v = _project_qkv(x, p, cfg, arange_positions(B, S, x.device))
+    out = banded_core(q, k, v, arange_positions(B, S, x.device), cfg,
+                      window=window, n_meta=n_meta)
+    return torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), p.wo)
+
+
+def banded_core(q: Tensor, k: Tensor, v: Tensor, pos1d: Tensor,
+                cfg: ModelConfig, *, window: int, n_meta: int = 0
+                ) -> Tensor:
+    """Banded attention on projected q (B, S, H, hd), k and v (B, S, K,
+    hd) at positions ``pos1d`` (B, S) -> (B, S, H, hd)."""
+    B, S, H, hd = q.shape
+    bq = window
+    nblk = -(-S // bq)
+    Sp = nblk * bq
+    if Sp != S:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, Sp - S)) for t in (q, k, v))
+        pos1d = F.pad(pos1d, (0, Sp - S), value=2 ** 30)
+
+    def blocks(t):  # (B, Sp, ...) -> (B*nblk, bq, ...)
+        return t.reshape((B * nblk, bq) + t.shape[2:])
+
+    def bands(t):   # (B, Sp, ...) -> (B*nblk, 2bq, ...): [prev; cur]
+        tb = t.reshape((B, nblk, bq) + t.shape[2:])
+        prev = torch.cat([torch.zeros_like(tb[:, :1]), tb[:, :-1]], dim=1)
+        band = torch.cat([prev, tb], dim=2)
+        return band.reshape((B * nblk, 2 * bq) + t.shape[2:])
+
+    qb, kb, vb = blocks(q), bands(k), bands(v)
+    qp = blocks(pos1d)
+    kp = bands(pos1d)
+    # block 0's zero-padded "previous" band is never attended
+    first_pad = ((torch.arange(B * nblk, device=q.device) % nblk == 0)[:, None]
+                 & (torch.arange(2 * bq, device=q.device) < bq)[None, :])
+    kp = torch.where(first_pad, torch.full_like(kp, 2 ** 30), kp)
+    mask = make_mask(qp, kp, window=window)
+    if n_meta:
+        mask = mask & (kp >= n_meta)[:, None, :]   # meta: its own pass
+    out_b, lse_b = _sdpa_lse(qb, kb, vb, mask)
+    out_b = out_b.reshape(B, Sp, H, hd)[:, :S]
+    lse_b = lse_b.reshape(B, Sp, H)[:, :S]
+    if not n_meta:
+        return out_b
+    # meta keys are visible through the window (sinks); causality still
+    # holds for the meta tokens' own queries
+    mask_m = (torch.arange(n_meta, device=q.device)[None, None, :]
+              <= pos1d[:, :S, None])
+    out_m, lse_m = _sdpa_lse(q[:, :S], k[:, :n_meta], v[:, :n_meta],
+                             mask_m)
+    mx = torch.maximum(lse_b, lse_m)
+    wb = torch.exp(lse_b - mx)
+    wm = torch.exp(lse_m - mx)
+    den = wb + wm
+    return (out_b * (wb / den)[..., None].to(out_b.dtype)
+            + out_m * (wm / den)[..., None].to(out_m.dtype))
+
+
+def attention_decode_windowed(x: Tensor, p, cfg: ModelConfig,
+                              cache: Dict[str, Tensor], positions: Tensor,
+                              *, window: int, n_meta: int = 0
+                              ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Sliding-window decode that reads only the live window: the cache
+    update is ``attention_decode``'s (in place, the whole padded cache
+    kept), but the scores cover keys [idx-window+1 .. idx] and the meta
+    prefix only. The masked baseline's function; needs Smax >= window."""
+    B, _, D = x.shape
+    q, k, v, idx = _decode_qkv(x, p, cfg, cache, positions)
     Smax = k.shape[1]
-    k_pos = torch.arange(Smax, device=x.device)[None, :]
-    mask = make_mask(positions[:, -1:], k_pos)
-    out = _sdpa(q, k, v, mask, cfg)
+    start = min(max(idx - window + 1, 0), Smax - window)
+    k_win, v_win = k[:, start:start + window], v[:, start:start + window]
+    kp_win = torch.arange(start, start + window, device=x.device)[None, :]
+    mask_win = make_mask(positions[:, -1:], kp_win, window=window)
+    if n_meta:
+        mask_win = mask_win & (kp_win >= n_meta)[:, None, :]
+        kk = torch.cat([k[:, :n_meta], k_win], dim=1)
+        vv = torch.cat([v[:, :n_meta], v_win], dim=1)
+        mask = torch.cat([torch.ones((B, 1, n_meta), dtype=torch.bool,
+                                     device=x.device), mask_win], dim=2)
+    else:
+        kk, vv, mask = k_win, v_win, mask_win
+    out = _sdpa(q, kk, vv, mask, cfg)
     y = torch.matmul(out.reshape(B, 1, cfg.n_heads * cfg.hd), p.wo)
     return y, {"k": k, "v": v, "idx": idx + 1}

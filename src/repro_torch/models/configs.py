@@ -2,15 +2,15 @@
 
 One dataclass with the reference's fields and defaults; the family
 selects features:
-  dense   -- GQA transformer (internlm2, phi3, qwen3, command-r): ported
+  dense   -- GQA transformer (internlm2, phi3, qwen3, command-r)
   moe     -- + mixture-of-experts FFN (llama4-scout, olmoe)
   ssm     -- attention-free Mamba-2 SSD stack (mamba2-130m)
   hybrid  -- parallel attention + SSM heads per block (hymba)
   encdec  -- encoder-decoder with cross-attention (whisper)
   vlm     -- decoder with M-RoPE positions (qwen2-vl)
 
-Only the dense family runs in the port so far (``models/model.py``);
-``dtype`` is a torch dtype here.
+The port runs the first four (``models/model.py``); ``dtype`` is a torch
+dtype here.
 """
 from __future__ import annotations
 
@@ -19,12 +19,9 @@ from typing import Any, Tuple
 
 import torch
 
-#: family -> the slice of the port that brings it (the dense family runs)
+#: family -> the slice of the port that brings it (the dense, MoE, SSM and
+#: hybrid families run)
 LATER_FAMILY = {
-    "moe": "the MoE slice (models/moe.py)",
-    "ssm": "the SSM slice (models/ssm.py)",
-    "hybrid": "the hybrid slice (SSM heads, windowed and banded "
-              "attention, meta tokens)",
     "encdec": "the encoder-decoder slice (encode, cross_attention, "
               "layernorm, gelu_mlp)",
     "vlm": "the VLM slice (M-RoPE)",

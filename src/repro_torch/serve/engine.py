@@ -83,7 +83,7 @@ from ..core.hog import HOGConfig, PAPER_HOG
 from ..core.pipeline import _same_device, classify_windows
 from ..core.svm import SVMParams
 from ..models.configs import ModelConfig
-from ..models.model import DenseLM, decode_step, prefill
+from ..models.model import CausalLM, decode_step, prefill
 from ..obs.metrics import Emitter, MetricsConfig, make_sink
 from .faults import DETERMINISTIC_TYPES, FaultInjector
 from .resilience import (CircuitBreaker, DegradationLadder, ResilienceConfig,
@@ -884,7 +884,7 @@ class DetectionService:
         return True
 
 
-def generate(params: DenseLM, cfg: ModelConfig, prompt,
+def generate(params: CausalLM, cfg: ModelConfig, prompt,
              max_new_tokens: int = 32, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> Tensor:
     """Greedy or temperature decoding. prompt: (B, S) token ids, numpy or

@@ -28,6 +28,7 @@ import repro_torch.serve.faults, repro_torch.obs.metrics
 import repro_torch.core.cascade, repro_torch.launch.serve
 import repro_torch.core.heads, repro_torch.convert
 import repro_torch.core.tiling, repro_torch.launch.mesh
+import repro_torch.models.moe, repro_torch.models.ssm
 import torch.profiler
 assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.checkpoint.manager", "repro_torch.data.mining",
@@ -36,7 +37,8 @@ assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.serve.faults", "repro_torch.obs.metrics",
          "repro_torch.core.cascade", "repro_torch.launch.serve",
          "repro_torch.core.heads", "repro_torch.convert",
-         "repro_torch.core.tiling", "repro_torch.launch.mesh"}} \
+         "repro_torch.core.tiling", "repro_torch.launch.mesh",
+         "repro_torch.models.moe", "repro_torch.models.ssm"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -121,6 +123,35 @@ def test_multihead_and_cascade_modules_stand_alone():
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "(1, 4) [(0, 0, 100, 72)] []", out.stdout
+
+
+def test_lm_family_modules_stand_alone():
+    """The MoE and SSM modules, imported on their own, load neither JAX
+    nor the reference package; an MoE layer and an SSD layer of the smoke
+    configs run on the CPU without either."""
+    probe = ("import sys, dataclasses; sys.path.insert(0, {src!r}); "
+             "import torch; "
+             "from repro_torch.models import moe, ssm; "
+             "from repro_torch.models.model import init_params; "
+             "from repro_torch.configs import get_config; "
+             "g = torch.Generator().manual_seed(0); out = []; "
+             "x = torch.randn(2, 8, 64, generator=g); "
+             "c = dataclasses.replace(get_config('olmoe-1b-7b', smoke=True), "
+             "dtype=torch.float32); p = init_params(c, g, 'cpu'); "
+             "out.append(tuple(moe.moe_ffn(x, p.layers[0].moe, c).shape)); "
+             "c = dataclasses.replace(get_config('mamba2-130m', smoke=True), "
+             "dtype=torch.float32); p = init_params(c, g, 'cpu'); "
+             "y, cache = ssm.ssd_forward(x, p.layers[0].ssm, c); "
+             "out.append((tuple(y.shape), tuple(cache['state'].shape))); "
+             "print(out, sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c",
+                          probe.format(src=str(ROOT / "src"))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == \
+        "[(2, 8, 64), ((2, 8, 64), (2, 8, 16, 16))] []", out.stdout
 
 
 def test_port_sources_name_no_reference_import():

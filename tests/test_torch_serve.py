@@ -289,6 +289,11 @@ def test_serve_cli_lm_dense_runs_and_other_families_raise():
                "4")
     assert out.returncode == 0, out.stderr
     assert "arch=qwen3-14b" in out.stdout and "out=(4, 20)" in out.stdout
-    out = _cli("--arch", "mamba2-130m", "--device", "cpu")
+    out = _cli("--arch", "mamba2-130m", "--device", "cpu", "--new-tokens",
+               "4")
+    assert out.returncode == 0, out.stderr
+    assert "arch=mamba2-130m" in out.stdout and "out=(4, 20)" in out.stdout
+    out = _cli("--arch", "whisper-large-v3", "--device", "cpu")
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "ssm" in out.stderr
+    assert "NotImplementedError" in out.stderr and "encdec" in out.stderr \
+        and "encoder-decoder slice" in out.stderr
