@@ -161,8 +161,22 @@ Phases, each of which exits non-zero on failure:
      dropped choices per prefill (checked at a capacity factor where none
      can drop when the configured one drops a last position), and ms,
      bound, busy ms and launches per prefill and decode step, peak GiB;
-     phase 3c holds flash_attention to its plain version at olmoe's and
-     hymba's prefill shapes too;
+     then the encoder-decoder and VLM families: whisper-large-v3 and
+     qwen2-vl-72b join the smoke f32 line (whisper with seeded frame
+     embeddings, qwen2-vl's prompt laid out around an image), and at full
+     width in bf16 whisper-large-v3 (all 64 layers; B 4, 1,500 seeded
+     frames, a 224-token prompt) generates and qwen2-vl-72b (8 of 80
+     layers; B 4 x S 512 "text" and "image" prompts) decodes greedily
+     through prefill with (B, S, 3) positions and decode_step: flash sm90
+     64 a whisper prefill (32 encoder layers, every key visible, and 32
+     decoder layers), 8 a qwen2-vl text prefill and 0 an image one, no
+     other kernel; the same checks and numbers as above, the planted
+     faults whisper's encoder states of another row and sinusoidal row
+     one past, qwen2-vl's h stream one past and kv@idx-1; phase 3c holds
+     flash_attention to its plain version at olmoe's, hymba's, whisper's
+     encoder (S 1,500, every key visible) and decoder and qwen2-vl's
+     prefill shapes too, each with its plain version's and SDPA's device
+     ms;
   6. print the kernels line (JSON) and, last, the ok line (JSON).
 
 It imports no JAX and nothing of the reference package. Without a GPU,
@@ -321,6 +335,13 @@ FLASH_TOL = {"f32": 1e-5, "bf16": 3e-2}
 # (H 16, K 16, hd 128) at B 4 x S 512 and hymba's global layers (H 25,
 # K 5, hd 64) at B 1 x S 2,048 + 128 meta tokens
 FLASH_FAMILIES = (("olmoe", 4, 16, 16, 512, 128), ("hymba", 1, 25, 5, 2176, 64))
+# and the encoder-decoder's and VLM's (causal last): whisper's encoder
+# (H = K = 20, hd 64, every key visible; 1,500 = 11 x 128 + 92, a ragged
+# last key tile) and decoder (S 224, ragged) at B 4, qwen2-vl's text
+# prompts (H 64, K 8, hd 128) at B 4 x S 512
+FLASH_FAMILIES += (("whisper-enc", 4, 20, 20, 1500, 64, False),
+                   ("whisper-dec", 4, 20, 20, 224, 64),
+                   ("qwen2-vl", 4, 64, 8, 512, 128))
 # bf16 kernel vs flash_bf16_matched (the same roundings in f32): (atol,
 # rtol); the output's own rounding is 2^-9 relative, and f32 summation
 # order can flip a rare p by one bf16 ulp
@@ -339,6 +360,11 @@ CONSIST_TOL = 5e-2
 # the same in f32, where the two paths differ by summation order only
 # (1.1e-6 on the CPU twin, planted decode faults 5.5e-2 and more)
 CONSIST_TOL_F32 = 1e-3
+# qwen2-vl's f32 check is held 10x tighter: its planted "mrope-h+1" moves
+# the h section, M-RoPE's frequency slots 16-39 (at most 0.032 rad a
+# position at hd 128, theta 1e6), and read 7.7e-4 at 8 layers on an H100
+# (the sound decode 3.6e-6)
+CONSIST_TOL_F32_VLM = 1e-4
 LM_SMOKE_TOL = 1e-4      # card vs CPU at smoke size, f32 logits
 # the lm families phase: the MoE, SSM and hybrid families at full width in
 # bf16 (llama4-scout at smoke size only: about 108 B parameters); hymba
@@ -349,6 +375,21 @@ LM_SMOKE_ONLY = ("llama4-scout-17b-a16e",)
 LM_FAMILY_BATCHES = {"hymba-1.5b": LM_BATCHES}
 # smoke prompts longer than hymba's smoke window and meta tokens (16 + 8)
 LM_SMOKE_PROMPT = (3, 40)
+# the encoder-decoder and VLM families in the same phase. whisper-large-v3
+# at full width and depth: B 4, the encoder over encoder_ctx 1,500 seeded
+# frame embeddings (30 s of audio), a decoder prompt of 224 tokens
+# (n_text_ctx // 2, its longest). qwen2-vl-72b at full width with 8 of its
+# 80 layers (19.0 GB of bf16; all 80 need 4 cards), B 4 x S 512 in two
+# prompt groups: "text" (t = h = w = arange) and "image" (VLM_IMAGE: 32
+# text tokens, a 16 x 16 patch grid at one t, then text, as Qwen2-VL's
+# rope index lays them out)
+LM_ENCDEC = "whisper-large-v3"
+LM_ENCDEC_BATCH = ("B4xS224", 4, 224)
+LM_VLM = "qwen2-vl-72b"
+LM_VLM_LAYERS = 8
+LM_VLM_GROUPS = (("text", 4, 512), ("image", 4, 512))
+VLM_IMAGE = (32, 16)             # text tokens before the image, grid side
+VLM_SMOKE_IMAGE = (8, 4)
 # Table I (benchmarks/bench_accuracy.py): the schedule it trains with,
 # and its gate: every mode's total accuracy, and |fixed - fp32| in points
 TABLE1_TRAIN = {"steps": 4000, "neg_weight": 3.0}
@@ -375,6 +416,12 @@ PATH_KERNELS = {
     "lm olmoe-1b-7b": ("flash_attention",),
     "lm hymba-1.5b": ("flash_attention",),
     "lm mamba2-130m": (),
+    # whisper: the encoder (every key visible) and the decoder's self
+    # attention; qwen2-vl: only where the t stream strictly rises (text),
+    # the image prompt's patch block takes _sdpa
+    "lm whisper-large-v3": ("flash_attention",),
+    "lm qwen2-vl-72b text": ("flash_attention",),
+    "lm qwen2-vl-72b image": (),
 }
 # the batched path and the tracked clip run the dense kernels of their
 # configuration
@@ -499,9 +546,10 @@ def need(cond: bool, msg: str) -> None:
 
 def level_line(text: str, flush: bool = True) -> None:
     """The per-level and launch-plan lines of the kernel checks (device us
-    per level, tiles, CTAs, bands, warps per SM), the scorers' level lines,
-    the main path's profile lines and the batched resize's counts go to
-    standard error, to keep the standard output under 20 KB."""
+    per level, tiles, CTAs, bands, warps per SM), the scorers' level and
+    edge lines, ptxas's register line, the main path's profile and split
+    lines and the batched resize's counts go to standard error, to keep
+    the standard output under 20 KB."""
     print(text, file=sys.stderr, flush=flush)
 
 
@@ -1049,11 +1097,11 @@ def check_scorer_edges(torch, np) -> None:
                      f"launch's")
             torch.cuda.synchronize()
             worst[name] = max(worst.get(name, 0.0), e)
-    print(f"  scorer edges (M {'/'.join(map(str, SCORER_TAILS))}; x and w "
-          f"at odd offsets, M 133 and 4524; K35xN50; K64xN128; heads "
-          f"3x105 (odd too), 8x105, 2x128, 2x16, 3x21), max err vs plain: "
-          f"f32 {worst['f32']:.2e}, bf16 {worst['bf16']:.2e}, int8 equal; "
-          f"each head = its one-head launch", flush=True)
+    level_line(f"  scorer edges (M {'/'.join(map(str, SCORER_TAILS))}; x "
+               f"and w at odd offsets, M 133 and 4524; K35xN50; K64xN128; "
+               f"heads 3x105 (odd too), 8x105, 2x128, 2x16, 3x21), max err "
+               f"vs plain: f32 {worst['f32']:.2e}, bf16 {worst['bf16']:.2e}, "
+               f"int8 equal; each head = its one-head launch")
 
 
 def bf16_library(torch, flat, wt, want, refusals):
@@ -1656,19 +1704,28 @@ def check_flash(torch, np) -> dict:
           f"plain (tol + tol x |want|), matched share: "
           + "; ".join(full), flush=True)
     fam = []
-    for name, B, H, K, S, hd in FLASH_FAMILIES:
-        q, k, v, got, e, m = case(draw(B, H, K, S, hd), True, "bf16",
+    for name, B, H, K, S, hd, *nc in FLASH_FAMILIES:
+        causal = not nc
+        q, k, v, got, e, m = case(draw(B, H, K, S, hd), causal, "bf16",
                                   bshd=True)
         need(fa.route(q.dtype, hd) == "sm90", f"{name}: not the sm90 route")
-        dev = kernel_device_ms(torch, lambda: fa.launch_sm90(q, k, v),
-                               "flash_attention_kernel")
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        dev, plain, lib = (kernel_device_ms(torch, fn, sym) for fn, sym in (
+            (lambda: fa.launch_sm90(q, k, v, causal), "flash_attention_kernel"),
+            (lambda: fa.flash_attention_plain(q, k, v, causal), ""),
+            (lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=causal, enable_gqa=True), "")))
+        pairs = S * (S + 1) // 2 if causal else S * S
         bound = max(2 * B * S * (2 * H + 2 * K) * hd / HBM_BPS,
-                    4 * B * H * hd * S * (S + 1) / 2 / BF16_FLOPS) * 1e3
-        fam.append(f"{name} B{B}xS{S} H{H} K{K} hd{hd} {e:.1e} ({m:.2f}) "
-                   f"{_fmt(dev)} (bound {bound:.4g})")
+                    4 * B * H * hd * pairs / BF16_FLOPS) * 1e3
+        fam.append(f"{name} B{B}xS{S} H{H} K{K} hd{hd}"
+                   f"{'' if causal else ' all keys'} {e:.1e} ({m:.2f}) "
+                   + "/".join("-" if t is None else f"{t:.4g}"
+                              for t in (dev, plain, lib))
+                   + f" ({bound:.4g})")
     print("  flash_attention sm90 bf16, lm families' prefill shapes and "
-          "strides, err (matched share) device ms: " + "; ".join(fam),
-          flush=True)
+          "strides, err (matched share) device/plain/SDPA ms (bound): "
+          + "; ".join(fam), flush=True)
     out = summarize(rows, ("flash_attention",),
                     [g for g, _, _ in LM_BATCHES], 1)
     out["flash_attention"]["max_abs_err"] = max(worst.values())
@@ -1777,13 +1834,14 @@ def main_path(torch, np) -> dict:
         split.update(frame_profile(torch, gpu["paper+kernel"],
                                    frames[(h, w)][0]))
         split["ms_per_frame"] = per_frame[f"paper+kernel {key}"]
-        print(f"  split {key} (paper+kernel), ms: " + ", ".join(
+        level_line(f"  split {key} (paper+kernel), ms: " + ", ".join(
             f"{k[:-3]} {split[k]:.4f}" for k in ("resize_ms", "hog_ms",
                                                 "score_matmul_ms",
                                                 "collate_ms", "topk_nms_ms"))
-              + f"; launches/frame {split['device_launches_per_frame']:.0f},"
-              f" busy ms {split['device_busy_ms']:.4f}, ms/frame "
-              f"{split['ms_per_frame']:.4f}", flush=True)
+                   + f"; launches/frame "
+                   f"{split['device_launches_per_frame']:.0f}, busy ms "
+                   f"{split['device_busy_ms']:.4f}, ms/frame "
+                   f"{split['ms_per_frame']:.4f}")
         text = []
         for name in ("perf", "quant", "quant+kernel"):
             prof = frame_profile(torch, gpu[name], frames[(h, w)][0])
@@ -3470,11 +3528,12 @@ def tiled_path(torch, np, svm, summary) -> dict:
 
 def smoke_leaves(np, cfg, seed: int) -> dict:
     """The reference's LM parameter tree at ``cfg``'s size as f32 numpy
-    arrays, layers stacked on axis 0, with its distributions (normal x
-    fan_in^-0.5, x 0.02 for embed, lm_head, the router and the meta
-    tokens, x ssm_conv^-0.5 for the conv, ones for the norms, the SSM's
-    A_log, D_skip and dt_bias as the reference sets them), from a seeded
-    numpy generator."""
+    arrays, layers stacked on axis 0 (the encoder's on their own), with
+    its distributions (normal x fan_in^-0.5, x 0.02 for embed, lm_head,
+    the router and the meta tokens, x ssm_conv^-0.5 for the conv, ones
+    for the norm scales, zeros for layernorm's biases, the SSM's A_log,
+    D_skip and dt_bias as the reference sets them), from a seeded numpy
+    generator."""
     rng = np.random.default_rng(seed)
     L, D, H, K, hd, Fd, V = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab)
@@ -3486,16 +3545,28 @@ def smoke_leaves(np, cfg, seed: int) -> dict:
     def ones(*shape):
         return np.ones(shape, np.float32)
 
-    def swiglu():
+    def nrm(*lead):
+        t = {"scale": ones(*lead, D)}
+        if cfg.norm == "layernorm":
+            t["bias"] = np.zeros(lead + (D,), np.float32)
+        return t
+
+    def swiglu(L=L):
+        if cfg.mlp == "gelu":
+            return {"w_up": dense((L, D, Fd)), "w_down": dense((L, Fd, D))}
         return {"w_gate": dense((L, D, Fd)), "w_up": dense((L, D, Fd)),
                 "w_down": dense((L, Fd, D))}
 
-    lay = {"ln1": {"scale": ones(L, D)}, "ln2": {"scale": ones(L, D)}}
-    if cfg.has_attention:
-        lay["attn"] = {"wq": dense((L, D, H * hd)), "wk": dense((L, D, K * hd)),
-                       "wv": dense((L, D, K * hd)), "wo": dense((L, H * hd, D))}
+    def attn(L=L):
+        a = {"wq": dense((L, D, H * hd)), "wk": dense((L, D, K * hd)),
+             "wv": dense((L, D, K * hd)), "wo": dense((L, H * hd, D))}
         if cfg.qk_norm:
-            lay["attn"].update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+            a.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+        return a
+
+    lay = {"ln1": nrm(L), "ln2": nrm(L)}
+    if cfg.has_attention:
+        lay["attn"] = attn()
     if cfg.has_ssm:
         Hs, di = cfg.ssm_heads, cfg.d_inner
         dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (L, Hs))
@@ -3511,8 +3582,8 @@ def smoke_leaves(np, cfg, seed: int) -> dict:
             "D_skip": ones(L, Hs), "dt_bias": dt + np.log(-np.expm1(-dt)),
             "norm_scale": ones(L, di), "out_proj": dense((L, di, D))}
         if cfg.family == "hybrid":
-            lay["bn_attn"] = {"scale": ones(L, D)}
-            lay["bn_ssm"] = {"scale": ones(L, D)}
+            lay["bn_attn"] = nrm(L)
+            lay["bn_ssm"] = nrm(L)
     if cfg.is_moe:
         E = cfg.n_experts
         lay["moe"] = {"router": dense((L, D, E), 0.02),
@@ -3523,12 +3594,19 @@ def smoke_leaves(np, cfg, seed: int) -> dict:
             lay["moe"]["shared"] = swiglu()
     elif cfg.family != "ssm":
         lay["mlp"] = swiglu()
-    tree = {"embed": dense((V, D), 0.02), "final_norm": {"scale": ones(D)},
+    if cfg.encoder_layers:
+        lay["xattn"], lay["ln_x"] = attn(), nrm(L)
+    tree = {"embed": dense((V, D), 0.02), "final_norm": nrm(),
             "layers": lay}
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense((D, V), 0.02)
     if cfg.meta_tokens:
         tree["meta"] = dense((cfg.meta_tokens, D), 0.02)
+    if cfg.encoder_layers:
+        Le = cfg.encoder_layers
+        tree["enc_layers"] = {"ln1": nrm(Le), "ln2": nrm(Le),
+                              "attn": attn(Le), "mlp": swiglu(Le)}
+        tree["enc_norm"] = nrm()
     return tree
 
 
@@ -3712,35 +3790,61 @@ def lm_path(torch, np) -> dict:
     return {f"lm {LM_ARCH}": launches}, routes
 
 
-def decode_consistency(torch, params, cfg, x):
+def decode_consistency(torch, params, cfg, x, positions=None, enc=None):
     """The last logits of prefill(x), of prefill(x[:, :-1]) +
     decode_step, and their relative L2 distance for the sound decode and
     for two planted decode faults. Attention families: RoPE at one
     position past the token's ("pos+1"), and the new key and value
-    written one slot early ("kv@idx-1"); the SSM family: the conv window
+    written one slot early ("kv@idx-1"); M-RoPE: the h stream of the
+    decode position one past ("mrope-h+1") and "kv@idx-1"; the
+    encoder-decoder (``enc``: its encoder states): cross-attention
+    reading the next row's encoder states ("enc-row") and the sinusoidal
+    row one past the token's ("pe+1"); the SSM family: the conv window
     missing its newest entry (zeros in its place, "conv-new"), and the
-    state update without the decay ("no-decay"). Each decode starts from
+    state update without the decay ("no-decay"). ``positions``: the full
+    prompt's (B, S, 3) M-RoPE positions, its last token at S - 1 on all
+    three streams, where decode_step places it. Each decode starts from
     the prefill's cache: what a decode can write (the two last key and
     value slots, the SSM state and conv) is put back after it."""
     import repro_torch.models.model as mm
     import repro_torch.models.ssm as ssm
 
     n = x.shape[1]
-    full, _ = mm.prefill(params, {"tokens": x}, cfg, n)
-    a = full[:, -1].float()
-    _, cache = mm.prefill(params, {"tokens": x[:, :-1]}, cfg, n)
+    full = {"tokens": x}
+    part = {"tokens": x[:, :-1]}
+    if positions is not None:
+        full["positions"], part["positions"] = positions, positions[:, :-1]
+    a = mm.prefill(params, full, cfg, n, enc=enc)[0][:, -1].float()
+    _, cache = mm.prefill(params, part, cfg, n, enc=enc)
     i0 = cache["idx"] - 1
     kept = {t: (cache[t][:, :, i0:] if t in ("k", "v") else cache[t]).clone()
             for t in ("k", "v", "state", "conv") if t in cache}
-    layer, window, update = mm._decode_layer, ssm._conv_window, \
-        ssm._state_update
-    if cfg.has_attention:
+    layer, window, update, pe = (mm._decode_layer, ssm._conv_window,
+                                 ssm._state_update, mm.decoder_pe)
+
+    def h_plus_1(pos):
+        pos = pos.clone()
+        pos[..., 1] += 1
+        return pos
+
+    kv_early = (mm, "_decode_layer", lambda h, lp, c, cl, pos, w, e=None:
+                layer(h, lp, c, {**cl, "idx": cl["idx"] - 1}, pos, w, e))
+    if cfg.encoder_layers:
         faults = {
-            "pos+1": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w:
-                      layer(h, lp, c, cl, pos + 1, w)),
-            "kv@idx-1": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w:
-                         layer(h, lp, c, {**cl, "idx": cl["idx"] - 1}, pos,
-                               w))}
+            "enc-row": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w, e:
+                        layer(h, lp, c, cl, pos, w, e.roll(1, 0))),
+            "pe+1": (mm, "decoder_pe", lambda idx, d, device:
+                     pe(idx + 1, d, device))}
+    elif cfg.mrope:
+        faults = {
+            "mrope-h+1": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w,
+                          e=None: layer(h, lp, c, cl, h_plus_1(pos), w, e)),
+            "kv@idx-1": kv_early}
+    elif cfg.has_attention:
+        faults = {
+            "pos+1": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w,
+                      e=None: layer(h, lp, c, cl, pos + 1, w, e)),
+            "kv@idx-1": kv_early}
     else:
         faults = {
             "conv-new": (ssm, "_conv_window", lambda conv, new:
@@ -3752,10 +3856,10 @@ def decode_consistency(torch, params, cfg, x):
         if fault:
             setattr(*fault)
         try:
-            step = mm.decode_step(params, x[:, -1:], cache, cfg)[0]
+            step = mm.decode_step(params, x[:, -1:], cache, cfg, enc=enc)[0]
         finally:
-            mm._decode_layer, ssm._conv_window, ssm._state_update = \
-                layer, window, update
+            mm._decode_layer, ssm._conv_window, ssm._state_update, \
+                mm.decoder_pe = layer, window, update, pe
         with torch.inference_mode():
             for t, v in kept.items():
                 (cache[t][:, :, i0:] if t in ("k", "v") else cache[t]
@@ -3794,16 +3898,24 @@ def attended_pairs(S: int, window: int, n_meta: int) -> int:
                for q in range(S))
 
 
-def lm_bounds(cfg, B: int, S: int):
+def lm_bounds(cfg, B: int, S: int, pairs=None):
     """The least milliseconds of one prefill of B x S tokens and of one
-    decode step after it on the card. Prefill: the larger of the weights'
-    bytes and each type's operations -- the bf16 matmuls (projections,
-    the attended (query, key) pairs of each layer's mask, the MoE's
-    router and every expert's capacity buffer, as the reference computes
-    them, the SSD's y_intra) at the bf16 rate, the SSD's f32 einsums at
-    the f32 rate. Decode: bytes -- every weight (all experts: the
-    expert matmuls multiply every buffer), the live KV cache, the SSM
-    state read and written."""
+    decode step after it on the card, each the larger of bytes and each
+    type's operations. Prefill: the weights' bytes; the bf16 matmuls
+    (projections, the attended (query, key) pairs of each layer's mask --
+    ``pairs`` where the positions' mask is not index-causal --, the FFN:
+    swiglu's three matmuls, gelu's two, the MoE's router and every
+    expert's capacity buffer as the reference computes them, the SSD's
+    y_intra; whisper's encoder over encoder_ctx frames with every key
+    visible, and each decoder layer's cross-attention: its query and
+    output projections, the encoder states' keys and values, the scores
+    against every frame) at the bf16 rate, the SSD's f32 einsums at the
+    f32 rate. Decode: bytes -- every weight (all experts: the expert
+    matmuls multiply every buffer), the live KV cache, the SSM state read
+    and written, the encoder states each layer reads -- against the
+    operations of B tokens through the weights and the attention, and
+    whisper's cross keys and values, recomputed from the encoder states
+    in every layer at every step as the reference does."""
     from repro_torch.models.model import layer_windows
     from repro_torch.models.moe import _capacity
 
@@ -3811,15 +3923,36 @@ def lm_bounds(cfg, B: int, S: int):
     Sm = S + M
     T = B * Sm
     H, K, hd, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    ffn = (4 if cfg.mlp == "gelu" else 6) * D * Fd      # per token
+    proj = 4 * D * (H + K) * hd                         # q, k, v, o
     weights = 2 * (cfg.param_count()
                    - (0 if cfg.tie_embeddings else V * D))
     bf = 2 * B * D * V                               # the last logits
     f32 = kv = state = 0
+    Se, Le = cfg.encoder_ctx, cfg.encoder_layers
+    nrm = 2 * D if cfg.norm == "layernorm" else D
+    enc_params = Le * (2 * nrm + proj // 2 + ffn // 2) + (nrm if Le else 0)
+    # a decode step reads no encoder weight; its B tokens go through every
+    # other matmul weight but the embedding table (the cross-attention's
+    # keys and values through theirs on the encoder states instead)
+    dec_weights = weights - 2 * enc_params
+    dec = 2 * B * (cfg.param_count() - enc_params - V * D * (
+        1 if cfg.tie_embeddings else 2) - (L * 2 * D * K * hd if Le else 0)) \
+        + 2 * B * D * V
+    for _ in range(Le):
+        bf += B * Se * (proj + ffn) + 4 * B * H * hd * Se * Se
     for window in layer_windows(cfg):
         if cfg.has_attention:
-            bf += 4 * T * D * (H + K) * hd \
-                + 4 * B * H * hd * attended_pairs(Sm, window, M)
+            p = attended_pairs(Sm, window, M) if pairs is None or window \
+                else pairs
+            bf += T * proj + 4 * B * H * hd * p
             kv += 4 * B * (Sm + 1) * K * hd
+            dec += 4 * B * H * hd * (Sm + 1)
+        if Le:
+            enc_kv = 4 * B * Se * D * K * hd         # keys, values of enc
+            bf += T * 2 * D * H * hd + 4 * T * H * hd * Se + enc_kv
+            dec += 4 * B * H * hd * Se + enc_kv
+            kv += 2 * B * Se * D                     # the encoder states
         if cfg.has_ssm:
             di, G, N, Hs, P = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
                                cfg.ssm_heads, cfg.ssm_headdim)
@@ -3834,9 +3967,10 @@ def lm_bounds(cfg, B: int, S: int):
                 + 6 * cfg.n_experts * _capacity(T, cfg) * D * Fd \
                 + (6 * T * D * Fd if cfg.shared_expert else 0)
         elif cfg.family != "ssm":
-            bf += 6 * T * D * Fd
+            bf += T * ffn
     pre = max(weights / HBM_BPS, bf / BF16_FLOPS, f32 / F32_FLOPS) * 1e3
-    return pre, (weights + kv + state) / HBM_BPS * 1e3
+    return pre, max((dec_weights + kv + state) / HBM_BPS,
+                    dec / BF16_FLOPS) * 1e3
 
 
 def lm_families(torch, np):
@@ -3857,22 +3991,34 @@ def lm_families(torch, np):
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_numpy
-    from repro_torch.models.model import (decode_step, init_params,
+    from repro_torch.models.model import (decode_step, encode, init_params,
                                           layer_windows, prefill)
     from repro_torch.serve.engine import generate
 
     B0, S0 = LM_SMOKE_PROMPT
     smoke = []
-    for arch in LM_FAMILIES + LM_SMOKE_ONLY:
+    for arch in LM_FAMILIES + LM_SMOKE_ONLY + (LM_ENCDEC, LM_VLM):
         scfg = dc.replace(get_config(arch, smoke=True), dtype=torch.float32)
         leaves = smoke_leaves(np, scfg, 0)
-        prompt = np.random.default_rng(1).integers(0, scfg.vocab, (B0, S0))
+        rng = np.random.default_rng(1)
+        prompt = rng.integers(0, scfg.vocab, (B0, S0))
+        # whisper: seeded frame embeddings; qwen2-vl: the image layout
+        extra = {}
+        if scfg.encoder_layers:
+            extra["enc_input"] = rng.standard_normal(
+                (B0, scfg.encoder_ctx, scfg.d_model), dtype=np.float32)
+        if scfg.mrope:
+            extra["positions"] = vlm_positions(np, "image", B0, S0,
+                                               VLM_SMOKE_IMAGE)
         outs = {}
         for dev in (DEV, "cpu"):
             p = lm_params_from_numpy(leaves, scfg, dev)
-            toks = generate(p, scfg, prompt, max_new_tokens=8)
-            first, cache = prefill(p, {"tokens": toks[:, :S0]}, scfg, S0 + 8)
-            step, _ = decode_step(p, toks[:, S0:S0 + 1], cache, scfg)
+            toks = lm_generate(torch, p, scfg, prompt, 8, **extra)
+            first, cache = prefill(p, {"tokens": toks[:, :S0], **extra},
+                                   scfg, S0 + 8)
+            enc = encode(p, extra["enc_input"], scfg) \
+                if scfg.encoder_layers else None
+            step, _ = decode_step(p, toks[:, S0:S0 + 1], cache, scfg, enc=enc)
             outs[dev] = [x.cpu() for x in (toks, first, step)]
         need(torch.equal(outs[DEV][0], outs["cpu"][0]),
              f"{arch} smoke: greedy tokens differ between the card and CPU")
@@ -3880,6 +4026,7 @@ def lm_families(torch, np):
                  for a, b in zip(outs[DEV][1:], outs["cpu"][1:]))
         need(de <= LM_SMOKE_TOL, f"{arch} smoke logits card vs CPU: {de}")
         smoke.append(f"{arch.split('-')[0]} {de:.1e}")
+        del p
     print(f"  smoke f32 {B0}x{S0}+8, greedy tokens = CPU, logits max delta "
           f"(tol {LM_SMOKE_TOL:g}): " + ", ".join(smoke), flush=True)
 
@@ -3952,29 +4099,12 @@ def lm_families(torch, np):
         timing = []
         for g, B, S in groups:
             xg = torch.as_tensor(prompts[g], device=DEV)
-
-            def run_prefill():
-                return prefill(params, {"tokens": xg}, cfg, S + LM_NEW)
-
-            ms_pre = host_ms(torch, run_prefill, 3)
-            _, cache = run_prefill()
-            tok = xg[:, -1:]
-
-            def run_decode():
-                return decode_step(params, tok, cache, cfg)
-
-            ms_dec = host_ms(torch, run_decode, LM_NEW - 1)
-            pre = device_times(torch, run_prefill, 1)
-            dec = device_times(torch, run_decode, 4)
-            b_pre, b_dec = lm_bounds(cfg, B, S)
-            timing.append(
-                f"{g}+{LM_NEW} prefill {ms_pre:.2f} ms (bound {b_pre:.3f}, "
-                f"busy {sum(u for _, u in pre.values()) / 1e3:.2f}, "
-                f"{sum(c for c, _ in pre.values())} launches) decode "
-                f"{ms_dec:.3f} ({b_dec:.3f}, "
-                f"{sum(u for _, u in dec.values()) / 4e3:.3f}, "
-                f"{sum(c for c, _ in dec.values()) / 4:.0f})")
-        del params, cache
+            timing.append(f"{g}+{LM_NEW} " + lm_timing(
+                torch, lambda: prefill(params, {"tokens": xg}, cfg,
+                                       S + LM_NEW),
+                lambda cache: decode_step(params, xg[:, -1:], cache, cfg),
+                lm_bounds(cfg, B, S)))
+        del params
         torch.cuda.empty_cache()
 
         # the same consistency in f32, where prefill and decode agree to
@@ -3995,6 +4125,217 @@ def lm_families(torch, np):
               f"{CONSIST_TOL:g} (" + _faults(rel, 1) + f"), f32 "
               f"{rel32['sound']:.1e} < {CONSIST_TOL_F32:g} < "
               + _faults(rel32, 1) + drops, flush=True)
+    return launches, routes
+
+
+def lm_timing(torch, run_prefill, decode_from, bounds) -> str:
+    """Host ms of ``run_prefill()`` and of a decode step
+    (``decode_from(cache)()`` from its cache), each beside its bound and
+    the device's busy ms and launches (torch.profiler) -> "prefill P ms
+    (bound, busy, launches) decode D (bound, busy, launches)"."""
+    ms_pre = host_ms(torch, run_prefill, 3)
+    _, cache = run_prefill()
+
+    def run_decode():
+        return decode_from(cache)
+
+    ms_dec = host_ms(torch, run_decode, LM_NEW - 1)
+    pre = device_times(torch, run_prefill, 1)
+    dec = device_times(torch, run_decode, 4)
+    b_pre, b_dec = bounds
+    return (f"prefill {ms_pre:.2f} ms (bound {b_pre:.3f}, "
+            f"busy {sum(u for _, u in pre.values()) / 1e3:.2f}, "
+            f"{sum(c for c, _ in pre.values())} launches) decode "
+            f"{ms_dec:.3f} ({b_dec:.3f}, "
+            f"{sum(u for _, u in dec.values()) / 4e3:.3f}, "
+            f"{sum(c for c, _ in dec.values()) / 4:.0f})")
+
+
+def vlm_positions(np, group: str, B: int, S: int, layout=VLM_IMAGE):
+    """(B, S, 3) int64 M-RoPE (t, h, w) positions of a prompt group:
+    "text": t = h = w = arange; "image": ``layout`` = (n, g): n text
+    tokens, a g x g patch grid at t = n with h = n + row and w = n +
+    column, then text from the largest position so far + 1 (n + g), as
+    Qwen2-VL's rope index lays a prompt out."""
+    if group == "text":
+        pos = np.repeat(np.arange(S)[:, None], 3, 1)
+    else:
+        n, g = layout
+        row, col = np.divmod(np.arange(g * g), g)
+        img = np.stack([np.zeros(g * g, np.int64), row, col], 1) + n
+        after = np.arange(S - n - g * g) + n + g
+        pos = np.concatenate([np.repeat(np.arange(n)[:, None], 3, 1), img,
+                              np.repeat(after[:, None], 3, 1)])
+    return np.ascontiguousarray(np.broadcast_to(pos, (B, S, 3)))
+
+
+def lm_generate(torch, params, cfg, prompt, new: int, enc_input=None,
+                positions=None):
+    """Greedy tokens (B, S + new) on the parameters' device: the
+    engine's generate (with ``enc_input`` for the encoder-decoder), or
+    for an M-RoPE config, whose (B, S, 3) ``positions`` generate cannot
+    take, prefill with them (numpy: the host copy that picks the flash
+    route) and decode_step on each argmax, the reference's VLM path."""
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serve.engine import generate
+
+    if not cfg.mrope:
+        return generate(params, cfg, prompt, new, enc_input=enc_input)
+    x = torch.as_tensor(prompt, device=params.device)
+    logits, cache = prefill(params, {"tokens": x, "positions": positions},
+                            cfg, x.shape[1] + new)
+    toks = [x]
+    for t in range(new):
+        cur = logits[:, -1].argmax(-1, keepdim=True)
+        toks.append(cur)
+        if t < new - 1:
+            logits, cache = decode_step(params, cur, cache, cfg)
+    return torch.cat(toks, dim=1)
+
+
+def lm_encdec_vlm(torch, np):
+    """The lm families phase, its encoder-decoder and VLM part, at full
+    width in bf16 (seeded random weights made on the card):
+    whisper-large-v3 (all 64 layers) generates for LM_ENCDEC_BATCH with
+    seeded frame embeddings, and qwen2-vl-72b (LM_VLM_LAYERS of its 80
+    layers) greedily decodes each LM_VLM_GROUPS prompt through prefill
+    and decode_step; counters reset just before each run and read just
+    after (flash sm90 launches a prefill: whisper's 32 encoder layers,
+    every key visible, and 32 decoder layers; qwen2-vl's 8 layers on text
+    prompts, none on image prompts, whose patches share a t). Then
+    parameters = param_count(), the same tokens on a rerun, prefill vs
+    prefill[:-1] + decode_step in bf16 and, with the planted faults
+    (whisper "enc-row", "pe+1"; qwen2-vl "mrope-h+1", "kv@idx-1", on the
+    image prompt with its last token at S - 1 on all three streams), in
+    f32, ms and bounds per prefill and decode step, busy ms, launches and
+    peak GiB. -> (launches by path, flash launches by route)."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import (decode_step, encode, init_params,
+                                          prefill)
+
+    launches, routes = {}, dict.fromkeys(fa.ROUTES, 0)
+
+    def build(cfg):
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+        n = sum(t.numel() for t in params.parameters())
+        need(n == cfg.param_count(), f"{cfg.name}: {n} parameters, config "
+                                     f"{cfg.param_count()}")
+        return params, n
+
+    def run(name, cfg, params, prompt, flash, **extra):
+        """Greedy tokens of one prompt with the counters reset before and
+        read after; ``flash`` sm90 launches wanted; the prompt kept, the
+        tokens in range and the same on a rerun."""
+        kernels.reset_launches()
+        toks = lm_generate(torch, params, cfg, prompt, LM_NEW, **extra)
+        torch.cuda.synchronize()
+        launches[name] = check_launches(name, kernels.launch_counts())
+        got = dict(fa.flash_attention.route_launches)
+        need(got == {"sm90": flash, "cuda_core": 0},
+             f"{name}: flash routes {got} in one bf16 prefill, want sm90 "
+             f"{flash}")
+        routes["sm90"] += flash
+        B, S = prompt.shape
+        need(toks.shape == (B, S + LM_NEW) and bool(((toks >= 0) & (
+            toks < cfg.vocab)).all()) and torch.equal(
+                toks[:, :S].cpu(), torch.from_numpy(prompt)),
+             f"{name}: tokens out of shape or range, or prompt changed")
+        need(torch.equal(lm_generate(torch, params, cfg, prompt, LM_NEW,
+                                     **extra), toks),
+             f"{name}: a second run gave other tokens")
+
+    def f32_consistency(cfg, x, **kw):
+        """prefill vs prefill + decode_step in f32 at full width: sound
+        under CONSIST_TOL_F32 (M-RoPE: CONSIST_TOL_F32_VLM), each planted
+        fault over it. -> (the relative L2 distances, the limit)"""
+        tol = CONSIST_TOL_F32_VLM if cfg.mrope else CONSIST_TOL_F32
+        cfg32 = dc.replace(cfg, dtype=torch.float32)
+        params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+        if "enc" in kw:
+            kw["enc"] = encode(params, kw["enc"], cfg32)
+        rel = decode_consistency(torch, params, cfg32, x, **kw)[2]
+        faults = min(v for k, v in rel.items() if k != "sound")
+        need(rel["sound"] <= tol < faults,
+             f"{cfg.name} f32 prefill vs prefill + decode_step: {rel}, "
+             f"limit {tol} (sound under it, faults over it)")
+        del params, kw
+        torch.cuda.empty_cache()
+        return rel, tol
+
+    # whisper-large-v3: the encoder over seeded frames, then the decoder
+    cfg = get_config(LM_ENCDEC)
+    g, B, S = LM_ENCDEC_BATCH
+    params, n = build(cfg)
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab, (B, S))
+    frames = torch.as_tensor(rng.standard_normal(
+        (B, cfg.encoder_ctx, cfg.d_model), dtype=np.float32), device=DEV)
+    per = cfg.encoder_layers + cfg.n_layers
+    run(f"lm {LM_ENCDEC}", cfg, params, prompt, per, enc_input=frames)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    x = torch.as_tensor(prompt, device=DEV)
+    enc = encode(params, frames, cfg)
+    rel = decode_consistency(torch, params, cfg, x, enc=enc)[2]
+    need(rel["sound"] <= CONSIST_TOL, f"{LM_ENCDEC}: prefill vs prefill + "
+                                      f"decode_step {rel} > {CONSIST_TOL}")
+    timing = lm_timing(
+        torch, lambda: prefill(params, {"tokens": x, "enc_input": frames},
+                               cfg, S + LM_NEW),
+        lambda cache: decode_step(params, x[:, -1:], cache, cfg, enc=enc),
+        lm_bounds(cfg, B, S))
+    del params, enc
+    torch.cuda.empty_cache()
+    rel32, tol = f32_consistency(cfg, x, enc=frames)
+    print(f"  {LM_ENCDEC} bf16: {n:,} params = config, {peak:.2f} GiB, sm90 "
+          f"{per}/prefill ({cfg.encoder_layers} all keys + {cfg.n_layers} "
+          f"causal), rerun same; {g}+{LM_NEW}, encoder "
+          f"{cfg.encoder_ctx} frames: {timing}; prefill vs decode bf16 "
+          f"{rel['sound']:.1e} < {CONSIST_TOL:g} (" + _faults(rel, 1)
+          + f"), f32 {rel32['sound']:.1e} < {tol:g} < "
+          + _faults(rel32, 1), flush=True)
+
+    # qwen2-vl-72b, LM_VLM_LAYERS layers: text and image prompt groups
+    cfg = dc.replace(get_config(LM_VLM), n_layers=LM_VLM_LAYERS)
+    params, n = build(cfg)
+    rng = np.random.default_rng(2)
+    timing = []
+    for g, B, S in LM_VLM_GROUPS:
+        prompt = rng.integers(0, cfg.vocab, (B, S))
+        pos = vlm_positions(np, g, B, S)
+        run(f"lm {LM_VLM} {g}", cfg, params, prompt,
+            cfg.n_layers if g == "text" else 0, positions=pos)
+        t = pos[0, :, 0]
+        pairs = int((t[None, :] <= t[:, None]).sum())
+        x = torch.as_tensor(prompt, device=DEV)
+        timing.append(f"{g} B{B}xS{S}+{LM_NEW} " + lm_timing(
+            torch, lambda: prefill(params, {"tokens": x, "positions": pos},
+                                   cfg, S + LM_NEW),
+            lambda cache: decode_step(params, x[:, -1:], cache, cfg),
+            lm_bounds(cfg, B, S, pairs)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the consistency prompt: the image group's, its last token at S - 1
+    # on all three streams, where decode_step places it
+    pos = pos.copy()
+    pos[:, -1] = S - 1
+    rel = decode_consistency(torch, params, cfg, x, positions=pos)[2]
+    need(rel["sound"] <= CONSIST_TOL, f"{LM_VLM}: prefill vs prefill + "
+                                      f"decode_step {rel} > {CONSIST_TOL}")
+    del params
+    torch.cuda.empty_cache()
+    rel32, tol = f32_consistency(cfg, x, positions=pos)
+    print(f"  {LM_VLM} {cfg.n_layers} of 80 layers bf16: {n:,} params = "
+          f"config, {peak:.2f} GiB, sm90 text {cfg.n_layers} / image 0 a "
+          f"prefill, reruns same; " + "; ".join(timing) + "; image prefill "
+          f"vs decode bf16 {rel['sound']:.1e} < {CONSIST_TOL:g} ("
+          + _faults(rel, 1) + f"), f32 {rel32['sound']:.1e} < {tol:g} < "
+          + _faults(rel32, 1), flush=True)
     return launches, routes
 
 
@@ -4102,10 +4443,10 @@ def main() -> int:
                 for n in ("dense_grad_hist", "dense_block_norm",
                           "hog_gradient", "fused_hog")}
         spills = ", ".join(f"{n} {st}/{ld}" for n, (st, ld) in pair.items())
-        print("ptxas registers, fewest-most over instantiations: "
-              + ", ".join(reports) + "; spill stores/loads, bytes: "
-              + (spills if any(map(sum, pair.values()))
-                 else "0/0 in " + ", ".join(pair)), flush=True)
+        level_line("ptxas registers, fewest-most over instantiations: "
+                   + ", ".join(reports) + "; spill stores/loads, bytes: "
+                   + (spills if any(map(sum, pair.values()))
+                      else "0/0 in " + ", ".join(pair)))
         need(not any("spill" in r for r in reports)
              and not any(sum(v) for v in pair.values()), "ptxas spilled")
         sm90_report(build)
@@ -4118,8 +4459,8 @@ def main() -> int:
         summary = check_kernels(torch, np)
         check_batched_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
-        print("  level, plan, scorer level, profile and batched-resize "
-              "lines: on standard error", flush=True)
+        print("  ptxas, level, plan, scorer level and edge, profile, split "
+              "and batched-resize lines: on standard error", flush=True)
         summary.update(check_flash(torch, np))
         print("main path:", flush=True)
         launches, configs, svm = main_path(torch, np)
@@ -4141,10 +4482,11 @@ def main() -> int:
         lm_launches, flash_routes = lm_path(torch, np)
         launches.update(lm_launches)
         print("lm families:", flush=True)
-        family_launches, family_routes = lm_families(torch, np)
-        launches.update(family_launches)
-        flash_routes = {r: n + family_routes[r]
-                        for r, n in flash_routes.items()}
+        for fn in (lm_families, lm_encdec_vlm):
+            family_launches, family_routes = fn(torch, np)
+            launches.update(family_launches)
+            flash_routes = {r: n + family_routes[r]
+                            for r, n in flash_routes.items()}
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1

@@ -1,17 +1,15 @@
 """Architecture registry: arch id -> config and smoke config (port of
 repro/configs/registry.py:get_config).
 
-The port runs the dense, MoE, SSM and hybrid families; the
-encoder-decoder and VLM families raise NotImplementedError naming the
-slice that brings them
-(``models/configs.py:LATER_FAMILY``). ``input_specs`` and
+Every family of the reference runs: dense, MoE, SSM, hybrid,
+encoder-decoder (whisper) and VLM (qwen2-vl). ``input_specs`` and
 ``cache_specs`` come with the dry-run port.
 """
 from __future__ import annotations
 
 import importlib
 
-from ..models.configs import LATER_FAMILY, ModelConfig
+from ..models.configs import ModelConfig
 
 #: arch id -> family, in the reference's ARCH_IDS order
 ARCH_FAMILY = {
@@ -35,11 +33,6 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         raise ValueError("hog_svm_coproc is handled by repro_torch.core")
     if arch not in ARCH_FAMILY:
         raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
-    family = ARCH_FAMILY[arch]
-    if family in LATER_FAMILY:
-        raise NotImplementedError(
-            f"{arch} is of the {family} family, which the port does not "
-            f"run yet: {LATER_FAMILY[family]} is a later slice of the port")
     mod = importlib.import_module(
         f"{__package__}." + arch.replace("-", "_").replace(".", "p"))
     return mod.SMOKE if smoke else mod.CONFIG

@@ -13,9 +13,9 @@
     ``ModelConfig``'s fields (``dataclasses.asdict``) as the port's
     ModelConfig, ``dtype`` mapped to a torch dtype;
   * ``lm_params_from_numpy(leaves, cfg, device)`` -- the reference's LM
-    parameter tree as numpy arrays (layer leaves stacked on axis 0) as
-    the port's ``CausalLM`` on ``device`` (CUDA unless the CPU is asked
-    for).
+    parameter tree as numpy arrays (layer leaves stacked on axis 0; the
+    encoder's on its own axis) as the port's ``CausalLM`` on ``device``
+    (CUDA unless the CPU is asked for).
 """
 from __future__ import annotations
 
@@ -105,12 +105,14 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def lm_params_from_numpy(leaves: Dict[str, Any], cfg: ModelConfig,
                          device=None) -> CausalLM:
-    """The reference's parameter tree ({"embed", "final_norm": {"scale"},
-    "layers": {"ln1", "ln2": {"scale"}, "attn": {"wq", ...}, "mlp" or
-    "moe" or "ssm": {...}, ...}, "lm_head", "meta"}) as numpy arrays,
-    layers stacked on axis 0 -> the port's CausalLM on ``device``. Every
-    leaf takes the config's dtype but the SSM's ``A_log``, ``D_skip`` and
-    ``dt_bias``, which stay f32, as the reference keeps them."""
+    """The reference's parameter tree ({"embed", "final_norm": {"scale"
+    (, "bias")}, "layers": {"ln1", "ln2": {...}, "attn": {"wq", ...},
+    "mlp" or "moe" or "ssm": {...}, "xattn", "ln_x", ...}, "lm_head",
+    "meta", "enc_layers": {"ln1", "ln2", "attn", "mlp"}, "enc_norm"}) as
+    numpy arrays, layers stacked on axis 0 -> the port's CausalLM on
+    ``device``. Every leaf takes the config's dtype but the SSM's
+    ``A_log``, ``D_skip`` and ``dt_bias``, which stay f32, as the
+    reference keeps them."""
     dev = resolve_device(device)
 
     def conv(x, name=""):

@@ -2,9 +2,11 @@
 smokes behind one CLI:
 
 LM mode (default): --arch <id> prefill + decode a batch of prompts with
-the KV (and SSM) cache at smoke size and print tokens/s. The dense, MoE,
-SSM and hybrid families run; whisper-large-v3 and qwen2-vl-72b raise the
-registry's NotImplementedError naming their slice.
+the KV (and SSM) cache at smoke size and print tokens/s. whisper-large-v3
+encodes zero frame embeddings (B, encoder_ctx, d_model) first, as the
+reference's CLI does; qwen2-vl-72b exits non-zero with generate's
+ValueError (its (B, S, 3) positions go through prefill and decode_step,
+which the reference's CLI cannot pass either).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
         --batch 4 --prompt-len 16 --new-tokens 32 [--device cpu]
@@ -126,7 +128,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
                     help="LM serving smoke: arch id (see repro_torch."
-                         "configs; whisper and qwen2-vl raise)")
+                         "configs; qwen2-vl exits naming its positions)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -174,10 +176,15 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator(dev).manual_seed(1),
                            device=dev)
+    enc = None
+    if cfg.encoder_layers:
+        enc = torch.zeros((args.batch, cfg.encoder_ctx, cfg.d_model),
+                          dtype=torch.float32, device=dev)
     t0 = time.time()
     out = generate(params, cfg, prompt, max_new_tokens=args.new_tokens,
                    temperature=args.temperature,
-                   generator=torch.Generator(dev).manual_seed(2))
+                   generator=torch.Generator(dev).manual_seed(2),
+                   enc_input=enc)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0

@@ -1,22 +1,24 @@
-"""Attention: GQA, qk-norm, RoPE, sliding windows with meta-token
-sinks, and KV-cache decode (port of repro/models/attention.py, its
-decoder-only part).
+"""Attention: GQA, qk-norm, RoPE / M-RoPE, sliding windows with
+meta-token sinks, cross-attention and KV-cache decode (port of
+repro/models/attention.py).
 
-Prefill and full-sequence attention run at ``arange`` positions, the
-queries and keys the same sequence. Causal attention with no window --
-every layer of the dense and MoE families and hymba's global layers,
-whose meta tokens are plain causal positions -- takes the hand-written
-flash kernel (``kernels/flash_attention.py``). A windowed layer takes
-``_sdpa``, the reference's einsum attention in plain torch, under the
-windowed ``make_mask`` (the reference's default path), or, when asked,
-``banded_core``: block-banded attention whose band and meta-prefix
-partial softmaxes merge by log-sum-exp (the reference's ``ctx.banded``).
-Single-token decode against the padded cache takes ``_sdpa`` with the
-(windowed) causal mask; ``attention_decode_windowed`` reads only the
-live window and the meta prefix.
-
-Explicit and M-RoPE positions, non-causal and cross-attention come with
-the VLM and encoder-decoder slices.
+Causal attention with no window whose mask is index-causal -- arange
+positions, or explicit ones whose t stream strictly rises along every
+row, which ``index_causal`` decides on a host copy -- takes the
+hand-written flash kernel (``kernels/flash_attention.py``): every layer
+of the dense and MoE families, hymba's global layers (meta tokens are
+plain causal positions), whisper's decoder and qwen2-vl's text prompts.
+The encoder's attention, every key visible, takes the same kernel with
+``causal=False``. Any other mask -- a window, or positions whose t
+repeats (an image's patches share one t and see each other both ways)
+-- takes ``_sdpa``, the reference's einsum attention in plain torch,
+under ``make_mask`` of the t stream (the reference's default path), or,
+for a window when asked, ``banded_core``: block-banded attention whose
+band and meta-prefix partial softmaxes merge by log-sum-exp (the
+reference's ``ctx.banded``). Cross-attention (queries and keys of other
+lengths, no RoPE, no mask) and single-token decode against the padded
+cache take ``_sdpa``; ``attention_decode_windowed`` reads only the live
+window and the meta prefix.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
 from .configs import ModelConfig
-from .layers import apply_rope, rmsnorm
+from .layers import apply_mrope, apply_rope, rmsnorm
 
 Tensor = torch.Tensor
 
@@ -37,9 +39,9 @@ NEG_INF = -1e9  # the reference's mask value (survives f32 softmax)
 def _project_qkv(x: Tensor, p, cfg: ModelConfig,
                  positions: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, K, hd), with qk-norm
-    and RoPE applied to q and k."""
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE comes with the VLM slice")
+    and RoPE applied to q and k: M-RoPE of (B, S, 3) positions where the
+    config has it, else RoPE of the (B, S) positions (of the t stream of
+    (B, S, 3) ones)."""
     B, S, D = x.shape
     hd = cfg.hd
     q = torch.matmul(x, p.wq).view(B, S, cfg.n_heads, hd)
@@ -48,66 +50,95 @@ def _project_qkv(x: Tensor, p, cfg: ModelConfig,
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        pos = t_stream(positions)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     return q, k, v
 
 
-def make_mask(q_pos: Tensor, k_pos: Tensor, *, window: int = 0,
-              n_meta: int = 0) -> Tensor:
-    """The causal boolean mask (..., Sq, Sk): True = attend (the key's
-    position is at most the query's). ``window`` > 0 restricts it to the
-    last ``window`` keys; the first ``n_meta`` keys (hymba's meta tokens)
-    stay visible through the window (attention sinks)."""
+def t_stream(positions: Tensor) -> Tensor:
+    """The (B, S) positions masks read: ``positions`` itself, or the t
+    stream of (B, S, 3) M-RoPE positions."""
+    return positions if positions.dim() == 2 else positions[..., 0]
+
+
+def index_causal(positions) -> bool:
+    """Whether the causal mask of ``positions`` ((B, S) or (B, S, 3),
+    numpy or a tensor; None = arange) is the index-causal mask the flash
+    kernel computes, key j visible to query i iff j <= i: so it is iff
+    every row's t strictly rises. Decided only on a host copy (numpy or
+    a CPU tensor): a tensor on the card is not read, which would wait
+    for the device, and counts as not index-causal."""
+    if positions is None:
+        return True
+    t = t_stream(torch.as_tensor(positions))
+    if t.device.type != "cpu":
+        return False
+    return bool((t[:, 1:] > t[:, :-1]).all())
+
+
+def make_mask(q_pos: Tensor, k_pos: Tensor, *, causal: bool = True,
+              window: int = 0, n_meta: int = 0) -> Tensor:
+    """The boolean mask (..., Sq, Sk): True = attend. ``causal``: the
+    key's position is at most the query's; ``window`` > 0 restricts it
+    to the last ``window`` keys, while the first ``n_meta`` keys
+    (hymba's meta tokens) stay visible through the window (attention
+    sinks)."""
     dq = q_pos[..., :, None]
     dk = k_pos[..., None, :]
-    m = dk <= dq
+    m = dk <= dq if causal else torch.ones(
+        torch.broadcast_shapes(dq.shape, dk.shape), dtype=torch.bool,
+        device=dq.device)
     if window > 0:
         m = m & ((dk > dq - window) | (dk < n_meta))
     return m
 
 
-def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
           cfg: ModelConfig) -> Tensor:
     """Grouped scaled-dot-product attention, the reference's plain einsum
     branch: scores in the input dtype, then f32 scaling, masking and
     softmax, the weights cast to v's dtype.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, K, hd) with H = K * rep;
-    mask (B, Sq, Sk) or broadcastable.
+    mask (B, Sq, Sk) or broadcastable, or None (every key visible).
     """
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     q = q.reshape(B, Sq, K, H // K, hd)
     scores = torch.einsum("bqkrh,bskh->bkrqs", q, k).to(torch.float32)
     scores = scores * hd ** -0.5
-    scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkrqs,bskh->bqkrh", w, v)
     return out.reshape(B, Sq, H, hd)
 
 
-def attend(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    """Causal self-attention of a sequence at arange positions, q (B, S,
-    H, hd), k and v (B, S, K, hd) -> (B, S, H, hd), through the flash
-    kernel. The kernel reads the (B, H, S, hd) views through their
-    strides, so no transpose is copied."""
+def attend(q: Tensor, k: Tensor, v: Tensor, causal: bool = True) -> Tensor:
+    """Self-attention of a sequence, q (B, S, H, hd), k and v (B, S, K,
+    hd) -> (B, S, H, hd), through the flash kernel: index-causal, or
+    every key visible. The kernel reads the (B, H, S, hd) views through
+    their strides, so no transpose is copied."""
     return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2)).transpose(1, 2)
+                           v.transpose(1, 2), causal=causal).transpose(1, 2)
 
 
-def self_attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig, *,
-                window: int = 0, n_meta: int = 0,
-                banded: bool = False) -> Tensor:
-    """Self-attention of a sequence at arange positions (q (B, S, H, hd),
-    k and v (B, S, K, hd)) with the layer's window: none -> the flash
-    kernel; a window -> ``banded_core`` if ``banded``, else ``_sdpa``
-    under the windowed mask."""
-    if not window:
+def self_attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
+                pos: Tensor, *, window: int = 0, n_meta: int = 0,
+                banded: bool = False, flash: bool = True) -> Tensor:
+    """Causal self-attention of a sequence (q (B, S, H, hd), k and v (B,
+    S, K, hd)) at the (B, S) positions ``pos`` with the layer's window:
+    none and ``flash`` (``pos`` index-causal) -> the flash kernel; a
+    window -> ``banded_core`` if ``banded``; else ``_sdpa`` under
+    ``make_mask`` of ``pos``."""
+    if not window and flash:
         return attend(q, k, v)
-    B, S = q.shape[:2]
-    pos = arange_positions(B, S, q.device)
-    if banded:
+    if window and banded:
         return banded_core(q, k, v, pos, cfg, window=window, n_meta=n_meta)
     return _sdpa(q, k, v, make_mask(pos, pos, window=window,
                                     n_meta=n_meta), cfg)
@@ -118,15 +149,39 @@ def arange_positions(B: int, S: int, device) -> Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
-def attention(x: Tensor, p, cfg: ModelConfig, *, window: int = 0,
-              n_meta: int = 0, banded: bool = False) -> Tensor:
-    """Full-sequence causal attention at arange positions (training /
-    prefill without cache), windowed if ``window`` > 0."""
+def attention(x: Tensor, p, cfg: ModelConfig,
+              positions: Optional[Tensor] = None, *, window: int = 0,
+              n_meta: int = 0, causal: bool = True,
+              banded: bool = False) -> Tensor:
+    """Full-sequence attention (training / prefill without cache) at
+    ``positions`` ((B, S), (B, S, 3) for M-RoPE, or None: arange),
+    windowed if ``window`` > 0; ``causal=False`` (the encoder) lets every
+    query see every key, through the flash kernel."""
     B, S, D = x.shape
-    q, k, v = _project_qkv(x, p, cfg, arange_positions(B, S, x.device))
-    out = self_attend(q, k, v, cfg, window=window, n_meta=n_meta,
-                      banded=banded)
+    flash = index_causal(positions)
+    if positions is None:
+        positions = arange_positions(B, S, x.device)
+    positions = torch.as_tensor(positions, device=x.device)
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    if causal:
+        out = self_attend(q, k, v, cfg, t_stream(positions), window=window,
+                          n_meta=n_meta, banded=banded, flash=flash)
+    else:
+        out = attend(q, k, v, causal=False)
     return torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), p.wo)
+
+
+def cross_attention(x: Tensor, enc: Tensor, p, cfg: ModelConfig) -> Tensor:
+    """Decoder cross-attention over encoder states (whisper): queries of
+    x (B, S, D), keys and values of enc (B, T, D), no RoPE and no mask,
+    through ``_sdpa`` (the flash kernel takes equal lengths only)."""
+    B, S, D = x.shape
+    T, hd = enc.shape[1], cfg.hd
+    q = torch.matmul(x, p.wq).view(B, S, cfg.n_heads, hd)
+    k = torch.matmul(enc, p.wk).view(B, T, cfg.n_kv_heads, hd)
+    v = torch.matmul(enc, p.wv).view(B, T, cfg.n_kv_heads, hd)
+    out = _sdpa(q, k, v, None, cfg)
+    return torch.matmul(out.reshape(B, S, cfg.n_heads * hd), p.wo)
 
 
 def attention_decode(x: Tensor, p, cfg: ModelConfig,
@@ -135,8 +190,9 @@ def attention_decode(x: Tensor, p, cfg: ModelConfig,
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Single-token decode against a KV cache.
 
-    x: (B, 1, D); cache: {"k", "v": (B, Smax, K, hd), "idx": int} --
-    ``idx`` is the current length (the same for the whole batch). The new
+    x: (B, 1, D); positions (B, 1), or (B, 1, 3) for M-RoPE; cache:
+    {"k", "v": (B, Smax, K, hd), "idx": int} -- ``idx`` is the current
+    length (the same for the whole batch). The new
     key and value are written into the cache tensors in place (the
     reference returns updated copies); the returned cache holds the same
     tensors and ``idx + 1``. The mask reads the whole padded cache,
@@ -146,7 +202,8 @@ def attention_decode(x: Tensor, p, cfg: ModelConfig,
     q, k, v, idx = _decode_qkv(x, p, cfg, cache, positions)
     Smax = k.shape[1]
     k_pos = torch.arange(Smax, device=x.device)[None, :]
-    mask = make_mask(positions[:, -1:], k_pos, window=window, n_meta=n_meta)
+    mask = make_mask(t_stream(positions)[:, -1:], k_pos, window=window,
+                     n_meta=n_meta)
     out = _sdpa(q, k, v, mask, cfg)
     y = torch.matmul(out.reshape(B, 1, cfg.n_heads * cfg.hd), p.wo)
     return y, {"k": k, "v": v, "idx": idx + 1}
@@ -197,9 +254,9 @@ def banded_attention(x: Tensor, p, cfg: ModelConfig, *, window: int,
     partial softmaxes merge by log-sum-exp. The masked baseline's
     function at O(S (2 window + n_meta)) instead of O(S^2)."""
     B, S, D = x.shape
-    q, k, v = _project_qkv(x, p, cfg, arange_positions(B, S, x.device))
-    out = banded_core(q, k, v, arange_positions(B, S, x.device), cfg,
-                      window=window, n_meta=n_meta)
+    pos = arange_positions(B, S, x.device)
+    q, k, v = _project_qkv(x, p, cfg, pos)
+    out = banded_core(q, k, v, pos, cfg, window=window, n_meta=n_meta)
     return torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), p.wo)
 
 
@@ -268,7 +325,7 @@ def attention_decode_windowed(x: Tensor, p, cfg: ModelConfig,
     start = min(max(idx - window + 1, 0), Smax - window)
     k_win, v_win = k[:, start:start + window], v[:, start:start + window]
     kp_win = torch.arange(start, start + window, device=x.device)[None, :]
-    mask_win = make_mask(positions[:, -1:], kp_win, window=window)
+    mask_win = make_mask(t_stream(positions)[:, -1:], kp_win, window=window)
     if n_meta:
         mask_win = mask_win & (kp_win >= n_meta)[:, None, :]
         kk = torch.cat([k[:, :n_meta], k_win], dim=1)

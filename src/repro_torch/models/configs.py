@@ -9,8 +9,8 @@ selects features:
   encdec  -- encoder-decoder with cross-attention (whisper)
   vlm     -- decoder with M-RoPE positions (qwen2-vl)
 
-The port runs the first four (``models/model.py``); ``dtype`` is a torch
-dtype here.
+The port runs all six (``models/model.py``); ``dtype`` is a torch dtype
+here.
 """
 from __future__ import annotations
 
@@ -18,14 +18,6 @@ import dataclasses
 from typing import Any, Tuple
 
 import torch
-
-#: family -> the slice of the port that brings it (the dense, MoE, SSM and
-#: hybrid families run)
-LATER_FAMILY = {
-    "encdec": "the encoder-decoder slice (encode, cross_attention, "
-              "layernorm, gelu_mlp)",
-    "vlm": "the VLM slice (M-RoPE)",
-}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,14 +1,14 @@
-"""Primitive layers: RMSNorm, SwiGLU MLP, RoPE (port of
-repro/models/layers.py, the dense family's part).
+"""Primitive layers: norms, MLPs, RoPE / M-RoPE and whisper's sinusoidal
+positions (port of repro/models/layers.py).
 
-``layernorm`` and ``gelu_mlp`` come with the whisper slice (note: the
-reference's ``jax.nn.gelu`` is the tanh approximation), ``apply_mrope``
-with qwen2-vl and ``sinusoidal_positions`` with the encoder-decoder.
-
-Each takes the parameter container of its layer (an ``nn.Module`` of
-``models/model.py``, or anything with the same attributes).
+Each norm and MLP takes the parameter container of its layer (an
+``nn.Module`` of ``models/model.py``, or anything with the same
+attributes). The reference's ``jax.nn.gelu`` is the tanh approximation,
+so ``gelu_mlp`` asks torch for it.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,13 +24,27 @@ def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
     return (out * scale.to(torch.float32)).to(x.dtype)
 
 
+def layernorm(x: Tensor, scale: Tensor, bias: Tensor,
+              eps: float = 1e-5) -> Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias, in f32 (the variance
+    the mean of squared deviations, as ``jnp.var``), returned in x's
+    dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    d = xf - mu
+    var = torch.mean(d * d, dim=-1, keepdim=True)
+    out = d * torch.rsqrt(var + eps)
+    return (out * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
 def norm(x: Tensor, p, kind: str, eps: float) -> Tensor:
-    """The configured norm; ``p.scale`` is its weight."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r}: layernorm comes with the encoder-decoder "
-            f"(whisper) slice of the port")
-    return rmsnorm(x, p.scale, eps)
+    """The configured norm; ``p.scale`` (and ``p.bias``) its weights."""
+    if kind == "layernorm":
+        return layernorm(x, p.scale, p.bias, eps)
+    if kind == "rmsnorm":
+        return rmsnorm(x, p.scale, eps)
+    raise ValueError(f"unknown norm kind {kind!r}")
 
 
 def swiglu(x: Tensor, p) -> Tensor:
@@ -40,12 +54,18 @@ def swiglu(x: Tensor, p) -> Tensor:
     return torch.matmul(g * u, p.w_down)
 
 
+def gelu_mlp(x: Tensor, p) -> Tensor:
+    """gelu(x W_up) W_down, gelu's tanh approximation."""
+    h = F.gelu(torch.matmul(x, p.w_up), approximate="tanh")
+    return torch.matmul(h, p.w_down)
+
+
 def mlp(x: Tensor, p, kind: str) -> Tensor:
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp {kind!r}: gelu_mlp comes with the encoder-decoder "
-            f"(whisper) slice of the port")
-    return swiglu(x, p)
+    if kind == "swiglu":
+        return swiglu(x, p)
+    if kind == "gelu":
+        return gelu_mlp(x, p)
+    raise ValueError(f"unknown mlp kind {kind!r}")
 
 
 # ---------------------------------------------------------------- RoPE
@@ -55,13 +75,48 @@ def rope_freqs(hd: int, theta: float, device=None) -> Tensor:
                                          device=device) / hd))
 
 
-def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
-    """x: (B, S, H, hd), positions: (B, S) -> rotated x (same dtype)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)               # (hd/2,)
-    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, hd/2)
+def _rotate(x: Tensor, ang: Tensor) -> Tensor:
+    """x (B, S, H, hd) rotated by the angles ang (B, S, hd/2): the halves
+    (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos), in f32."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (B, S, H, hd), positions: (B, S) -> rotated x (same dtype)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)      # (hd/2,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(x: Tensor, positions: Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> Tensor:
+    """M-RoPE (qwen2-vl): positions (B, S, 3) = (t, h, w) indices. The
+    hd/2 frequency slots split into three contiguous sections, each
+    rotated by its own position stream; for text (t == h == w) it is
+    RoPE."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to hd/2 "
+                         f"= {hd // 2}")
+    freqs = torch.split(rope_freqs(hd, theta, x.device), list(sections))
+    pos = positions.to(torch.float32)
+    # section j's slots times stream j (no index tensor to copy over)
+    ang = torch.cat([pos[..., j:j + 1] * f for j, f in enumerate(freqs)],
+                    dim=-1)                                # (B, S, hd/2)
+    return _rotate(x, ang)
+
+
+def sinusoidal_positions(n: int, d: int, device=None, start: int = 0
+                         ) -> Tensor:
+    """Whisper-style fixed sinusoidal embeddings of positions start ..
+    start + n - 1, (n, d) f32: [sin | cos] of pos / 10000^(2i/d), the
+    halves concatenated, not interleaved. Each row depends only on its
+    position, so ``start`` gives rows of the reference's table alone."""
+    pos = torch.arange(start, start + n, dtype=torch.float32,
+                       device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,27 +1,38 @@
-"""The decoder-only causal LM: init, forward, prefill, decode (port of
-repro/models/model.py) for the dense, MoE, SSM and hybrid families.
+"""The LM: init, forward, prefill, decode (port of repro/models/model.py)
+for every family: dense, MoE, SSM, hybrid, encoder-decoder (whisper) and
+VLM (qwen2-vl, M-RoPE).
 
 The parameters are ``nn.Module``s that mirror the reference's tree:
 ``CausalLM`` holds ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
 unless the embeddings are tied, ``meta`` (hymba's meta tokens, (M, D))
-where the config has them, and ``layers``, one ``Leaves`` node each
-with the reference's children of a layer -- ``ln1``, ``ln2``, then by
-family ``attn`` (``wq`` (D, H*hd), ``wk``/``wv`` (D, K*hd), ``wo`` (H*hd,
-D), the qk-norm scales), ``mlp``, ``moe`` (``router``, the experts'
+where the config has them, ``layers``, one ``Leaves`` node each with the
+reference's children of a layer -- ``ln1``, ``ln2``, then by family
+``attn`` (``wq`` (D, H*hd), ``wk``/``wv`` (D, K*hd), ``wo`` (H*hd, D),
+the qk-norm scales), ``mlp`` (swiglu's ``w_gate``/``w_up``/``w_down``,
+gelu's ``w_up``/``w_down``), ``moe`` (``router``, the experts'
 ``w_gate``/``w_up``/``w_down``, ``shared``), ``ssm`` (``in_proj``,
 ``conv_w``/``conv_b``, ``A_log``, ``D_skip``, ``dt_bias`` (f32),
-``norm_scale``, ``out_proj``) and hybrid's branch norms ``bn_attn`` /
-``bn_ssm`` -- each layer's slice of the reference's layer-stacked
-leaves. Plain functions with the reference's names run them; the
-reference's scan over layers (and its per-layer remat) is a loop over
-``params.layers``. Parameters carry no gradient: training, with a
-backward for the flash kernel, is a later slice.
+``norm_scale``, ``out_proj``), hybrid's branch norms ``bn_attn`` /
+``bn_ssm`` and the encoder-decoder's cross-attention ``xattn`` and its
+norm ``ln_x`` -- and, for the encoder-decoder, ``enc_layers`` (``ln1``,
+``ln2``, ``attn``, ``mlp``) and ``enc_norm``. Each norm holds ``scale``,
+and ``bias`` for layernorm. Each layer is its slice of the reference's
+layer-stacked leaves. Plain functions with the reference's names run
+them; the reference's scan over layers (and its per-layer remat) is a
+loop over ``params.layers``. Parameters carry no gradient: training,
+with a backward for the flash kernel, is a later slice.
 
 The reference's default path computes both the full and the windowed
 attention of every layer of a windowed model, then selects one; the loop
 here computes only the layer's own (``layer_windows``). Its banded
 prefill (``ctx.banded``) is the ``banded`` argument of ``prefill`` and
-``forward``.
+``forward``. ``batch["positions"]`` ((B, S), or (B, S, 3) for M-RoPE)
+moves to the card once; its host copy decides whether the causal mask is
+index-causal, and so whether prefill attention takes the flash kernel
+(``attention.index_causal``). Whisper's encoder runs once per
+``encode``; its states feed every decoder layer's cross-attention, whose
+keys and values are recomputed from them in every layer and at every
+decode step, as the reference does (there is no cross-KV cache).
 
 The cache is {"k", "v": (L, B, Smax, K, hd) in the model's dtype, "state":
 (L, B, H_ssm, N, P) and "conv": (L, B, k-1, conv_dim) in f32, "idx":
@@ -36,10 +47,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from .attention import (_project_qkv, arange_positions, attention_decode,
-                        self_attend)
-from .configs import LATER_FAMILY, ModelConfig
-from .layers import mlp, norm
+from .attention import (_project_qkv, arange_positions, attention,
+                        attention_decode, cross_attention, index_causal,
+                        self_attend, t_stream)
+from .configs import ModelConfig
+from .layers import mlp, norm, sinusoidal_positions
 from .moe import moe_ffn
 from .ssm import ssd_decode, ssd_forward
 
@@ -50,18 +62,22 @@ Cache = Dict[str, object]
 F32_LEAVES = ("A_log", "D_skip", "dt_bias")
 
 
+#: the families of the reference, every one of which the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+#: whisper's decoder positions: the rows of the reference's table
+#: (``decode_step`` reads row idx, clamped to the last)
+DECODER_PE_ROWS = 32768 + 8
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.family in LATER_FAMILY or cfg.encoder_layers or cfg.mrope:
-        where = LATER_FAMILY.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family): the port runs the dense, "
-            f"MoE, SSM and hybrid families; {where} is a later slice of "
-            f"the port")
-    if cfg.norm != "rmsnorm" or cfg.mlp != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: norm {cfg.norm!r} / mlp {cfg.mlp!r} come with the "
-            f"encoder-decoder slice of the port")
+    """Raise ValueError for a config no path runs: an unknown family,
+    norm or MLP kind."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.norm not in ("rmsnorm", "layernorm") \
+            or cfg.mlp not in ("swiglu", "gelu"):
+        raise ValueError(f"{cfg.name}: unknown norm {cfg.norm!r} or mlp "
+                         f"{cfg.mlp!r}")
 
 
 # =====================================================================
@@ -95,6 +111,10 @@ class CausalLM(nn.Module):
         for name in ("lm_head", "meta"):
             if name in tree:
                 setattr(self, name, _param(tree[name]))
+        if "enc_layers" in tree:
+            self.enc_layers = nn.ModuleList(Leaves(t)
+                                            for t in tree["enc_layers"])
+            self.enc_norm = Leaves(tree["enc_norm"])
 
     @property
     def device(self) -> torch.device:
@@ -105,7 +125,8 @@ class CausalLM(nn.Module):
 
 
 def _layer_keys(cfg: ModelConfig) -> List[str]:
-    """The children of a layer, as the reference's ``_layer_stack_p``."""
+    """The children of a decoder layer, as the reference's
+    ``_layer_stack_p``; an encoder layer's are ln1, ln2, attn, mlp."""
     keys = ["ln1", "ln2"]
     if cfg.has_attention:
         keys.append("attn")
@@ -117,6 +138,8 @@ def _layer_keys(cfg: ModelConfig) -> List[str]:
         keys.append("moe")
     elif cfg.family != "ssm":
         keys.append("mlp")
+    if cfg.encoder_layers:
+        keys += ["xattn", "ln_x"]
     return keys
 
 
@@ -135,11 +158,22 @@ def from_leaves(cfg: ModelConfig, leaves) -> CausalLM:
     if sorted(lay) != sorted(_layer_keys(cfg)):
         raise ValueError(f"layers hold {sorted(lay)}, the {cfg.family} "
                          f"family has {sorted(_layer_keys(cfg))}")
-    L = cfg.n_layers
-    _tree_map(lambda t: _need_layers(t, L), lay)
-    tree = {k: v for k, v in leaves.items() if k != "layers"}
-    tree["layers"] = [_tree_map(lambda t: t[i], lay) for i in range(L)]
+    tree = {k: v for k, v in leaves.items()
+            if k not in ("layers", "enc_layers")}
+    tree["layers"] = _unstack(lay, cfg.n_layers)
+    if cfg.encoder_layers:
+        enc = leaves["enc_layers"]
+        if sorted(enc) != ["attn", "ln1", "ln2", "mlp"]:
+            raise ValueError(f"enc_layers hold {sorted(enc)}, the encoder "
+                             f"has attn, ln1, ln2, mlp")
+        tree["enc_layers"] = _unstack(enc, cfg.encoder_layers)
     return CausalLM(cfg, tree)
+
+
+def _unstack(lay, L: int) -> List[Dict[str, object]]:
+    """Layer-stacked leaves -> one tree of views a layer."""
+    _tree_map(lambda t: _need_layers(t, L), lay)
+    return [_tree_map(lambda t: t[i], lay) for i in range(L)]
 
 
 def _need_layers(t: Tensor, L: int) -> None:
@@ -162,9 +196,18 @@ def _dense(gen: torch.Generator, shape, cfg: ModelConfig, device,
     return (x * std).to(cfg.dtype)
 
 
-def _layer_tree(gen: torch.Generator, cfg: ModelConfig, dev
-                ) -> Dict[str, object]:
-    """One layer's parameters with the reference's distributions."""
+def _norm_tree(cfg: ModelConfig, dev) -> Dict[str, Tensor]:
+    """A norm's weights: scale ones, and bias zeros for layernorm."""
+    t = {"scale": torch.ones(cfg.d_model, dtype=cfg.dtype, device=dev)}
+    if cfg.norm == "layernorm":
+        t["bias"] = torch.zeros(cfg.d_model, dtype=cfg.dtype, device=dev)
+    return t
+
+
+def _layer_tree(gen: torch.Generator, cfg: ModelConfig, dev,
+                encoder: bool = False) -> Dict[str, object]:
+    """One layer's parameters with the reference's distributions (an
+    encoder layer's with ``encoder``)."""
     D, H, K, hd, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                        cfg.d_ff)
 
@@ -174,17 +217,26 @@ def _layer_tree(gen: torch.Generator, cfg: ModelConfig, dev
     def dense(*shape, scale=None):
         return _dense(gen, shape, cfg, dev, scale)
 
-    def swiglu_p():
+    def mlp_p():
+        if cfg.mlp == "gelu":
+            return {"w_up": dense(D, Fd), "w_down": dense(Fd, D)}
         return {"w_gate": dense(D, Fd), "w_up": dense(D, Fd),
                 "w_down": dense(Fd, D)}
 
-    t: Dict[str, object] = {"ln1": {"scale": ones(D)},
-                            "ln2": {"scale": ones(D)}}
-    if cfg.has_attention:
-        t["attn"] = {"wq": dense(D, H * hd), "wk": dense(D, K * hd),
-                     "wv": dense(D, K * hd), "wo": dense(H * hd, D)}
+    def attn_p():
+        a = {"wq": dense(D, H * hd), "wk": dense(D, K * hd),
+             "wv": dense(D, K * hd), "wo": dense(H * hd, D)}
         if cfg.qk_norm:
-            t["attn"].update(q_norm=ones(hd), k_norm=ones(hd))
+            a.update(q_norm=ones(hd), k_norm=ones(hd))
+        return a
+
+    t: Dict[str, object] = {"ln1": _norm_tree(cfg, dev),
+                            "ln2": _norm_tree(cfg, dev)}
+    if encoder:
+        t.update(attn=attn_p(), mlp=mlp_p())
+        return t
+    if cfg.has_attention:
+        t["attn"] = attn_p()
     if cfg.has_ssm:
         Hs, f32 = cfg.ssm_heads, torch.float32
         proj_out = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + Hs
@@ -202,17 +254,20 @@ def _layer_tree(gen: torch.Generator, cfg: ModelConfig, dev
             "norm_scale": ones(cfg.d_inner),
             "out_proj": dense(cfg.d_inner, D)}
         if cfg.family == "hybrid":
-            t["bn_attn"] = {"scale": ones(D)}
-            t["bn_ssm"] = {"scale": ones(D)}
+            t["bn_attn"] = _norm_tree(cfg, dev)
+            t["bn_ssm"] = _norm_tree(cfg, dev)
     if cfg.is_moe:
         E = cfg.n_experts
         t["moe"] = {"router": dense(D, E, scale=0.02),
                     "w_gate": dense(E, D, Fd), "w_up": dense(E, D, Fd),
                     "w_down": dense(E, Fd, D)}
         if cfg.shared_expert:
-            t["moe"]["shared"] = swiglu_p()
+            t["moe"]["shared"] = mlp_p()
     elif cfg.family != "ssm":
-        t["mlp"] = swiglu_p()
+        t["mlp"] = mlp_p()
+    if cfg.encoder_layers:
+        t["xattn"] = attn_p()
+        t["ln_x"] = _norm_tree(cfg, dev)
     return t
 
 
@@ -221,8 +276,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters with the reference's distributions: normal x
     fan_in^-0.5 for the projections and experts, x 0.02 for ``embed``,
     ``lm_head``, the router and the meta tokens, x ssm_conv^-0.5 for the
-    conv, ones for the norms, the SSM's A_log, D_skip and dt_bias as the
-    reference sets them (f32). ``generator`` must live on ``device``
+    conv, ones for the norm scales and zeros for layernorm's biases, the
+    SSM's A_log, D_skip and dt_bias as the reference sets them (f32); the
+    encoder-decoder's encoder layers and cross-attention likewise.
+    ``generator`` must live on ``device``
     (CUDA unless the CPU is asked for); layer by layer, so no f32 copy of
     the whole model is ever held."""
     from ..core.detector import resolve_device
@@ -231,9 +288,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     D, V = cfg.d_model, cfg.vocab
     tree: Dict[str, object] = {
         "embed": _dense(generator, (V, D), cfg, dev, scale=0.02),
-        "final_norm": {"scale": torch.ones(D, dtype=cfg.dtype, device=dev)},
+        "final_norm": _norm_tree(cfg, dev),
         "layers": [_layer_tree(generator, cfg, dev)
                    for _ in range(cfg.n_layers)]}
+    if cfg.encoder_layers:
+        tree["enc_layers"] = [_layer_tree(generator, cfg, dev, encoder=True)
+                              for _ in range(cfg.encoder_layers)]
+        tree["enc_norm"] = _norm_tree(cfg, dev)
     if not cfg.tie_embeddings:
         tree["lm_head"] = _dense(generator, (D, V), cfg, dev, scale=0.02)
     if cfg.meta_tokens:
@@ -276,18 +337,19 @@ def _mix(outs: List[Tensor]) -> Tensor:
 
 
 def _mixer(h: Tensor, lp, cfg: ModelConfig, pos: Tensor, window: int,
-           banded: bool) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]],
-                                  Optional[Dict[str, Tensor]]]:
-    """The token mixer of one layer over a whole sequence at arange
-    positions ``pos``: attention (flash without a window), SSM, or
-    hybrid's two in parallel. -> (output, (k, v) or None, the SSM cache
-    or None)."""
+           banded: bool, flash: bool
+           ) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]],
+                      Optional[Dict[str, Tensor]]]:
+    """The token mixer of one layer over a whole sequence at positions
+    ``pos`` ((B, S) or (B, S, 3)): attention (flash without a window
+    where ``flash``: the mask is index-causal), SSM, or hybrid's two in
+    parallel. -> (output, (k, v) or None, the SSM cache or None)."""
     B, S, _ = h.shape
     outs, kv, ssm_cache = [], None, None
     if cfg.has_attention:
         q, k, v = _project_qkv(h, lp.attn, cfg, pos)
-        a = self_attend(q, k, v, cfg, window=window, n_meta=cfg.meta_tokens,
-                        banded=banded)
+        a = self_attend(q, k, v, cfg, t_stream(pos), window=window,
+                        n_meta=cfg.meta_tokens, banded=banded, flash=flash)
         a = torch.matmul(a.reshape(B, S, cfg.n_heads * cfg.hd), lp.attn.wo)
         if cfg.family == "hybrid":
             a = norm(a, lp.bn_attn, cfg.norm, cfg.norm_eps)
@@ -307,11 +369,26 @@ def _ffn(x: Tensor, lp, cfg: ModelConfig) -> Tensor:
     return mlp(x, lp.mlp, cfg.mlp)
 
 
-def _ffn_residual(x: Tensor, lp, cfg: ModelConfig) -> Tensor:
-    """x plus the layer's FFN of its second norm (mamba2 has none)."""
+def _cross_and_ffn(x: Tensor, lp, cfg: ModelConfig,
+                   enc: Optional[Tensor]) -> Tensor:
+    """The rest of a decoder layer after its mixer's residual: the
+    cross-attention over the encoder states ``enc`` where given, then the
+    FFN of the second norm (mamba2 has none), each a residual."""
+    if enc is not None:
+        h = norm(x, lp.ln_x, cfg.norm, cfg.norm_eps)
+        x = x + cross_attention(h, enc, lp.xattn, cfg)
     if cfg.family == "ssm":
         return x
     return x + _ffn(norm(x, lp.ln2, cfg.norm, cfg.norm_eps), lp, cfg)
+
+
+def _layer(x: Tensor, lp, cfg: ModelConfig, pos: Tensor, window: int,
+           banded: bool, flash: bool, enc: Optional[Tensor]):
+    """One decoder layer over a whole sequence -> (x, (k, v) or None, the
+    SSM cache or None)."""
+    h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
+    out, kv, ssm_cache = _mixer(h, lp, cfg, pos, window, banded, flash)
+    return _cross_and_ffn(x + out, lp, cfg, enc), kv, ssm_cache
 
 
 # =====================================================================
@@ -338,32 +415,94 @@ def logits_from_hidden(params: CausalLM, x: Tensor, cfg: ModelConfig
 
 
 def _embed_prompt(params: CausalLM, batch: Dict[str, Tensor],
-                  cfg: ModelConfig) -> Tensor:
-    """The batch's tokens (B, S) embedded, after the meta tokens where the
-    config has them -> (B, M + S, D); the positions are arange."""
-    if "positions" in batch:
-        raise NotImplementedError(
-            "explicit positions come with the VLM slice of the port (the "
-            "decoder-only families run at arange positions)")
-    x = embed_tokens(params, batch["tokens"], cfg)
-    if cfg.meta_tokens:
-        meta = params.meta.to(cfg.dtype).expand(x.shape[0], -1, -1)
+                  cfg: ModelConfig) -> Tuple[Tensor, Tensor, bool]:
+    """The batch's tokens (B, S) embedded (plus whisper's sinusoidal
+    positions), after the meta tokens where the config has them -> (x
+    (B, M + S, D), positions on x's device, whether their causal mask is
+    index-causal). The positions are ``batch["positions"]`` ((B, S), or
+    (B, S, 3) for M-RoPE, required there; numpy or a tensor; the meta
+    tokens' arange before them shifted by M) or arange; a host copy
+    decides the flash route (``attention.index_causal``), and moves to
+    the card once."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    if cfg.encoder_layers and not cfg.mrope:
+        x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(
+            cfg.dtype)[None]
+    pos = batch.get("positions")
+    if pos is not None:
+        pos = torch.as_tensor(pos)
+        shapes = [(B, S, 3)] if cfg.mrope else [(B, S), (B, S, 3)]
+        if tuple(pos.shape) not in shapes:
+            raise ValueError(f"{cfg.name}: positions of shape "
+                             f"{tuple(pos.shape)}, want one of {shapes}")
+    elif cfg.mrope:
+        raise ValueError(f"{cfg.name} (M-RoPE) takes (B, S, 3) (t, h, w) "
+                         f"positions in batch['positions']")
+    M = cfg.meta_tokens
+    if M:
+        meta = params.meta.to(cfg.dtype).expand(B, -1, -1)
         x = torch.cat([meta, x], dim=1)
-    return x
+        if pos is not None:
+            if pos.dim() != 2:
+                raise ValueError("meta tokens take (B, S) positions")
+            pos = torch.cat([torch.arange(M, device=pos.device).expand(B, M),
+                             pos + M], dim=1)
+    flash = index_causal(pos)
+    pos = arange_positions(B, M + S, x.device) if pos is None \
+        else pos.to(x.device)
+    return x, pos, flash
+
+
+def _enc_states(params: CausalLM, batch: Dict[str, Tensor],
+                cfg: ModelConfig, enc: Optional[Tensor]) -> Optional[Tensor]:
+    """The encoder states the decoder attends to: ``enc`` if given (in
+    the model's dtype), else ``encode`` of ``batch["enc_input"]``; None
+    without an encoder."""
+    if not cfg.encoder_layers:
+        return None
+    if enc is not None:
+        return enc.to(device=params.device, dtype=cfg.dtype)
+    if batch.get("enc_input") is None:
+        raise ValueError(f"{cfg.name} (encoder-decoder) needs "
+                         f"batch['enc_input'] (B, T_enc, d_model)")
+    return encode(params, batch["enc_input"], cfg)
+
+
+def encode(params: CausalLM, enc_input, cfg: ModelConfig) -> Tensor:
+    """Whisper's encoder: (B, T, D) stub frame embeddings (numpy or a
+    tensor) plus the sinusoidal positions, in the model's dtype, through
+    the encoder layers -- attention with every key visible (flash,
+    ``causal=False``; RoPE at arange positions, as the reference's
+    encoder applies it), then the gelu MLP, each after its layernorm --
+    and the final ``enc_norm`` -> states (B, T, D)."""
+    check_supported(cfg)
+    with torch.inference_mode():
+        x = torch.as_tensor(enc_input).to(device=params.device,
+                                          dtype=cfg.dtype)
+        T, D = x.shape[1:]
+        x = x + sinusoidal_positions(T, D, x.device).to(cfg.dtype)
+        for lp in params.enc_layers:
+            h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
+            x = x + attention(h, lp.attn, cfg, causal=False)
+            h = norm(x, lp.ln2, cfg.norm, cfg.norm_eps)
+            x = x + mlp(h, lp.mlp, cfg.mlp)
+        return norm(x, params.enc_norm, cfg.norm, cfg.norm_eps)
 
 
 def forward(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
             banded: bool = False) -> Tensor:
-    """Eval forward -> logits (B, S, V). batch: tokens (B, S). ``banded``
-    runs windowed layers through ``banded_core``."""
+    """Eval forward -> logits (B, S, V). batch: tokens (B, S) [+
+    positions (B, S) or (B, S, 3) for M-RoPE] [+ enc_input (B, T_enc,
+    D) for the encoder-decoder]. ``banded`` runs windowed layers through
+    ``banded_core``."""
     check_supported(cfg)
     with torch.inference_mode():
-        x = _embed_prompt(params, batch, cfg)
-        pos = arange_positions(x.shape[0], x.shape[1], x.device)
+        x, pos, flash = _embed_prompt(params, batch, cfg)
+        enc = _enc_states(params, batch, cfg, None)
         for lp, window in zip(params.layers, layer_windows(cfg)):
-            h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
-            x = x + _mixer(h, lp, cfg, pos, window, banded)[0]
-            x = _ffn_residual(x, lp, cfg)
+            x = _layer(x, lp, cfg, pos, window, banded, flash, enc)[0]
         return logits_from_hidden(params, x[:, cfg.meta_tokens:], cfg)
 
 
@@ -396,11 +535,21 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     return cache
 
 
+def decoder_pe(idx: int, d: int, device) -> Tensor:
+    """Whisper's decoder position embedding of a decode step: row ``idx``
+    of the reference's ``sinusoidal_positions(32776, d)`` table (clamped
+    to its last row, as its dynamic slice is), (1, d) f32."""
+    return sinusoidal_positions(1, d, device,
+                                start=min(idx, DECODER_PE_ROWS - 1))
+
+
 def _decode_layer(x: Tensor, lp, cfg: ModelConfig, cache_l: Cache,
-                  positions: Tensor, window: int) -> Tuple[Tensor, Cache]:
+                  positions: Tensor, window: int,
+                  enc: Optional[Tensor] = None) -> Tuple[Tensor, Cache]:
     """One block for one token; ``cache_l`` holds this layer's (B, Smax,
     K, hd) k and v (updated in place), its SSM state and conv, and the
-    shared idx. -> (x, the new SSM cache entries)."""
+    shared idx; ``enc`` the encoder states its cross-attention reads. ->
+    (x, the new SSM cache entries)."""
     h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
     outs, new = [], {}
     if cfg.has_attention:
@@ -414,27 +563,35 @@ def _decode_layer(x: Tensor, lp, cfg: ModelConfig, cache_l: Cache,
         if cfg.family == "hybrid":
             s = norm(s, lp.bn_ssm, cfg.norm, cfg.norm_eps)
         outs.append(s)
-    return _ffn_residual(x + _mix(outs), lp, cfg), new
+    return _cross_and_ffn(x + _mix(outs), lp, cfg, enc), new
 
 
 def decode_step(params: CausalLM, token: Tensor, cache: Cache,
-                cfg: ModelConfig) -> Tuple[Tensor, Cache]:
+                cfg: ModelConfig, enc: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Cache]:
     """One decode step. token: (B, 1) -> (logits (B, 1, V), cache with
-    idx + 1). The cache's tensors are written in place and shared by the
-    returned cache."""
+    idx + 1). The token sits at position idx (on all three M-RoPE
+    streams; whisper adds row idx of its sinusoidal table); ``enc``,
+    whisper's encoder states, feeds every layer's cross-attention (none
+    without it, as in the reference). The cache's tensors are written in
+    place and shared by the returned cache."""
     check_supported(cfg)
     with torch.inference_mode():
         B = token.shape[0]
         x = embed_tokens(params, token, cfg)
         idx = cache["idx"]
-        positions = torch.full((B, 1), idx, dtype=torch.int32,
-                               device=x.device)
+        if enc is not None:
+            enc = enc.to(device=x.device, dtype=cfg.dtype)
+        if cfg.encoder_layers:
+            x = x + decoder_pe(idx, cfg.d_model, x.device).to(cfg.dtype)
+        positions = torch.full((B, 1, 3) if cfg.mrope else (B, 1), idx,
+                               dtype=torch.int32, device=x.device)
         tensors = [t for t in ("k", "v", "state", "conv") if t in cache]
         for li, (lp, window) in enumerate(zip(params.layers,
                                               layer_windows(cfg))):
             cache_l = {t: cache[t][li] for t in tensors}
             x, new = _decode_layer(x, lp, cfg, {**cache_l, "idx": idx},
-                                   positions, window)
+                                   positions, window, enc)
             for t, value in new.items():
                 cache_l[t].copy_(value)
         logits = logits_from_hidden(params, x, cfg)
@@ -442,26 +599,29 @@ def decode_step(params: CausalLM, token: Tensor, cache: Cache,
 
 
 def prefill(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
-            max_len: int, banded: bool = False) -> Tuple[Tensor, Cache]:
-    """Prefill: run the whole prompt (batch: tokens (B, S)) after the
-    meta tokens, build the cache, return the last position's logits (B,
-    1, V). Attention without a window takes the flash kernel; ``banded``
-    runs windowed layers through ``banded_core``."""
+            max_len: int, banded: bool = False,
+            enc: Optional[Tensor] = None) -> Tuple[Tensor, Cache]:
+    """Prefill: run the whole prompt (batch: tokens (B, S) [+ positions
+    (B, S) or (B, S, 3) for M-RoPE] [+ enc_input for the
+    encoder-decoder]) after the meta tokens, build the cache, return the
+    last position's logits (B, 1, V). Attention without a window whose
+    mask is index-causal takes the flash kernel; ``banded`` runs windowed
+    layers through ``banded_core``. ``enc``: the encoder states, if
+    already computed (then ``enc_input`` is not read)."""
     check_supported(cfg)
     with torch.inference_mode():
         S = batch["tokens"].shape[1]
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
                              f"{max_len}")
-        x = _embed_prompt(params, batch, cfg)
+        x, pos, flash = _embed_prompt(params, batch, cfg)
+        enc = _enc_states(params, batch, cfg, enc)
         B, Sm = x.shape[:2]
-        pos = arange_positions(B, Sm, x.device)
         cache = init_cache(cfg, B, max_len, x.device)
         for li, (lp, window) in enumerate(zip(params.layers,
                                               layer_windows(cfg))):
-            h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
-            out, kv, ssm_cache = _mixer(h, lp, cfg, pos, window, banded)
-            x = _ffn_residual(x + out, lp, cfg)
+            x, kv, ssm_cache = _layer(x, lp, cfg, pos, window, banded, flash,
+                                      enc)
             if kv is not None:
                 cache["k"][li, :, :Sm] = kv[0]
                 cache["v"][li, :, :Sm] = kv[1]

@@ -83,7 +83,7 @@ from ..core.hog import HOGConfig, PAPER_HOG
 from ..core.pipeline import _same_device, classify_windows
 from ..core.svm import SVMParams
 from ..models.configs import ModelConfig
-from ..models.model import CausalLM, decode_step, prefill
+from ..models.model import CausalLM, decode_step, encode, prefill
 from ..obs.metrics import Emitter, MetricsConfig, make_sink
 from .faults import DETERMINISTIC_TYPES, FaultInjector
 from .resilience import (CircuitBreaker, DegradationLadder, ResilienceConfig,
@@ -886,29 +886,47 @@ class DetectionService:
 
 def generate(params: CausalLM, cfg: ModelConfig, prompt,
              max_new_tokens: int = 32, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> Tensor:
+             generator: Optional[torch.Generator] = None,
+             enc_input=None) -> Tensor:
     """Greedy or temperature decoding. prompt: (B, S) token ids, numpy or
     a tensor, moved to the parameters' device -> (B, S + new) int64 on
-    that device.
+    that device. ``enc_input`` (B, T_enc, D): the encoder-decoder's
+    frame embeddings, encoded once, its states read by the prefill and
+    every decode step (the reference encodes them twice, to the same
+    values). An M-RoPE config raises ValueError: its (B, S, 3) positions
+    go through ``models.model.prefill`` and ``decode_step``, which the
+    reference's generate cannot pass either.
 
     Greedy decoding (``temperature`` <= 0, or no ``generator``) gives the
     reference's tokens. Temperature sampling draws from ``generator``
     (on the parameters' device): the same distribution as the
     reference's ``jax.random.categorical``, not the same tokens.
     """
+    if cfg.mrope:
+        raise ValueError(
+            f"{cfg.name} (M-RoPE) needs (B, S, 3) positions, which must go "
+            f"through models.model.prefill(params, {{'tokens', "
+            f"'positions'}}, cfg, max_len) and decode_step; generate takes "
+            f"none")
     dev = params.device
     prompt = torch.as_tensor(np.asarray(prompt) if not isinstance(
         prompt, Tensor) else prompt).to(device=dev, dtype=torch.int64)
     B, S = prompt.shape
+    enc = None
+    if cfg.encoder_layers:
+        if enc_input is None:
+            raise ValueError(f"{cfg.name} (encoder-decoder) needs enc_input "
+                             f"(B, T_enc, d_model)")
+        enc = encode(params, enc_input, cfg)
     logits, cache = prefill(params, {"tokens": prompt}, cfg,
-                            max_len=S + max_new_tokens)
+                            max_len=S + max_new_tokens, enc=enc)
     toks = [prompt]
     cur = _sample(logits[:, -1], temperature, generator)
     for t in range(max_new_tokens):
         toks.append(cur)
         if t == max_new_tokens - 1:
             break
-        logits, cache = decode_step(params, cur, cache, cfg)
+        logits, cache = decode_step(params, cur, cache, cfg, enc=enc)
         cur = _sample(logits[:, -1], temperature, generator)
     return torch.cat(toks, dim=1)
 

@@ -29,6 +29,8 @@ import repro_torch.core.cascade, repro_torch.launch.serve
 import repro_torch.core.heads, repro_torch.convert
 import repro_torch.core.tiling, repro_torch.launch.mesh
 import repro_torch.models.moe, repro_torch.models.ssm
+import repro_torch.models.layers, repro_torch.models.attention
+import repro_torch.configs.whisper_large_v3, repro_torch.configs.qwen2_vl_72b
 import torch.profiler
 assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.checkpoint.manager", "repro_torch.data.mining",
@@ -38,7 +40,10 @@ assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.core.cascade", "repro_torch.launch.serve",
          "repro_torch.core.heads", "repro_torch.convert",
          "repro_torch.core.tiling", "repro_torch.launch.mesh",
-         "repro_torch.models.moe", "repro_torch.models.ssm"}} \
+         "repro_torch.models.moe", "repro_torch.models.ssm",
+         "repro_torch.models.layers", "repro_torch.models.attention",
+         "repro_torch.configs.whisper_large_v3",
+         "repro_torch.configs.qwen2_vl_72b"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -152,6 +157,41 @@ def test_lm_family_modules_stand_alone():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == \
         "[(2, 8, 64), ((2, 8, 64), (2, 8, 16, 16))] []", out.stdout
+
+
+def test_encdec_and_vlm_modules_stand_alone():
+    """The encoder-decoder and VLM paths, run on their own, load neither
+    JAX nor the reference package: whisper's encode and generate with
+    frame embeddings, and qwen2-vl's prefill with (B, S, 3) positions and
+    a decode step, at smoke size on the CPU."""
+    probe = ("import sys, dataclasses; sys.path.insert(0, {src!r}); "
+             "import torch; "
+             "from repro_torch.configs import get_config; "
+             "from repro_torch.models import model as m; "
+             "from repro_torch.serve.engine import generate; "
+             "g = torch.Generator().manual_seed(0); out = []; "
+             "c = dataclasses.replace(get_config('whisper-large-v3', "
+             "smoke=True), dtype=torch.float32); p = m.init_params(c, g, "
+             "'cpu'); f = torch.randn(2, c.encoder_ctx, c.d_model, "
+             "generator=g); out.append(tuple(m.encode(p, f, c).shape)); "
+             "out.append(tuple(generate(p, c, torch.zeros(2, 5, "
+             "dtype=torch.long), 3, enc_input=f).shape)); "
+             "c = dataclasses.replace(get_config('qwen2-vl-72b', "
+             "smoke=True), dtype=torch.float32); p = m.init_params(c, g, "
+             "'cpu'); pos = torch.arange(6)[None, :, None].expand(2, 6, 3); "
+             "l, cache = m.prefill(p, {{'tokens': torch.zeros(2, 6, "
+             "dtype=torch.long), 'positions': pos}}, c, 8); "
+             "out.append(tuple(m.decode_step(p, l[:, -1].argmax(-1, "
+             "keepdim=True), cache, c)[0].shape)); "
+             "print(out, sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c",
+                          probe.format(src=str(ROOT / "src"))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[(2, 32, 64), (2, 8), (2, 1, 512)] []", \
+        out.stdout
 
 
 def test_port_sources_name_no_reference_import():

@@ -300,15 +300,26 @@ def test_decode_consistency_catches_planted_faults():
 
 
 def test_dense_forward_and_prefill_take_arange_positions_only():
+    """The dense family needs no positions: arange ones, given as a
+    tensor or numpy, give the logits of none (the flash route either
+    way); M-RoPE's (B, S, 3) shape is refused for it only where it is
+    not (B, S) or (B, S, 3)."""
     cfg = dataclasses.replace(get_config("qwen3-14b", smoke=True),
                               dtype=torch.float32)
     p = t_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long),
-             "positions": torch.arange(4)[None]}
-    with pytest.raises(NotImplementedError, match="VLM slice"):
-        t_model.forward(p, batch, cfg)
-    with pytest.raises(NotImplementedError, match="VLM slice"):
-        t_model.prefill(p, batch, cfg, max_len=8)
+    tokens = torch.randint(0, cfg.vocab, (2, 6),
+                           generator=torch.Generator().manual_seed(1))
+    base = {"tokens": tokens}
+    want_f = t_model.forward(p, base, cfg)
+    want_p = t_model.prefill(p, base, cfg, max_len=8)[0]
+    for pos in (torch.arange(6).expand(2, 6), np.tile(np.arange(6), (2, 1))):
+        batch = {"tokens": tokens, "positions": pos}
+        assert torch.equal(t_model.forward(p, batch, cfg), want_f)
+        assert torch.equal(t_model.prefill(p, batch, cfg, max_len=8)[0],
+                           want_p)
+    with pytest.raises(ValueError, match="positions of shape"):
+        t_model.prefill(p, {"tokens": tokens,
+                            "positions": torch.arange(5)[None]}, cfg, 8)
 
 
 def test_generate_greedy_deterministic_and_sampling_in_range():
@@ -357,7 +368,8 @@ def test_dense_configs_equal_the_reference(arch, smoke):
         (ref.hd, ref.has_attention, ref.has_ssm, ref.is_moe)
 
 
-#: the families the port does not run yet, each naming its slice
+#: the encoder-decoder and VLM archs (tests/test_torch_lm_encdec_vlm.py
+#: holds them to the reference)
 LATER = ("qwen2-vl-72b", "whisper-large-v3")
 #: the MoE, SSM and hybrid archs (tests/test_torch_lm_families*.py hold
 #: them to the reference)
@@ -366,12 +378,60 @@ FAMILIES = sorted(set(ARCH_IDS) - set(DENSE) - set(LATER))
 
 @pytest.mark.parametrize("arch", LATER)
 def test_other_families_raise_naming_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_config(arch)
-    ref = j_get_config(arch, smoke=True)
-    cfg = model_config_from_reference_dict(dataclasses.asdict(ref))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_model.init_params(cfg, torch.Generator(), "cpu")
+    """The two families of the last LM serving slice build and run at
+    smoke size: configs (full and smoke) equal to the reference's,
+    init_params with param_count() parameters; whisper's greedy generate
+    with enc_input deterministic and in range (without enc_input it
+    raises naming it); qwen2-vl's prefill with (B, S, 3) positions and a
+    decode step deterministic and in range, while generate, which takes
+    no positions, raises naming them."""
+    for smoke in (False, True):
+        ref = j_get_config(arch, smoke=smoke)
+        got = get_config(arch, smoke=smoke)
+        assert got == model_config_from_reference_dict(
+            dataclasses.asdict(ref))
+        assert got.param_count() == ref.param_count()
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype=torch.float32)
+    p = t_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert sum(t.numel() for t in p.parameters()) == cfg.param_count()
+    prompt = torch.randint(0, cfg.vocab, (2, 30),
+                           generator=torch.Generator().manual_seed(1))
+    if cfg.encoder_layers:
+        frames = torch.randn(2, cfg.encoder_ctx, cfg.d_model,
+                             generator=torch.Generator().manual_seed(2))
+        a = generate(p, cfg, prompt, max_new_tokens=5, enc_input=frames)
+        assert a.shape == (2, 35) and torch.equal(a[:, :30], prompt)
+        assert bool(((a >= 0) & (a < cfg.vocab)).all())
+        assert torch.equal(a, generate(p, cfg, prompt, 5, enc_input=frames))
+        with pytest.raises(ValueError, match="enc_input"):
+            generate(p, cfg, prompt, max_new_tokens=5)
+        return
+    pos = torch.arange(30)[None, :, None].expand(2, 30, 3)
+    runs = []
+    for _ in range(2):
+        logits, cache = t_model.prefill(p, {"tokens": prompt,
+                                            "positions": pos}, cfg, 32)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        step, cache = t_model.decode_step(p, tok, cache, cfg)
+        runs.append((tok, step))
+    assert cache["idx"] == 31 and step.shape == (2, 1, cfg.vocab)
+    assert bool(((tok >= 0) & (tok < cfg.vocab)).all())
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    with pytest.raises(ValueError, match=r"\(B, S, 3\) positions"):
+        generate(p, cfg, prompt, max_new_tokens=5)
+
+
+def test_vlm_generate_raises_naming_positions():
+    """generate on an M-RoPE config raises ValueError (the reference's
+    generate fails there with an IndexError): its positions go through
+    prefill and decode_step."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b", smoke=True),
+                              dtype=torch.float32)
+    p = t_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="prefill") as err:
+        generate(p, cfg, np.zeros((1, 4), np.int64), max_new_tokens=2)
+    assert "positions" in str(err.value)
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

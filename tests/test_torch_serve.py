@@ -293,7 +293,11 @@ def test_serve_cli_lm_dense_runs_and_other_families_raise():
                "4")
     assert out.returncode == 0, out.stderr
     assert "arch=mamba2-130m" in out.stdout and "out=(4, 20)" in out.stdout
-    out = _cli("--arch", "whisper-large-v3", "--device", "cpu")
+    out = _cli("--arch", "whisper-large-v3", "--device", "cpu",
+               "--new-tokens", "4")
+    assert out.returncode == 0, out.stderr
+    assert "arch=whisper-large-v3" in out.stdout \
+        and "out=(4, 20)" in out.stdout
+    out = _cli("--arch", "qwen2-vl-72b", "--device", "cpu")
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "encdec" in out.stderr \
-        and "encoder-decoder slice" in out.stderr
+    assert "ValueError" in out.stderr and "(B, S, 3) positions" in out.stderr

@@ -4,12 +4,17 @@
     python3 tools/lm_profile.py [--arch A,B] [--batch 4] [--prompt-len 512]
         [--top 6]
 
-For each arch (default olmoe-1b-7b, mamba2-130m, hymba-1.5b) at full
-width in bf16 with seeded random weights made on the card, runs one
-prefill of B x S seeded tokens and one decode step after it under
-torch.profiler and prints the card, then one JSON line per arch and
-phase: device busy ms, launches, and the ``--top`` kernels by device
-time (name cut to 60 characters, ms, launches, share of the busy time).
+For each arch (default olmoe-1b-7b, mamba2-130m, hymba-1.5b,
+whisper-large-v3, qwen2-vl-72b) at full width in bf16 with seeded random
+weights made on the card, runs one prefill of B x S seeded tokens and one
+decode step after it under torch.profiler and prints the card, then one
+JSON line per arch and phase: device busy ms, launches, and the ``--top``
+kernels by device time (name cut to 60 characters, ms, launches, share
+of the busy time). As chip_smoke.py runs them: whisper-large-v3 encodes
+1,500 seeded frame embeddings and takes a prompt of at most 224 tokens
+(its longest); qwen2-vl-72b keeps 8 of its 80 layers and profiles a
+prefill of each prompt group ("text", "image": chip_smoke.vlm_positions)
+and a decode step after the image one.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("olmoe-1b-7b", "mamba2-130m", "hymba-1.5b")
+ARCHS = ("olmoe-1b-7b", "mamba2-130m", "hymba-1.5b", "whisper-large-v3",
+         "qwen2-vl-72b")
 
 
 def profile(torch, fn) -> dict:
@@ -59,31 +65,54 @@ def main() -> int:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--top", type=int, default=6)
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import dataclasses
+
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("lm_profile: no GPU", file=sys.stderr)
         return 2
+    from chip_smoke import (LM_ENCDEC_BATCH, LM_VLM_LAYERS, LM_VLM_GROUPS,
+                            vlm_positions)
     from repro_torch.configs import get_config
-    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.models.model import (decode_step, encode, init_params,
+                                          prefill)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
-    B, S = args.batch, args.prompt_len
     for arch in args.arch.split(","):
+        B, S = args.batch, args.prompt_len
         cfg = get_config(arch)
+        if cfg.mrope:
+            cfg = dataclasses.replace(cfg, n_layers=LM_VLM_LAYERS)
+        if cfg.encoder_layers:
+            S = min(S, LM_ENCDEC_BATCH[2])
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-        x = torch.as_tensor(np.random.default_rng(2).integers(
-            0, cfg.vocab, (B, S)), device="cuda")
-        _, cache = prefill(params, {"tokens": x}, cfg, S + 1)
-        for phase, fn in (
-                ("prefill", lambda: prefill(params, {"tokens": x}, cfg, S + 1)),
-                ("decode", lambda: decode_step(params, x[:, -1:], cache, cfg))):
-            print(json.dumps(summary(arch, phase, profile(torch, fn),
-                                     args.top)), flush=True)
-        del params, cache
+        rng = np.random.default_rng(2)
+        x = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device="cuda")
+        # (phase name, the batch's other entries) per prefill profiled
+        batches = [("prefill", {})]
+        enc = None
+        if cfg.encoder_layers:
+            frames = torch.as_tensor(rng.standard_normal(
+                (B, cfg.encoder_ctx, cfg.d_model), dtype=np.float32),
+                device="cuda")
+            batches = [("prefill", {"enc_input": frames})]
+            enc = encode(params, frames, cfg)
+        if cfg.mrope:
+            batches = [(f"prefill {g}", {"positions": vlm_positions(
+                np, g, B, S)}) for g, _, _ in LM_VLM_GROUPS]
+        for phase, extra in batches:
+            print(json.dumps(summary(arch, phase, profile(
+                torch, lambda: prefill(params, {"tokens": x, **extra}, cfg,
+                                       S + 1)), args.top)), flush=True)
+        _, cache = prefill(params, {"tokens": x, **extra}, cfg, S + 1)
+        print(json.dumps(summary(arch, "decode", profile(
+            torch, lambda: decode_step(params, x[:, -1:], cache, cfg,
+                                       enc=enc)), args.top)), flush=True)
+        del params, cache, enc
         torch.cuda.empty_cache()
     return 0
 
