@@ -177,6 +177,26 @@ Phases, each of which exits non-zero on failure:
      encoder (S 1,500, every key visible) and decoder and qwen2-vl's
      prefill shapes too, each with its plain version's and SDPA's device
      ms;
+  5c. lm train: the flash backward kernel against its plain version on
+     the card at qwen3-14b's shapes (B 4 x S 512, B 1 x S 2,048), hymba's
+     (H 25, K 5, hd 64, S 2,176), whisper's encoder (every key visible,
+     S 1,500) and two small ones (a ragged S 100 at rep 4; every key
+     visible), in bf16 (within 3e-2 relative L2) and f32 (1e-5), the
+     forward's LSE on either route against the plain LSE, a rerun bit for
+     bit, three planted faults (delta zero, dK/dV from one head of each
+     GQA group, the diagonal key hidden) over the f32 limit, and device /
+     plain / SDPA-backward ms beside the bound; qwen3-14b at full width
+     with 4 of its 40 layers in bf16 on one lm_data batch of B 4 x S 512:
+     its gradient against the same with the plain flash forward and
+     backward (3e-2 relative L2, loss 1e-2), then 5 AdamW steps of
+     make_train_step with the counters reset just before and read just
+     after (flash forward 8 a step on the sm90 route, backward 4, no other
+     kernel; loss finite and falling), ms a step against its bound, busy
+     ms, launches, flash's device ms, peak GiB; every family at smoke
+     size in f32, card against CPU (loss 1e-5, gradients 1e-4, one step's
+     parameters 1e-5) and a DDP step with int8 compression over 2 logical
+     devices; the train CLI in subprocesses at smoke size: SIGTERM, its
+     final checkpoint, a resume, the losses of an uninterrupted run;
   6. print the kernels line (JSON) and, last, the ok line (JSON).
 
 It imports no JAX and nothing of the reference package. Without a GPU,
@@ -185,6 +205,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -390,6 +411,41 @@ LM_VLM_LAYERS = 8
 LM_VLM_GROUPS = (("text", 4, 512), ("image", 4, 512))
 VLM_IMAGE = (32, 16)             # text tokens before the image, grid side
 VLM_SMOKE_IMAGE = (8, 4)
+# the lm train phase. The flash backward against its plain version at
+# qwen3-14b's two groups (bf16 and f32; timed), hymba's global layers (H 25,
+# K 5, hd 64, 2,176 positions with its meta tokens), whisper's encoder
+# (every key visible, S 1,500: a ragged last tile) and two small shapes
+# (a ragged S = 100 with rep 4, where the planted faults are read, and
+# every key visible at rep 4), each (name, B, H, K, S, hd, causal, dtypes);
+# relative L2 limits of the forward's checks; the forward's LSE on either
+# route against the plain LSE of the f32 scores (summation order)
+BWD_SHAPES = (("B4xS512", 4, 40, 8, 512, 128, True, ("bf16", "f32")),
+              ("B1xS2048", 1, 40, 8, 2048, 128, True, ("bf16", "f32")),
+              ("hymba", 1, 25, 5, 2176, 64, True, ("bf16",)),
+              ("whisper-enc", 4, 20, 20, 1500, 64, False, ("bf16",)),
+              ("ragged", 2, 8, 2, 100, 32, True, ("f32", "bf16")),
+              ("small", 2, 8, 2, 64, 16, False, ("f32", "bf16")))
+BWD_TOL = {"f32": 1e-5, "bf16": 3e-2}
+BWD_FAULT_SHAPE = "ragged"
+LSE_TOL = 1e-4
+# qwen3-14b trained at full width with 4 of its 40 layers (2.88 B
+# parameters: bf16 weights and gradients and f32 master, m and v are 46 GB;
+# all 40 layers would be 236 GB), B 4 x S 512 of lm_data tokens, 5 AdamW
+# steps on that batch at lr 1e-4; its gradient against the same with the
+# plain flash forward and backward (bf16 roundings of p and ds elsewhere)
+TRAIN_LAYERS = 4
+TRAIN_BATCH = (4, 512)
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4        # 1e-3 oscillated at full width (13.05 -> 17.98)
+TRAIN_GRAD_TOL = 3e-2
+TRAIN_LOSS_TOL = 1e-2
+# every family at smoke size in f32, card against CPU (summation order);
+# S 40 runs past hymba's smoke window and meta tokens
+TRAIN_FAMILIES = ("qwen3-14b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b",
+                  "whisper-large-v3", "qwen2-vl-72b")
+TRAIN_SMOKE_BATCH = (2, 40)
+TRAIN_SMOKE_TOL = {"loss": 1e-5, "grads": 1e-4, "params": 1e-5}
+CLI_STEPS = 30
 # Table I (benchmarks/bench_accuracy.py): the schedule it trains with,
 # and its gate: every mode's total accuracy, and |fixed - fp32| in points
 TABLE1_TRAIN = {"steps": 4000, "neg_weight": 3.0}
@@ -422,6 +478,8 @@ PATH_KERNELS = {
     "lm whisper-large-v3": ("flash_attention",),
     "lm qwen2-vl-72b text": ("flash_attention",),
     "lm qwen2-vl-72b image": (),
+    # training: the flash forward (twice a layer, remat) and its backward
+    "lm train qwen3-14b": ("flash_attention", "flash_attention_bwd"),
 }
 # the batched path and the tracked clip run the dense kernels of their
 # configuration
@@ -507,6 +565,10 @@ KERNELS = {
                    "src/repro/kernels/svm_matmul.py:38"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:86"),
+    # no TPU kernel: the reference's gradient of attention, the custom VJP
+    # of sdpa_flash, is plain JAX
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:359"),
 }
 # flash_attention's two routes (kernels/flash_attention.py:route), each a
 # mode of its entry in the kernels line
@@ -523,10 +585,10 @@ MAIN_MODE = {"dense_grad_hist": "sector", "dense_block_norm": "rsqrt",
              "score_matmul_int8": "int8", "hog_gradient": "sector",
              "cell_hist": "sector", "block_norm": "rsqrt",
              "fused_hog": "sector", "svm_scores": "f32",
-             "flash_attention": "sm90"}
+             "flash_attention": "sm90", "flash_attention_bwd": "bf16"}
 MAIN_GROUP = dict.fromkeys(DENSE_KERNELS, "640x480")
 MAIN_GROUP.update(dict.fromkeys(WINDOW_KERNELS, "B512"))
-MAIN_GROUP["flash_attention"] = "B4xS512"
+MAIN_GROUP["flash_attention"] = MAIN_GROUP["flash_attention_bwd"] = "B4xS512"
 # the per-group numbers summarize() keeps, in the order the check lines print
 GROUP_FIELDS = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                 "bound_by")
@@ -587,14 +649,25 @@ def _fmt(ms) -> str:
 
 def device_times(torch, fn, reps: int):
     """Run ``fn`` ``reps`` times under torch.profiler; returns {kernel
-    name: (launches, device microseconds)} of the CUDA kernels it ran."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    name: (launches, device microseconds)} of the CUDA kernels it ran.
+    The profiler traces a warm-up step first (one call of ``fn`` and 64
+    one-element adds) and discards it: late in this script a session
+    without one lost 17-23 of the flash backward's 60 kernel records, the
+    first calls' (its sum read 61-71% of the CUDA events' time)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    pad = torch.zeros(1, device=DEV)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        for _ in range(64):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     out = {}
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -606,16 +679,53 @@ def device_times(torch, fn, reps: int):
     return out
 
 
+def gpu_clocks() -> str:
+    """The card's SM and memory clocks (MHz), power draw, temperature and
+    active throttle reasons, as nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def timing_probe(torch, fn, symbol: str, per_call=None,
+                 reps: int = 20) -> str:
+    """One line on how two clocks read ``fn``: CUDA events over ``reps``
+    back-to-back calls, and torch.profiler's device time of the kernels
+    whose name holds ``symbol``, with the launches it recorded (against
+    the ``per_call`` x ``reps`` that ran, where ``per_call`` is known) and
+    each kernel's share; the card's clocks before and after."""
+    before = gpu_clocks()
+    ev = cuda_ms(fn, reps=reps)
+    times = {k: v for k, v in device_times(torch, fn, reps).items()
+             if symbol in k}
+    n = sum(c for c, _ in times.values())
+    us = sum(t for _, t in times.values())
+    split = ", ".join(f"{k.split('(')[0].split()[-1]} {c}x "
+                      f"{t / max(c, 1):.0f} us" for k, (c, t) in
+                      sorted(times.items()))
+    ran = "" if per_call is None else f" of {per_call * reps}"
+    return (f"events {ev:.4g} ms; profiler {us / 1e3 / reps:.4g} ms over "
+            f"{n}{ran} launches ({split}); clocks "
+            f"[{before}] -> [{gpu_clocks()}]")
+
+
 def kernel_device_ms(torch, fn, symbol: str, reps: int = 20):
     """Device milliseconds per call of ``fn`` spent in kernels whose name
     contains ``symbol`` (torch.profiler; launch gaps excluded), or None
-    when the profiler saw no such kernel in two tries."""
+    when the profiler saw no such kernel. A session can lose kernel
+    records, never add them (after its warm-up step still 2 of the flash
+    backward's 60, or a quarter of an SDPA backward's, now and then), so
+    of two sessions the one that recorded more such launches counts."""
+    best = (0, 0.0)
     for _ in range(2):
-        times = device_times(torch, fn, reps)
-        us = sum(t for k, (_, t) in times.items() if symbol in k)
-        if us > 0:
-            return us / 1e3 / reps
-    return None
+        hit = [(c, t) for k, (c, t) in device_times(torch, fn, reps).items()
+               if symbol in k]
+        n, us = sum(c for c, _ in hit), sum(t for _, t in hit)
+        if n > best[0]:
+            best = (n, us)
+    return best[1] / 1e3 / reps if best[1] > 0 else None
 
 
 def frame_profile(torch, sess, frame, reps: int = 3) -> dict:
@@ -1723,9 +1833,9 @@ def check_flash(torch, np) -> dict:
                    + "/".join("-" if t is None else f"{t:.4g}"
                               for t in (dev, plain, lib))
                    + f" ({bound:.4g})")
-    print("  flash_attention sm90 bf16, lm families' prefill shapes and "
-          "strides, err (matched share) device/plain/SDPA ms (bound): "
-          + "; ".join(fam), flush=True)
+    level_line("  flash_attention sm90 bf16, lm families' prefill shapes and "
+               "strides, err (matched share) device/plain/SDPA ms (bound): "
+               + "; ".join(fam))
     out = summarize(rows, ("flash_attention",),
                     [g for g, _, _ in LM_BATCHES], 1)
     out["flash_attention"]["max_abs_err"] = max(worst.values())
@@ -2108,8 +2218,8 @@ def batch_path(torch, np, configs, svm) -> dict:
                     total[name] += time.perf_counter() - t0
         for name in names:
             per_frame[(name, b)] = total[name] * 1e3 / (BATCH_REPS * b)
-    print("  per batch size: chunk (probe ms per candidate), ms/frame, "
-          "frames/s, launches/frame, busy ms/frame, idle share", flush=True)
+    level_line("  per batch size: chunk (probe ms per candidate), ms/frame, "
+               "frames/s, launches/frame, busy ms/frame, idle share")
     for name in names:
         sess = gpu[name]
         text = []
@@ -2124,8 +2234,8 @@ def batch_path(torch, np, configs, svm) -> dict:
             text.append(f"B{b} {_autotuned(det_mod, sess.detector, b)} "
                         f"{ms:.3f} {1e3 / ms:.1f} {nl:.0f} {busy:.4f} "
                         f"{1 - busy / ms:.3f}")
-        print(f"  batch {name}: " + "; ".join(text) + "; " + lines[name],
-              flush=True)
+        level_line(f"  batch {name}: " + "; ".join(text) + "; "
+                   + lines[name])
 
     # the batched resize (f64, one GEMM per axis over the batch, one
     # rounding): pixels unlike each frame's alone and the CPU's; and what
@@ -2665,8 +2775,8 @@ def window_path(torch, np) -> dict:
           f"{WINDOW_CHUNK}: max delta vs the dense score_map {d:.2e} "
           f"(tol {LAYOUT_TOL:g})", flush=True)
 
-    print("  window timing, per batch: host ms, windows/s, launches, device "
-          "busy ms (share of host ms), own kernels' device ms", flush=True)
+    level_line("  window timing, per batch: host ms, windows/s, launches, "
+               "device busy ms (share of host ms), own kernels' device ms")
     for name, (preset, path) in WINDOW_CONFIGS.items():
         cfg = api.presets(preset).hog
         own = tuple(f"{k}_kernel" for k in PATH_KERNELS[name])
@@ -2692,7 +2802,7 @@ def window_path(torch, np) -> dict:
             n_launch = sum(c for c, _ in times.values()) / 3
             parts.append(f"B{B} {ms:.4f} {B / ms * 1e3:.0f} {n_launch:.0f} "
                          f"{busy:.4f} ({busy / ms:.3f}) {kern:.4f}")
-        print(f"  {name}: " + "; ".join(parts), flush=True)
+        level_line(f"  {name}: " + "; ".join(parts))
     return launches
 
 
@@ -4339,6 +4449,467 @@ def lm_encdec_vlm(torch, np):
     return launches, routes
 
 
+# ------------------------------------------------------------ phase 5c
+
+@contextlib.contextmanager
+def plain_flash(fa):
+    """Run ``FlashAttention`` through the plain forward (with its LSE)
+    and the plain backward, on any device, for as long as the block
+    lasts: the comparison the kernels are held to in the train step."""
+    fwd, bwd = fa.flash_attention, fa.flash_attention_bwd
+
+    def forward(q, k, v, causal=True, lse=False):
+        return fa.flash_attention_plain(q, k, v, causal, lse)
+
+    def backward(q, k, v, out, dout, lse, causal=True):
+        return fa.flash_attention_bwd_plain(q, k, v, dout, lse, causal)
+
+    fa.flash_attention, fa.flash_attention_bwd = forward, backward
+    try:
+        yield
+    finally:
+        fa.flash_attention, fa.flash_attention_bwd = fwd, bwd
+
+
+def planted_bwd(torch, q, k, v, dout, lse, causal, fault):
+    """flash_attention_bwd_plain's steps with one planted fault: "delta=0"
+    (delta set to zero), "one-head" (dK and dV from the first query head
+    of each GQA group alone) or "no-diag" (the diagonal key hidden)."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    rep, scale = H // K, hd ** -0.5
+    q5, do5 = q.reshape(B, K, rep, S, hd), dout.reshape(B, K, rep, S, hd)
+    s = torch.einsum("bkrqd,bksd->bkrqs", q5.float(), k.float()) * scale
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril(
+            -1 if fault == "no-diag" else 0)
+        s = s.masked_fill(~keep, -1e9)
+    w = torch.exp(s - lse.reshape(B, K, rep, S, 1)).to(v.dtype)
+    dw = torch.einsum("bkrqd,bksd->bkrqs", do5, v)
+    delta = 0.0 if fault == "delta=0" else (dw.float() * w.float()).sum(
+        -1, keepdim=True)
+    ds = (w.float() * (dw.float() - delta) * scale).to(q.dtype)
+    heads = slice(0, 1) if fault == "one-head" else slice(None)
+    dv = torch.einsum("bkrqs,bkrqd->bksd", w[:, :, heads], do5[:, :, heads])
+    dk = torch.einsum("bkrqs,bkrqd->bksd", ds[:, :, heads], q5[:, :, heads])
+    dq = torch.einsum("bkrqs,bksd->bkrqd", ds, k).reshape(B, H, S, hd)
+    return dq, dk, dv
+
+
+def _rel_l2(torch, got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+def bwd_bound_ms(B, H, K, S, hd, causal, nbytes_el, rate):
+    """The least ms of the backward: q, k, v, o, do read and dq, dk, dv
+    written once, the lse read once, against its five products (s, dp,
+    dv, dk, dq: 2 hd operations each) over the attended pairs."""
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    nbytes = nbytes_el * B * S * hd * (4 * H + 4 * K) + 4 * B * H * S
+    return max(nbytes / HBM_BPS, 10 * hd * pairs / rate) * 1e3, nbytes, \
+        10 * hd * pairs
+
+
+def check_flash_bwd(torch, np) -> dict:
+    """Phase 5c, first part: the flash backward kernel against its plain
+    version on the card at BWD_SHAPES in bf16 and f32 (inputs and the
+    output gradient the (B, S, H, hd) views training passes), the
+    forward's LSE on its route against the plain LSE, a rerun bit for
+    bit, the planted faults over the f32 limit, and device / plain /
+    library ms beside the bound (library: the backward kernels of
+    scaled_dot_product_attention with enable_gqa, the device time of
+    every kernel its autograd.grad launches)."""
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.flash_attention as fa
+
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rng = np.random.default_rng(29)
+    rows, text, worst, lse_worst = [], [], {"f32": 0.0, "bf16": 0.0}, 0.0
+    faults = {}
+    for where, B, H, K, S, hd, causal, dtypes in BWD_SHAPES:
+        arrs = [torch.from_numpy(rng.standard_normal(
+            (B, S, n, hd), dtype=np.float32)).to(DEV) for n in (H, K, K, H)]
+        for dt in dtypes:
+            q, k, v, do = (x.to(dts[dt]).transpose(1, 2) for x in arrs)
+            r = fa.route(q.dtype, hd)
+            before = dict(fa.flash_attention.route_launches)
+            out, lse = fa.flash_attention(q, k, v, causal, lse=True)
+            need(fa.flash_attention.route_launches
+                 == {**before, r: before[r] + 1},
+                 f"flash_attention {where} {dt}: not one {r} launch")
+            _, lse_p = fa.flash_attention_plain(q.float(), k.float(),
+                                                v.float(), causal, lse=True)
+            el = float((lse - lse_p).abs().max())
+            need(el <= LSE_TOL, f"{where} {dt} ({r}) LSE vs plain: {el}")
+            lse_worst = max(lse_worst, el)
+            n0 = fa.flash_attention_bwd.launches
+            got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
+            again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
+            want = fa.flash_attention_bwd_plain(q, k, v, do, lse, causal)
+            torch.cuda.synchronize()
+            need(fa.flash_attention_bwd.launches == n0 + 2,
+                 f"flash_attention_bwd {where} {dt}: launches")
+            need(all(torch.equal(a, b) for a, b in zip(got, again)),
+                 f"flash_attention_bwd {where} {dt}: a rerun differs")
+            need(all(g.shape == t.shape and g.dtype == t.dtype
+                     and g.stride() == t.stride()
+                     for g, t in zip(got, (q, k, v))),
+                 f"flash_attention_bwd {where} {dt}: shape, dtype or layout")
+            e = max(_rel_l2(torch, g, w) for g, w in zip(got, want))
+            need(e <= BWD_TOL[dt], f"flash_attention_bwd {where} {dt}: "
+                                   f"rel L2 {e} > {BWD_TOL[dt]}")
+            worst[dt] = max(worst[dt], e)
+            if where == BWD_FAULT_SHAPE and dt == "f32":
+                for fault in ("delta=0", "one-head", "no-diag"):
+                    bad = planted_bwd(torch, q, k, v, do, lse, causal, fault)
+                    faults[fault] = max(_rel_l2(torch, g, w)
+                                        for g, w in zip(got, bad))
+                need(min(faults.values()) > BWD_TOL["f32"],
+                     f"a planted backward fault stays under the f32 limit: "
+                     f"{faults}")
+            if where in ("ragged", "small"):
+                continue
+            ql, kl, vl = (x.detach().contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            out_l = F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=causal, enable_gqa=True)
+
+            def library():
+                return torch.autograd.grad(out_l, (ql, kl, vl), do,
+                                           retain_graph=True)
+
+            def kernel():
+                return fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
+
+            def plain():
+                return fa.flash_attention_bwd_plain(q, k, v, do, lse, causal)
+
+            rate = BF16_FLOPS if dt == "bf16" else F32_FLOPS
+            bound, nbytes, ops = bwd_bound_ms(B, H, K, S, hd, causal,
+                                              q.element_size(), rate)
+            if where in {g for g, _, _ in LM_BATCHES}:
+                rows.append(timed_row(
+                    torch, "flash_attention_bwd", where, (B, H, K, S, hd), dt,
+                    e, kernel, plain, library, nbytes, ops / rate,
+                    "flash_attention_bwd"))
+            else:
+                dev, lib = (kernel_device_ms(torch, fn, sym) for fn, sym
+                            in ((kernel, "flash_attention_bwd"),
+                                (library, "")))
+                text.append(f"{where} {dt} " + "/".join(
+                    "-" if t is None else f"{t:.4g}"
+                    for t in (dev, cuda_ms(plain, reps=5), lib))
+                    + f" ({bound:.3g})")
+            for fn, sym, n in ((kernel, "flash_attention_bwd", 3),
+                               (library, "", None)):
+                level_line(f"flash_attention_bwd {where} {dt} timing, "
+                           f"{'kernel' if n else 'SDPA'}: "
+                           + timing_probe(torch, fn, sym, n))
+    print(f"  flash_attention_bwd vs plain, rel L2 f32 {worst['f32']:.1e} "
+          f"(tol {BWD_TOL['f32']:g}), bf16 {worst['bf16']:.1e} (tol "
+          f"{BWD_TOL['bf16']:g}), reruns bit-identical, LSE of both routes "
+          f"vs plain {lse_worst:.1e} (tol {LSE_TOL:g}); planted at "
+          f"{BWD_FAULT_SHAPE} f32: " + _faults(dict(faults, sound=0), 1)
+          + "; device/plain/SDPA-bwd ms (bound): " + "; ".join(text)
+          + " (qwen3's on the lines below)", flush=True)
+    out = summarize(rows, ("flash_attention_bwd",),
+                    [g for g, _, _ in LM_BATCHES], 1)
+    out["flash_attention_bwd"]["max_abs_err"] = max(worst.values())
+    return out
+
+
+def train_batch(np, cfg, B: int, S: int, seed: int = 0) -> dict:
+    """One lm_data batch (tokens, labels (B, S)) for ``cfg``, with
+    whisper's seeded frame embeddings and qwen2-vl's text positions."""
+    from repro_torch.data.lm_data import LMDataConfig, batches
+
+    batch = dict(next(batches(LMDataConfig(vocab=cfg.vocab, seq_len=S,
+                                           batch=B, seed=seed))))
+    if cfg.encoder_layers:
+        batch["enc_input"] = np.random.default_rng(seed).standard_normal(
+            (B, cfg.encoder_ctx, cfg.d_model), dtype=np.float32)
+    if cfg.mrope:
+        batch["positions"] = np.broadcast_to(
+            np.arange(S, dtype=np.int32)[None, :, None], (B, S, 3)).copy()
+    return batch
+
+
+def lm_train(torch, np):
+    """Phase 5c: LM training. The backward kernel's checks
+    (check_flash_bwd); qwen3-14b at full width with TRAIN_LAYERS layers in
+    bf16 on an lm_data batch: the gradient with the kernels against the
+    plain forward and backward on the card, then TRAIN_STEPS AdamW steps
+    of make_train_step on that one batch with the launch counters reset
+    just before and read just after (loss finite and falling), ms a step,
+    busy ms, launches, peak GiB; each family at smoke size in f32, card
+    against CPU (loss, gradients, one step's parameters) and a DDP step
+    with compression over 2 logical devices; the train CLI at smoke size
+    in subprocesses: SIGTERM, then resume, the same losses as an
+    uninterrupted run."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models.model import loss_fn, trainable
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_ddp_train_step,
+                                              make_train_step)
+
+    summary = check_flash_bwd(torch, np)
+
+    cfg = dc.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    B, S = TRAIN_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+    params = state["params"]
+    n = sum(t.numel() for t in params.parameters())
+    need(n == cfg.param_count(), f"{n} parameters, config "
+                                 f"{cfg.param_count()}")
+    batch = train_batch(np, cfg, B, S)
+    dev_batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+
+    def grads_once():
+        loss = loss_fn(params, dev_batch, cfg)
+        loss.backward()
+        g = {k: p.grad for k, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        return float(loss.detach()), g
+
+    kernels.reset_launches()
+    loss_k, g_k = grads_once()
+    once = kernels.launch_counts()
+    need(once["flash_attention"] == 2 * TRAIN_LAYERS
+         and once["flash_attention_bwd"] == TRAIN_LAYERS,
+         f"one gradient launched flash {once['flash_attention']} forward "
+         f"and {once['flash_attention_bwd']} backward, want "
+         f"{2 * TRAIN_LAYERS} and {TRAIN_LAYERS}")
+    with plain_flash(fa):
+        loss_p, g_p = grads_once()
+    # each leaf on its own, so that the embedding's and the head's 1.56 B
+    # entries, whose gradient no attention backward reaches, dilute no
+    # fault of a layer's; the whole is printed beside it
+    num = den = 0.0
+    leaf = {}
+    for k in g_k:
+        d = float((g_k[k].float() - g_p[k].float()).square().sum())
+        r = float(g_p[k].float().square().sum())
+        num, den = num + d, den + r
+        if r > 0:
+            leaf[k] = math.sqrt(d / r)
+    grel = math.sqrt(num / den)
+    worst_leaf = max(leaf, key=leaf.get)
+    need(leaf[worst_leaf] <= TRAIN_GRAD_TOL and abs(loss_k - loss_p)
+         <= TRAIN_LOSS_TOL * abs(loss_p),
+         f"train gradient kernels vs plain: rel L2 {leaf[worst_leaf]} at "
+         f"{worst_leaf}, loss {loss_k} vs {loss_p}")
+    attn = [v for k, v in leaf.items()
+            if k.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo")]
+    del g_k, g_p
+
+    step = make_train_step(cfg, OptConfig(lr=TRAIN_LR, warmup_steps=1,
+                                          total_steps=TRAIN_STEPS))
+    name = f"lm train {LM_ARCH}"
+    kernels.reset_launches()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, dev_batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    launches = check_launches(name, kernels.launch_counts())
+    routes = dict(fa.flash_attention.route_launches)
+    need(launches["flash_attention"] == 2 * TRAIN_LAYERS * TRAIN_STEPS
+         and routes == {"sm90": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+                        "cuda_core": 0}
+         and launches["flash_attention_bwd"] == TRAIN_LAYERS * TRAIN_STEPS,
+         f"{TRAIN_STEPS} steps launched flash {routes} forward and "
+         f"{launches['flash_attention_bwd']} backward")
+    need(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+         f"train losses {losses}: not finite and falling")
+    print(launch_line({name: launches}), flush=True)
+
+    ms = host_ms(torch, lambda: step(state, dev_batch), 2)
+    times = device_times(torch, lambda: step(state, dev_batch), 1)
+    busy = sum(t for _, t in times.values()) / 1e3
+    n_launch = sum(c for c, _ in times.values())
+    n_bwd = sum(c for k, (c, _) in times.items()
+                if "flash_attention_bwd" in k)
+    level_line(f"{name} step profile: {n_bwd} flash_attention_bwd kernel "
+               f"launches (3 a call, {TRAIN_LAYERS} calls); clocks "
+               f"[{gpu_clocks()}]")
+    f_ms = sum(t for k, (_, t) in times.items()
+               if "flash_attention_kernel" in k) / 1e3
+    b_ms = sum(t for k, (_, t) in times.items()
+               if "flash_attention_bwd" in k) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    T = B * S
+    D, V, H, K, hd = cfg.d_model, cfg.vocab, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.hd
+    layer = D * hd * (2 * H + 2 * K) + 3 * D * cfg.d_ff   # its matmuls
+    pairs = B * H * S * (S + 1) // 2
+    # the step's own work: each layer's and the head's matmuls forward and
+    # backward (6 N T), attention 4 hd a pair forward and 10 hd backward;
+    # the remat recompute (each layer's forward again, 2 N T + 4 hd a
+    # pair) is a memory choice and stands beside the bound, not in it
+    flops = TRAIN_LAYERS * (6 * layer * T + 14 * hd * pairs) \
+        + 6 * D * V * T
+    remat = TRAIN_LAYERS * (2 * layer * T + 4 * hd * pairs)
+    # AdamW: bf16 grad and param, f32 m, v, master read and written
+    adam_bytes = n * (2 + 2 + 2 * 12)
+    bound = (flops / BF16_FLOPS + adam_bytes / HBM_BPS) * 1e3
+    print(f"  {name} full width, {TRAIN_LAYERS} of 40 layers ({n:,} "
+          f"parameters), bf16, lm_data B{B}xS{S}: grad kernels vs plain rel "
+          f"L2 worst leaf {leaf[worst_leaf]:.1e} ({worst_leaf}; tol "
+          f"{TRAIN_GRAD_TOL:g}), attention leaves {min(attn):.1e}-"
+          f"{max(attn):.1e}, all {grel:.1e}, loss {loss_k:.4f} vs "
+          f"{loss_p:.4f}; {TRAIN_STEPS} AdamW steps loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; {ms:.1f} ms/step (bound {bound:.1f}: matmuls "
+          f"{flops / BF16_FLOPS * 1e3:.1f} + AdamW bytes "
+          f"{adam_bytes / HBM_BPS * 1e3:.1f}; remat recompute "
+          f"{remat / BF16_FLOPS * 1e3:.1f} more), {T / ms * 1e3:.0f} tok/s, "
+          f"busy {busy:.1f} ms, {n_launch} launches, flash fwd {f_ms:.2f} ms "
+          f"({2 * TRAIN_LAYERS} launches) bwd {b_ms:.2f} ms ({TRAIN_LAYERS}), "
+          f"peak "
+          f"{peak:.2f} GiB", flush=True)
+    del state, params, dev_batch, step
+    torch.cuda.empty_cache()
+
+    # every family at smoke size in f32: card against CPU
+    text = []
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch in TRAIN_FAMILIES:
+        scfg = dc.replace(get_config(arch, smoke=True), dtype=torch.float32)
+        leaves = smoke_leaves(np, scfg, 0)
+        sbatch = train_batch(np, scfg, *TRAIN_SMOKE_BATCH)
+        res = {}
+        for dev in (DEV, "cpu"):
+            p = trainable(lm_params_from_numpy(leaves, scfg, dev))
+            loss = loss_fn(p, sbatch, scfg)
+            loss.backward()
+            g = {k: t.grad.cpu() if t.grad is not None
+                 else torch.zeros_like(t, device="cpu")
+                 for k, t in p.named_parameters()}
+            for t in p.parameters():
+                t.grad = None
+            st = {"params": p,
+                  "opt": init_opt_state(dict(p.named_parameters()))}
+            make_train_step(scfg, opt)(st, sbatch)
+            res[dev] = (float(loss.detach()), g,
+                        {k: t.detach().cpu() for k, t in p.named_parameters()})
+        (lc, gc_, pc), (lh, gh, ph) = res[DEV], res["cpu"]
+        dl = abs(lc - lh) / abs(lh)
+        dg = max(_rel_l2(torch, gc_[k], gh[k]) for k in gh
+                 if float(gh[k].norm()) > 0)
+        dp = max(_rel_l2(torch, pc[k], ph[k]) for k in ph)
+        need(dl <= TRAIN_SMOKE_TOL["loss"] and dg <= TRAIN_SMOKE_TOL["grads"]
+             and dp <= TRAIN_SMOKE_TOL["params"],
+             f"{arch} smoke train card vs CPU: loss {dl}, grads {dg}, "
+             f"params {dp}")
+        text.append(f"{arch.split('-')[0]} {dl:.0e}/{dg:.0e}/{dp:.0e}")
+
+    # a DDP step with int8 compression over 2 logical devices
+    scfg = dc.replace(get_config(LM_ARCH, smoke=True), dtype=torch.float32)
+    leaves = smoke_leaves(np, scfg, 0)
+    sbatch = train_batch(np, scfg, 4, TRAIN_SMOKE_BATCH[1])
+    res = {}
+    os.environ["REPRO_TEST_DEVICES"] = "2"
+    try:
+        for dev in (DEV, "cpu"):
+            p = trainable(lm_params_from_numpy(leaves, scfg, dev))
+            named = dict(p.named_parameters())
+            st = {"params": p, "opt": init_opt_state(named),
+                  "residual": [{k: torch.zeros(t.shape, device=t.device)
+                                for k, t in named.items()}
+                               for _ in range(2)]}
+            st, m = make_ddp_train_step(scfg, opt, compress=True)(st, sbatch)
+            res[dev] = (float(m["loss"]), {k: t.detach().cpu()
+                                           for k, t in p.named_parameters()},
+                        len(st["residual"]))
+    finally:
+        os.environ.pop("REPRO_TEST_DEVICES")
+    dl = abs(res[DEV][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    dp = max(_rel_l2(torch, res[DEV][1][k], res["cpu"][1][k])
+             for k in res["cpu"][1])
+    need(dl <= TRAIN_SMOKE_TOL["loss"] and dp <= TRAIN_SMOKE_TOL["params"]
+         and res[DEV][2] == 2, f"DDP --compress card vs CPU: loss {dl}, "
+                               f"params {dp}")
+    print(f"  train smoke f32 B{TRAIN_SMOKE_BATCH[0]}xS{TRAIN_SMOKE_BATCH[1]}"
+          f" card vs CPU, loss/grads/step params (tol "
+          + "/".join(f"{v:g}" for v in TRAIN_SMOKE_TOL.values()) + "): "
+          + ", ".join(text) + f"; ddp --compress 2 logical devices "
+          f"{dl:.0e}/-/{dp:.0e}", flush=True)
+    print("  " + train_cli(), flush=True)
+    return {name: launches}, routes, summary
+
+
+def train_cli() -> str:
+    """The train CLI on the card at smoke size in subprocesses: an
+    uninterrupted run; a run stopped by SIGTERM (its final checkpoint);
+    the same command again, which resumes. The resumed losses must be the
+    uninterrupted run's."""
+    import signal
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            LM_ARCH, "--steps", str(CLI_STEPS), "--batch", "2", "--seq",
+            "32"] + (["--device", "cpu"] if DEV == "cpu"
+                                         else [])
+
+    def losses(text):
+        return {int(ln.split()[1]): ln.split()[3] for ln in text.splitlines()
+                if ln.startswith("step ")}
+
+    def run(extra):
+        out = subprocess.run(args + extra, capture_output=True, text=True,
+                             timeout=300, env=env, cwd=ROOT)
+        need(out.returncode == 0, f"train CLI {extra}: {out.stderr[-800:]}")
+        return out.stdout
+
+    want = losses(run([]))
+    need(sorted(want) == list(range(1, CLI_STEPS + 1)), "train CLI: steps")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+        extra = ["--ckpt", ck, "--ckpt-every", "1000"]
+        proc = subprocess.Popen(args + extra, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env,
+                                cwd=ROOT)
+        seen = []
+        try:
+            for line in proc.stdout:
+                seen.append(line)
+                if line.startswith("step    2"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            rest, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        first = "".join(seen) + rest
+        stopped = max(losses(first), default=0)
+        need(proc.returncode == 0 and "SIGTERM: writing final checkpoint"
+             in first and 2 <= stopped < CLI_STEPS,
+             f"train CLI SIGTERM: rc {proc.returncode}, stopped at "
+             f"{stopped}: {err[-500:]}")
+        again = run(extra)
+        got = {**losses(first), **losses(again)}
+        need(f"resumed from step {stopped}" in again
+             and got == want, f"train CLI resume from {stopped}: losses "
+                              f"differ from the uninterrupted run")
+    return (f"train CLI {LM_ARCH} smoke bf16 on the card, {CLI_STEPS} "
+            f"steps: SIGTERM after step {stopped} (final checkpoint, exit "
+            f"0), rerun resumed from step {stopped}; losses of steps 1-"
+            f"{CLI_STEPS} = the uninterrupted run's")
+
+
 def _faults(rel, digits: int = 2) -> str:
     return ", ".join(f"{k} {v:.{digits}e}" for k, v in rel.items()
                      if k != "sound")
@@ -4487,6 +5058,12 @@ def main() -> int:
             launches.update(family_launches)
             flash_routes = {r: n + family_routes[r]
                             for r, n in flash_routes.items()}
+        print("lm train:", flush=True)
+        train_launches, train_routes, bwd = lm_train(torch, np)
+        launches.update(train_launches)
+        flash_routes = {r: n + train_routes[r]
+                        for r, n in flash_routes.items()}
+        summary.update(bwd)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1

@@ -15,12 +15,21 @@
   * ``lm_params_from_numpy(leaves, cfg, device)`` -- the reference's LM
     parameter tree as numpy arrays (layer leaves stacked on axis 0; the
     encoder's on its own axis) as the port's ``CausalLM`` on ``device``
-    (CUDA unless the CPU is asked for).
+    (CUDA unless the CPU is asked for);
+  * ``train_state_from_numpy(tree, cfg, device)`` and
+    ``train_state_to_numpy(state, cfg)`` -- the reference's train state
+    ({"params", "opt": {"step", "m", "v", "master"}} and, for its DDP
+    trainer, "residual"; numpy leaves, layers stacked) into the port's
+    (train/train_step.py: a trainable CausalLM and per-parameter f32
+    trees keyed by parameter name), and back. The reference keeps one
+    residual tree, replicated over its data axis; the port keeps one a
+    shard, so it goes in to every shard (``shards``) and comes back
+    from shard 0.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +38,7 @@ from .api.config import PipelineConfig
 from .core.detector import as_svm, resolve_device
 from .core.heads import HeadRegistry
 from .models.configs import ModelConfig
-from .models.model import F32_LEAVES, CausalLM, from_leaves
+from .models.model import F32_LEAVES, CausalLM, from_leaves, trainable
 
 
 def svm_from_numpy(leaves: Dict[str, Any], device=None
@@ -122,3 +131,104 @@ def lm_params_from_numpy(leaves: Dict[str, Any], cfg: ModelConfig,
         return _tensor(x, dtype, dev)
 
     return from_leaves(cfg, conv(leaves))
+
+
+def _named_leaves(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A reference tree (layers stacked) as {parameter name: array}, the
+    names ``CausalLM.named_parameters()`` gives: "layers.<i>.<path>" for
+    row i of a stacked leaf (likewise "enc_layers."), "<path>" for the
+    rest, each path "."-joined."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, path, stack):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,), stack)
+        elif stack is None:
+            out[".".join(path)] = node
+        else:
+            for i in range(np.shape(node)[0]):
+                out[".".join((stack, str(i)) + path)] = node[i]
+
+    for k, v in tree.items():
+        if k in ("layers", "enc_layers"):
+            walk(v, (), k)
+        else:
+            walk(v, (k,), None)
+    return out
+
+
+def _stacked(named: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The inverse of ``_named_leaves``: layer rows stacked on axis 0."""
+    tree: Dict[str, Any] = {}
+    rows: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    for name, a in named.items():
+        parts = name.split(".")
+        if parts[0] in ("layers", "enc_layers"):
+            rows.setdefault((parts[0],) + tuple(parts[2:]), {})[
+                int(parts[1])] = a
+        else:
+            _put(tree, parts, a)
+    for path, by_layer in rows.items():
+        _put(tree, list(path), np.stack([by_layer[i]
+                                         for i in range(len(by_layer))]))
+    return tree
+
+
+def _put(tree: Dict[str, Any], path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bf16 widened to f32 (exact)."""
+    t = t.detach().to("cpu")
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                           device=None, shards: int = 1) -> Dict[str, Any]:
+    """The reference's train state (numpy leaves) -> the port's on
+    ``device``: trainable parameters, the step as a 0-d int32 tensor, m,
+    v and master as f32 tensors by parameter name, and the residual tree
+    (where given) copied into each of ``shards`` shards."""
+    dev = resolve_device(device)
+    params = trainable(lm_params_from_numpy(tree["params"], cfg, dev))
+    names = [n for n, _ in params.named_parameters()]
+
+    def by_name(sub):
+        flat = _named_leaves(sub)
+        if sorted(flat) != sorted(names):
+            raise ValueError(f"the tree's leaves {sorted(flat)} are not the "
+                             f"model's {sorted(names)}")
+        return {n: _tensor(flat[n], torch.float32, dev) for n in names}
+
+    o = tree["opt"]
+    state = {"params": params, "opt": {
+        "step": torch.tensor(int(np.asarray(o["step"])), dtype=torch.int32,
+                             device=dev),
+        "m": by_name(o["m"]), "v": by_name(o["v"]),
+        "master": by_name(o["master"])}}
+    if "residual" in tree:
+        res = by_name(tree["residual"])
+        state["residual"] = [{n: t.clone() for n, t in res.items()}
+                             for _ in range(shards)]
+    return state
+
+
+def train_state_to_numpy(state: Dict[str, Any], cfg: ModelConfig
+                         ) -> Dict[str, Any]:
+    """The port's train state -> the reference's tree of numpy leaves
+    (layers stacked; bf16 parameters as f32 arrays of the same values;
+    the step int32; shard 0's residual)."""
+    named = {n: _host(p) for n, p in state["params"].named_parameters()}
+    o = state["opt"]
+    tree = {"params": _stacked(named), "opt": {
+        "step": np.asarray(int(o["step"]), np.int32),
+        **{k: _stacked({n: _host(t) for n, t in o[k].items()})
+           for k in ("m", "v", "master")}}}
+    if "residual" in state:
+        tree["residual"] = _stacked({n: _host(t) for n, t in
+                                     state["residual"][0].items()})
+    return tree

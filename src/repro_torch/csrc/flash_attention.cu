@@ -6,8 +6,11 @@
 // running max m and sum l, and the accumulator are f32; p is rounded to
 // v's dtype before the P.V product (as the TPU kernel's p.astype(v.dtype))
 // while l sums the unrounded p; out = acc / max(l, 1e-30) in q's dtype.
-// Any S: rows and keys past S are masked (the TPU kernel asserts S is a
-// multiple of its block).
+// On request (training) each row's log-sum-exp m + log(max(l, 1e-30))
+// goes to an f32 (B, H, S) output, as repro/models/attention.py:348
+// (_flash_fwd_impl) keeps it for the backward
+// (csrc/flash_attention_bwd.cu). Any S: rows and keys past S are masked
+// (the TPU kernel asserts S is a multiple of its block).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:86
 // (flash_attention): a (B*H, nQ, nK) grid whose innermost K sweep carries
@@ -92,7 +95,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const typename D::T* __restrict__ q,
                        const typename D::T* __restrict__ k,
                        const typename D::T* __restrict__ v,
-                       typename D::T* __restrict__ o, int H, int K, int S,
+                       typename D::T* __restrict__ o,
+                       float* __restrict__ lse, int H, int K, int S,
                        int hd, int causal, float scale, long long qsb,
                        long long qsh, long long qss, long long ksb,
                        long long ksh, long long kss, long long osb,
@@ -230,13 +234,18 @@ flash_attention_kernel(const typename D::T* __restrict__ q,
       const int col = tx + 16 * c;
       if (col < hd) D::store(ob, qi * oss + col, __fdiv_rn(acc[i][c], den));
     }
+    // the row's log-sum-exp for the backward (training only): every lane
+    // of the 16 holds the row's m and l
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + qi] =
+          __fadd_rn(m[i], logf(den));
   }
 }
 
 template <typename D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int S, int hd, int causal, const long long* st,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int K, int S, int hd, int causal,
+           const long long* st, cudaStream_t stream) {
   const int bytes = smem_floats(hd) * static_cast<int>(sizeof(float));
   // the opt-in persists per function and device: set it once, for the
   // largest request so far (every launch on the device can then use it)
@@ -258,7 +267,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   using T = typename D::T;
   flash_attention_kernel<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, K, S, hd, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, K, S, hd, causal,
       scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return static_cast<int>(cudaGetLastError());
 }
@@ -268,8 +277,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // q, k, v, o are f32 when bf16 == 0, bf16 (raw 16-bit words) otherwise.
 // Element strides of the first three dimensions: q's (qsb, qsh, qss), k's
 // and v's (ksb, ksh, kss), o's (osb, osh, oss); the fourth is unit-stride.
+// lse: null (serving), or a contiguous f32 (B, H, S) output that takes
+// each row's m + log(max(l, 1e-30)) for the backward.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int H,
     int K, int S, int hd, int causal, int bf16, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long osb, long long osh, long long oss, void* stream) {
@@ -279,6 +291,6 @@ extern "C" int flash_attention_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<BF16>(q, k, v, o, B, H, K, S, hd, causal, st, s)
-              : launch<F32>(q, k, v, o, B, H, K, S, hd, causal, st, s);
+  return bf16 ? launch<BF16>(q, k, v, o, lse, B, H, K, S, hd, causal, st, s)
+              : launch<F32>(q, k, v, o, lse, B, H, K, S, hd, causal, st, s);
 }

@@ -7,7 +7,9 @@
 // scores times the f32 1/sqrt(hd), masked to -1e30; a running max m and
 // sum l in f32, l summing the unrounded p; p = exp(s - m_new) rounded to
 // bf16 before the P.V product; an f32 accumulator; out = acc / max(l,
-// 1e-30) in bf16. Any S: keys past S are masked, rows past S not stored.
+// 1e-30) in bf16; on request each row's log-sum-exp m + log(max(l,
+// 1e-30)) in f32 for the backward (csrc/flash_attention_bwd.cu). Any S:
+// keys past S are masked, rows past S not stored.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:86
 // (flash_attention) for bf16 at those hd; kernels/flash_attention.py:route
@@ -312,7 +314,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            __nv_bfloat16* __restrict__ o, int H, int K,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int H, int K,
                             int S, int causal, float scale, long long osb,
                             long long osh, long long oss) {
   using G = Geo<HD>;
@@ -482,6 +485,11 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < HD / 8; ++i)
         dst[4 * i] = pack_bf16(__fdiv_rn(acc[4 * i + 2 * r], den),
                                __fdiv_rn(acc[4 * i + 2 * r + 1], den));
+      // the row's log-sum-exp for the backward (training only): the quad
+      // shares m and l
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(static_cast<long long>(b) * H + h) * S + row] =
+            __fadd_rn(m[r], logf(den));
     }
   }
 }
@@ -539,8 +547,8 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int S,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int S, int causal, const long long* st,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int K, int S, int causal, const long long* st,
            cudaStream_t stream) {
   using G = Geo<HD>;
   const EncodeTiled enc = encoder();
@@ -567,7 +575,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   // the TPU kernel's 1.0 / math.sqrt(hd), a double cut to f32
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   flash_attention_kernel_sm90<HD><<<grid, THREADS, G::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, K, S, causal, scale,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, K, S, causal,
+      scale,
       st[9], st[10], st[11]);
   return static_cast<int>(cudaGetLastError());
 }
@@ -576,9 +585,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // q, k, v, o are bf16 (raw 16-bit words). Element strides of the first
 // three dimensions: q's (qsb, qsh, qss), k's, v's and o's likewise; the
-// fourth is unit-stride. hd is 16, 64 or 128.
+// fourth is unit-stride. hd is 16, 64 or 128. lse: null (serving), or a
+// contiguous f32 (B, H, S) output of each row's m + log(max(l, 1e-30)).
 extern "C" int flash_attention_sm90_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int H,
     int K, int S, int hd, int causal, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
@@ -590,9 +601,9 @@ extern "C" int flash_attention_sm90_launch(
                             vsb, vsh, vss, osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, B, H, K, S, causal, st, s);
-    case 64: return launch<64>(q, k, v, o, B, H, K, S, causal, st, s);
-    case 128: return launch<128>(q, k, v, o, B, H, K, S, causal, st, s);
+    case 16: return launch<16>(q, k, v, o, lse, B, H, K, S, causal, st, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, H, K, S, causal, st, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, H, K, S, causal, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,7 +18,7 @@ def wrappers() -> Dict[str, object]:
     from .cell_hist import cell_hist
     from .dense_block_norm import dense_block_norm
     from .dense_grad_hist import dense_grad_hist
-    from .flash_attention import flash_attention
+    from .flash_attention import flash_attention, flash_attention_bwd
     from .fused_hog import dense_fused_hog, fused_hog
     from .hog_gradient import hog_gradient
     from .svm_matmul import score_matmul, score_matmul_int8, svm_scores
@@ -32,7 +32,8 @@ def wrappers() -> Dict[str, object]:
             "block_norm": block_norm,
             "fused_hog": fused_hog,
             "svm_scores": svm_scores,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def reset_launches() -> None:

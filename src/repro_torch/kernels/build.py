@@ -58,6 +58,7 @@ SOURCES = {
     "svm_scores": "svm_scores.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_sm90": "flash_attention_sm90.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 #: the card the launch plans are sized for by default: an H100 SXM's SMs

@@ -1,4 +1,5 @@
-"""Flash attention (forward) for LM prefill: GQA, causal or not.
+"""Flash attention for LM prefill and training: GQA, causal or not,
+forward and backward.
 
   * ``flash_attention(q, k, v, causal=True)`` -- q (B, H, S, hd), k and v
     (B, K, S, hd) with H = K * rep; query head h reads KV head h // rep.
@@ -7,6 +8,14 @@
     acc / max(l, 1e-30) in q's dtype. f32 or bf16; hd <= 128 and a
     multiple of 8; any S (the ragged last tile is masked). Replaces the
     TPU kernel repro/kernels/flash_attention.py:86.
+  * ``flash_attention_bwd(q, k, v, out, dout, lse, causal=True)`` -- its
+    gradient (dq, dk, dv) from the forward's output and log-sum-exp
+    (csrc/flash_attention_bwd.cu). The JAX package has no Pallas
+    backward; the reference's gradient is repro/models/attention.py:359
+    (_flash_bwd), whose steps ``flash_attention_bwd_plain`` repeats.
+  * ``FlashAttention`` -- the autograd Function training takes: its
+    forward launches a forward route with the LSE output and saves q, k,
+    v, out and lse; its backward launches the backward kernel.
 
 The inputs may be strided views (the last dimension unit-stride): LM
 prefill hands it the (B, S, H, hd) projections transposed, with no
@@ -34,11 +43,19 @@ route's shared-memory request is mirrored here (``smem_bytes``,
 ``build.SMEM_OPTIN`` per call, the tests the sm90 route's at every hd it
 is built for.
 
+Both forward routes write each row's log-sum-exp m + log(max(l,
+1e-30)) (f32 (B, H, S), as repro/models/attention.py:348 computes it)
+only when asked (``lse=True``, training); serving passes no buffer and
+the kernels write nothing more.
+
 ``flash_attention`` launches the route's kernel for CUDA tensors and
 runs the plain version ``flash_attention_plain`` (the counterpart of
 repro/kernels/ref.py:flash_attention_ref) for CPU tensors; nothing else.
-``flash_attention.launches`` counts kernel launches of both routes,
-``flash_attention.route_launches`` each route's.
+``flash_attention_bwd`` likewise launches its kernel or runs
+``flash_attention_bwd_plain``. ``flash_attention.launches`` counts
+kernel launches of both forward routes, ``flash_attention.route_launches``
+each route's, ``flash_attention_bwd.launches`` the backward's (one a
+call: its three kernels, delta, dK/dV and dQ).
 """
 from __future__ import annotations
 
@@ -60,10 +77,14 @@ SM90_STAGES = 2
 SM90_HD = (16, 64, 128)
 ROUTES = ("sm90", "cuda_core")
 
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
              + (ctypes.c_longlong,) * 9 + (ctypes.c_void_p,))
-_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
+_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
                   + (ctypes.c_longlong,) * 12 + (ctypes.c_void_p,))
+# q, k, v, o, dout, lse, delta, dq, dk, dv; B, H, K, S, hd, causal, bf16;
+# the 24 strides; the stream
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
+                 + (ctypes.c_void_p,) * 2)
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
@@ -80,6 +101,14 @@ def smem_bytes(hd: int) -> int:
     (csrc/flash_attention.cu:smem_floats)."""
     kp = max(BLOCK_K * (hd + 1), BLOCK_Q * (BLOCK_K + 1))
     return 4 * (BLOCK_Q * (hd + 1) + kp + BLOCK_K * hd)
+
+
+def bwd_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one thread block of the backward's dK/dV
+    and dQ kernels: four f32 tiles of 64 rows padded to hd + 1, the
+    64 x 65 w / ds tile, 64 lse and 64 delta values
+    (csrc/flash_attention_bwd.cu:smem_floats)."""
+    return 4 * (4 * 64 * (hd + 1) + 64 * (BLOCK_Q + 1) + 2 * 64)
 
 
 def smem_bytes_sm90(hd: int) -> int:
@@ -108,22 +137,65 @@ def tma_strides(t: Tensor) -> list:
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
-                          causal: bool = True) -> Tensor:
+                          causal: bool = True, lse: bool = False):
     """The same function in plain tensor ops, on any device, as the
     reference's oracle computes it: scores in the input dtype divided by
     sqrt(hd) in that dtype, masked to -1e30, softmax in f32, the weights
-    cast back before the P.V product."""
+    cast back before the P.V product. With ``lse`` -> (out, each row's
+    log-sum-exp (B, H, S) f32): m + log(max(l, 1e-30)) of the f32 scores
+    of the inputs times the f32 1/sqrt(hd), as the kernels and the
+    reference's _flash_fwd_impl take them."""
     B, H, S, hd = q.shape
     rep = H // k.shape[1]
     kk = k.repeat_interleave(rep, dim=1)
     vv = v.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q, kk) / _rounded(math.sqrt(hd),
                                                           q.dtype)
-    if causal:
-        m = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~m, -1e30)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril() \
+        if causal else None
+    if mask is not None:
+        s = s.masked_fill(~mask, -1e30)
     w = torch.softmax(s.to(torch.float32), -1).to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", w, vv)
+    out = torch.einsum("bhqk,bhkd->bhqd", w, vv)
+    if not lse:
+        return out
+    s32 = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) \
+        * _rounded(1.0 / math.sqrt(hd), torch.float32)
+    if mask is not None:
+        s32 = s32.masked_fill(~mask, -1e30)
+    m = s32.amax(-1)
+    l = torch.exp(s32 - m[..., None]).sum(-1)
+    return out, m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, dout: Tensor,
+                              lse: Tensor, causal: bool = True):
+    """The gradient (dq, dk, dv) of the forward at the output gradient
+    ``dout`` (q's shape) from its log-sum-exp ``lse`` (B, H, S), in plain
+    tensor ops, step for step as the reference's _flash_bwd
+    (repro/models/attention.py:359): f32 scores of the inputs times
+    hd^-0.5, masked to -1e9; w = exp(s - lse) cast to v's dtype; dv = w^T
+    dout and dw = dout v^T in the inputs' dtype; delta = rowsum(dw * w) in
+    f32; ds = w * (dw - delta) * hd^-0.5 cast to q's dtype; dq = ds k, dk
+    = ds^T q; dk and dv summed over each KV head's rep query heads."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    rep = H // K
+    scale = hd ** -0.5
+    q5 = q.reshape(B, K, rep, S, hd)
+    do5 = dout.reshape(B, K, rep, S, hd)
+    s = torch.einsum("bkrqd,bksd->bkrqs", q5.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -1e9)
+    w = torch.exp(s - lse.reshape(B, K, rep, S, 1)).to(v.dtype)
+    dv = torch.einsum("bkrqs,bkrqd->bksd", w, do5)
+    dw = torch.einsum("bkrqd,bksd->bkrqs", do5, v)
+    delta = (dw.float() * w.float()).sum(-1)
+    ds = (w.float() * (dw.float() - delta[..., None]) * scale).to(q.dtype)
+    dq = torch.einsum("bkrqs,bksd->bkrqd", ds, k).reshape(B, H, S, hd)
+    dk = torch.einsum("bkrqs,bkrqd->bksd", ds, q5)
+    return dq, dk, dv
 
 
 def _rounded(x: float, dtype: torch.dtype) -> float:
@@ -152,22 +224,36 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor,
-                    causal: bool = True) -> Tensor:
+                    causal: bool = True, lse: bool = False):
     """q: (B, H, S, hd); k, v: (B, K, S, hd), H % K == 0 -> (B, H, S, hd)
-    in q's dtype and layout."""
+    in q's dtype and layout; with ``lse`` -> (out, the rows' log-sum-exp
+    (B, H, S) f32)."""
     _check(q, k, v)
     if q.device.type == "cpu":
+        res = flash_attention_plain(q, k, v, causal, lse)
         out = torch.empty_like(q)
-        return out.copy_(flash_attention_plain(q, k, v, causal))
+        if not lse:
+            return out.copy_(res)
+        return out.copy_(res[0]), res[1]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if route(q.dtype, q.shape[-1]) == "sm90":
-        return launch_sm90(q, k, v, causal)
-    return launch_cuda_core(q, k, v, causal)
+        return launch_sm90(q, k, v, causal, lse)
+    return launch_cuda_core(q, k, v, causal, lse)
+
+
+def _lse_buffer(q: Tensor, want: bool):
+    """The f32 (B, H, S) LSE output when asked, else None, and the pointer
+    the kernel takes (0: write none)."""
+    if not want:
+        return None, 0
+    B, H, S, _ = q.shape
+    buf = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return buf, buf.data_ptr()
 
 
 def launch_cuda_core(q: Tensor, k: Tensor, v: Tensor,
-                     causal: bool = True) -> Tensor:
+                     causal: bool = True, lse: bool = False):
     """The CUDA-core kernel (csrc/flash_attention.cu) on CUDA tensors."""
     B, H, S, hd = q.shape
     if hd > MAX_HD or hd % 8:
@@ -180,18 +266,19 @@ def launch_cuda_core(q: Tensor, k: Tensor, v: Tensor,
         raise ValueError(f"hd {hd} needs {smem_bytes(hd)} bytes of shared "
                          f"memory, over {build.SMEM_OPTIN}")
     out = torch.empty_like(q)
+    buf, ptr = _lse_buffer(q, lse)
     if out.numel() == 0:
-        return out
+        return (out, buf) if lse else out
     build.launch("flash_attention", _ARGTYPES, q, q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr, B, H,
                  k.shape[1], S, hd, int(causal), _DTYPE_CODES[q.dtype],
                  *q.stride()[:3], *k.stride()[:3], *out.stride()[:3])
     _count("cuda_core")
-    return out
+    return (out, buf) if lse else out
 
 
 def launch_sm90(q: Tensor, k: Tensor, v: Tensor,
-                causal: bool = True) -> Tensor:
+                causal: bool = True, lse: bool = False):
     """The tensor-core kernel (csrc/flash_attention_sm90.cu) on bf16 CUDA
     tensors at hd 16, 64 or 128, read through TMA maps."""
     B, H, S, hd = q.shape
@@ -199,15 +286,88 @@ def launch_sm90(q: Tensor, k: Tensor, v: Tensor,
         raise ValueError(f"the sm90 kernel takes bf16 at hd {SM90_HD}; got "
                          f"{q.dtype} at hd {hd}")
     out = torch.empty_like(q)
+    buf, ptr = _lse_buffer(q, lse)
     if out.numel() == 0:
-        return out
+        return (out, buf) if lse else out
     strides = [s for t in (q, k, v) for s in tma_strides(t)]
     build.launch("flash_attention_sm90", _SM90_ARGTYPES, q, q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr, B, H,
                  k.shape[1], S, hd, int(causal), *strides,
                  *out.stride()[:3])
     _count("sm90")
-    return out
+    return (out, buf) if lse else out
+
+
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                        dout: Tensor, lse: Tensor, causal: bool = True):
+    """The gradient (dq, dk, dv) of ``flash_attention(q, k, v, causal)``
+    at the output gradient ``dout``, from its output ``out`` and
+    log-sum-exp ``lse`` (B, H, S) f32; each in its input's dtype and
+    layout. CUDA tensors launch csrc/flash_attention_bwd.cu; CPU tensors
+    run ``flash_attention_bwd_plain`` (which reads no ``out``)."""
+    _check(q, k, v)
+    B, H, S, hd = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} is "
+                             f"not q's {tuple(q.shape)} {q.dtype} on "
+                             f"{q.device}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse must be f32 {(B, H, S)} "
+                         f"on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, lse, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    if hd > MAX_HD or hd % 8:
+        raise ValueError(f"the backward kernel takes hd <= {MAX_HD}, a "
+                         f"multiple of 8; got {hd}")
+    tensors = (q, k, v, out, dout)
+    if any(t.stride(-1) != 1 for t in tensors) or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: the last dimension must be "
+                         "unit-stride and lse contiguous")
+    if bwd_smem_bytes(hd) > build.SMEM_OPTIN:
+        raise ValueError(f"hd {hd} needs {bwd_smem_bytes(hd)} bytes of "
+                         f"shared memory, over {build.SMEM_OPTIN}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[
+        s for t in tensors + (dq, dk, dv) for s in t.stride()[:3]])
+    build.launch("flash_attention_bwd", _BWD_ARGTYPES, q,
+                 *(t.data_ptr() for t in tensors), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), B, H, k.shape[1], S, hd, int(causal),
+                 _DTYPE_CODES[q.dtype], ctypes.addressof(strides))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward launches the
+    route's kernel with the LSE output and saves q, k, v, out and lse; the
+    backward launches ``flash_attention_bwd``'s kernel (the plain versions
+    for CPU tensors). ``FlashAttention.apply(q, k, v, causal)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True):
+        out, lse = flash_attention(q, k, v, causal, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal)
+        return dq, dk, dv, None
 
 
 def _count(name: str) -> None:
@@ -217,3 +377,4 @@ def _count(name: str) -> None:
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+flash_attention_bwd.launches = 0

@@ -9,11 +9,14 @@ hand-written flash kernel (``kernels/flash_attention.py``): every layer
 of the dense and MoE families, hymba's global layers (meta tokens are
 plain causal positions), whisper's decoder and qwen2-vl's text prompts.
 The encoder's attention, every key visible, takes the same kernel with
-``causal=False``. Any other mask -- a window, or positions whose t
-repeats (an image's patches share one t and see each other both ways)
--- takes ``_sdpa``, the reference's einsum attention in plain torch,
-under ``make_mask`` of the t stream (the reference's default path), or,
-for a window when asked, ``banded_core``: block-banded attention whose
+``causal=False``. Where grad is enabled (training) the kernel runs
+through ``FlashAttention``, whose backward is a hand-written kernel too;
+every other path differentiates as plain torch through autograd. Any
+other mask -- a window, or positions whose t repeats (an image's patches
+share one t and see each other both ways) -- takes ``_sdpa``, the
+reference's einsum attention in plain torch, under ``make_mask`` of the
+t stream (the reference's default path), or, for a window when asked,
+``banded_core``: block-banded attention whose
 band and meta-prefix partial softmaxes merge by log-sum-exp (the
 reference's ``ctx.banded``). Cross-attention (queries and keys of other
 lengths, no RoPE, no mask) and single-token decode against the padded
@@ -27,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import FlashAttention, flash_attention
 from .configs import ModelConfig
 from .layers import apply_mrope, apply_rope, rmsnorm
 
@@ -123,9 +126,16 @@ def attend(q: Tensor, k: Tensor, v: Tensor, causal: bool = True) -> Tensor:
     """Self-attention of a sequence, q (B, S, H, hd), k and v (B, S, K,
     hd) -> (B, S, H, hd), through the flash kernel: index-causal, or
     every key visible. The kernel reads the (B, H, S, hd) views through
-    their strides, so no transpose is copied."""
-    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal=causal).transpose(1, 2)
+    their strides, so no transpose is copied. Where grad is enabled
+    (training) it goes through ``FlashAttention``, whose backward is the
+    hand-written backward kernel; serving (inference mode) calls the
+    forward alone."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if torch.is_grad_enabled():
+        out = FlashAttention.apply(qt, kt, vt, causal)
+    else:
+        out = flash_attention(qt, kt, vt, causal=causal)
+    return out.transpose(1, 2)
 
 
 def self_attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,

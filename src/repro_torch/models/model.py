@@ -1,6 +1,6 @@
-"""The LM: init, forward, prefill, decode (port of repro/models/model.py)
-for every family: dense, MoE, SSM, hybrid, encoder-decoder (whisper) and
-VLM (qwen2-vl, M-RoPE).
+"""The LM: init, forward, loss, prefill, decode (port of
+repro/models/model.py) for every family: dense, MoE, SSM, hybrid,
+encoder-decoder (whisper) and VLM (qwen2-vl, M-RoPE).
 
 The parameters are ``nn.Module``s that mirror the reference's tree:
 ``CausalLM`` holds ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
@@ -18,9 +18,17 @@ norm ``ln_x`` -- and, for the encoder-decoder, ``enc_layers`` (``ln1``,
 ``ln2``, ``attn``, ``mlp``) and ``enc_norm``. Each norm holds ``scale``,
 and ``bias`` for layernorm. Each layer is its slice of the reference's
 layer-stacked leaves. Plain functions with the reference's names run
-them; the reference's scan over layers (and its per-layer remat) is a
-loop over ``params.layers``. Parameters carry no gradient: training,
-with a backward for the flash kernel, is a later slice.
+them; the reference's scan over layers is a loop over ``params.layers``.
+
+Serving (``forward``, ``prefill``, ``decode_step``, ``encode``) runs under
+``torch.inference_mode`` on frozen parameters. Training takes the same
+model made ``trainable`` (every parameter a leaf that takes a gradient)
+through ``train_forward`` and ``loss_fn``, the reference's differentiable
+forward and next-token loss: each decoder and encoder layer is
+recomputed in the backward pass (``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint`` of its scan body), and self-attention
+without a window takes the flash kernel through its autograd Function,
+whose backward is the hand-written backward kernel.
 
 The reference's default path computes both the full and the windowed
 attention of every layer of a windowed model, then selects one; the loop
@@ -46,6 +54,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (_project_qkv, arange_positions, attention,
                         attention_decode, cross_attention, index_causal,
@@ -86,6 +95,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _param(t: Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def trainable(params: "CausalLM") -> "CausalLM":
+    """``params`` with every parameter taking a gradient (in place), for
+    training; serving keeps them frozen."""
+    for t in params.parameters():
+        t.requires_grad_(True)
+    return params
 
 
 class Leaves(nn.Module):
@@ -391,6 +408,28 @@ def _layer(x: Tensor, lp, cfg: ModelConfig, pos: Tensor, window: int,
     return _cross_and_ffn(x + out, lp, cfg, enc), kv, ssm_cache
 
 
+def _layer_x(*args) -> Tensor:
+    return _layer(*args)[0]
+
+
+def _enc_layer(x: Tensor, lp, cfg: ModelConfig) -> Tensor:
+    """One encoder layer: attention with every key visible (flash,
+    ``causal=False``), then the MLP, each after its norm."""
+    h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
+    x = x + attention(h, lp.attn, cfg, causal=False)
+    h = norm(x, lp.ln2, cfg.norm, cfg.norm_eps)
+    return x + mlp(h, lp.mlp, cfg.mlp)
+
+
+def _remat(fn, *args) -> Tensor:
+    """``fn(*args)``, recomputed in the backward pass where grad is
+    enabled (the reference's per-layer ``jax.checkpoint``): only the
+    layer's input is kept for the backward."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # =====================================================================
 # full model
 # =====================================================================
@@ -458,8 +497,8 @@ def _embed_prompt(params: CausalLM, batch: Dict[str, Tensor],
 def _enc_states(params: CausalLM, batch: Dict[str, Tensor],
                 cfg: ModelConfig, enc: Optional[Tensor]) -> Optional[Tensor]:
     """The encoder states the decoder attends to: ``enc`` if given (in
-    the model's dtype), else ``encode`` of ``batch["enc_input"]``; None
-    without an encoder."""
+    the model's dtype), else the encoder over ``batch["enc_input"]``;
+    None without an encoder."""
     if not cfg.encoder_layers:
         return None
     if enc is not None:
@@ -467,7 +506,16 @@ def _enc_states(params: CausalLM, batch: Dict[str, Tensor],
     if batch.get("enc_input") is None:
         raise ValueError(f"{cfg.name} (encoder-decoder) needs "
                          f"batch['enc_input'] (B, T_enc, d_model)")
-    return encode(params, batch["enc_input"], cfg)
+    return _encoder(params, batch["enc_input"], cfg)
+
+
+def _encoder(params: CausalLM, enc_input, cfg: ModelConfig) -> Tensor:
+    x = torch.as_tensor(enc_input).to(device=params.device, dtype=cfg.dtype)
+    T, D = x.shape[1:]
+    x = x + sinusoidal_positions(T, D, x.device).to(cfg.dtype)
+    for lp in params.enc_layers:
+        x = _remat(_enc_layer, x, lp, cfg)
+    return norm(x, params.enc_norm, cfg.norm, cfg.norm_eps)
 
 
 def encode(params: CausalLM, enc_input, cfg: ModelConfig) -> Tensor:
@@ -479,16 +527,22 @@ def encode(params: CausalLM, enc_input, cfg: ModelConfig) -> Tensor:
     and the final ``enc_norm`` -> states (B, T, D)."""
     check_supported(cfg)
     with torch.inference_mode():
-        x = torch.as_tensor(enc_input).to(device=params.device,
-                                          dtype=cfg.dtype)
-        T, D = x.shape[1:]
-        x = x + sinusoidal_positions(T, D, x.device).to(cfg.dtype)
-        for lp in params.enc_layers:
-            h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
-            x = x + attention(h, lp.attn, cfg, causal=False)
-            h = norm(x, lp.ln2, cfg.norm, cfg.norm_eps)
-            x = x + mlp(h, lp.mlp, cfg.mlp)
-        return norm(x, params.enc_norm, cfg.norm, cfg.norm_eps)
+        return _encoder(params, enc_input, cfg)
+
+
+def train_forward(params: CausalLM, batch: Dict[str, Tensor],
+                  cfg: ModelConfig, banded: bool = False) -> Tensor:
+    """The reference's differentiable forward (repro/models/model.py:315)
+    -> logits (B, S, V), the batch as ``forward`` takes it, with no
+    inference mode: where grad is enabled every decoder and encoder layer
+    is recomputed in the backward pass (only its input is kept), as the
+    reference's remat'd scan."""
+    check_supported(cfg)
+    x, pos, flash = _embed_prompt(params, batch, cfg)
+    enc = _enc_states(params, batch, cfg, None)
+    for lp, window in zip(params.layers, layer_windows(cfg)):
+        x = _remat(_layer_x, x, lp, cfg, pos, window, banded, flash, enc)
+    return logits_from_hidden(params, x[:, cfg.meta_tokens:], cfg)
 
 
 def forward(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
@@ -497,13 +551,24 @@ def forward(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
     positions (B, S) or (B, S, 3) for M-RoPE] [+ enc_input (B, T_enc,
     D) for the encoder-decoder]. ``banded`` runs windowed layers through
     ``banded_core``."""
-    check_supported(cfg)
     with torch.inference_mode():
-        x, pos, flash = _embed_prompt(params, batch, cfg)
-        enc = _enc_states(params, batch, cfg, None)
-        for lp, window in zip(params.layers, layer_windows(cfg)):
-            x = _layer(x, lp, cfg, pos, window, banded, flash, enc)[0]
-        return logits_from_hidden(params, x[:, cfg.meta_tokens:], cfg)
+        return train_forward(params, batch, cfg, banded)
+
+
+def loss_fn(params: CausalLM, batch: Dict[str, Tensor],
+            cfg: ModelConfig) -> Tensor:
+    """Next-token cross-entropy of ``train_forward``'s logits in f32
+    against ``batch["labels"]`` (B, S), labels of -100 (any negative)
+    ignored: the mean of logsumexp - the gold logit over the valid
+    positions (divided by at least 1), as repro/models/model.py:347."""
+    logits = train_forward(params, batch, cfg).to(torch.float32)
+    labels = torch.as_tensor(batch["labels"]).to(logits.device)
+    valid = labels >= 0
+    labels_c = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
 
 
 # =====================================================================

@@ -31,6 +31,9 @@ import repro_torch.core.tiling, repro_torch.launch.mesh
 import repro_torch.models.moe, repro_torch.models.ssm
 import repro_torch.models.layers, repro_torch.models.attention
 import repro_torch.configs.whisper_large_v3, repro_torch.configs.qwen2_vl_72b
+import repro_torch.train.optimizer, repro_torch.train.train_step
+import repro_torch.train.grad_compress, repro_torch.data.lm_data
+import repro_torch.launch.train
 import torch.profiler
 assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.checkpoint.manager", "repro_torch.data.mining",
@@ -43,7 +46,10 @@ assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.models.moe", "repro_torch.models.ssm",
          "repro_torch.models.layers", "repro_torch.models.attention",
          "repro_torch.configs.whisper_large_v3",
-         "repro_torch.configs.qwen2_vl_72b"}} \
+         "repro_torch.configs.qwen2_vl_72b", "repro_torch.train",
+         "repro_torch.train.optimizer", "repro_torch.train.train_step",
+         "repro_torch.train.grad_compress", "repro_torch.data.lm_data",
+         "repro_torch.launch.train"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -192,6 +198,37 @@ def test_encdec_and_vlm_modules_stand_alone():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[(2, 32, 64), (2, 8), (2, 1, 512)] []", \
         out.stdout
+
+
+def test_training_modules_stand_alone():
+    """LM training, run on its own, loads neither JAX nor the reference
+    package: two steps of make_train_step and one DDP step with
+    compression over 2 logical devices at smoke size on the CPU, and a
+    batch of lm_data."""
+    probe = ("import sys, os, dataclasses; sys.path.insert(0, {src!r}); "
+             "os.environ['REPRO_TEST_DEVICES'] = '2'; import torch; "
+             "from repro_torch.configs import get_config; "
+             "from repro_torch.data.lm_data import LMDataConfig, batches; "
+             "from repro_torch.train import optimizer, train_step as ts; "
+             "c = dataclasses.replace(get_config('qwen3-14b', smoke=True), "
+             "dtype=torch.float32); o = optimizer.OptConfig(lr=1e-2, "
+             "warmup_steps=1); b = next(batches(LMDataConfig(vocab=c.vocab, "
+             "seq_len=16, batch=4))); "
+             "s = ts.init_train_state(c, torch.Generator().manual_seed(0), "
+             "'cpu'); step = ts.make_train_step(c, o); "
+             "l0 = float(step(s, b)[1]['loss']); "
+             "l1 = float(step(s, b)[1]['loss']); "
+             "d = ts.init_ddp_state(c, torch.Generator().manual_seed(0), "
+             "'cpu'); d, m = ts.make_ddp_train_step(c, o)(d, b); "
+             "print(l1 < l0, int(d['opt']['step']), len(d['residual']), "
+             "sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c",
+                          probe.format(src=str(ROOT / "src"))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True 1 2 []", out.stdout
 
 
 def test_port_sources_name_no_reference_import():
