@@ -11,7 +11,7 @@ Phases, each of which exits non-zero on failure:
      most per source (failing on any spill; the spill bytes of
      dense_grad_hist, dense_block_norm, hog_gradient and fused_hog
      printed), and the HGMMA and UTMALDG count of flash_attention_sm90's
-     SASS (failing on a zero there);
+     and flash_attention_bwd_sm90's SASS (failing on a zero there);
   3. hold each dense kernel against its plain PyTorch version on the
      card, at the detector's shapes (all three pyramid levels of 640x480
      and 1280x720) plus a ragged shape, in every mode -- the fixed modes
@@ -177,21 +177,27 @@ Phases, each of which exits non-zero on failure:
      encoder (S 1,500, every key visible) and decoder and qwen2-vl's
      prefill shapes too, each with its plain version's and SDPA's device
      ms;
-  5c. lm train: the flash backward kernel against its plain version on
-     the card at qwen3-14b's shapes (B 4 x S 512, B 1 x S 2,048), hymba's
-     (H 25, K 5, hd 64, S 2,176), whisper's encoder (every key visible,
-     S 1,500) and two small ones (a ragged S 100 at rep 4; every key
-     visible), in bf16 (within 3e-2 relative L2) and f32 (1e-5), the
-     forward's LSE on either route against the plain LSE, a rerun bit for
-     bit, three planted faults (delta zero, dK/dV from one head of each
-     GQA group, the diagonal key hidden) over the f32 limit, and device /
-     plain / SDPA-backward ms beside the bound; qwen3-14b at full width
-     with 4 of its 40 layers in bf16 on one lm_data batch of B 4 x S 512:
-     its gradient against the same with the plain flash forward and
-     backward (3e-2 relative L2, loss 1e-2), then 5 AdamW steps of
-     make_train_step with the counters reset just before and read just
-     after (flash forward 8 a step on the sm90 route, backward 4, no other
-     kernel; loss finite and falling), ms a step against its bound, busy
+  5c. lm train: the flash backward on its route (sm90 for bf16 at hd 16,
+     64 and 128, cuda_core otherwise; one launch of that route a call)
+     against its plain version on the card at qwen3-14b's shapes (B 4 x
+     S 512, B 1 x S 2,048), hymba's (H 25, K 5, hd 64, S 2,176),
+     whisper's encoder (every key visible, S 1,500) and three small ones
+     (a ragged S 100 at rep 4 and hd 32; the same at S 300 and hd 64, on
+     sm90; every key visible at hd 16), in bf16 (within 3e-2 relative L2)
+     and f32 (1e-5), the sm90 route against the cuda_core one (3e-2), the
+     sm90 launch plan on standard error, the forward's LSE on either
+     route against the plain LSE, a rerun bit for bit, three planted
+     faults (delta zero, dK/dV from one head of each GQA group, the
+     diagonal key hidden) over the f32 limit on cuda_core and over the
+     bf16 limit on sm90, and device (the span of the route's kernels) /
+     plain / SDPA-backward ms beside the bound, both bf16 routes at
+     qwen3's shapes; qwen3-14b at full width with 4 of its 40 layers in
+     bf16 on one lm_data batch of B 4 x S 512: its gradient against the
+     same with the plain flash forward and backward (3e-2 relative L2,
+     loss 1e-2), then 5 AdamW steps of make_train_step with the counters
+     reset just before and read just after (flash forward 8 a step and
+     backward 4, both on the sm90 route, no other kernel; loss finite and
+     falling), ms a step against its bound, busy
      ms, launches, flash's device ms, peak GiB; every family at smoke
      size in f32, card against CPU (loss 1e-5, gradients 1e-4, one step's
      parameters 1e-5) and a DDP step with int8 compression over 2 logical
@@ -370,6 +376,7 @@ FLASH_MATCHED_TOL = (2e-3, 2.0 ** -7)
 LM_ARCH = "qwen3-14b"
 # (group, B, prompt length); each prompt gets LM_NEW new tokens
 LM_BATCHES = (("B4xS512", 4, 512), ("B1xS2048", 1, 2048))
+LM_GROUPS = tuple(g for g, _, _ in LM_BATCHES)
 LM_NEW = 32
 # prefill(prompt) vs prefill(prompt[:, :-1]) + decode_step at full width
 # in bf16: relative L2 error of the last logits. The two paths round
@@ -412,11 +419,13 @@ LM_VLM_GROUPS = (("text", 4, 512), ("image", 4, 512))
 VLM_IMAGE = (32, 16)             # text tokens before the image, grid side
 VLM_SMOKE_IMAGE = (8, 4)
 # the lm train phase. The flash backward against its plain version at
-# qwen3-14b's two groups (bf16 and f32; timed), hymba's global layers (H 25,
-# K 5, hd 64, 2,176 positions with its meta tokens), whisper's encoder
-# (every key visible, S 1,500: a ragged last tile) and two small shapes
-# (a ragged S = 100 with rep 4, where the planted faults are read, and
-# every key visible at rep 4), each (name, B, H, K, S, hd, causal, dtypes);
+# qwen3-14b's two groups (bf16 on both routes and f32; timed), hymba's
+# global layers (H 25, K 5, hd 64, 2,176 positions with its meta tokens),
+# whisper's encoder (every key visible, S 1,500: a ragged last tile) and
+# three small shapes (a ragged S = 100 with rep 4 at hd 32, the cuda_core
+# route in both dtypes; the same at S 300 and hd 64, the sm90 route, with
+# 4 head groups; every key visible at rep 4 and hd 16), each (name, B, H,
+# K, S, hd, causal, dtypes);
 # relative L2 limits of the forward's checks; the forward's LSE on either
 # route against the plain LSE of the f32 scores (summation order)
 BWD_SHAPES = (("B4xS512", 4, 40, 8, 512, 128, True, ("bf16", "f32")),
@@ -424,9 +433,13 @@ BWD_SHAPES = (("B4xS512", 4, 40, 8, 512, 128, True, ("bf16", "f32")),
               ("hymba", 1, 25, 5, 2176, 64, True, ("bf16",)),
               ("whisper-enc", 4, 20, 20, 1500, 64, False, ("bf16",)),
               ("ragged", 2, 8, 2, 100, 32, True, ("f32", "bf16")),
+              ("ragged-sm90", 2, 8, 2, 300, 64, True, ("bf16",)),
               ("small", 2, 8, 2, 64, 16, False, ("f32", "bf16")))
 BWD_TOL = {"f32": 1e-5, "bf16": 3e-2}
-BWD_FAULT_SHAPE = "ragged"
+# where the planted faults are read: f32 on the cuda_core route, bf16 on
+# the sm90 one (causal, ragged, rep 4); the shapes that are timed
+BWD_FAULT_SHAPES = {"f32": "ragged", "bf16": "ragged-sm90"}
+BWD_TIMED = ("B4xS512", "B1xS2048", "hymba", "whisper-enc")
 LSE_TOL = 1e-4
 # qwen3-14b trained at full width with 4 of its 40 layers (2.88 B
 # parameters: bf16 weights and gradients and f32 master, m and v are 46 GB;
@@ -567,13 +580,18 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:86"),
     # no TPU kernel: the reference's gradient of attention, the custom VJP
     # of sdpa_flash, is plain JAX
-    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
-                            "src/repro/models/attention.py:359"),
+    "flash_attention_bwd": (
+        "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+        "src/repro/models/attention.py:359"),
 }
 # flash_attention's two routes (kernels/flash_attention.py:route), each a
 # mode of its entry in the kernels line
 FLASH_SOURCES = {"sm90": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "cuda_core": "src/repro_torch/csrc/flash_attention.cu"}
+# flash_attention_bwd's modes: its two routes in bf16, and f32 (cuda_core)
+BWD_SOURCES = {"sm90": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+               "cuda_core": "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "f32": "src/repro_torch/csrc/flash_attention_bwd.cu"}
 DENSE_KERNELS = tuple(KERNELS)[:5]
 WINDOW_KERNELS = tuple(KERNELS)[5:10]
 
@@ -585,7 +603,7 @@ MAIN_MODE = {"dense_grad_hist": "sector", "dense_block_norm": "rsqrt",
              "score_matmul_int8": "int8", "hog_gradient": "sector",
              "cell_hist": "sector", "block_norm": "rsqrt",
              "fused_hog": "sector", "svm_scores": "f32",
-             "flash_attention": "sm90", "flash_attention_bwd": "bf16"}
+             "flash_attention": "sm90", "flash_attention_bwd": "sm90"}
 MAIN_GROUP = dict.fromkeys(DENSE_KERNELS, "640x480")
 MAIN_GROUP.update(dict.fromkeys(WINDOW_KERNELS, "B512"))
 MAIN_GROUP["flash_attention"] = MAIN_GROUP["flash_attention_bwd"] = "B4xS512"
@@ -649,11 +667,24 @@ def _fmt(ms) -> str:
 
 def device_times(torch, fn, reps: int):
     """Run ``fn`` ``reps`` times under torch.profiler; returns {kernel
-    name: (launches, device microseconds)} of the CUDA kernels it ran.
-    The profiler traces a warm-up step first (one call of ``fn`` and 64
-    one-element adds) and discards it: late in this script a session
-    without one lost 17-23 of the flash backward's 60 kernel records, the
-    first calls' (its sum read 61-71% of the CUDA events' time)."""
+    name: (launches, device microseconds)} of the CUDA kernels it ran."""
+    out = {}
+    for e in _profiled(torch, fn, reps).key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        out[e.key] = (e.count, float(us))
+    return out
+
+
+def _profiled(torch, fn, reps: int):
+    """torch.profiler over ``reps`` calls of ``fn``. The profiler traces
+    a warm-up step first (one call of ``fn`` and 64 one-element adds) and
+    discards it: late in this script a session without one lost 17-23 of
+    the flash backward's 60 kernel records, the first calls' (its sum
+    read 61-71% of the CUDA events' time)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     pad = torch.zeros(1, device=DEV)
     with profile(activities=[ProfilerActivity.CUDA],
@@ -668,15 +699,31 @@ def device_times(torch, fn, reps: int):
             fn()
         torch.cuda.synchronize()
         prof.step()
-    out = {}
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        out[e.key] = (e.count, float(us))
-    return out
+    return prof
+
+
+def kernel_span_ms(torch, fn, symbol: str, reps: int = 20):
+    """Device milliseconds per call of ``fn`` during which a kernel whose
+    name contains ``symbol`` runs: the union of those kernels' intervals
+    (torch.profiler), so that kernels running side by side on two streams
+    (the sm90 flash backward's dK/dV and dQ) count once; for kernels that
+    run one after another it is their sum. None when the profiler saw no
+    such kernel; of two sessions the one that recorded more such launches
+    counts, as in kernel_device_ms."""
+    best = (0, 0.0)
+    for _ in range(2):
+        spans = sorted(
+            (e.time_range.start, e.time_range.end)
+            for e in _profiled(torch, fn, reps).events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and symbol in e.name)
+        us, end = 0.0, float("-inf")
+        for a, b in spans:
+            us += max(0.0, b - max(a, end))
+            end = max(end, b)
+        if len(spans) > best[0]:
+            best = (len(spans), us)
+    return best[1] / 1e3 / reps if best[1] > 0 else None
 
 
 def gpu_clocks() -> str:
@@ -817,22 +864,25 @@ def hog_op_s(mode: str, pixels: int = 0, nblocks: int = 0,
 
 
 def timed_row(torch, kernel, where, shape, mode, e, fn, plain_fn, lib_fn,
-              nbytes, op_s, symbol, flips=None) -> dict:
+              nbytes, op_s, symbol, flips=None, span=False) -> dict:
     """One kernel at one shape and mode: its error against the plain
     version, and kernel, device, plain, library and bound milliseconds
     (``op_s``: the least seconds of its operations). ``lib_fn`` is one
     PyTorch call of the same function, or None: its ``library_ms`` is
     the device time of every kernel it launches (torch.profiler, as the
     kernel's ``device_ms``), ``library_call_ms`` its CUDA-event time per
-    back-to-back call (as the kernel's ``ms``, host dispatch included)."""
+    back-to-back call (as the kernel's ``ms``, host dispatch included).
+    With ``span`` both device times are kernel_span_ms's (kernels side by
+    side on two streams count once)."""
     bound = max(nbytes / HBM_BPS, op_s) * 1e3
+    device = kernel_span_ms if span else kernel_device_ms
     lib = call = None
     if lib_fn is not None:
-        lib, call = kernel_device_ms(torch, lib_fn, ""), cuda_ms(lib_fn)
+        lib, call = device(torch, lib_fn, ""), cuda_ms(lib_fn)
     return {"kernel": kernel, "frame": where, "shape": list(shape),
             "mode": mode, "max_abs_err": e, "code_flips": flips,
             "ms": cuda_ms(fn),
-            "device_ms": kernel_device_ms(torch, fn, symbol),
+            "device_ms": device(torch, fn, symbol),
             "plain_ms": cuda_ms(plain_fn, reps=5), "library_ms": lib,
             "library_call_ms": call, "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BPS >= op_s
@@ -4512,22 +4562,32 @@ def bwd_bound_ms(B, H, K, S, hd, causal, nbytes_el, rate):
 
 
 def check_flash_bwd(torch, np) -> dict:
-    """Phase 5c, first part: the flash backward kernel against its plain
-    version on the card at BWD_SHAPES in bf16 and f32 (inputs and the
-    output gradient the (B, S, H, hd) views training passes), the
-    forward's LSE on its route against the plain LSE, a rerun bit for
-    bit, the planted faults over the f32 limit, and device / plain /
-    library ms beside the bound (library: the backward kernels of
-    scaled_dot_product_attention with enable_gqa, the device time of
-    every kernel its autograd.grad launches)."""
+    """Phase 5c, first part: the flash backward against its plain version
+    on the card at BWD_SHAPES in bf16 and f32 (inputs and the output
+    gradient the (B, S, H, hd) views training passes), each call on its
+    route (kernels/flash_attention.py:route: sm90 for bf16 at hd 16, 64
+    and 128, cuda_core otherwise) and on it alone; the sm90 route against
+    the cuda_core one on the same inputs; the forward's LSE on its route
+    against the plain LSE; a rerun bit for bit; the planted faults over
+    the f32 limit on the cuda_core route and over the bf16 limit on the
+    sm90 one; and device / plain / library ms beside the bound, both bf16
+    routes at qwen3's shapes (library: the backward kernels of
+    scaled_dot_product_attention with enable_gqa, every kernel its
+    autograd.grad launches; device: the span in which the route's kernels
+    run, kernel_span_ms, since the sm90 route runs two side by side)."""
     import torch.nn.functional as F
 
     import repro_torch.kernels.flash_attention as fa
+    from repro_torch.kernels import build
 
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     rng = np.random.default_rng(29)
-    rows, text, worst, lse_worst = [], [], {"f32": 0.0, "bf16": 0.0}, 0.0
-    faults = {}
+    rows, text, lse_worst, faults = [], [], 0.0, {}
+    worst = dict.fromkeys(("f32", "sm90", "cuda_core", "sm90 vs cuda_core"),
+                          0.0)
+    launchers = {"sm90": fa.launch_bwd_sm90,
+                 "cuda_core": fa.launch_bwd_cuda_core,
+                 "f32": fa.launch_bwd_cuda_core}
     for where, B, H, K, S, hd, causal, dtypes in BWD_SHAPES:
         arrs = [torch.from_numpy(rng.standard_normal(
             (B, S, n, hd), dtype=np.float32)).to(DEV) for n in (H, K, K, H)]
@@ -4545,12 +4605,16 @@ def check_flash_bwd(torch, np) -> dict:
             need(el <= LSE_TOL, f"{where} {dt} ({r}) LSE vs plain: {el}")
             lse_worst = max(lse_worst, el)
             n0 = fa.flash_attention_bwd.launches
+            r0 = dict(fa.flash_attention_bwd.route_launches)
             got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
             again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
             want = fa.flash_attention_bwd_plain(q, k, v, do, lse, causal)
             torch.cuda.synchronize()
-            need(fa.flash_attention_bwd.launches == n0 + 2,
-                 f"flash_attention_bwd {where} {dt}: launches")
+            need(fa.flash_attention_bwd.launches == n0 + 2
+                 and fa.flash_attention_bwd.route_launches
+                 == {**r0, r: r0[r] + 2},
+                 f"flash_attention_bwd {where} {dt}: not one {r} launch a "
+                 f"call ({r0} -> {fa.flash_attention_bwd.route_launches})")
             need(all(torch.equal(a, b) for a, b in zip(got, again)),
                  f"flash_attention_bwd {where} {dt}: a rerun differs")
             need(all(g.shape == t.shape and g.dtype == t.dtype
@@ -4558,18 +4622,46 @@ def check_flash_bwd(torch, np) -> dict:
                      for g, t in zip(got, (q, k, v))),
                  f"flash_attention_bwd {where} {dt}: shape, dtype or layout")
             e = max(_rel_l2(torch, g, w) for g, w in zip(got, want))
-            need(e <= BWD_TOL[dt], f"flash_attention_bwd {where} {dt}: "
+            need(e <= BWD_TOL[dt], f"flash_attention_bwd {where} {dt} ({r}): "
                                    f"rel L2 {e} > {BWD_TOL[dt]}")
-            worst[dt] = max(worst[dt], e)
-            if where == BWD_FAULT_SHAPE and dt == "f32":
+            mode = "f32" if dt == "f32" else r
+            worst[mode] = max(worst[mode], e)
+            timed = [(mode, e)]
+            per_call = {mode: 3}
+            if r == "sm90":
+                cc = fa.launch_bwd_cuda_core(q, k, v, out, do, lse, causal)
+                e_cc = max(_rel_l2(torch, g, w) for g, w in zip(got, cc))
+                need(e_cc <= BWD_TOL[dt], f"flash_attention_bwd {where}: sm90 "
+                                          f"vs cuda_core rel L2 {e_cc}")
+                worst["sm90 vs cuda_core"] = max(worst["sm90 vs cuda_core"],
+                                                 e_cc)
+                if where in LM_GROUPS:
+                    timed.append(("cuda_core", max(
+                        _rel_l2(torch, g, w) for g, w in zip(cc, want))))
+                    per_call["cuda_core"] = 3
+                plan = fa.bwd_plan_sm90(B, H, K, S, causal,
+                                        build.sm_count(q.device.index))
+                per_call["sm90"] = 3 + (plan["groups"] > 1)
+                level_line(f"flash_attention_bwd sm90 plan {where}: "
+                           f"{plan['groups']} head group(s); " + "; ".join(
+                               f"{role} {p['tile'][0]}x{p['tile'][1]} "
+                               f"tiles, {p['blocks']} blocks "
+                               f"({p['waves']:.2f} waves, "
+                               f"{p['blocks_per_sm']} an SM), steps longest "
+                               f"{p['longest_steps']} mean "
+                               f"{p['mean_steps']:.1f}"
+                               for role, p in (("dK/dV", plan["dkdv"]),
+                                               ("dQ", plan["dq"]))))
+            if where == BWD_FAULT_SHAPES.get(dt):
+                faults[dt] = {}
                 for fault in ("delta=0", "one-head", "no-diag"):
                     bad = planted_bwd(torch, q, k, v, do, lse, causal, fault)
-                    faults[fault] = max(_rel_l2(torch, g, w)
-                                        for g, w in zip(got, bad))
-                need(min(faults.values()) > BWD_TOL["f32"],
-                     f"a planted backward fault stays under the f32 limit: "
-                     f"{faults}")
-            if where in ("ragged", "small"):
+                    faults[dt][fault] = max(_rel_l2(torch, g, w)
+                                            for g, w in zip(got, bad))
+                need(min(faults[dt].values()) > BWD_TOL[dt],
+                     f"a planted backward fault stays under the {dt} limit "
+                     f"on the {r} route: {faults[dt]}")
+            if where not in BWD_TIMED:
                 continue
             ql, kl, vl = (x.detach().contiguous().requires_grad_(True)
                           for x in (q, k, v))
@@ -4580,43 +4672,52 @@ def check_flash_bwd(torch, np) -> dict:
                 return torch.autograd.grad(out_l, (ql, kl, vl), do,
                                            retain_graph=True)
 
-            def kernel():
-                return fa.flash_attention_bwd(q, k, v, out, do, lse, causal)
-
             def plain():
                 return fa.flash_attention_bwd_plain(q, k, v, do, lse, causal)
 
             rate = BF16_FLOPS if dt == "bf16" else F32_FLOPS
             bound, nbytes, ops = bwd_bound_ms(B, H, K, S, hd, causal,
                                               q.element_size(), rate)
-            if where in {g for g, _, _ in LM_BATCHES}:
-                rows.append(timed_row(
-                    torch, "flash_attention_bwd", where, (B, H, K, S, hd), dt,
-                    e, kernel, plain, library, nbytes, ops / rate,
-                    "flash_attention_bwd"))
-            else:
-                dev, lib = (kernel_device_ms(torch, fn, sym) for fn, sym
-                            in ((kernel, "flash_attention_bwd"),
-                                (library, "")))
-                text.append(f"{where} {dt} " + "/".join(
-                    "-" if t is None else f"{t:.4g}"
-                    for t in (dev, cuda_ms(plain, reps=5), lib))
-                    + f" ({bound:.3g})")
-            for fn, sym, n in ((kernel, "flash_attention_bwd", 3),
-                               (library, "", None)):
-                level_line(f"flash_attention_bwd {where} {dt} timing, "
-                           f"{'kernel' if n else 'SDPA'}: "
-                           + timing_probe(torch, fn, sym, n))
+            for m, e_m in timed:
+                def kernel(run=launchers[m]):
+                    return run(q, k, v, out, do, lse, causal)
+
+                if where in LM_GROUPS:
+                    rows.append(timed_row(
+                        torch, "flash_attention_bwd", where,
+                        (B, H, K, S, hd), m, e_m, kernel, plain, library,
+                        nbytes, ops / rate, "flash_attention_bwd",
+                        span=True))
+                else:
+                    dev, lib = (kernel_span_ms(torch, fn, sym) for fn, sym
+                                in ((kernel, "flash_attention_bwd"),
+                                    (library, "")))
+                    text.append(f"{where} {m} " + "/".join(
+                        "-" if t is None else f"{t:.4g}"
+                        for t in (dev, cuda_ms(plain, reps=5), lib))
+                        + f" ({bound:.3g})")
+                level_line(f"flash_attention_bwd {where} {m} timing, "
+                           f"kernel: " + timing_probe(
+                               torch, kernel, "flash_attention_bwd",
+                               per_call[m]))
+            level_line(f"flash_attention_bwd {where} {dt} timing, SDPA: "
+                       + timing_probe(torch, library, ""))
+    planted = "; ".join(f"{BWD_FAULT_SHAPES[dt]} {dt}: "
+                        + _faults(dict(faults[dt], sound=0), 1)
+                        for dt in ("f32", "bf16"))
+    level_line(f"flash_attention_bwd planted faults: {planted}")
     print(f"  flash_attention_bwd vs plain, rel L2 f32 {worst['f32']:.1e} "
-          f"(tol {BWD_TOL['f32']:g}), bf16 {worst['bf16']:.1e} (tol "
-          f"{BWD_TOL['bf16']:g}), reruns bit-identical, LSE of both routes "
-          f"vs plain {lse_worst:.1e} (tol {LSE_TOL:g}); planted at "
-          f"{BWD_FAULT_SHAPE} f32: " + _faults(dict(faults, sound=0), 1)
-          + "; device/plain/SDPA-bwd ms (bound): " + "; ".join(text)
-          + " (qwen3's on the lines below)", flush=True)
-    out = summarize(rows, ("flash_attention_bwd",),
-                    [g for g, _, _ in LM_BATCHES], 1)
-    out["flash_attention_bwd"]["max_abs_err"] = max(worst.values())
+          f"(tol {BWD_TOL['f32']:g}), bf16 sm90 {worst['sm90']:.1e} / "
+          f"cuda_core {worst['cuda_core']:.1e} (tol {BWD_TOL['bf16']:g}), "
+          f"sm90 vs cuda_core {worst['sm90 vs cuda_core']:.1e}; one route "
+          f"launch a call, reruns equal; LSE {lse_worst:.1e} (tol "
+          f"{LSE_TOL:g}); planted faults over both limits (least "
+          f"{min(min(f.values()) for f in faults.values()):.2f}); sm90 "
+          f"device span/plain/SDPA-bwd ms (bound): " + "; ".join(text)
+          + " (qwen3's below)", flush=True)
+    out = summarize(rows, ("flash_attention_bwd",), list(LM_GROUPS), 1)
+    out["flash_attention_bwd"]["max_abs_err"] = max(
+        worst[m] for m in ("f32", "sm90", "cuda_core"))
     return out
 
 
@@ -4654,6 +4755,7 @@ def lm_train(torch, np):
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.kernels import build
     from repro_torch.models.model import loss_fn, trainable
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.train_step import (init_train_state,
@@ -4686,11 +4788,13 @@ def lm_train(torch, np):
     kernels.reset_launches()
     loss_k, g_k = grads_once()
     once = kernels.launch_counts()
+    once_bwd = dict(fa.flash_attention_bwd.route_launches)
     need(once["flash_attention"] == 2 * TRAIN_LAYERS
-         and once["flash_attention_bwd"] == TRAIN_LAYERS,
+         and once["flash_attention_bwd"] == TRAIN_LAYERS
+         and once_bwd == {"sm90": TRAIN_LAYERS, "cuda_core": 0},
          f"one gradient launched flash {once['flash_attention']} forward "
-         f"and {once['flash_attention_bwd']} backward, want "
-         f"{2 * TRAIN_LAYERS} and {TRAIN_LAYERS}")
+         f"and {once_bwd} backward, want {2 * TRAIN_LAYERS} and "
+         f"{TRAIN_LAYERS} on sm90")
     with plain_flash(fa):
         loss_p, g_p = grads_once()
     # each leaf on its own, so that the embedding's and the head's 1.56 B
@@ -4725,12 +4829,15 @@ def lm_train(torch, np):
     torch.cuda.synchronize()
     launches = check_launches(name, kernels.launch_counts())
     routes = dict(fa.flash_attention.route_launches)
+    bwd_routes = dict(fa.flash_attention_bwd.route_launches)
     need(launches["flash_attention"] == 2 * TRAIN_LAYERS * TRAIN_STEPS
          and routes == {"sm90": 2 * TRAIN_LAYERS * TRAIN_STEPS,
                         "cuda_core": 0}
-         and launches["flash_attention_bwd"] == TRAIN_LAYERS * TRAIN_STEPS,
+         and launches["flash_attention_bwd"] == TRAIN_LAYERS * TRAIN_STEPS
+         and bwd_routes == {"sm90": TRAIN_LAYERS * TRAIN_STEPS,
+                            "cuda_core": 0},
          f"{TRAIN_STEPS} steps launched flash {routes} forward and "
-         f"{launches['flash_attention_bwd']} backward")
+         f"{bwd_routes} backward")
     need(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
          f"train losses {losses}: not finite and falling")
     print(launch_line({name: launches}), flush=True)
@@ -4741,9 +4848,11 @@ def lm_train(torch, np):
     n_launch = sum(c for c, _ in times.values())
     n_bwd = sum(c for k, (c, _) in times.items()
                 if "flash_attention_bwd" in k)
+    plan = fa.bwd_plan_sm90(B, cfg.n_heads, cfg.n_kv_heads, S, True,
+                            build.sm_count(torch.cuda.current_device()))
     level_line(f"{name} step profile: {n_bwd} flash_attention_bwd kernel "
-               f"launches (3 a call, {TRAIN_LAYERS} calls); clocks "
-               f"[{gpu_clocks()}]")
+               f"launches ({3 + (plan['groups'] > 1)} a call on the sm90 "
+               f"route, {TRAIN_LAYERS} calls); clocks [{gpu_clocks()}]")
     f_ms = sum(t for k, (_, t) in times.items()
                if "flash_attention_kernel" in k) / 1e3
     b_ms = sum(t for k, (_, t) in times.items()
@@ -4776,7 +4885,8 @@ def lm_train(torch, np):
           f"{adam_bytes / HBM_BPS * 1e3:.1f}; remat recompute "
           f"{remat / BF16_FLOPS * 1e3:.1f} more), {T / ms * 1e3:.0f} tok/s, "
           f"busy {busy:.1f} ms, {n_launch} launches, flash fwd {f_ms:.2f} ms "
-          f"({2 * TRAIN_LAYERS} launches) bwd {b_ms:.2f} ms ({TRAIN_LAYERS}), "
+          f"({2 * TRAIN_LAYERS} launches) bwd {b_ms:.2f} ms ({TRAIN_LAYERS} "
+          f"sm90, kernel sum), "
           f"peak "
           f"{peak:.2f} GiB", flush=True)
     del state, params, dev_batch, step
@@ -4847,7 +4957,7 @@ def lm_train(torch, np):
           + ", ".join(text) + f"; ddp --compress 2 logical devices "
           f"{dl:.0e}/-/{dp:.0e}", flush=True)
     print("  " + train_cli(), flush=True)
-    return {name: launches}, routes, summary
+    return {name: launches}, routes, bwd_routes, summary
 
 
 def train_cli() -> str:
@@ -4941,25 +5051,29 @@ def spill_bytes(log):
 
 
 def sm90_report(build) -> None:
-    """flash_attention_sm90 must run on the tensor cores through TMA with
-    no spills: count HGMMA and UTMALDG in its SASS (cuobjdump) and read
-    ptxas's spill lines; print both, fail on a zero or a spill."""
-    lib = build.library_path("flash_attention_sm90")
-    lines = lib.with_suffix(".log").read_text().splitlines()
-    spills = [ln.strip() for ln in lines if "spill" in ln]
-    need(bool(spills) and all(
-        "0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
-        f"flash_attention_sm90 spills: {spills}")
+    """The tensor-core flash kernels (flash_attention_sm90, the forward;
+    flash_attention_bwd_sm90, the backward) must run on the tensor cores
+    through TMA with no spills: count HGMMA and UTMALDG in each library's
+    SASS (cuobjdump) and read ptxas's spill lines; print both, fail on a
+    zero or a spill."""
     cuobjdump = pathlib.Path(build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=120)
-    need(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
-    counts = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
-    need(all(counts.values()), f"flash_attention_sm90 SASS: {counts}")
-    print(f"flash_attention_sm90 SASS (3 instantiations): HGMMA "
-          f"{counts['HGMMA']}, UTMALDG {counts['UTMALDG']}; ptxas: "
-          f"{len(spills)} functions, no spills; setmaxnreg 240 consumer / "
-          f"24 producer registers", flush=True)
+    text = []
+    for name in ("flash_attention_sm90", "flash_attention_bwd_sm90"):
+        lib = build.library_path(name)
+        lines = lib.with_suffix(".log").read_text().splitlines()
+        spills = [ln.strip() for ln in lines if "spill" in ln]
+        need(bool(spills) and all(
+            "0 bytes spill stores, 0 bytes spill loads" in ln
+            for ln in spills), f"{name} spills: {spills}")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=120)
+        need(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+        counts = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+        need(all(counts.values()), f"{name} SASS: {counts}")
+        text.append(f"{name} HGMMA {counts['HGMMA']} UTMALDG "
+                    f"{counts['UTMALDG']} ({len(spills)} functions)")
+    print("SASS: " + ", ".join(text) + "; no spills; setmaxnreg 240 / 24",
+          flush=True)
 
 
 def _r(x):
@@ -5059,7 +5173,7 @@ def main() -> int:
             flash_routes = {r: n + family_routes[r]
                             for r, n in flash_routes.items()}
         print("lm train:", flush=True)
-        train_launches, train_routes, bwd = lm_train(torch, np)
+        train_launches, train_routes, bwd_routes, bwd = lm_train(torch, np)
         launches.update(train_launches)
         flash_routes = {r: n + train_routes[r]
                         for r, n in flash_routes.items()}
@@ -5100,6 +5214,14 @@ def main() -> int:
                                  if n.startswith("lm ")}
     for m, v in flash["modes"].items():
         v["source"] = FLASH_SOURCES[m]
+    # the backward's routes likewise: sm90 at the top level, cuda_core (in
+    # bf16, timed beside it) and f32 under "modes"; its launches by route
+    # on the train path
+    bwd_entry = next(e for e in kernels_line["kernels"]
+                     if e["name"] == "flash_attention_bwd")
+    bwd_entry["launches_by_route"] = bwd_routes
+    for m, v in bwd_entry["modes"].items():
+        v["source"] = BWD_SOURCES[m]
     print(json.dumps(kernels_line, separators=(",", ":")))
     print(card[0])
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_wgmma.cuh"   // mbarriers, TMA, descriptors, wgmma
+
 namespace {
+
+using namespace sm90;
 
 constexpr int BQ = 128;               // query rows per thread block
 constexpr int BK = 128;               // keys per tile
@@ -72,13 +76,10 @@ constexpr float NEG_INF = -1e30f;     // the TPU kernel's mask value
 constexpr int MAX_DEVICES = 64;       // devices whose opt-in is remembered
 
 // Shared-memory geometry of one hd. A tile row is cut into NC chunks of
-// CW columns, each chunk a (rows x SW bytes) block in the SW-byte swizzle.
+// CW columns, each chunk a (rows x SW bytes) block in the SW-byte swizzle
+// (sm90_wgmma.cuh:Swz).
 template <int HD>
-struct Geo {
-  static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;
-  static constexpr int CW = SW / 2;
-  static constexpr int NC = HD / CW;
-  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+struct Geo : Swz<HD> {
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;      // one K or V tile
   static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
@@ -86,228 +87,6 @@ struct Geo {
   // K ring, the V ring and the barriers (q_full, full[], empty[])
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed. No __trap()
-// here as a watchdog: with one in the kernel ptxas keeps every warp to
-// the launch's 168 registers and ignores the consumers' setmaxnreg
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// one box of a 4-D tensor map (hd, S, heads, B) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle layout type
-__device__ __forceinline__ uint64_t mdesc(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | static_cast<uint64_t>(layout) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the fence
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_regs(r[i]);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (64 x 128, f32) (+)= A (64 x 16, bf16, shared) * B (128 x 16, bf16,
-// shared), both K-major; scale_d 0 overwrites D
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 16, f32) += A (64 x 16, bf16, registers) * B (16 x 16, bf16,
-// shared, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
-                                        const uint32_t (&a)[4],
-                                        uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
-// shared, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                        const uint32_t (&a)[4],
-                                        uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16, registers) * B (16 x 128, bf16,
-// shared, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                        const uint32_t (&a)[4],
-                                        uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 128) {
-    wgmma_rs_n128(d, a, db, 1);
-  } else if constexpr (HD == 64) {
-    wgmma_rs_n64(d, a, db, 1);
-  } else {
-    wgmma_rs_n16(d, a, db, 1);
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -460,7 +239,7 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         pa[kk][3] = pack_bf16(p[6], p[7]);
         fence_regs(pa[kk]);
         wgmma_fence();      // the fragment's writes before the wgmma reads
-        wgmma_pv<HD>(acc, pa[kk], dv + ((kk * 16 * G::SW) >> 4));
+        wgmma_rs_hd<HD>(acc, pa[kk], dv + ((kk * 16 * G::SW) >> 4));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -492,58 +271,6 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
             __fadd_rn(m[r], logf(den));
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library links no libcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// the 4-D map (hd, S, heads, B) of one input; element strides of B, heads
-// and S (multiples of 8, checked by the wrapper); a box of CW x rows
-template <int HD>
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int S,
-              int heads, int B, const long long* st, int rows) {
-  using G = Geo<HD>;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
-                                 static_cast<cuuint64_t>(st[1]) * 2,
-                                 static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::CW),
-                             static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>

@@ -6,10 +6,11 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC --fmad=false -Xptxas -v
 
-Every source takes the same flags. ``flash_attention_sm90.cu`` needs
-no other: it includes ``cuda.h`` for the tensor-map types only and
-reaches ``cuTensorMapEncodeTiled`` through the runtime's
-``cudaGetDriverEntryPoint``, so no library links ``libcuda``; its
+Every source takes the same flags. ``flash_attention_sm90.cu`` and
+``flash_attention_bwd_sm90.cu`` need no other: through ``sm90_wgmma.cuh``
+they include ``cuda.h`` for the tensor-map types only and reach
+``cuTensorMapEncodeTiled`` through the runtime's
+``cudaGetDriverEntryPoint``, so no library links ``libcuda``; their
 ``wgmma`` and ``setmaxnreg`` exist only for ``sm_90a``.
 
 ``--fmad=false`` keeps nvcc from contracting ``a*b - c*d`` into an FMA,
@@ -59,6 +60,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_sm90": "flash_attention_sm90.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_bwd_sm90": "flash_attention_bwd_sm90.cu",
 }
 
 #: the card the launch plans are sized for by default: an H100 SXM's SMs

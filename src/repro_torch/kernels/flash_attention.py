@@ -9,10 +9,11 @@ forward and backward.
     multiple of 8; any S (the ragged last tile is masked). Replaces the
     TPU kernel repro/kernels/flash_attention.py:86.
   * ``flash_attention_bwd(q, k, v, out, dout, lse, causal=True)`` -- its
-    gradient (dq, dk, dv) from the forward's output and log-sum-exp
-    (csrc/flash_attention_bwd.cu). The JAX package has no Pallas
-    backward; the reference's gradient is repro/models/attention.py:359
-    (_flash_bwd), whose steps ``flash_attention_bwd_plain`` repeats.
+    gradient (dq, dk, dv) from the forward's output and log-sum-exp, on
+    the route ``route`` picks as for the forward. The JAX package has no
+    Pallas backward; the reference's gradient is
+    repro/models/attention.py:359 (_flash_bwd), whose steps
+    ``flash_attention_bwd_plain`` repeats.
   * ``FlashAttention`` -- the autograd Function training takes: its
     forward launches a forward route with the LSE output and saves q, k,
     v, out and lse; its backward launches the backward kernel.
@@ -21,27 +22,32 @@ The inputs may be strided views (the last dimension unit-stride): LM
 prefill hands it the (B, S, H, hd) projections transposed, with no
 copy, and the output takes q's layout (``torch.empty_like``).
 
-Two CUDA kernels compute it; ``route(dtype, hd)`` picks one, a plain
-function of the two and nothing else:
+Two CUDA routes compute each direction; ``route(dtype, hd)`` picks one,
+a plain function of the two and nothing else:
 
-  * ``"sm90"`` (csrc/flash_attention_sm90.cu) for bf16 at hd 16, 64 or
-    128: both products on the tensor cores (wgmma), K and V fed through
-    a TMA ring, one thread block per (b*h, 128-query tile). TMA reads
+  * ``"sm90"`` for bf16 at hd 16, 64 or 128: every product on the tensor
+    cores (wgmma), tiles fed through TMA rings. The forward
+    (csrc/flash_attention_sm90.cu) takes one thread block per (b*h,
+    128-query tile); the backward (csrc/flash_attention_bwd_sm90.cu) a
+    delta kernel, a dK/dV kernel per (b, KV head, head group, 128-key
+    tile), a dQ kernel per (b*h, 128-query tile) beside it on a second
+    stream, and where the heads are split a kernel that sums the groups
+    (``bwd_plan_sm90``). TMA reads
     through tensor maps, so every stride but the last and every base
-    address must be a multiple of 16 bytes; the wrapper raises on any
+    address must be a multiple of 16 bytes; the wrappers raise on any
     other layout rather than copy.
-  * ``"cuda_core"`` (csrc/flash_attention.cu) for everything else, f32
-    above all: both products on CUDA cores in f32, one thread block per
-    (b*h, 64-query tile). f32 stays off the tensor cores: TF32 would
-    break its 1e-5 checks.
+  * ``"cuda_core"`` (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
+    for everything else, f32 above all: every product on CUDA cores in
+    f32, 64-row tiles. f32 stays off the tensor cores: TF32 would break
+    its 1e-5 checks.
 
 Bound on the H100: at qwen3-14b's prefill widths (H 40, K 8, hd 128,
 bf16) bytes for B 4 x S 512 (50.3 MB, 15 us), operations for B 1 x
 S 2048 (causal, 42.9 GFLOP, 43 us at the bf16 tensor-core rate). Each
 route's shared-memory request is mirrored here (``smem_bytes``,
-``smem_bytes_sm90``); the CUDA-core route checks its own against
-``build.SMEM_OPTIN`` per call, the tests the sm90 route's at every hd it
-is built for.
+``smem_bytes_sm90``, ``bwd_smem_bytes``, ``bwd_smem_bytes_sm90``); the
+CUDA-core routes check theirs against ``build.SMEM_OPTIN`` per call, the
+tests the sm90 routes' at every hd they are built for.
 
 Both forward routes write each row's log-sum-exp m + log(max(l,
 1e-30)) (f32 (B, H, S), as repro/models/attention.py:348 computes it)
@@ -51,15 +57,18 @@ the kernels write nothing more.
 ``flash_attention`` launches the route's kernel for CUDA tensors and
 runs the plain version ``flash_attention_plain`` (the counterpart of
 repro/kernels/ref.py:flash_attention_ref) for CPU tensors; nothing else.
-``flash_attention_bwd`` likewise launches its kernel or runs
-``flash_attention_bwd_plain``. ``flash_attention.launches`` counts
-kernel launches of both forward routes, ``flash_attention.route_launches``
-each route's, ``flash_attention_bwd.launches`` the backward's (one a
-call: its three kernels, delta, dK/dV and dQ).
+``flash_attention_bwd`` likewise launches its route's kernels or runs
+``flash_attention_bwd_plain``; neither falls back from one route to the
+other. ``flash_attention.launches`` counts kernel launches of both
+forward routes, ``flash_attention.route_launches`` each route's;
+``flash_attention_bwd.launches`` and ``.route_launches`` the backward's
+(one a call: delta, dK/dV and dQ, and on sm90 the groups' sum where the
+heads are split).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -76,6 +85,18 @@ SM90_BLOCK_Q = SM90_BLOCK_K = 128
 SM90_STAGES = 2
 SM90_HD = (16, 64, 128)
 ROUTES = ("sm90", "cuda_core")
+# csrc/flash_attention_bwd_sm90.cu: keys per dK/dV block (BKV) and
+# queries per its ring step (BQ), queries per dQ block (DQ_BQ) and keys
+# per its ring step (DQ_BK), the rings' STAGES, and the rows its (lse,
+# delta) scratch is padded to (PAD)
+SM90_BWD_BLOCK_KV = 128
+SM90_BWD_BLOCK_Q = 64
+SM90_BWD_DQ_BLOCK_Q = SM90_BWD_DQ_BLOCK_K = 128
+SM90_BWD_STAGES = 2
+SM90_BWD_PAD = 128
+# a score's work in a dQ block against one in a dK/dV block, in the
+# plan's balance: the same exponential and ds, 3 of the 4 products
+SM90_BWD_DQ_WORK = 0.75
 
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
              + (ctypes.c_longlong,) * 9 + (ctypes.c_void_p,))
@@ -85,6 +106,11 @@ _SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
 # the 24 strides; the stream
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
                  + (ctypes.c_void_p,) * 2)
+# q, k, v, o, dout, lse, the (lse, delta) pairs, the head groups' f32
+# partials, dq, dk, dv; B, H, K, S, hd, causal, groups; the strides; the
+# stream
+_BWD_SM90_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
+                      + (ctypes.c_void_p,) * 2)
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
@@ -120,20 +146,89 @@ def smem_bytes_sm90(hd: int) -> int:
     return 1024 + 2 * hd * tiles + 8 * (1 + 2 * SM90_STAGES)
 
 
+def bwd_smem_bytes_sm90(hd: int) -> tuple:
+    """Dynamic shared memory of one thread block of the sm90 backward's
+    dK/dV and dQ kernels (csrc/flash_attention_bwd_sm90.cu:KvGeo::SMEM,
+    QGeo::SMEM): 1,024 bytes of alignment slack; the bf16 K and V tiles,
+    STAGES Q and do tiles and their (lse, delta) pairs (8 bytes a query)
+    and 8 bytes per mbarrier (K/V, and full and empty per stage); or the
+    bf16 Q and do tiles, STAGES K and V tiles and their barriers."""
+    st, bars = SM90_BWD_STAGES, 8 * (1 + 2 * SM90_BWD_STAGES)
+    dkdv = (1024 + 2 * hd * (2 * SM90_BWD_BLOCK_KV
+                             + 2 * st * SM90_BWD_BLOCK_Q)
+            + st * SM90_BWD_BLOCK_Q * 8 + bars)
+    dq = (1024 + 2 * hd * (2 * SM90_BWD_DQ_BLOCK_Q
+                           + 2 * st * SM90_BWD_DQ_BLOCK_K) + bars)
+    return dkdv, dq
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan_sm90(B: int, H: int, K: int, S: int, causal: bool,
+                  sms: int) -> dict:
+    """The sm90 backward's launch at (B, H, K, S) on a card of ``sms``
+    SMs (the same at every hd): two kernels side by side that the card
+    runs one block an SM, in index order, the dK/dV kernel first: B x K x
+    ``groups`` head groups x 128-key tiles, each stepping over its group's
+    query heads' 64-query tiles (from the diagonal on when causal); the
+    dQ kernel: B x H x 128-query tiles, each over its 128-key tiles up to
+    the diagonal.
+
+    ``groups`` splits each KV head's rep query heads (csrc:dkdv_block):
+    the fewest groups whose longest dK/dV block is no longer than the
+    mean work an SM (dK/dV steps, and dQ steps weighed by their scores
+    and SM90_BWD_DQ_WORK, over ``sms``), else rep. A causal key tile 0
+    steps over every query tile of every head of its group, 2 S / 128
+    times the last tile's work: with one group at B 1 x S 2,048 it alone
+    outlasts the mean. More than one group writes f32 partials that a
+    fourth kernel sums in group order. Per kernel: blocks, waves (blocks
+    over SMs), ring steps of the longest and of the mean block."""
+    rep = H // K
+    nq = -(-S // SM90_BWD_BLOCK_Q)
+    tiles = [nq - (t * SM90_BWD_BLOCK_KV // SM90_BWD_BLOCK_Q if causal
+                   else 0) for t in range(-(-S // SM90_BWD_BLOCK_KV))]
+    nk = -(-S // SM90_BWD_DQ_BLOCK_K)
+    q = [min(nk, u + 1) if causal else nk
+         for u in range(-(-S // SM90_BWD_DQ_BLOCK_Q))]
+    dq_step = SM90_BWD_DQ_WORK * SM90_BWD_DQ_BLOCK_Q * SM90_BWD_DQ_BLOCK_K \
+        / (SM90_BWD_BLOCK_KV * SM90_BWD_BLOCK_Q)
+    load = B * H * (sum(tiles) + dq_step * sum(q)) / sms
+    groups = next((g for g in range(1, rep) if -(-rep // g) * tiles[0]
+                   <= load), rep)
+    kv = [n * (rep // groups + (g < rep % groups)) for n in tiles
+          for g in range(groups)]
+    out = {"groups": groups}
+    for name, steps, per in (("dkdv", kv, B * K), ("dq", q, B * H)):
+        blocks = per * len(steps)
+        out[name] = {"blocks": blocks, "waves": blocks / sms,
+                     "blocks_per_sm": 1, "longest_steps": max(steps),
+                     "mean_steps": sum(steps) / len(steps)}
+    out["dkdv"]["tile"] = (SM90_BWD_BLOCK_KV, SM90_BWD_BLOCK_Q)
+    out["dq"]["tile"] = (SM90_BWD_DQ_BLOCK_Q, SM90_BWD_DQ_BLOCK_K)
+    return out
+
+
+def _tma_problem(t: Tensor):
+    """Why a TMA tensor map cannot describe ``t``'s layout, or None: a
+    last dimension that is not unit-stride, a base address or a stride
+    that is not a multiple of 16 bytes. A dimension of size 1 is never
+    stepped, so its stride is taken as hd."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return ("the last dimension must be unit-stride and the base "
+                "16-byte aligned")
+    out = [t.stride(d) if t.shape[d] > 1 else t.shape[-1] for d in range(3)]
+    if any(s <= 0 or s * t.element_size() % 16 for s in out):
+        return f"strides {t.stride()} are not all multiples of 16 bytes"
+    return None
+
+
 def tma_strides(t: Tensor) -> list:
     """Element strides of dims B, heads and S of a bf16 input, as its TMA
     tensor map takes them; raises ValueError where a map cannot describe
-    the layout: a base address or a stride that is not a multiple of 16
-    bytes, or a last dimension that is not unit-stride. A dimension of
-    size 1 is never stepped, so its stride is given as hd."""
-    if t.stride(-1) != 1 or t.data_ptr() % 16:
-        raise ValueError("flash_attention (sm90 route): the last dimension "
-                         "must be unit-stride and the base 16-byte aligned")
-    out = [t.stride(d) if t.shape[d] > 1 else t.shape[-1] for d in range(3)]
-    if any(s <= 0 or s * t.element_size() % 16 for s in out):
-        raise ValueError(f"flash_attention (sm90 route): strides "
-                         f"{t.stride()} are not all multiples of 16 bytes")
-    return out
+    the layout (``_tma_problem``)."""
+    problem = _tma_problem(t)
+    if problem is not None:
+        raise ValueError(f"flash_attention (sm90 route): {problem}")
+    return [t.stride(d) if t.shape[d] > 1 else t.shape[-1] for d in range(3)]
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
@@ -303,8 +398,9 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     """The gradient (dq, dk, dv) of ``flash_attention(q, k, v, causal)``
     at the output gradient ``dout``, from its output ``out`` and
     log-sum-exp ``lse`` (B, H, S) f32; each in its input's dtype and
-    layout. CUDA tensors launch csrc/flash_attention_bwd.cu; CPU tensors
-    run ``flash_attention_bwd_plain`` (which reads no ``out``)."""
+    layout. CUDA tensors launch the kernels of ``route(q.dtype, hd)``;
+    CPU tensors run ``flash_attention_bwd_plain`` (which reads no
+    ``out``)."""
     _check(q, k, v)
     B, H, S, hd = q.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -323,6 +419,16 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
+    if route(q.dtype, hd) == "sm90":
+        return launch_bwd_sm90(q, k, v, out, dout, lse, causal)
+    return launch_bwd_cuda_core(q, k, v, out, dout, lse, causal)
+
+
+def launch_bwd_cuda_core(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                         dout: Tensor, lse: Tensor, causal: bool = True):
+    """The CUDA-core backward (csrc/flash_attention_bwd.cu) on CUDA
+    tensors, f32 or bf16 at any hd <= 128 a multiple of 8."""
+    B, H, S, hd = q.shape
     if hd > MAX_HD or hd % 8:
         raise ValueError(f"the backward kernel takes hd <= {MAX_HD}, a "
                          f"multiple of 8; got {hd}")
@@ -344,7 +450,43 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), B, H, k.shape[1], S, hd, int(causal),
                  _DTYPE_CODES[q.dtype], ctypes.addressof(strides))
-    flash_attention_bwd.launches += 1
+    _count_bwd("cuda_core")
+    return dq, dk, dv
+
+
+def launch_bwd_sm90(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                    dout: Tensor, lse: Tensor, causal: bool = True):
+    """The tensor-core backward (csrc/flash_attention_bwd_sm90.cu) on bf16
+    CUDA tensors at hd 16, 64 or 128; q, k, v, out and dout read through
+    TMA maps (``tma_strides`` raises on a layout they cannot describe),
+    dq, dk and dv written in q's, k's and v's layouts."""
+    B, H, S, hd = q.shape
+    if q.dtype != torch.bfloat16 or hd not in SM90_HD:
+        raise ValueError(f"the sm90 backward takes bf16 at hd {SM90_HD}; "
+                         f"got {q.dtype} at hd {hd}")
+    if not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous")
+    tensors = (q, k, v, out, dout)
+    for t in tensors:
+        tma_strides(t)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    K = k.shape[1]
+    groups = bwd_plan_sm90(B, H, K, S, bool(causal),
+                           build.sm_count(q.device.index))["groups"]
+    pad = -(-S // SM90_BWD_PAD) * SM90_BWD_PAD
+    pairs = torch.empty((B, H, pad, 2), dtype=torch.float32, device=q.device)
+    part = torch.empty((2, groups, B, K, S, hd) if groups > 1 else (0,),
+                       dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[
+        s for t in tensors + (dq, dk, dv) for s in t.stride()[:3]])
+    build.launch("flash_attention_bwd_sm90", _BWD_SM90_ARGTYPES, q,
+                 *(t.data_ptr() for t in tensors), lse.data_ptr(),
+                 pairs.data_ptr(), part.data_ptr() if groups > 1 else None,
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, K, S,
+                 hd, int(causal), groups, ctypes.addressof(strides))
+    _count_bwd("sm90")
     return dq, dk, dv
 
 
@@ -364,7 +506,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
+        # a fresh contiguous copy where the sm90 route's tensor map cannot
+        # read dout (a view of an aligned buffer may itself be misaligned)
+        if route(q.dtype, q.shape[-1]) == "sm90" \
+                and _tma_problem(dout) is not None:
+            dout = dout.clone(memory_format=torch.contiguous_format)
+        elif dout.stride(-1) != 1:
             dout = dout.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal)
         return dq, dk, dv, None
@@ -375,6 +522,12 @@ def _count(name: str) -> None:
     flash_attention.route_launches[name] += 1
 
 
+def _count_bwd(name: str) -> None:
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[name] += 1
+
+
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)

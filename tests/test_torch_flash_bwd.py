@@ -32,6 +32,7 @@ from repro_torch.models.configs import ModelConfig
 
 TOL = 1e-5
 SRC = build.CSRC / "flash_attention_bwd.cu"
+SRC_SM90 = build.CSRC / "flash_attention_bwd_sm90.cu"
 
 torch.set_num_threads(1)
 
@@ -228,11 +229,12 @@ def test_backward_source_pins():
 
 def test_backward_has_no_fallback():
     """A build or launch failure raises: no try/except in the backward
-    wrapper or the Function."""
+    wrapper, either route's launcher or the Function."""
     tree = ast.parse(inspect.getsource(fa))
     funcs = {n.name: n for n in ast.walk(tree)
              if isinstance(n, ast.FunctionDef)}
-    for name in ("flash_attention_bwd", "backward", "forward"):
+    for name in ("flash_attention_bwd", "backward", "forward",
+                 "launch_bwd_sm90", "launch_bwd_cuda_core", "_count_bwd"):
         assert not any(isinstance(n, ast.Try)
                        for n in ast.walk(funcs[name])), name
 
@@ -245,3 +247,245 @@ def test_forward_lse_is_asked_for_only_by_training():
     out, lse = fa.flash_attention(q, k, v, causal=False, lse=True)
     assert lse.shape == (1, 2, 8) and lse.dtype == torch.float32
     assert fa._lse_buffer(q, False) == (None, 0)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.float32, 128, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.float32, 16, "cuda_core"), (torch.bfloat16, 16, "sm90"),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 32, "cuda_core")])
+def test_backward_route_is_the_forwards(dtype, hd, want):
+    """The backward takes the route the forward takes: the tensor cores
+    for bf16 at hd 16, 64 and 128, CUDA cores for f32 and other hd."""
+    assert fa.route(dtype, hd) == want
+
+
+def test_backward_dispatch_goes_by_route_alone():
+    """flash_attention_bwd's CUDA branch launches launch_bwd_sm90 where
+    route() says "sm90" and launch_bwd_cuda_core otherwise; each launcher
+    counts its own route once, and the plain backward is reached only
+    for CPU tensors."""
+    tree = ast.parse(inspect.getsource(fa))
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    def calls(name):
+        return [n.func.id for n in ast.walk(funcs[name])
+                if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+
+    top = calls("flash_attention_bwd")
+    assert {"route", "launch_bwd_sm90", "launch_bwd_cuda_core",
+            "flash_attention_bwd_plain"} <= set(top)
+    src = inspect.getsource(fa.flash_attention_bwd).split('"""')[2]
+    assert src.index('q.device.type == "cpu"') \
+        < src.index("flash_attention_bwd_plain") < src.index("route(")
+    for name, r in (("launch_bwd_sm90", "sm90"),
+                    ("launch_bwd_cuda_core", "cuda_core")):
+        assert "flash_attention_bwd_plain" not in calls(name)
+        assert calls(name).count("_count_bwd") == 1
+        assert f'_count_bwd("{r}")' in inspect.getsource(getattr(fa, name))
+    kernels.reset_launches()
+    assert fa.flash_attention_bwd.route_launches == dict.fromkeys(
+        fa.ROUTES, 0)
+
+
+def test_sm90_backward_launcher_refuses_what_it_was_not_built_for():
+    q = torch.zeros(1, 2, 8, 32, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="sm90"):
+        fa.launch_bwd_sm90(q, q, q, q, q, lse)
+    f = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="sm90"):
+        fa.launch_bwd_sm90(f, f, f, f, f, lse)
+    b = torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.launch_bwd_sm90(b, b, b, b, b, lse)
+
+
+@pytest.mark.parametrize("hd", fa.SM90_HD)
+def test_sm90_backward_shared_memory_mirrors_the_source(hd):
+    """KvGeo::SMEM (K, V, two stages of Q and do tiles and their (lse,
+    delta) pairs, five mbarriers) and QGeo::SMEM (Q, do, two stages of K
+    and V tiles, five mbarriers) at each hd the route is built for: over
+    the 48 KB default at hd 128, under Hopper's opt-in at all."""
+    dkdv, dq = fa.bwd_smem_bytes_sm90(hd)
+    assert dkdv == 1024 + 2 * hd * (2 * 128 + 2 * 2 * 64) + 2 * 64 * 8 + 40
+    assert dq == 1024 + 2 * hd * (2 * 128 + 2 * 2 * 128) + 40
+    assert max(dkdv, dq) <= build.SMEM_OPTIN
+    if hd == 128:
+        assert (dkdv, dq) == (133160, 197672)
+        assert min(dkdv, dq) > build.SMEM_DEFAULT
+    src = SRC_SM90.read_text()
+    for name, value in (("BKV", fa.SM90_BWD_BLOCK_KV),
+                        ("BQ", fa.SM90_BWD_BLOCK_Q),
+                        ("DQ_BQ", fa.SM90_BWD_DQ_BLOCK_Q),
+                        ("DQ_BK", fa.SM90_BWD_DQ_BLOCK_K),
+                        ("STAGES", fa.SM90_BWD_STAGES),
+                        ("PAD", fa.SM90_BWD_PAD)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    for geo in ("LD_BYTES = BQ \\* 8;",
+                "LD_OFF = 2 \\* KV_BYTES \\+ 2 \\* STAGES \\* QT_BYTES;",
+                "BAR_OFF = 2 \\* Q_BYTES \\+ 2 \\* STAGES \\* KV_BYTES;",
+                "SMEM = 1024 \\+ BAR_OFF \\+ 8 \\* \\(1 \\+ 2 \\* STAGES\\)"):
+        assert re.search(geo, src), geo
+    assert re.search(rf"case {hd}:\s*return launch<{hd}>", src)
+
+
+def test_sm90_backward_source_pins():
+    """No atomics (a rerun is bit-identical); expf, never __expf; the
+    tensor cores, TMA and the register split; every kernel's name holds
+    the symbol the profiler matches; the C entry point build.launch
+    calls; the note of the gradient it computes; its build entry."""
+    src = SRC_SM90.read_text()
+    assert not re.search(r"\batomic\w*\s*\(", src)
+    assert "expf(" in src and not re.search(r"__expf\s*\(", src)
+    head = (build.CSRC / "sm90_wgmma.cuh").read_text()
+    assert '#include "sm90_wgmma.cuh"' in src
+    for needle in ("wgmma_ss_n64", "wgmma_rs_hd", "setmaxnreg", "tma_load",
+                   "bulk_load", "__grid_constant__ Maps", "CUtensorMap q64"):
+        assert needle in src, needle
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier"):
+        assert needle in head, needle
+    kernels_ = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*"
+                          r"(\w+)\s*\(", src)
+    assert len(kernels_) == 4, kernels_
+    assert all("flash_attention_bwd" in k for k in kernels_), kernels_
+    for needle in ("flash_attention_bwd_sm90_launch",
+                   "repro/models/attention.py:359", "_flash_bwd"):
+        assert needle in src, needle
+    assert build.SOURCES["flash_attention_bwd_sm90"] == \
+        "flash_attention_bwd_sm90.cu"
+
+
+def test_sm90_backward_plan_at_qwen3_widths():
+    """The plan chip_smoke.py prints: at qwen3-14b's B 4 x S 512 (H 40, K
+    8) one head group, the dK/dV role 4 x 8 x 4 = 128 blocks, key tile 0
+    stepping over 5 heads x 8 query tiles, no longer than the mean work
+    an SM; the dQ role 4 x 40 x 4 = 640 blocks of at most 4 key tiles.
+    Every key visible: no tile is skipped, one group."""
+    plan = fa.bwd_plan_sm90(4, 40, 8, 512, True, 132)
+    assert plan["groups"] == 1
+    assert plan["dkdv"]["blocks"] == 128 and plan["dq"]["blocks"] == 640
+    assert plan["dkdv"]["longest_steps"] == 40
+    assert plan["dkdv"]["mean_steps"] == 25
+    assert plan["dq"]["longest_steps"] == 4
+    assert plan["dq"]["mean_steps"] == 2.5
+    assert plan["dkdv"]["tile"] == (128, 64) and plan["dq"]["tile"] == (
+        128, 128)
+    full = fa.bwd_plan_sm90(4, 20, 20, 1500, False, 132)
+    assert full["groups"] == 1
+    assert full["dkdv"]["blocks"] == 4 * 20 * 12
+    assert full["dkdv"]["longest_steps"] == full["dkdv"]["mean_steps"] == 24
+    assert full["dq"]["longest_steps"] == 12
+
+
+def _train_layout(B=2, S=40, H=8, K=2, hd=16):
+    """q, k, v as attend hands them to FlashAttention: the (B, S, heads,
+    hd) bf16 projections of one matmul each, transposed."""
+    rng = np.random.default_rng(5)
+    return [torch.from_numpy(rng.normal(size=(B, S, n * hd)).astype(
+        np.float32)).bfloat16().reshape(B, S, n, hd).transpose(1, 2)
+        .requires_grad_(True) for n in (H, K, K)]
+
+
+def test_tma_strides_take_the_training_layout(monkeypatch):
+    """The five tensors the sm90 backward reads as training hands them
+    in: q, k and v (the projections transposed), the forward's output
+    (its empty_like of q) and the output gradient autograd brings back
+    through attend's transpose and the output projection's reshape."""
+    q, k, v = _train_layout()
+    seen = {}
+    real = fa.flash_attention_bwd
+
+    def spy(q_, k_, v_, out, dout, lse, causal=True):
+        seen.update(q=q_, k=k_, v=v_, out=out, dout=dout)
+        return real(q_, k_, v_, out, dout, lse, causal)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd", spy)
+    out = fa.FlashAttention.apply(q, k, v, True).transpose(1, 2)
+    B, S, H, hd = out.shape
+    w = torch.ones(H * hd, 8, dtype=torch.bfloat16)
+    (out.reshape(B, S, H * hd) @ w).float().sum().backward()
+    assert set(seen) == {"q", "k", "v", "out", "dout"}
+    for name, t in seen.items():
+        assert fa._tma_problem(t) is None, name
+        assert fa.tma_strides(t)[1:] == ([hd, H * hd] if t.shape[1] == H
+                                         else [hd, 2 * hd]), name
+    assert seen["out"].stride() == seen["q"].stride()
+
+
+def test_function_backward_makes_a_refused_dout_tma_legal(monkeypatch):
+    """A dout whose layout a tensor map cannot describe (a 2-byte offset
+    base, rows of 20 elements) reaches the sm90 route's backward as a
+    contiguous copy of the same values; the cuda_core route's f32 dout
+    keeps its layout."""
+    seen = []
+
+    def spy(q, k, v, out, dout, lse, causal=True):
+        seen.append(dout)
+        return q, k, v
+
+    monkeypatch.setattr(fa, "flash_attention_bwd", spy)
+
+    class Ctx:
+        causal = True
+
+    for dtype, hd in ((torch.bfloat16, 16), (torch.float32, 16)):
+        q = torch.zeros(1, 2, 8, hd, dtype=dtype)
+        Ctx.saved_tensors = (q, q, q, q, torch.zeros(1, 2, 8))
+        for bad in (torch.arange(1 + 2 * 8 * hd, dtype=dtype)[1:].reshape(
+                        1, 2, 8, hd),
+                    torch.randn(1, 2, 8, 20).to(dtype)[..., :hd]):
+            seen.clear()
+            fa.FlashAttention.backward(Ctx, bad)
+            (got,) = seen
+            torch.testing.assert_close(got, bad, rtol=0, atol=0)
+            if dtype == torch.bfloat16:
+                assert fa._tma_problem(bad) is not None
+                assert fa._tma_problem(got) is None
+            else:
+                assert got is bad
+
+
+@pytest.mark.parametrize("shape,groups,longest", [
+    ((1, 40, 8, 2048, True), 2, 3 * 32), ((1, 25, 5, 2176, True), 3, 2 * 34),
+    ((4, 40, 8, 512, True), 1, 40), ((2, 8, 2, 300, True), 4, 5)])
+def test_sm90_backward_plan_splits_long_key_tiles(shape, groups, longest):
+    """Where a causal key tile 0 over all rep heads outlasts the launch's
+    mean work an SM, the plan splits the heads into the fewest groups
+    that bring it under (B 1 x S 2,048: 3 + 2 heads; hymba: 2 + 2 + 1),
+    or into rep groups; the groups' steps add up to one group's."""
+    plan = fa.bwd_plan_sm90(*shape, 132)
+    assert plan["groups"] == groups
+    assert plan["dkdv"]["longest_steps"] == longest
+    one = fa.bwd_plan_sm90(*shape, 1)
+    assert one["groups"] == 1
+    B, H, K = shape[:3]
+    assert plan["dkdv"]["blocks"] == one["dkdv"]["blocks"] * groups
+    assert plan["dkdv"]["mean_steps"] * plan["dkdv"]["blocks"] == \
+        one["dkdv"]["mean_steps"] * one["dkdv"]["blocks"]
+
+
+def test_planted_faults_read_over_the_bf16_limit_at_the_sm90_shape():
+    """chip_smoke.py reads its three planted backward faults against the
+    sm90 route at BWD_FAULT_SHAPES["bf16"] (causal, ragged S 300, rep 4,
+    hd 64) and needs each over the bf16 limit: here against the plain
+    backward on the same bf16 inputs, which the route holds to ~4e-3."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    name = chip_smoke.BWD_FAULT_SHAPES["bf16"]
+    (_, B, H, K, S, hd, causal, dtypes), = [
+        x for x in chip_smoke.BWD_SHAPES if x[0] == name]
+    assert "bf16" in dtypes and fa.route(torch.bfloat16, hd) == "sm90"
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _inputs(B, H, K, S, hd, seed=30))
+    lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal,
+                                   lse=True)[1]
+    sound = fa.flash_attention_bwd_plain(q, k, v, do, lse, causal)
+    tol = chip_smoke.BWD_TOL["bf16"]
+    for fault in ("delta=0", "one-head", "no-diag"):
+        bad = chip_smoke.planted_bwd(torch, q, k, v, do, lse, causal, fault)
+        assert max(_rel(g.float(), w.float().numpy())
+                   for g, w in zip(sound, bad)) > 3 * tol, fault

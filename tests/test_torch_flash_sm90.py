@@ -66,9 +66,12 @@ def test_build_sources_hold_the_sm90_kernel():
 
 def test_sm90_source_pins():
     """Tensor cores, TMA, mbarriers and the register split are in the
-    source; the softmax uses expf, never __expf; the kernel's name holds
-    the symbol the profiler matches for both routes."""
+    source or the header it includes (csrc/sm90_wgmma.cuh, shared with the
+    sm90 backward); the softmax uses expf, never __expf; the kernel's name
+    holds the symbol the profiler matches for both routes."""
     src = SRC.read_text()
+    assert '#include "sm90_wgmma.cuh"' in src
+    src += (build.CSRC / "sm90_wgmma.cuh").read_text()
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier",
                    "setmaxnreg", "__grid_constant__ CUtensorMap",
                    "cudaGetDriverEntryPoint",
@@ -197,7 +200,9 @@ def test_chip_smoke_route_sources_are_the_wrappers():
 
 def test_every_source_is_launched_by_a_wrapper():
     """Each CUDA source has a wrapper that launches it and counts it: one
-    per kernel, flash_attention's two sources behind its one wrapper."""
+    per kernel, flash_attention's two sources behind its one wrapper and
+    flash_attention_bwd's two behind its."""
     assert set(build.SOURCES) == set(kernels.wrappers()) | {
-        "flash_attention_sm90"}
+        "flash_attention_sm90", "flash_attention_bwd_sm90"}
     assert set(fa.ROUTES) == set(fa.flash_attention.route_launches)
+    assert set(fa.ROUTES) == set(fa.flash_attention_bwd.route_launches)

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""The flash-attention backward kernel's time, and the library's
-(the backward of ``scaled_dot_product_attention(enable_gqa=True)``),
-read by two clocks in one process on one GPU, to tell the card's clocks
-and the profiler's state apart:
+"""The flash-attention backward's time on both of its routes, and the
+library's (the backward of ``scaled_dot_product_attention(enable_gqa=
+True)``), read by two clocks in one process on one GPU, to tell the
+card's clocks and the profiler's state apart:
 
     python3 tools/flash_bwd_time.py
 
-Cases, in the (B, S, H, hd) layout that training hands the kernel:
-qwen3-14b's (B 4, S 512, H 40, K 8, hd 128, causal) in bf16 and f32,
-the kernel and SDPA; whisper's encoder (B 4, S 1,500, H = K = 20, hd
-64, every key visible) in bf16, the kernel and SDPA. For each it prints
+Cases, in the (B, S, H, hd) layout that training hands the kernels:
+qwen3-14b's (H 40, K 8, hd 128, causal) at B 4 x S 512 and B 1 x S
+2,048 in bf16 on the sm90 route (csrc/flash_attention_bwd_sm90.cu) and
+the cuda_core route (csrc/flash_attention_bwd.cu), in f32 (cuda_core)
+at B 4 x S 512, and SDPA; hymba's global layers (B 1 x S 2,176, H 25, K
+5, hd 64, causal) and whisper's encoder (B 4 x S 1,500, H = K = 20, hd
+64, every key visible) on sm90 and SDPA. For each it prints
 chip_smoke.py's ``timing_probe`` line (CUDA events over back-to-back
-calls; torch.profiler's device time with the launches it recorded; the
-card's clocks before and after) three times: cold, after WARM_S seconds
-of bf16 GEMMs, and after SESSIONS short torch.profiler sessions. Then
-the card's name and power limit.
+calls; torch.profiler's device time summed over the launches it
+recorded; the card's clocks before and after) and ``kernel_span_ms``
+(the span in which the case's kernels run: the sm90 route runs its dK/dV
+and dQ kernels side by side on two streams, so their sum overstates it)
+three times: cold, after WARM_S seconds of bf16 GEMMs, and after
+SESSIONS short torch.profiler sessions. Then the card's name and power
+limit. About 1.5 minutes on an H100.
 """
 from __future__ import annotations
 
@@ -24,9 +30,13 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# name, B, H, K, S, hd, causal, dtypes
-SHAPES = (("qwen3 B4xS512", 4, 40, 8, 512, 128, True, ("bf16", "f32")),
-          ("whisper-enc", 4, 20, 20, 1500, 64, False, ("bf16",)))
+# name, B, H, K, S, hd, causal, (dtype, route) cases
+SHAPES = (("qwen3 B4xS512", 4, 40, 8, 512, 128, True,
+           (("bf16", "sm90"), ("bf16", "cuda_core"), ("f32", "cuda_core"))),
+          ("qwen3 B1xS2048", 1, 40, 8, 2048, 128, True,
+           (("bf16", "sm90"), ("bf16", "cuda_core"))),
+          ("hymba", 1, 25, 5, 2176, 64, True, (("bf16", "sm90"),)),
+          ("whisper-enc", 4, 20, 20, 1500, 64, False, (("bf16", "sm90"),)))
 WARM_S = 20.0
 SESSIONS = 300
 
@@ -45,25 +55,32 @@ def main() -> int:
         print("flash_bwd_time: no CUDA device", file=sys.stderr)
         return 2
     build.build_all(["flash_attention", "flash_attention_sm90",
-                     "flash_attention_bwd"])
+                     "flash_attention_bwd", "flash_attention_bwd_sm90"])
     dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    launch = {"sm90": fa.launch_bwd_sm90, "cuda_core": fa.launch_bwd_cuda_core}
     rng = np.random.default_rng(29)
     cases = []          # (label, fn, symbol, kernels a call or None)
-    for where, B, H, K, S, hd, causal, dtypes in SHAPES:
+    for where, B, H, K, S, hd, causal, runs in SHAPES:
         arrs = [torch.from_numpy(rng.standard_normal(
             (B, S, n, hd), dtype=np.float32)).cuda() for n in (H, K, K, H)]
-        for dt in dtypes:
+        for dt in dict.fromkeys(d for d, _ in runs):
             q, k, v, do = (x.to(dts[dt]).transpose(1, 2) for x in arrs)
             out, lse = fa.flash_attention(q, k, v, causal, lse=True)
+            for d, r in runs:
+                if d != dt:
+                    continue
+                groups = fa.bwd_plan_sm90(B, H, K, S, causal,
+                                          build.sm_count(0))["groups"]
+                cases.append((
+                    f"{where} {dt} {r}",
+                    lambda q=q, k=k, v=v, out=out, do=do, lse=lse,
+                    c=causal, fn=launch[r]: fn(q, k, v, out, do, lse, c),
+                    "flash_attention_bwd",
+                    3 + (r == "sm90" and groups > 1)))
             ql, kl, vl = (x.detach().contiguous().requires_grad_(True)
                           for x in (q, k, v))
             out_l = F.scaled_dot_product_attention(
                 ql, kl, vl, is_causal=causal, enable_gqa=True)
-            cases.append((
-                f"{where} {dt} kernel",
-                lambda q=q, k=k, v=v, out=out, do=do, lse=lse, c=causal:
-                fa.flash_attention_bwd(q, k, v, out, do, lse, c),
-                "flash_attention_bwd", 3))
             cases.append((
                 f"{where} {dt} SDPA",
                 lambda o=out_l, x=(ql, kl, vl), do=do:
@@ -71,8 +88,11 @@ def main() -> int:
 
     def probe(when: str) -> None:
         for label, fn, symbol, per_call in cases:
-            print(f"{when} {label}: " + cs.timing_probe(
-                torch, fn, symbol, per_call), flush=True)
+            span = cs.kernel_span_ms(torch, fn, symbol)
+            print(f"{when} {label}: span "
+                  + ("not measured" if span is None else f"{span:.4g} ms")
+                  + "; " + cs.timing_probe(torch, fn, symbol, per_call),
+                  flush=True)
 
     probe("cold")
     a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
