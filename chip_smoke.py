@@ -459,6 +459,20 @@ TRAIN_FAMILIES = ("qwen3-14b", "olmoe-1b-7b", "mamba2-130m", "hymba-1.5b",
 TRAIN_SMOKE_BATCH = (2, 40)
 TRAIN_SMOKE_TOL = {"loss": 1e-5, "grads": 1e-4, "params": 1e-5}
 CLI_STEPS = 30
+# the LM meshes, on logical devices of the one card (REPRO_TEST_DEVICES):
+# (arch, layers (None: all), grid, B, S, new tokens). olmoe's prefill takes
+# the all-to-all EP path (8 shards of 256 tokens, 16 experts an EP
+# shard), its decode the replicated one; llama4-scout at 8 of its 48
+# layers (39 GB in bf16; all 48 are 216 GB)
+MESH_SERVE = (("olmoe-1b-7b", None, (2, 4), 4, 512, 32),
+              ("llama4-scout-17b-a16e", 8, (1, 4), 1, 512, 16))
+MESH_SMOKE_PROMPT = (4, 16)
+# the sharded trainer: olmoe at 4 of its 16 layers on (data 2, model 2)
+MESH_TRAIN = ("olmoe-1b-7b", 4, (2, 2))
+# the plan printed beside it: qwen3-14b's whole train state on (4, 1)
+MESH_PLAN = ("qwen3-14b", (4, 1))
+# gpipe: 4 full-width qwen3-14b layers over 4 stages, 4 microbatches
+MESH_PIPE = (4, 4, 4, 1, 512)        # layers, stages, M, B_mb, S
 # Table I (benchmarks/bench_accuracy.py): the schedule it trains with,
 # and its gate: every mode's total accuracy, and |fixed - fp32| in points
 TABLE1_TRAIN = {"steps": 4000, "neg_weight": 3.0}
@@ -493,6 +507,12 @@ PATH_KERNELS = {
     "lm qwen2-vl-72b image": (),
     # training: the flash forward (twice a layer, remat) and its backward
     "lm train qwen3-14b": ("flash_attention", "flash_attention_bwd"),
+    # the meshes: EP serving runs flash in every prefill layer; the sharded
+    # trainer and gpipe's backward run the backward too
+    "lm mesh olmoe": ("flash_attention",),
+    "lm mesh llama4": ("flash_attention",),
+    "lm mesh train": ("flash_attention", "flash_attention_bwd"),
+    "lm mesh gpipe": ("flash_attention", "flash_attention_bwd"),
 }
 # the batched path and the tracked clip run the dense kernels of their
 # configuration
@@ -1301,7 +1321,7 @@ def int8_library(torch, q, wq, want, refusals):
                    f"{str(exc).splitlines()[0][12:40]}")
             if layout not in refusals:
                 refusals.add(layout)
-                print(f"  score_matmul_int8 library: {why}", flush=True)
+                level_line(f"  score_matmul_int8 library: {why}")
             continue
         need(torch.equal(out[:, :want.shape[1]], want),
              "torch._int_mm disagrees with score_matmul_int8")
@@ -2460,10 +2480,9 @@ def multihead_path(torch, np, configs, svm) -> dict:
                     f"{launches[name][scorer]} {scorer}")
     print(f"  multihead K={MH_K} (person {THRESHOLD:g}, " + ", ".join(
         f"{n} {t:g}" for n, t in MH_SEEDED.items())
-        + "), a frame and a B8 batch each of 640x480 / 1280x720: each head "
-        "= its own detector on the card bit for bit; kept by head (B8 "
-        "total) = CPU, score delta, scorer launches (3 a frame or batch "
-        "for all heads): " + "; ".join(text), flush=True)
+        + "), frame + B8, 640x480/1280x720: heads = own detectors bit for "
+        "bit; kept by head (B8) = CPU, delta, scorer launches: "
+        + "; ".join(text), flush=True)
     return launches
 
 
@@ -2638,13 +2657,13 @@ def cascade_path(torch, np, svm) -> dict:
             kept += any(_iou(f["box"], c["box"]) >= 0.5
                         or _iou(c["box"], tboxes[gt]) >= 0.4 for c in dets)
     need(total > 0, "cascade: the dense pass found no pedestrian")
-    print(f"  cascade+kernel 640x480: coarse head on the card {gpu_s:.1f} s;"
+    print(f"  cascade+kernel 640x480: coarse head, card {gpu_s:.1f} s;"
           f" CPU ({cpu_s:.1f} s): descriptors off {f_off}/{f_cpu.numel()}, "
           f"{len(mined)} mined = card ({crop_off} px a code off), Pegasos "
-          f"on the card's features = card's to {PEGASOS_TOL:g} "
-          + (f"until a tie at step {tie[0]} (margins {tie[1]:.1e} / "
-             f"{tie[2]:.1e}), then w rel L2 {rel:.1e}, training accuracy "
-             f"{acc[1]:.4f} (card {acc[0]:.4f})" if tie else
+          f"= card's to {PEGASOS_TOL:g} "
+          + (f"until a tie at step {tie[0]} ({tie[1]:.1e} / {tie[2]:.1e}),"
+             f" then w rel L2 {rel:.1e}, accuracy {acc[1]:.4f} (card "
+             f"{acc[0]:.4f})" if tie else
              f"through every step (w rel L2 {rel:.1e})")
           + f"; {CASCADE_SCENES} scenes"
           f" + {CASCADE_CLIP}-frame stream: {CASCADE_CPU_SCENES} scenes "
@@ -3261,8 +3280,7 @@ def serve_path(torch, np, configs, svm) -> dict:
                           p.replace(" of each kernel", "") for p in per)))
     print(f"  serve {SERVE_CLIENTS} clients x ({SERVE_VGA}+{SERVE_HD} "
           f"frames, {SERVE_WINDOWS} windows, 4 malformed), answered once "
-          f"= card detect / classify_windows bit for bit, CPU boxes; "
-          f"launches of each frame / window kernel, others 0: "
+          f"= card bit for bit, CPU boxes; own-kernel launches (others 0): "
           + "; ".join(f"{n[6:]} {a} ({s['frame_batches']}+{s['batches']} "
                       f"batches), {b} boxes, CPU delta {d:.1e}/{w:.1e}, "
                       f"{e} err = CPU, launches {k}"
@@ -3862,9 +3880,9 @@ def lm_path(torch, np) -> dict:
     a, b, rel = decode_consistency(torch, params, cfg, x)
     need(rel["sound"] <= CONSIST_TOL, f"prefill vs prefill + decode_step: "
                                       f"relative L2 {rel} > {CONSIST_TOL}")
-    print(f"  lm {LM_ARCH} full width ({cfg.n_layers} layers, {n:,} "
-          f"parameters, init {t_init:.1f} s, peak {peak:.2f} GiB): tokens "
-          f"in range, rerun same; prefill vs prefill[:-1] + decode_step "
+    print(f"  lm {LM_ARCH} full width ({cfg.n_layers} layers, {n / 1e9:.4f} "
+          f"B parameters, init {t_init:.1f} s, peak {peak:.2f} GiB): tokens "
+          f"in range, rerun same; prefill vs pre[:-1] + decode "
           f"rel L2 {rel['sound']:.2e} (tol "
           f"{CONSIST_TOL:g}; planted: " + _faults(rel) + "), max delta "
           f"{float((a - b).abs().max()):.3f} of max |logit| "
@@ -3987,23 +4005,25 @@ def decode_consistency(torch, params, cfg, x, positions=None, enc=None):
         pos[..., 1] += 1
         return pos
 
-    kv_early = (mm, "_decode_layer", lambda h, lp, c, cl, pos, w, e=None:
-                layer(h, lp, c, {**cl, "idx": cl["idx"] - 1}, pos, w, e))
+    kv_early = (mm, "_decode_layer", lambda h, lp, c, cl, pos, w, e=None,
+                x=None: layer(h, lp, c, {**cl, "idx": cl["idx"] - 1}, pos, w,
+                              e, x))
     if cfg.encoder_layers:
         faults = {
-            "enc-row": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w, e:
-                        layer(h, lp, c, cl, pos, w, e.roll(1, 0))),
+            "enc-row": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w, e,
+                        x=None: layer(h, lp, c, cl, pos, w, e.roll(1, 0), x)),
             "pe+1": (mm, "decoder_pe", lambda idx, d, device:
                      pe(idx + 1, d, device))}
     elif cfg.mrope:
         faults = {
             "mrope-h+1": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w,
-                          e=None: layer(h, lp, c, cl, h_plus_1(pos), w, e)),
+                          e=None, x=None: layer(h, lp, c, cl, h_plus_1(pos),
+                                                w, e, x)),
             "kv@idx-1": kv_early}
     elif cfg.has_attention:
         faults = {
             "pos+1": (mm, "_decode_layer", lambda h, lp, c, cl, pos, w,
-                      e=None: layer(h, lp, c, cl, pos + 1, w, e)),
+                      e=None, x=None: layer(h, lp, c, cl, pos + 1, w, e, x)),
             "kv@idx-1": kv_early}
     else:
         faults = {
@@ -4279,9 +4299,10 @@ def lm_families(torch, np):
              f"{CONSIST_TOL_F32} (sound under it, planted faults over it)")
         del params
         torch.cuda.empty_cache()
-        print(f"  {arch} bf16: {n:,} params = config, {peak:.2f} GiB, "
+        print(f"  {arch} bf16: {n / 1e9:.4f} B params = config, "
+              f"{peak:.2f} GiB, "
               f"sm90 {per}/prefill, rerun same; " + "; ".join(timing)
-              + f"; {gc} prefill vs decode bf16 {rel['sound']:.1e} < "
+              + f"; {gc} pre/dec bf16 {rel['sound']:.1e} < "
               f"{CONSIST_TOL:g} (" + _faults(rel, 1) + f"), f32 "
               f"{rel32['sound']:.1e} < {CONSIST_TOL_F32:g} < "
               + _faults(rel32, 1) + drops, flush=True)
@@ -4453,10 +4474,11 @@ def lm_encdec_vlm(torch, np):
     del params, enc
     torch.cuda.empty_cache()
     rel32, tol = f32_consistency(cfg, x, enc=frames)
-    print(f"  {LM_ENCDEC} bf16: {n:,} params = config, {peak:.2f} GiB, sm90 "
+    print(f"  {LM_ENCDEC} bf16: {n / 1e9:.4f} B params = config, "
+          f"{peak:.2f} GiB, sm90 "
           f"{per}/prefill ({cfg.encoder_layers} all keys + {cfg.n_layers} "
           f"causal), rerun same; {g}+{LM_NEW}, encoder "
-          f"{cfg.encoder_ctx} frames: {timing}; prefill vs decode bf16 "
+          f"{cfg.encoder_ctx} frames: {timing}; pre/dec bf16 "
           f"{rel['sound']:.1e} < {CONSIST_TOL:g} (" + _faults(rel, 1)
           + f"), f32 {rel32['sound']:.1e} < {tol:g} < "
           + _faults(rel32, 1), flush=True)
@@ -4880,10 +4902,10 @@ def lm_train(torch, np):
           f"{max(attn):.1e}, all {grel:.1e}, loss {loss_k:.4f} vs "
           f"{loss_p:.4f}; {TRAIN_STEPS} AdamW steps loss "
           + " ".join(f"{x:.4f}" for x in losses)
-          + f"; {ms:.1f} ms/step (bound {bound:.1f}: matmuls "
-          f"{flops / BF16_FLOPS * 1e3:.1f} + AdamW bytes "
-          f"{adam_bytes / HBM_BPS * 1e3:.1f}; remat recompute "
-          f"{remat / BF16_FLOPS * 1e3:.1f} more), {T / ms * 1e3:.0f} tok/s, "
+          + f"; {ms:.1f} ms/step (bound {bound:.1f} = matmuls "
+          f"{flops / BF16_FLOPS * 1e3:.1f} + AdamW "
+          f"{adam_bytes / HBM_BPS * 1e3:.1f}; remat +"
+          f"{remat / BF16_FLOPS * 1e3:.1f}), {T / ms * 1e3:.0f} tok/s, "
           f"busy {busy:.1f} ms, {n_launch} launches, flash fwd {f_ms:.2f} ms "
           f"({2 * TRAIN_LAYERS} launches) bwd {b_ms:.2f} ms ({TRAIN_LAYERS} "
           f"sm90, kernel sum), "
@@ -5020,6 +5042,413 @@ def train_cli() -> str:
             f"{CLI_STEPS} = the uninterrupted run's")
 
 
+def mesh_generate(torch, params, cfg, prompt, new: int, ctx):
+    """Greedy tokens (B, new) and each step's logits (B, new, V) in f32
+    through prefill and decode_step under ``ctx`` (None: the local
+    path)."""
+    from repro_torch.models.model import decode_step, prefill
+
+    x = torch.as_tensor(prompt, device=params.device)
+    logits, cache = prefill(params, {"tokens": x}, cfg, x.shape[1] + new,
+                            ctx)
+    toks, steps = [], []
+    for t in range(new):
+        steps.append(logits[:, -1].float())
+        toks.append(steps[-1].argmax(-1, keepdim=True))
+        if t < new - 1:
+            logits, cache = decode_step(params, toks[-1], cache, cfg,
+                                        ctx=ctx)
+    return torch.cat(toks, 1), torch.stack(steps, 1)
+
+
+def tokens_to_tie(torch, got, want, want_logits, tie: float) -> str:
+    """Greedy tokens ``got`` against ``want`` (B, new): equal, or equal up
+    to each row's first difference, where ``want``'s own top-2 margin is
+    at most ``tie`` (a near-tie either path may break); fails otherwise.
+    -> "=" or "= to t<first>"."""
+    first = None
+    for b in range(got.shape[0]):
+        diff = (got[b] != want[b]).nonzero()
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        top2 = want_logits[b, t].topk(2).values
+        margin = float(top2[0] - top2[1])
+        need(margin <= tie, f"greedy tokens differ at row {b} step {t}, "
+                            f"where the local path's top-2 margin "
+                            f"{margin:.4f} is over the tie {tie:.4f}")
+        first = t if first is None else min(first, t)
+    return "=" if first is None else f"= to t{first}"
+
+
+def mesh_serve(torch, np, arch, layers, shape, B, S, new):
+    """One EP serving cell: ``arch`` at full width (``layers`` of its
+    layers) in bf16 with seeded weights on a (data, model) grid of
+    logical devices of the card. Smoke size in f32: the card's EP tokens
+    equal the CPU's. Full width: generate through EP (prefill all-to-all,
+    decode replicated, each path counted) with the launch counters reset
+    just before and read just after; against the local path at capacity
+    factor E / k, where nothing drops, the prefill logits within
+    CONSIST_TOL and the greedy tokens equal up to a near-tie; at the
+    config's own capacity factor, dropped choices per EP shard beside the
+    local path's; prefill and decode-step ms, EP and local in turns, with
+    busy ms, launches and the bound. -> (launches, stdout line)."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.sharding.rules import make_ctx
+
+    data, model = shape
+    # smoke size, f32: the EP tokens on the card and on the CPU
+    scfg = dc.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    leaves = smoke_leaves(np, scfg, 0)
+    prompt = np.random.default_rng(1).integers(0, scfg.vocab,
+                                               MESH_SMOKE_PROMPT)
+    smoke = {}
+    for dev in (DEV, "cpu"):
+        p = lm_params_from_numpy(leaves, scfg, dev)
+        ctx = make_ctx(make_host_mesh(model, dev))
+        smoke[dev] = mesh_generate(torch, p, scfg, prompt, 8, ctx)[0].cpu()
+    need(torch.equal(smoke[DEV], smoke["cpu"]),
+         f"{arch} smoke: EP greedy tokens differ between the card and CPU")
+    del p
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dc.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    grid = make_host_mesh(model, DEV)
+    need(grid.shape == shape, f"grid {grid.shape}, want {shape}")
+    ctx = make_ctx(grid)
+    x = np.random.default_rng(2).integers(0, cfg.vocab, (B, S))
+    L = cfg.n_layers
+
+    kernels.reset_launches()
+    moe.reset_paths()
+    xt = torch.as_tensor(x, device=DEV)
+    first, cache = prefill(params, {"tokens": xt}, cfg, S + new, ctx)
+    paths_pre = dict(moe.path_counts)
+    moe.reset_paths()
+    decode_step(params, first[:, -1].argmax(-1, keepdim=True), cache, cfg,
+                ctx=ctx)
+    torch.cuda.synchronize()
+    paths_dec = dict(moe.path_counts)
+    name = f"lm mesh {arch.split('-')[0]}"
+    launches = {name: check_launches(name, kernels.launch_counts())}
+    routes = dict(fa.flash_attention.route_launches)
+    need(paths_pre == {"local": 0, "a2a": L, "replicated": 0}
+         and paths_dec == {"local": 0, "a2a": 0, "replicated": L},
+         f"{arch}: MoE paths {paths_pre} in the prefill and {paths_dec} in "
+         f"a decode step, want a2a and replicated {L} each")
+    need(routes == {"sm90": L, "cuda_core": 0},
+         f"{arch}: the EP prefill launched the flash routes {routes}")
+    del first, cache
+
+    # against the local path where nothing drops
+    cf = cfg.n_experts / cfg.top_k
+    ncfg = dc.replace(cfg, capacity_factor=cf)
+    t_ep, l_ep = mesh_generate(torch, params, ncfg, x, new, ctx)
+    t_lo, l_lo = mesh_generate(torch, params, ncfg, x, new, None)
+    rel = float((l_ep[:, 0] - l_lo[:, 0]).norm() / l_lo[:, 0].norm())
+    dmax = float((l_ep[:, 0] - l_lo[:, 0]).abs().max())
+    need(rel <= CONSIST_TOL, f"{arch}: EP vs local prefill logits at cf "
+                             f"{cf:g}: relative L2 {rel} > {CONSIST_TOL}")
+    tie = max(2 * dmax, 2.0 ** -4)
+    same = tokens_to_tie(torch, t_ep, t_lo, l_lo, tie)
+    del l_ep, l_lo
+
+    # drops at the config's own capacity factor: one _route call a shard
+    # and layer on the EP path, one a layer on the local one
+    ep_calls = moe_drops(torch, lambda: prefill(
+        params, {"tokens": xt}, cfg, S + new, ctx))[1]
+    lo_calls = moe_drops(torch, lambda: prefill(
+        params, {"tokens": xt}, cfg, S + new))[1]
+    shards = data * model
+    per_shard = [int(sum(c.sum() for c in ep_calls[s::shards]))
+                 for s in range(shards)]
+    lo_drops = int(sum(c.sum() for c in lo_calls))
+
+    # timing, EP and local in turns
+    def runs(c):
+        return (lambda: prefill(params, {"tokens": xt}, cfg, S + new, c),
+                lambda cache: decode_step(params, xt[:, -1:], cache, cfg,
+                                          ctx=c))
+    ms = {"ep": [], "local": []}
+    for _ in range(2):
+        for k, c in (("ep", ctx), ("local", None)):
+            pre, dec = runs(c)
+            m_pre = host_ms(torch, pre, 2)
+            _, cache = pre()
+            ms[k].append((m_pre, host_ms(torch, lambda: dec(cache), 8)))
+    busy = {}
+    for k, c in (("ep", ctx), ("local", None)):
+        pre, dec = runs(c)
+        _, cache = pre()
+        tp = device_times(torch, pre, 1)
+        td = device_times(torch, lambda: dec(cache), 2)
+        busy[k] = (sum(u for _, u in tp.values()) / 1e3,
+                   sum(n for n, _ in tp.values()),
+                   sum(u for _, u in td.values()) / 2e3,
+                   sum(n for n, _ in td.values()) // 2)
+    med = {k: (float(np.median([a for a, _ in v])),
+               float(np.median([b for _, b in v]))) for k, v in ms.items()}
+    b_pre, b_dec = lm_bounds(cfg, B, S)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    level_line(f"  {name} {shape}: smoke EP tokens = CPU; per-shard "
+               f"dropped choices at cf "
+               f"{cfg.capacity_factor:g} {per_shard} (local {lo_drops}); "
+               f"ms rounds EP {ms['ep']} local {ms['local']}; busy ms, "
+               f"launches: prefill EP {busy['ep'][:2]} local "
+               f"{busy['local'][:2]}, decode EP {busy['ep'][2:]} local "
+               f"{busy['local'][2:]}; tie {tie:.4f}; peak {peak:.1f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    short = arch.split("-")[0]
+    line = (f"  mesh {short}{'' if not layers else f' {layers}L'} "
+            f"{data}x{model}: a2a/rep {L}/{L}; cf {cf:g} logits "
+            f"{rel:.0e}, tokens {same}; cf {cfg.capacity_factor:g} drops "
+            f"{sum(per_shard)} ({min(per_shard)}-{max(per_shard)}/shard; "
+            f"local {lo_drops}); ms EP/local/bound: prefill "
+            f"{med['ep'][0]:.1f}/{med['local'][0]:.1f}/{b_pre:.2f}, decode "
+            f"{med['ep'][1]:.1f}/{med['local'][1]:.1f}/{b_dec:.2f}")
+    return launches, routes, line
+
+
+def mesh_train(torch, np):
+    """The sharded (ZeRO-3) trainer: olmoe-1b-7b at full width with
+    MESH_TRAIN's layers on a (data, model) grid of logical devices, bf16,
+    B 4 x S 512 of lm_data. At capacity factor E / k (nothing drops) step
+    1's gradient, gathered from the shards, against make_train_step's
+    (local MoE) leaf by leaf within TRAIN_GRAD_TOL; then TRAIN_STEPS
+    steps at the config's own factor with the counters reset just before
+    and read just after (the loss falls; flash sm90 forward and backward
+    launched); ms a step beside the plain step's; per-device state bytes
+    from state_shardings, and MESH_PLAN's, computed without allocating;
+    then gpipe_apply (mesh_pipe). -> (launches, forward routes, backward
+    routes, stdout line)."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              jit_train_step,
+                                              make_train_step, shard_state,
+                                              state_device_bytes,
+                                              state_shardings)
+
+    arch, layers, shape = MESH_TRAIN
+    cfg = dc.replace(get_config(arch), n_layers=layers)
+    B, S = TRAIN_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+    params = state["params"]
+    n = sum(t.numel() for t in params.parameters())
+    grid = make_host_mesh(shape[1], DEV)
+    need(grid.shape == shape, f"grid {grid.shape}, want {shape}")
+    sh = state_shardings(grid, state, cfg)
+    sharded = shard_state(state, sh)
+    batch = train_batch(np, cfg, B, S)
+    dev_batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+
+    # step 1's gradient where nothing drops: sharded against plain
+    ncfg = dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    loss_p = loss_fn(params, dev_batch, ncfg)
+    loss_p.backward()
+    moe.reset_paths()
+    loss_s, acc = jit_train_step(ncfg, opt, grid).grads(sharded, batch)
+    need(moe.path_counts["local"] == 0 and moe.path_counts["a2a"] > 0,
+         f"the sharded gradient's MoE took {moe.path_counts}")
+    leaf = {}
+    for name, p in params.named_parameters():
+        g = sh["params"][name].gather([acc[name].get(i)
+                                       for i in range(grid.size)])
+        leaf[name] = float((g - p.grad.float()).norm()
+                           / p.grad.float().norm().clamp(min=1e-30))
+        p.grad = None
+    del acc
+    worst = max(leaf, key=leaf.get)
+    need(leaf[worst] <= TRAIN_GRAD_TOL,
+         f"sharded vs plain gradient: {worst} relative L2 {leaf[worst]}")
+    loss_p = float(loss_p.detach())
+    dl = abs(float(loss_s) - loss_p)
+    need(dl <= TRAIN_LOSS_TOL * loss_p,
+         f"sharded vs plain loss {float(loss_s)} vs {loss_p}")
+
+    step = jit_train_step(cfg, opt, grid)
+    kernels.reset_launches()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        sharded, m = step(sharded, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    name = "lm mesh train"
+    launches = {name: check_launches(name, kernels.launch_counts())}
+    fwd = dict(fa.flash_attention.route_launches)
+    bwd = dict(fa.flash_attention_bwd.route_launches)
+    rows = shape[0]
+    need(fwd == {"sm90": 2 * layers * rows * TRAIN_STEPS, "cuda_core": 0}
+         and bwd == {"sm90": layers * rows * TRAIN_STEPS, "cuda_core": 0},
+         f"the sharded steps launched flash {fwd} forward and {bwd} "
+         f"backward")
+    need(all(np.isfinite(losses)) and losses[-1] < losses[0],
+         f"the sharded trainer's loss did not fall: {losses}")
+    ms = host_ms(torch, lambda: step(sharded, batch), 2)
+    plain = make_train_step(cfg, opt)
+    ms_plain = host_ms(torch, lambda: plain(state, dev_batch), 2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_dev = state_device_bytes(grid, cfg)
+    plan_arch, plan_shape = MESH_PLAN
+    os.environ["REPRO_TEST_DEVICES"] = str(plan_shape[0] * plan_shape[1])
+    plan = state_device_bytes(make_host_mesh(plan_shape[1], DEV),
+                              get_config(plan_arch))
+    level_line(f"  {name} {shape}: loss {losses}; leaf rel L2 (worst "
+               f"{worst}) {sorted(leaf.values())[-5:]}; per-device state "
+               f"bytes {per_dev}; {plan_arch} {plan_shape} {plan}; peak "
+               f"{peak:.1f} GiB")
+    del state, params, sharded, step, plain, dev_batch
+    torch.cuda.empty_cache()
+    line = (f"  mesh train {arch.split('-')[0]} {layers}L {shape[0]}x"
+            f"{shape[1]}: grad {leaf[worst]:.0e} (tol {TRAIN_GRAD_TOL:g}), "
+            f"loss {losses[0]:.2f}->{losses[-1]:.2f}, {ms:.0f} ms/step "
+            f"(plain {ms_plain:.0f}), sm90 {fwd['sm90']}/{bwd['sm90']}, "
+            f"{max(per_dev) / 2 ** 30:.2f} GiB/device; "
+            f"{plan_arch.split('-')[0]} {get_config(plan_arch).n_layers}L "
+            f"{plan_shape[0]}x{plan_shape[1]} "
+            f"{max(plan) / 2 ** 30:.1f} GiB/device")
+    return launches, fwd, bwd, line
+
+
+def mesh_pipe(torch, np):
+    """gpipe_apply: MESH_PIPE's full-width qwen3-14b layers in bf16 over a
+    "pipe" grid of logical devices, M microbatches; its output and the
+    parameters' gradients (of a seeded projection of the output) against
+    the sequential run's within the bf16 limits (CONSIST_TOL,
+    TRAIN_GRAD_TOL), flash sm90 forward and backward launched with the
+    counters reset just before and read just after. -> (launches,
+    forward routes, backward routes, text)."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.models.model as mm
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import grid_of, visible_devices
+    from repro_torch.models.attention import arange_positions
+    from repro_torch.train.pipeline import bubble_fraction, gpipe_apply
+
+    layers, stages, M, Bm, S = MESH_PIPE
+    cfg = dc.replace(get_config(LM_ARCH), n_layers=layers)
+    params = mm.trainable(mm.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), DEV))
+    os.environ["REPRO_TEST_DEVICES"] = str(stages)
+    grid = grid_of(visible_devices(DEV), (stages,), ("pipe",))
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    x = torch.randn((M, Bm, S, cfg.d_model), generator=gen, device=DEV
+                    ).to(cfg.dtype)
+    probe = torch.randn((Bm, S, cfg.d_model), generator=gen, device=DEV)
+
+    def layer_fn(lp, h):
+        return mm._layer_x(h, lp, cfg, arange_positions(Bm, S, h.device), 0,
+                           None, True, None)
+
+    def run(fn):
+        out = fn()
+        (out.float() * probe).sum().backward()
+        g = {k: p.grad for k, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        return out.detach(), g
+
+    kernels.reset_launches()
+    out_p, g_p = run(lambda: gpipe_apply(layer_fn, list(params.layers), x,
+                                         grid))
+    torch.cuda.synchronize()
+    name = "lm mesh gpipe"
+    launches = {name: check_launches(name, kernels.launch_counts())}
+    fwd = dict(fa.flash_attention.route_launches)
+    bwd = dict(fa.flash_attention_bwd.route_launches)
+    need(fwd == {"sm90": layers * M, "cuda_core": 0}
+         and bwd == {"sm90": layers * M, "cuda_core": 0},
+         f"gpipe launched flash {fwd} forward and {bwd} backward")
+
+    def sequential():
+        outs = []
+        for m in range(M):
+            h = x[m]
+            for lp in params.layers:
+                h = layer_fn(lp, h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    out_s, g_s = run(sequential)
+    rel_out = float((out_p.float() - out_s.float()).norm()
+                    / out_s.float().norm())
+    rel_g = max(float((g_p[k].float() - g_s[k].float()).norm()
+                      / g_s[k].float().norm().clamp(min=1e-30))
+                for k in g_s if g_s[k] is not None)
+    need(rel_out <= CONSIST_TOL and rel_g <= TRAIN_GRAD_TOL,
+         f"gpipe vs sequential: output {rel_out}, worst gradient {rel_g}")
+    del params, g_p, g_s, x
+    torch.cuda.empty_cache()
+    text = (f"gpipe {LM_ARCH.split('-')[0]} {layers}L/{stages} M{M}: "
+            f"{rel_out:.0e}/{rel_g:.0e} vs sequential, bubble "
+            f"{bubble_fraction(M, stages):.3f}")
+    return launches, fwd, bwd, text
+
+
+def lm_mesh(torch, np):
+    """Phase 5d: the LM meshes on logical devices of the card
+    (REPRO_TEST_DEVICES set for the phase only): EP serving of each
+    MESH_SERVE cell (mesh_serve), the sharded trainer (mesh_train) and
+    gpipe_apply (mesh_pipe). -> (launches, forward routes, backward
+    routes)."""
+    import repro_torch.kernels.flash_attention as fa
+
+    saved = os.environ.get("REPRO_TEST_DEVICES")
+    launches, fwd = {}, dict.fromkeys(fa.ROUTES, 0)
+    bwd = dict.fromkeys(fa.ROUTES, 0)
+    try:
+        for arch, layers, shape, B, S, new in MESH_SERVE:
+            os.environ["REPRO_TEST_DEVICES"] = str(shape[0] * shape[1])
+            got, routes, line = mesh_serve(torch, np, arch, layers, shape,
+                                           B, S, new)
+            launches.update(got)
+            fwd = {r: n + routes[r] for r, n in fwd.items()}
+            print(line, flush=True)
+        os.environ["REPRO_TEST_DEVICES"] = str(MESH_TRAIN[2][0]
+                                               * MESH_TRAIN[2][1])
+        got, f, b, line = mesh_train(torch, np)
+        got2, f2, b2, text = mesh_pipe(torch, np)
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TEST_DEVICES", None)
+        else:
+            os.environ["REPRO_TEST_DEVICES"] = saved
+    launches.update(got)
+    launches.update(got2)
+    fwd = {r: n + f[r] + f2[r] for r, n in fwd.items()}
+    bwd = {r: n + b[r] + b2[r] for r, n in bwd.items()}
+    print(line + "; " + text, flush=True)
+    return launches, fwd, bwd
+
+
 def _faults(rel, digits: int = 2) -> str:
     return ", ".join(f"{k} {v:.{digits}e}" for k, v in rel.items()
                      if k != "sound")
@@ -5144,8 +5573,8 @@ def main() -> int:
         summary = check_kernels(torch, np)
         check_batched_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
-        print("  ptxas, level, plan, scorer level and edge, profile, split "
-              "and batched-resize lines: on standard error", flush=True)
+        print("  ptxas, level, plan and profile lines: on standard error",
+              flush=True)
         summary.update(check_flash(torch, np))
         print("main path:", flush=True)
         launches, configs, svm = main_path(torch, np)
@@ -5178,6 +5607,11 @@ def main() -> int:
         flash_routes = {r: n + train_routes[r]
                         for r, n in flash_routes.items()}
         summary.update(bwd)
+        print("lm mesh:", flush=True)
+        mesh_launches, mesh_fwd, mesh_bwd = lm_mesh(torch, np)
+        launches.update(mesh_launches)
+        flash_routes = {r: n + mesh_fwd[r] for r, n in flash_routes.items()}
+        bwd_routes = {r: n + mesh_bwd[r] for r, n in bwd_routes.items()}
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1

@@ -29,7 +29,9 @@ the only part that must be consistent -- then writes in a daemon thread
 
 Restore takes a skeleton: a tree of tensors or of (shape, dtype) pairs
 in place of the leaves, and puts every leaf on ``device`` (CUDA unless
-the CPU is asked for; RuntimeError without a GPU).
+the CPU is asked for; RuntimeError without a GPU), or, given a tree of
+``Sharding``s, lays each leaf out on their grid as its pieces (a grid's
+tree is saved gathered, as the reference's host copy gathers it).
 """
 from __future__ import annotations
 
@@ -243,12 +245,20 @@ class CheckpointManager:
                  if s is not None]
         return max(steps) if steps else None
 
-    def restore(self, step: int, target: Any, device=None) -> Any:
+    def restore(self, step: int, target: Any, device=None,
+                shardings: Optional[Any] = None) -> Any:
         """target: tree of tensors or (shape, dtype) pairs (the
         skeleton); each leaf is read, given the skeleton's dtype, checked
-        against its shape and put on ``device``."""
+        against its shape and put on ``device``. ``shardings``: a matching
+        tree of ``sharding.rules.Sharding`` -- each leaf then comes back
+        as its pieces on that grid (elastic: any grid the shape divides
+        over, whatever grid wrote it), each block read from the mapped
+        file straight onto its device, one tensor a (block, device), so
+        no device ever holds a whole leaf it does not own."""
         from ..core.detector import resolve_device
         dev = resolve_device(device)
+        if shardings is not None:
+            flat_sh = dict(_leaves(shardings))
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "metadata.json")) as f:
             json.load(f)
@@ -257,11 +267,20 @@ class CheckpointManager:
             shape, dtype = ((tuple(leaf[0]), leaf[1]) if _is_spec(leaf)
                             else (tuple(leaf.shape), leaf.dtype))
             arr = np.load(os.path.join(path, key.replace("/", "__")
-                                       + ".npy"))
+                                       + ".npy"), mmap_mode="r")
             if tuple(arr.shape) != shape:
                 raise ValueError(f"checkpoint leaf {key!r} has shape "
                                  f"{arr.shape}, the skeleton {shape}")
-            values[key] = _from_npy(arr, dtype).to(dev)
+            if shardings is None:
+                values[key] = _from_npy(arr, dtype).to(dev)
+                continue
+            sh, made, pieces = flat_sh[key], {}, []
+            for d, sl in zip(sh.grid.flat, sh.slices(shape)):
+                block = (tuple((i.start, i.stop) for i in sl), d)
+                if block not in made:
+                    made[block] = _from_npy(arr[sl], dtype).to(d)
+                pieces.append(made[block])
+            values[key] = pieces
         return _unflatten(target, values)
 
     # --------------------------------------------------------------- gc

@@ -9,9 +9,9 @@ slow-step line) and optional DDP with int8 gradient compression.
 
 It always takes the smoke config, as the reference's launcher does, and
 seeds the weights from 0. It runs on the card unless ``--device cpu`` is
-given. ``--ddp`` splits each batch over the data grid
-(``launch/mesh.py:visible_devices``; REPRO_TEST_DEVICES=N logical
-devices). Checkpoints go through checkpoint/manager.py (the state's
+given. ``--ddp`` splits each batch over the ("data",) grid of the
+visible devices (``train_step.ddp_grid``): every card, one replica each,
+or REPRO_TEST_DEVICES=N logical devices of one. Checkpoints go through checkpoint/manager.py (the state's
 parameters by name, the optimizer state and the residuals); a run
 started again with the same ``--ckpt`` resumes from its latest step and
 skips the batches that step consumed, so its losses are those of a run

@@ -15,10 +15,15 @@ every other path differentiates as plain torch through autograd. Any
 other mask -- a window, or positions whose t repeats (an image's patches
 share one t and see each other both ways) -- takes ``_sdpa``, the
 reference's einsum attention in plain torch, under ``make_mask`` of the
-t stream (the reference's default path), or, for a window when asked,
-``banded_core``: block-banded attention whose
-band and meta-prefix partial softmaxes merge by log-sum-exp (the
-reference's ``ctx.banded``). Cross-attention (queries and keys of other
+t stream (the reference's default path), or, for a window under ``ctx.banded``,
+``banded_core``: block-banded attention whose band and meta-prefix
+partial softmaxes merge by log-sum-exp. A ``ctx`` (models/moe.py:
+``ShardingCtx``) chooses among the masked paths as the reference's does:
+``bf16_scores`` computes ``_sdpa``'s and ``banded_core``'s scores in
+bf16, ``flash_vjp`` takes ``_sdpa``'s masked full-sequence form from the
+reference's ``sdpa_flash`` (p rounded to v's dtype before the
+normalization); neither touches the flash kernel's layers, which take it
+under every profile. Cross-attention (queries and keys of other
 lengths, no RoPE, no mask) and single-token decode against the padded
 cache take ``_sdpa``; ``attention_decode_windowed`` reads only the live
 window and the meta prefix.
@@ -102,22 +107,38 @@ def make_mask(q_pos: Tensor, k_pos: Tensor, *, causal: bool = True,
 
 
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
-          cfg: ModelConfig) -> Tensor:
-    """Grouped scaled-dot-product attention, the reference's plain einsum
-    branch: scores in the input dtype, then f32 scaling, masking and
-    softmax, the weights cast to v's dtype.
+          cfg: ModelConfig, ctx=None) -> Tensor:
+    """Grouped scaled-dot-product attention, the reference's einsum
+    branches: by default scores in the input dtype, then f32 scaling,
+    masking and softmax, the weights cast to v's dtype; under
+    ``ctx.flash_vjp`` (masked, Sq > 1) ``sdpa_flash``'s forward; under
+    ``ctx.bf16_scores`` every score tensor in bf16, the exp and the sums
+    in f32.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, K, hd) with H = K * rep;
     mask (B, Sq, Sk) or broadcastable, or None (every key visible).
     """
     B, Sq, H, hd = q.shape
     K = k.shape[2]
+    if ctx is not None and ctx.flash_vjp and Sq > 1 and mask is not None:
+        return _sdpa_lse(q, k, v, mask, fill=NEG_INF)[0]
     q = q.reshape(B, Sq, K, H // K, hd)
-    scores = torch.einsum("bqkrh,bskh->bkrqs", q, k).to(torch.float32)
-    scores = scores * hd ** -0.5
-    if mask is not None:
-        scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    if ctx is not None and ctx.bf16_scores:
+        bf16 = torch.bfloat16
+        scores = torch.einsum("bqkrh,bskh->bkrqs", q, k).to(bf16)
+        scores = scores * torch.tensor(hd ** -0.5, dtype=bf16)
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :, :], -3e4)
+        m = scores.amax(-1, keepdim=True)
+        p = torch.exp((scores - m).to(torch.float32)).to(bf16)
+        l = p.sum(-1, keepdim=True, dtype=torch.float32)
+        w = (p / l.to(bf16)).to(v.dtype)
+    else:
+        scores = torch.einsum("bqkrh,bskh->bkrqs", q, k).to(torch.float32)
+        scores = scores * hd ** -0.5
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkrqs,bskh->bqkrh", w, v)
     return out.reshape(B, Sq, H, hd)
 
@@ -140,18 +161,19 @@ def attend(q: Tensor, k: Tensor, v: Tensor, causal: bool = True) -> Tensor:
 
 def self_attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
                 pos: Tensor, *, window: int = 0, n_meta: int = 0,
-                banded: bool = False, flash: bool = True) -> Tensor:
+                ctx=None, flash: bool = True) -> Tensor:
     """Causal self-attention of a sequence (q (B, S, H, hd), k and v (B,
     S, K, hd)) at the (B, S) positions ``pos`` with the layer's window:
     none and ``flash`` (``pos`` index-causal) -> the flash kernel; a
-    window -> ``banded_core`` if ``banded``; else ``_sdpa`` under
+    window -> ``banded_core`` under ``ctx.banded``; else ``_sdpa`` under
     ``make_mask`` of ``pos``."""
     if not window and flash:
         return attend(q, k, v)
-    if window and banded:
-        return banded_core(q, k, v, pos, cfg, window=window, n_meta=n_meta)
+    if window and ctx is not None and ctx.banded:
+        return banded_core(q, k, v, pos, cfg, window=window, n_meta=n_meta,
+                           ctx=ctx)
     return _sdpa(q, k, v, make_mask(pos, pos, window=window,
-                                    n_meta=n_meta), cfg)
+                                    n_meta=n_meta), cfg, ctx)
 
 
 def arange_positions(B: int, S: int, device) -> Tensor:
@@ -161,8 +183,7 @@ def arange_positions(B: int, S: int, device) -> Tensor:
 
 def attention(x: Tensor, p, cfg: ModelConfig,
               positions: Optional[Tensor] = None, *, window: int = 0,
-              n_meta: int = 0, causal: bool = True,
-              banded: bool = False) -> Tensor:
+              n_meta: int = 0, causal: bool = True, ctx=None) -> Tensor:
     """Full-sequence attention (training / prefill without cache) at
     ``positions`` ((B, S), (B, S, 3) for M-RoPE, or None: arange),
     windowed if ``window`` > 0; ``causal=False`` (the encoder) lets every
@@ -175,7 +196,7 @@ def attention(x: Tensor, p, cfg: ModelConfig,
     q, k, v = _project_qkv(x, p, cfg, positions)
     if causal:
         out = self_attend(q, k, v, cfg, t_stream(positions), window=window,
-                          n_meta=n_meta, banded=banded, flash=flash)
+                          n_meta=n_meta, ctx=ctx, flash=flash)
     else:
         out = attend(q, k, v, causal=False)
     return torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), p.wo)
@@ -231,22 +252,30 @@ def _decode_qkv(x: Tensor, p, cfg: ModelConfig, cache: Dict[str, Tensor],
     return q, k, v, idx
 
 
-def _sdpa_lse(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]
+def _sdpa_lse(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
+              bf16: bool = False, fill: float = -3e4
               ) -> Tuple[Tensor, Tensor]:
     """SDPA returning (normalized out (B, Sq, H, hd), lse (B, Sq, H)) for
-    split-softmax merging, the reference's f32 branch: f32 scores of the
-    inputs' exact products, masked to -3e4, p = exp(s - max) rounded to
-    v's dtype before the P.V product, its f32 sum the normalizer."""
+    split-softmax merging: scores of the inputs' exact products in f32
+    (in bf16 where ``bf16``, the reference's bf16 branch), masked to
+    ``fill``, p = exp(s - max) in f32 rounded to v's dtype before the P.V
+    product, its f32 sum the normalizer. With ``fill`` -1e9 its output is
+    the reference's ``sdpa_flash`` forward."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     q5 = q.reshape(B, Sq, K, H // K, hd)
-    scores = torch.einsum("bqkrh,bskh->bkrqs", q5.to(torch.float32),
-                          k.to(torch.float32))
-    scores = scores * hd ** -0.5
+    pt = torch.bfloat16 if bf16 else torch.float32
+    if bf16:
+        scores = torch.einsum("bqkrh,bskh->bkrqs", q5, k).to(pt)
+    else:
+        scores = torch.einsum("bqkrh,bskh->bkrqs", q5.to(pt), k.to(pt))
+    scores = scores * (torch.tensor(hd ** -0.5, dtype=pt) if bf16
+                       else hd ** -0.5)
     if mask is not None:
-        scores = scores.masked_fill(~mask[:, None, None, :, :], -3e4)
-    m = scores.amax(-1)                                     # (B,K,rep,Sq)
-    p = torch.exp(scores - m[..., None]).to(v.dtype)
+        scores = scores.masked_fill(~mask[:, None, None, :, :], fill)
+    m = scores.amax(-1).to(torch.float32)                   # (B,K,rep,Sq)
+    p = torch.exp((scores - m[..., None].to(pt)).to(torch.float32)
+                  ).to(v.dtype)
     l = p.sum(-1, dtype=torch.float32)
     out = torch.einsum("bkrqs,bskh->bqkrh", p, v).reshape(B, Sq, H, hd)
     lc = torch.clamp(l, min=1e-30)
@@ -257,7 +286,7 @@ def _sdpa_lse(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]
 
 
 def banded_attention(x: Tensor, p, cfg: ModelConfig, *, window: int,
-                     n_meta: int = 0) -> Tensor:
+                     n_meta: int = 0, ctx=None) -> Tensor:
     """Block-banded sliding-window attention of x (B, S, D) at arange
     positions: each block of ``window`` queries attends to the key band
     [previous block; its block] and, apart, to the meta prefix; the two
@@ -266,15 +295,18 @@ def banded_attention(x: Tensor, p, cfg: ModelConfig, *, window: int,
     B, S, D = x.shape
     pos = arange_positions(B, S, x.device)
     q, k, v = _project_qkv(x, p, cfg, pos)
-    out = banded_core(q, k, v, pos, cfg, window=window, n_meta=n_meta)
+    out = banded_core(q, k, v, pos, cfg, window=window, n_meta=n_meta,
+                      ctx=ctx)
     return torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), p.wo)
 
 
 def banded_core(q: Tensor, k: Tensor, v: Tensor, pos1d: Tensor,
-                cfg: ModelConfig, *, window: int, n_meta: int = 0
-                ) -> Tensor:
+                cfg: ModelConfig, *, window: int, n_meta: int = 0,
+                ctx=None) -> Tensor:
     """Banded attention on projected q (B, S, H, hd), k and v (B, S, K,
-    hd) at positions ``pos1d`` (B, S) -> (B, S, H, hd)."""
+    hd) at positions ``pos1d`` (B, S) -> (B, S, H, hd); the partial
+    softmaxes' scores in bf16 under ``ctx.bf16_scores``."""
+    bf16 = bool(ctx is not None and ctx.bf16_scores)
     B, S, H, hd = q.shape
     bq = window
     nblk = -(-S // bq)
@@ -302,7 +334,7 @@ def banded_core(q: Tensor, k: Tensor, v: Tensor, pos1d: Tensor,
     mask = make_mask(qp, kp, window=window)
     if n_meta:
         mask = mask & (kp >= n_meta)[:, None, :]   # meta: its own pass
-    out_b, lse_b = _sdpa_lse(qb, kb, vb, mask)
+    out_b, lse_b = _sdpa_lse(qb, kb, vb, mask, bf16)
     out_b = out_b.reshape(B, Sp, H, hd)[:, :S]
     lse_b = lse_b.reshape(B, Sp, H)[:, :S]
     if not n_meta:
@@ -312,7 +344,7 @@ def banded_core(q: Tensor, k: Tensor, v: Tensor, pos1d: Tensor,
     mask_m = (torch.arange(n_meta, device=q.device)[None, None, :]
               <= pos1d[:, :S, None])
     out_m, lse_m = _sdpa_lse(q[:, :S], k[:, :n_meta], v[:, :n_meta],
-                             mask_m)
+                             mask_m, bf16)
     mx = torch.maximum(lse_b, lse_m)
     wb = torch.exp(lse_b - mx)
     wm = torch.exp(lse_m - mx)

@@ -32,10 +32,21 @@ whose backward is the hand-written backward kernel.
 
 The reference's default path computes both the full and the windowed
 attention of every layer of a windowed model, then selects one; the loop
-here computes only the layer's own (``layer_windows``). Its banded
-prefill (``ctx.banded``) is the ``banded`` argument of ``prefill`` and
-``forward``. ``batch["positions"]`` ((B, S), or (B, S, 3) for M-RoPE)
-moves to the card once; its host copy decides whether the causal mask is
+here computes only the layer's own (``layer_windows``).
+
+``forward``, ``train_forward``, ``loss_fn``, ``prefill`` and
+``decode_step`` take the reference's ``ctx`` (models/moe.py:
+``ShardingCtx``, from sharding/rules.py:``make_ctx``): the MoE FFN takes
+the grid's expert-parallel paths (``moe.moe_path``), and the profile's
+attention choices apply (``ctx.banded``: windowed layers through
+``banded_core``; ``bf16_scores``, ``flash_vjp``: models/attention.py).
+Everything else runs on the parameters' device; the reference's layout
+constraints have no counterpart. A layer whose parameters are held as
+shards (train/train_step.py's sharded step) gathers them as it runs, and
+again in the recompute of the backward.
+
+``batch["positions"]`` ((B, S), or (B, S, 3) for M-RoPE) moves to the
+card once; its host copy decides whether the causal mask is
 index-causal, and so whether prefill attention takes the flash kernel
 (``attention.index_causal``). Whisper's encoder runs once per
 ``encode``; its states feed every decoder layer's cross-attention, whose
@@ -301,7 +312,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     the whole model is ever held."""
     from ..core.detector import resolve_device
     check_supported(cfg)
-    dev = resolve_device(device)
+    return CausalLM(cfg, _init_tree(cfg, generator, resolve_device(device)))
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tensor]:
+    """``init_params``' parameters by name as meta tensors: their shapes
+    and dtypes, nothing allocated (sharding plans of full-size models)."""
+    check_supported(cfg)
+    tree = _init_tree(cfg, torch.Generator(), torch.device("meta"))
+    return dict(CausalLM(cfg, tree).named_parameters())
+
+
+def _init_tree(cfg: ModelConfig, generator: torch.Generator, dev
+               ) -> Dict[str, object]:
     D, V = cfg.d_model, cfg.vocab
     tree: Dict[str, object] = {
         "embed": _dense(generator, (V, D), cfg, dev, scale=0.02),
@@ -317,7 +340,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.meta_tokens:
         tree["meta"] = _dense(generator, (cfg.meta_tokens, D), cfg, dev,
                               scale=0.02)
-    return CausalLM(cfg, tree)
+    return tree
 
 
 # =====================================================================
@@ -354,7 +377,7 @@ def _mix(outs: List[Tensor]) -> Tensor:
 
 
 def _mixer(h: Tensor, lp, cfg: ModelConfig, pos: Tensor, window: int,
-           banded: bool, flash: bool
+           ctx, flash: bool
            ) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]],
                       Optional[Dict[str, Tensor]]]:
     """The token mixer of one layer over a whole sequence at positions
@@ -366,7 +389,7 @@ def _mixer(h: Tensor, lp, cfg: ModelConfig, pos: Tensor, window: int,
     if cfg.has_attention:
         q, k, v = _project_qkv(h, lp.attn, cfg, pos)
         a = self_attend(q, k, v, cfg, t_stream(pos), window=window,
-                        n_meta=cfg.meta_tokens, banded=banded, flash=flash)
+                        n_meta=cfg.meta_tokens, ctx=ctx, flash=flash)
         a = torch.matmul(a.reshape(B, S, cfg.n_heads * cfg.hd), lp.attn.wo)
         if cfg.family == "hybrid":
             a = norm(a, lp.bn_attn, cfg.norm, cfg.norm_eps)
@@ -380,14 +403,14 @@ def _mixer(h: Tensor, lp, cfg: ModelConfig, pos: Tensor, window: int,
     return _mix(outs), kv, ssm_cache
 
 
-def _ffn(x: Tensor, lp, cfg: ModelConfig) -> Tensor:
+def _ffn(x: Tensor, lp, cfg: ModelConfig, ctx=None) -> Tensor:
     if cfg.is_moe:
-        return moe_ffn(x, lp.moe, cfg)
+        return moe_ffn(x, lp.moe, cfg, ctx)
     return mlp(x, lp.mlp, cfg.mlp)
 
 
 def _cross_and_ffn(x: Tensor, lp, cfg: ModelConfig,
-                   enc: Optional[Tensor]) -> Tensor:
+                   enc: Optional[Tensor], ctx=None) -> Tensor:
     """The rest of a decoder layer after its mixer's residual: the
     cross-attention over the encoder states ``enc`` where given, then the
     FFN of the second norm (mamba2 has none), each a residual."""
@@ -396,25 +419,40 @@ def _cross_and_ffn(x: Tensor, lp, cfg: ModelConfig,
         x = x + cross_attention(h, enc, lp.xattn, cfg)
     if cfg.family == "ssm":
         return x
-    return x + _ffn(norm(x, lp.ln2, cfg.norm, cfg.norm_eps), lp, cfg)
+    return x + _ffn(norm(x, lp.ln2, cfg.norm, cfg.norm_eps), lp, cfg, ctx)
 
 
 def _layer(x: Tensor, lp, cfg: ModelConfig, pos: Tensor, window: int,
-           banded: bool, flash: bool, enc: Optional[Tensor]):
+           ctx, flash: bool, enc: Optional[Tensor]):
     """One decoder layer over a whole sequence -> (x, (k, v) or None, the
     SSM cache or None)."""
     h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
-    out, kv, ssm_cache = _mixer(h, lp, cfg, pos, window, banded, flash)
-    return _cross_and_ffn(x + out, lp, cfg, enc), kv, ssm_cache
+    out, kv, ssm_cache = _mixer(h, lp, cfg, pos, window, ctx, flash)
+    return _cross_and_ffn(x + out, lp, cfg, enc, ctx), kv, ssm_cache
 
 
-def _layer_x(*args) -> Tensor:
-    return _layer(*args)[0]
+class ShardedLeaves:
+    """A layer's parameters held as shards (train/train_step.py's sharded
+    step): ``gather()`` reads them whole onto the computing device."""
+
+    def gather(self):
+        raise NotImplementedError
+
+
+def _gathered(lp):
+    """A layer's parameters: ``lp`` itself, or, where it is held as
+    shards, gathered onto the computing device now."""
+    return lp.gather() if isinstance(lp, ShardedLeaves) else lp
+
+
+def _layer_x(x: Tensor, lp, *args) -> Tensor:
+    return _layer(x, _gathered(lp), *args)[0]
 
 
 def _enc_layer(x: Tensor, lp, cfg: ModelConfig) -> Tensor:
     """One encoder layer: attention with every key visible (flash,
     ``causal=False``), then the MLP, each after its norm."""
+    lp = _gathered(lp)
     h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
     x = x + attention(h, lp.attn, cfg, causal=False)
     h = norm(x, lp.ln2, cfg.norm, cfg.norm_eps)
@@ -424,9 +462,14 @@ def _enc_layer(x: Tensor, lp, cfg: ModelConfig) -> Tensor:
 def _remat(fn, *args) -> Tensor:
     """``fn(*args)``, recomputed in the backward pass where grad is
     enabled (the reference's per-layer ``jax.checkpoint``): only the
-    layer's input is kept for the backward."""
+    layer's input is kept for the backward. A layer held as shards may
+    span several cards; it takes the reentrant form, which recomputes it
+    once, in the backward of its output, before the inner backward fans
+    out over the cards (the other form recomputes from whichever card's
+    node asks first, and two cards' engine threads can ask at once)."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        reentrant = any(isinstance(a, ShardedLeaves) for a in args)
+        return checkpoint(fn, *args, use_reentrant=reentrant)
     return fn(*args)
 
 
@@ -531,7 +574,7 @@ def encode(params: CausalLM, enc_input, cfg: ModelConfig) -> Tensor:
 
 
 def train_forward(params: CausalLM, batch: Dict[str, Tensor],
-                  cfg: ModelConfig, banded: bool = False) -> Tensor:
+                  cfg: ModelConfig, ctx=None) -> Tensor:
     """The reference's differentiable forward (repro/models/model.py:315)
     -> logits (B, S, V), the batch as ``forward`` takes it, with no
     inference mode: where grad is enabled every decoder and encoder layer
@@ -541,34 +584,41 @@ def train_forward(params: CausalLM, batch: Dict[str, Tensor],
     x, pos, flash = _embed_prompt(params, batch, cfg)
     enc = _enc_states(params, batch, cfg, None)
     for lp, window in zip(params.layers, layer_windows(cfg)):
-        x = _remat(_layer_x, x, lp, cfg, pos, window, banded, flash, enc)
+        x = _remat(_layer_x, x, lp, cfg, pos, window, ctx, flash, enc)
     return logits_from_hidden(params, x[:, cfg.meta_tokens:], cfg)
 
 
 def forward(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
-            banded: bool = False) -> Tensor:
+            ctx=None) -> Tensor:
     """Eval forward -> logits (B, S, V). batch: tokens (B, S) [+
     positions (B, S) or (B, S, 3) for M-RoPE] [+ enc_input (B, T_enc,
-    D) for the encoder-decoder]. ``banded`` runs windowed layers through
-    ``banded_core``."""
+    D) for the encoder-decoder]."""
     with torch.inference_mode():
-        return train_forward(params, batch, cfg, banded)
+        return train_forward(params, batch, cfg, ctx)
 
 
-def loss_fn(params: CausalLM, batch: Dict[str, Tensor],
-            cfg: ModelConfig) -> Tensor:
-    """Next-token cross-entropy of ``train_forward``'s logits in f32
-    against ``batch["labels"]`` (B, S), labels of -100 (any negative)
-    ignored: the mean of logsumexp - the gold logit over the valid
-    positions (divided by at least 1), as repro/models/model.py:347."""
-    logits = train_forward(params, batch, cfg).to(torch.float32)
+def nll_sum(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
+            ctx=None) -> Tuple[Tensor, Tensor]:
+    """The next-token cross-entropy's numerator and count: the sum over
+    the valid positions of logsumexp - the gold logit of
+    ``train_forward``'s logits in f32, and how many positions are valid
+    (labels of -100, any negative, ignored)."""
+    logits = train_forward(params, batch, cfg, ctx).to(torch.float32)
     labels = torch.as_tensor(batch["labels"]).to(logits.device)
     valid = labels >= 0
     labels_c = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
-    nll = (logz - gold) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def loss_fn(params: CausalLM, batch: Dict[str, Tensor],
+            cfg: ModelConfig, ctx=None) -> Tensor:
+    """Next-token cross-entropy against ``batch["labels"]`` (B, S): the
+    mean over the valid positions (divided by at least 1), as
+    repro/models/model.py:347."""
+    nll, count = nll_sum(params, batch, cfg, ctx)
+    return nll / torch.clamp(count, min=1)
 
 
 # =====================================================================
@@ -610,7 +660,8 @@ def decoder_pe(idx: int, d: int, device) -> Tensor:
 
 def _decode_layer(x: Tensor, lp, cfg: ModelConfig, cache_l: Cache,
                   positions: Tensor, window: int,
-                  enc: Optional[Tensor] = None) -> Tuple[Tensor, Cache]:
+                  enc: Optional[Tensor] = None, ctx=None
+                  ) -> Tuple[Tensor, Cache]:
     """One block for one token; ``cache_l`` holds this layer's (B, Smax,
     K, hd) k and v (updated in place), its SSM state and conv, and the
     shared idx; ``enc`` the encoder states its cross-attention reads. ->
@@ -628,11 +679,11 @@ def _decode_layer(x: Tensor, lp, cfg: ModelConfig, cache_l: Cache,
         if cfg.family == "hybrid":
             s = norm(s, lp.bn_ssm, cfg.norm, cfg.norm_eps)
         outs.append(s)
-    return _cross_and_ffn(x + _mix(outs), lp, cfg, enc), new
+    return _cross_and_ffn(x + _mix(outs), lp, cfg, enc, ctx), new
 
 
 def decode_step(params: CausalLM, token: Tensor, cache: Cache,
-                cfg: ModelConfig, enc: Optional[Tensor] = None
+                cfg: ModelConfig, enc: Optional[Tensor] = None, ctx=None
                 ) -> Tuple[Tensor, Cache]:
     """One decode step. token: (B, 1) -> (logits (B, 1, V), cache with
     idx + 1). The token sits at position idx (on all three M-RoPE
@@ -656,7 +707,7 @@ def decode_step(params: CausalLM, token: Tensor, cache: Cache,
                                               layer_windows(cfg))):
             cache_l = {t: cache[t][li] for t in tensors}
             x, new = _decode_layer(x, lp, cfg, {**cache_l, "idx": idx},
-                                   positions, window, enc)
+                                   positions, window, enc, ctx)
             for t, value in new.items():
                 cache_l[t].copy_(value)
         logits = logits_from_hidden(params, x, cfg)
@@ -664,15 +715,14 @@ def decode_step(params: CausalLM, token: Tensor, cache: Cache,
 
 
 def prefill(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
-            max_len: int, banded: bool = False,
+            max_len: int, ctx=None,
             enc: Optional[Tensor] = None) -> Tuple[Tensor, Cache]:
     """Prefill: run the whole prompt (batch: tokens (B, S) [+ positions
     (B, S) or (B, S, 3) for M-RoPE] [+ enc_input for the
     encoder-decoder]) after the meta tokens, build the cache, return the
     last position's logits (B, 1, V). Attention without a window whose
-    mask is index-causal takes the flash kernel; ``banded`` runs windowed
-    layers through ``banded_core``. ``enc``: the encoder states, if
-    already computed (then ``enc_input`` is not read)."""
+    mask is index-causal takes the flash kernel. ``enc``: the encoder
+    states, if already computed (then ``enc_input`` is not read)."""
     check_supported(cfg)
     with torch.inference_mode():
         S = batch["tokens"].shape[1]
@@ -685,7 +735,7 @@ def prefill(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
         cache = init_cache(cfg, B, max_len, x.device)
         for li, (lp, window) in enumerate(zip(params.layers,
                                               layer_windows(cfg))):
-            x, kv, ssm_cache = _layer(x, lp, cfg, pos, window, banded, flash,
+            x, kv, ssm_cache = _layer(x, lp, cfg, pos, window, ctx, flash,
                                       enc)
             if kv is not None:
                 cache["k"][li, :, :Sm] = kv[0]

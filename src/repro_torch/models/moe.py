@@ -1,14 +1,39 @@
-"""Mixture-of-Experts FFN (port of repro/models/moe.py, its local path).
+"""Mixture-of-Experts FFN with expert parallelism (port of
+repro/models/moe.py).
 
 Top-k routing into per-expert capacity buffers with token dropping (the
 GShard/Switch discipline), a SwiGLU per expert as batched matmuls over
 every expert's buffer, and the weighted combine back to token order;
-llama4's always-on shared expert is added on top.
+llama4's always-on shared expert is added on top. Three paths, one
+routing, chosen by ``moe_ffn`` under the reference's conditions:
 
-The reference's expert-parallel paths (``ShardingCtx``, ``_moe_ep_a2a``
-and ``_moe_ep_replicated``) come with the LM meshes of a later slice:
-``moe_ffn`` takes no ``ctx`` and always runs the local path, which is
-the reference's path without a mesh.
+  * local -- no ``ctx``: capacity buffers over the whole batch on one
+    device.
+  * EP all-to-all (``_moe_ep_a2a``) -- tokens split over (dp x ep): B
+    over the dp axes (row-major), S over "model"; each shard routes its
+    own T_l tokens at its own ``_capacity(T_l)`` (per-shard capacity is
+    what changes which tokens drop), sends expert group g's (E_l, C, D)
+    rows to model index g, where they stand source shard by source shard
+    (the reference's untiled all_to_all plus swapaxes); each EP shard
+    runs its E_l experts on its (E_l, ep * C, D) rows on its device; the
+    rows go back and each shard combines in slot order. Taken when B
+    divides over dp, S over ep and the sequence is sharded (prefill,
+    training).
+  * EP replicated (``_moe_ep_replicated``) -- decode: each dp row's tokens
+    go to every EP shard, which routes them all, runs only its local
+    experts and combines; the shards' outputs are summed in shard order
+    (the reference's psum).
+
+The collectives are explicit copies between the grid's devices
+(``ShardingCtx.grid``; one card repeated under REPRO_TEST_DEVICES, where
+a copy is a no-op view) and sums in a fixed order, so a run is
+deterministic and the same on logical devices and on cards. The EP
+paths read the router and expert group g's weights on the devices of
+model index g (``_expert_groups``): laid out there from the layer's (E,
+D, F) leaves the first time a grid runs them and kept on the layer for
+the next call while those leaves are unchanged (a served model's
+experts live on their cards); a trainer's forward, where autograd
+records the copies, lays them out anew each call.
 
 Order and determinism, where the card would otherwise differ from the
 CPU and the reference:
@@ -28,8 +53,9 @@ overflowing expert drops the latest tokens first.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +64,109 @@ from .configs import ModelConfig
 from .layers import swiglu
 
 Tensor = torch.Tensor
+
+#: moe_ffn calls by path since the last reset_paths(), as chip_smoke.py
+#: and the tests read which path a run took
+path_counts: Dict[str, int] = {"local": 0, "a2a": 0, "replicated": 0}
+
+
+def reset_paths() -> None:
+    for k in path_counts:
+        path_counts[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    """How the model is laid out on a device grid (sharding/rules.py:
+    ``make_ctx``). The reference's activation constraints (``act3``,
+    ``act_q``, ``act_kv_gathered``, ``act_scores``, ``act_logits``) have no
+    counterpart: the port computes each shard explicitly, so no layout is
+    left for a compiler to choose. ``bf16_scores``, ``banded`` and
+    ``flash_vjp`` select attention's masked paths
+    (models/attention.py)."""
+    grid: object                     # launch/mesh.py:DeviceGrid
+    dp_axes: Tuple[str, ...]         # batch axes, e.g. ('pod', 'data')
+    tp_axis: str = "model"           # tensor/expert-parallel axis
+    seq_sharded: bool = True         # shard sequence over tp_axis too
+    bf16_scores: bool = False        # half-width score tensors
+    banded: bool = False             # banded sliding-window attention
+    flash_vjp: bool = False          # sdpa_flash's forward
+
+    @property
+    def ep_size(self) -> int:
+        return self.grid.axis_sizes[self.tp_axis]
+
+    @property
+    def seq_axis(self):
+        return self.tp_axis if self.seq_sharded else None
+
+    @property
+    def dp_size(self) -> int:
+        n = 1
+        for a in self.dp_axes:
+            n *= self.grid.axis_sizes[a]
+        return n
+
+    def row_of(self, index) -> int:
+        """The dp row of a grid index: row-major over the dp axes."""
+        coord = dict(zip(self.grid.axis_names, index))
+        r = 0
+        for a in self.dp_axes:
+            r = r * self.grid.axis_sizes[a] + coord[a]
+        return r
+
+    def shard_devices(self) -> List[List[torch.device]]:
+        """devices[r][g]: the device of dp row r (row-major over the dp
+        axes) and model index g. Raises ValueError on a grid with other
+        axes."""
+        other = set(self.grid.axis_names) - set(self.dp_axes) \
+            - {self.tp_axis}
+        if other:
+            raise ValueError(f"an EP grid has only dp axes and "
+                             f"{self.tp_axis!r}; this one has {sorted(other)}")
+        out = [[None] * self.ep_size for _ in range(self.dp_size)]
+        tp = self.grid.axis_names.index(self.tp_axis)
+        for index in self.grid.indices():
+            out[self.row_of(index)][index[tp]] = self.grid.device(index)
+        return out
+
+    def rows(self) -> List["ShardingCtx"]:
+        """One context a dp row: the grid's devices of that row, every dp
+        axis of size 1 (the row's shards of the EP paths)."""
+        from ..launch.mesh import grid_of
+        shape = tuple(1 if a in self.dp_axes else n
+                      for a, n in zip(self.grid.axis_names, self.grid.shape))
+        rows: List[list] = [[] for _ in range(self.dp_size)]
+        for index in self.grid.indices():
+            rows[self.row_of(index)].append(self.grid.device(index))
+        return [dataclasses.replace(self, grid=grid_of(
+            devs, shape, self.grid.axis_names)) for devs in rows]
+
+
+def _expert_groups(p, ctx: ShardingCtx
+                   ) -> Dict[Tuple[int, torch.device], Tuple[Tensor, ...]]:
+    """{(g, device): (router, w_gate, w_up, w_down)}: the router and
+    expert group g's weights on each device of model index g (replicated
+    over the dp rows); views on logical devices of one card. Kept on
+    ``p`` (``p.ep_layout``) while the grid and the leaves (their storage
+    and in-place version) stay the same, unless autograd records the
+    copies, whose graph belongs to one call."""
+    ws = (p.router, p.w_gate, p.w_up, p.w_down)
+    devs = ctx.shard_devices()
+    key = (tuple(map(tuple, devs)),
+           tuple((w.data_ptr(), -1 if w.is_inference() else w._version)
+                 for w in ws))
+    recorded = torch.is_grad_enabled() and any(w.requires_grad for w in ws)
+    kept = getattr(p, "ep_layout", None)
+    if not recorded and kept is not None and kept[0] == key:
+        return kept[1]
+    E_l = p.w_gate.shape[0] // ctx.ep_size
+    out = {(g, d): (p.router.to(d),) + tuple(
+               w[g * E_l:(g + 1) * E_l].to(d) for w in ws[1:])
+           for row in devs for g, d in enumerate(row)}
+    if not recorded:
+        p.ep_layout = (key, out)
+    return out
 
 
 def _top_k(gates: Tensor, k: int) -> Tuple[Tensor, Tensor]:
@@ -106,22 +235,105 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
 
 def _moe_local(x: Tensor, p, cfg: ModelConfig) -> Tensor:
     B, S, D = x.shape
-    T = B * S
-    xf = x.reshape(T, D)
-    gates = torch.softmax(torch.matmul(xf, p.router).to(torch.float32), -1)
-    C = _capacity(T, cfg)
-    buf, _, slot, w_flat = _route(xf, gates, cfg, C)
+    buf, slots, w_flat = _shard_route(x.reshape(B * S, D), p.router, cfg)
     out_buf = _expert_ffn(buf, p.w_gate, p.w_up, p.w_down)
-    e_flat = _top_k(gates, cfg.top_k)[1].reshape(-1)
-    y = _combine(out_buf, (e_flat, slot), w_flat, T)
-    return y.reshape(B, S, D)
+    return _combine(out_buf, slots, w_flat, B * S).reshape(B, S, D)
 
 
-def moe_ffn(x: Tensor, p, cfg: ModelConfig) -> Tensor:
+def _shard_route(xl: Tensor, router: Tensor, cfg: ModelConfig):
+    """Route one shard's (T_l, D) tokens (the whole batch on the local
+    path) at its own capacity -> (buf, (e_flat, slot), w_flat)."""
+    gates = torch.softmax(torch.matmul(xl, router).to(torch.float32), -1)
+    buf, _, slot, w_flat = _route(xl, gates, cfg, _capacity(len(xl), cfg))
+    return buf, (_top_k(gates, cfg.top_k)[1].reshape(-1), slot), w_flat
+
+
+def _moe_ep_a2a(x: Tensor, p, cfg: ModelConfig, ctx: ShardingCtx) -> Tensor:
+    """Tokens split over (dp x ep), dispatched to and from the expert
+    groups by copies (the reference's two all_to_alls)."""
+    ep, dp = ctx.ep_size, ctx.dp_size
+    E_l = cfg.n_experts // ep
+    B, S, D = x.shape
+    Bl, Sl = B // dp, S // ep
+    groups = _expert_groups(p, ctx)
+    rows = []
+    for r, row in enumerate(ctx.shard_devices()):
+        routed = []
+        for s, dev in enumerate(row):
+            xl = x[r * Bl:(r + 1) * Bl, s * Sl:(s + 1) * Sl].to(dev)
+            router = groups[(s, dev)][0]
+            routed.append(_shard_route(xl.reshape(Bl * Sl, D), router, cfg))
+        C = routed[0][0].shape[1]
+        back = []
+        for g, dev in enumerate(row):
+            # (ep_src, E_l, C, D) -> (E_l, ep_src * C, D)
+            work = torch.stack([buf[g * E_l:(g + 1) * E_l].to(dev)
+                                for buf, _, _ in routed], 1)
+            out = _expert_ffn(work.reshape(E_l, ep * C, D),
+                              *groups[(g, dev)][1:])
+            back.append(out.view(E_l, ep, C, D))
+        ys = []
+        for s, dev in enumerate(row):
+            out_buf = torch.cat([b[:, s].to(dev) for b in back], 0)
+            _, slots, w_flat = routed[s]
+            ys.append(_combine(out_buf, slots, w_flat, Bl * Sl)
+                      .view(Bl, Sl, D).to(x.device))
+        rows.append(torch.cat(ys, 1))
+    return torch.cat(rows, 0)
+
+
+def _moe_ep_replicated(x: Tensor, p, cfg: ModelConfig,
+                       ctx: ShardingCtx) -> Tensor:
+    """Decode: each dp row's tokens on every EP shard, which computes only
+    its local experts; the shards' outputs summed in shard order."""
+    ep, dp = ctx.ep_size, ctx.dp_size
+    E_l = cfg.n_experts // ep
+    B, S, D = x.shape
+    Bl = B // dp
+    groups = _expert_groups(p, ctx)
+    rows = []
+    for r, row in enumerate(ctx.shard_devices()):
+        y = None
+        for g, dev in enumerate(row):
+            router, *ws = groups[(g, dev)]
+            xl = x[r * Bl:(r + 1) * Bl].to(dev).reshape(Bl * S, D)
+            buf, slots, w_flat = _shard_route(xl, router, cfg)
+            out_buf = torch.zeros_like(buf)
+            out_buf[g * E_l:(g + 1) * E_l] = _expert_ffn(
+                buf[g * E_l:(g + 1) * E_l], *ws)
+            yg = _combine(out_buf, slots, w_flat, Bl * S).to(row[0])
+            y = yg if y is None else y + yg
+        rows.append(y.view(Bl, S, D).to(x.device))
+    return torch.cat(rows, 0)
+
+
+def moe_path(B: int, S: int, cfg: ModelConfig,
+             ctx: Optional[ShardingCtx]) -> str:
+    """The path ``moe_ffn`` takes for a (B, S) batch: "local", "a2a" or
+    "replicated", under the reference's conditions."""
+    if ctx is None:
+        return "local"
+    ep = ctx.ep_size
+    if cfg.n_experts % ep or B % ctx.dp_size:
+        return "local"
+    return "a2a" if ctx.seq_sharded and S % ep == 0 else "replicated"
+
+
+def moe_ffn(x: Tensor, p, cfg: ModelConfig,
+            ctx: Optional[ShardingCtx] = None) -> Tensor:
     """MoE FFN of x (B, S, D), with llama4's shared expert when the
     config has one. ``p`` holds ``router`` (D, E), ``w_gate``/``w_up``
-    (E, D, F), ``w_down`` (E, F, D) and, shared, ``shared`` (an MLP)."""
-    y = _moe_local(x, p, cfg)
+    (E, D, F), ``w_down`` (E, F, D) and, shared, ``shared`` (an MLP).
+    ``ctx``: the grid's EP paths (``moe_path``); the result is on x's
+    device."""
+    path = moe_path(x.shape[0], x.shape[1], cfg, ctx)
+    path_counts[path] += 1
+    if path == "a2a":
+        y = _moe_ep_a2a(x, p, cfg, ctx)
+    elif path == "replicated":
+        y = _moe_ep_replicated(x, p, cfg, ctx)
+    else:
+        y = _moe_local(x, p, cfg)
     if cfg.shared_expert:
         y = y + swiglu(x, p.shared)
     return y

@@ -7,7 +7,9 @@ scale per block of 2,048 values, keeps the quantization error as its new
 residual, and the mean is taken over every shard's dequantized payload.
 The reference's shards are the devices of a shard_map axis (all-gather of
 payloads and scales); the port's are the data-parallel shards of
-``train_step.make_ddp_train_step``, held as lists, one entry a shard.
+``train_step.make_ddp_train_step``, held as lists, one entry a shard:
+``quantize_shards`` on each shard's device, ``mean_of_payloads`` on each
+device that needs the mean.
 """
 from __future__ import annotations
 
@@ -35,39 +37,37 @@ def _dequantize(q: Tensor, scale: Tensor, n: int) -> Tensor:
     return (q.to(torch.float32) * scale[:, None]).reshape(-1)[:n]
 
 
-def compressed_mean(xs: Sequence[Tensor],
+def quantize_shards(xs: Sequence[Tensor],
                     residuals: Optional[Sequence[Tensor]] = None
-                    ) -> Tuple[Tensor, List[Tensor]]:
-    """The mean of one tensor per shard (one shape), each quantized to
-    int8 after adding its residual -> (the mean in the tensors' dtype,
-    each shard's new f32 residual: its quantization error)."""
-    shape, dtype = xs[0].shape, xs[0].dtype
-    tot, errs = None, []
+                    ) -> Tuple[List[Tuple[Tensor, Tensor]], List[Tensor]]:
+    """Each shard's tensor plus its residual quantized on the shard's own
+    device -> (its (int8 payload, f32 scales), its new f32 residual: the
+    quantization error)."""
+    payloads, errs = [], []
     for i, x in enumerate(xs):
         flat = x.to(torch.float32).reshape(-1)
         if residuals is not None:
             flat = flat + residuals[i].reshape(-1)
         q, scale = _quantize(flat)
-        deq = _dequantize(q, scale, flat.shape[0])
-        errs.append((flat - deq).reshape(shape))
+        errs.append((flat - _dequantize(q, scale, flat.shape[0]))
+                    .reshape(x.shape))
+        payloads.append((q, scale))
+    return payloads, errs
+
+
+def mean_of_payloads(payloads: Sequence[Tuple[Tensor, Tensor]], shape,
+                     dtype: torch.dtype, device) -> Tensor:
+    """The mean of the shards' dequantized payloads, added on ``device``
+    in shard order (so every device that takes it gets the same bits),
+    in ``dtype``."""
+    n = 1
+    for d in shape:
+        n *= d
+    tot = None
+    for q, scale in payloads:
+        deq = _dequantize(q.to(device), scale.to(device), n)
         tot = deq if tot is None else tot + deq
-    mean = tot / len(xs)
-    return mean.reshape(shape).to(dtype), errs
-
-
-def compress_tree_mean(grads: Sequence[Dict[str, Tensor]],
-                       residuals: Optional[Sequence[Dict[str, Tensor]]]
-                       = None
-                       ) -> Tuple[Dict[str, Tensor], List[Dict[str, Tensor]]]:
-    """``compressed_mean`` leaf by leaf over the shards' gradient dicts
-    -> (the mean dict, one residual dict a shard)."""
-    out, errs = {}, [dict() for _ in grads]
-    for name in grads[0]:
-        res = None if residuals is None else [r[name] for r in residuals]
-        out[name], e = compressed_mean([g[name] for g in grads], res)
-        for d, x in zip(errs, e):
-            d[name] = x
-    return out, errs
+    return (tot / len(payloads)).reshape(shape).to(dtype)
 
 
 def init_residuals(params: Dict[str, Tensor]) -> Dict[str, Tensor]:

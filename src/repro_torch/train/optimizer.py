@@ -68,11 +68,12 @@ def init_opt_state(params: Named) -> Dict[str, object]:
 
 
 def global_norm(tensors: Iterable[Tensor]) -> Tensor:
-    """sqrt of the sum of every element's square, in f32."""
+    """sqrt of the sum of every element's square, in f32, on the first
+    tensor's device (the others' sums added there in order)."""
     total = None
     for g in tensors:
         sq = g.to(torch.float32).square().sum()
-        total = sq if total is None else total + sq
+        total = sq if total is None else total + sq.to(total.device)
     return torch.sqrt(total)
 
 
@@ -89,7 +90,9 @@ def adamw_update(grads: Named, state: Dict[str, object], c: OptConfig
     float dtype, keyed as the state): clip by the global norm, m and v
     updated, the bias-corrected step plus decay. m, v and master change
     in place; returns (master, the state with step + 1, {"grad_norm",
-    "lr"})."""
+    "lr"}). Leaves may lie on several devices (the shards of
+    train_step.py's sharded step): each is updated on its own, the step's
+    scalars copied there once."""
     step = state["step"]
     gnorm = global_norm(grads.values())
     scale = torch.clamp(c.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -97,17 +100,22 @@ def adamw_update(grads: Named, state: Dict[str, object], c: OptConfig
     b1, b2 = c.betas
     t = (step + 1).to(torch.float32)
     corr = torch.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+    scalars = {}
     for name, grad in grads.items():
         m, v, w = state["m"][name], state["v"][name], state["master"][name]
-        g = grad.to(torch.float32) * scale
+        if w.device not in scalars:
+            scalars[w.device] = tuple(x.to(w.device)
+                                      for x in (scale, lr, corr))
+        scale_d, lr_d, corr_d = scalars[w.device]
+        g = grad.to(torch.float32) * scale_d
         m.mul_(b1).add_((1 - b1) * g)
         g2 = (1 - b2) * g
         v.mul_(b2).add_(g2.mul_(g))
         del g, g2
-        u = m * corr
+        u = m * corr_d
         u.div_(torch.sqrt(v).add_(c.eps))
         if decayed(name, w):
             u.add_(c.weight_decay * w)
-        w.sub_(u.mul_(lr))
+        w.sub_(u.mul_(lr_d))
     new_state = dict(state, step=step + 1)
     return state["master"], new_state, {"grad_norm": gnorm, "lr": lr}

@@ -1,12 +1,13 @@
-"""Training steps (port of repro/train/train_step.py): the plain step and
-the data-parallel step with optional int8 gradient compression.
+"""Training steps (port of repro/train/train_step.py): the plain step,
+the sharded (ZeRO-3) step over a device grid, and the data-parallel step
+with optional int8 gradient compression.
 
-The state is {"params": a trainable ``CausalLM``, "opt": the optimizer
-state (train/optimizer.py), keyed by parameter name}, plus "residual"
-(one dict of f32 residuals a data-parallel shard) for the DDP step.
-Steps update it in place and return it with the metrics {"loss",
-"grad_norm", "lr"} as 0-d tensors on the card (nothing waits for the
-device).
+The plain state is {"params": a trainable ``CausalLM``, "opt": the
+optimizer state (train/optimizer.py), keyed by parameter name}, plus,
+for the DDP step, "residual" (one dict of f32 residuals a data-parallel
+shard) and, on several cards, "replicas". Steps update it in place and
+return it with the metrics {"loss", "grad_norm", "lr"} as 0-d tensors on
+the card (nothing waits for the device).
 
   * ``make_train_step(cfg, opt, microbatches=1)`` -- the reference's step
     with ``ctx=None``: loss and gradients by autograd through
@@ -14,28 +15,51 @@ device).
     optionally summed in f32 over microbatches and averaged, then one
     AdamW update of the f32 master weights, copied back into the
     parameters in their dtype.
-  * ``make_ddp_train_step(cfg, opt, compress=True)`` -- the reference's
-    shard_map trainer over the port's data grid
-    (``launch/mesh.py:visible_devices``): the batch split over the grid's
-    devices, each shard's gradients, their mean (plain in f32, or
-    int8-compressed with each shard's residual), the mean loss, then one
-    AdamW update. The shards run one after another on one card, the
-    grid's logical devices (REPRO_TEST_DEVICES); a grid of several cards
-    is refused: replicas across cards come with the LM mesh.
+  * ``jit_train_step(cfg, opt, grid, profile, microbatches=1)`` -- the
+    reference's GSPMD trainer as ZeRO-3 over the grid's dp axes, on a
+    state held as the shards ``state_shardings`` lays out (``shard_state``
+    makes it from a plain state, ``gather_state`` takes it back). Each dp
+    row of the batch runs on its own device (the row's first), each
+    layer gathering its parameters there as it runs and again in the
+    recomputed backward, the MoE on the row's devices through the EP
+    paths; the loss's numerator and count are reduced over the rows
+    apart (the global mean, however the ignored labels fall); gradients
+    land on the shards and are summed over rows in f32 in row order;
+    AdamW runs shard by shard on each shard's device and the parameters'
+    shards are copied back in their dtype. The reference's ``donate``,
+    ``state_shape`` and ``batch_shape`` have no counterpart: nothing is
+    compiled ahead, and the state is updated in place.
+  * ``make_ddp_train_step(cfg, opt, grid=None, compress=True)`` -- the
+    reference's shard_map trainer over a grid of dp axes (by default the
+    ("data",) grid of the visible devices, ``ddp_grid``): the batch split
+    over the grid row-major, each shard's gradients, their mean --
+    int8-compressed with each shard's residual over the innermost dp axis
+    (or plain), then a plain mean over the outer ones -- the mean loss,
+    then one AdamW update. On logical devices of one card the shards run
+    one after another on one replica. On several cards each card holds a
+    replica (``init_ddp_state``): plain, the gradients are gathered to the
+    first card and averaged there in shard order; compressed, each card
+    quantizes its own gradient and every card averages all the int8
+    payloads and scales in shard order. Either way every replica takes
+    the same update from the same numbers.
 
-The reference's GSPMD pieces (``jit_train_step``, ``state_shardings``,
-``constrain_grads``) and its pipeline trainer belong to the LM mesh.
+The reference's ``constrain_grads`` pins gradients to the parameters'
+layout, which the sharded step has by construction.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+import types
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..launch.mesh import visible_devices
+from ..launch.mesh import DeviceGrid, grid_of, visible_devices
 from ..models.configs import ModelConfig
-from ..models.model import CausalLM, init_params, loss_fn, trainable
-from .grad_compress import compress_tree_mean, init_residuals
+from ..models.model import (CausalLM, ShardedLeaves, init_params, loss_fn,
+                            nll_sum, param_shapes, trainable)
+from ..sharding.rules import (PROFILES, Profile, Sharding, device_bytes,
+                              dp_axes, fit_tree, make_ctx, param_specs)
+from .grad_compress import init_residuals, mean_of_payloads, quantize_shards
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
 Tensor = torch.Tensor
@@ -53,25 +77,57 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_ddp_state(cfg: ModelConfig, generator: torch.Generator,
-                   device=None) -> State:
-    """``init_train_state`` plus zero residuals for each shard of the data
-    grid on ``device``."""
+                   device=None, grid: Optional[DeviceGrid] = None) -> State:
+    """``init_train_state`` plus zero residuals for each shard of the
+    data grid (``ddp_grid(device)`` by default), each on its shard's
+    device, and, on several cards, a copy of the parameters and optimizer
+    state on each ("replicas", the first being the state's own)."""
     state = init_train_state(cfg, generator, device)
+    grid = ddp_grid(state["params"].device) if grid is None else grid
     named = dict(state["params"].named_parameters())
-    shards = len(ddp_devices(state["params"].device))
-    state["residual"] = [init_residuals(named) for _ in range(shards)]
+    state["residual"] = [
+        {n: r.to(d) for n, r in init_residuals(named).items()}
+        for d in grid.flat]
+    devs = list(dict.fromkeys(grid.flat))
+    if len(devs) > 1:
+        state["replicas"] = [{"params": state["params"],
+                              "opt": state["opt"]}] + [
+            _replica(state, d) for d in devs[1:]]
     return state
 
 
-def ddp_devices(device) -> tuple:
-    """The data grid of the DDP step: the visible devices, which must be
-    one card (or the CPU) repeated as logical devices."""
+def _replica(state: State, device) -> State:
+    params = trainable(CausalLM(state["params"].cfg, _module_tree(
+        state["params"], device)))
+    opt = {"step": state["opt"]["step"].to(device),
+           **{k: {n: t.to(device, copy=True) for n, t in
+                  state["opt"][k].items()} for k in ("m", "v", "master")}}
+    return {"params": params, "opt": opt}
+
+
+def _module_tree(module, device):
+    """A CausalLM's leaves as the tree ``CausalLM`` takes, copied to
+    ``device``."""
+    tree = {n: t.detach().to(device, copy=True)
+            for n, t in module._parameters.items()}
+    for n, child in module.named_children():
+        if isinstance(child, torch.nn.ModuleList):
+            tree[n] = [_module_tree(c, device) for c in child]
+        else:
+            tree[n] = _module_tree(child, device)
+    return tree
+
+
+def ddp_replicas(state: State) -> List[State]:
+    """The DDP state's replicas: one a distinct device of the grid."""
+    return state.get("replicas") or [state]
+
+
+def ddp_grid(device) -> DeviceGrid:
+    """The ("data",) grid of the visible devices, the DDP step's default
+    (the reference's ``jax.make_mesh((n,), ("data",))``)."""
     devs = visible_devices(device)
-    if len(set(devs)) > 1:
-        raise ValueError(f"make_ddp_train_step runs its shards on one "
-                         f"device; the grid holds {len(set(devs))} cards "
-                         f"(a step across cards comes with the LM mesh)")
-    return devs
+    return grid_of(devs, (len(devs),), ("data",))
 
 
 def _on_device(batch: Dict[str, object], device) -> Dict[str, object]:
@@ -146,35 +202,302 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig,
     return step
 
 
-def make_ddp_train_step(cfg: ModelConfig, opt: OptConfig,
-                        compress: bool = True) -> Step:
-    """ddp_step(state, batch) -> (state, metrics) over the data grid of
-    the parameters' device; ``state`` from ``init_ddp_state``."""
+# ------------------------------------------------------ sharded (ZeRO-3)
+
+def state_shardings(grid: DeviceGrid, state, cfg: ModelConfig
+                    ) -> Dict[str, object]:
+    """The ``Sharding`` of every leaf of the train state, fitted leaf by
+    leaf: {"params": {name: Sharding}, "opt": {"step": replicated, "m",
+    "v", "master": as the params}}. ``state``: a plain state, or
+    {"params": {name: shape}} (``models.model.param_shapes``), so a plan
+    needs nothing allocated."""
+    params = state["params"]
+    specs = param_specs(params, cfg)
+    shapes = (dict(params.named_parameters())
+              if hasattr(params, "named_parameters") else params)
+    sh = {n: Sharding(grid, sp)
+          for n, sp in fit_tree(specs, shapes, grid).items()}
+    return {"params": sh, "opt": {"step": Sharding(grid, ()), "m": sh,
+                                  "v": sh, "master": sh}}
+
+
+def state_device_bytes(grid: DeviceGrid, cfg: ModelConfig) -> List[int]:
+    """The bytes of the train state (parameters in their dtype; f32 m, v
+    and master; the int32 step) each grid device holds under
+    ``state_shardings``, from the config alone."""
+    shapes = param_shapes(cfg)
+    f32 = {n: (tuple(t.shape), torch.float32) for n, t in shapes.items()}
+    return device_bytes(
+        state_shardings(grid, {"params": shapes}, cfg),
+        {"params": shapes, "opt": {"step": ((), torch.int32), "m": f32,
+                                   "v": f32, "master": f32}})
+
+
+def _shard(sh: Sharding, t: Tensor) -> List[Tensor]:
+    """``sh.shard(t)``, one tensor shared by the holders of a block on one
+    device."""
+    t = t.detach()
+    pieces, seen = sh.shard(t), {}
+    blocks = sh.blocks(t.dim())
+    return [seen.setdefault((b, p.device), p)
+            for b, p in zip(blocks, pieces)]
+
+
+def shard_state(state: State, shardings: Dict[str, object]) -> State:
+    """A plain train state as the sharded step holds it: {"params":
+    {name: pieces}, "opt": {"step", "m", "v", "master": {name:
+    pieces}}}, each piece on its grid device (a view of the plain leaf
+    where the device is the leaf's)."""
+    sp = shardings["params"]
+    named = dict(state["params"].named_parameters())
+    o = state["opt"]
+    grid = next(iter(sp.values())).grid
+    return {"params": {n: _shard(sp[n], t) for n, t in named.items()},
+            "opt": {"step": o["step"].to(grid.flat[0]),
+                    **{k: {n: _shard(shardings["opt"][k][n], t)
+                           for n, t in o[k].items()}
+                       for k in ("m", "v", "master")}}}
+
+
+def gather_state(sharded: State, shardings: Dict[str, object],
+                 device=None) -> Dict[str, object]:
+    """The sharded state's leaves whole, on ``device`` (each leaf's first
+    piece's by default): {"params": {name: tensor}, "opt": {...}}."""
+    def whole(tree, sh):
+        return {n: sh[n].gather(p, device) for n, p in tree.items()}
+    o = sharded["opt"]
+    return {"params": whole(sharded["params"], shardings["params"]),
+            "opt": {"step": o["step"],
+                    **{k: whole(o[k], shardings["opt"][k])
+                       for k in ("m", "v", "master")}}}
+
+
+class _LayerShards(ShardedLeaves):
+    """One layer's parameters held as shards; ``gather()`` reads each
+    leaf whole onto the computing device (models/model.py calls it as the
+    layer runs, and again in the recomputed backward)."""
+
+    def __init__(self, leaves: Dict[str, Tuple[Sharding, List[Tensor]]],
+                 device, order):
+        self.leaves, self.device, self.order = leaves, device, order
+
+    def gather(self):
+        return _namespace({path: sh.gather(pieces, self.device, self.order)
+                           for path, (sh, pieces) in self.leaves.items()})
+
+
+def _namespace(flat: Dict[str, Tensor]):
+    """{"attn.wq": t, ...} -> a namespace tree (lp.attn.wq)."""
+    root: Dict[str, object] = {}
+    for path, t in flat.items():
+        node = root
+        *dirs, leaf = path.split(".")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = t
+
+    def build(node):
+        return types.SimpleNamespace(**{
+            k: build(v) if isinstance(v, dict) else v
+            for k, v in node.items()})
+    return build(root)
+
+
+def _row_model(cfg: ModelConfig, handles: Dict[str, List[Tensor]],
+               sh: Dict[str, Sharding], device, order):
+    """The model as one dp row computes it: the top-level leaves gathered
+    onto ``device`` now, each layer a ``_LayerShards``."""
+    top, stacks = {}, {"layers": {}, "enc_layers": {}}
+    for n, pieces in handles.items():
+        parts = n.split(".")
+        if parts[0] in stacks:
+            stacks[parts[0]].setdefault(int(parts[1]), {})[
+                ".".join(parts[2:])] = (sh[n], pieces)
+        else:
+            top[n] = sh[n].gather(pieces, device, order)
+    model = _namespace(top)
+    model.cfg, model.device = cfg, torch.device(device)
+    for k, layers in stacks.items():
+        if layers:
+            setattr(model, k, [_LayerShards(layers[i], device, order)
+                               for i in range(len(layers))])
+    return model
+
+
+def jit_train_step(cfg: ModelConfig, opt: OptConfig, grid: DeviceGrid,
+                   profile: Profile = PROFILES["baseline"],
+                   microbatches: int = 1) -> Step:
+    """step(sharded_state, batch) -> (sharded_state, metrics): ZeRO-3 over
+    the grid's dp axes on a state from ``shard_state`` with
+    ``state_shardings(grid, ...)``; the batch (tokens, labels (B, S) [+
+    positions, enc_input]) split into ``microbatches`` runs of rows, each
+    over the dp rows. ``step.grads(state, batch)`` -> (loss, {name: f32
+    gradient pieces}) is its first half, the gradient as the update sees
+    it."""
+    ctx = make_ctx(grid, profile=profile)
+    sh = state_shardings(grid, {"params": param_shapes(cfg)}, cfg)["params"]
+    rows = ctx.rows()
+    row_of = [ctx.row_of(i) for i in grid.indices()]
+    # a row reads each block from its own devices where they hold it
+    orders = [[i for i in range(grid.size) if row_of[i] == r]
+              + [i for i in range(grid.size) if row_of[i] != r]
+              for r in range(len(rows))]
+    devices = [r.grid.flat[0] for r in rows]
+    home = grid.flat[0]
+
+    def grads(state: State, batch: Dict[str, object]):
+        params = state["params"]
+        owner = {n: sh[n].owners(p[0].dim()) for n, p in params.items()}
+        acc = {n: {i: torch.zeros(p[i].shape, dtype=torch.float32,
+                                  device=p[i].device)
+                   for i in sorted(set(owner[n]))}
+               for n, p in params.items()}
+        lsum = None
+        for mb in _split(batch, microbatches):
+            count = torch.clamp((torch.as_tensor(mb["labels"]) >= 0).sum(),
+                                min=1)
+            nll_tot = None
+            for r, part in enumerate(_split(mb, len(rows))):
+                dev = devices[r]
+                handles = {n: [q.detach().requires_grad_() for q in p]
+                           for n, p in params.items()}
+                model = _row_model(cfg, handles, sh, dev, orders[r])
+                nll, _ = nll_sum(model, _on_device(part, dev), cfg, rows[r])
+                (nll / count.to(dev)).backward()
+                nll = nll.detach().to(home)
+                nll_tot = nll if nll_tot is None else nll_tot + nll
+                for n, hs in handles.items():
+                    for i, h in enumerate(hs):
+                        if h.grad is not None:
+                            a = acc[n][owner[n][i]]
+                            a.add_(h.grad.to(a.device, torch.float32))
+                del handles, model
+            loss = nll_tot / count.to(home)
+            lsum = loss if lsum is None else lsum + loss
+        if microbatches > 1:
+            for by_block in acc.values():
+                for a in by_block.values():
+                    a.div_(microbatches)
+            lsum = lsum / microbatches
+        return lsum, acc
 
     def step(state: State, batch: Dict[str, object]):
-        params = state["params"]
-        n = len(ddp_devices(params.device))
+        loss, g = grads(state, batch)
+        o = state["opt"]
+        key, flat_g, m, v, w = {}, {}, {}, {}, {}
+        for n, by_block in g.items():
+            for i, a in by_block.items():
+                k = f"{n}@{i}"
+                key[k] = (n, i)
+                flat_g[k] = a
+                m[k], v[k], w[k] = (o["m"][n][i], o["v"][n][i],
+                                    o["master"][n][i])
+        _, new, metrics = adamw_update(
+            flat_g, {"step": o["step"], "m": m, "v": v, "master": w}, opt)
+        del flat_g, g
+        with torch.no_grad():
+            for k, (n, i) in key.items():
+                state["params"][n][i].copy_(w[k])
+            for n, p in state["params"].items():
+                _replicate(sh[n], [p] + [o[t][n] for t in
+                                         ("m", "v", "master")])
+        o["step"] = new["step"]
+        return state, dict(metrics, loss=loss)
+
+    step.grads = grads
+    return step
+
+
+def _replicate(sh: Sharding, trees: List[List[Tensor]]) -> None:
+    """Copy each block's primary into its other holders, where they are
+    other tensors (other cards; on logical devices of one card the
+    holders share one tensor)."""
+    owner = sh.owners(trees[0][0].dim())
+    for pieces in trees:
+        for i, o in enumerate(owner):
+            if pieces[i] is not pieces[o]:
+                pieces[i].copy_(pieces[o])
+
+
+def _two_level_mean(xs: List[Tensor], inner: int, home) -> Tensor:
+    """The mean over the innermost dp axis (runs of ``inner`` shards),
+    then over the outer axes, each in f32 and cast back, on ``home``."""
+    dtype = xs[0].dtype
+    parts = [(sum(x.to(torch.float32).to(home) for x in xs[i:i + inner])
+              / inner).to(dtype) for i in range(0, len(xs), inner)]
+    if len(parts) == 1:
+        return parts[0]
+    return (sum(p.to(torch.float32) for p in parts) / len(parts)).to(dtype)
+
+
+def make_ddp_train_step(cfg: ModelConfig, opt: OptConfig,
+                        grid: Optional[DeviceGrid] = None,
+                        compress: bool = True) -> Step:
+    """ddp_step(state, batch) -> (state, metrics) over ``grid`` (its axes
+    all dp axes; ``ddp_grid`` of the parameters' device by default);
+    ``state`` from ``init_ddp_state`` on the same grid."""
+
+    def step(state: State, batch: Dict[str, object]):
+        g = ddp_grid(state["params"].device) if grid is None else grid
+        dp = dp_axes(g)
+        if dp != g.axis_names:
+            raise ValueError(f"the DDP grid's axes {g.axis_names} must all "
+                             f"be dp axes ('pod', 'data')")
+        n, inner = g.size, g.axis_sizes[dp[-1]]
         if len(state["residual"]) != n:
             raise ValueError(f"the state holds {len(state['residual'])} "
                              f"shards' residuals, the grid {n} devices")
-        named = dict(params.named_parameters())
+        replicas = {r["params"].device: r for r in ddp_replicas(state)}
+        flat = g.flat
+        if set(flat) != set(replicas):
+            raise ValueError(f"the state's replicas are on "
+                             f"{sorted(map(str, replicas))}, the grid's "
+                             f"devices {sorted(set(map(str, flat)))}")
+        home = flat[0]
         losses, shard_grads = [], []
-        for piece in _split(_on_device(batch, params.device), n):
-            loss, grads = _grads(params, named, piece, cfg)
+        for piece, dev in zip(_split(batch, n), flat):
+            params = replicas[dev]["params"]
+            loss, grads = _grads(params, dict(params.named_parameters()),
+                                 _on_device(piece, dev), cfg)
             losses.append(loss)
             shard_grads.append(grads)
-        loss = sum(losses) / n
+        loss = _two_level_mean(losses, inner, home)
+        names = list(shard_grads[0])
+        residual = state["residual"]
         if compress:
-            grads, residual = compress_tree_mean(shard_grads,
-                                                 state["residual"])
+            per_leaf = {}
+            residual = [dict() for _ in range(n)]
+            for k in names:
+                payloads, errs = quantize_shards(
+                    [sg[k] for sg in shard_grads],
+                    [r[k] for r in state["residual"]])
+                per_leaf[k] = payloads
+                for d, e in zip(residual, errs):
+                    d[k] = e
         else:
-            grads = {k: (sum(g[k].to(torch.float32) for g in shard_grads)
-                         / n).to(shard_grads[0][k].dtype) for k in named}
-            residual = state["residual"]
+            mean = {k: _two_level_mean([sg[k] for sg in shard_grads],
+                                       inner, home) for k in names}
+        for dev, rep in replicas.items():
+            named = dict(rep["params"].named_parameters())
+            if compress:
+                grads = {}
+                for k in names:
+                    x = shard_grads[0][k]
+                    means = [mean_of_payloads(per_leaf[k][i:i + inner],
+                                              x.shape, x.dtype, dev)
+                             for i in range(0, n, inner)]
+                    grads[k] = _two_level_mean(means, len(means), dev) \
+                        if len(means) > 1 else means[0]
+            else:
+                grads = {k: m.to(dev) for k, m in mean.items()}
+            rep["opt"], metrics = _update(named, grads, rep["opt"], opt)
+            del grads
+            if dev == home:
+                out = metrics
         del shard_grads
-        opt_state, metrics = _update(named, grads, state["opt"], opt)
-        return ({"params": params, "opt": opt_state, "residual": residual},
-                dict(metrics, loss=loss))
+        state["opt"] = replicas[home]["opt"]
+        state["residual"] = residual
+        return state, dict(out, loss=loss)
 
     return step
 
@@ -192,11 +515,20 @@ def state_tree(state: State) -> Dict[str, object]:
 
 def load_state_tree(state: State, tree: Dict[str, object]) -> State:
     """``state`` with the values of ``tree`` (as ``state_tree`` gives
-    it): parameters copied in place, the rest taken over."""
+    it): parameters copied in place, the rest taken over; every other
+    DDP replica set to the same values on its card."""
     with torch.no_grad():
         for n, p in state["params"].named_parameters():
             p.copy_(tree["params"][n])
     state["opt"] = tree["opt"]
     if "residual" in tree:
-        state["residual"] = tree["residual"]
+        # each shard's residual stays on its shard's device
+        state["residual"] = [
+            {n: t.to(old[n].device) for n, t in r.items()}
+            for r, old in zip(tree["residual"], state["residual"])]
+    if "replicas" in state:
+        state["replicas"] = [{"params": state["params"],
+                              "opt": state["opt"]}] + [
+            _replica(state, r["params"].device)
+            for r in state["replicas"][1:]]
     return state

@@ -34,6 +34,7 @@ import repro_torch.configs.whisper_large_v3, repro_torch.configs.qwen2_vl_72b
 import repro_torch.train.optimizer, repro_torch.train.train_step
 import repro_torch.train.grad_compress, repro_torch.data.lm_data
 import repro_torch.launch.train
+import repro_torch.sharding.rules, repro_torch.train.pipeline
 import torch.profiler
 assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.checkpoint.manager", "repro_torch.data.mining",
@@ -49,7 +50,8 @@ assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.configs.qwen2_vl_72b", "repro_torch.train",
          "repro_torch.train.optimizer", "repro_torch.train.train_step",
          "repro_torch.train.grad_compress", "repro_torch.data.lm_data",
-         "repro_torch.launch.train"}} \
+         "repro_torch.launch.train", "repro_torch.sharding",
+         "repro_torch.sharding.rules", "repro_torch.train.pipeline"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

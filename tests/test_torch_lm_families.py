@@ -30,6 +30,11 @@ from repro_torch.models import attention as t_attn
 from repro_torch.models import moe as t_moe
 from repro_torch.models.model import F32_LEAVES
 from repro_torch.models import ssm as t_ssm
+from repro_torch.launch.mesh import make_host_mesh
+
+#: the reference's ctx.banded on a one-device grid
+_BANDED = t_moe.ShardingCtx(grid=make_host_mesh(device="cpu"),
+                            dp_axes=("data",), banded=True)
 
 J_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 T_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -285,7 +290,7 @@ def test_windowed_attention_matches_reference(window, n_meta, banded, dt):
         jx, jlp["attn"], positions=pos)
     with torch.inference_mode():
         got = t_attn.attention(tx, lp.attn, cfg, window=window,
-                               n_meta=n_meta, banded=banded)
+                               n_meta=n_meta, ctx=_BANDED if banded else None)
     _close(got, want, dt)
     if banded:
         with torch.inference_mode():

@@ -44,6 +44,7 @@ from repro.models.layers import norm as j_norm
 from repro_torch.convert import (lm_params_from_numpy,
                                  model_config_from_reference_dict)
 from repro_torch.models import model as t_model
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as t_moe
 from repro_torch.models.model import F32_LEAVES
 from repro_torch.serve.engine import generate
@@ -298,7 +299,7 @@ def test_decode_step_matches_reference(case):
 
 def test_forward_matches_reference(case):
     """forward over the prompt (the meta tokens stripped from the
-    logits); hymba also with banded=True, the reference's banded
+    logits); hymba also under ctx.banded, the reference's banded
     prefill: the same function as its masked baseline."""
     want = _ref(j_model.forward, case.jp,
                 {"tokens": jnp.asarray(case.prompt)}, cfg=case.jcfg)
@@ -307,7 +308,9 @@ def test_forward_matches_reference(case):
         got = case.p(x)
     _close(got, want, case.dt, skip=_moved(case, calls, case.prompt))
     if case.cfg.sliding_window:
-        _close(t_model.forward(case.p, {"tokens": x}, case.cfg, banded=True),
+        banded = t_moe.ShardingCtx(grid=make_host_mesh(device="cpu"),
+                                   dp_axes=("data",), banded=True)
+        _close(t_model.forward(case.p, {"tokens": x}, case.cfg, banded),
                want, case.dt, "banded")
 
 

@@ -311,16 +311,17 @@ def test_quantize_matches_reference():
 
 def test_compressed_mean_matches_reference_under_vmap():
     """Three shards with residuals: the reference's compressed_psum_mean
-    under jax.vmap(axis_name=...) on one CPU device against
-    compressed_mean over the same shards."""
+    under jax.vmap(axis_name=...) on one CPU device against the port's
+    quantize_shards and mean_of_payloads over the same shards."""
     rng = np.random.default_rng(1)
     xs = rng.normal(size=(3, 4100)).astype(np.float32)
     rs = (1e-3 * rng.normal(size=(3, 4100))).astype(np.float32)
     jmean, jerr = jax.vmap(
         lambda x, r: j_gc.compressed_psum_mean(x, "shards", r),
         axis_name="shards")(jnp.asarray(xs), jnp.asarray(rs))
-    mean, errs = gc.compressed_mean([torch.from_numpy(x) for x in xs],
-                                    [torch.from_numpy(r) for r in rs])
+    payloads, errs = gc.quantize_shards([torch.from_numpy(x) for x in xs],
+                                        [torch.from_numpy(r) for r in rs])
+    mean = gc.mean_of_payloads(payloads, xs[0].shape, torch.float32, "cpu")
     for i in range(3):
         np.testing.assert_allclose(mean.numpy(), np.asarray(jmean[i]),
                                    rtol=1e-6, atol=1e-7)
@@ -370,10 +371,47 @@ def test_ddp_step_plain_equals_microbatches_and_compressed_descends(
 
 
 def test_ddp_refuses_a_grid_of_several_cards(monkeypatch):
+    """(Named for the refusal it replaced: a grid of several cards now
+    runs, one replica a card.) Over a ("pod", "data") = (2, 4) grid of
+    logical devices the compressed step keeps one residual dict a shard
+    and one replica (one distinct device) and refuses a state of other
+    shards; a replica for another card copies every value; a grid of two
+    cards is taken, not refused (tests/test_torch_lm_mesh.py holds the
+    (2, 4) step to the reference's)."""
+    from repro_torch.launch.mesh import grid_of, visible_devices
+    monkeypatch.setenv("REPRO_TEST_DEVICES", "8")
+    jcfg = _jcfg()
+    cfg = _tcfg(jcfg)
+    ref = _numpy(_ref_state())
+    grid = grid_of(visible_devices("cpu"), (2, 4), ("pod", "data"))
+    state = train_state_from_numpy(
+        dict(ref, residual=jax.tree.map(np.zeros_like, ref["params"])),
+        cfg, "cpu", shards=8)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (8, 9))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    step = ts.make_ddp_train_step(cfg, opt_mod.OptConfig(**OPT), grid)
+    state, m = step(state, batch)
+    assert len(state["residual"]) == 8
+    assert len(ts.ddp_replicas(state)) == len(set(grid.flat)) == 1
+    assert any(float(r["embed"].abs().max()) > 0 for r in state["residual"])
+    assert np.isfinite(float(m["loss"]))
+    with pytest.raises(ValueError, match="residuals"):
+        step(dict(state, residual=state["residual"][:4]), batch)
+    # a replica for another card: the same values in tensors of its own
+    rep = ts._replica(state, torch.device("cpu"))
+    for (n, p), q in zip(state["params"].named_parameters(),
+                         rep["params"].parameters()):
+        assert torch.equal(p, q) and p.data_ptr() != q.data_ptr(), n
+        assert q.requires_grad
+    for k in ("m", "v", "master"):
+        for n, t in state["opt"][k].items():
+            assert torch.equal(rep["opt"][k][n], t)
+            assert rep["opt"][k][n].data_ptr() != t.data_ptr()
     monkeypatch.setattr(ts, "visible_devices", lambda d: (
         torch.device("cuda", 0), torch.device("cuda", 1)))
-    with pytest.raises(ValueError, match="cards"):
-        ts.ddp_devices("cuda")
+    cards = ts.ddp_grid("cuda")
+    assert cards.shape == (2,) and len(set(cards.flat)) == 2
 
 
 # ------------------------------------------------------ state, CLI
