@@ -135,15 +135,16 @@ Phases, each of which exits non-zero on failure:
      scaled_dot_product_attention (timed only, used nowhere);
   5. LM serving of qwen3-14b: at smoke size in f32 (weights through
      lm_params_from_numpy) the card's greedy tokens and logits against
-     the CPU port's; at full width and depth in bf16 (seeded random
-     weights made on the card) generate for 4 prompts of 512 tokens and
+     the CPU port's; at full width in bf16 with LM_LAYERS (8) of its 40
+     layers (seeded random weights made on the card; all 40 run in phase
+     5e) generate for 4 prompts of 512 tokens and
      1 of 2,048 (32 new tokens each) with the launch counters reset just
-     before and read just after (flash_attention 40 times per prefill,
+     before and read just after (flash_attention once a layer per prefill,
      all on the sm90 route, no other kernel), the same tokens on a
      second run, prefill against prefill + decode_step (with two
      planted decode faults beside it), and ms per prefill and per decode step with the device's busy time
      and flash attention's share of it; then the same consistency in f32
-     at full width (its prefills on the cuda_core route), where the sound
+     (its prefills on the cuda_core route), where the sound
      decode must land under a tight limit and both planted faults over
      it;
   5b. lm families: the MoE, SSM and hybrid families. At smoke size in
@@ -151,9 +152,10 @@ Phases, each of which exits non-zero on failure:
      hymba-1.5b and llama4-scout-17b-a16e give the CPU port's greedy
      tokens and logits on the card; at full width in bf16 (seeded random
      weights made on the card) olmoe-1b-7b, mamba2-130m and hymba-1.5b
-     (hymba also at B 1 x S 2,048, past its window) generate with the
-     counters reset before and read after (flash_attention once per layer
-     without a window, on the sm90 route: 16, 0 and 3 a prefill, no other
+     (16 of 32 layers; FAMILY_LAYERS; all 32 run in phase 5e) (hymba
+     also at B 1 x S 2,048, past its window) generate with the counters
+     reset before and read after (flash_attention once per layer without
+     a window, on the sm90 route: 16, 0 and 2 a prefill, no other
      kernel), the same tokens on a rerun, parameters = param_count(),
      prefill against prefill + decode_step in bf16 and in f32 with
      planted faults over the f32 limit (the SSM's: a conv window missing
@@ -164,11 +166,12 @@ Phases, each of which exits non-zero on failure:
      then the encoder-decoder and VLM families: whisper-large-v3 and
      qwen2-vl-72b join the smoke f32 line (whisper with seeded frame
      embeddings, qwen2-vl's prompt laid out around an image), and at full
-     width in bf16 whisper-large-v3 (all 64 layers; B 4, 1,500 seeded
+     width in bf16 whisper-large-v3 (16 + 16 of its 32 + 32 layers; B 4,
+     1,500 seeded
      frames, a 224-token prompt) generates and qwen2-vl-72b (8 of 80
      layers; B 4 x S 512 "text" and "image" prompts) decodes greedily
      through prefill with (B, S, 3) positions and decode_step: flash sm90
-     64 a whisper prefill (32 encoder layers, every key visible, and 32
+     32 a whisper prefill (16 encoder layers, every key visible, and 16
      decoder layers), 8 a qwen2-vl text prefill and 0 an image one, no
      other kernel; the same checks and numbers as above, the planted
      faults whisper's encoder states of another row and sinusoidal row
@@ -203,6 +206,22 @@ Phases, each of which exits non-zero on failure:
      parameters 1e-5) and a DDP step with int8 compression over 2 logical
      devices; the train CLI in subprocesses at smoke size: SIGTERM, its
      final checkpoint, a resume, the losses of an uninterrupted run;
+  5d. lm mesh: on logical devices of the card, olmoe-1b-7b on (2, 4)
+     and llama4-scout (8 of 48 layers) on (1, 4) through the EP
+     paths, the ZeRO-3 trainer and gpipe (lm_mesh);
+  5e. lm shapes: phi3-medium-14b, internlm2-20b and command-r-35b at full
+     width with 5b's checks (f32 at 32 / 16 layers); then every arch at
+     the reference's lengths (configs/registry.py SHAPES) at B 1: prefill
+     32,768 (524,288 for mamba2 and hymba, hymba at 8 of its 32 layers
+     there), prefill one less and a decode_step against the full cache,
+     its logits within 5e-2 of the first prefill's last (a MoE's route
+     flips at near-ties pinned); qwen3-14b's train_4k at 4 layers (its
+     gradient against the plain flash's, falling loss); classify_windows
+     on 16,384 windows through the kernel and fused backends against the
+     CPU's scores; each line beside the dry run's predicted peak and
+     roofline time (launch/dryrun.py, run in a process of its own from
+     the start, with the CPU's window scores); ``--only lm_shapes`` runs
+     the build and this phase alone;
   6. print the kernels line (JSON) and, last, the ok line (JSON).
 
 It imports no JAX and nothing of the reference package. Without a GPU,
@@ -225,15 +244,17 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
-# (an FMA counted as two), dense bf16 tensor-core FLOP/s and int8
-# tensor-core OP/s; a bound is the larger of bytes over the memory rate and
-# operations over the peak for their type (each type on its own pipe, so
-# the slowest type's time where a kernel mixes them).
-HBM_BPS = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-INT8_OPS = 1979e12
+# H100 SXM peaks (NVIDIA data sheet; their one copy is
+# repro_torch/analysis/roofline.py): HBM bytes/s, f32 CUDA-core FLOP/s (an
+# FMA counted as two), dense bf16 tensor-core FLOP/s and int8 tensor-core
+# OP/s; a bound is the larger of bytes over the memory rate and operations
+# over the peak for their type (each type on its own pipe, so the slowest
+# type's time where a kernel mixes them). Outside a checkout main() stops
+# before any of them is read.
+if (SRC / "repro_torch").is_dir():
+    sys.path.insert(0, str(SRC))
+    from repro_torch.analysis.roofline import (  # noqa: E402
+        F32_FLOPS, HBM_BW as HBM_BPS, INT8_OPS, PEAK_FLOPS as BF16_FLOPS)
 # The CUDA-core lanes behind those peaks (NVIDIA H100 Tensor Core GPU
 # Architecture whitepaper: 132 SMs, each with 128 FP32 and 64 INT32 lanes
 # per clock; 67e12 = 2 x 128 x 132 x 1.98 GHz). The HOG kernels and
@@ -374,6 +395,15 @@ FLASH_FAMILIES += (("whisper-enc", 4, 20, 20, 1500, 64, False),
 # order can flip a rare p by one bf16 ulp
 FLASH_MATCHED_TOL = (2e-3, 2.0 ** -7)
 LM_ARCH = "qwen3-14b"
+# the earlier LM phases' depths since phase 5e holds every arch at its full
+# depth at the reference's lengths (for the run's time): qwen3-14b
+# in phase 5 (40 layers before), and by arch in the lm families phase
+# (whisper: encoder and decoder layers). The MoE keeps its depth: its
+# checks compare routes to a near-tie, and another depth moved a tie over
+# the limits (olmoe at 8 layers: prefill vs decode 5.16e-2, and the mesh
+# phase's greedy tokens parting at a margin of 0.078)
+LM_LAYERS = 8
+FAMILY_LAYERS = {"hymba-1.5b": 16, "whisper-large-v3": 16}
 # (group, B, prompt length); each prompt gets LM_NEW new tokens
 LM_BATCHES = (("B4xS512", 4, 512), ("B1xS2048", 1, 2048))
 LM_GROUPS = tuple(g for g, _, _ in LM_BATCHES)
@@ -473,6 +503,29 @@ MESH_TRAIN = ("olmoe-1b-7b", 4, (2, 2))
 MESH_PLAN = ("qwen3-14b", (4, 1))
 # gpipe: 4 full-width qwen3-14b layers over 4 stages, 4 microbatches
 MESH_PIPE = (4, 4, 4, 1, 512)        # layers, stages, M, B_mb, S
+# phase 5e, lm shapes. (a) The dense configs not yet run at full width, with
+# the lm families checks at B 4 x S 512; f32 consistency at a cut depth
+# where the f32 weights would not fit the card (internlm2-20b 79.4 GB at
+# 48 layers, command-r-35b 121 GB at 40)
+LM_DENSE = ("phi3-medium-14b", "internlm2-20b", "command-r-35b")
+LM_DENSE_F32_LAYERS = {"internlm2-20b": 32, "command-r-35b": 16}
+# (b) the reference's lengths (configs/registry.py SHAPES) at B 1 on one
+# card, for every arch where shape_applicable holds: prefill S, then
+# prefill S - 1 and one decode_step against the S-row cache, its logits
+# held to the prefill's last within CONSIST_TOL. Depths as PERF.md §4
+# fixes them (None: all); hymba's windowed layers under the perf profile
+# (banded_core): the baseline's masked scores are (1, 25, S, S) f32
+SHAPE_LAYERS = {"qwen2-vl-72b": 8, "llama4-scout-17b-a16e": 8}
+# hymba at 524,288 with 8 of its 32 layers (its layer 0 global, 7 windowed):
+# all 32 took 49 s a prefill on an H100 (peak 67.8 GiB, dry run 67.76)
+LONG_LAYERS = {"hymba-1.5b": 8}
+SHAPE_PROFILE = {"hymba-1.5b": "perf"}
+# train_4k: qwen3-14b at 4 of its 40 layers, B 1 x S 4,096, its gradient
+# against the plain flash forward and backward, then AdamW steps
+TRAIN_4K = (4, 1, 4096, 3)             # layers, B, S, steps
+# hog_svm_coproc: the reference's pod batch of windows on one card
+COPROC_WINDOWS = 16384
+COPROC_CONFIGS = ("window paper+kernel", "window perf")
 # Table I (benchmarks/bench_accuracy.py): the schedule it trains with,
 # and its gate: every mode's total accuracy, and |fixed - fp32| in points
 TABLE1_TRAIN = {"steps": 4000, "neg_weight": 3.0}
@@ -513,6 +566,16 @@ PATH_KERNELS = {
     "lm mesh llama4": ("flash_attention",),
     "lm mesh train": ("flash_attention", "flash_attention_bwd"),
     "lm mesh gpipe": ("flash_attention", "flash_attention_bwd"),
+    # the dense configs at full width, and the reference's lengths: flash
+    # wherever a layer attends without a window; train_4k its backward
+    "lm phi3-medium-14b": ("flash_attention",),
+    "lm internlm2-20b": ("flash_attention",),
+    "lm command-r-35b": ("flash_attention",),
+    "lm shapes": ("flash_attention",),
+    "lm shapes train_4k": ("flash_attention", "flash_attention_bwd"),
+    "coproc paper+kernel": ("hog_gradient", "cell_hist", "block_norm",
+                            "svm_scores"),
+    "coproc perf": ("fused_hog", "svm_scores"),
 }
 # the batched path and the tracked clip run the dense kernels of their
 # configuration
@@ -685,11 +748,12 @@ def _fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4g} ms"
 
 
-def device_times(torch, fn, reps: int):
+def device_times(torch, fn, reps: int, warm: bool = True):
     """Run ``fn`` ``reps`` times under torch.profiler; returns {kernel
-    name: (launches, device microseconds)} of the CUDA kernels it ran."""
+    name: (launches, device microseconds)} of the CUDA kernels it ran
+    (``warm``: ``_profiled``'s warm-up step calls ``fn``)."""
     out = {}
-    for e in _profiled(torch, fn, reps).key_averages():
+    for e in _profiled(torch, fn, reps, warm).key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -699,18 +763,20 @@ def device_times(torch, fn, reps: int):
     return out
 
 
-def _profiled(torch, fn, reps: int):
+def _profiled(torch, fn, reps: int, warm: bool = True):
     """torch.profiler over ``reps`` calls of ``fn``. The profiler traces
-    a warm-up step first (one call of ``fn`` and 64 one-element adds) and
-    discards it: late in this script a session without one lost 17-23 of
-    the flash backward's 60 kernel records, the first calls' (its sum
-    read 61-71% of the CUDA events' time)."""
+    a warm-up step first (one call of ``fn`` unless ``warm`` is false, a
+    call that takes seconds, and 64 one-element adds) and discards it:
+    late in this script a session without one lost 17-23 of the flash
+    backward's 60 kernel records, the first calls' (its sum read 61-71%
+    of the CUDA events' time)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     pad = torch.zeros(1, device=DEV)
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        fn()
+        if warm:
+            fn()
         for _ in range(64):
             pad.add_(1)
         torch.cuda.synchronize()
@@ -1845,7 +1911,7 @@ def check_flash(torch, np) -> dict:
 
     for B, H, K, S, hd, causal, dt in FLASH_SMALL + FLASH_OTHER_HD:
         case(draw(B, H, K, S, hd), causal, dt, bshd=False)
-    print(f"  flash_attention {len(FLASH_SMALL)} small shapes + "
+    level_line(f"  flash_attention {len(FLASH_SMALL)} small shapes + "
           f"{len(FLASH_OTHER_HD)} bf16 at hd 32, each on its route: max err "
           f"vs plain and _sdpa f32 {worst['f32']:.2e} (tol 1e-5), bf16 "
           f"{worst['bf16']:.2e} (tol 3e-2); matched limit share: "
@@ -1880,7 +1946,7 @@ def check_flash(torch, np) -> dict:
                 lambda fn=fn: fn(q, k, v),
                 lambda: fa.flash_attention_plain(q, k, v), library,
                 nbytes, ops / BF16_FLOPS, "flash_attention_kernel"))
-    print(f"  flash_attention full width, (B, S, H, hd) strides, err vs "
+    level_line(f"  flash_attention full width, (B, S, H, hd) strides, err vs "
           f"plain (tol + tol x |want|), matched share: "
           + "; ".join(full), flush=True)
     fam = []
@@ -2169,7 +2235,7 @@ def check_batched_kernels(torch, np) -> None:
     for k, e in errs.items():
         by_kernel.setdefault(k.split()[0], []).append(f"{e:.1e}" if e
                                                       else "0")
-    print(f"  batched kernels B{B}, each 640x480 level: kernel(stack)[i] "
+    level_line(f"  batched kernels B{B}, each 640x480 level: kernel(stack)[i] "
           f"== kernel(frame i) in {checks} checks; err vs plain by mode: "
           + ", ".join(f"{k} {'/'.join(v)}" for k, v in by_kernel.items()),
           flush=True)
@@ -2378,7 +2444,7 @@ def stream_path(torch, np, configs, svm) -> dict:
              f"stream frame {t}: tracks differ from the CPU session's")
     ids = sorted({x["track_id"] for a in got for x in a})
     need(len(ids) >= 2, f"stream: only tracks {ids}; the check is vacuous")
-    print(f"  stream paper+kernel, {len(clip)} frames of 640x480 in batches "
+    level_line(f"  stream paper+kernel, {len(clip)} frames of 640x480 in batches "
           f"of 4: {sum(len(a) for a in got)} tracked boxes, track ids "
           f"{ids[0]}-{ids[-1]}, same as CPU; launches: "
           f"{_per_kernel([counts], own)}, others 0", flush=True)
@@ -2478,7 +2544,7 @@ def multihead_path(torch, np, configs, svm) -> dict:
         need(worst <= SCORE_TOL[dt], f"{name}: score delta {worst}")
         text.append(f"{cname} {' / '.join(kept)} d {worst:.1e}, "
                     f"{launches[name][scorer]} {scorer}")
-    print(f"  multihead K={MH_K} (person {THRESHOLD:g}, " + ", ".join(
+    level_line(f"  multihead K={MH_K} (person {THRESHOLD:g}, " + ", ".join(
         f"{n} {t:g}" for n, t in MH_SEEDED.items())
         + "), frame + B8, 640x480/1280x720: heads = own detectors bit for "
         "bit; kept by head (B8) = CPU, delta, scorer launches: "
@@ -2657,7 +2723,7 @@ def cascade_path(torch, np, svm) -> dict:
             kept += any(_iou(f["box"], c["box"]) >= 0.5
                         or _iou(c["box"], tboxes[gt]) >= 0.4 for c in dets)
     need(total > 0, "cascade: the dense pass found no pedestrian")
-    print(f"  cascade+kernel 640x480: coarse head, card {gpu_s:.1f} s;"
+    level_line(f"  cascade+kernel 640x480: coarse head, card {gpu_s:.1f} s;"
           f" CPU ({cpu_s:.1f} s): descriptors off {f_off}/{f_cpu.numel()}, "
           f"{len(mined)} mined = card ({crop_off} px a code off), Pegasos "
           f"= card's to {PEGASOS_TOL:g} "
@@ -2734,7 +2800,7 @@ def cascade_path(torch, np, svm) -> dict:
     need([r["degraded_mode"] for r in res] == ["full"] * len(frames)
          and [r["detections"] for r in res] == base,
          "resilient: results after recovery differ from the unperturbed")
-    print(f"  resilient+kernel service (person + _coarse registry), "
+    level_line(f"  resilient+kernel service (person + _coarse registry), "
           f"{len(frames)} frames one a batch, lines from max(p99 "
           f"{p99:.1f}, 2 x cascade {casc_ms:.1f}) ms: spike {spike:.0f}, "
           f"degrade/recover {5 * line:.0f}/{2.5 * line:.0f}: rungs "
@@ -2839,7 +2905,7 @@ def window_path(torch, np) -> dict:
          "numpy windows did not default to the card")
     d = float((frame_scores - dense).abs().max())
     need(d <= LAYOUT_TOL, f"frame windows vs dense score_map: {d}")
-    print(f"  window paper+kernel: all {len(wins)} windows of one 640x480 "
+    level_line(f"  window paper+kernel: all {len(wins)} windows of one 640x480 "
           f"frame (levels {'+'.join(map(str, per_level))}), chunks of "
           f"{WINDOW_CHUNK}: max delta vs the dense score_map {d:.2e} "
           f"(tol {LAYOUT_TOL:g})", flush=True)
@@ -2996,7 +3062,7 @@ def train_path(torch, np) -> dict:
                              (want[sure] > 0).to(torch.int32)),
                  f"{name}: human differs from predict beyond {tol}")
             parts.append(f"{path} {de:.1e} ({int((~sure).sum())} in tol)")
-        print(f"    {cpu_line}; kernels: human = predict beyond {tol:.1e}, "
+        level_line(f"    {cpu_line}; kernels: human = predict beyond {tol:.1e}, "
               f"delta " + ", ".join(parts) + "; " + ", ".join(dict.fromkeys(
                   _path_launches(n, launches[n]) for n in TRAIN_EVAL
                   if TRAIN_EVAL[n][0] == mode)), flush=True)
@@ -3087,7 +3153,7 @@ def train_path(torch, np) -> dict:
     need(any("loaded SVM params" in ln for ln in outs[1])
          and not any(ln.startswith("training") for ln in outs[1]),
          "detect CLI: --load did not skip the train")
-    print(f"  save/load: same w, b, {len(a)} boxes; CLI --fast --scenes 2 "
+    level_line(f"  save/load: same w, b, {len(a)} boxes; CLI --fast --scenes 2 "
           f"--backend kernel --save, --load: same {len(dets[0]) - 1} lines, "
           f"train skipped, {dets[0][-1].replace('recall over scenes', 'recall')}"
           f"; {cli_own}", flush=True)
@@ -3634,7 +3700,7 @@ def tiled_path(torch, np, svm, summary) -> dict:
     # each stage alone (the K-step top-k + NMS on K of the frame's
     # positions), and each dense kernel's device ms in a frame
     split = frame_split(torch, np, first, *UHD)
-    print("  uhd split ms (uhd+kernel): " + " ".join(
+    level_line("  uhd split ms (uhd+kernel): " + " ".join(
         f"{k[:-3]} {v:.3f}" for k, v in split.items())
           + "; kernels' device ms/frame: " + "; ".join(dev_ms), flush=True)
 
@@ -3664,7 +3730,7 @@ def tiled_path(torch, np, svm, summary) -> dict:
             "tiled uhd+kernel", kernels.launch_counts())
     finally:
         os.environ.pop("REPRO_TEST_DEVICES")
-    print(f"  tiled uhd+kernel, {TILE_DEVICES} logical devices on one card:"
+    level_line(f"  tiled uhd+kernel, {TILE_DEVICES} logical devices on one card:"
           f" " + ", ".join(f"{m} fp{fp}" for m, fp in TILED_CASES)
           + " x banded/matmul = untiled card to_list() bit for bit "
           f"({len(want['banded'])}/{len(want['matmul'])} kept); first-call "
@@ -3696,7 +3762,7 @@ def tiled_path(torch, np, svm, summary) -> dict:
         os.environ.pop("REPRO_TEST_DEVICES")
     need(all(g == want for g in got),
          "a sharded batch differs from the paper preset's detect_batch")
-    print(f"  sharded paper+kernel 640x480 B{SHARDED_B}: dp "
+    level_line(f"  sharded paper+kernel 640x480 B{SHARDED_B}: dp "
           f"{torch.cuda.device_count()} (the cards) and dp {SHARDED_DP} "
           f"(one pad frame) = paper detect_batch bit for bit "
           f"({sum(map(len, want))} kept)", flush=True)
@@ -3837,7 +3903,7 @@ def lm_path(torch, np) -> dict:
           f"tokens same as CPU; prefill and decode logits max delta "
           f"{de:.2e} (tol {LM_SMOKE_TOL:g})", flush=True)
 
-    cfg = get_config(LM_ARCH)
+    cfg = dc.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
@@ -4167,17 +4233,14 @@ def lm_families(torch, np):
     launches and peak GiB."""
     import dataclasses as dc
 
-    import repro_torch.kernels as kernels
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_numpy
-    from repro_torch.models.model import (decode_step, encode, init_params,
-                                          layer_windows, prefill)
-    from repro_torch.serve.engine import generate
+    from repro_torch.models.model import decode_step, encode, prefill
 
     B0, S0 = LM_SMOKE_PROMPT
     smoke = []
-    for arch in LM_FAMILIES + LM_SMOKE_ONLY + (LM_ENCDEC, LM_VLM):
+    for arch in LM_FAMILIES + LM_SMOKE_ONLY + (LM_ENCDEC, LM_VLM) + LM_DENSE:
         scfg = dc.replace(get_config(arch, smoke=True), dtype=torch.float32)
         leaves = smoke_leaves(np, scfg, 0)
         rng = np.random.default_rng(1)
@@ -4212,101 +4275,133 @@ def lm_families(torch, np):
 
     launches, routes = {}, dict.fromkeys(fa.ROUTES, 0)
     for arch in LM_FAMILIES:
-        cfg = get_config(arch)
-        groups = LM_FAMILY_BATCHES.get(arch, LM_BATCHES[:1])
-        torch.cuda.reset_peak_memory_stats()
-        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
-                             DEV)
-        n = sum(t.numel() for t in params.parameters())
-        need(n == cfg.param_count(), f"{arch}: {n} parameters, config "
-                                     f"{cfg.param_count()}")
-        rng = np.random.default_rng(2)
-        prompts = {g: rng.integers(0, cfg.vocab, (B, S)) for g, B, S in groups}
-        kernels.reset_launches()
-        toks = {g: generate(params, cfg, x, LM_NEW) for g, x in prompts.items()}
-        torch.cuda.synchronize()
-        name = f"lm {arch}"
-        launches[name] = check_launches(name, kernels.launch_counts())
-        per = sum(w == 0 for w in layer_windows(cfg)) if cfg.has_attention \
-            else 0
-        got = dict(fa.flash_attention.route_launches)
-        need(got == {"sm90": per * len(groups), "cuda_core": 0},
-             f"{arch}: flash routes {got} in {len(groups)} bf16 prefills, "
-             f"want sm90 {per} each")
-        routes["sm90"] += got["sm90"]
-        for g, B, S in groups:
-            t = toks[g]
-            need(t.shape == (B, S + LM_NEW) and bool(((t >= 0)
-                                                      & (t < cfg.vocab)).all())
-                 and torch.equal(t[:, :S].cpu(), torch.from_numpy(prompts[g])),
-                 f"{arch} {g}: tokens out of shape or range, or prompt changed")
-        g0 = groups[0][0]
-        need(torch.equal(generate(params, cfg, prompts[g0], LM_NEW), toks[g0]),
-             f"{arch} {g0}: a second generate gave other tokens")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-
-        # the consistency prompt: the last group's (hymba's B 1 x S 2,048,
-        # where decode reads past the window)
-        gc = groups[-1][0]
-        x = torch.as_tensor(prompts[gc], device=DEV)
-        ccfg, drops = cfg, ""
-        if cfg.is_moe:
-            # a prefill ranks tokens in order, so an overflowing expert
-            # drops the last positions first: prefill vs prefill[:-1] +
-            # decode_step is sound only where no row's last position lost
-            # a choice in any layer. The checks run at capacity factor
-            # E / k, where no drop is possible (the reference's smoke
-            # configs use 8.0 for this)
-            calls = moe_drops(torch, lambda: prefill(params, {"tokens": x},
-                                                     cfg, x.shape[1]))[1]
-            lost = torch.stack(calls).view(len(calls), x.shape[0],
-                                           x.shape[1], -1)
-            n_last = int(lost[:, :, -1].any(-1).sum())
-            r = decode_consistency(torch, params, cfg, x)[2]["sound"]
-            need(n_last or r <= CONSIST_TOL, f"{arch}: prefill vs prefill "
-                 f"+ decode_step at cf {cfg.capacity_factor:g}, no last "
-                 f"position dropped: relative L2 {r} > {CONSIST_TOL}")
-            ccfg = dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
-            drops = (f"; cf {cfg.capacity_factor:g}: {int(lost.sum())} "
-                     f"choices dropped, {n_last} at a row's last position "
-                     f"({'unsound' if n_last else 'sound'}, {r:.1e}); "
-                     f"checked at cf {ccfg.capacity_factor:g}")
-        rel = decode_consistency(torch, params, ccfg, x)[2]
-        need(rel["sound"] <= CONSIST_TOL,
-             f"{arch}: prefill vs prefill + decode_step relative L2 {rel} > "
-             f"{CONSIST_TOL}")
-
-        timing = []
-        for g, B, S in groups:
-            xg = torch.as_tensor(prompts[g], device=DEV)
-            timing.append(f"{g}+{LM_NEW} " + lm_timing(
-                torch, lambda: prefill(params, {"tokens": xg}, cfg,
-                                       S + LM_NEW),
-                lambda cache: decode_step(params, xg[:, -1:], cache, cfg),
-                lm_bounds(cfg, B, S)))
-        del params
-        torch.cuda.empty_cache()
-
-        # the same consistency in f32, where prefill and decode agree to
-        # summation order and each planted fault must land over the limit
-        cfg32 = dc.replace(ccfg, dtype=torch.float32)
-        params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
-                             DEV)
-        rel32 = decode_consistency(torch, params, cfg32, x)[2]
-        faults = min(v for k, v in rel32.items() if k != "sound")
-        need(rel32["sound"] <= CONSIST_TOL_F32 < faults,
-             f"{arch} f32 prefill vs prefill + decode_step: {rel32}, limit "
-             f"{CONSIST_TOL_F32} (sound under it, planted faults over it)")
-        del params
-        torch.cuda.empty_cache()
-        print(f"  {arch} bf16: {n / 1e9:.4f} B params = config, "
-              f"{peak:.2f} GiB, "
-              f"sm90 {per}/prefill, rerun same; " + "; ".join(timing)
-              + f"; {gc} pre/dec bf16 {rel['sound']:.1e} < "
-              f"{CONSIST_TOL:g} (" + _faults(rel, 1) + f"), f32 "
-              f"{rel32['sound']:.1e} < {CONSIST_TOL_F32:g} < "
-              + _faults(rel32, 1) + drops, flush=True)
+        n, sm90 = full_width(torch, np, arch,
+                             LM_FAMILY_BATCHES.get(arch, LM_BATCHES[:1]))
+        launches[f"lm {arch}"] = n
+        routes["sm90"] += sm90
     return launches, routes
+
+
+def full_width(torch, np, arch: str, groups, f32_layers=None,
+               predicted: str = ""):
+    """One arch of the lm families checks at full width in bf16 (seeded
+    random weights made on the card): parameters = param_count(),
+    generate for each of ``groups`` with the counters reset just before
+    and read just after (flash launches per prefill = its layers without
+    a window, all sm90), the same tokens on a rerun, the MoE's dropped
+    choices per prefill, prefill vs prefill[:-1] + decode_step in bf16
+    and, with its planted faults, in f32 (at ``f32_layers`` of its depth
+    where given: the f32 weights must fit the card), ms and bounds per
+    prefill and decode step, busy ms, launches and peak GiB; one line,
+    ``predicted`` (the dry run's) beside the peak. -> (its launches, its
+    sm90 launches)."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import (decode_step, init_params,
+                                          layer_windows, prefill)
+    from repro_torch.serve.engine import generate
+
+    cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dc.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    n = sum(t.numel() for t in params.parameters())
+    need(n == cfg.param_count(), f"{arch}: {n} parameters, config "
+                                 f"{cfg.param_count()}")
+    rng = np.random.default_rng(2)
+    prompts = {g: rng.integers(0, cfg.vocab, (B, S)) for g, B, S in groups}
+    kernels.reset_launches()
+    toks = {g: generate(params, cfg, x, LM_NEW) for g, x in prompts.items()}
+    torch.cuda.synchronize()
+    name = f"lm {arch}"
+    launches = check_launches(name, kernels.launch_counts())
+    per = sum(w == 0 for w in layer_windows(cfg)) if cfg.has_attention \
+        else 0
+    got = dict(fa.flash_attention.route_launches)
+    need(got == {"sm90": per * len(groups), "cuda_core": 0},
+         f"{arch}: flash routes {got} in {len(groups)} bf16 prefills, "
+         f"want sm90 {per} each")
+    for g, B, S in groups:
+        t = toks[g]
+        need(t.shape == (B, S + LM_NEW) and bool(((t >= 0)
+                                                  & (t < cfg.vocab)).all())
+             and torch.equal(t[:, :S].cpu(), torch.from_numpy(prompts[g])),
+             f"{arch} {g}: tokens out of shape or range, or prompt changed")
+    g0 = groups[0][0]
+    need(torch.equal(generate(params, cfg, prompts[g0], LM_NEW), toks[g0]),
+         f"{arch} {g0}: a second generate gave other tokens")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the consistency prompt: the last group's (hymba's B 1 x S 2,048,
+    # where decode reads past the window)
+    gc = groups[-1][0]
+    x = torch.as_tensor(prompts[gc], device=DEV)
+    ccfg, drops = cfg, ""
+    if cfg.is_moe:
+        # a prefill ranks tokens in order, so an overflowing expert
+        # drops the last positions first: prefill vs prefill[:-1] +
+        # decode_step is sound only where no row's last position lost
+        # a choice in any layer. The checks run at capacity factor
+        # E / k, where no drop is possible (the reference's smoke
+        # configs use 8.0 for this)
+        calls = moe_drops(torch, lambda: prefill(params, {"tokens": x},
+                                                 cfg, x.shape[1]))[1]
+        lost = torch.stack(calls).view(len(calls), x.shape[0],
+                                       x.shape[1], -1)
+        n_last = int(lost[:, :, -1].any(-1).sum())
+        r = decode_consistency(torch, params, cfg, x)[2]["sound"]
+        need(n_last or r <= CONSIST_TOL, f"{arch}: prefill vs prefill "
+             f"+ decode_step at cf {cfg.capacity_factor:g}, no last "
+             f"position dropped: relative L2 {r} > {CONSIST_TOL}")
+        ccfg = dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        drops = (f"; cf {cfg.capacity_factor:g}: {int(lost.sum())} "
+                 f"choices dropped, {n_last} at a row's last position "
+                 f"({'unsound' if n_last else 'sound'}, {r:.1e}); "
+                 f"checked at cf {ccfg.capacity_factor:g}")
+    rel = decode_consistency(torch, params, ccfg, x)[2]
+    need(rel["sound"] <= CONSIST_TOL,
+         f"{arch}: prefill vs prefill + decode_step relative L2 {rel} > "
+         f"{CONSIST_TOL}")
+
+    timing = []
+    for g, B, S in groups:
+        xg = torch.as_tensor(prompts[g], device=DEV)
+        timing.append(f"{g}+{LM_NEW} " + lm_timing(
+            torch, lambda: prefill(params, {"tokens": xg}, cfg,
+                                   S + LM_NEW),
+            lambda cache: decode_step(params, xg[:, -1:], cache, cfg),
+            lm_bounds(cfg, B, S)))
+    del params
+    torch.cuda.empty_cache()
+
+    # the same consistency in f32, where prefill and decode agree to
+    # summation order and each planted fault must land over the limit
+    cfg32 = dc.replace(ccfg, dtype=torch.float32,
+                       n_layers=f32_layers or cfg.n_layers)
+    params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    rel32 = decode_consistency(torch, params, cfg32, x)[2]
+    faults = min(v for k, v in rel32.items() if k != "sound")
+    need(rel32["sound"] <= CONSIST_TOL_F32 < faults,
+         f"{arch} f32 prefill vs prefill + decode_step: {rel32}, limit "
+         f"{CONSIST_TOL_F32} (sound under it, planted faults over it)")
+    del params
+    torch.cuda.empty_cache()
+    depth = f" {f32_layers}L" if f32_layers else ""
+    print(f"  {arch} bf16: {n / 1e9:.4f} B params = config, "
+          f"{peak:.2f} GiB{predicted}, "
+          f"sm90 {per}/prefill, rerun same; " + "; ".join(timing)
+          + f"; {gc} pre/dec bf16 {rel['sound']:.1e} < "
+          f"{CONSIST_TOL:g} (" + _faults(rel, 1) + f"), f32{depth} "
+          f"{rel32['sound']:.1e} < {CONSIST_TOL_F32:g} < "
+          + _faults(rel32, 1) + drops, flush=True)
+    return launches, got["sm90"]
 
 
 def lm_timing(torch, run_prefill, decode_from, bounds) -> str:
@@ -4324,10 +4419,10 @@ def lm_timing(torch, run_prefill, decode_from, bounds) -> str:
     pre = device_times(torch, run_prefill, 1)
     dec = device_times(torch, run_decode, 4)
     b_pre, b_dec = bounds
-    return (f"prefill {ms_pre:.2f} ms (bound {b_pre:.3f}, "
-            f"busy {sum(u for _, u in pre.values()) / 1e3:.2f}, "
-            f"{sum(c for c, _ in pre.values())} launches) decode "
-            f"{ms_dec:.3f} ({b_dec:.3f}, "
+    return (f"pre {ms_pre:.2f} ms (bound {b_pre:.3f} busy "
+            f"{sum(u for _, u in pre.values()) / 1e3:.2f}, "
+            f"{sum(c for c, _ in pre.values())} l) dec "
+            f"{ms_dec:.3f} ({b_dec:.3f} "
             f"{sum(u for _, u in dec.values()) / 4e3:.3f}, "
             f"{sum(c for c, _ in dec.values()) / 4:.0f})")
 
@@ -4451,7 +4546,8 @@ def lm_encdec_vlm(torch, np):
         return rel, tol
 
     # whisper-large-v3: the encoder over seeded frames, then the decoder
-    cfg = get_config(LM_ENCDEC)
+    n_l = FAMILY_LAYERS[LM_ENCDEC]
+    cfg = dc.replace(get_config(LM_ENCDEC), n_layers=n_l, encoder_layers=n_l)
     g, B, S = LM_ENCDEC_BATCH
     params, n = build(cfg)
     rng = np.random.default_rng(2)
@@ -4978,7 +5074,7 @@ def lm_train(torch, np):
           + "/".join(f"{v:g}" for v in TRAIN_SMOKE_TOL.values()) + "): "
           + ", ".join(text) + f"; ddp --compress 2 logical devices "
           f"{dl:.0e}/-/{dp:.0e}", flush=True)
-    print("  " + train_cli(), flush=True)
+    level_line("  " + train_cli(), flush=True)
     return {name: launches}, routes, bwd_routes, summary
 
 
@@ -5449,6 +5545,513 @@ def lm_mesh(torch, np):
     return launches, fwd, bwd
 
 
+# ------------------------------------------------------------ phase 5e
+
+# the dry run's predictions of phase 5e's cells at one device (run in a
+# process of its own beside the card's phases: it traces on the meta
+# device, allocates nothing and never touches the card)
+# the CPU's scores of the co-processor's windows come first, on 2 threads
+_PREDICT = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[3])
+import chip_smoke as cs
+from repro_torch.launch.dryrun import one_device, production_grid, run_cell
+out = {}
+
+
+def write():
+    with open(sys.argv[2], "w") as f:
+        json.dump(out, f)
+
+
+torch.set_num_threads(2)
+np.savez(sys.argv[2] + ".npz", **cs.coproc_cpu(np))
+out["coproc_cpu"] = {"path": sys.argv[2] + ".npz"}
+write()
+torch.set_num_threads(1)
+grid = one_device(production_grid(False))
+for key, kw in json.loads(sys.argv[1]):
+    try:
+        r = run_cell(grid=grid, **kw)
+        out[key] = {"peak": r["mem"]["peak_bytes"], "step": r["step_time_s"],
+                    "bound": r["bottleneck"]}
+    except Exception as e:
+        out[key] = {"error": repr(e)}
+    write()
+"""
+
+
+def shape_cells():
+    """Phase 5e's cells of the reference's shape set: (arch, layers (None:
+    all), profile, length, decode shape)."""
+    from repro_torch.configs import (ARCH_IDS, SHAPE_BY_NAME, get_config,
+                                     shape_applicable)
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for dec in ("decode_32k", "long_500k"):
+            if shape_applicable(cfg, SHAPE_BY_NAME[dec])[0]:
+                cells.append((arch, (LONG_LAYERS if dec == "long_500k"
+                                     else SHAPE_LAYERS).get(arch),
+                              SHAPE_PROFILE.get(arch, "baseline"),
+                              SHAPE_BY_NAME[dec].seq_len, dec))
+    return cells
+
+
+def start_predictions():
+    """Start the dry run of every phase 5e cell at one device and B 1 (the
+    dense configs at B 4 x S 512) -> (process, path of its JSON)."""
+    import tempfile
+    jobs = [(f"{a} B4xS512", dict(arch=a, shape_name="prefill_32k",
+                                  batch=4, seq_len=512)) for a in LM_DENSE]
+    for arch, layers, prof, S, dec in shape_cells():
+        kw = dict(arch=arch, batch=1, layers=layers or 0, profile=prof)
+        jobs.append((f"{arch} {S} prefill",
+                     dict(kw, shape_name="prefill_32k", seq_len=S)))
+        jobs.append((f"{arch} {S} decode", dict(kw, shape_name=dec)))
+    L, B, S, _ = TRAIN_4K
+    jobs.append(("train_4k", dict(arch=LM_ARCH, shape_name="train_4k",
+                                  batch=B, layers=L)))
+    jobs.append(("hog_svm_coproc", dict(arch="hog_svm_coproc",
+                                        shape_name="train_4k",
+                                        batch=COPROC_WINDOWS)))
+    # the longest traces last: phase 5e reads them last
+    jobs.sort(key=lambda j: j[1].get("seq_len", 0) > 32768)
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="dryrun_")
+    os.close(fd)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", _PREDICT,
+                             json.dumps(jobs), path, str(ROOT)], env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+class Predictions:
+    """The dry run's numbers of a phase 5e cell, read from the process
+    start_predictions started (waited for where not yet written)."""
+
+    def __init__(self, proc, path):
+        self.proc, self.path = proc, path
+
+    def _read(self) -> dict:
+        try:
+            with open(self.path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+
+    def get(self, key: str) -> dict:
+        t0 = time.perf_counter()
+        while key not in (got := self._read()):
+            need(self.proc.poll() is None and time.perf_counter() - t0 < 600,
+                 f"the dry run wrote no prediction of {key}: "
+                 f"{(self.proc.stderr.read() if self.proc.poll() is not None else 'timed out')[-800:]}")
+            time.sleep(1)
+        need("error" not in got[key], f"background job {key}: {got[key]}")
+        return got[key]
+
+    def text(self, key: str) -> str:
+        p = self.get(key)
+        return f"dry {p['peak'] / 2 ** 30:.2f} GiB {p['step'] * 1e3:.4g} ms"
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        for path in (self.path, self.path + ".npz"):
+            with contextlib.suppress(OSError):
+                os.remove(path)
+
+
+def _busy(times) -> tuple:
+    return (sum(t for _, t in times.values()) / 1e3,
+            sum(c for c, _ in times.values()))
+
+
+def last_gates(torch, fn, pin=None):
+    """Run ``fn()`` recording each MoE layer's gates (f32 (E,)) of its last
+    token, in call order -> (fn's result, [gates]). ``pin``: gates of an
+    earlier run, whose top-k choice each layer's last token then takes
+    (weighted by this run's own gates), where the two runs' choices
+    differ."""
+    import repro_torch.models.moe as moe
+
+    top_k, calls = moe._top_k, []
+
+    def recording(gates, k):
+        w, idx = top_k(gates, k)
+        calls.append(gates[-1].float().clone())
+        if pin is not None:
+            want = top_k(pin[len(calls) - 1][None], k)[1][0]
+            idx = idx.clone()
+            idx[-1] = want
+            w = w.clone()
+            w[-1] = gates[-1, want]
+        return w, idx
+
+    moe._top_k = recording
+    try:
+        return fn(), calls
+    finally:
+        moe._top_k = top_k
+
+
+def route_flips(torch, got, want, k: int) -> tuple:
+    """Layers whose last token's top-k experts differ between two runs'
+    gates (last_gates), and whether each is a near-tie: the first run's
+    gap between its k-th and (k+1)-th gate within twice the largest gate
+    difference between the runs in that layer -> (flips, near-ties)."""
+    flips = ties = 0
+    for g, w in zip(got, want):
+        sg, ig = torch.sort(g, descending=True, stable=True)
+        sw, iw = torch.sort(w, descending=True, stable=True)
+        if set(ig[:k].tolist()) != set(iw[:k].tolist()):
+            flips += 1
+            ties += float(sw[k - 1] - sw[k]) <= 2 * float((g - w).abs().max())
+    return flips, ties
+
+
+def length_cell(torch, np, arch, layers, profile, S, dec, pred) -> tuple:
+    """One arch at one of the reference's lengths, B 1: prefill S (host
+    ms; flash launches by route, every other kernel 0), prefill S - 1
+    under the profiler (busy ms, launches) and one decode_step against
+    the S-row cache (host and busy ms), its logits held to the first
+    prefill's last within CONSIST_TOL; the peak beside the dry run's.
+    A MoE's last token may take other experts in the decode than in the
+    prefill where two gates nearly tie (bf16 rounding moves them): then
+    every such flip must be a near-tie (route_flips) and the decode with
+    the prefill's choices (last_gates' pin) must pass. -> (the line, the
+    cell's launch counts, the failure or "")."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import (decode_step, encode, init_params,
+                                          layer_windows, prefill)
+    from repro_torch.sharding.rules import PROFILES, make_ctx
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dc.replace(cfg, n_layers=layers)
+    ctx = make_ctx(make_host_mesh(1, DEV), profile=PROFILES[profile]) \
+        if profile != "baseline" else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)), device=DEV)
+    full, part = {"tokens": x}, {"tokens": x[:, :-1]}
+    if cfg.mrope:   # text positions on the host: the flash route
+        pos = np.broadcast_to(np.arange(S)[None, :, None], (1, S, 3))
+        full["positions"], part["positions"] = pos, pos[:, :-1]
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encode(params, rng.standard_normal(
+        (1, cfg.encoder_ctx, cfg.d_model), dtype=np.float32), cfg) \
+        if cfg.encoder_layers else None
+    first, calls = moe_drops(
+        torch, lambda: prefill(params, full, cfg, S, ctx=ctx, enc=enc)[0])
+    a = first[:, -1].float()
+    torch.cuda.synchronize()
+    ms_pre = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    routes = dict(fa.flash_attention.route_launches)
+    per = (sum(w == 0 for w in layer_windows(cfg)) if cfg.has_attention
+           else 0) + cfg.encoder_layers
+    need(routes == {"sm90": per, "cuda_core": 0}
+         and all(n == (per if k == "flash_attention" else 0)
+                 for k, n in counts.items()),
+         f"{arch} S{S}: launches {counts}, flash {routes}, want sm90 {per} "
+         f"and no other kernel")
+    del first
+    note = ""
+    if cfg.is_moe:
+        if any(bool(c.any()) for c in calls):
+            # an overflowing expert drops the latest tokens first, and the
+            # capacity follows the token count: prefill S and S - 1 drop
+            # other choices, so the consistency runs at capacity factor
+            # E / k, where nothing drops (as the lm families phase checks)
+            ccfg = dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            note = (f"; cf {cfg.capacity_factor:g} drops "
+                    f"{sum(int(c.sum()) for c in calls)}, checked at cf "
+                    f"{ccfg.capacity_factor:g}")
+            cfg = ccfg
+        out, gates = last_gates(torch, lambda: prefill(
+            params, full, cfg, S, ctx=ctx, enc=enc)[0])
+        a = out[:, -1].float()
+    holder = {}
+
+    def run_part():
+        holder["c"] = prefill(params, part, cfg, S, ctx=ctx, enc=enc)[1]
+
+    busy, n_pre = _busy(device_times(torch, run_part, 1, warm=False))
+    cache = holder.pop("c")
+    i0 = cache["idx"]
+    kept = {t: cache[t][:, :, i0:i0 + 1].clone() if t in ("k", "v")
+            else cache[t].clone()
+            for t in ("k", "v", "state", "conv") if t in cache}
+
+    def run_decode():
+        out = decode_step(params, x[:, -1:], cache, cfg, enc=enc, ctx=ctx)
+        with torch.inference_mode():      # the step writes its row in place
+            for t, v in kept.items():
+                (cache[t][:, :, i0:i0 + 1] if t in ("k", "v")
+                 else cache[t]).copy_(v)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = run_decode()[0][:, -1].float()
+    torch.cuda.synchronize()
+    ms_dec = (time.perf_counter() - t0) * 1e3
+    dbusy, n_dec = _busy(device_times(torch, run_decode, 1))
+    rel = float((a - b).norm() / a.norm())
+    fail = "" if bool(torch.isfinite(a).all()) and rel <= CONSIST_TOL \
+        else f"rel L2 {rel} > {CONSIST_TOL}"
+    if cfg.is_moe:
+        b, dgates = last_gates(torch, run_decode)
+        flips, ties = route_flips(torch, dgates, gates, cfg.top_k)
+        if flips:
+            pinned = last_gates(torch, run_decode, pin=gates)[0]
+            rel_pin = float((a - pinned[0][:, -1].float()).norm() / a.norm())
+            note += (f"; last token's experts differ in {flips} layers "
+                     f"({ties} near-ties), pinned {rel_pin:.1e}")
+            if ties == flips and rel_pin <= CONSIST_TOL:
+                fail = ""
+            elif not fail:
+                fail = f"{flips - ties} route flips are not near-ties"
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, cache, kept, enc
+    torch.cuda.empty_cache()
+    depth = f" {layers}L" if layers else ""
+    prof = f" {profile}" if profile != "baseline" else ""
+    pp, pd = pred.get(f"{arch} {S} prefill"), pred.get(f"{arch} {S} decode")
+    line = (f"  {arch.split('-')[0]}{depth}{prof} S{S}: pre {ms_pre:.1f} ms "
+            f"({pp['step'] * 1e3:.4g}) busy {busy:.1f}, {n_pre} l, sm90 "
+            f"{per}; dec {ms_dec:.2f} ({pd['step'] * 1e3:.3g}) busy "
+            f"{dbusy:.2f}, {n_dec} l; rel {rel:.1e}{note}; {peak:.2f} GiB "
+            f"({pp['peak'] / 2 ** 30:.2f}/{pd['peak'] / 2 ** 30:.2f})")
+    return line, counts, fail and f"{arch} S{S}: prefill vs prefill[:-1] " \
+        f"+ decode_step {fail}"
+
+
+def train_4k(torch, np, pred) -> tuple:
+    """qwen3-14b at TRAIN_4K's layers, B 1 x S 4,096 (train_4k's length):
+    the gradient with the kernels against the plain flash forward and
+    backward (worst leaf within TRAIN_GRAD_TOL), then AdamW steps with the
+    counters reset just before and read just after (loss finite and
+    falling). -> (the line, launches, forward routes, backward routes)."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    L, B, S, steps = TRAIN_4K
+    cfg = dc.replace(get_config(LM_ARCH), n_layers=L)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+    params = state["params"]
+    batch = {k: torch.as_tensor(v, device=DEV)
+             for k, v in train_batch(np, cfg, B, S).items()}
+
+    def grads_once():
+        loss = loss_fn(params, batch, cfg)
+        loss.backward()
+        g = {k: p.grad for k, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        return float(loss.detach()), g
+
+    loss_k, g_k = grads_once()
+    with plain_flash(fa):
+        loss_p, g_p = grads_once()
+    leaf = {k: float((g_k[k].float() - g_p[k].float()).norm()
+                     / g_p[k].float().norm())
+            for k in g_k if float(g_p[k].float().norm()) > 0}
+    worst = max(leaf, key=leaf.get)
+    need(leaf[worst] <= TRAIN_GRAD_TOL
+         and abs(loss_k - loss_p) <= TRAIN_LOSS_TOL * abs(loss_p),
+         f"train_4k gradient kernels vs plain: {leaf[worst]} at {worst}, "
+         f"loss {loss_k} vs {loss_p}")
+    del g_k, g_p
+    step = make_train_step(cfg, OptConfig(lr=TRAIN_LR, warmup_steps=1,
+                                          total_steps=steps))
+    kernels.reset_launches()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    name = "lm shapes train_4k"
+    launches = check_launches(name, kernels.launch_counts())
+    routes = dict(fa.flash_attention.route_launches)
+    bwd = dict(fa.flash_attention_bwd.route_launches)
+    need(routes == {"sm90": 2 * L * steps, "cuda_core": 0}
+         and bwd == {"sm90": L * steps, "cuda_core": 0},
+         f"train_4k launched flash {routes} forward and {bwd} backward")
+    need(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+         f"train_4k losses {losses}: not finite and falling")
+    busy, n = _busy(device_times(torch, lambda: step(state, batch), 1))
+    plan = fa.bwd_plan_sm90(B, cfg.n_heads, cfg.n_kv_heads, S, True,
+                            build.sm_count(torch.cuda.current_device()))
+    level_line(f"  train_4k bwd_plan_sm90 at B{B}xS{S}: {plan}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, params, batch, step
+    torch.cuda.empty_cache()
+    line = (f"  train_4k {LM_ARCH} {L}L B{B}xS{S}: grad vs plain worst leaf "
+            f"{leaf[worst]:.1e} ({worst}; tol {TRAIN_GRAD_TOL:g}); loss "
+            + " ".join(f"{v:.3f}" for v in losses) + f"; {ms:.1f} ms/step "
+            f"({pred.text('train_4k')}; busy {busy:.1f}, {n} launches, sm90 "
+            f"{2 * L}+{L} bwd); peak {peak:.2f} GiB")
+    return line, launches, routes, bwd
+
+
+def coproc_windows(np):
+    """COPROC_WINDOWS seeded windows: Table I's split drawn with seeded
+    shifts of up to 2 pixels, and the golden SVM as numpy."""
+    import repro_torch.data.synth_pedestrian as synth
+
+    g = np.load(ROOT / "tests" / "golden" / "hog_golden.npz")
+    svm_np = {"w": g["svm_w"], "b": np.asarray(g["svm_b"], np.float32)}
+    split, _ = synth.make_windows(160, 134, synth.PedestrianDataConfig(),
+                                  np.random.default_rng(0))
+    rng = np.random.default_rng(4)
+    wins = split[rng.integers(0, len(split), COPROC_WINDOWS)]
+    shift = rng.integers(-2, 3, (COPROC_WINDOWS, 2))
+    for dy in range(-2, 3):
+        for dx in range(-2, 3):
+            sel = (shift[:, 0] == dy) & (shift[:, 1] == dx)
+            wins[sel] = np.roll(wins[sel], (dy, dx), axis=(1, 2))
+    return wins, svm_np
+
+
+def coproc_cpu(np) -> dict:
+    """The CPU's scores and verdicts of coproc_windows for each of
+    COPROC_CONFIGS (computed beside the card's phases, in the dry run's
+    process)."""
+    import repro_torch.api as api
+    import repro_torch.core.pipeline as pipe
+
+    wins, svm_np = coproc_windows(np)
+    out = {}
+    for name in COPROC_CONFIGS:
+        preset, path = WINDOW_CONFIGS[name]
+        ref = pipe.classify_windows(svm_np, wins, api.presets(preset).hog,
+                                    path, device="cpu")
+        out[f"{name} score"] = ref["score"].numpy()
+        out[f"{name} human"] = ref["human"].numpy()
+    return out
+
+
+def coproc(torch, np, pred) -> tuple:
+    """hog_svm_coproc: classify_windows on COPROC_WINDOWS seeded windows
+    (coproc_windows) through the kernel and fused backends, counters reset
+    just before each and read just after, scores held to the CPU's
+    (coproc_cpu) as phase 4b holds them. -> (line, launches)."""
+    import repro_torch.api as api
+    import repro_torch.core.pipeline as pipe
+    import repro_torch.kernels as kernels
+
+    wins, svm_np = coproc_windows(np)
+    svm = {k: torch.from_numpy(v).to(DEV) for k, v in svm_np.items()}
+    x = torch.from_numpy(wins).to(DEV)
+    launches, parts = {}, []
+    for name in COPROC_CONFIGS:
+        preset, path = WINDOW_CONFIGS[name]
+        cfg = api.presets(preset).hog
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipe.classify_windows(svm, x, cfg, path)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        key = "coproc " + name[7:]
+        launches[key] = check_launches(key, kernels.launch_counts())
+        busy, n = _busy(device_times(
+            torch, lambda: pipe.classify_windows(svm, x, cfg, path), 1))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with np.load(pred.get("coproc_cpu")["path"]) as f:
+            ref = {k: torch.from_numpy(f[f"{name} {k}"])
+                   for k in ("score", "human")}
+        tol = WINDOW_SCORE_TOL[preset]
+        score = got["score"].cpu()
+        need(score.shape == (COPROC_WINDOWS,)
+             and bool(torch.isfinite(score).all()), f"{key}: scores")
+        de = float((score - ref["score"]).abs().max())
+        sure = ref["score"].abs() > tol
+        need(de <= tol and torch.equal(got["human"].cpu()[sure],
+                                       ref["human"][sure]),
+             f"{key}: {COPROC_WINDOWS} windows, score delta {de} > {tol} or "
+             f"human differs from the CPU where |score| > {tol}")
+        parts.append(f"{name[7:]} {ms:.2f} ms (busy {busy:.2f}, {n} "
+                     f"launches) delta {de:.1e} ({tol:g}), "
+                     f"{int(got['human'].sum())} humans, peak {peak:.2f} GiB")
+    line = (f"  hog_svm_coproc {COPROC_WINDOWS} windows ("
+            f"{pred.text('hog_svm_coproc')}, path ref): " + "; ".join(parts))
+    return line, launches
+
+
+def lm_shapes(torch, np, pred):
+    """Phase 5e: (a) LM_DENSE at full width with the lm families checks;
+    (b) every arch at the reference's lengths at B 1 (length_cell), the
+    train_4k cell (train_4k) and the co-processor's pod batch (coproc);
+    each line with its measured peak beside the dry run's prediction.
+    -> (launches by path, forward routes, backward routes)."""
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+
+    launches, fwd = {}, dict.fromkeys(fa.ROUTES, 0)
+    for arch in LM_DENSE:
+        got, sm90 = full_width(torch, np, arch, LM_BATCHES[:1],
+                               LM_DENSE_F32_LAYERS.get(arch),
+                               " (" + pred.text(f"{arch} B4xS512") + ")")
+        launches[f"lm {arch}"] = got
+        fwd["sm90"] += sm90
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    failed = []
+    print(f"  the reference's lengths, B 1: prefill S (the dry run's "
+          f"roofline ms), busy ms, launches, flash sm90; decode at S; rel "
+          f"L2 of its logits to the prefill's last (tol {CONSIST_TOL:g}); "
+          f"peak GiB (dry run: prefill/decode)", flush=True)
+    for cell in shape_cells():
+        t0 = time.perf_counter()
+        line, counts, fail = length_cell(torch, np, *cell, pred)
+        level_line(f"time of {cell[0]} S{cell[3]}: "
+                   f"{time.perf_counter() - t0:.1f} s")
+        total = {k: n + counts[k] for k, n in total.items()}
+        fwd["sm90"] += counts["flash_attention"]
+        print(line, flush=True)
+        failed += [fail] if fail else []
+    need(not failed, "; ".join(failed))
+    launches["lm shapes"] = check_launches("lm shapes", total)
+    line, got, f, bwd = train_4k(torch, np, pred)
+    launches["lm shapes train_4k"] = got
+    fwd = {r: n + f[r] for r, n in fwd.items()}
+    print(line, flush=True)
+    line, got = coproc(torch, np, pred)
+    launches.update(got)
+    print(line, flush=True)
+    return launches, fwd, bwd
+
+
 def _faults(rel, digits: int = 2) -> str:
     return ", ".join(f"{k} {v:.{digits}e}" for k, v in rel.items()
                      if k != "sound")
@@ -5501,7 +6104,7 @@ def sm90_report(build) -> None:
         need(all(counts.values()), f"{name} SASS: {counts}")
         text.append(f"{name} HGMMA {counts['HGMMA']} UTMALDG "
                     f"{counts['UTMALDG']} ({len(spills)} functions)")
-    print("SASS: " + ", ".join(text) + "; no spills; setmaxnreg 240 / 24",
+    level_line("SASS: " + ", ".join(text) + "; no spills; setmaxnreg 240 / 24",
           flush=True)
 
 
@@ -5518,7 +6121,13 @@ def compact_mode(v: dict) -> dict:
             if not isinstance(d, dict)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("lm_shapes",),
+                    help="build the kernels and run this phase alone; no "
+                         "kernels or ok line (a check of one phase)")
+    only = ap.parse_args(argv).only
     # every run probes the batch schedule: no autotune decision is read
     # from, or written to, a cache file
     os.environ["REPRO_AUTOTUNE_CACHE"] = ""
@@ -5527,13 +6136,23 @@ def main() -> int:
               "script; run it from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    pred = Predictions(*start_predictions())
+    clock = [time.perf_counter()]
+
+    def header(name: str) -> None:
+        """A phase's header on standard output; the seconds since the
+        last one on standard error."""
+        now = time.perf_counter()
+        level_line(f"time before {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+        print(f"{name}:", flush=True)
+
     try:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5564,6 +6183,13 @@ def main() -> int:
         need(not any("spill" in r for r in reports)
              and not any(sum(v) for v in pair.values()), "ptxas spilled")
         sm90_report(build)
+        if only:
+            header("lm shapes")
+            lm_shapes(torch, np, pred)
+            level_line(f"time of lm shapes: "
+                       f"{time.perf_counter() - clock[0]:.1f} s")
+            print(f"--only {only}: passed; no kernels or ok line")
+            return 0
 
         one = torch.zeros(1, device=DEV)
         floor = kernel_device_ms(torch, lambda: one.add_(1), "")
@@ -5573,48 +6199,57 @@ def main() -> int:
         summary = check_kernels(torch, np)
         check_batched_kernels(torch, np)
         summary.update(check_window_kernels(torch, np))
-        print("  ptxas, level, plan and profile lines: on standard error",
+        print("  ptxas, SASS, level, plan, profile and detail lines: on standard "
+              "error",
               flush=True)
         summary.update(check_flash(torch, np))
-        print("main path:", flush=True)
+        header("main path")
         launches, configs, svm = main_path(torch, np)
-        print("batch path:", flush=True)
+        header("batch path")
         launches.update(batch_path(torch, np, configs, svm))
         launches.update(stream_path(torch, np, configs, svm))
         launches.update(multihead_path(torch, np, configs, svm))
-        print("window path:", flush=True)
+        header("window path")
         launches.update(window_path(torch, np))
-        print("train path:", flush=True)
+        header("train path")
         launches.update(train_path(torch, np))
-        print("serve path:", flush=True)
+        header("serve path")
         launches.update(serve_path(torch, np, configs, svm))
-        print("cascade path:", flush=True)
+        header("cascade path")
         launches.update(cascade_path(torch, np, svm))
-        print("tiled path:", flush=True)
+        header("tiled path")
         launches.update(tiled_path(torch, np, svm, summary))
-        print("LM path:", flush=True)
+        header("LM path")
         lm_launches, flash_routes = lm_path(torch, np)
         launches.update(lm_launches)
-        print("lm families:", flush=True)
+        header("lm families")
         for fn in (lm_families, lm_encdec_vlm):
             family_launches, family_routes = fn(torch, np)
             launches.update(family_launches)
             flash_routes = {r: n + family_routes[r]
                             for r, n in flash_routes.items()}
-        print("lm train:", flush=True)
+        header("lm train")
         train_launches, train_routes, bwd_routes, bwd = lm_train(torch, np)
         launches.update(train_launches)
         flash_routes = {r: n + train_routes[r]
                         for r, n in flash_routes.items()}
         summary.update(bwd)
-        print("lm mesh:", flush=True)
+        header("lm mesh")
         mesh_launches, mesh_fwd, mesh_bwd = lm_mesh(torch, np)
         launches.update(mesh_launches)
         flash_routes = {r: n + mesh_fwd[r] for r, n in flash_routes.items()}
         bwd_routes = {r: n + mesh_bwd[r] for r, n in bwd_routes.items()}
+        header("lm shapes")
+        shape_launches, shape_fwd, shape_bwd = lm_shapes(torch, np, pred)
+        launches.update(shape_launches)
+        flash_routes = {r: n + shape_fwd[r] for r, n in flash_routes.items()}
+        bwd_routes = {r: n + shape_bwd[r] for r, n in bwd_routes.items()}
+        level_line(f"time of lm shapes: {time.perf_counter() - clock[0]:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+    finally:
+        pred.close()
 
     # launches: the sum of each path's own count (each read right after
     # that path's run), with the per-path counts beside it; the top-level

@@ -94,7 +94,8 @@ class DetectorConfig:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU. Without a GPU, anything but an explicit CPU request raises;
-    there is no silent fallback. On the card, TF32 is switched off for
+    there is no silent fallback. ``"meta"`` allocates nothing (the dry
+    run's traces, launch/dryrun.py). On the card, TF32 is switched off for
     cuBLAS and cuDNN so the resize matmuls stay full f32."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -104,8 +105,9 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch path on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                         f"('meta': shapes only, as the dry run traces)")
     return dev
 
 

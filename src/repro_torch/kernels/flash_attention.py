@@ -57,6 +57,12 @@ the kernels write nothing more.
 ``flash_attention`` launches the route's kernel for CUDA tensors and
 runs the plain version ``flash_attention_plain`` (the counterpart of
 repro/kernels/ref.py:flash_attention_ref) for CPU tensors; nothing else.
+Inside ``shape_only()`` (launch/dryrun.py's traces), meta tensors go
+through the shape-only ops ``torch.ops.repro_torch.flash_attention_fwd``
+/ ``_bwd``, one op a call, so a dispatch mode sees the call's operands
+and results and ``analysis/op_count.py`` counts the tiles the route's
+kernels compute (``kernel_flops``, ``kernel_bwd_flops``); anywhere else a
+meta tensor raises, as every wrapper's does.
 ``flash_attention_bwd`` likewise launches its route's kernels or runs
 ``flash_attention_bwd_plain``; neither falls back from one route to the
 other. ``flash_attention.launches`` counts kernel launches of both
@@ -67,9 +73,12 @@ heads are split).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -207,6 +216,87 @@ def bwd_plan_sm90(B: int, H: int, K: int, S: int, causal: bool,
     return out
 
 
+def _tile_pairs(S: int, bq: int, bk: int, causal: bool,
+                keys_outer: bool = False) -> int:
+    """The (query, key) scores one (b, h) computes over its S x S tiles
+    of bq queries by bk keys: every tile, or, causal, the tiles a kernel
+    visits -- a query tile's key tiles up to its last row
+    (``keys_outer``: a key tile's query tiles from its first key on, as
+    the backward's dK/dV kernels step)."""
+    nq, nk = -(-S // bq), -(-S // bk)
+    if not causal:
+        return nq * nk * bq * bk
+    if keys_outer:
+        return sum(nq - (t * bk) // bq for t in range(nk)) * bq * bk
+    return sum(min(nk, ((u + 1) * bq - 1) // bk + 1)
+               for u in range(nq)) * bq * bk
+
+
+def kernel_flops(B: int, H: int, S: int, hd: int, dtype: torch.dtype,
+                 causal: bool) -> int:
+    """Operations the forward route for ``dtype`` and ``hd`` computes: two
+    products (S = Q K^T, P V), 2 hd each, over every score of its visited
+    tiles (128 x 128 on sm90, 64 x 64 on cuda_core)."""
+    b = SM90_BLOCK_Q if route(dtype, hd) == "sm90" else BLOCK_Q
+    return 4 * hd * B * H * _tile_pairs(S, b, b, causal)
+
+
+def kernel_bwd_flops(B: int, H: int, S: int, hd: int, dtype: torch.dtype,
+                     causal: bool) -> int:
+    """Operations the backward route computes: the dK/dV kernel's four
+    products (S, dP, dV, dK) over its tiles (128 keys by 64-query steps
+    on sm90, 64 x 64 on cuda_core) and the dQ kernel's three (S, dP, dQ)
+    over its (128 x 128 or 64 x 64), 2 hd each."""
+    if route(dtype, hd) == "sm90":
+        kv = _tile_pairs(S, SM90_BWD_BLOCK_Q, SM90_BWD_BLOCK_KV, causal,
+                         keys_outer=True)
+        dq = _tile_pairs(S, SM90_BWD_DQ_BLOCK_Q, SM90_BWD_DQ_BLOCK_K, causal)
+    else:
+        kv = _tile_pairs(S, BLOCK_Q, BLOCK_K, causal, keys_outer=True)
+        dq = _tile_pairs(S, BLOCK_Q, BLOCK_K, causal)
+    return 2 * hd * B * H * (4 * kv + 3 * dq)
+
+
+_SHAPE_ONLY = contextvars.ContextVar("flash_shape_only", default=False)
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Within the block the wrappers take meta tensors, one shape-only op
+    a call (the dry run's traces)."""
+    token = _SHAPE_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _SHAPE_ONLY.reset(token)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _meta_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+              lse: bool) -> Tuple[Tensor, Tensor]:
+    raise ValueError("repro_torch::flash_attention_fwd is shape-only: it "
+                     "takes meta tensors (the dry run's traces)")
+
+
+@_meta_fwd.register_fake
+def _(q, k, v, causal, lse):
+    B, H, S, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, S) if lse else (0,),
+                                            dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _meta_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor, dout: Tensor,
+              lse: Tensor, causal: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    raise ValueError("repro_torch::flash_attention_bwd is shape-only: it "
+                     "takes meta tensors (the dry run's traces)")
+
+
+@_meta_bwd.register_fake
+def _(q, k, v, out, dout, lse, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _tma_problem(t: Tensor):
     """Why a TMA tensor map cannot describe ``t``'s layout, or None: a
     last dimension that is not unit-stride, a base address or a stride
@@ -330,6 +420,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
         if not lse:
             return out.copy_(res)
         return out.copy_(res[0]), res[1]
+    if q.device.type == "meta" and _SHAPE_ONLY.get():
+        out, buf = _meta_fwd(q, k, v, bool(causal), bool(lse))
+        return (out, buf) if lse else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if route(q.dtype, q.shape[-1]) == "sm90":
@@ -416,6 +509,8 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                          f"{tuple(lse.shape)} on {lse.device}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, lse, causal)
+    if q.device.type == "meta" and _SHAPE_ONLY.get():
+        return _meta_bwd(q, k, v, out, dout, lse, bool(causal))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")

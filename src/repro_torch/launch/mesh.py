@@ -155,6 +155,14 @@ def make_tiled_mesh(data_parallel: int = 1, frame_parallel: int = 0,
     return grid_of(devs, (dp, fp), ("data", "tile"))
 
 
+def production_layout(multi_pod: bool = False
+                      ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The production grid's shape and axis names (make_production_mesh)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device=None) -> DeviceGrid:
     """16 x 16 ("data", "model") single pod (256 devices) or 2 x 16 x 16
@@ -163,8 +171,7 @@ def make_production_mesh(*, multi_pod: bool = False,
     tensor, expert and sequence parallelism. Raises the reference's
     ValueError (jax.make_mesh's) unless that many devices are visible
     (e.g. REPRO_TEST_DEVICES=256)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_layout(multi_pod)
     devs = visible_devices(device)
     need = 1
     for n in shape:

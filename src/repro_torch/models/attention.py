@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import FlashAttention, flash_attention
 from .configs import ModelConfig
-from .layers import apply_mrope, apply_rope, rmsnorm
+from .layers import apply_mrope, apply_rope, cat, passes, rmsnorm
 
 Tensor = torch.Tensor
 
@@ -331,20 +331,29 @@ def banded_core(q: Tensor, k: Tensor, v: Tensor, pos1d: Tensor,
     first_pad = ((torch.arange(B * nblk, device=q.device) % nblk == 0)[:, None]
                  & (torch.arange(2 * bq, device=q.device) < bq)[None, :])
     kp = torch.where(first_pad, torch.full_like(kp, 2 ** 30), kp)
-    mask = make_mask(qp, kp, window=window)
-    if n_meta:
-        mask = mask & (kp >= n_meta)[:, None, :]   # meta: its own pass
-    out_b, lse_b = _sdpa_lse(qb, kb, vb, mask, bf16)
-    out_b = out_b.reshape(B, Sp, H, hd)[:, :S]
-    lse_b = lse_b.reshape(B, Sp, H)[:, :S]
+    outs, lses = [], []
+    for c in passes(B * nblk, 4 * H * bq * 2 * bq):   # f32 scores
+        mask = make_mask(qp[c], kp[c], window=window)
+        if n_meta:
+            mask = mask & (kp[c] >= n_meta)[:, None, :]   # meta: its own pass
+        o, lse = _sdpa_lse(qb[c], kb[c], vb[c], mask, bf16)
+        outs.append(o)
+        lses.append(lse)
+    out_b = cat(outs, 0).reshape(B, Sp, H, hd)[:, :S]
+    lse_b = cat(lses, 0).reshape(B, Sp, H)[:, :S]
     if not n_meta:
         return out_b
     # meta keys are visible through the window (sinks); causality still
     # holds for the meta tokens' own queries
-    mask_m = (torch.arange(n_meta, device=q.device)[None, None, :]
-              <= pos1d[:, :S, None])
-    out_m, lse_m = _sdpa_lse(q[:, :S], k[:, :n_meta], v[:, :n_meta],
-                             mask_m, bf16)
+    outs, lses = [], []
+    for c in passes(S, 4 * B * H * n_meta):
+        mask_m = (torch.arange(n_meta, device=q.device)[None, None, :]
+                  <= pos1d[:, c, None])
+        o, lse = _sdpa_lse(q[:, c], k[:, :n_meta], v[:, :n_meta], mask_m,
+                           bf16)
+        outs.append(o)
+        lses.append(lse)
+    out_m, lse_m = cat(outs, 1), cat(lses, 1)
     mx = torch.maximum(lse_b, lse_m)
     wb = torch.exp(lse_b - mx)
     wm = torch.exp(lse_m - mx)

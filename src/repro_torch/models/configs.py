@@ -96,6 +96,12 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k shape (SSM / hybrid w/ sliding attn)."""
+        return self.family == "ssm" or (self.family == "hybrid"
+                                        and self.sliding_window > 0)
+
     # ---- parameter counting (for 6ND roofline cross-check) ----
     def param_count(self, active_only: bool = False) -> int:
         D, F, V = self.d_model, self.d_ff, self.vocab

@@ -120,3 +120,22 @@ def sinusoidal_positions(n: int, d: int, device=None, start: int = 0
     i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
     ang = pos / (10000.0 ** (2 * i / d))
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# the most bytes one pass holds in each of its f32 intermediates where a
+# long sequence is computed in runs of whole chunks (models/ssm.py) or
+# blocks (models/attention.py:banded_core); each chunk's or block's
+# numbers are the same in any run, so a 524,288-token prefill fits one card
+PASS_BYTES = 1 << 30
+
+
+def passes(n: int, bytes_each: int):
+    """Runs of ``n`` chunks, blocks or rows, as slices, whose intermediates
+    (``bytes_each`` a chunk) fit ``PASS_BYTES``: one run where all fit."""
+    step = max(1, PASS_BYTES // bytes_each)
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def cat(parts, dim: int) -> Tensor:
+    """``torch.cat``, without a copy of a single part."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)

@@ -469,6 +469,12 @@ def _remat(fn, *args) -> Tensor:
     node asks first, and two cards' engine threads can ask at once)."""
     if torch.is_grad_enabled():
         reentrant = any(isinstance(a, ShardedLeaves) for a in args)
+        if reentrant and not any(isinstance(a, Tensor) and a.requires_grad
+                                 for a in args):
+            # the reentrant form differentiates only through its tensor
+            # inputs: where none needs a gradient (whisper's encoder over
+            # its frames) the parameters gathered inside would get none
+            args = (args[0].detach().requires_grad_(),) + args[1:]
         return checkpoint(fn, *args, use_reentrant=reentrant)
     return fn(*args)
 

@@ -2,7 +2,8 @@
 repro/models/ssm.py).
 
 The chunked block-decomposition for prefill (an intra-chunk quadratic
-term plus the inter-chunk state recurrence, a loop over chunks here),
+term, in passes over runs of chunks (``layers.PASS_BYTES``), plus the
+inter-chunk state recurrence, a loop over chunks here),
 the one-step recurrence for decode. The selective-scan numerics run in
 f32 (exp of the decay cumsums), the matmul-heavy terms in the model's
 dtype, as in the reference. The parameters ``A_log``, ``D_skip`` and
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .configs import ModelConfig
-from .layers import rmsnorm
+from .layers import cat, passes, rmsnorm
 
 Tensor = torch.Tensor
 f32 = torch.float32
@@ -60,17 +61,20 @@ def ssd_forward(x: Tensor, p, cfg: ModelConfig
     valid = (torch.arange(S, device=x.device) < S0)[None, :, None]
     nc = S // Q
 
+    # the projection's pieces are copied out or consumed, so that its
+    # (B, S, 2 d_inner + 2 G N + H) product is freed before the scan
     zxbcdt = torch.matmul(x, p.in_proj)
-    z = zxbcdt[..., :di]
+    z = zxbcdt[..., :di].clone()
     xBC = zxbcdt[..., di:di + cfg.conv_dim]
     dt_raw = zxbcdt[..., di + cfg.conv_dim:]
-    conv_tail = xBC[:, S0 - (cfg.ssm_conv - 1):S0, :]       # decode carry
+    conv_tail = xBC[:, S0 - (cfg.ssm_conv - 1):S0, :].to(f32)  # decode carry
     xBC = _causal_conv(xBC, p.conv_w, p.conv_b, cfg.ssm_conv)
     xs = xBC[..., :di]
     Bm = xBC[..., di:di + G * N].reshape(B, S, G, N)
     Cm = xBC[..., di + G * N:].reshape(B, S, G, N)
 
     dt = _softplus(dt_raw.to(f32) + p.dt_bias)               # (B, S, H)
+    del zxbcdt, dt_raw
     dt = dt * valid                                          # mask the pad
     A = -torch.exp(p.A_log.to(f32))                          # (H,)
     dA = dt * A
@@ -84,22 +88,30 @@ def ssd_forward(x: Tensor, p, cfg: ModelConfig
     Cc = Cm.reshape(B, nc, Q, G, N)
 
     cum = torch.cumsum(dAc, dim=2)                           # (B, nc, Q, H)
-    # intra-chunk: the quadratic, attention-like term
-    CB = torch.einsum("bcqgn,bckgn->bcgqk", Cc.to(f32), Bc.to(f32))
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    M = torch.where(tri[None, None, :, :, None], decay,
-                    torch.zeros((), dtype=f32, device=x.device))
-    M = M * dtc[:, :, None, :, :]                            # * dt[k]
-    CBh = torch.repeat_interleave(CB, rep, dim=2)            # (B,nc,H,Q,K)
-    W = CBh * torch.movedim(M, -1, 2)
-    y_intra = torch.einsum("bchqk,bckhp->bcqhp", W.to(x.dtype), xc)
+    runs = passes(nc, 4 * B * Q * Q * H)        # a chunk's (Q, Q, H) f32
 
-    # each chunk's own state: sum_k exp(cum[last]-cum[k]) dt[k] B[k] x[k]
-    seg = torch.exp(cum[:, :, -1:, :] - cum) * dtc           # (B,nc,Q,H)
-    Bh = torch.repeat_interleave(Bc, rep, dim=3)             # (B,nc,Q,H,N)
-    states = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", seg, Bh.to(f32),
-                          xc.to(f32))
+    def intra(c: slice) -> Tuple[Tensor, Tensor]:
+        """Chunks ``c``: the quadratic, attention-like term and each
+        chunk's own state, sum_k exp(cum[last]-cum[k]) dt[k] B[k] x[k]."""
+        cu, dtk, Bk = cum[:, c], dtc[:, c], Bc[:, c]
+        CB = torch.einsum("bcqgn,bckgn->bcgqk", Cc[:, c].to(f32),
+                          Bk.to(f32))
+        decay = torch.exp(cu[:, :, :, None, :] - cu[:, :, None, :, :])
+        M = torch.where(tri[None, None, :, :, None], decay,
+                        torch.zeros((), dtype=f32, device=x.device))
+        M = M * dtk[:, :, None, :, :]                        # * dt[k]
+        CBh = torch.repeat_interleave(CB, rep, dim=2)        # (B,nc,H,Q,K)
+        W = CBh * torch.movedim(M, -1, 2)
+        y_intra = torch.einsum("bchqk,bckhp->bcqhp", W.to(x.dtype), xc[:, c])
+        seg = torch.exp(cu[:, :, -1:, :] - cu) * dtk         # (B,nc,Q,H)
+        Bh = torch.repeat_interleave(Bk, rep, dim=3)         # (B,nc,Q,H,N)
+        states = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", seg, Bh.to(f32),
+                              xc[:, c].to(f32))
+        return y_intra, states
+
+    parts = [intra(c) for c in runs]
+    states = cat([s_ for _, s_ in parts], 1)
 
     # the inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(cum[:, :, -1, :])                # (B, nc, H)
@@ -110,11 +122,15 @@ def ssd_forward(x: Tensor, p, cfg: ModelConfig
         st = st * chunk_decay[:, c, :, None, None] + states[:, c]
     entering = torch.stack(entering, dim=1)                  # (B,nc,H,N,P)
 
-    Ch = torch.repeat_interleave(Cc, rep, dim=3)             # (B,nc,Q,H,N)
-    y_inter = torch.einsum("bcqh,bcqhn,bchnp->bcqhp", torch.exp(cum),
-                           Ch.to(f32), entering)
-
-    y = (y_intra.to(f32) + y_inter).reshape(B, S, H, P)
+    ys = []
+    for c, (y_intra, _) in zip(runs, parts):
+        Ch = torch.repeat_interleave(Cc[:, c], rep, dim=3)   # (B,nc,Q,H,N)
+        y_inter = torch.einsum("bcqh,bcqhn,bchnp->bcqhp", torch.exp(cum[:, c]),
+                               Ch.to(f32), entering[:, c])
+        ys.append(y_intra.to(f32) + y_inter)
+    del parts
+    y = cat(ys, 1).reshape(B, S, H, P)
+    del ys
     y = y + p.D_skip.to(f32)[:, None] * xh.to(f32)
     y = y.reshape(B, S, di).to(x.dtype)[:, :S0]
     z = z[:, :S0]
@@ -122,7 +138,7 @@ def ssd_forward(x: Tensor, p, cfg: ModelConfig
     y = rmsnorm(y * F.silu(z.to(f32)).to(x.dtype), p.norm_scale,
                 cfg.norm_eps)
     out = torch.matmul(y, p.out_proj)
-    return out, {"state": st, "conv": conv_tail.to(f32)}
+    return out, {"state": st, "conv": conv_tail}
 
 
 def _conv_window(conv: Tensor, xBC_new: Tensor) -> Tensor:

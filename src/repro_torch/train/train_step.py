@@ -221,11 +221,14 @@ def state_shardings(grid: DeviceGrid, state, cfg: ModelConfig
                                   "v": sh, "master": sh}}
 
 
-def state_device_bytes(grid: DeviceGrid, cfg: ModelConfig) -> List[int]:
+def state_device_bytes(grid: DeviceGrid, cfg: ModelConfig,
+                       shapes: Optional[Dict[str, Tensor]] = None
+                       ) -> List[int]:
     """The bytes of the train state (parameters in their dtype; f32 m, v
     and master; the int32 step) each grid device holds under
-    ``state_shardings``, from the config alone."""
-    shapes = param_shapes(cfg)
+    ``state_shardings``, from the config alone (or its parameters'
+    ``shapes``, ``models.model.param_shapes``, where given)."""
+    shapes = param_shapes(cfg) if shapes is None else shapes
     f32 = {n: (tuple(t.shape), torch.float32) for n, t in shapes.items()}
     return device_bytes(
         state_shardings(grid, {"params": shapes}, cfg),

@@ -35,6 +35,9 @@ import repro_torch.train.optimizer, repro_torch.train.train_step
 import repro_torch.train.grad_compress, repro_torch.data.lm_data
 import repro_torch.launch.train
 import repro_torch.sharding.rules, repro_torch.train.pipeline
+import repro_torch.analysis.roofline, repro_torch.analysis.op_count
+import repro_torch.analysis.render, repro_torch.launch.dryrun
+import repro_torch.configs.registry
 import torch.profiler
 assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.checkpoint.manager", "repro_torch.data.mining",
@@ -51,7 +54,10 @@ assert {{"repro_torch.core.video", "repro_torch.core.autotune_cache",
          "repro_torch.train.optimizer", "repro_torch.train.train_step",
          "repro_torch.train.grad_compress", "repro_torch.data.lm_data",
          "repro_torch.launch.train", "repro_torch.sharding",
-         "repro_torch.sharding.rules", "repro_torch.train.pipeline"}} \
+         "repro_torch.sharding.rules", "repro_torch.train.pipeline",
+         "repro_torch.analysis", "repro_torch.analysis.roofline",
+         "repro_torch.analysis.op_count", "repro_torch.analysis.render",
+         "repro_torch.launch.dryrun", "repro_torch.configs.registry"}} \
     <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
