@@ -206,9 +206,13 @@ Phases, each of which exits non-zero on failure:
      parameters 1e-5) and a DDP step with int8 compression over 2 logical
      devices; the train CLI in subprocesses at smoke size: SIGTERM, its
      final checkpoint, a resume, the losses of an uninterrupted run;
-  5d. lm mesh: on logical devices of the card, olmoe-1b-7b on (2, 4)
-     and llama4-scout (8 of 48 layers) on (1, 4) through the EP
-     paths, the ZeRO-3 trainer and gpipe (lm_mesh);
+  5d. lm mesh: on logical devices of the card, serving from weights
+     held as shards (init per shard, each piece = the whole init's bit
+     for bit; against the same weights whole): olmoe-1b-7b on (2, 4) and
+     llama4-scout (8 of 48 layers) on (1, 4) through the EP paths,
+     qwen2-vl-72b (8 of 80 layers) on (4, 1); 16,384 windows over 4
+     devices = one device's bit for bit; the ZeRO-3 trainer and gpipe
+     (lm_mesh); ``--only lm_mesh`` runs the build and this phase alone;
   5e. lm shapes: phi3-medium-14b, internlm2-20b and command-r-35b at full
      width with 5b's checks (f32 at 32 / 16 layers); then every arch at
      the reference's lengths (configs/registry.py SHAPES) at B 1: prefill
@@ -495,7 +499,14 @@ CLI_STEPS = 30
 # shard), its decode the replicated one; llama4-scout at 8 of its 48
 # layers (39 GB in bf16; all 48 are 216 GB)
 MESH_SERVE = (("olmoe-1b-7b", None, (2, 4), 4, 512, 32),
-              ("llama4-scout-17b-a16e", 8, (1, 4), 1, 512, 16))
+              ("llama4-scout-17b-a16e", 8, (1, 4), 1, 512, 16),
+              ("qwen2-vl-72b", 8, (4, 1), 4, 512, 32))
+# serving from weights held as shards against the same weights whole:
+# bf16 logits (PERF.md's flash limit), and f32 at smoke size, where the
+# two differ by the rows' batch sizes only
+SHARD_TOL, SHARD_TOL_F32 = 3e-2, 1e-6
+# 16,384 windows (COPROC_WINDOWS) over this many logical devices
+MESH_WINDOWS = 4
 MESH_SMOKE_PROMPT = (4, 16)
 # the sharded trainer: olmoe at 4 of its 16 layers on (data 2, model 2)
 MESH_TRAIN = ("olmoe-1b-7b", 4, (2, 2))
@@ -564,6 +575,7 @@ PATH_KERNELS = {
     # trainer and gpipe's backward run the backward too
     "lm mesh olmoe": ("flash_attention",),
     "lm mesh llama4": ("flash_attention",),
+    "lm mesh qwen2": ("flash_attention",),
     "lm mesh train": ("flash_attention", "flash_attention_bwd"),
     "lm mesh gpipe": ("flash_attention", "flash_attention_bwd"),
     # the dense configs at full width, and the reference's lengths: flash
@@ -577,6 +589,8 @@ PATH_KERNELS = {
                             "svm_scores"),
     "coproc perf": ("fused_hog", "svm_scores"),
 }
+PATH_KERNELS.update({"mesh windows " + n[7:]: PATH_KERNELS[n]
+                     for n in ("window paper+kernel", "window perf")})
 # the batched path and the tracked clip run the dense kernels of their
 # configuration
 DENSE_CONFIGS = ("paper+kernel", "perf", "quant", "quant+kernel")
@@ -5138,15 +5152,18 @@ def train_cli() -> str:
             f"{CLI_STEPS} = the uninterrupted run's")
 
 
-def mesh_generate(torch, params, cfg, prompt, new: int, ctx):
+def mesh_generate(torch, params, cfg, prompt, new: int, ctx,
+                  positions=None):
     """Greedy tokens (B, new) and each step's logits (B, new, V) in f32
     through prefill and decode_step under ``ctx`` (None: the local
-    path)."""
+    path); ``positions``: qwen2-vl's (B, S, 3) prompt positions."""
     from repro_torch.models.model import decode_step, prefill
 
     x = torch.as_tensor(prompt, device=params.device)
-    logits, cache = prefill(params, {"tokens": x}, cfg, x.shape[1] + new,
-                            ctx)
+    batch = {"tokens": x}
+    if positions is not None:
+        batch["positions"] = positions
+    logits, cache = prefill(params, batch, cfg, x.shape[1] + new, ctx)
     toks, steps = [], []
     for t in range(new):
         steps.append(logits[:, -1].float())
@@ -5155,6 +5172,43 @@ def mesh_generate(torch, params, cfg, prompt, new: int, ctx):
             logits, cache = decode_step(params, toks[-1], cache, cfg,
                                         ctx=ctx)
     return torch.cat(toks, 1), torch.stack(steps, 1)
+
+
+def whole_of(torch, sharded):
+    """The model that a ShardedLM on logical devices of one card cuts:
+    each leaf the storage its pieces view (shard_leaf keeps views there),
+    so the whole model costs no memory beside the pieces."""
+    from repro_torch.models.model import CausalLM, _nest
+
+    def base(pieces):
+        t = pieces[0]._base if pieces[0]._base is not None else pieces[0]
+        need(all(p.untyped_storage().data_ptr()
+                 == t.untyped_storage().data_ptr() for p in pieces),
+             "the pieces of a leaf on logical devices are not its views")
+        return t
+    return CausalLM(sharded.cfg, _nest(
+        (n, base(ps)) for n, ps in sharded.pieces.items()))
+
+
+def init_matches(torch, cfg, sharded, seed: int = 0) -> int:
+    """Every piece of a per-shard init against Sharding.shard of the same
+    leaf of the whole init from the same seed, bit for bit, leaf by leaf
+    (each leaf drawn again alone, in the whole init's order). -> the
+    number of leaves."""
+    from repro_torch.models.model import _init_leaves
+    from repro_torch.models.sharded import shard_leaf
+
+    n = 0
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for name, t in _init_leaves(cfg, gen, torch.device(DEV)):
+        want = shard_leaf(sharded.shardings[name], t)
+        need(all(torch.equal(a, b) for a, b in
+                 zip(sharded.pieces[name], want)),
+             f"{cfg.name}: the per-shard init's {name} differs from the "
+             f"whole init's")
+        n += 1
+        del t, want
+    return n
 
 
 def tokens_to_tie(torch, got, want, want_logits, tie: float) -> str:
@@ -5178,17 +5232,24 @@ def tokens_to_tie(torch, got, want, want_logits, tie: float) -> str:
 
 
 def mesh_serve(torch, np, arch, layers, shape, B, S, new):
-    """One EP serving cell: ``arch`` at full width (``layers`` of its
-    layers) in bf16 with seeded weights on a (data, model) grid of
-    logical devices of the card. Smoke size in f32: the card's EP tokens
-    equal the CPU's. Full width: generate through EP (prefill all-to-all,
-    decode replicated, each path counted) with the launch counters reset
-    just before and read just after; against the local path at capacity
-    factor E / k, where nothing drops, the prefill logits within
-    CONSIST_TOL and the greedy tokens equal up to a near-tie; at the
-    config's own capacity factor, dropped choices per EP shard beside the
-    local path's; prefill and decode-step ms, EP and local in turns, with
-    busy ms, launches and the bound. -> (launches, stdout line)."""
+    """One serving cell on a (data, model) grid of logical devices of the
+    card, from weights held as shards: ``arch`` at full width (``layers``
+    of its layers) in bf16. Smoke size in f32: the whole model's tokens
+    on the card equal the CPU's, and the model loaded per shard
+    (lm_params_from_numpy(..., shardings)) gives the whole one's logits
+    within SHARD_TOL_F32. Full width: init_params per shard, each piece
+    against the whole init's bit for bit (init_matches); the sharded
+    prefill and a decode step with the launch counters reset just before
+    and read just after (a dp row of the batch on each row's device, the
+    MoE's all-to-all and replicated paths, flash sm90, each counted);
+    sharded against the same weights whole (whole_of) under the same
+    ctx: prefill logits within SHARD_TOL, greedy tokens equal up to a
+    near-tie. A MoE also: EP against the local path at capacity factor E
+    / k (nothing drops) within CONSIST_TOL, tokens up to a near-tie; at
+    its own factor, dropped choices per EP shard beside the local path's.
+    Prefill and decode-step ms of the sharded, whole-EP and local paths
+    in turns, with busy ms, launches and the bound. -> (launches, flash
+    routes, stdout line)."""
     import dataclasses as dc
 
     import repro_torch.kernels as kernels
@@ -5197,126 +5258,213 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
-    from repro_torch.models.model import decode_step, init_params, prefill
-    from repro_torch.sharding.rules import make_ctx
+    from repro_torch.models.model import (decode_step, init_params,
+                                          param_shapes, prefill)
+    from repro_torch.sharding.rules import make_ctx, param_shardings
 
     data, model = shape
-    # smoke size, f32: the EP tokens on the card and on the CPU
+    short = arch.split("-")[0]
+    # smoke size, f32: the card's tokens = the CPU's; sharded = whole
     scfg = dc.replace(get_config(arch, smoke=True), dtype=torch.float32)
     leaves = smoke_leaves(np, scfg, 0)
-    prompt = np.random.default_rng(1).integers(0, scfg.vocab,
-                                               MESH_SMOKE_PROMPT)
+    Bs, Ss = MESH_SMOKE_PROMPT
+    prompt = np.random.default_rng(1).integers(0, scfg.vocab, (Bs, Ss))
+    spos = vlm_positions(np, "text", Bs, Ss) if scfg.mrope else None
     smoke = {}
-    for dev in (DEV, "cpu"):
+    for dev in ("cpu", DEV):
         p = lm_params_from_numpy(leaves, scfg, dev)
         ctx = make_ctx(make_host_mesh(model, dev))
-        smoke[dev] = mesh_generate(torch, p, scfg, prompt, 8, ctx)[0].cpu()
-    need(torch.equal(smoke[DEV], smoke["cpu"]),
-         f"{arch} smoke: EP greedy tokens differ between the card and CPU")
+        smoke[dev] = mesh_generate(torch, p, scfg, prompt, 8, ctx, spos)
+    need(torch.equal(smoke[DEV][0].cpu(), smoke["cpu"][0].cpu()),
+         f"{arch} smoke: greedy tokens on a grid differ between the card "
+         f"and the CPU")
+    sp = lm_params_from_numpy(leaves, scfg, DEV,
+                              param_shardings(ctx.grid, p, scfg))
     del p
+    st, sl = mesh_generate(torch, sp, scfg, prompt, 8, ctx, spos)
+    smoke_rel = float((sl - smoke[DEV][1]).norm() / smoke[DEV][1].norm())
+    need(smoke_rel <= SHARD_TOL_F32 and torch.equal(st, smoke[DEV][0]),
+         f"{arch} smoke: sharded vs whole logits {smoke_rel} > "
+         f"{SHARD_TOL_F32}, or its tokens differ")
+    del sp, smoke
 
     cfg = get_config(arch)
     if layers:
         cfg = dc.replace(cfg, n_layers=layers)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
-                         DEV)
+    L = cfg.n_layers
     grid = make_host_mesh(model, DEV)
     need(grid.shape == shape, f"grid {grid.shape}, want {shape}")
     ctx = make_ctx(grid)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sharded = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                          DEV, param_shardings(grid, param_shapes(cfg), cfg))
+    init_s = time.perf_counter() - t0
+    n_leaves = init_matches(torch, cfg, sharded)
+    params = whole_of(torch, sharded)
     x = np.random.default_rng(2).integers(0, cfg.vocab, (B, S))
-    L = cfg.n_layers
+    pos = vlm_positions(np, "text", B, S) if cfg.mrope else None
+    xt = torch.as_tensor(x, device=DEV)
+    batch = {"tokens": xt} if pos is None else {"tokens": xt,
+                                                "positions": pos}
 
     kernels.reset_launches()
     moe.reset_paths()
-    xt = torch.as_tensor(x, device=DEV)
-    first, cache = prefill(params, {"tokens": xt}, cfg, S + new, ctx)
+    first, cache = prefill(sharded, batch, cfg, S + new, ctx)
     paths_pre = dict(moe.path_counts)
     moe.reset_paths()
-    decode_step(params, first[:, -1].argmax(-1, keepdim=True), cache, cfg,
+    decode_step(sharded, first[:, -1].argmax(-1, keepdim=True), cache, cfg,
                 ctx=ctx)
     torch.cuda.synchronize()
     paths_dec = dict(moe.path_counts)
-    name = f"lm mesh {arch.split('-')[0]}"
+    name = f"lm mesh {short}"
     launches = {name: check_launches(name, kernels.launch_counts())}
     routes = dict(fa.flash_attention.route_launches)
-    need(paths_pre == {"local": 0, "a2a": L, "replicated": 0}
-         and paths_dec == {"local": 0, "a2a": 0, "replicated": L},
-         f"{arch}: MoE paths {paths_pre} in the prefill and {paths_dec} in "
-         f"a decode step, want a2a and replicated {L} each")
-    need(routes == {"sm90": L, "cuda_core": 0},
-         f"{arch}: the EP prefill launched the flash routes {routes}")
+    rows = data
+    want_paths = ((L * rows, 0) if cfg.is_moe else (0, 0))
+    need(paths_pre == {"local": 0, "a2a": want_paths[0], "replicated": 0}
+         and paths_dec == {"local": 0, "a2a": 0,
+                           "replicated": want_paths[0]},
+         f"{arch}: MoE paths {paths_pre} in the sharded prefill and "
+         f"{paths_dec} in a decode step, want a2a and replicated "
+         f"{want_paths[0]} each")
+    need(routes == {"sm90": L * rows, "cuda_core": 0},
+         f"{arch}: the sharded prefill launched the flash routes {routes}")
     del first, cache
 
-    # against the local path where nothing drops
-    cf = cfg.n_experts / cfg.top_k
-    ncfg = dc.replace(cfg, capacity_factor=cf)
-    t_ep, l_ep = mesh_generate(torch, params, ncfg, x, new, ctx)
-    t_lo, l_lo = mesh_generate(torch, params, ncfg, x, new, None)
-    rel = float((l_ep[:, 0] - l_lo[:, 0]).norm() / l_lo[:, 0].norm())
-    dmax = float((l_ep[:, 0] - l_lo[:, 0]).abs().max())
-    need(rel <= CONSIST_TOL, f"{arch}: EP vs local prefill logits at cf "
-                             f"{cf:g}: relative L2 {rel} > {CONSIST_TOL}")
-    tie = max(2 * dmax, 2.0 ** -4)
-    same = tokens_to_tie(torch, t_ep, t_lo, l_lo, tie)
-    del l_ep, l_lo
+    # sharded against the same weights whole, under the same ctx
+    t_sh, l_sh = mesh_generate(torch, sharded, cfg, x, new, ctx, pos)
+    t_wh, l_wh = mesh_generate(torch, params, cfg, x, new, ctx, pos)
+    shard_rel = float((l_sh[:, 0] - l_wh[:, 0]).norm() / l_wh[:, 0].norm())
+    dmax = float((l_sh[:, 0] - l_wh[:, 0]).abs().max())
+    need(shard_rel <= SHARD_TOL, f"{arch}: sharded vs whole prefill "
+                                 f"logits: relative L2 {shard_rel} > "
+                                 f"{SHARD_TOL}")
+    shard_same = tokens_to_tie(torch, t_sh, t_wh, l_wh,
+                               max(2 * dmax, 2.0 ** -4))
+    del l_sh, l_wh
 
-    # drops at the config's own capacity factor: one _route call a shard
-    # and layer on the EP path, one a layer on the local one
-    ep_calls = moe_drops(torch, lambda: prefill(
-        params, {"tokens": xt}, cfg, S + new, ctx))[1]
-    lo_calls = moe_drops(torch, lambda: prefill(
-        params, {"tokens": xt}, cfg, S + new))[1]
-    shards = data * model
-    per_shard = [int(sum(c.sum() for c in ep_calls[s::shards]))
-                 for s in range(shards)]
-    lo_drops = int(sum(c.sum() for c in lo_calls))
+    ep = ""
+    if cfg.is_moe:
+        # EP against the local path where nothing drops
+        cf = cfg.n_experts / cfg.top_k
+        ncfg = dc.replace(cfg, capacity_factor=cf)
+        t_ep, l_ep = mesh_generate(torch, params, ncfg, x, new, ctx)
+        t_lo, l_lo = mesh_generate(torch, params, ncfg, x, new, None)
+        rel = float((l_ep[:, 0] - l_lo[:, 0]).norm() / l_lo[:, 0].norm())
+        dmax = float((l_ep[:, 0] - l_lo[:, 0]).abs().max())
+        need(rel <= CONSIST_TOL, f"{arch}: EP vs local prefill logits at "
+                                 f"cf {cf:g}: relative L2 {rel} > "
+                                 f"{CONSIST_TOL}")
+        tie = max(2 * dmax, 2.0 ** -4)
+        same = tokens_to_tie(torch, t_ep, t_lo, l_lo, tie)
+        del l_ep, l_lo
+        # drops at the config's own capacity factor: one _route call a
+        # shard and layer on the EP path, one a layer on the local one
+        ep_calls = moe_drops(torch, lambda: prefill(
+            params, {"tokens": xt}, cfg, S + new, ctx))[1]
+        lo_calls = moe_drops(torch, lambda: prefill(
+            params, {"tokens": xt}, cfg, S + new))[1]
+        shards = data * model
+        per_shard = [int(sum(c.sum() for c in ep_calls[s::shards]))
+                     for s in range(shards)]
+        lo_drops = int(sum(c.sum() for c in lo_calls))
+        ep = (f"a2a/rep {L}/{L}; cf {cf:g} logits {rel:.0e}, tokens "
+              f"{same}; cf {cfg.capacity_factor:g} drops {sum(per_shard)} "
+              f"(local {lo_drops}); ")
+        level_line(f"  {name} {shape}: per-shard dropped choices "
+                   f"{per_shard}; tie {tie:.4f}")
 
-    # timing, EP and local in turns
-    def runs(c):
-        return (lambda: prefill(params, {"tokens": xt}, cfg, S + new, c),
-                lambda cache: decode_step(params, xt[:, -1:], cache, cfg,
+    # timing: sharded, whole on the grid (EP for a MoE) and local, in
+    # turns
+    def runs(p, c):
+        return (lambda: prefill(p, batch, cfg, S + new, c),
+                lambda cache: decode_step(p, xt[:, -1:], cache, cfg,
                                           ctx=c))
-    ms = {"ep": [], "local": []}
+    kinds = (("shard", sharded, ctx), ("whole", params, ctx),
+             ("local", params, None))
+    if not cfg.is_moe:
+        kinds = kinds[::2]
+    ms = {k: [] for k, _, _ in kinds}
     for _ in range(2):
-        for k, c in (("ep", ctx), ("local", None)):
-            pre, dec = runs(c)
+        for k, p, c in kinds:
+            pre, dec = runs(p, c)
             m_pre = host_ms(torch, pre, 2)
             _, cache = pre()
             ms[k].append((m_pre, host_ms(torch, lambda: dec(cache), 8)))
     busy = {}
-    for k, c in (("ep", ctx), ("local", None)):
-        pre, dec = runs(c)
+    for k, p, c in kinds:
+        pre, dec = runs(p, c)
         _, cache = pre()
         tp = device_times(torch, pre, 1)
         td = device_times(torch, lambda: dec(cache), 2)
-        busy[k] = (sum(u for _, u in tp.values()) / 1e3,
+        busy[k] = (round(sum(u for _, u in tp.values()) / 1e3, 1),
                    sum(n for n, _ in tp.values()),
-                   sum(u for _, u in td.values()) / 2e3,
+                   round(sum(u for _, u in td.values()) / 2e3, 1),
                    sum(n for n, _ in td.values()) // 2)
     med = {k: (float(np.median([a for a, _ in v])),
                float(np.median([b for _, b in v]))) for k, v in ms.items()}
     b_pre, b_dec = lm_bounds(cfg, B, S)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    level_line(f"  {name} {shape}: smoke EP tokens = CPU; per-shard "
-               f"dropped choices at cf "
-               f"{cfg.capacity_factor:g} {per_shard} (local {lo_drops}); "
-               f"ms rounds EP {ms['ep']} local {ms['local']}; busy ms, "
-               f"launches: prefill EP {busy['ep'][:2]} local "
-               f"{busy['local'][:2]}, decode EP {busy['ep'][2:]} local "
-               f"{busy['local'][2:]}; tie {tie:.4f}; peak {peak:.1f} GiB")
-    del params
+    level_line(f"  {name} {shape}: smoke sharded vs whole {smoke_rel:.1e}; "
+               f"init {init_s:.1f} s, {n_leaves} leaves = whole init; ms "
+               f"rounds {ms}; busy ms, launches (prefill, decode) {busy}; "
+               f"peak {peak:.1f} GiB")
+    del params, sharded
     torch.cuda.empty_cache()
-    short = arch.split("-")[0]
+    order = "/".join(k for k, _, _ in kinds)
     line = (f"  mesh {short}{'' if not layers else f' {layers}L'} "
-            f"{data}x{model}: a2a/rep {L}/{L}; cf {cf:g} logits "
-            f"{rel:.0e}, tokens {same}; cf {cfg.capacity_factor:g} drops "
-            f"{sum(per_shard)} ({min(per_shard)}-{max(per_shard)}/shard; "
-            f"local {lo_drops}); ms EP/local/bound: prefill "
-            f"{med['ep'][0]:.1f}/{med['local'][0]:.1f}/{b_pre:.2f}, decode "
-            f"{med['ep'][1]:.1f}/{med['local'][1]:.1f}/{b_dec:.2f}")
+            f"{data}x{model}: shards = whole: init, logits {shard_rel:.0e} "
+            f"(f32 {smoke_rel:.0e}), tokens {shard_same}; {ep}ms "
+            f"{order}/bound: prefill "
+            + "/".join(f"{med[k][0]:.1f}" for k, _, _ in kinds)
+            + f"/{b_pre:.2f}, decode "
+            + "/".join(f"{med[k][1]:.1f}" for k, _, _ in kinds)
+            + f"/{b_dec:.2f}")
     return launches, routes, line
+
+
+def mesh_windows(torch, np):
+    """COPROC_WINDOWS windows (coproc_windows) placed over MESH_WINDOWS
+    logical devices of the card (core/pipeline.py:shard_over_data, the
+    batch over "data") through each COPROC_CONFIGS path, the launch
+    counters reset just before and read just after: the scores and
+    verdicts equal the one-device run's bit for bit. -> (launches,
+    text)."""
+    import repro_torch.api as api
+    import repro_torch.core.pipeline as pipe
+    import repro_torch.kernels as kernels
+    from repro_torch.launch.mesh import make_host_mesh
+
+    wins, svm_np = coproc_windows(np)
+    svm = {k: torch.from_numpy(v).to(DEV) for k, v in svm_np.items()}
+    x = torch.from_numpy(wins).to(DEV)
+    os.environ["REPRO_TEST_DEVICES"] = str(MESH_WINDOWS)
+    grid = make_host_mesh(1, DEV)
+    placed = pipe.shard_over_data(grid, wins)
+    launches, parts = {}, []
+    for name in COPROC_CONFIGS:
+        preset, path = WINDOW_CONFIGS[name]
+        cfg = api.presets(preset).hog
+        one = pipe.classify_windows(svm, x, cfg, path)
+        kernels.reset_launches()
+        got = pipe.classify_windows(svm, placed, cfg, path)
+        torch.cuda.synchronize()
+        key = "mesh windows " + name[7:]
+        launches[key] = check_launches(key, kernels.launch_counts())
+        need(torch.equal(got["score"], one["score"])
+             and torch.equal(got["human"], one["human"]),
+             f"{key}: {COPROC_WINDOWS} windows over {MESH_WINDOWS} devices "
+             f"differ from one device's")
+        ms = host_ms(torch, lambda: pipe.classify_windows(svm, placed, cfg,
+                                                          path), 3)
+        parts.append(f"{path} {ms:.2f} ms")
+        n = max(launches[key].values())
+    del x, placed
+    return launches, (f"windows {COPROC_WINDOWS} over {MESH_WINDOWS} = 1 "
+                      f"device: " + ", ".join(parts)
+                      + f" ({n} launches a kernel)")
 
 
 def mesh_train(torch, np):
@@ -5511,10 +5659,10 @@ def mesh_pipe(torch, np):
 
 def lm_mesh(torch, np):
     """Phase 5d: the LM meshes on logical devices of the card
-    (REPRO_TEST_DEVICES set for the phase only): EP serving of each
-    MESH_SERVE cell (mesh_serve), the sharded trainer (mesh_train) and
-    gpipe_apply (mesh_pipe). -> (launches, forward routes, backward
-    routes)."""
+    (REPRO_TEST_DEVICES set for the phase only): each MESH_SERVE cell
+    served from weights held as shards (mesh_serve), windows over a grid
+    (mesh_windows), the sharded trainer (mesh_train) and gpipe_apply
+    (mesh_pipe). -> (launches, forward routes, backward routes)."""
     import repro_torch.kernels.flash_attention as fa
 
     saved = os.environ.get("REPRO_TEST_DEVICES")
@@ -5528,10 +5676,12 @@ def lm_mesh(torch, np):
             launches.update(got)
             fwd = {r: n + routes[r] for r, n in fwd.items()}
             print(line, flush=True)
+        got, text = mesh_windows(torch, np)
+        launches.update(got)
         os.environ["REPRO_TEST_DEVICES"] = str(MESH_TRAIN[2][0]
                                                * MESH_TRAIN[2][1])
         got, f, b, line = mesh_train(torch, np)
-        got2, f2, b2, text = mesh_pipe(torch, np)
+        got2, f2, b2, text2 = mesh_pipe(torch, np)
     finally:
         if saved is None:
             os.environ.pop("REPRO_TEST_DEVICES", None)
@@ -5541,7 +5691,8 @@ def lm_mesh(torch, np):
     launches.update(got2)
     fwd = {r: n + f[r] + f2[r] for r, n in fwd.items()}
     bwd = {r: n + b[r] + b2[r] for r, n in bwd.items()}
-    print(line + "; " + text, flush=True)
+    print(line + "; " + text2, flush=True)
+    print("  mesh " + text, flush=True)
     return launches, fwd, bwd
 
 
@@ -6124,7 +6275,7 @@ def compact_mode(v: dict) -> dict:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("lm_shapes",),
+    ap.add_argument("--only", choices=("lm_shapes", "lm_mesh"),
                     help="build the kernels and run this phase alone; no "
                          "kernels or ok line (a check of one phase)")
     only = ap.parse_args(argv).only
@@ -6184,9 +6335,12 @@ def main(argv=None) -> int:
              and not any(sum(v) for v in pair.values()), "ptxas spilled")
         sm90_report(build)
         if only:
-            header("lm shapes")
-            lm_shapes(torch, np, pred)
-            level_line(f"time of lm shapes: "
+            header(only.replace("_", " "))
+            if only == "lm_mesh":
+                lm_mesh(torch, np)
+            else:
+                lm_shapes(torch, np, pred)
+            level_line(f"time of {only.replace('_', ' ')}: "
                        f"{time.perf_counter() - clock[0]:.1f} s")
             print(f"--only {only}: passed; no kernels or ok line")
             return 0
@@ -6278,9 +6432,10 @@ def main(argv=None) -> int:
     flash = next(e for e in kernels_line["kernels"]
                  if e["name"] == "flash_attention")
     flash["launches_by_route"] = flash_routes
-    flash["launches_by_path"] = {n: c["flash_attention"]
-                                 for n, c in launches.items()
-                                 if n.startswith("lm ")}
+    # by path on standard error (the lm paths: about 750 bytes)
+    level_line("flash_attention launches by path: " + json.dumps(
+        {n: c["flash_attention"] for n, c in launches.items()
+         if n.startswith("lm ")}, separators=(",", ":")))
     for m, v in flash["modes"].items():
         v["source"] = FLASH_SOURCES[m]
     # the backward's routes likewise: sm90 at the top level, cuda_core (in

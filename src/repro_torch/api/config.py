@@ -91,6 +91,11 @@ class PipelineConfig:
         kw.setdefault("indent", 2)
         return json.dumps(self.to_dict(), **kw)
 
+    @classmethod
+    def from_json(cls, s: str) -> "PipelineConfig":
+        """Inverse of to_json (the reference's JSON text too)."""
+        return cls.from_dict(json.loads(s))
+
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)
 

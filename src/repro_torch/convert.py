@@ -12,10 +12,11 @@
   * ``model_config_from_reference_dict(d)`` -- a reference LM
     ``ModelConfig``'s fields (``dataclasses.asdict``) as the port's
     ModelConfig, ``dtype`` mapped to a torch dtype;
-  * ``lm_params_from_numpy(leaves, cfg, device)`` -- the reference's LM
-    parameter tree as numpy arrays (layer leaves stacked on axis 0; the
-    encoder's on its own axis) as the port's ``CausalLM`` on ``device``
-    (CUDA unless the CPU is asked for);
+  * ``lm_params_from_numpy(leaves, cfg, device, shardings=None)`` -- the
+    reference's LM parameter tree as numpy arrays (layer leaves stacked
+    on axis 0; the encoder's on its own axis) as the port's ``CausalLM``
+    on ``device`` (CUDA unless the CPU is asked for), or, with
+    ``shardings``, as a ``ShardedLM`` read block by block onto its grid;
   * ``train_state_from_numpy(tree, cfg, device)`` and
     ``train_state_to_numpy(state, cfg)`` -- the reference's train state
     ({"params", "opt": {"step", "m", "v", "master"}} and, for its DDP
@@ -39,6 +40,7 @@ from .core.detector import as_svm, resolve_device
 from .core.heads import HeadRegistry
 from .models.configs import ModelConfig
 from .models.model import F32_LEAVES, CausalLM, from_leaves, trainable
+from .models.sharded import ShardedLM
 
 
 def svm_from_numpy(leaves: Dict[str, Any], device=None
@@ -113,7 +115,7 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def lm_params_from_numpy(leaves: Dict[str, Any], cfg: ModelConfig,
-                         device=None) -> CausalLM:
+                         device=None, shardings=None):
     """The reference's parameter tree ({"embed", "final_norm": {"scale"
     (, "bias")}, "layers": {"ln1", "ln2": {...}, "attn": {"wq", ...},
     "mlp" or "moe" or "ssm": {...}, "xattn", "ln_x", ...}, "lm_head",
@@ -121,8 +123,16 @@ def lm_params_from_numpy(leaves: Dict[str, Any], cfg: ModelConfig,
     numpy arrays, layers stacked on axis 0 -> the port's CausalLM on
     ``device``. Every leaf takes the config's dtype but the SSM's
     ``A_log``, ``D_skip`` and ``dt_bias``, which stay f32, as the
-    reference keeps them."""
+    reference keeps them.
+
+    ``shardings`` ({name: Sharding}, sharding/rules.py:
+    ``param_shardings``): a ``ShardedLM`` instead, each leaf's blocks
+    read from its array straight onto their grid devices (one tensor a
+    block and device), so no device holds a leaf whole; ``device`` then
+    only names the grid's kind (ValueError if it differs)."""
     dev = resolve_device(device)
+    if shardings is not None:
+        return _sharded_from_numpy(leaves, cfg, dev, shardings)
 
     def conv(x, name=""):
         if isinstance(x, dict):
@@ -131,6 +141,28 @@ def lm_params_from_numpy(leaves: Dict[str, Any], cfg: ModelConfig,
         return _tensor(x, dtype, dev)
 
     return from_leaves(cfg, conv(leaves))
+
+
+def _sharded_from_numpy(leaves: Dict[str, Any], cfg: ModelConfig, dev,
+                        shardings) -> ShardedLM:
+    named = _named_leaves(leaves)
+    pieces = {}
+    for n, a in named.items():
+        if n not in shardings:
+            raise ValueError(f"{n}: a leaf the model does not have")
+        sh = shardings[n]
+        if sh.grid.flat[0].type != dev.type:
+            raise ValueError(f"the grid's devices are {sh.grid.flat[0].type},"
+                             f" device={dev} was asked for")
+        dtype = torch.float32 if n.split(".")[-1] in F32_LEAVES \
+            else cfg.dtype
+        made, pieces[n] = {}, []
+        for d, sl in zip(sh.grid.flat, sh.slices(np.shape(a))):
+            block = (tuple((i.start, i.stop) for i in sl), d)
+            if block not in made:
+                made[block] = _tensor(np.asarray(a)[sl], dtype, d)
+            pieces[n].append(made[block])
+    return ShardedLM(cfg, shardings, pieces)
 
 
 def _named_leaves(tree: Dict[str, Any]) -> Dict[str, Any]:

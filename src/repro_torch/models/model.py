@@ -43,7 +43,13 @@ attention choices apply (``ctx.banded``: windowed layers through
 Everything else runs on the parameters' device; the reference's layout
 constraints have no counterpart. A layer whose parameters are held as
 shards (train/train_step.py's sharded step) gathers them as it runs, and
-again in the recompute of the backward.
+again in the recompute of the backward. ``prefill``, ``decode_step`` and
+``encode`` also take a model held as shards (models/sharded.py:
+``ShardedLM``, from ``init_params(..., shardings=)``): the batch runs
+over ``ctx``'s dp rows, each row on its first device, each layer
+gathered onto it as the layer runs (a MoE's expert groups on the row's
+devices of each model index); there is no tensor-parallel matmul and no
+cache length over "model": each row computes whole layers.
 
 ``batch["positions"]`` ((B, S), or (B, S, 3) for M-RoPE) moves to the
 card once; its host copy decides whether the causal mask is
@@ -61,7 +67,7 @@ a Python int. Decode writes the new entries in place.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -73,6 +79,8 @@ from .attention import (_project_qkv, arange_positions, attention,
 from .configs import ModelConfig
 from .layers import mlp, norm, sinusoidal_positions
 from .moe import moe_ffn
+from .sharded import (ShardedLeaves, ShardedLM, as_sharded, gathered_rows,
+                      row_model, row_plans, shard_leaf)
 from .ssm import ssd_decode, ssd_forward
 
 Tensor = torch.Tensor
@@ -221,21 +229,23 @@ def _dense(gen: torch.Generator, shape, cfg: ModelConfig, device,
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(cfg.dtype)
+    return x.mul_(std).to(cfg.dtype)
 
 
-def _norm_tree(cfg: ModelConfig, dev) -> Dict[str, Tensor]:
+def _norm_leaves(cfg: ModelConfig, dev, prefix: str):
     """A norm's weights: scale ones, and bias zeros for layernorm."""
-    t = {"scale": torch.ones(cfg.d_model, dtype=cfg.dtype, device=dev)}
+    yield f"{prefix}.scale", torch.ones(cfg.d_model, dtype=cfg.dtype,
+                                        device=dev)
     if cfg.norm == "layernorm":
-        t["bias"] = torch.zeros(cfg.d_model, dtype=cfg.dtype, device=dev)
-    return t
+        yield f"{prefix}.bias", torch.zeros(cfg.d_model, dtype=cfg.dtype,
+                                            device=dev)
 
 
-def _layer_tree(gen: torch.Generator, cfg: ModelConfig, dev,
-                encoder: bool = False) -> Dict[str, object]:
+def _layer_leaves(gen: torch.Generator, cfg: ModelConfig, dev,
+                  encoder: bool = False) -> Iterator[Tuple[str, Tensor]]:
     """One layer's parameters with the reference's distributions (an
-    encoder layer's with ``encoder``)."""
+    encoder layer's with ``encoder``): (path, tensor) in draw order, the
+    order of the layer's children."""
     D, H, K, hd, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                        cfg.d_ff)
 
@@ -245,62 +255,65 @@ def _layer_tree(gen: torch.Generator, cfg: ModelConfig, dev,
     def dense(*shape, scale=None):
         return _dense(gen, shape, cfg, dev, scale)
 
-    def mlp_p():
-        if cfg.mlp == "gelu":
-            return {"w_up": dense(D, Fd), "w_down": dense(Fd, D)}
-        return {"w_gate": dense(D, Fd), "w_up": dense(D, Fd),
-                "w_down": dense(Fd, D)}
+    def mlp_p(at):
+        if cfg.mlp == "swiglu":
+            yield f"{at}.w_gate", dense(D, Fd)
+        yield f"{at}.w_up", dense(D, Fd)
+        yield f"{at}.w_down", dense(Fd, D)
 
-    def attn_p():
-        a = {"wq": dense(D, H * hd), "wk": dense(D, K * hd),
-             "wv": dense(D, K * hd), "wo": dense(H * hd, D)}
+    def attn_p(at):
+        yield f"{at}.wq", dense(D, H * hd)
+        yield f"{at}.wk", dense(D, K * hd)
+        yield f"{at}.wv", dense(D, K * hd)
+        yield f"{at}.wo", dense(H * hd, D)
         if cfg.qk_norm:
-            a.update(q_norm=ones(hd), k_norm=ones(hd))
-        return a
+            yield f"{at}.q_norm", ones(hd)
+            yield f"{at}.k_norm", ones(hd)
 
-    t: Dict[str, object] = {"ln1": _norm_tree(cfg, dev),
-                            "ln2": _norm_tree(cfg, dev)}
+    yield from _norm_leaves(cfg, dev, "ln1")
+    yield from _norm_leaves(cfg, dev, "ln2")
     if encoder:
-        t.update(attn=attn_p(), mlp=mlp_p())
-        return t
+        yield from attn_p("attn")
+        yield from mlp_p("mlp")
+        return
     if cfg.has_attention:
-        t["attn"] = attn_p()
+        yield from attn_p("attn")
     if cfg.has_ssm:
         Hs, f32 = cfg.ssm_heads, torch.float32
         proj_out = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + Hs
         u = torch.rand((Hs,), generator=gen, dtype=f32, device=dev)
         dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
-        t["ssm"] = {
-            "in_proj": dense(D, proj_out),
-            "conv_w": dense(cfg.conv_dim, cfg.ssm_conv,
-                            scale=cfg.ssm_conv ** -0.5),
-            "conv_b": torch.zeros(cfg.conv_dim, dtype=cfg.dtype, device=dev),
-            "A_log": torch.log(torch.arange(1, Hs + 1, dtype=f32,
-                                            device=dev)),
-            "D_skip": ones(Hs, dtype=f32),
-            "dt_bias": dt + torch.log(-torch.expm1(-dt)),   # inv softplus
-            "norm_scale": ones(cfg.d_inner),
-            "out_proj": dense(cfg.d_inner, D)}
+        yield "ssm.in_proj", dense(D, proj_out)
+        yield "ssm.conv_w", dense(cfg.conv_dim, cfg.ssm_conv,
+                                  scale=cfg.ssm_conv ** -0.5)
+        yield "ssm.conv_b", torch.zeros(cfg.conv_dim, dtype=cfg.dtype,
+                                        device=dev)
+        yield "ssm.A_log", torch.log(torch.arange(1, Hs + 1, dtype=f32,
+                                                  device=dev))
+        yield "ssm.D_skip", ones(Hs, dtype=f32)
+        yield "ssm.dt_bias", dt + torch.log(-torch.expm1(-dt))  # inv softplus
+        yield "ssm.norm_scale", ones(cfg.d_inner)
+        yield "ssm.out_proj", dense(cfg.d_inner, D)
         if cfg.family == "hybrid":
-            t["bn_attn"] = _norm_tree(cfg, dev)
-            t["bn_ssm"] = _norm_tree(cfg, dev)
+            yield from _norm_leaves(cfg, dev, "bn_attn")
+            yield from _norm_leaves(cfg, dev, "bn_ssm")
     if cfg.is_moe:
         E = cfg.n_experts
-        t["moe"] = {"router": dense(D, E, scale=0.02),
-                    "w_gate": dense(E, D, Fd), "w_up": dense(E, D, Fd),
-                    "w_down": dense(E, Fd, D)}
+        yield "moe.router", dense(D, E, scale=0.02)
+        yield "moe.w_gate", dense(E, D, Fd)
+        yield "moe.w_up", dense(E, D, Fd)
+        yield "moe.w_down", dense(E, Fd, D)
         if cfg.shared_expert:
-            t["moe"]["shared"] = mlp_p()
+            yield from mlp_p("moe.shared")
     elif cfg.family != "ssm":
-        t["mlp"] = mlp_p()
+        yield from mlp_p("mlp")
     if cfg.encoder_layers:
-        t["xattn"] = attn_p()
-        t["ln_x"] = _norm_tree(cfg, dev)
-    return t
+        yield from attn_p("xattn")
+        yield from _norm_leaves(cfg, dev, "ln_x")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> CausalLM:
+                device=None, shardings=None):
     """Random parameters with the reference's distributions: normal x
     fan_in^-0.5 for the projections and experts, x 0.02 for ``embed``,
     ``lm_head``, the router and the meta tokens, x ssm_conv^-0.5 for the
@@ -308,38 +321,71 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     SSM's A_log, D_skip and dt_bias as the reference sets them (f32); the
     encoder-decoder's encoder layers and cross-attention likewise.
     ``generator`` must live on ``device``
-    (CUDA unless the CPU is asked for); layer by layer, so no f32 copy of
-    the whole model is ever held."""
+    (CUDA unless the CPU is asked for); leaf by leaf, so no f32 copy of
+    the whole model is ever held.
+
+    ``shardings`` ({name: Sharding}, sharding/rules.py:
+    ``param_shardings``): a ``ShardedLM`` instead -- each leaf drawn whole
+    on ``device`` in the same order, cut into its pieces, each placed on
+    its grid device, and dropped before the next is drawn; every piece
+    equal, bit for bit, to ``Sharding.shard`` of the same leaf of the
+    whole model, and no device holding more than its pieces and one
+    leaf's draw."""
     from ..core.detector import resolve_device
     check_supported(cfg)
-    return CausalLM(cfg, _init_tree(cfg, generator, resolve_device(device)))
+    leaves = _init_leaves(cfg, generator, resolve_device(device))
+    if shardings is None:
+        return CausalLM(cfg, _nest(leaves))
+    pieces = {}
+    for name, t in leaves:
+        pieces[name] = shard_leaf(shardings[name], t)
+        del t
+    return ShardedLM(cfg, shardings, pieces)
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tensor]:
     """``init_params``' parameters by name as meta tensors: their shapes
     and dtypes, nothing allocated (sharding plans of full-size models)."""
     check_supported(cfg)
-    tree = _init_tree(cfg, torch.Generator(), torch.device("meta"))
+    tree = _nest(_init_leaves(cfg, torch.Generator(), torch.device("meta")))
     return dict(CausalLM(cfg, tree).named_parameters())
 
 
-def _init_tree(cfg: ModelConfig, generator: torch.Generator, dev
-               ) -> Dict[str, object]:
+def _init_leaves(cfg: ModelConfig, generator: torch.Generator, dev
+                 ) -> Iterator[Tuple[str, Tensor]]:
+    """Every parameter as (name, tensor) in draw order, named as
+    ``CausalLM.named_parameters()`` names it."""
     D, V = cfg.d_model, cfg.vocab
-    tree: Dict[str, object] = {
-        "embed": _dense(generator, (V, D), cfg, dev, scale=0.02),
-        "final_norm": _norm_tree(cfg, dev),
-        "layers": [_layer_tree(generator, cfg, dev)
-                   for _ in range(cfg.n_layers)]}
+    yield "embed", _dense(generator, (V, D), cfg, dev, scale=0.02)
+    yield from _norm_leaves(cfg, dev, "final_norm")
+    for i in range(cfg.n_layers):
+        for path, t in _layer_leaves(generator, cfg, dev):
+            yield f"layers.{i}.{path}", t
     if cfg.encoder_layers:
-        tree["enc_layers"] = [_layer_tree(generator, cfg, dev, encoder=True)
-                              for _ in range(cfg.encoder_layers)]
-        tree["enc_norm"] = _norm_tree(cfg, dev)
+        for i in range(cfg.encoder_layers):
+            for path, t in _layer_leaves(generator, cfg, dev, encoder=True):
+                yield f"enc_layers.{i}.{path}", t
+        yield from _norm_leaves(cfg, dev, "enc_norm")
     if not cfg.tie_embeddings:
-        tree["lm_head"] = _dense(generator, (D, V), cfg, dev, scale=0.02)
+        yield "lm_head", _dense(generator, (D, V), cfg, dev, scale=0.02)
     if cfg.meta_tokens:
-        tree["meta"] = _dense(generator, (cfg.meta_tokens, D), cfg, dev,
-                              scale=0.02)
+        yield "meta", _dense(generator, (cfg.meta_tokens, D), cfg, dev,
+                             scale=0.02)
+
+
+def _nest(named: Iterable[Tuple[str, Tensor]]) -> Dict[str, object]:
+    """(name, tensor) pairs as the tree ``CausalLM`` takes: "layers.3.attn.wq"
+    at tree["layers"][3]["attn"]["wq"]."""
+    tree: Dict[str, object] = {}
+    for name, t in named:
+        node = tree
+        *dirs, leaf = name.split(".")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = t
+    for k in ("layers", "enc_layers"):
+        if k in tree:
+            tree[k] = [tree[k][str(i)] for i in range(len(tree[k]))]
     return tree
 
 
@@ -429,14 +475,6 @@ def _layer(x: Tensor, lp, cfg: ModelConfig, pos: Tensor, window: int,
     h = norm(x, lp.ln1, cfg.norm, cfg.norm_eps)
     out, kv, ssm_cache = _mixer(h, lp, cfg, pos, window, ctx, flash)
     return _cross_and_ffn(x + out, lp, cfg, enc, ctx), kv, ssm_cache
-
-
-class ShardedLeaves:
-    """A layer's parameters held as shards (train/train_step.py's sharded
-    step): ``gather()`` reads them whole onto the computing device."""
-
-    def gather(self):
-        raise NotImplementedError
 
 
 def _gathered(lp):
@@ -559,24 +597,47 @@ def _enc_states(params: CausalLM, batch: Dict[str, Tensor],
 
 
 def _encoder(params: CausalLM, enc_input, cfg: ModelConfig) -> Tensor:
-    x = torch.as_tensor(enc_input).to(device=params.device, dtype=cfg.dtype)
-    T, D = x.shape[1:]
-    x = x + sinusoidal_positions(T, D, x.device).to(cfg.dtype)
-    for lp in params.enc_layers:
-        x = _remat(_enc_layer, x, lp, cfg)
-    return norm(x, params.enc_norm, cfg.norm, cfg.norm_eps)
+    return _encoder_rows([params], [enc_input], cfg)[0]
 
 
-def encode(params: CausalLM, enc_input, cfg: ModelConfig) -> Tensor:
+def _encoder_rows(rows, inputs, cfg: ModelConfig,
+                  serving: bool = False) -> List[Tensor]:
+    """The encoder over each row's frames, on the row's device, layer by
+    layer with the rows inner; ``serving``: each layer gathered for every
+    row before any runs it (``gathered_rows``), where the trainer's rows
+    gather it inside the recomputed block instead."""
+    xs = []
+    for row, enc_input in zip(rows, inputs):
+        x = torch.as_tensor(enc_input).to(device=row.device, dtype=cfg.dtype)
+        T, D = x.shape[1:]
+        xs.append(x + sinusoidal_positions(T, D, x.device).to(cfg.dtype))
+    for lps in zip(*(row.enc_layers for row in rows)):
+        if serving:
+            lps = gathered_rows(lps)
+        xs = [_remat(_enc_layer, x, lp, cfg) for x, lp in zip(xs, lps)]
+    return [norm(x, row.enc_norm, cfg.norm, cfg.norm_eps)
+            for row, x in zip(rows, xs)]
+
+
+def encode(params, enc_input, cfg: ModelConfig, ctx=None) -> Tensor:
     """Whisper's encoder: (B, T, D) stub frame embeddings (numpy or a
     tensor) plus the sinusoidal positions, in the model's dtype, through
     the encoder layers -- attention with every key visible (flash,
     ``causal=False``; RoPE at arange positions, as the reference's
     encoder applies it), then the gelu MLP, each after its layernorm --
-    and the final ``enc_norm`` -> states (B, T, D)."""
+    and the final ``enc_norm`` -> states (B, T, D). A model held as
+    shards (``ShardedLM``) runs its batch over ``ctx``'s dp rows, as
+    ``prefill`` does; the states return on the grid's first device in
+    row order."""
     check_supported(cfg)
+    model = as_sharded(params, cfg, ctx)
     with torch.inference_mode():
-        return _encoder(params, enc_input, cfg)
+        if model is None:
+            return _encoder(params, enc_input, cfg)
+        rows, _ = _sharded_rows(model, cfg, ctx, len(enc_input))
+        states = _encoder_rows(rows, _split_rows(enc_input, len(rows)), cfg,
+                               serving=True)
+        return _on_first(states, model.device)
 
 
 def train_forward(params: CausalLM, batch: Dict[str, Tensor],
@@ -688,7 +749,53 @@ def _decode_layer(x: Tensor, lp, cfg: ModelConfig, cache_l: Cache,
     return _cross_and_ffn(x + _mix(outs), lp, cfg, enc, ctx), new
 
 
-def decode_step(params: CausalLM, token: Tensor, cache: Cache,
+# --------------------------------------------- a model held as shards
+
+def _sharded_rows(model: ShardedLM, cfg: ModelConfig, ctx, B: int):
+    """The dp rows a batch of B runs over (``ctx``, by default
+    ``make_ctx`` of the model's grid) -> (each row's model, each row's
+    context); ValueError unless B splits over them."""
+    if ctx is None:
+        from ..sharding.rules import make_ctx
+        ctx = make_ctx(model.grid)
+    plans = row_plans(ctx)
+    if B % len(plans):
+        raise ValueError(f"a batch of {B} rows does not split over the "
+                         f"grid's {len(plans)} dp rows")
+    memo: Dict = {}
+    return ([row_model(cfg, model.pieces, model.shardings, p, True, memo)
+             for p in plans], [p.ctx for p in plans])
+
+
+def _split_rows(x, n: int) -> list:
+    """x (numpy or a tensor; None passes) cut into n equal runs of rows."""
+    if x is None:
+        return [None] * n
+    if len(x) % n:
+        raise ValueError(f"{len(x)} rows do not split over {n} dp rows")
+    b = len(x) // n
+    return [x[i * b:(i + 1) * b] for i in range(n)]
+
+
+def _row_batches(batch: Dict[str, Tensor], rows) -> List[Dict[str, Tensor]]:
+    """The batch's rows for each dp row, the tokens on the row's device
+    (``positions`` stay where they are: a host copy picks the flash
+    route)."""
+    cut = {k: _split_rows(v, len(rows)) for k, v in batch.items()
+           if v is not None}
+    return [{k: (torch.as_tensor(v[r]).to(row.device) if k == "tokens"
+                 else v[r]) for k, v in cut.items()}
+            for r, row in enumerate(rows)]
+
+
+def _on_first(parts: List[Tensor], device) -> Tensor:
+    """The rows' results, in row order, on the grid's first device."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts], 0)
+
+
+def decode_step(params, token: Tensor, cache: Cache,
                 cfg: ModelConfig, enc: Optional[Tensor] = None, ctx=None
                 ) -> Tuple[Tensor, Cache]:
     """One decode step. token: (B, 1) -> (logits (B, 1, V), cache with
@@ -696,31 +803,56 @@ def decode_step(params: CausalLM, token: Tensor, cache: Cache,
     streams; whisper adds row idx of its sinusoidal table); ``enc``,
     whisper's encoder states, feeds every layer's cross-attention (none
     without it, as in the reference). The cache's tensors are written in
-    place and shared by the returned cache."""
+    place and shared by the returned cache. A model held as shards takes
+    ``prefill``'s cache of rows, each row on its device, and returns the
+    logits on the grid's first device in row order."""
     check_supported(cfg)
+    model = as_sharded(params, cfg, ctx)
     with torch.inference_mode():
-        B = token.shape[0]
-        x = embed_tokens(params, token, cfg)
         idx = cache["idx"]
-        if enc is not None:
-            enc = enc.to(device=x.device, dtype=cfg.dtype)
-        if cfg.encoder_layers:
-            x = x + decoder_pe(idx, cfg.d_model, x.device).to(cfg.dtype)
-        positions = torch.full((B, 1, 3) if cfg.mrope else (B, 1), idx,
-                               dtype=torch.int32, device=x.device)
-        tensors = [t for t in ("k", "v", "state", "conv") if t in cache]
-        for li, (lp, window) in enumerate(zip(params.layers,
-                                              layer_windows(cfg))):
-            cache_l = {t: cache[t][li] for t in tensors}
-            x, new = _decode_layer(x, lp, cfg, {**cache_l, "idx": idx},
-                                   positions, window, enc, ctx)
-            for t, value in new.items():
-                cache_l[t].copy_(value)
-        logits = logits_from_hidden(params, x, cfg)
-    return logits, {**{t: cache[t] for t in tensors}, "idx": idx + 1}
+        if model is None:
+            rows, ctxs, caches = [params], [ctx], [cache]
+            tokens, encs = [token], [enc]
+        else:
+            rows, ctxs = _sharded_rows(model, cfg, ctx, len(token))
+            caches = cache.get("rows")
+            if caches is None or len(caches) != len(rows):
+                raise ValueError(f"a model held as shards takes prefill's "
+                                 f"cache of {len(rows)} rows")
+            tokens = [torch.as_tensor(t).to(row.device) for t, row in
+                      zip(_split_rows(token, len(rows)), rows)]
+            encs = _split_rows(enc, len(rows))
+        tensors = [t for t in ("k", "v", "state", "conv") if t in caches[0]]
+        xs, positions = [], []
+        for row, tok in zip(rows, tokens):
+            x = embed_tokens(row, tok, cfg)
+            if cfg.encoder_layers:
+                x = x + decoder_pe(idx, cfg.d_model, x.device).to(cfg.dtype)
+            xs.append(x)
+            positions.append(torch.full(
+                (len(tok), 1, 3) if cfg.mrope else (len(tok), 1), idx,
+                dtype=torch.int32, device=x.device))
+        encs = [e if e is None else e.to(device=x.device, dtype=cfg.dtype)
+                for e, x in zip(encs, xs)]
+        for li, window in enumerate(layer_windows(cfg)):
+            lps = gathered_rows([row.layers[li] for row in rows])
+            for r, lp in enumerate(lps):
+                cache_l = {t: caches[r][t][li] for t in tensors}
+                xs[r], new = _decode_layer(xs[r], lp, cfg,
+                                           {**cache_l, "idx": idx},
+                                           positions[r], window, encs[r],
+                                           ctxs[r])
+                for t, value in new.items():
+                    cache_l[t].copy_(value)
+            del lps
+        logits = [logits_from_hidden(row, x, cfg) for row, x in zip(rows, xs)]
+    out = [{**{t: c[t] for t in tensors}, "idx": idx + 1} for c in caches]
+    if model is None:
+        return logits[0], out[0]
+    return _on_first(logits, model.device), {"idx": idx + 1, "rows": out}
 
 
-def prefill(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
+def prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig,
             max_len: int, ctx=None,
             enc: Optional[Tensor] = None) -> Tuple[Tensor, Cache]:
     """Prefill: run the whole prompt (batch: tokens (B, S) [+ positions
@@ -728,27 +860,68 @@ def prefill(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
     encoder-decoder]) after the meta tokens, build the cache, return the
     last position's logits (B, 1, V). Attention without a window whose
     mask is index-causal takes the flash kernel. ``enc``: the encoder
-    states, if already computed (then ``enc_input`` is not read)."""
+    states, if already computed (then ``enc_input`` is not read).
+
+    A model held as shards (``ShardedLM``, or ``restore``'s {name:
+    pieces} of ``ctx``'s grid): the batch is split over ``ctx``'s dp
+    rows, each run on the row's first device; layer by layer, with the
+    rows inner, each row gathers the layer onto its device (every row's
+    copies queued before any row computes, models/sharded.py:
+    ``gathered_rows``), runs it and drops it (a MoE layer's expert groups
+    on the row's devices of each model index), so the cards run at
+    once. The cache
+    is {"idx", "rows": one cache a dp row, on the row's device}; the
+    logits return on the grid's first device in row order."""
     check_supported(cfg)
+    model = as_sharded(params, cfg, ctx)
     with torch.inference_mode():
         S = batch["tokens"].shape[1]
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
                              f"{max_len}")
-        x, pos, flash = _embed_prompt(params, batch, cfg)
-        enc = _enc_states(params, batch, cfg, enc)
-        B, Sm = x.shape[:2]
-        cache = init_cache(cfg, B, max_len, x.device)
-        for li, (lp, window) in enumerate(zip(params.layers,
-                                              layer_windows(cfg))):
-            x, kv, ssm_cache = _layer(x, lp, cfg, pos, window, ctx, flash,
-                                      enc)
-            if kv is not None:
-                cache["k"][li, :, :Sm] = kv[0]
-                cache["v"][li, :, :Sm] = kv[1]
-            if ssm_cache is not None:
-                cache["state"][li] = ssm_cache["state"]
-                cache["conv"][li] = ssm_cache["conv"]
-        logits = logits_from_hidden(params, x[:, -1:], cfg)
-    cache["idx"] = Sm
-    return logits, cache
+        if model is None:
+            rows, ctxs, parts, encs = [params], [ctx], [batch], [enc]
+        else:
+            rows, ctxs = _sharded_rows(model, cfg, ctx, len(batch["tokens"]))
+            parts = _row_batches(batch, rows)
+            encs = _split_rows(enc, len(rows))
+        xs, poss, flash = [], [], True
+        for row, part in zip(rows, parts):
+            x, pos, f = _embed_prompt(row, part, cfg)
+            xs.append(x)
+            poss.append(pos)
+            flash = flash and f
+        if cfg.encoder_layers and encs[0] is None:
+            if any(p.get("enc_input") is None for p in parts):
+                raise ValueError(f"{cfg.name} (encoder-decoder) needs "
+                                 f"batch['enc_input'] (B, T_enc, d_model)")
+            encs = _encoder_rows(rows, [p["enc_input"] for p in parts], cfg,
+                                 serving=True)
+        elif cfg.encoder_layers:
+            encs = [e.to(device=row.device, dtype=cfg.dtype)
+                    for e, row in zip(encs, rows)]
+        else:
+            encs = [None] * len(rows)
+        Sm = xs[0].shape[1]
+        caches = [init_cache(cfg, x.shape[0], max_len, x.device) for x in xs]
+        for li, window in enumerate(layer_windows(cfg)):
+            lps = gathered_rows([row.layers[li] for row in rows])
+            for r, lp in enumerate(lps):
+                xs[r], kv, ssm_cache = _layer(xs[r], lp, cfg, poss[r],
+                                              window, ctxs[r], flash,
+                                              encs[r])
+                cache = caches[r]
+                if kv is not None:
+                    cache["k"][li, :, :Sm] = kv[0]
+                    cache["v"][li, :, :Sm] = kv[1]
+                if ssm_cache is not None:
+                    cache["state"][li] = ssm_cache["state"]
+                    cache["conv"][li] = ssm_cache["conv"]
+            del lps
+        logits = [logits_from_hidden(row, x[:, -1:], cfg)
+                  for row, x in zip(rows, xs)]
+    for cache in caches:
+        cache["idx"] = Sm
+    if model is None:
+        return logits[0], caches[0]
+    return _on_first(logits, model.device), {"idx": Sm, "rows": caches}

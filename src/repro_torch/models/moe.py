@@ -33,7 +33,9 @@ model index g (``_expert_groups``): laid out there from the layer's (E,
 D, F) leaves the first time a grid runs them and kept on the layer for
 the next call while those leaves are unchanged (a served model's
 experts live on their cards); a trainer's forward, where autograd
-records the copies, lays them out anew each call.
+records the copies, lays them out anew each call. A model held as
+shards brings each group assembled from the pieces on its model index
+(models/sharded.py), and no device holds a whole expert stack.
 
 Order and determinism, where the card would otherwise differ from the
 CPU and the reference:
@@ -150,7 +152,11 @@ def _expert_groups(p, ctx: ShardingCtx
     over the dp rows); views on logical devices of one card. Kept on
     ``p`` (``p.ep_layout``) while the grid and the leaves (their storage
     and in-place version) stay the same, unless autograd records the
-    copies, whose graph belongs to one call."""
+    copies, whose graph belongs to one call. A layer served from shards
+    brings its groups already assembled on their devices
+    (``p.ep_groups``, models/sharded.py), without the whole stacks."""
+    if getattr(p, "ep_groups", None) is not None:
+        return p.ep_groups
     ws = (p.router, p.w_gate, p.w_up, p.w_down)
     devs = ctx.shard_devices()
     key = (tuple(map(tuple, devs)),

@@ -1,0 +1,282 @@
+"""Models held as shards on a device grid: the pieces, and the layer-shard
+helpers that the sharded trainer (train/train_step.py) and sharded
+serving (models/model.py: ``prefill``, ``decode_step`` and ``encode`` on
+a ``ShardedLM``) share.
+
+A ``ShardedLM`` holds each parameter as its pieces, one a grid device
+(row-major), laid out by its ``Sharding`` (sharding/rules.py:
+``param_shardings``); holders of one block on one device share one
+tensor. ``models.model.init_params(..., shardings=)``,
+``convert.lm_params_from_numpy(..., shardings=)`` and
+``checkpoint.manager.CheckpointManager.restore(..., shardings=)`` make
+one without the whole model on any card (``as_sharded`` takes the
+restored {name: pieces} as it is).
+
+A dp row computes with ``row_model``: the top-level leaves (``embed``,
+``final_norm``, ``lm_head``, ``meta``, ``enc_norm``) gathered whole onto
+the row's device, each layer a ``LayerShards`` whose ``gather()`` reads
+the layer whole onto that device as it runs, each block from the row's
+own devices where they hold it (``RowPlan.order``). With ``experts``, a
+MoE layer's expert group g is assembled instead on the row's device of
+model index g from the pieces that lie on model index g, over the dp
+axes only (``RowPlan.group_orders``), and handed to models/moe.py as
+``ep_groups``: no card holds a whole expert stack.
+"""
+from __future__ import annotations
+
+import dataclasses
+import types
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+#: a MoE layer's expert stacks (E, ...), laid out with the experts over
+#: "model" (sharding/rules.py)
+EXPERT_LEAVES = ("moe.w_gate", "moe.w_up", "moe.w_down")
+
+
+def shard_leaf(sh, t: Tensor) -> List[Tensor]:
+    """``sh.shard(t)``, one tensor shared by the holders of a block on one
+    device."""
+    t = t.detach()
+    pieces, seen = sh.shard(t), {}
+    return [seen.setdefault((b, p.device), p)
+            for b, p in zip(sh.blocks(t.dim()), pieces)]
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """One dp row of a grid: its context (every dp axis of size 1, the
+    row's devices), its device (the row's first), the order its reads
+    prefer (flat grid indices, its own devices first) and, for each model
+    index g, the row's device there and the order that reads the blocks
+    on model index g first (the row's own device, then the other rows')."""
+    ctx: object
+    device: torch.device
+    order: Tuple[int, ...]
+    group_devices: Tuple[torch.device, ...]
+    group_orders: Tuple[Tuple[int, ...], ...]
+
+
+def row_plans(ctx) -> List[RowPlan]:
+    """The dp rows of ``ctx``'s grid (models/moe.py: ``ShardingCtx.rows``),
+    row-major over the dp axes."""
+    grid = ctx.grid
+    idx = list(grid.indices())
+    row = [ctx.row_of(i) for i in idx]
+    tp = (grid.axis_names.index(ctx.tp_axis)
+          if ctx.tp_axis in grid.axis_names else None)
+    group = [0 if tp is None else i[tp] for i in idx]
+    n_g = 1 if tp is None else grid.shape[tp]
+    everyone = range(len(idx))
+    plans = []
+    for r, rctx in enumerate(ctx.rows()):
+        own = [k for k in everyone if row[k] == r]
+        order = own + [k for k in everyone if row[k] != r]
+        g_devs, g_orders = [], []
+        for g in range(n_g):
+            mine = [k for k in own if group[k] == g]
+            there = [k for k in everyone if group[k] == g and row[k] != r]
+            g_devs.append(grid.flat[mine[0]])
+            g_orders.append(tuple(mine + there + [k for k in order
+                                                  if group[k] != g]))
+        plans.append(RowPlan(rctx, rctx.grid.flat[0], tuple(order),
+                             tuple(g_devs), tuple(g_orders)))
+    return plans
+
+
+class ShardedLeaves:
+    """A layer's parameters held as shards: ``gather()`` reads them whole
+    onto the computing device."""
+
+    def gather(self):
+        raise NotImplementedError
+
+
+class LayerShards(ShardedLeaves):
+    """One layer's parameters held as shards ({path: (Sharding, pieces)});
+    ``gather()`` reads each leaf whole onto the row's device
+    (models/model.py calls it as the layer runs, and again in the
+    recomputed backward), or, with ``experts``, a MoE layer's expert
+    stacks as their groups (``ep_groups``, models/moe.py)."""
+
+    def __init__(self, leaves: Dict[str, Tuple[object, List[Tensor]]],
+                 plan: RowPlan, experts: bool = False):
+        self.leaves, self.plan, self.experts = leaves, plan, experts
+
+    @property
+    def key(self):
+        """Rows whose layers gather to the same devices (logical devices
+        of one card) may share one gathered copy."""
+        return self.plan.device, self.plan.group_devices
+
+    def _grouped(self) -> bool:
+        """Whether the expert stacks split into the row's model groups."""
+        if not self.experts or EXPERT_LEAVES[0] not in self.leaves:
+            return False
+        n_g = len(self.plan.group_devices)
+        return all(self.leaves[p][0].counts(self.leaves[p][1][0].dim())[0]
+                   == n_g for p in EXPERT_LEAVES)
+
+    def _expert_groups(self):
+        """{(g, device): (router, w_gate, w_up, w_down)}: the router whole
+        and expert group g on the row's device of model index g."""
+        plan = self.plan
+        rsh, rpieces = self.leaves["moe.router"]
+        routers, out = {}, {}
+        for g, (dev, order) in enumerate(zip(plan.group_devices,
+                                             plan.group_orders)):
+            if dev not in routers:
+                routers[dev] = rsh.gather(rpieces, dev, order)
+            out[(g, dev)] = (routers[dev],) + tuple(
+                self.leaves[p][0].gather(self.leaves[p][1], dev, order,
+                                         lead=(g,))
+                for p in EXPERT_LEAVES)
+        return out
+
+    def gather(self):
+        groups = self._expert_groups() if self._grouped() else None
+        skip = (EXPERT_LEAVES + ("moe.router",)) if groups else ()
+        out = namespace({path: sh.gather(pieces, self.plan.device,
+                                         self.plan.order)
+                         for path, (sh, pieces) in self.leaves.items()
+                         if path not in skip})
+        if groups:
+            if not hasattr(out, "moe"):
+                out.moe = types.SimpleNamespace()
+            out.moe.ep_groups = groups
+        return out
+
+
+def gathered_rows(layers: Sequence[object]) -> List[object]:
+    """One layer of each dp row, gathered (where held as shards) before
+    any row runs it: every card's copies of the layer are queued before
+    any card computes it, so the cards run the layer at once (a copy runs
+    on its source card's stream, after that card's queued work); rows on
+    one device share one copy. A whole row's layer passes as it is."""
+    shared, out = {}, []
+    for lp in layers:
+        if isinstance(lp, LayerShards):
+            if lp.key not in shared:
+                shared[lp.key] = lp.gather()
+            lp = shared[lp.key]
+        out.append(lp)
+    return out
+
+
+def namespace(flat: Dict[str, Tensor]):
+    """{"attn.wq": t, ...} -> a namespace tree (lp.attn.wq)."""
+    root: Dict[str, object] = {}
+    for path, t in flat.items():
+        node = root
+        *dirs, leaf = path.split(".")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = t
+
+    def build(node):
+        return types.SimpleNamespace(**{
+            k: build(v) if isinstance(v, dict) else v
+            for k, v in node.items()})
+    return build(root)
+
+
+def row_model(cfg, pieces: Dict[str, List[Tensor]], shardings,
+              plan: RowPlan, experts: bool = False,
+              memo: Optional[Dict] = None):
+    """The model as one dp row computes it: the top-level leaves gathered
+    onto the row's device now, each layer a ``LayerShards``. ``memo``
+    ({(name, device): tensor}): top-level leaves already gathered onto a
+    device by another row of the call (rows on logical devices of one
+    card share one copy; every holder of a block holds its same
+    values)."""
+    memo = {} if memo is None else memo
+    top, stacks = {}, {"layers": {}, "enc_layers": {}}
+    for n, ps in pieces.items():
+        parts = n.split(".")
+        if parts[0] in stacks:
+            stacks[parts[0]].setdefault(int(parts[1]), {})[
+                ".".join(parts[2:])] = (shardings[n], ps)
+        else:
+            key = (n, plan.device)
+            if key not in memo:
+                memo[key] = shardings[n].gather(ps, plan.device, plan.order)
+            top[n] = memo[key]
+    model = namespace(top)
+    model.cfg, model.device = cfg, torch.device(plan.device)
+    for k, layers in stacks.items():
+        if layers:
+            setattr(model, k, [LayerShards(layers[i], plan, experts)
+                               for i in range(len(layers))])
+    return model
+
+
+class ShardedLM:
+    """An LM's parameters held as shards: ``pieces[name]``, one tensor a
+    grid device (row-major), laid out by ``shardings[name]`` (every
+    sharding on one grid). Checked against the config's parameters
+    (``models.model.param_shapes``): the names, each piece's block shape
+    and dtype, and each piece on its grid device; ValueError otherwise."""
+
+    def __init__(self, cfg, shardings: Dict[str, object],
+                 pieces: Dict[str, Sequence[Tensor]]):
+        from ..core.detector import _same_device
+        from .model import param_shapes
+        shapes = param_shapes(cfg)
+        for what, names in (("pieces", pieces), ("shardings", shardings)):
+            if set(names) != set(shapes):
+                raise ValueError(
+                    f"{cfg.name}: the {what}' names differ from the model's "
+                    f"parameters at {sorted(set(names) ^ set(shapes))}")
+        grids = {sh.grid for sh in shardings.values()}
+        if len(grids) != 1:
+            raise ValueError("the parameters' shardings lie on different "
+                             "grids")
+        (grid,) = grids
+        devices = grid.flat
+        for n, meta in shapes.items():
+            ps, want = pieces[n], shardings[n].block_shape(tuple(meta.shape))
+            if len(ps) != grid.size:
+                raise ValueError(f"{n}: {len(ps)} pieces on a grid of "
+                                 f"{grid.size} devices")
+            for p, d in zip(ps, devices):
+                if not _same_device(p.device, d):
+                    raise ValueError(f"{n}: a piece on {p.device} where the "
+                                     f"grid's device is {d}")
+                if tuple(p.shape) != want or p.dtype != meta.dtype:
+                    raise ValueError(
+                        f"{n}: a piece of {tuple(p.shape)} {p.dtype}, the "
+                        f"sharding's block is {want} {meta.dtype}")
+        self.cfg, self.grid = cfg, grid
+        self.shardings = dict(shardings)
+        self.pieces = {n: list(pieces[n]) for n in shapes}
+
+    @property
+    def device(self) -> torch.device:
+        """The grid's first device: where logits and tokens return."""
+        return self.grid.flat[0]
+
+
+def as_sharded(params, cfg, ctx=None) -> Optional[ShardedLM]:
+    """``params`` as a ``ShardedLM``, or None where it is held whole (a
+    ``CausalLM``). A {name: pieces} dict (``CheckpointManager.restore``
+    with ``param_shardings(ctx.grid, ...)``) takes that layout; a
+    ``ShardedLM`` must lie on ``ctx``'s grid where ``ctx`` is given."""
+    if isinstance(params, dict):
+        if ctx is None:
+            raise ValueError("parameters held as {name: pieces} need ctx "
+                             "(their grid)")
+        from ..sharding.rules import param_shardings
+        from .model import param_shapes
+        return ShardedLM(cfg, param_shardings(ctx.grid, param_shapes(cfg),
+                                              cfg), params)
+    if isinstance(params, ShardedLM):
+        if ctx is not None and ctx.grid != params.grid:
+            raise ValueError(f"the model's pieces lie on a grid of "
+                             f"{params.grid.shape} {params.grid.axis_names}, "
+                             f"ctx's grid is {ctx.grid.shape} "
+                             f"{ctx.grid.axis_names}")
+        return params
+    return None

@@ -83,7 +83,8 @@ from ..core.hog import HOGConfig, PAPER_HOG
 from ..core.pipeline import _same_device, classify_windows
 from ..core.svm import SVMParams
 from ..models.configs import ModelConfig
-from ..models.model import CausalLM, decode_step, encode, prefill
+from ..models.model import decode_step, encode, prefill
+from ..models.sharded import as_sharded
 from ..obs.metrics import Emitter, MetricsConfig, make_sink
 from .faults import DETERMINISTIC_TYPES, FaultInjector
 from .resilience import (CircuitBreaker, DegradationLadder, ResilienceConfig,
@@ -884,10 +885,10 @@ class DetectionService:
         return True
 
 
-def generate(params: CausalLM, cfg: ModelConfig, prompt,
+def generate(params, cfg: ModelConfig, prompt,
              max_new_tokens: int = 32, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             enc_input=None) -> Tensor:
+             ctx=None, enc_input=None) -> Tensor:
     """Greedy or temperature decoding. prompt: (B, S) token ids, numpy or
     a tensor, moved to the parameters' device -> (B, S + new) int64 on
     that device. ``enc_input`` (B, T_enc, D): the encoder-decoder's
@@ -901,6 +902,12 @@ def generate(params: CausalLM, cfg: ModelConfig, prompt,
     reference's tokens. Temperature sampling draws from ``generator``
     (on the parameters' device): the same distribution as the
     reference's ``jax.random.categorical``, not the same tokens.
+
+    ``ctx`` (sharding/rules.py: ``make_ctx``): the grid the MoE's expert
+    paths take; a model held as shards (``models.sharded.ShardedLM``, or
+    ``restore``'s {name: pieces}) runs over its dp rows
+    (models/model.py: ``prefill``), the tokens on the grid's first
+    device.
     """
     if cfg.mrope:
         raise ValueError(
@@ -908,6 +915,8 @@ def generate(params: CausalLM, cfg: ModelConfig, prompt,
             f"through models.model.prefill(params, {{'tokens', "
             f"'positions'}}, cfg, max_len) and decode_step; generate takes "
             f"none")
+    sharded = as_sharded(params, cfg, ctx)
+    params = params if sharded is None else sharded
     dev = params.device
     prompt = torch.as_tensor(np.asarray(prompt) if not isinstance(
         prompt, Tensor) else prompt).to(device=dev, dtype=torch.int64)
@@ -917,16 +926,17 @@ def generate(params: CausalLM, cfg: ModelConfig, prompt,
         if enc_input is None:
             raise ValueError(f"{cfg.name} (encoder-decoder) needs enc_input "
                              f"(B, T_enc, d_model)")
-        enc = encode(params, enc_input, cfg)
+        enc = encode(params, enc_input, cfg, ctx)
     logits, cache = prefill(params, {"tokens": prompt}, cfg,
-                            max_len=S + max_new_tokens, enc=enc)
+                            max_len=S + max_new_tokens, ctx=ctx, enc=enc)
     toks = [prompt]
     cur = _sample(logits[:, -1], temperature, generator)
     for t in range(max_new_tokens):
         toks.append(cur)
         if t == max_new_tokens - 1:
             break
-        logits, cache = decode_step(params, cur, cache, cfg, enc=enc)
+        logits, cache = decode_step(params, cur, cache, cfg, enc=enc,
+                                    ctx=ctx)
         cur = _sample(logits[:, -1], temperature, generator)
     return torch.cat(toks, dim=1)
 

@@ -18,6 +18,14 @@ spec is the reference's with that first entry dropped. Each rule's
 regex is matched against the reference's path (``layers/attn/wq``), as
 the reference matches it.
 
+``param_shardings(grid, params, cfg)`` gives every parameter's
+``Sharding``, its spec fitted to its shape (the reference's
+``param_shardings`` as its dry run fits it); models/model.py's
+``init_params``, convert.py's ``lm_params_from_numpy`` and
+checkpoint/manager.py's ``restore`` make a model held as those shards
+(models/sharded.py), which ``prefill``, ``decode_step``, ``encode`` and
+``generate`` serve, and the trainer's ``state_shardings`` is built on it.
+
 ``Sharding(grid, spec)`` stands for the reference's ``NamedSharding``:
 ``shard(t)`` cuts a tensor into its pieces, one a grid device in
 row-major order, each on its device (views on a grid of one device, a
@@ -155,6 +163,18 @@ def param_specs(params, cfg: ModelConfig) -> Dict[str, Spec]:
     """{parameter name: spec}, unfitted (``fit_tree`` drops the axes a
     dimension does not divide by)."""
     return {n: spec_for(n, len(s)) for n, s in _shapes(params).items()}
+
+
+def param_shardings(grid: DeviceGrid, params, cfg: ModelConfig
+                    ) -> Dict[str, "Sharding"]:
+    """{parameter name: ``Sharding``} on ``grid``: ``param_specs`` fitted
+    to the parameters' shapes by ``fit_tree`` (the reference's
+    ``param_shardings`` with launch/dryrun.py's ``fitted_param_sh``).
+    ``params``: a ``CausalLM``, a {name: tensor} dict or a {name: shape}
+    dict (``models.model.param_shapes``), so a plan allocates nothing."""
+    shapes = _shapes(params)
+    return {n: Sharding(grid, sp) for n, sp in
+            fit_tree(param_specs(shapes, cfg), shapes, grid).items()}
 
 
 def _axis_list(entry) -> List[str]:
@@ -344,11 +364,15 @@ class Sharding:
                 for dev, sl in zip(self.grid.flat, self.slices(t.shape))]
 
     def gather(self, pieces: Sequence[torch.Tensor], device=None,
-               order: Optional[Sequence[int]] = None) -> torch.Tensor:
+               order: Optional[Sequence[int]] = None,
+               lead: Tuple[int, ...] = ()) -> torch.Tensor:
         """The whole tensor from its pieces, on ``device`` (the first
         piece's by default): each block read from its first holder in
-        ``order`` (flat grid indices; row-major by default). Differentiable:
-        each block's gradient flows back to the piece it was read from."""
+        ``order`` (flat grid indices; row-major by default). ``lead``:
+        only the part under those leading block indices (``(g,)``: block
+        g of the first dimension), read from its holders alone.
+        Differentiable: each block's gradient flows back to the piece it
+        was read from."""
         ndim = pieces[0].dim()
         dev = pieces[0].device if device is None else torch.device(device)
         blocks = self.blocks(ndim)
@@ -364,7 +388,7 @@ class Sharding:
             parts = [assemble(prefix + (b,)) for b in range(counts[d])]
             return parts[0] if len(parts) == 1 else torch.cat(parts, d)
 
-        return assemble(())
+        return assemble(tuple(lead))
 
 
 def device_bytes(shardings: Dict[str, Any], leaves: Dict[str, Any]

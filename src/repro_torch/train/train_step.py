@@ -17,11 +17,12 @@ the card (nothing waits for the device).
     parameters in their dtype.
   * ``jit_train_step(cfg, opt, grid, profile, microbatches=1)`` -- the
     reference's GSPMD trainer as ZeRO-3 over the grid's dp axes, on a
-    state held as the shards ``state_shardings`` lays out (``shard_state``
-    makes it from a plain state, ``gather_state`` takes it back). Each dp
-    row of the batch runs on its own device (the row's first), each
-    layer gathering its parameters there as it runs and again in the
-    recomputed backward, the MoE on the row's devices through the EP
+    state held as the shards ``state_shardings`` lays out
+    (``init_train_state(..., shardings=)`` makes it per shard,
+    ``shard_state`` from a plain state, ``gather_state`` takes it back).
+    Each dp row of the batch runs on its own device (the row's first),
+    each layer gathering its parameters there as it runs and again in
+    the recomputed backward (models/sharded.py: ``row_model``), the MoE on the row's devices through the EP
     paths; the loss's numerator and count are reduced over the rows
     apart (the global mean, however the ignored labels fall); gradients
     land on the shards and are summed over rows in f32 in row order;
@@ -48,17 +49,17 @@ layout, which the sharded step has by construction.
 """
 from __future__ import annotations
 
-import types
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..launch.mesh import DeviceGrid, grid_of, visible_devices
 from ..models.configs import ModelConfig
-from ..models.model import (CausalLM, ShardedLeaves, init_params, loss_fn,
-                            nll_sum, param_shapes, trainable)
+from ..models.model import (CausalLM, init_params, loss_fn, nll_sum,
+                            param_shapes, trainable)
+from ..models.sharded import row_model, row_plans, shard_leaf
 from ..sharding.rules import (PROFILES, Profile, Sharding, device_bytes,
-                              dp_axes, fit_tree, make_ctx, param_specs)
+                              dp_axes, make_ctx, param_shardings)
 from .grad_compress import init_residuals, mean_of_payloads, quantize_shards
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
@@ -68,12 +69,42 @@ Step = Callable[[State, Dict[str, object]], Tuple[State, Dict[str, Tensor]]]
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,
-                     device=None) -> State:
+                     device=None, shardings=None) -> State:
     """Random parameters (``init_params``) made trainable, and a fresh
-    optimizer state."""
+    optimizer state. ``shardings`` (``state_shardings``): the state the
+    sharded step holds, made per shard -- equal, bit for bit, to
+    ``shard_state(init_train_state(...), shardings)``: each leaf drawn on
+    ``device`` and cut into its pieces (``init_params(...,
+    shardings=)``), the f32 master from each piece, m and v zeros a
+    piece, the step on the grid's first device."""
+    if shardings is not None:
+        return _sharded_init(cfg, generator, device, shardings)
     params = trainable(init_params(cfg, generator, device))
     return {"params": params,
             "opt": init_opt_state(dict(params.named_parameters()))}
+
+
+def _sharded_init(cfg: ModelConfig, generator: torch.Generator, device,
+                  shardings: Dict[str, object]) -> State:
+    model = init_params(cfg, generator, device, shardings["params"])
+    opt: Dict[str, object] = {"step": torch.zeros(
+        (), dtype=torch.int32, device=model.grid.flat[0])}
+    for k in ("m", "v", "master"):
+        opt[k] = {n: _per_piece(pieces, k) for n, pieces in
+                  model.pieces.items()}
+    return {"params": model.pieces, "opt": opt}
+
+
+def _per_piece(pieces: List[Tensor], kind: str) -> List[Tensor]:
+    """An f32 tensor for each distinct piece (shared where the pieces
+    are): its copy for "master", zeros for "m" and "v"."""
+    made: Dict[int, Tensor] = {}
+    for p in pieces:
+        if id(p) not in made:
+            made[id(p)] = (p.to(torch.float32, copy=True) if kind == "master"
+                           else torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device))
+    return [made[id(p)] for p in pieces]
 
 
 def init_ddp_state(cfg: ModelConfig, generator: torch.Generator,
@@ -211,12 +242,7 @@ def state_shardings(grid: DeviceGrid, state, cfg: ModelConfig
     "v", "master": as the params}}. ``state``: a plain state, or
     {"params": {name: shape}} (``models.model.param_shapes``), so a plan
     needs nothing allocated."""
-    params = state["params"]
-    specs = param_specs(params, cfg)
-    shapes = (dict(params.named_parameters())
-              if hasattr(params, "named_parameters") else params)
-    sh = {n: Sharding(grid, sp)
-          for n, sp in fit_tree(specs, shapes, grid).items()}
+    sh = param_shardings(grid, state["params"], cfg)
     return {"params": sh, "opt": {"step": Sharding(grid, ()), "m": sh,
                                   "v": sh, "master": sh}}
 
@@ -236,16 +262,6 @@ def state_device_bytes(grid: DeviceGrid, cfg: ModelConfig,
                                    "v": f32, "master": f32}})
 
 
-def _shard(sh: Sharding, t: Tensor) -> List[Tensor]:
-    """``sh.shard(t)``, one tensor shared by the holders of a block on one
-    device."""
-    t = t.detach()
-    pieces, seen = sh.shard(t), {}
-    blocks = sh.blocks(t.dim())
-    return [seen.setdefault((b, p.device), p)
-            for b, p in zip(blocks, pieces)]
-
-
 def shard_state(state: State, shardings: Dict[str, object]) -> State:
     """A plain train state as the sharded step holds it: {"params":
     {name: pieces}, "opt": {"step", "m", "v", "master": {name:
@@ -255,9 +271,9 @@ def shard_state(state: State, shardings: Dict[str, object]) -> State:
     named = dict(state["params"].named_parameters())
     o = state["opt"]
     grid = next(iter(sp.values())).grid
-    return {"params": {n: _shard(sp[n], t) for n, t in named.items()},
+    return {"params": {n: shard_leaf(sp[n], t) for n, t in named.items()},
             "opt": {"step": o["step"].to(grid.flat[0]),
-                    **{k: {n: _shard(shardings["opt"][k][n], t)
+                    **{k: {n: shard_leaf(shardings["opt"][k][n], t)
                            for n, t in o[k].items()}
                        for k in ("m", "v", "master")}}}
 
@@ -275,58 +291,6 @@ def gather_state(sharded: State, shardings: Dict[str, object],
                        for k in ("m", "v", "master")}}}
 
 
-class _LayerShards(ShardedLeaves):
-    """One layer's parameters held as shards; ``gather()`` reads each
-    leaf whole onto the computing device (models/model.py calls it as the
-    layer runs, and again in the recomputed backward)."""
-
-    def __init__(self, leaves: Dict[str, Tuple[Sharding, List[Tensor]]],
-                 device, order):
-        self.leaves, self.device, self.order = leaves, device, order
-
-    def gather(self):
-        return _namespace({path: sh.gather(pieces, self.device, self.order)
-                           for path, (sh, pieces) in self.leaves.items()})
-
-
-def _namespace(flat: Dict[str, Tensor]):
-    """{"attn.wq": t, ...} -> a namespace tree (lp.attn.wq)."""
-    root: Dict[str, object] = {}
-    for path, t in flat.items():
-        node = root
-        *dirs, leaf = path.split(".")
-        for d in dirs:
-            node = node.setdefault(d, {})
-        node[leaf] = t
-
-    def build(node):
-        return types.SimpleNamespace(**{
-            k: build(v) if isinstance(v, dict) else v
-            for k, v in node.items()})
-    return build(root)
-
-
-def _row_model(cfg: ModelConfig, handles: Dict[str, List[Tensor]],
-               sh: Dict[str, Sharding], device, order):
-    """The model as one dp row computes it: the top-level leaves gathered
-    onto ``device`` now, each layer a ``_LayerShards``."""
-    top, stacks = {}, {"layers": {}, "enc_layers": {}}
-    for n, pieces in handles.items():
-        parts = n.split(".")
-        if parts[0] in stacks:
-            stacks[parts[0]].setdefault(int(parts[1]), {})[
-                ".".join(parts[2:])] = (sh[n], pieces)
-        else:
-            top[n] = sh[n].gather(pieces, device, order)
-    model = _namespace(top)
-    model.cfg, model.device = cfg, torch.device(device)
-    for k, layers in stacks.items():
-        if layers:
-            setattr(model, k, [_LayerShards(layers[i], device, order)
-                               for i in range(len(layers))])
-    return model
-
-
 def jit_train_step(cfg: ModelConfig, opt: OptConfig, grid: DeviceGrid,
                    profile: Profile = PROFILES["baseline"],
                    microbatches: int = 1) -> Step:
@@ -337,15 +301,9 @@ def jit_train_step(cfg: ModelConfig, opt: OptConfig, grid: DeviceGrid,
     over the dp rows. ``step.grads(state, batch)`` -> (loss, {name: f32
     gradient pieces}) is its first half, the gradient as the update sees
     it."""
-    ctx = make_ctx(grid, profile=profile)
-    sh = state_shardings(grid, {"params": param_shapes(cfg)}, cfg)["params"]
-    rows = ctx.rows()
-    row_of = [ctx.row_of(i) for i in grid.indices()]
+    sh = param_shardings(grid, param_shapes(cfg), cfg)
     # a row reads each block from its own devices where they hold it
-    orders = [[i for i in range(grid.size) if row_of[i] == r]
-              + [i for i in range(grid.size) if row_of[i] != r]
-              for r in range(len(rows))]
-    devices = [r.grid.flat[0] for r in rows]
+    plans = row_plans(make_ctx(grid, profile=profile))
     home = grid.flat[0]
 
     def grads(state: State, batch: Dict[str, object]):
@@ -360,12 +318,12 @@ def jit_train_step(cfg: ModelConfig, opt: OptConfig, grid: DeviceGrid,
             count = torch.clamp((torch.as_tensor(mb["labels"]) >= 0).sum(),
                                 min=1)
             nll_tot = None
-            for r, part in enumerate(_split(mb, len(rows))):
-                dev = devices[r]
-                handles = {n: [q.detach().requires_grad_() for q in p]
-                           for n, p in params.items()}
-                model = _row_model(cfg, handles, sh, dev, orders[r])
-                nll, _ = nll_sum(model, _on_device(part, dev), cfg, rows[r])
+            for plan, part in zip(plans, _split(mb, len(plans))):
+                dev = plan.device
+                handles = {n: [_own_grad(q.detach().requires_grad_())
+                               for q in p] for n, p in params.items()}
+                model = row_model(cfg, handles, sh, plan)
+                nll, _ = nll_sum(model, _on_device(part, dev), cfg, plan.ctx)
                 (nll / count.to(dev)).backward()
                 nll = nll.detach().to(home)
                 nll_tot = nll if nll_tot is None else nll_tot + nll
@@ -409,6 +367,23 @@ def jit_train_step(cfg: ModelConfig, opt: OptConfig, grid: DeviceGrid,
 
     step.grads = grads
     return step
+
+
+def _own_grad(handle: Tensor) -> Tensor:
+    """``handle`` with a hook that gives it a gradient of its own: where a
+    row reads the piece on its own device, the gather's backward hands the
+    piece a slice of the whole leaf's gradient, which autograd keeps as
+    the piece's .grad -- the whole leaf's gradient on the row's device
+    would live until the row's backward ends (the whole model's, 4x a
+    card's share on a grid of 4). A copy of the slice frees it at once;
+    the values are the same."""
+    def own(h):
+        g = h.grad
+        if g is not None and \
+                g.untyped_storage().nbytes() > g.numel() * g.element_size():
+            h.grad = g.clone()
+    handle.register_post_accumulate_grad_hook(own)
+    return handle
 
 
 def _replicate(sh: Sharding, trees: List[List[Tensor]]) -> None:
