@@ -132,7 +132,13 @@ Phases, each of which exits non-zero on failure:
      rest: the CUDA-core kernel), each bf16 run is also held to
      flash_bf16_matched (its route's roundings in f32, with its key
      tile); at full width both routes run in bf16 and are timed beside
-     scaled_dot_product_attention (timed only, used nowhere);
+     scaled_dot_product_attention (timed only, used nowhere), the
+     CUDA-core route in f32 too (beside SDPA in f32, its bound at the f32
+     rate); then the query-offset form (one device's chunk of a
+     context-parallel prefill, FLASH_CHUNK): both routes in bf16 and
+     f32 at every offset and hd against the plain version at the same
+     offset, timed at hd 128 beside SDPA with the chunk's boolean mask;
+     ``--only flash`` runs the build and this phase alone;
   5. LM serving of qwen3-14b: at smoke size in f32 (weights through
      lm_params_from_numpy) the card's greedy tokens and logits against
      the CPU port's; at full width in bf16 with LM_LAYERS (8) of its 40
@@ -208,9 +214,15 @@ Phases, each of which exits non-zero on failure:
      final checkpoint, a resume, the losses of an uninterrupted run;
   5d. lm mesh: on logical devices of the card, serving from weights
      held as shards (init per shard, each piece = the whole init's bit
-     for bit; against the same weights whole): olmoe-1b-7b on (2, 4) and
-     llama4-scout (8 of 48 layers) on (1, 4) through the EP paths,
-     qwen2-vl-72b (8 of 80 layers) on (4, 1); 16,384 windows over 4
+     for bit; against the same weights whole, the prefill's and every
+     step's logits of the same tokens within 3e-2, tokens to a near-tie
+     of twice their largest difference, a MoE's expert choices pinned
+     to the whole run's where they differ at near-ties, the path counter
+     read): olmoe-1b-7b on (2, 4), llama4-scout (8 of 48 layers) and
+     qwen3-14b (8 of 40) on (1, 4), qwen3-14b on (2, 2) -- over "model"
+     in the reference's layout, context-parallel prefill and
+     tensor-parallel decode -- and qwen2-vl-72b (8 of 80 layers) on
+     (4, 1), a dp row a device; 16,384 windows over 4
      devices = one device's bit for bit; the ZeRO-3 trainer and gpipe
      (lm_mesh); ``--only lm_mesh`` runs the build and this phase alone;
   5e. lm shapes: phi3-medium-14b, internlm2-20b and command-r-35b at full
@@ -398,6 +410,15 @@ FLASH_FAMILIES += (("whisper-enc", 4, 20, 20, 1500, 64, False),
 # rtol); the output's own rounding is 2^-9 relative, and f32 summation
 # order can flip a rare p by one bf16 ulp
 FLASH_MATCHED_TOL = (2e-3, 2.0 ** -7)
+# one device's chunk of a context-parallel prefill (models/attention.py:
+# attend_chunk): qwen3-14b's heads, B 1, 512 queries of a 2,048-token
+# sequence cut over 4 devices, at each device's offset, against all 2,048
+# keys; both routes at each hd the sm90 route is built for, in bf16
+# (FLASH_TOL against the plain version) and the CUDA-core route in f32;
+# timed at hd 128 at the first and last offsets
+FLASH_CHUNK = (1, 40, 8, 512, 2048)          # B, H, K, Sq, Sk
+FLASH_CHUNK_OFFSETS = (0, 512, 1024, 1536)
+FLASH_CHUNK_HD = (16, 64, 128)
 LM_ARCH = "qwen3-14b"
 # the earlier LM phases' depths since phase 5e holds every arch at its full
 # depth at the reference's lengths (for the run's time): qwen3-14b
@@ -500,10 +521,13 @@ CLI_STEPS = 30
 # layers (39 GB in bf16; all 48 are 216 GB)
 MESH_SERVE = (("olmoe-1b-7b", None, (2, 4), 4, 512, 32),
               ("llama4-scout-17b-a16e", 8, (1, 4), 1, 512, 16),
+              ("qwen3-14b", 8, (1, 4), 4, 512, 32),
+              ("qwen3-14b", 8, (2, 2), 4, 512, 32),
               ("qwen2-vl-72b", 8, (4, 1), 4, 512, 32))
 # serving from weights held as shards against the same weights whole:
 # bf16 logits (PERF.md's flash limit), and f32 at smoke size, where the
-# two differ by the rows' batch sizes only
+# two differ by the rows' batch sizes and, over "model", by the partial
+# sums reduced across the devices
 SHARD_TOL, SHARD_TOL_F32 = 3e-2, 1e-6
 # 16,384 windows (COPROC_WINDOWS) over this many logical devices
 MESH_WINDOWS = 4
@@ -576,6 +600,8 @@ PATH_KERNELS = {
     "lm mesh olmoe": ("flash_attention",),
     "lm mesh llama4": ("flash_attention",),
     "lm mesh qwen2": ("flash_attention",),
+    "lm mesh qwen3 1x4": ("flash_attention",),
+    "lm mesh qwen3 2x2": ("flash_attention",),
     "lm mesh train": ("flash_attention", "flash_attention_bwd"),
     "lm mesh gpipe": ("flash_attention", "flash_attention_bwd"),
     # the dense configs at full width, and the reference's lengths: flash
@@ -1935,7 +1961,20 @@ def check_flash(torch, np) -> dict:
     for where, B, S in LM_BATCHES:
         H, K, hd = lm.n_heads, lm.n_kv_heads, lm.hd
         arrs = draw(B, H, K, S, hd)
-        e32 = case(arrs, True, "f32", bshd=True)[-2]
+        q32, k32, v32, _, e32, _ = case(arrs, True, "f32", bshd=True)
+        q32c, k32c, v32c = (x.contiguous() for x in (q32, k32, v32))
+        f32_ms = [kernel_device_ms(torch, fn, sym) for fn, sym in (
+            (lambda: fa.launch_cuda_core(q32, k32, v32),
+             "flash_attention_kernel"),
+            (lambda: fa.flash_attention_plain(q32, k32, v32), ""),
+            (lambda: F.scaled_dot_product_attention(
+                q32c, k32c, v32c, is_causal=True, enable_gqa=True), ""))]
+        f32_bound = max(4 * B * S * (2 * H + 2 * K) * hd / HBM_BPS,
+                        4 * B * H * hd * S * (S + 1) // 2 / F32_FLOPS) * 1e3
+        level_line(f"  flash_attention cuda_core f32 {where}: device/plain/"
+                   f"SDPA f32 ms " + "/".join(_g(t) for t in f32_ms)
+                   + f", bound {f32_bound:.4g} (f32 rate)")
+        del q32, k32, v32, q32c, k32c, v32c
         q, k, v, got, e, m_new = case(arrs, True, "bf16", bshd=True)
         old = fa.launch_cuda_core(q, k, v)
         e_old = held(old, fa.flash_attention_plain(q, k, v), "bf16",
@@ -1989,7 +2028,105 @@ def check_flash(torch, np) -> dict:
     out = summarize(rows, ("flash_attention",),
                     [g for g, _, _ in LM_BATCHES], 1)
     out["flash_attention"]["max_abs_err"] = max(worst.values())
+    out["flash_attention_chunk"] = check_flash_chunks(torch, np)
     return out
+
+
+def check_flash_chunks(torch, np) -> dict:
+    """Phase 3c, the query-offset form: FLASH_CHUNK's queries at each
+    FLASH_CHUNK_OFFSETS offset against the whole sequence's keys, (B, S,
+    H, hd) views as prefill hands them; at each FLASH_CHUNK_HD the sm90
+    route (bf16, through the wrapper, which must launch it), the
+    CUDA-core route in bf16 (launched directly) and in f32, each held to
+    flash_attention_plain at the same offset (FLASH_TOL); causal at every
+    offset, every key visible at the second. At hd 128 in bf16 and f32,
+    at the first and last offsets: device / plain / SDPA ms (SDPA with
+    the chunk's boolean mask: its is_causal aligns the diagonal top-left
+    when Sq != Sk) and the bound (q, k, v read once, o written once; 4 hd
+    operations a visible pair at the type's rate). One line, on standard
+    error; -> the errors and times, for the kernels line."""
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.flash_attention as fa
+
+    B, H, K, Sq, Sk = FLASH_CHUNK
+    rng = np.random.default_rng(9)
+    err = {"sm90": 0.0, "cuda_core": 0.0, "f32": 0.0}
+    times, n = {}, 0
+
+    def held(got, want, dt, what):
+        diff = (got.float() - want.float()).abs()
+        lim = FLASH_TOL[dt] * (1 + want.float().abs())
+        need(bool((diff <= lim).all()), f"flash_attention {what}: max err "
+             f"{float(diff.max())} over {FLASH_TOL[dt]} + {FLASH_TOL[dt]} "
+             f"x |want|")
+        return float(diff.max())
+
+    for hd in FLASH_CHUNK_HD:
+        def draw(S, heads):
+            return torch.from_numpy(rng.standard_normal(
+                (B, S, heads, hd), dtype=np.float32)).to(DEV).transpose(1, 2)
+        k32, v32 = draw(Sk, K), draw(Sk, K)
+        for off in FLASH_CHUNK_OFFSETS:
+            q32 = draw(Sq, H)
+            for causal in (True, False) if off == 512 else (True,):
+                what = f"chunk hd{hd} q_offset {off} causal={causal}"
+                qb, kb, vb = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+                want = fa.flash_attention_plain(qb, kb, vb, causal,
+                                                q_offset=off)
+                before = dict(fa.flash_attention.route_launches)
+                got = fa.flash_attention(qb, kb, vb, causal, q_offset=off)
+                torch.cuda.synchronize()
+                need(fa.flash_attention.route_launches
+                     == {**before, "sm90": before["sm90"] + 1},
+                     f"flash_attention {what}: not one sm90 launch")
+                err["sm90"] = max(err["sm90"], held(got, want, "bf16",
+                                                    what + " sm90"))
+                got = fa.launch_cuda_core(qb, kb, vb, causal, q_offset=off)
+                err["cuda_core"] = max(err["cuda_core"], held(
+                    got, want, "bf16", what + " cuda_core"))
+                want = fa.flash_attention_plain(q32, k32, v32, causal,
+                                                q_offset=off)
+                got = fa.flash_attention(q32, k32, v32, causal,
+                                         q_offset=off)
+                err["f32"] = max(err["f32"], held(got, want, "f32",
+                                                  what + " f32"))
+                n += 3
+                if hd != 128 or not causal or off not in (
+                        FLASH_CHUNK_OFFSETS[0], FLASH_CHUNK_OFFSETS[-1]):
+                    continue
+                mask = torch.ones(Sq, Sk, dtype=torch.bool,
+                                  device=DEV).tril(off)
+                pairs = Sq * off + Sq * (Sq + 1) // 2
+                for dt, (q, k, v), fn, rate in (
+                        ("sm90", (qb, kb, vb), fa.launch_sm90, BF16_FLOPS),
+                        ("f32", (q32, k32, v32), fa.launch_cuda_core,
+                         F32_FLOPS)):
+                    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+                    ms = [kernel_device_ms(torch, f, sym) for f, sym in (
+                        (lambda: fn(q, k, v, True, q_offset=off),
+                         "flash_attention_kernel"),
+                        (lambda: fa.flash_attention_plain(q, k, v, True,
+                                                          q_offset=off), ""),
+                        (lambda: F.scaled_dot_product_attention(
+                            qc, kc, vc, attn_mask=mask, enable_gqa=True),
+                         ""))]
+                    nbytes = q.element_size() * B * hd * (2 * Sq * H
+                                                          + 2 * Sk * K)
+                    bound = max(nbytes / HBM_BPS,
+                                4 * B * H * hd * pairs / rate) * 1e3
+                    times[f"{dt} q{off}"] = ms + [bound]
+    line = (f"  flash_attention chunk B{B} H{H} K{K} Sq{Sq} of Sk{Sk} at "
+            f"q_offset {'/'.join(map(str, FLASH_CHUNK_OFFSETS))}, hd "
+            f"{'/'.join(map(str, FLASH_CHUNK_HD))}, {n} calls: err sm90 "
+            f"{err['sm90']:.1e}, cuda_core {err['cuda_core']:.1e} (bf16, tol "
+            f"{FLASH_TOL['bf16']:g}), f32 {err['f32']:.1e} (tol "
+            f"{FLASH_TOL['f32']:g}); hd128 device/plain/SDPA-mask/bound ms: "
+            + "; ".join(f"{k} " + "/".join(_g(t) for t in v)
+                        for k, v in times.items()))
+    # on standard error: the kernels line carries its numbers
+    level_line(line)
+    return {"max_abs_err": err, "ms": times}
 
 
 # ------------------------------------------------------------- phase 4
@@ -4297,7 +4434,7 @@ def lm_families(torch, np):
 
 
 def full_width(torch, np, arch: str, groups, f32_layers=None,
-               predicted: str = ""):
+               predicted: str = "", out=print):
     """One arch of the lm families checks at full width in bf16 (seeded
     random weights made on the card): parameters = param_count(),
     generate for each of ``groups`` with the counters reset just before
@@ -4307,8 +4444,8 @@ def full_width(torch, np, arch: str, groups, f32_layers=None,
     and, with its planted faults, in f32 (at ``f32_layers`` of its depth
     where given: the f32 weights must fit the card), ms and bounds per
     prefill and decode step, busy ms, launches and peak GiB; one line,
-    ``predicted`` (the dry run's) beside the peak. -> (its launches, its
-    sm90 launches)."""
+    ``predicted`` (the dry run's) beside the peak, printed by ``out``.
+    -> (its launches, its sm90 launches)."""
     import dataclasses as dc
 
     import repro_torch.kernels as kernels
@@ -4408,7 +4545,7 @@ def full_width(torch, np, arch: str, groups, f32_layers=None,
     del params
     torch.cuda.empty_cache()
     depth = f" {f32_layers}L" if f32_layers else ""
-    print(f"  {arch} bf16: {n / 1e9:.4f} B params = config, "
+    out(f"  {arch} bf16: {n / 1e9:.4f} B params = config, "
           f"{peak:.2f} GiB{predicted}, "
           f"sm90 {per}/prefill, rerun same; " + "; ".join(timing)
           + f"; {gc} pre/dec bf16 {rel['sound']:.1e} < "
@@ -5257,6 +5394,7 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
     from repro_torch.models import moe
     from repro_torch.models.model import (decode_step, init_params,
                                           param_shapes, prefill)
@@ -5311,6 +5449,7 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
 
     kernels.reset_launches()
     moe.reset_paths()
+    lm.reset_paths()
     first, cache = prefill(sharded, batch, cfg, S + new, ctx)
     paths_pre = dict(moe.path_counts)
     moe.reset_paths()
@@ -5318,7 +5457,14 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
                 ctx=ctx)
     torch.cuda.synchronize()
     paths_dec = dict(moe.path_counts)
-    name = f"lm mesh {short}"
+    # over "model" the reference's layout; a "model" axis of 1, the rows
+    path = ("model" if model > 1 and cfg.family in lm.MODEL_AXIS_FAMILIES
+            else "rows")
+    need(lm.path_counts == {"whole": 0, "rows": 0, "model": 0, path: 2},
+         f"{arch} {shape}: prefill and decode_step took the paths "
+         f"{lm.path_counts}, want {path} both")
+    name = f"lm mesh {short}" + (f" {data}x{model}" if arch == "qwen3-14b"
+                                 else "")
     launches = {name: check_launches(name, kernels.launch_counts())}
     routes = dict(fa.flash_attention.route_launches)
     rows = data
@@ -5329,21 +5475,48 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
          f"{arch}: MoE paths {paths_pre} in the sharded prefill and "
          f"{paths_dec} in a decode step, want a2a and replicated "
          f"{want_paths[0]} each")
-    need(routes == {"sm90": L * rows, "cuda_core": 0},
+    # one launch a layer on each device of each row over "model" (each
+    # its chunk at its offset), one a row on the row path
+    per = model if path == "model" else 1
+    need(routes == {"sm90": L * rows * per, "cuda_core": 0},
          f"{arch}: the sharded prefill launched the flash routes {routes}")
     del first, cache
 
-    # sharded against the same weights whole, under the same ctx
-    t_sh, l_sh = mesh_generate(torch, sharded, cfg, x, new, ctx, pos)
-    t_wh, l_wh = mesh_generate(torch, params, cfg, x, new, ctx, pos)
+    # sharded against the same weights whole, under the same ctx; a MoE's
+    # sharded run takes the whole run's experts where its own choice
+    # differs, and each such choice must be a near-tie (routed)
+    (t_wh, l_wh), g_wh = routed(torch, lambda: mesh_generate(
+        torch, params, cfg, x, new, ctx, pos))
+    (t_sh, l_sh), g_sh = routed(torch, lambda: mesh_generate(
+        torch, sharded, cfg, x, new, ctx, pos), g_wh if cfg.is_moe else None)
+    flips, ties = routed_flips(torch, g_sh, g_wh, cfg.top_k)
+    need(flips == ties, f"{arch}: {flips} expert choices of the sharded run "
+                        f"differ from the whole run's, {ties} of them at "
+                        f"near-ties")
+    del g_sh, g_wh
     shard_rel = float((l_sh[:, 0] - l_wh[:, 0]).norm() / l_wh[:, 0].norm())
-    dmax = float((l_sh[:, 0] - l_wh[:, 0]).abs().max())
-    need(shard_rel <= SHARD_TOL, f"{arch}: sharded vs whole prefill "
-                                 f"logits: relative L2 {shard_rel} > "
-                                 f"{SHARD_TOL}")
-    shard_same = tokens_to_tie(torch, t_sh, t_wh, l_wh,
-                               max(2 * dmax, 2.0 ** -4))
-    del l_sh, l_wh
+    # every step both runs computed from the same tokens (decode over
+    # "model" reduces its partial sums across the devices, so its steps
+    # are not the whole model's bit for bit): their logits within
+    # SHARD_TOL, and the near-tie twice their largest difference
+    ok = torch.ones_like(t_sh, dtype=torch.bool)
+    ok[:, 1:] = torch.cumprod((t_sh == t_wh).int(), 1)[:, :-1].bool()
+    diff = l_sh - l_wh
+    step_rel = float(diff.square().sum(-1)[ok].sum().sqrt()
+                     / l_wh.square().sum(-1)[ok].sum().sqrt())
+    dmax = float(diff.abs().amax(-1)[ok].max())
+    per_step = (diff.square().sum(-1) * ok).sum(0).sqrt() / (
+        l_wh.square().sum(-1) * ok).sum(0).sqrt().clamp(min=1e-30)
+    level_line(f"  lm mesh {short} {shape}: sharded vs whole bf16 rel L2 a "
+               f"step (rows of the same tokens): "
+               + " ".join(f"{x:.1e}" for x in per_step.tolist()))
+    need(max(shard_rel, step_rel) <= SHARD_TOL,
+         f"{arch}: sharded vs whole logits: relative L2 {shard_rel} "
+         f"(prefill), {step_rel} (every step of the same tokens) > "
+         f"{SHARD_TOL}")
+    shard_tie = max(2 * dmax, 2.0 ** -4)
+    shard_same = tokens_to_tie(torch, t_sh, t_wh, l_wh, shard_tie)
+    del l_sh, l_wh, diff
 
     ep = ""
     if cfg.is_moe:
@@ -5415,7 +5588,10 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
     torch.cuda.empty_cache()
     order = "/".join(k for k, _, _ in kinds)
     line = (f"  mesh {short}{'' if not layers else f' {layers}L'} "
-            f"{data}x{model}: shards = whole: init, logits {shard_rel:.0e} "
+            f"{data}x{model} {path}: shards = whole: init, logits "
+            f"{shard_rel:.0e}/{step_rel:.0e} (tie {shard_tie:.3g}"
+            + (f", {flips} near-tie routes pinned" if cfg.is_moe else "")
+            + ") "
             f"(f32 {smoke_rel:.0e}), tokens {shard_same}; {ep}ms "
             f"{order}/bound: prefill "
             + "/".join(f"{med[k][0]:.1f}" for k, _, _ in kinds)
@@ -5851,6 +6027,50 @@ def last_gates(torch, fn, pin=None):
         moe._top_k = top_k
 
 
+def routed(torch, fn, pin=None):
+    """Run ``fn()`` recording every MoE routing's gates (f32 (T, E)), in
+    call order -> (fn's result, [gates]). ``pin``: an earlier run's gates
+    of the same calls, whose top-k choice every token then takes,
+    weighted by this run's own gates (``routed_flips`` counts where the
+    choices differed)."""
+    import repro_torch.models.moe as moe
+
+    top_k, calls = moe._top_k, []
+
+    def recording(gates, k):
+        w, idx = top_k(gates, k)
+        calls.append(gates.float().clone())
+        if pin is not None:
+            idx = top_k(pin[len(calls) - 1].to(gates.device), k)[1]
+            w = gates.gather(1, idx)
+        return w, idx
+
+    moe._top_k = recording
+    try:
+        return fn(), calls
+    finally:
+        moe._top_k = top_k
+
+
+def routed_flips(torch, got, want, k: int) -> tuple:
+    """Tokens whose top-k experts differ between two runs' gates
+    (``routed``, call by call), and how many of them are near-ties: the
+    second run's gap between its k-th and (k+1)-th gate within twice
+    the token's largest gate difference -> (flips, near-ties). Each
+    routing takes the top-k twice (models/moe.py:_shard_route: the
+    dispatch, then the combine), so every second call is counted."""
+    flips = ties = 0
+    for g, w in zip(got[::2], want[::2]):
+        w = w.to(g.device)
+        ig = torch.sort(g, dim=-1, descending=True, stable=True)[1][:, :k]
+        sw, iw = torch.sort(w, dim=-1, descending=True, stable=True)
+        differ = (ig.sort(-1)[0] != iw[:, :k].sort(-1)[0]).any(-1)
+        near = (sw[:, k - 1] - sw[:, k]) <= 2 * (g - w).abs().amax(-1)
+        flips += int(differ.sum())
+        ties += int((differ & near).sum())
+    return flips, ties
+
+
 def route_flips(torch, got, want, k: int) -> tuple:
     """Layers whose last token's top-k experts differ between two runs'
     gates (last_gates), and whether each is a near-tie: the first run's
@@ -6171,9 +6391,12 @@ def lm_shapes(torch, np, pred):
 
     launches, fwd = {}, dict.fromkeys(fa.ROUTES, 0)
     for arch in LM_DENSE:
+        # on standard error since the lm mesh phase's qwen3 cells (the
+        # standard output's 20 KB)
         got, sm90 = full_width(torch, np, arch, LM_BATCHES[:1],
                                LM_DENSE_F32_LAYERS.get(arch),
-                               " (" + pred.text(f"{arch} B4xS512") + ")")
+                               " (" + pred.text(f"{arch} B4xS512") + ")",
+                               out=level_line)
         launches[f"lm {arch}"] = got
         fwd["sm90"] += sm90
     total = dict.fromkeys(kernels.launch_counts(), 0)
@@ -6275,7 +6498,7 @@ def compact_mode(v: dict) -> dict:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("lm_shapes", "lm_mesh"),
+    ap.add_argument("--only", choices=("flash", "lm_shapes", "lm_mesh"),
                     help="build the kernels and run this phase alone; no "
                          "kernels or ok line (a check of one phase)")
     only = ap.parse_args(argv).only
@@ -6338,6 +6561,8 @@ def main(argv=None) -> int:
             header(only.replace("_", " "))
             if only == "lm_mesh":
                 lm_mesh(torch, np)
+            elif only == "flash":
+                check_flash(torch, np)
             else:
                 lm_shapes(torch, np, pred)
             level_line(f"time of {only.replace('_', ' ')}: "
@@ -6432,6 +6657,15 @@ def main(argv=None) -> int:
     flash = next(e for e in kernels_line["kernels"]
                  if e["name"] == "flash_attention")
     flash["launches_by_route"] = flash_routes
+    # the query-offset form (one device's chunk of a context-parallel
+    # prefill): its worst error by route, and at hd 128 device / plain /
+    # SDPA-with-mask / bound ms at the first and last offsets
+    chunk = summary["flash_attention_chunk"]
+    flash["q_offset"] = {
+        "shape": "B%dxH%dxK%dxSq%d of Sk%d" % FLASH_CHUNK,
+        "max_abs_err": {k: _r(v) for k, v in chunk["max_abs_err"].items()},
+        "ms_plain_sdpa_bound": {k: [_r(x) for x in v]
+                                for k, v in chunk["ms"].items()}}
     # by path on standard error (the lm paths: about 750 bytes)
     level_line("flash_attention launches by path: " + json.dumps(
         {n: c["flash_attention"] for n, c in launches.items()

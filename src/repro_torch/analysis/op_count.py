@@ -57,9 +57,10 @@ _NO_TRAFFIC = {aten.empty.memory_format, aten.empty_strided.default,
                aten.lift_fresh.default, aten._local_scalar_dense.default}
 
 
-def _flash_fwd_formula(q, k, v, causal, lse, out_val=None):
+def _flash_fwd_formula(q, k, v, causal, lse, q_offset=0, out_val=None):
     B, H, S, hd = q.shape
-    return kernel_flops(B, H, S, hd, q.dtype, causal)
+    return kernel_flops(B, H, S, hd, q.dtype, causal, Sk=k.shape[2],
+                        q_offset=q_offset)
 
 
 def _flash_bwd_formula(q, k, v, out, dout, lse, causal, out_val=None):

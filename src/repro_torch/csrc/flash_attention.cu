@@ -1,5 +1,5 @@
 // Flash attention forward for LM prefill, GQA, causal or not:
-// q (B, H, S, hd), k and v (B, K, S, hd) with H = K * rep, f32 or bf16,
+// q (B, H, Sq, hd), k and v (B, K, Sk, hd) with H = K * rep, f32 or bf16,
 // read through element strides (the last dimension unit-stride), so
 // prefill hands in its (B, S, H, hd) projections with no transpose copy.
 // Query head h reads KV head h / rep. Scale 1/sqrt(hd); scores, the
@@ -9,8 +9,14 @@
 // On request (training) each row's log-sum-exp m + log(max(l, 1e-30))
 // goes to an f32 (B, H, S) output, as repro/models/attention.py:348
 // (_flash_fwd_impl) keeps it for the backward
-// (csrc/flash_attention_bwd.cu). Any S: rows and keys past S are masked
-// (the TPU kernel asserts S is a multiple of its block).
+// (csrc/flash_attention_bwd.cu). Any lengths: rows past Sq and keys
+// past Sk are masked (the TPU kernel asserts S is a multiple of its block).
+//
+// The queries may start at an offset into the keys (context-parallel
+// prefill: one device's chunk of Sq queries at q_off against the whole
+// sequence's Sk >= q_off + Sq keys). Causal, query i sees key j iff
+// j <= q_off + i; otherwise it sees every key. A whole sequence is
+// q_off 0 and Sq = Sk.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:86
 // (flash_attention): a (B*H, nQ, nK) grid whose innermost K sweep carries
@@ -96,8 +102,9 @@ flash_attention_kernel(const typename D::T* __restrict__ q,
                        const typename D::T* __restrict__ k,
                        const typename D::T* __restrict__ v,
                        typename D::T* __restrict__ o,
-                       float* __restrict__ lse, int H, int K, int S,
-                       int hd, int causal, float scale, long long qsb,
+                       float* __restrict__ lse, int H, int K, int Sq,
+                       int Sk, int q_off, int hd, int causal, float scale,
+                       long long qsb,
                        long long qsh, long long qss, long long ksb,
                        long long ksh, long long kss, long long osb,
                        long long osh, long long oss) {
@@ -118,7 +125,7 @@ flash_attention_kernel(const typename D::T* __restrict__ q,
 
   for (int i = t; i < BQ * hd; i += THREADS) {
     const int r = i / hd, c = i - r * hd, qi = q0 + r;
-    Qs[r * QS + c] = qi < S ? D::load(qb, qi * qss + c) : 0.0f;
+    Qs[r * QS + c] = qi < Sq ? D::load(qb, qi * qss + c) : 0.0f;
   }
 
   float m[4], l[4], acc[4][CPT];
@@ -130,14 +137,14 @@ flash_attention_kernel(const typename D::T* __restrict__ q,
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.0f;
   }
 
-  int nk = (S + BK - 1) / BK;
-  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  int nk = (Sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + q_off + BQ - 1) / BK + 1);
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * BK;
     __syncthreads();                  // the last tile's P and V are read
     for (int i = t; i < BK * hd; i += THREADS) {
       const int r = i / hd, c = i - r * hd, ki = k0 + r;
-      const bool in = ki < S;
+      const bool in = ki < Sk;
       const long long off = ki * kss + c;
       Ks[r * KS + c] = in ? D::load(kb, off) : 0.0f;
       Vs[r * VS + c] = in ? D::load(vb, off) : 0.0f;
@@ -167,13 +174,13 @@ flash_attention_kernel(const typename D::T* __restrict__ q,
     float mnew[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
+      const int qi = q_off + q0 + 4 * ty + i;   // the row's key position
       float mx = m[i];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int ki = k0 + tx + 16 * jj;
         float x = __fmul_rn(s[i][jj], scale);
-        if (ki >= S || (causal && ki > qi)) x = NEG_INF;
+        if (ki >= Sk || (causal && ki > qi)) x = NEG_INF;
         s[i][jj] = x;
         mx = fmaxf(mx, x);
       }
@@ -227,7 +234,7 @@ flash_attention_kernel(const typename D::T* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * ty + i;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
@@ -237,15 +244,15 @@ flash_attention_kernel(const typename D::T* __restrict__ q,
     // the row's log-sum-exp for the backward (training only): every lane
     // of the 16 holds the row's m and l
     if (lse != nullptr && tx == 0)
-      lse[(static_cast<long long>(b) * H + h) * S + qi] =
+      lse[(static_cast<long long>(b) * H + h) * Sq + qi] =
           __fadd_rn(m[i], logf(den));
   }
 }
 
 template <typename D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int K, int S, int hd, int causal,
-           const long long* st, cudaStream_t stream) {
+           int B, int H, int K, int Sq, int Sk, int q_off, int hd,
+           int causal, const long long* st, cudaStream_t stream) {
   const int bytes = smem_floats(hd) * static_cast<int>(sizeof(float));
   // the opt-in persists per function and device: set it once, for the
   // largest request so far (every launch on the device can then use it)
@@ -261,14 +268,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     if (dev < MAX_DEVICES) opted[dev] = bytes;
   }
   const dim3 grid(static_cast<unsigned>(B * H),
-                  static_cast<unsigned>((S + BQ - 1) / BQ));
+                  static_cast<unsigned>((Sq + BQ - 1) / BQ));
   // the TPU kernel's 1.0 / math.sqrt(hd), a double cut to f32
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   using T = typename D::T;
   flash_attention_kernel<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, K, S, hd, causal,
-      scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, K, Sq, Sk, q_off,
+      hd, causal, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,20 +285,23 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // q, k, v, o are f32 when bf16 == 0, bf16 (raw 16-bit words) otherwise.
 // Element strides of the first three dimensions: q's (qsb, qsh, qss), k's
 // and v's (ksb, ksh, kss), o's (osb, osh, oss); the fourth is unit-stride.
-// lse: null (serving), or a contiguous f32 (B, H, S) output that takes
-// each row's m + log(max(l, 1e-30)) for the backward.
+// lse: null (serving), or a contiguous f32 (B, H, Sq) output that takes
+// each row's m + log(max(l, 1e-30)) for the backward. Query row i sits at
+// key position q_off + i; q_off >= 0 and q_off + Sq <= Sk.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int B, int H,
-    int K, int S, int hd, int causal, int bf16, long long qsb, long long qsh,
+    int B, int H, int K, int Sq, int Sk, int q_off, int hd, int causal,
+    int bf16, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long osb, long long osh, long long oss, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return 0;
-  if (K <= 0 || H % K || hd <= 0 || hd > MAX_HD || hd % 8 ||
-      (S + BQ - 1) / BQ > 65535)
+  if (B <= 0 || H <= 0 || Sq <= 0) return 0;
+  if (K <= 0 || H % K || hd <= 0 || hd > MAX_HD || hd % 8 || q_off < 0 ||
+      q_off + Sq > Sk || (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<BF16>(q, k, v, o, lse, B, H, K, S, hd, causal, st, s)
-              : launch<F32>(q, k, v, o, lse, B, H, K, S, hd, causal, st, s);
+  return bf16 ? launch<BF16>(q, k, v, o, lse, B, H, K, Sq, Sk, q_off, hd,
+                            causal, st, s)
+              : launch<F32>(q, k, v, o, lse, B, H, K, Sq, Sk, q_off, hd,
+                            causal, st, s);
 }

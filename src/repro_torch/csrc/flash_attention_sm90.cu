@@ -1,5 +1,5 @@
 // Flash attention forward for LM prefill on Hopper's tensor cores, bf16:
-// q (B, H, S, hd), k and v (B, K, S, hd) with H = K * rep, hd 16, 64 or
+// q (B, H, Sq, hd), k and v (B, K, Sk, hd) with H = K * rep, hd 16, 64 or
 // 128, read through their strides (the last dimension unit-stride, the
 // others multiples of 16 bytes), so prefill hands in its (B, S, H, hd)
 // projections with no transpose copy. Query head h reads KV head h / rep.
@@ -8,8 +8,11 @@
 // sum l in f32, l summing the unrounded p; p = exp(s - m_new) rounded to
 // bf16 before the P.V product; an f32 accumulator; out = acc / max(l,
 // 1e-30) in bf16; on request each row's log-sum-exp m + log(max(l,
-// 1e-30)) in f32 for the backward (csrc/flash_attention_bwd.cu). Any S:
-// keys past S are masked, rows past S not stored.
+// 1e-30)) in f32 for the backward (csrc/flash_attention_bwd.cu). Any
+// lengths: keys past Sk are masked, rows past Sq not stored. The queries
+// may start at an offset q_off into the keys (context-parallel prefill:
+// a device's chunk of the sequence against all of it): causal, query i
+// sees key j iff j <= q_off + i, as in csrc/flash_attention.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:86
 // (flash_attention) for bf16 at those hd; kernels/flash_attention.py:route
@@ -95,7 +98,8 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ o,
                             float* __restrict__ lse, int H, int K,
-                            int S, int causal, float scale, long long osb,
+                            int Sq, int Sk, int q_off, int causal,
+                            float scale, long long osb,
                             long long osh, long long oss) {
   using G = Geo<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -110,8 +114,8 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / K);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
-  int nk = (S + BK - 1) / BK;
-  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  int nk = (Sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + q_off + BQ - 1) / BK + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -151,6 +155,7 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     // r = 16w + lane / 4, and of every 8 columns the two at 2 (lane % 4)
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;
+    const int pos0 = q_off + row0;     // row0's key position
     const int col0 = (lane % 4) * 2;
     const uint32_t sq_wg = sq + wg * 64 * G::SW;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
@@ -186,15 +191,15 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       wgmma_wait_all();
       fence_regs(sc);
 
-      // scale, mask (only tiles that cross the diagonal or S), row max.
-      // Row r keeps keys below lim = S, or min(S, r + 1) when causal:
-      // score i's key is k0 + col0 + 8 (i / 4) + (i & 1)
+      // scale, mask (only tiles that cross the diagonal or Sk), row max.
+      // Row r keeps keys below lim = Sk, or min(Sk, q_off + r + 1) when
+      // causal: score i's key is k0 + col0 + 8 (i / 4) + (i & 1)
       const bool edge =
-          k0 + BK > S || (causal && k0 + BK - 1 > q0 + wg * 64);
+          k0 + BK > Sk || (causal && k0 + BK - 1 > q_off + q0 + wg * 64);
       int thr[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        thr[r] = (causal ? min(S, row0 + 8 * r + 1) : S) - k0 - col0;
+        thr[r] = (causal ? min(Sk, pos0 + 8 * r + 1) : Sk) - k0 - col0;
       float mn[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
@@ -257,7 +262,7 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       const float den = fmaxf(l[r], 1e-30f);
       uint32_t* dst = reinterpret_cast<uint32_t*>(ob + row * oss + col0);
 #pragma unroll
@@ -267,7 +272,7 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       // the row's log-sum-exp for the backward (training only): the quad
       // shares m and l
       if (lse != nullptr && (lane & 3) == 0)
-        lse[(static_cast<long long>(b) * H + h) * S + row] =
+        lse[(static_cast<long long>(b) * H + h) * Sq + row] =
             __fadd_rn(m[r], logf(den));
     }
   }
@@ -275,15 +280,15 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int K, int S, int causal, const long long* st,
-           cudaStream_t stream) {
+           int B, int H, int K, int Sq, int Sk, int q_off, int causal,
+           const long long* st, cudaStream_t stream) {
   using G = Geo<HD>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  if (!make_map<HD>(enc, &tq, q, S, H, B, st, BQ) ||
-      !make_map<HD>(enc, &tk, k, S, K, B, st + 3, BK) ||
-      !make_map<HD>(enc, &tv, v, S, K, B, st + 6, BK))
+  if (!make_map<HD>(enc, &tq, q, Sq, H, B, st, BQ) ||
+      !make_map<HD>(enc, &tk, k, Sk, K, B, st + 3, BK) ||
+      !make_map<HD>(enc, &tv, v, Sk, K, B, st + 6, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   // the opt-in persists per function and device: set it once per device
   static bool opted[MAX_DEVICES] = {};
@@ -298,12 +303,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     if (dev < MAX_DEVICES) opted[dev] = true;
   }
   const dim3 grid(static_cast<unsigned>(B * H),
-                  static_cast<unsigned>((S + BQ - 1) / BQ));
+                  static_cast<unsigned>((Sq + BQ - 1) / BQ));
   // the TPU kernel's 1.0 / math.sqrt(hd), a double cut to f32
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   flash_attention_kernel_sm90<HD><<<grid, THREADS, G::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, K, S, causal,
-      scale,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, K, Sq, Sk, q_off,
+      causal, scale,
       st[9], st[10], st[11]);
   return static_cast<int>(cudaGetLastError());
 }
@@ -313,24 +318,29 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // q, k, v, o are bf16 (raw 16-bit words). Element strides of the first
 // three dimensions: q's (qsb, qsh, qss), k's, v's and o's likewise; the
 // fourth is unit-stride. hd is 16, 64 or 128. lse: null (serving), or a
-// contiguous f32 (B, H, S) output of each row's m + log(max(l, 1e-30)).
+// contiguous f32 (B, H, Sq) output of each row's m + log(max(l, 1e-30)).
+// Query row i sits at key position q_off + i; q_off >= 0, q_off + Sq <= Sk.
 extern "C" int flash_attention_sm90_launch(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int B, int H,
-    int K, int S, int hd, int causal, long long qsb, long long qsh,
+    int B, int H, int K, int Sq, int Sk, int q_off, int hd, int causal,
+    long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return 0;
-  if (K <= 0 || H % K || (S + BQ - 1) / BQ > 65535)
+  if (B <= 0 || H <= 0 || Sq <= 0) return 0;
+  if (K <= 0 || H % K || q_off < 0 || q_off + Sq > Sk ||
+      (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, lse, B, H, K, S, causal, st, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, H, K, S, causal, st, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, H, K, S, causal, st, s);
+    case 16: return launch<16>(q, k, v, o, lse, B, H, K, Sq, Sk, q_off,
+                                 causal, st, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, H, K, Sq, Sk, q_off,
+                                 causal, st, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, H, K, Sq, Sk, q_off,
+                                 causal, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

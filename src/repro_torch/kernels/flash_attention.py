@@ -1,13 +1,18 @@
 """Flash attention for LM prefill and training: GQA, causal or not,
 forward and backward.
 
-  * ``flash_attention(q, k, v, causal=True)`` -- q (B, H, S, hd), k and v
-    (B, K, S, hd) with H = K * rep; query head h reads KV head h // rep.
-    Scale 1/sqrt(hd), f32 scores, a running max and sum and an f32
-    accumulator; p is cast to v's dtype before the P.V product; output
-    acc / max(l, 1e-30) in q's dtype. f32 or bf16; hd <= 128 and a
-    multiple of 8; any S (the ragged last tile is masked). Replaces the
-    TPU kernel repro/kernels/flash_attention.py:86.
+  * ``flash_attention(q, k, v, causal=True, q_offset=0)`` -- q (B, H,
+    Sq, hd), k and v (B, K, Sk, hd) with H = K * rep; query head h reads
+    KV head h // rep. Scale 1/sqrt(hd), f32 scores, a running max and sum
+    and an f32 accumulator; p is cast to v's dtype before the P.V
+    product; output acc / max(l, 1e-30) in q's dtype. f32 or bf16; hd <=
+    128 and a multiple of 8; any lengths (the ragged last tiles are
+    masked). The queries sit at key positions q_offset .. q_offset + Sq
+    - 1 (q_offset + Sq <= Sk): causal, query i sees key j iff j <=
+    q_offset + i; a whole sequence is q_offset 0 with Sq = Sk, and a
+    context-parallel prefill hands each device its chunk of queries at
+    the chunk's start against the whole sequence's keys. Replaces the TPU
+    kernel repro/kernels/flash_attention.py:86.
   * ``flash_attention_bwd(q, k, v, out, dout, lse, causal=True)`` -- its
     gradient (dq, dk, dv) from the forward's output and log-sum-exp, on
     the route ``route`` picks as for the forward. The JAX package has no
@@ -16,7 +21,8 @@ forward and backward.
     ``flash_attention_bwd_plain`` repeats.
   * ``FlashAttention`` -- the autograd Function training takes: its
     forward launches a forward route with the LSE output and saves q, k,
-    v, out and lse; its backward launches the backward kernel.
+    v, out and lse; its backward launches the backward kernel. It takes
+    a whole sequence only (no offset): the backward has none.
 
 The inputs may be strided views (the last dimension unit-stride): LM
 prefill hands it the (B, S, H, hd) projections transposed, with no
@@ -107,9 +113,11 @@ SM90_BWD_PAD = 128
 # plan's balance: the same exponential and ds, 3 of the 4 products
 SM90_BWD_DQ_WORK = 0.75
 
-_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
+# q, k, v, o, lse; B, H, K, Sq, Sk, q_offset, hd, causal[, bf16]; the
+# strides; the stream
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
              + (ctypes.c_longlong,) * 9 + (ctypes.c_void_p,))
-_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
+_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8
                   + (ctypes.c_longlong,) * 12 + (ctypes.c_void_p,))
 # q, k, v, o, dout, lse, delta, dq, dk, dv; B, H, K, S, hd, causal, bf16;
 # the 24 strides; the stream
@@ -217,28 +225,34 @@ def bwd_plan_sm90(B: int, H: int, K: int, S: int, causal: bool,
 
 
 def _tile_pairs(S: int, bq: int, bk: int, causal: bool,
-                keys_outer: bool = False) -> int:
-    """The (query, key) scores one (b, h) computes over its S x S tiles
-    of bq queries by bk keys: every tile, or, causal, the tiles a kernel
-    visits -- a query tile's key tiles up to its last row
-    (``keys_outer``: a key tile's query tiles from its first key on, as
-    the backward's dK/dV kernels step)."""
-    nq, nk = -(-S // bq), -(-S // bk)
+                keys_outer: bool = False, Sk: int = None,
+                q_offset: int = 0) -> int:
+    """The (query, key) scores one (b, h) computes over its tiles of bq
+    queries by bk keys, S queries against ``Sk`` keys (S by default),
+    the queries at key positions ``q_offset`` on: every tile, or, causal,
+    the tiles a kernel visits -- a query tile's key tiles up to its last
+    row's position (``keys_outer``: a key tile's query tiles from its
+    first key on, as the backward's dK/dV kernels step; whole sequences
+    only)."""
+    Sk = S if Sk is None else Sk
+    nq, nk = -(-S // bq), -(-Sk // bk)
     if not causal:
         return nq * nk * bq * bk
     if keys_outer:
         return sum(nq - (t * bk) // bq for t in range(nk)) * bq * bk
-    return sum(min(nk, ((u + 1) * bq - 1) // bk + 1)
+    return sum(min(nk, ((u + 1) * bq + q_offset - 1) // bk + 1)
                for u in range(nq)) * bq * bk
 
 
 def kernel_flops(B: int, H: int, S: int, hd: int, dtype: torch.dtype,
-                 causal: bool) -> int:
+                 causal: bool, Sk: int = None, q_offset: int = 0) -> int:
     """Operations the forward route for ``dtype`` and ``hd`` computes: two
     products (S = Q K^T, P V), 2 hd each, over every score of its visited
-    tiles (128 x 128 on sm90, 64 x 64 on cuda_core)."""
+    tiles (128 x 128 on sm90, 64 x 64 on cuda_core); S queries at
+    ``q_offset`` against ``Sk`` keys (S by default)."""
     b = SM90_BLOCK_Q if route(dtype, hd) == "sm90" else BLOCK_Q
-    return 4 * hd * B * H * _tile_pairs(S, b, b, causal)
+    return 4 * hd * B * H * _tile_pairs(S, b, b, causal, Sk=Sk,
+                                        q_offset=q_offset)
 
 
 def kernel_bwd_flops(B: int, H: int, S: int, hd: int, dtype: torch.dtype,
@@ -273,13 +287,13 @@ def shape_only():
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
 def _meta_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-              lse: bool) -> Tuple[Tensor, Tensor]:
+              lse: bool, q_offset: int = 0) -> Tuple[Tensor, Tensor]:
     raise ValueError("repro_torch::flash_attention_fwd is shape-only: it "
                      "takes meta tensors (the dry run's traces)")
 
 
 @_meta_fwd.register_fake
-def _(q, k, v, causal, lse):
+def _(q, k, v, causal, lse, q_offset=0):
     B, H, S, _ = q.shape
     return torch.empty_like(q), q.new_empty((B, H, S) if lse else (0,),
                                             dtype=torch.float32)
@@ -322,22 +336,25 @@ def tma_strides(t: Tensor) -> list:
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
-                          causal: bool = True, lse: bool = False):
+                          causal: bool = True, lse: bool = False,
+                          q_offset: int = 0):
     """The same function in plain tensor ops, on any device, as the
     reference's oracle computes it: scores in the input dtype divided by
-    sqrt(hd) in that dtype, masked to -1e30, softmax in f32, the weights
-    cast back before the P.V product. With ``lse`` -> (out, each row's
-    log-sum-exp (B, H, S) f32): m + log(max(l, 1e-30)) of the f32 scores
-    of the inputs times the f32 1/sqrt(hd), as the kernels and the
-    reference's _flash_fwd_impl take them."""
+    sqrt(hd) in that dtype, masked to -1e30 (causal: key j of query i iff
+    j <= q_offset + i), softmax in f32, the weights cast back before the
+    P.V product. With ``lse`` -> (out, each row's log-sum-exp (B, H, Sq)
+    f32): m + log(max(l, 1e-30)) of the f32 scores of the inputs times
+    the f32 1/sqrt(hd), as the kernels and the reference's
+    _flash_fwd_impl take them."""
     B, H, S, hd = q.shape
+    Sk = k.shape[2]
     rep = H // k.shape[1]
     kk = k.repeat_interleave(rep, dim=1)
     vv = v.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q, kk) / _rounded(math.sqrt(hd),
                                                           q.dtype)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril() \
-        if causal else None
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device).tril(
+        q_offset) if causal else None
     if mask is not None:
         s = s.masked_fill(~mask, -1e30)
     w = torch.softmax(s.to(torch.float32), -1).to(q.dtype)
@@ -390,16 +407,23 @@ def _rounded(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float32).to(dtype))
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
+def _check(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
+           whole: bool = False) -> None:
+    """ValueError unless q (B, H, Sq, hd) and k, v (B, K, Sk, hd) fit:
+    q_offset + Sq <= Sk, and Sk = Sq where ``whole`` (the backward)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B, H, S, hd) and k, v "
                          f"(B, K, S, hd), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, hd = q.shape
-    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, hd) or k.shape[1] == 0 \
-            or H % k.shape[1]:
+    if (k.shape[0], k.shape[3]) != (B, hd) or k.shape[1] == 0 \
+            or H % k.shape[1] or q_offset < 0 \
+            or q_offset + S > k.shape[2] \
+            or (whole and k.shape[2] != S):
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
-                         f"match q {tuple(q.shape)} (H a multiple of K)")
+                         f"match q {tuple(q.shape)} at q_offset {q_offset} "
+                         f"(H a multiple of K; q_offset + Sq <= Sk"
+                         f"{', Sk = Sq' if whole else ''})")
     if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention takes three f32 or three bf16 "
                          f"inputs, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -409,25 +433,28 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor,
-                    causal: bool = True, lse: bool = False):
-    """q: (B, H, S, hd); k, v: (B, K, S, hd), H % K == 0 -> (B, H, S, hd)
-    in q's dtype and layout; with ``lse`` -> (out, the rows' log-sum-exp
-    (B, H, S) f32)."""
-    _check(q, k, v)
+                    causal: bool = True, lse: bool = False,
+                    q_offset: int = 0):
+    """q: (B, H, Sq, hd); k, v: (B, K, Sk, hd), H % K == 0, the queries at
+    key positions ``q_offset`` on (q_offset + Sq <= Sk; Sk = Sq where
+    q_offset is 0) -> (B, H, Sq, hd) in q's dtype and layout; with
+    ``lse`` -> (out, the rows' log-sum-exp (B, H, Sq) f32)."""
+    q_offset = int(q_offset)
+    _check(q, k, v, q_offset)
     if q.device.type == "cpu":
-        res = flash_attention_plain(q, k, v, causal, lse)
+        res = flash_attention_plain(q, k, v, causal, lse, q_offset)
         out = torch.empty_like(q)
         if not lse:
             return out.copy_(res)
         return out.copy_(res[0]), res[1]
     if q.device.type == "meta" and _SHAPE_ONLY.get():
-        out, buf = _meta_fwd(q, k, v, bool(causal), bool(lse))
+        out, buf = _meta_fwd(q, k, v, bool(causal), bool(lse), q_offset)
         return (out, buf) if lse else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if route(q.dtype, q.shape[-1]) == "sm90":
-        return launch_sm90(q, k, v, causal, lse)
-    return launch_cuda_core(q, k, v, causal, lse)
+        return launch_sm90(q, k, v, causal, lse, q_offset)
+    return launch_cuda_core(q, k, v, causal, lse, q_offset)
 
 
 def _lse_buffer(q: Tensor, want: bool):
@@ -441,8 +468,10 @@ def _lse_buffer(q: Tensor, want: bool):
 
 
 def launch_cuda_core(q: Tensor, k: Tensor, v: Tensor,
-                     causal: bool = True, lse: bool = False):
+                     causal: bool = True, lse: bool = False,
+                     q_offset: int = 0):
     """The CUDA-core kernel (csrc/flash_attention.cu) on CUDA tensors."""
+    _check(q, k, v, q_offset)
     B, H, S, hd = q.shape
     if hd > MAX_HD or hd % 8:
         raise ValueError(f"the CUDA kernel takes hd <= {MAX_HD}, a multiple "
@@ -459,16 +488,18 @@ def launch_cuda_core(q: Tensor, k: Tensor, v: Tensor,
         return (out, buf) if lse else out
     build.launch("flash_attention", _ARGTYPES, q, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr, B, H,
-                 k.shape[1], S, hd, int(causal), _DTYPE_CODES[q.dtype],
+                 k.shape[1], S, k.shape[2], q_offset, hd, int(causal),
+                 _DTYPE_CODES[q.dtype],
                  *q.stride()[:3], *k.stride()[:3], *out.stride()[:3])
     _count("cuda_core")
     return (out, buf) if lse else out
 
 
 def launch_sm90(q: Tensor, k: Tensor, v: Tensor,
-                causal: bool = True, lse: bool = False):
+                causal: bool = True, lse: bool = False, q_offset: int = 0):
     """The tensor-core kernel (csrc/flash_attention_sm90.cu) on bf16 CUDA
     tensors at hd 16, 64 or 128, read through TMA maps."""
+    _check(q, k, v, q_offset)
     B, H, S, hd = q.shape
     if q.dtype != torch.bfloat16 or hd not in SM90_HD:
         raise ValueError(f"the sm90 kernel takes bf16 at hd {SM90_HD}; got "
@@ -480,7 +511,8 @@ def launch_sm90(q: Tensor, k: Tensor, v: Tensor,
     strides = [s for t in (q, k, v) for s in tma_strides(t)]
     build.launch("flash_attention_sm90", _SM90_ARGTYPES, q, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr, B, H,
-                 k.shape[1], S, hd, int(causal), *strides,
+                 k.shape[1], S, k.shape[2], q_offset, hd, int(causal),
+                 *strides,
                  *out.stride()[:3])
     _count("sm90")
     return (out, buf) if lse else out
@@ -494,7 +526,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     layout. CUDA tensors launch the kernels of ``route(q.dtype, hd)``;
     CPU tensors run ``flash_attention_bwd_plain`` (which reads no
     ``out``)."""
-    _check(q, k, v)
+    _check(q, k, v, whole=True)
     B, H, S, hd = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -592,7 +624,12 @@ class FlashAttention(torch.autograd.Function):
     for CPU tensors). ``FlashAttention.apply(q, k, v, causal)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True):
+    def forward(ctx, q, k, v, causal=True, q_offset=0):
+        if q_offset or q.shape[2] != k.shape[2]:
+            raise ValueError(
+                f"FlashAttention (with a gradient) takes a whole sequence: "
+                f"Sq {q.shape[2]} = Sk {k.shape[2]} and no q_offset (got "
+                f"{q_offset}); the backward kernels have no offset form")
         out, lse = flash_attention(q, k, v, causal, lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
@@ -609,7 +646,7 @@ class FlashAttention(torch.autograd.Function):
         elif dout.stride(-1) != 1:
             dout = dout.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def _count(name: str) -> None:

@@ -27,6 +27,16 @@ under every profile. Cross-attention (queries and keys of other
 lengths, no RoPE, no mask) and single-token decode against the padded
 cache take ``_sdpa``; ``attention_decode_windowed`` reads only the live
 window and the meta prefix.
+
+Serving over a grid's "model" axis (models/model.py's model path) adds
+two forms: ``attend_chunk``, one device's chunk of a context-parallel
+prefill -- its queries against the whole sequence's keys, through the
+flash kernel at the chunk's offset (``q_offset``), or ``_sdpa`` under the
+chunk's rows of ``make_mask`` (an image prompt, a window) -- and
+``decode_scores`` / ``decode_values``, single-token attention over one
+device's length piece of the cache: the scores gathered over the
+devices for the whole cache's softmax, then the P.V shares summed in
+model-index order.
 """
 from __future__ import annotations
 
@@ -50,11 +60,21 @@ def _project_qkv(x: Tensor, p, cfg: ModelConfig,
     and RoPE applied to q and k: M-RoPE of (B, S, 3) positions where the
     config has it, else RoPE of the (B, S) positions (of the t stream of
     (B, S, 3) ones)."""
-    B, S, D = x.shape
+    return qkv_heads(torch.matmul(x, p.wq), torch.matmul(x, p.wk),
+                     torch.matmul(x, p.wv), p, cfg, positions)
+
+
+def qkv_heads(q: Tensor, k: Tensor, v: Tensor, p, cfg: ModelConfig,
+              positions: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The projections (B, S, H*hd) and (B, S, K*hd) as heads, qk-norm and
+    RoPE (M-RoPE) applied to q and k: ``_project_qkv`` after its
+    matmuls. Tensor-parallel decode calls it on the gathered projections:
+    a device's columns may end inside a head."""
+    B, S, _ = q.shape
     hd = cfg.hd
-    q = torch.matmul(x, p.wq).view(B, S, cfg.n_heads, hd)
-    k = torch.matmul(x, p.wk).view(B, S, cfg.n_kv_heads, hd)
-    v = torch.matmul(x, p.wv).view(B, S, cfg.n_kv_heads, hd)
+    q = q.view(B, S, cfg.n_heads, hd)
+    k = k.view(B, S, cfg.n_kv_heads, hd)
+    v = v.view(B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -143,20 +163,43 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
     return out.reshape(B, Sq, H, hd)
 
 
-def attend(q: Tensor, k: Tensor, v: Tensor, causal: bool = True) -> Tensor:
+def attend(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+           q_offset: int = 0) -> Tensor:
     """Self-attention of a sequence, q (B, S, H, hd), k and v (B, S, K,
     hd) -> (B, S, H, hd), through the flash kernel: index-causal, or
     every key visible. The kernel reads the (B, H, S, hd) views through
     their strides, so no transpose is copied. Where grad is enabled
     (training) it goes through ``FlashAttention``, whose backward is the
     hand-written backward kernel; serving (inference mode) calls the
-    forward alone."""
+    forward alone. ``q_offset``: q is a chunk of Sq queries at key
+    positions q_offset on, against Sk >= q_offset + Sq keys (serving
+    only: ``FlashAttention`` refuses an offset)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    at = {"q_offset": q_offset} if q_offset else {}
     if torch.is_grad_enabled():
-        out = FlashAttention.apply(qt, kt, vt, causal)
+        out = FlashAttention.apply(qt, kt, vt, causal, *at.values())
     else:
-        out = flash_attention(qt, kt, vt, causal=causal)
+        out = flash_attention(qt, kt, vt, causal=causal, **at)
     return out.transpose(1, 2)
+
+
+def attend_chunk(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
+                 q_pos: Tensor, k_pos: Tensor, q_offset: int, *,
+                 window: int = 0, n_meta: int = 0, ctx=None,
+                 flash: bool = True) -> Tensor:
+    """One device's chunk of a context-parallel prefill: its queries q
+    (B, Sq, H, hd), at sequence positions q_offset .. q_offset + Sq - 1
+    and (B, Sq) mask positions ``q_pos``, against the whole sequence's k
+    and v (B, Sk, K, hd) at ``k_pos`` (B, Sk), gathered in model-index
+    order. No window and ``flash`` (the positions index-causal): the
+    flash kernel at ``q_offset``; else ``_sdpa`` under the chunk's rows
+    of the reference's ``make_mask`` (an image prompt's t stream; a
+    window takes the masked form here, where the row path may take
+    ``banded_core``)."""
+    if not window and flash:
+        return attend(q, k, v, q_offset=q_offset)
+    return _sdpa(q, k, v, make_mask(q_pos, k_pos, window=window,
+                                    n_meta=n_meta), cfg, ctx)
 
 
 def self_attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
@@ -250,6 +293,38 @@ def _decode_qkv(x: Tensor, p, cfg: ModelConfig, cache: Dict[str, Tensor],
     k[:, idx:idx + 1] = k_new.to(k.dtype)
     v[:, idx:idx + 1] = v_new.to(v.dtype)
     return q, k, v, idx
+
+
+def decode_scores(q: Tensor, k: Tensor, q_pos: Tensor, k_start: int, *,
+                  window: int = 0, n_meta: int = 0) -> Tensor:
+    """One device's scores of a decode step: q (B, 1, H, hd) against its
+    length piece of the cache, k (B, Lp, K, hd) at key positions k_start
+    .. k_start + Lp - 1, as ``_sdpa`` makes them over the whole cache --
+    the product in the inputs' dtype, then f32, scaled, masked to -1e9
+    under the reference's ``make_mask`` of the query's t position
+    ``q_pos`` (B, 1) -> (B, K, rep, 1, Lp) f32. Gathered over the
+    pieces in model-index order, their softmax is the whole cache's
+    (models/model.py)."""
+    B, _, H, hd = q.shape
+    K = k.shape[2]
+    k_pos = torch.arange(k_start, k_start + k.shape[1],
+                         device=q.device)[None, :]
+    mask = make_mask(q_pos, k_pos, window=window, n_meta=n_meta)
+    s = torch.einsum("bqkrh,bskh->bkrqs", q.reshape(B, 1, K, H // K, hd),
+                     k).to(torch.float32)
+    return (s * hd ** -0.5).masked_fill(~mask[:, None, None, :, :], NEG_INF)
+
+
+def decode_values(w: Tensor, v: Tensor) -> Tensor:
+    """One device's share of a decode step's output: its normalized
+    weights w (B, K, rep, 1, Lp) f32, rounded to v's dtype as ``_sdpa``
+    rounds them, times its piece of v (B, Lp, K, hd), products and sums
+    in f32 -> (B, 1, H, hd) f32; the shares' sum, rounded once, is the
+    whole cache's P.V."""
+    B, K, rep, _, _ = w.shape
+    out = torch.einsum("bkrqs,bskh->bqkrh", w.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(B, 1, K * rep, v.shape[-1])
 
 
 def _sdpa_lse(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],

@@ -45,11 +45,37 @@ constraints have no counterpart. A layer whose parameters are held as
 shards (train/train_step.py's sharded step) gathers them as it runs, and
 again in the recompute of the backward. ``prefill``, ``decode_step`` and
 ``encode`` also take a model held as shards (models/sharded.py:
-``ShardedLM``, from ``init_params(..., shardings=)``): the batch runs
-over ``ctx``'s dp rows, each row on its first device, each layer
-gathered onto it as the layer runs (a MoE's expert groups on the row's
-devices of each model index); there is no tensor-parallel matmul and no
-cache length over "model": each row computes whole layers.
+``ShardedLM``, from ``init_params(..., shardings=)``), on one of two
+paths that ``serve_path`` picks from the config and the grid alone
+(``path_counts`` counts each call's):
+
+  * "model" -- a decoder-only family (``MODEL_AXIS_FAMILIES``: dense,
+    MoE, the VLM) on a grid whose "model" axis is larger than 1, in the
+    reference's layout (repro/models/moe.py:88-102 ``act3`` / ``act_q``
+    / ``act_kv_gathered`` / ``act_logits``, repro/sharding/rules.py):
+    prefill is context-parallel -- each dp row's sequence cut over the
+    row's devices, each layer gathered whole onto every device of the
+    row, K and V gathered in model-index order and each device's
+    queries attending at their offset (the flash kernel's
+    ``q_offset``); a MoE's all-to-all path takes each device's own
+    tokens. Decode is tensor-parallel on each device's own pieces (no
+    layer gathered): the embedding a masked lookup in each device's
+    vocab rows summed over "model"; q/k/v column pieces gathered
+    (qk-norm and RoPE on whole heads: the columns may end inside a
+    head); ``wo`` and ``w_down`` row pieces' partial sums added in f32
+    in model-index order and rounded once; the MoE's replicated path
+    with expert group g on device g; ``lm_head``'s vocab columns
+    gathered. The cache is pieces laid out by ``cache_specs_tree``
+    fitted as the reference fits it (``init_cache(ctx=)``): by length
+    over "model" (the softmax's max and sum reduced over the pieces),
+    by heads under ``kv_heads``, whole on each model device where the
+    axis does not divide.
+  * "rows" -- every other model held as shards (whisper, mamba2, hymba,
+    and any grid whose "model" axis is 1, where the reference's layout
+    is FSDP): the batch runs over ``ctx``'s dp rows, each row on its
+    first device, each layer gathered onto it as the layer runs (a MoE's
+    expert groups on the row's devices of each model index); the cache
+    is one whole cache a dp row.
 
 ``batch["positions"]`` ((B, S), or (B, S, 3) for M-RoPE) moves to the
 card once; its host copy decides whether the causal mask is
@@ -73,14 +99,20 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .attention import (_project_qkv, arange_positions, attention,
-                        attention_decode, cross_attention, index_causal,
-                        self_attend, t_stream)
+import torch.nn.functional as F
+
+from . import moe
+from .attention import (_project_qkv, _sdpa, arange_positions, attend_chunk,
+                        attention, attention_decode, cross_attention,
+                        decode_scores, decode_values, index_causal,
+                        make_mask, qkv_heads, self_attend, t_stream)
 from .configs import ModelConfig
-from .layers import mlp, norm, sinusoidal_positions
-from .moe import moe_ffn
-from .sharded import (ShardedLeaves, ShardedLM, as_sharded, gathered_rows,
-                      row_model, row_plans, shard_leaf)
+from .layers import mlp, norm, sinusoidal_positions, swiglu
+from .moe import ep_a2a_row, ep_replicated_row, moe_ffn
+from .sharded import (ModelRow, ShardedLeaves, ShardedLM, all_gather,
+                      all_reduce, as_sharded, gathered_rows, namespace,
+                      on_devices, reduce_scatter, row_model, row_plans,
+                      shard_leaf)
 from .ssm import ssd_decode, ssd_forward
 
 Tensor = torch.Tensor
@@ -556,16 +588,7 @@ def _embed_prompt(params: CausalLM, batch: Dict[str, Tensor],
     if cfg.encoder_layers and not cfg.mrope:
         x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(
             cfg.dtype)[None]
-    pos = batch.get("positions")
-    if pos is not None:
-        pos = torch.as_tensor(pos)
-        shapes = [(B, S, 3)] if cfg.mrope else [(B, S), (B, S, 3)]
-        if tuple(pos.shape) not in shapes:
-            raise ValueError(f"{cfg.name}: positions of shape "
-                             f"{tuple(pos.shape)}, want one of {shapes}")
-    elif cfg.mrope:
-        raise ValueError(f"{cfg.name} (M-RoPE) takes (B, S, 3) (t, h, w) "
-                         f"positions in batch['positions']")
+    pos = _prompt_positions(batch, cfg, B, S)
     M = cfg.meta_tokens
     if M:
         meta = params.meta.to(cfg.dtype).expand(B, -1, -1)
@@ -579,6 +602,24 @@ def _embed_prompt(params: CausalLM, batch: Dict[str, Tensor],
     pos = arange_positions(B, M + S, x.device) if pos is None \
         else pos.to(x.device)
     return x, pos, flash
+
+
+def _prompt_positions(batch: Dict[str, Tensor], cfg: ModelConfig, B: int,
+                      S: int) -> Optional[Tensor]:
+    """``batch["positions"]`` as a tensor where it stays (a host copy
+    decides the flash route), checked against the prompt's (B, S); None
+    for arange (ValueError for M-RoPE, which needs them)."""
+    pos = batch.get("positions")
+    if pos is not None:
+        pos = torch.as_tensor(pos)
+        shapes = [(B, S, 3)] if cfg.mrope else [(B, S), (B, S, 3)]
+        if tuple(pos.shape) not in shapes:
+            raise ValueError(f"{cfg.name}: positions of shape "
+                             f"{tuple(pos.shape)}, want one of {shapes}")
+    elif cfg.mrope:
+        raise ValueError(f"{cfg.name} (M-RoPE) takes (B, S, 3) (t, h, w) "
+                         f"positions in batch['positions']")
+    return pos
 
 
 def _enc_states(params: CausalLM, batch: Dict[str, Tensor],
@@ -692,29 +733,57 @@ def loss_fn(params: CausalLM, batch: Dict[str, Tensor],
 # serving: prefill + decode
 # =====================================================================
 
+def cache_shapes(cfg: ModelConfig, B: int, max_len: int
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{entry: (shape, dtype)} of ``init_cache``'s tensors."""
+    L, out = cfg.n_layers, {}
+    if cfg.has_attention:
+        shape = (L, B, max_len + cfg.meta_tokens, cfg.n_kv_heads, cfg.hd)
+        out["k"] = out["v"] = (shape, cfg.dtype)
+    if cfg.has_ssm:
+        out["state"] = ((L, B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim),
+                        torch.float32)
+        out["conv"] = ((L, B, cfg.ssm_conv - 1, cfg.conv_dim), torch.float32)
+    return out
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
-               device=None) -> Cache:
+               device=None, ctx=None) -> Cache:
     """The cache, layer-stacked, zeros, on ``device`` (CUDA unless the CPU
     is asked for): "k", "v" (L, B, max_len + meta, K, hd) in the config's
     dtype where the family attends, "state" (L, B, H_ssm, N, P) and
-    "conv" (L, B, k-1, conv_dim) in f32 where it has an SSM; "idx": 0."""
+    "conv" (L, B, k-1, conv_dim) in f32 where it has an SSM; "idx": 0.
+
+    ``ctx``: the cache laid out on ``ctx``'s grid as the reference lays it
+    out (sharding/rules.py: ``cache_shardings``, ``cache_specs_tree``
+    fitted by ``fit_spec``: B over the dp axes; the length over "model",
+    or the heads under the ``kv_heads`` profile; an axis a dimension does
+    not divide by dropped) -> {"idx": 0, "pieces": {entry: one zero block
+    a grid device, row-major, holders of a block on one device sharing
+    one tensor}, "shardings": {entry: Sharding}}."""
     from ..core.detector import resolve_device
     check_supported(cfg)
-    dev = resolve_device(device)
-    L = cfg.n_layers
-    cache: Cache = {"idx": 0}
-    if cfg.has_attention:
-        shape = (L, B, max_len + cfg.meta_tokens, cfg.n_kv_heads, cfg.hd)
-        cache["k"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
-    if cfg.has_ssm:
-        f32 = torch.float32
-        cache["state"] = torch.zeros(
-            (L, B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim), dtype=f32,
-            device=dev)
-        cache["conv"] = torch.zeros((L, B, cfg.ssm_conv - 1, cfg.conv_dim),
-                                    dtype=f32, device=dev)
-    return cache
+    shapes = cache_shapes(cfg, B, max_len)
+    if ctx is None:
+        dev = resolve_device(device)
+        cache: Cache = {"idx": 0}
+        for name, (shape, dtype) in shapes.items():
+            cache[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        return cache
+    from ..sharding.rules import cache_shardings
+    grid = ctx.grid
+    shs = cache_shardings(cfg, grid, {k: s for k, (s, _) in shapes.items()},
+                          ctx)
+    pieces = {}
+    for name, (shape, dtype) in shapes.items():
+        sh, seen = shs[name], {}
+        for b, dev in zip(sh.blocks(len(shape)), grid.flat):
+            if (b, dev) not in seen:
+                seen[(b, dev)] = torch.zeros(sh.block_shape(shape),
+                                             dtype=dtype, device=dev)
+        pieces[name] = [seen[(b, dev)] for b, dev in
+                        zip(sh.blocks(len(shape)), grid.flat)]
+    return {"idx": 0, "pieces": pieces, "shardings": shs}
 
 
 def decoder_pe(idx: int, d: int, device) -> Tensor:
@@ -795,6 +864,429 @@ def _on_first(parts: List[Tensor], device) -> Tensor:
     return torch.cat([p.to(device) for p in parts], 0)
 
 
+# -------------------------------------- serving over the "model" axis
+
+#: the families served over a grid's "model" axis as the reference lays
+#: them out: decoder-only, every layer attention and a SwiGLU MLP or MoE
+MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm")
+
+#: prefill and decode_step calls by path since the last reset_paths():
+#: "whole" (a CausalLM), "rows" (a model held as shards, a dp row a
+#: device) and "model" (the reference's layout over "model")
+path_counts: Dict[str, int] = {"whole": 0, "rows": 0, "model": 0}
+
+
+def reset_paths() -> None:
+    for k in path_counts:
+        path_counts[k] = 0
+
+
+def serve_path(params, cfg: ModelConfig, ctx=None) -> str:
+    """The path ``prefill`` and ``decode_step`` take, from the model's
+    kind, the config and the grid alone: "whole" for a ``CausalLM``;
+    "model" for a model held as shards of a family in
+    ``MODEL_AXIS_FAMILIES`` (SwiGLU, no meta tokens) on a grid whose
+    "model" axis is larger than 1; "rows" for any other model held as
+    shards (whisper, mamba2, hymba, and every grid whose "model" axis is
+    1, where the reference's layout is FSDP and the row path computes
+    it)."""
+    model = as_sharded(params, cfg, ctx)
+    if model is None:
+        return "whole"
+    ctx = _grid_ctx(model, ctx)
+    tp = ctx.grid.axis_sizes.get(ctx.tp_axis, 1)
+    if (tp > 1 and cfg.family in MODEL_AXIS_FAMILIES and cfg.mlp == "swiglu"
+            and not cfg.meta_tokens):
+        return "model"
+    return "rows"
+
+
+def _grid_ctx(model: ShardedLM, ctx):
+    if ctx is None:
+        from ..sharding.rules import make_ctx
+        ctx = make_ctx(model.grid)
+    return ctx
+
+
+def _model_rows(model: ShardedLM, ctx, B: int) -> List[ModelRow]:
+    rows = model.model_rows.get(ctx)
+    if rows is None:
+        rows = model.model_rows[ctx] = [ModelRow(model, p)
+                                        for p in row_plans(ctx)]
+    if B % len(rows):
+        raise ValueError(f"a batch of {B} rows does not split over the "
+                         f"grid's {len(rows)} dp rows")
+    return rows
+
+
+def _chunks(S: int, n: int) -> List[Tuple[int, int]]:
+    """A sequence of S cut into n runs [s, e), ceil(S / n) long (the last
+    ones shorter or empty where n does not divide S)."""
+    c = -(-S // n)
+    return [(min(g * c, S), min((g + 1) * c, S)) for g in range(n)]
+
+
+def _embed_scale(cfg: ModelConfig) -> float:
+    return float(torch.tensor(cfg.d_model ** 0.5).to(cfg.dtype))
+
+
+def _tp_embed(row: ModelRow, toks: List[Tensor], cfg: ModelConfig,
+              bounds: Optional[List[Tuple[int, int]]] = None
+              ) -> List[Tensor]:
+    """``embed_tokens`` over the row's devices: each looks the tokens up in
+    its vocab rows (zero where another device holds the row), the
+    lookups summed in model-index order -- one nonzero term, so exact --
+    on every device, or, with ``bounds``, device g's run [s_g, e_g) of
+    the sequence on device g (a reduce-scatter)."""
+    ws, d = row.local("embed"), row.model_dim("embed")
+    devs = row.devices
+    if d is None:
+        full = on_devices(devs, lambda g: ws[g][toks[g]])
+        parts = full if bounds is None else [
+            x[:, s:e] for x, (s, e) in zip(full, bounds)]
+    else:
+        Vl, parts = ws[0].shape[0], []
+        for g, (w, t) in enumerate(zip(ws, toks)):
+            i = t - g * Vl
+            ok = (i >= 0) & (i < Vl)
+            e = w[i.clamp(0, Vl - 1)]
+            parts.append(torch.where(ok[..., None], e, e.new_zeros(())))
+        parts = (all_reduce(parts, devs) if bounds is None
+                 else reduce_scatter(parts, devs, bounds, 1))
+    scale = _embed_scale(cfg)
+    return on_devices(devs, lambda g: parts[g].to(cfg.dtype) * scale) \
+        if bounds is None else [x.to(cfg.dtype) * scale for x in parts]
+
+
+def _cols(row: ModelRow, name: str, xs: List[Tensor]
+          ) -> Tuple[List[Tensor], bool]:
+    """x @ w on each device: w split over "model" by columns gives each
+    device its columns' product (split: True); w held whole, its whole
+    product."""
+    ws = row.local(name)
+    if row.model_dim(name) is None:
+        return on_devices(row.devices,
+                          lambda g: torch.matmul(xs[g], ws[g])), False
+    return [torch.matmul(x, w) for x, w in zip(xs, ws)], True
+
+
+def _full(row: ModelRow, parts: List[Tensor], split: bool) -> List[Tensor]:
+    """Column pieces gathered in model-index order onto every device."""
+    return all_gather(parts, row.devices, -1) if split else parts
+
+
+def _mm_f32(x: Tensor, w: Tensor) -> Tensor:
+    """x @ w into f32: bf16 operands on a card multiply into f32 (the
+    product the whole matmul rounds once), anything else in f32."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(
+                            *x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def _rows(row: ModelRow, name: str, xs: List[Tensor], split: bool
+          ) -> List[Tensor]:
+    """x @ w on every device for w split over "model" by rows: each device
+    the product of its rows with its columns of x (``split``: x is
+    already in those pieces) in f32, the partial sums added in
+    model-index order on every device (the reference's psum) and rounded
+    once to x's dtype, as the whole product is; w held whole: the whole
+    product."""
+    ws = row.local(name)
+    if row.model_dim(name) is None:
+        xs = _full(row, xs, split)
+        return on_devices(row.devices, lambda g: torch.matmul(xs[g], ws[g]))
+    if not split:
+        n = ws[0].shape[0]
+        xs = [x[..., g * n:(g + 1) * n] for g, x in enumerate(xs)]
+    dtype = xs[0].dtype
+    sums = all_reduce([_mm_f32(x, w) for x, w in zip(xs, ws)], row.devices)
+    return on_devices(row.devices, lambda g: sums[g].to(dtype))
+
+
+def _tp_mlp(row: ModelRow, prefix: str, hs: List[Tensor]) -> List[Tensor]:
+    """The SwiGLU MLP tensor-parallel: the gate and up columns on each
+    device (``w_gate`` and ``w_up`` split alike), the down rows' partial
+    sums reduced in model-index order."""
+    (gate, split), (up, _) = (_cols(row, f"{prefix}.{w}", hs)
+                              for w in ("w_gate", "w_up"))
+    if split:
+        act = [F.silu(a) * b for a, b in zip(gate, up)]
+    else:
+        act = on_devices(row.devices, lambda g: F.silu(gate[g]) * up[g])
+    return _rows(row, prefix + ".w_down", act, split)
+
+
+def _tp_moe(row: ModelRow, prefix: str, hs: List[Tensor],
+            cfg: ModelConfig) -> List[Tensor]:
+    """A decode step's MoE FFN: expert group g on device g (its pieces),
+    every device routing the row's tokens (the replicated EP path), the
+    groups' shares summed in model-index order on every device; the
+    shared expert tensor-parallel, as the MLP."""
+    names = ("router", "w_gate", "w_up", "w_down")
+    loc = {n: row.local(f"{prefix}.{n}") for n in names}
+    devs = row.devices
+    if all(row.model_dim(f"{prefix}.{n}") == 0 for n in names[1:]):
+        moe.path_counts["replicated"] += 1
+        ys = all_reduce(ep_replicated_row(
+            hs, [tuple(loc[n][g] for n in names) for g in range(row.tp)],
+            devs, cfg), devs)
+    else:
+        moe.path_counts["local"] += 1
+        ys = on_devices(devs, lambda g: moe._moe_local(
+            hs[g], namespace({n: loc[n][g] for n in names}), cfg))
+    if cfg.shared_expert:
+        sh = _tp_mlp(row, prefix + ".shared", hs)
+        ys = on_devices(devs, lambda g: ys[g] + sh[g])
+    return ys
+
+
+def _write_kv(piece: Tensor, box, li: int, kv: Tensor, s0: int) -> None:
+    """kv (B, n, K, hd) at positions s0 .. s0 + n - 1 into layer li of a
+    cache piece whose block is ``box`` (its slices of (L, B, S, K, hd)):
+    the positions and heads the block holds."""
+    ls, hs = box[2], box[3]
+    a, b = max(ls.start, s0), min(ls.stop, s0 + kv.shape[1])
+    if a < b:
+        piece[li, :, a - ls.start:b - ls.start] = \
+            kv[:, a - s0:b - s0, hs].to(piece.device, piece.dtype)
+
+
+def _cache_view(cache: Cache, row: ModelRow, name: str):
+    """Each device's cache piece of ``name`` and its block's slices, and
+    the dimension split over "model" (2 the length, 3 the heads, None
+    whole on each model device)."""
+    sh, pieces = cache["shardings"][name], cache["pieces"][name]
+    shape = tuple(n * c for n, c in zip(pieces[0].shape,
+                                         sh.counts(pieces[0].dim())))
+    boxes = sh.slices(shape)
+    return ([pieces[f] for f in row.flat], [boxes[f] for f in row.flat],
+            sh.model_dim(len(shape)))
+
+
+def _qkv_cols(row: ModelRow, prefix: str, hs: List[Tensor]
+              ) -> List[List[Tensor]]:
+    """q, k and v whole on every device from their column pieces: one
+    gather of each device's three pieces side by side where all three
+    split over "model" (one exchange between the cards a layer, not
+    three), else each on its own."""
+    cols = [_cols(row, f"{prefix}.{w}", hs) for w in ("wq", "wk", "wv")]
+    if not all(split for _, split in cols):
+        return [_full(row, *c) for c in cols]
+    n = [c[0][0].shape[-1] for c in cols]
+    both = all_gather([torch.cat([c[0][g] for c in cols], -1)[None]
+                       for g in range(row.tp)], row.devices, 0)
+    # (tp, B, 1, nq + nk + nv) -> each (B, 1, tp * n) in model-index order
+    per = on_devices(row.devices, lambda g: [
+        t.movedim(0, -2).reshape(*t.shape[1:-1], -1)
+        for t in both[g].split(n, -1)])
+    return [[x[i] for x in per] for i in range(3)]
+
+
+def _tp_attention_decode(row: ModelRow, prefix: str, hs: List[Tensor],
+                         pos: List[Tensor], cache: Cache, li: int, idx: int,
+                         window: int, cfg: ModelConfig) -> List[Tensor]:
+    """A decode step's attention: q/k/v column pieces gathered (qk-norm
+    and RoPE on whole heads), the new key and value written into the
+    pieces that hold position idx, attention over each device's piece --
+    by length: partial softmaxes merged in model-index order; by heads:
+    each device its heads, gathered; whole: each device all of it --
+    then the wo rows' partial sums reduced."""
+    devs = row.devices
+    p = row.local_tree(prefix)
+    q, k, v = _qkv_cols(row, prefix, hs)
+    qkv = on_devices(devs, lambda g: qkv_heads(q[g], k[g], v[g], p[g], cfg,
+                                               pos[g]))
+    (kp, boxes, dim), (vp, _, _) = (_cache_view(cache, row, n)
+                                    for n in ("k", "v"))
+    for g in range(row.tp):
+        _write_kv(kp[g], boxes[g], li, qkv[g][1], idx)
+        _write_kv(vp[g], boxes[g], li, qkv[g][2], idx)
+    q_pos = [t_stream(x)[:, -1:] for x in pos]
+    B = hs[0].shape[0]
+    if dim == 2:
+        # the whole cache's softmax over the gathered scores (a few bytes a
+        # key), each device's P.V share of its piece, the shares summed
+        # in f32 and rounded once
+        s = all_gather([decode_scores(qkv[g][0], kp[g][li], q_pos[g],
+                                      boxes[g][2].start, window=window,
+                                      n_meta=cfg.meta_tokens)
+                        for g in range(row.tp)], devs, -1)
+        w = on_devices(devs, lambda g: torch.softmax(s[g], -1))
+        out = all_reduce([decode_values(w[g][..., b[2]], vp[g][li])
+                          for g, b in enumerate(boxes)], devs)
+        out = on_devices(devs, lambda g: out[g].to(cfg.dtype))
+    else:
+        def attend(g, heads):
+            rep = cfg.n_heads // cfg.n_kv_heads
+            qh = qkv[g][0][:, :, heads.start * rep:heads.stop * rep]
+            S = kp[g].shape[2]
+            mask = make_mask(q_pos[g], torch.arange(S, device=devs[g])[None],
+                             window=window, n_meta=cfg.meta_tokens)
+            return _sdpa(qh, kp[g][li], vp[g][li], mask, cfg)
+        if dim == 3:
+            out = all_gather([attend(g, boxes[g][3]) for g in range(row.tp)],
+                             devs, 2)
+        else:
+            out = on_devices(devs, lambda g: attend(g, boxes[g][3]))
+    flat = [o.reshape(B, 1, cfg.n_heads * cfg.hd) for o in out]
+    return _rows(row, prefix + ".wo", flat, False)
+
+
+def _tp_logits(row: ModelRow, xs: List[Tensor], cfg: ModelConfig
+               ) -> Tensor:
+    """``logits_from_hidden`` over the row's devices: the final norm on
+    each, each device's vocab columns of the head (``lm_head``, or the
+    tied ``embed``'s rows), gathered in order on the row's first device."""
+    fn = row.local_tree("final_norm")
+    devs = row.devices
+    h = on_devices(devs, lambda g: norm(xs[g], fn[g], cfg.norm,
+                                        cfg.norm_eps))
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    ws, d = row.local(name), row.model_dim(name)
+    heads = [w.T if cfg.tie_embeddings else w for w in ws]
+    if d is None:
+        return torch.matmul(h[0], heads[0].to(cfg.dtype))
+    return torch.cat([torch.matmul(x, w.to(cfg.dtype)).to(devs[0])
+                      for x, w in zip(h, heads)], -1)
+
+
+def _model_decode(model: ShardedLM, token, cache: Cache, cfg: ModelConfig,
+                  ctx) -> Tuple[Tensor, Cache]:
+    """``decode_step`` in the reference's layout: each dp row's tokens on
+    every device of the row, every product on the pieces each device
+    holds (no layer gathered), the cache written and read in its pieces."""
+    if "pieces" not in cache or next(iter(cache["shardings"].values())
+                                     ).grid != model.grid:
+        raise ValueError("a model held as shards over the 'model' axis "
+                         "takes prefill's cache of pieces on its grid, not "
+                         "one of whole tensors or of dp rows")
+    rows = _model_rows(model, ctx, len(token))
+    idx = cache["idx"]
+    states = []
+    for row, tok in zip(rows, _split_rows(token, len(rows))):
+        devs = row.devices
+        toks = on_devices(devs, lambda g: torch.as_tensor(tok).to(devs[g]))
+        shape = (len(tok), 1, 3) if cfg.mrope else (len(tok), 1)
+        pos = on_devices(devs, lambda g: torch.full(
+            shape, idx, dtype=torch.int32, device=devs[g]))
+        states.append([_tp_embed(row, toks, cfg), pos])
+    for li, window in enumerate(layer_windows(cfg)):
+        lp = f"layers.{li}."
+        for row, st in zip(rows, states):
+            xs, pos = st
+            ln1, ln2 = (row.local_tree(lp + n) for n in ("ln1", "ln2"))
+            h = on_devices(row.devices, lambda g: norm(
+                xs[g], ln1[g], cfg.norm, cfg.norm_eps))
+            a = _tp_attention_decode(row, lp + "attn", h, pos, cache, li, idx,
+                                     window, cfg)
+            xs = on_devices(row.devices, lambda g: xs[g] + a[g])
+            h = on_devices(row.devices, lambda g: norm(
+                xs[g], ln2[g], cfg.norm, cfg.norm_eps))
+            f = (_tp_moe(row, lp + "moe", h, cfg) if cfg.is_moe
+                 else _tp_mlp(row, lp + "mlp", h))
+            st[0] = on_devices(row.devices, lambda g: xs[g] + f[g])
+    logits = [_tp_logits(row, st[0], cfg) for row, st in zip(rows, states)]
+    return _on_first(logits, model.device), {**cache, "idx": idx + 1}
+
+
+def _cp_moe(row: ModelRow, lps, hs: List[Tensor], cfg: ModelConfig, ctx,
+            bounds: List[Tuple[int, int]]) -> List[Tensor]:
+    """A prefill's MoE FFN on each device's own tokens: the all-to-all
+    path where the sequence splits evenly (expert group g on device g),
+    else the replicated path over the row's gathered tokens, each device
+    then keeping its run; the shared expert on each device's tokens."""
+    devs, tp = row.devices, row.tp
+    S = bounds[-1][1]
+    groups = getattr(lps[0].moe, "ep_groups", None)
+    if groups is not None:
+        gl = [groups[(g, devs[g])] for g in range(tp)]
+        if ctx.seq_sharded and S % tp == 0:
+            path, ys = "a2a", ep_a2a_row(hs, gl, devs, cfg)
+        else:
+            full = all_gather(hs, devs, 1)
+            path, ys = "replicated", reduce_scatter(
+                ep_replicated_row(full, gl, devs, cfg), devs, bounds, 1)
+    else:
+        full = all_gather(hs, devs, 1)
+        outs = on_devices(devs, lambda g: moe._moe_local(full[g], lps[g].moe,
+                                                         cfg))
+        path, ys = "local", [o[:, s:e] for o, (s, e) in zip(outs, bounds)]
+    moe.path_counts[path] += 1
+    if cfg.shared_expert:
+        ys = [y + swiglu(h, lp.moe.shared) for y, h, lp in zip(ys, hs, lps)]
+    return ys
+
+
+def _model_prefill(model: ShardedLM, batch: Dict[str, Tensor],
+                   cfg: ModelConfig, max_len: int, ctx
+                   ) -> Tuple[Tensor, Cache]:
+    """``prefill`` in the reference's layout: each dp row's sequence cut
+    over the row's devices (context parallelism), each layer gathered
+    whole onto every device of the row (every row's copies queued before
+    any computes), K and V gathered in model-index order and each chunk's
+    queries attending at its offset; the cache built as pieces
+    (``init_cache(ctx=)``), each device writing its piece from the
+    gathered K and V; the last position's logits over the vocab
+    columns."""
+    tokens = torch.as_tensor(batch["tokens"])
+    B, S = tokens.shape
+    rows = _model_rows(model, ctx, B)
+    pos = _prompt_positions(batch, cfg, B, S)
+    flash = index_causal(pos)
+    if pos is None:
+        pos = arange_positions(B, S, "cpu")
+    cache = init_cache(cfg, B, max_len, ctx=ctx)
+    bounds = _chunks(S, rows[0].tp)
+    states = []
+    for row, tok, p in zip(rows, _split_rows(tokens, len(rows)),
+                           _split_rows(pos, len(rows))):
+        devs = row.devices
+        toks = on_devices(devs, lambda g: tok.to(devs[g]))
+        states.append({
+            "x": _tp_embed(row, toks, cfg, bounds),
+            "q_pos": [p[:, s:e].to(d) for d, (s, e) in zip(devs, bounds)],
+            "k_pos": on_devices(devs, lambda g: t_stream(p).to(devs[g]))})
+    H, hd = cfg.n_heads, cfg.hd
+    for li, window in enumerate(layer_windows(cfg)):
+        lps = [row.whole_layer(li) for row in rows]
+        for row, lp, st in zip(rows, lps, states):
+            devs = row.devices
+            xs = st["x"]
+            qkv = [_project_qkv(norm(x, p.ln1, cfg.norm, cfg.norm_eps),
+                                p.attn, cfg, qp)
+                   for x, p, qp in zip(xs, lp, st["q_pos"])]
+            # K and V side by side: one exchange between the cards
+            kv = all_gather([torch.cat(t[1:], -1) for t in qkv], devs, 1)
+            k = [x[..., :hd] for x in kv]
+            v = [x[..., hd:] for x in kv]
+            for name, kv in (("k", k), ("v", v)):
+                pieces, boxes, _ = _cache_view(cache, row, name)
+                for g in range(row.tp):
+                    _write_kv(pieces[g], boxes[g], li, kv[g], 0)
+            xs = [x + torch.matmul(attend_chunk(
+                      t[0], k[g], v[g], cfg, t_stream(st["q_pos"][g]),
+                      st["k_pos"][g], bounds[g][0], window=window,
+                      n_meta=cfg.meta_tokens, ctx=ctx, flash=flash
+                  ).reshape(x.shape[0], x.shape[1], H * hd), lp[g].attn.wo)
+                  for g, (x, t) in enumerate(zip(xs, qkv))]
+            hs = [norm(x, p.ln2, cfg.norm, cfg.norm_eps)
+                  for x, p in zip(xs, lp)]
+            f = (_cp_moe(row, lp, hs, cfg, ctx, bounds) if cfg.is_moe
+                 else [mlp(h, p.mlp, cfg.mlp) for h, p in zip(hs, lp)])
+            st["x"] = [x + y for x, y in zip(xs, f)]
+        del lps
+    last = next(g for g, (s, e) in enumerate(bounds) if e == S)
+    logits = []
+    for row, st in zip(rows, states):
+        x_last = st["x"][last][:, -1:]
+        logits.append(_tp_logits(row, on_devices(
+            row.devices, lambda g: x_last.to(row.devices[g])), cfg))
+    cache["idx"] = S
+    return _on_first(logits, model.device), cache
+
+
 def decode_step(params, token: Tensor, cache: Cache,
                 cfg: ModelConfig, enc: Optional[Tensor] = None, ctx=None
                 ) -> Tuple[Tensor, Cache]:
@@ -804,10 +1296,18 @@ def decode_step(params, token: Tensor, cache: Cache,
     whisper's encoder states, feeds every layer's cross-attention (none
     without it, as in the reference). The cache's tensors are written in
     place and shared by the returned cache. A model held as shards takes
-    ``prefill``'s cache of rows, each row on its device, and returns the
-    logits on the grid's first device in row order."""
+    ``prefill``'s cache of its path -- pieces over "model" (the
+    tensor-parallel step, ``_model_decode``), or rows, each row on its
+    device -- and returns the logits on the grid's first device in row
+    order."""
     check_supported(cfg)
     model = as_sharded(params, cfg, ctx)
+    path = serve_path(params, cfg, ctx)
+    path_counts[path] += 1
+    if path == "model":
+        with torch.inference_mode():
+            return _model_decode(model, token, cache, cfg,
+                                 _grid_ctx(model, ctx))
     with torch.inference_mode():
         idx = cache["idx"]
         if model is None:
@@ -863,22 +1363,29 @@ def prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig,
     states, if already computed (then ``enc_input`` is not read).
 
     A model held as shards (``ShardedLM``, or ``restore``'s {name:
-    pieces} of ``ctx``'s grid): the batch is split over ``ctx``'s dp
-    rows, each run on the row's first device; layer by layer, with the
-    rows inner, each row gathers the layer onto its device (every row's
-    copies queued before any row computes, models/sharded.py:
-    ``gathered_rows``), runs it and drops it (a MoE layer's expert groups
-    on the row's devices of each model index), so the cards run at
-    once. The cache
-    is {"idx", "rows": one cache a dp row, on the row's device}; the
-    logits return on the grid's first device in row order."""
+    pieces} of ``ctx``'s grid) takes ``serve_path``'s path. "model": the
+    reference's context-parallel prefill (``_model_prefill``); the cache
+    is ``init_cache(ctx=)``'s pieces. "rows": the batch is split over
+    ``ctx``'s dp rows, each run on the row's first device; layer by
+    layer, with the rows inner, each row gathers the layer onto its
+    device (every row's copies queued before any row computes,
+    models/sharded.py: ``gathered_rows``), runs it and drops it (a MoE
+    layer's expert groups on the row's devices of each model index), so
+    the cards run at once; the cache is {"idx", "rows": one cache a dp
+    row, on the row's device}. Either way the logits return on the
+    grid's first device in row order."""
     check_supported(cfg)
     model = as_sharded(params, cfg, ctx)
+    path = serve_path(params, cfg, ctx)
+    path_counts[path] += 1
     with torch.inference_mode():
         S = batch["tokens"].shape[1]
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
                              f"{max_len}")
+        if path == "model":
+            return _model_prefill(model, batch, cfg, max_len,
+                                  _grid_ctx(model, ctx))
         if model is None:
             rows, ctxs, parts, encs = [params], [ctx], [batch], [enc]
         else:

@@ -93,6 +93,8 @@ class ShardingCtx:
     bf16_scores: bool = False        # half-width score tensors
     banded: bool = False             # banded sliding-window attention
     flash_vjp: bool = False          # sdpa_flash's forward
+    kv_shard_dim: str = "length"     # the decode cache over tp_axis:
+                                     # "length" or "heads" (its profile's)
 
     @property
     def ep_size(self) -> int:
@@ -254,37 +256,67 @@ def _shard_route(xl: Tensor, router: Tensor, cfg: ModelConfig):
     return buf, (_top_k(gates, cfg.top_k)[1].reshape(-1), slot), w_flat
 
 
+def ep_a2a_row(xs: List[Tensor], groups: List[Tuple[Tensor, ...]], devices,
+               cfg: ModelConfig) -> List[Tensor]:
+    """One dp row of the all-to-all path: ``xs[s]``, model index s's own
+    (Bl, Sl, D) tokens on ``devices[s]``, each routed there at its own
+    capacity; expert group g's rows sent to ``devices[g]``, run through
+    ``groups[g]`` (router, w_gate, w_up, w_down) and sent back -> each
+    index's (Bl, Sl, D) on its device."""
+    ep = len(devices)
+    E_l = cfg.n_experts // ep
+    Bl, Sl, D = xs[0].shape
+    routed = [_shard_route(x.reshape(Bl * Sl, D), groups[s][0], cfg)
+              for s, x in enumerate(xs)]
+    C = routed[0][0].shape[1]
+    back = []
+    for g, dev in enumerate(devices):
+        # (ep_src, E_l, C, D) -> (E_l, ep_src * C, D)
+        work = torch.stack([buf[g * E_l:(g + 1) * E_l].to(dev)
+                            for buf, _, _ in routed], 1)
+        out = _expert_ffn(work.reshape(E_l, ep * C, D), *groups[g][1:])
+        back.append(out.view(E_l, ep, C, D))
+    ys = []
+    for s, dev in enumerate(devices):
+        out_buf = torch.cat([b[:, s].to(dev) for b in back], 0)
+        _, slots, w_flat = routed[s]
+        ys.append(_combine(out_buf, slots, w_flat, Bl * Sl).view(Bl, Sl, D))
+    return ys
+
+
+def ep_replicated_row(xs: List[Tensor], groups: List[Tuple[Tensor, ...]],
+                      devices, cfg: ModelConfig) -> List[Tensor]:
+    """One dp row of the replicated path: ``xs[g]``, the row's (Bl, S, D)
+    tokens on ``devices[g]`` (the same on each), routed there and run
+    through expert group g alone -> each index's share (Bl, S, D) on its
+    device, for the caller to sum in index order."""
+    E_l = cfg.n_experts // len(devices)
+    parts = []
+    for g, x in enumerate(xs):
+        router, *ws = groups[g]
+        Bl, S, D = x.shape
+        buf, slots, w_flat = _shard_route(x.reshape(Bl * S, D), router, cfg)
+        out_buf = torch.zeros_like(buf)
+        out_buf[g * E_l:(g + 1) * E_l] = _expert_ffn(
+            buf[g * E_l:(g + 1) * E_l], *ws)
+        parts.append(_combine(out_buf, slots, w_flat, Bl * S).view(Bl, S, D))
+    return parts
+
+
 def _moe_ep_a2a(x: Tensor, p, cfg: ModelConfig, ctx: ShardingCtx) -> Tensor:
     """Tokens split over (dp x ep), dispatched to and from the expert
     groups by copies (the reference's two all_to_alls)."""
     ep, dp = ctx.ep_size, ctx.dp_size
-    E_l = cfg.n_experts // ep
     B, S, D = x.shape
     Bl, Sl = B // dp, S // ep
     groups = _expert_groups(p, ctx)
     rows = []
     for r, row in enumerate(ctx.shard_devices()):
-        routed = []
-        for s, dev in enumerate(row):
-            xl = x[r * Bl:(r + 1) * Bl, s * Sl:(s + 1) * Sl].to(dev)
-            router = groups[(s, dev)][0]
-            routed.append(_shard_route(xl.reshape(Bl * Sl, D), router, cfg))
-        C = routed[0][0].shape[1]
-        back = []
-        for g, dev in enumerate(row):
-            # (ep_src, E_l, C, D) -> (E_l, ep_src * C, D)
-            work = torch.stack([buf[g * E_l:(g + 1) * E_l].to(dev)
-                                for buf, _, _ in routed], 1)
-            out = _expert_ffn(work.reshape(E_l, ep * C, D),
-                              *groups[(g, dev)][1:])
-            back.append(out.view(E_l, ep, C, D))
-        ys = []
-        for s, dev in enumerate(row):
-            out_buf = torch.cat([b[:, s].to(dev) for b in back], 0)
-            _, slots, w_flat = routed[s]
-            ys.append(_combine(out_buf, slots, w_flat, Bl * Sl)
-                      .view(Bl, Sl, D).to(x.device))
-        rows.append(torch.cat(ys, 1))
+        xs = [x[r * Bl:(r + 1) * Bl, s * Sl:(s + 1) * Sl].to(dev)
+              for s, dev in enumerate(row)]
+        ys = ep_a2a_row(xs, [groups[(g, dev)] for g, dev in enumerate(row)],
+                        row, cfg)
+        rows.append(torch.cat([y.to(x.device) for y in ys], 1))
     return torch.cat(rows, 0)
 
 
@@ -292,24 +324,18 @@ def _moe_ep_replicated(x: Tensor, p, cfg: ModelConfig,
                        ctx: ShardingCtx) -> Tensor:
     """Decode: each dp row's tokens on every EP shard, which computes only
     its local experts; the shards' outputs summed in shard order."""
-    ep, dp = ctx.ep_size, ctx.dp_size
-    E_l = cfg.n_experts // ep
-    B, S, D = x.shape
-    Bl = B // dp
+    dp = ctx.dp_size
+    Bl = x.shape[0] // dp
     groups = _expert_groups(p, ctx)
     rows = []
     for r, row in enumerate(ctx.shard_devices()):
-        y = None
-        for g, dev in enumerate(row):
-            router, *ws = groups[(g, dev)]
-            xl = x[r * Bl:(r + 1) * Bl].to(dev).reshape(Bl * S, D)
-            buf, slots, w_flat = _shard_route(xl, router, cfg)
-            out_buf = torch.zeros_like(buf)
-            out_buf[g * E_l:(g + 1) * E_l] = _expert_ffn(
-                buf[g * E_l:(g + 1) * E_l], *ws)
-            yg = _combine(out_buf, slots, w_flat, Bl * S).to(row[0])
-            y = yg if y is None else y + yg
-        rows.append(y.view(Bl, S, D).to(x.device))
+        xs = [x[r * Bl:(r + 1) * Bl].to(dev) for dev in row]
+        parts = ep_replicated_row(
+            xs, [groups[(g, dev)] for g, dev in enumerate(row)], row, cfg)
+        y = parts[0].to(row[0])
+        for part in parts[1:]:
+            y = y + part.to(row[0])
+        rows.append(y.to(x.device))
     return torch.cat(rows, 0)
 
 

@@ -12,15 +12,25 @@ tensor. ``models.model.init_params(..., shardings=)``,
 one without the whole model on any card (``as_sharded`` takes the
 restored {name: pieces} as it is).
 
-A dp row computes with ``row_model``: the top-level leaves (``embed``,
-``final_norm``, ``lm_head``, ``meta``, ``enc_norm``) gathered whole onto
-the row's device, each layer a ``LayerShards`` whose ``gather()`` reads
-the layer whole onto that device as it runs, each block from the row's
-own devices where they hold it (``RowPlan.order``). With ``experts``, a
-MoE layer's expert group g is assembled instead on the row's device of
-model index g from the pieces that lie on model index g, over the dp
-axes only (``RowPlan.group_orders``), and handed to models/moe.py as
-``ep_groups``: no card holds a whole expert stack.
+A dp row computes with ``row_model`` on the row path: the top-level
+leaves (``embed``, ``final_norm``, ``lm_head``, ``meta``, ``enc_norm``)
+gathered whole onto the row's device, each layer a ``LayerShards`` whose
+``gather()`` reads the layer whole onto that device as it runs, each
+block from the row's own devices where they hold it (``RowPlan.order``).
+With ``experts``, a MoE layer's expert group g is assembled instead on
+the row's device of model index g from the pieces that lie on model
+index g, over the dp axes only (``RowPlan.group_orders``), and handed to
+models/moe.py as ``ep_groups``: no card holds a whole expert stack.
+
+Serving over "model" (models/model.py's model path) computes with
+``ModelRow`` instead: the row's device of each model index g
+(``RowPlan.group_devices``), ``local`` reading each leaf's block at
+model index g on that device -- its own piece, with no copy, on a (1, N)
+grid; gathered over the dp axes only elsewhere -- and ``whole_layer``
+reading a layer whole onto every device of the row (prefill). The
+collectives between the row's devices (``all_gather``, ``all_reduce``,
+``reduce_scatter``) are copies and sums in model-index order, so every
+device of a row gets the same numbers, on logical devices and on cards.
 """
 from __future__ import annotations
 
@@ -136,11 +146,16 @@ class LayerShards(ShardedLeaves):
                 for p in EXPERT_LEAVES)
         return out
 
-    def gather(self):
-        groups = self._expert_groups() if self._grouped() else None
+    def gather(self, device=None, order=None, groups=None):
+        """The layer whole on ``device`` (the row's, read in ``order``, by
+        default), the expert stacks as their groups where grouped
+        (``groups``: already assembled ones to share)."""
+        if groups is None and self._grouped():
+            groups = self._expert_groups()
         skip = (EXPERT_LEAVES + ("moe.router",)) if groups else ()
-        out = namespace({path: sh.gather(pieces, self.plan.device,
-                                         self.plan.order)
+        device = self.plan.device if device is None else device
+        order = self.plan.order if order is None else order
+        out = namespace({path: sh.gather(pieces, device, order)
                          for path, (sh, pieces) in self.leaves.items()
                          if path not in skip})
         if groups:
@@ -148,6 +163,51 @@ class LayerShards(ShardedLeaves):
                 out.moe = types.SimpleNamespace()
             out.moe.ep_groups = groups
         return out
+
+
+def on_devices(devices: Sequence[torch.device], fn) -> list:
+    """[fn(g) for each model index g], fn run once a distinct device and
+    its result shared by the indices on that device: for values every
+    device of a row holds alike (a replicated norm, a reduced sum)."""
+    memo: Dict[torch.device, object] = {}
+    out = []
+    for g, dev in enumerate(devices):
+        if dev not in memo:
+            memo[dev] = fn(g)
+        out.append(memo[dev])
+    return out
+
+
+def reduce_to(parts: Sequence[Tensor], device) -> Tensor:
+    """The sum of ``parts`` on ``device``, added in their order."""
+    acc = parts[0].to(device)
+    for p in parts[1:]:
+        acc = acc + p.to(device)
+    return acc
+
+
+def all_reduce(parts: Sequence[Tensor], devices) -> List[Tensor]:
+    """Each device's sum of every device's part, in model-index order (the
+    reference's psum over "model"): the same numbers on every device,
+    each pulling the parts itself (one hop between cards; a sum on one
+    card copied out to the others took longer on 4 H100s)."""
+    return on_devices(devices, lambda g: reduce_to(parts, devices[g]))
+
+
+def all_gather(parts: Sequence[Tensor], devices, dim: int) -> List[Tensor]:
+    """Each device's concatenation of every device's part along ``dim``,
+    in model-index order, each pulling the parts itself."""
+    return on_devices(devices, lambda g: torch.cat(
+        [p.to(devices[g]) for p in parts], dim))
+
+
+def reduce_scatter(parts: Sequence[Tensor], devices,
+                   bounds: Sequence[Tuple[int, int]], dim: int
+                   ) -> List[Tensor]:
+    """Device g's run [s_g, e_g) (``bounds``) along ``dim`` of the sum of
+    every device's part, added in model-index order on device g."""
+    return [reduce_to([p.narrow(dim, s, e - s) for p in parts], dev)
+            for dev, (s, e) in zip(devices, bounds)]
 
 
 def gathered_rows(layers: Sequence[object]) -> List[object]:
@@ -183,6 +243,20 @@ def namespace(flat: Dict[str, Tensor]):
     return build(root)
 
 
+def layer_stacks(pieces: Dict[str, List[Tensor]], shardings
+                 ) -> Dict[str, Dict[int, Dict[str, tuple]]]:
+    """{"layers" / "enc_layers": {i: {path in the layer: (Sharding,
+    pieces)}}} of a model's layer leaves."""
+    stacks: Dict[str, Dict[int, Dict[str, tuple]]] = {
+        "layers": {}, "enc_layers": {}}
+    for n, ps in pieces.items():
+        parts = n.split(".")
+        if parts[0] in stacks:
+            stacks[parts[0]].setdefault(int(parts[1]), {})[
+                ".".join(parts[2:])] = (shardings[n], ps)
+    return stacks
+
+
 def row_model(cfg, pieces: Dict[str, List[Tensor]], shardings,
               plan: RowPlan, experts: bool = False,
               memo: Optional[Dict] = None):
@@ -193,13 +267,9 @@ def row_model(cfg, pieces: Dict[str, List[Tensor]], shardings,
     card share one copy; every holder of a block holds its same
     values)."""
     memo = {} if memo is None else memo
-    top, stacks = {}, {"layers": {}, "enc_layers": {}}
+    top, stacks = {}, layer_stacks(pieces, shardings)
     for n, ps in pieces.items():
-        parts = n.split(".")
-        if parts[0] in stacks:
-            stacks[parts[0]].setdefault(int(parts[1]), {})[
-                ".".join(parts[2:])] = (shardings[n], ps)
-        else:
+        if n.split(".")[0] not in stacks:
             key = (n, plan.device)
             if key not in memo:
                 memo[key] = shardings[n].gather(ps, plan.device, plan.order)
@@ -211,6 +281,70 @@ def row_model(cfg, pieces: Dict[str, List[Tensor]], shardings,
             setattr(model, k, [LayerShards(layers[i], plan, experts)
                                for i in range(len(layers))])
     return model
+
+
+class ModelRow:
+    """One dp row of a grid whose "model" axis is larger than 1, as serving
+    over "model" computes it: ``devices[g]``, the row's device of model
+    index g, and ``flat[g]``, its flat grid index. ``local(name)`` reads
+    each device's block of a parameter -- split over "model" along
+    ``model_dim(name)``, whole along every other dimension -- from the
+    pieces at its model index: on a (1, N) grid its own piece, with no
+    copy. ``whole_layer(i)`` reads layer i whole onto every device of the
+    row (one copy a distinct device), the MoE's expert stacks as their
+    groups (group g on device g, ``moe.ep_groups``)."""
+
+    def __init__(self, model: "ShardedLM", plan: RowPlan):
+        self.model, self.plan = model, plan
+        self.devices = plan.group_devices
+        self.flat = tuple(order[0] for order in plan.group_orders)
+        self._layers = layer_stacks(model.pieces, model.shardings)["layers"]
+        self._own: Dict[str, list] = {}
+
+    @property
+    def tp(self) -> int:
+        return len(self.devices)
+
+    def model_dim(self, name: str) -> Optional[int]:
+        return self.model.shardings[name].model_dim(
+            self.model.pieces[name][0].dim())
+
+    def local(self, name: str) -> List[Tensor]:
+        """Each device's block of ``name``; kept for the next call where
+        every block is a piece itself (a (1, N) grid), never where it was
+        gathered (the dp axes' copies are dropped after use)."""
+        if name in self._own:
+            return self._own[name]
+        sh, pieces = self.model.shardings[name], self.model.pieces[name]
+        d = self.model_dim(name)
+        out = [sh.gather(pieces, dev, order, at=None if d is None
+                         else {d: g})
+               for g, (dev, order) in enumerate(zip(
+                   self.devices, self.plan.group_orders))]
+        if all(any(t is p for p in pieces) for t in out):
+            self._own[name] = out
+        return out
+
+    def local_tree(self, prefix: str) -> List[object]:
+        """Each device's blocks of the parameters under ``prefix``
+        ("layers.3.ln1") as a namespace (``.scale``, ``.bias``); kept
+        where every block is kept (``local``)."""
+        if prefix in self._own:
+            return self._own[prefix]
+        names = [n for n in self.model.pieces if n.startswith(prefix + ".")]
+        blocks = {n: self.local(n) for n in names}
+        out = [namespace({n[len(prefix) + 1:]: b[g]
+                          for n, b in blocks.items()})
+               for g in range(self.tp)]
+        if all(n in self._own for n in names):
+            self._own[prefix] = out
+        return out
+
+    def whole_layer(self, i: int) -> List[object]:
+        lsh = LayerShards(self._layers[i], self.plan, experts=True)
+        groups = lsh._expert_groups() if lsh._grouped() else None
+        return on_devices(self.devices, lambda g: lsh.gather(
+            self.devices[g], self.plan.group_orders[g], groups))
 
 
 class ShardedLM:
@@ -252,6 +386,8 @@ class ShardedLM:
         self.cfg, self.grid = cfg, grid
         self.shardings = dict(shardings)
         self.pieces = {n: list(pieces[n]) for n in shapes}
+        #: each context's ModelRows (models/model.py's model path)
+        self.model_rows: Dict[object, List[ModelRow]] = {}
 
     @property
     def device(self) -> torch.device:

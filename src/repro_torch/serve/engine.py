@@ -905,8 +905,9 @@ def generate(params, cfg: ModelConfig, prompt,
 
     ``ctx`` (sharding/rules.py: ``make_ctx``): the grid the MoE's expert
     paths take; a model held as shards (``models.sharded.ShardedLM``, or
-    ``restore``'s {name: pieces}) runs over its dp rows
-    (models/model.py: ``prefill``), the tokens on the grid's first
+    ``restore``'s {name: pieces}) runs on the path
+    ``models.model.serve_path`` names -- over "model" in the reference's
+    layout, or over its dp rows -- the tokens on the grid's first
     device.
     """
     if cfg.mrope:

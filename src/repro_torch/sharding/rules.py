@@ -36,7 +36,8 @@ reduces the pieces itself.
 Profiles: what each changes in the port --
   baseline  -- nothing (layout: batch over dp, sequence over "model").
   kv_heads  -- layout only (the decode cache's heads instead of its
-               length over "model"; ``cache_specs_tree``).
+               length over "model"; ``cache_specs_tree``; ``make_ctx``
+               carries it as ``ctx.kv_shard_dim``).
   no_seq    -- the MoE path: without sequence sharding ``moe_ffn`` takes
                the replicated EP path, whose per-shard capacity differs
                from the all-to-all's, so drops (and numbers) may differ.
@@ -75,7 +76,8 @@ def make_ctx(grid: DeviceGrid, seq_sharded: bool = True,
         kw = dict(seq_sharded=profile.seq_sharded,
                   bf16_scores=profile.bf16_scores,
                   banded=profile.banded_window,
-                  flash_vjp=profile.flash_vjp)
+                  flash_vjp=profile.flash_vjp,
+                  kv_shard_dim=profile.kv_shard_dim)
     else:
         kw = dict(seq_sharded=seq_sharded)
     return ShardingCtx(grid=grid, dp_axes=dp_axes(grid), tp_axis="model",
@@ -277,7 +279,8 @@ def cache_specs_tree(cfg: ModelConfig, grid: DeviceGrid,
                      ) -> Dict[str, Spec]:
     """Specs of the cache (models/model.py:init_cache; leading L axis
     unsharded): the KV cache's length over "model" (the default), or its
-    heads under ``kv_heads``."""
+    heads under ``kv_heads``. ``profile`` may be a ``ShardingCtx``, whose
+    ``kv_shard_dim`` is its profile's."""
     dp = _entry(dp_axes(grid))
     out: Dict[str, Spec] = {"idx": ()}
     if cfg.has_attention:
@@ -365,12 +368,15 @@ class Sharding:
 
     def gather(self, pieces: Sequence[torch.Tensor], device=None,
                order: Optional[Sequence[int]] = None,
-               lead: Tuple[int, ...] = ()) -> torch.Tensor:
+               lead: Tuple[int, ...] = (),
+               at: Optional[Dict[int, int]] = None) -> torch.Tensor:
         """The whole tensor from its pieces, on ``device`` (the first
         piece's by default): each block read from its first holder in
         ``order`` (flat grid indices; row-major by default). ``lead``:
         only the part under those leading block indices (``(g,)``: block
-        g of the first dimension), read from its holders alone.
+        g of the first dimension), read from its holders alone; ``at``
+        ({dimension: block}) likewise for any dimensions. A part that one
+        piece holds whole, on ``device``, is that piece itself (no copy).
         Differentiable: each block's gradient flows back to the piece it
         was read from."""
         ndim = pieces[0].dim()
@@ -380,15 +386,40 @@ class Sharding:
         for i in (range(len(pieces)) if order is None else order):
             first.setdefault(blocks[i], i)
         counts = self.counts(ndim)
+        fixed = dict(enumerate(lead))
+        fixed.update(at or {})
 
         def assemble(prefix):
             d = len(prefix)
             if d == ndim:
                 return pieces[first[prefix]].to(dev)
-            parts = [assemble(prefix + (b,)) for b in range(counts[d])]
+            bs = [fixed[d]] if d in fixed else range(counts[d])
+            parts = [assemble(prefix + (b,)) for b in bs]
             return parts[0] if len(parts) == 1 else torch.cat(parts, d)
 
-        return assemble(tuple(lead))
+        return assemble(())
+
+    def model_dim(self, ndim: int) -> Optional[int]:
+        """The dimension split over "model" (the rules give it an entry of
+        its own), or None where the tensor is replicated over it."""
+        for d, ax in enumerate(self._axes(ndim)):
+            if "model" in ax:
+                return d if self.grid.axis_sizes["model"] > 1 else None
+        return None
+
+
+def cache_shardings(cfg: ModelConfig, grid: DeviceGrid, shapes,
+                    profile=PROFILES["baseline"]) -> Dict[str, Sharding]:
+    """{cache entry: ``Sharding``} of a cache of ``shapes`` ({entry: shape}
+    of models/model.py:init_cache's tensors): ``cache_specs_tree`` fitted
+    by ``fit_spec`` as the reference's dry run fits it -- an axis a
+    dimension does not divide by is dropped, so a max_len that does not
+    divide by "model" keeps the whole length on each model device.
+    ``profile``: a ``Profile`` or a ``ShardingCtx`` (its
+    ``kv_shard_dim``)."""
+    specs = cache_specs_tree(cfg, grid, profile)
+    return {k: Sharding(grid, fit_spec(specs[k], tuple(shape), grid))
+            for k, shape in shapes.items()}
 
 
 def device_bytes(shardings: Dict[str, Any], leaves: Dict[str, Any]

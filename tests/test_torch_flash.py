@@ -207,3 +207,79 @@ def test_bf16_matched_version_is_the_pallas_kernels_rounding(S, block_k):
     diff = np.abs(got - want.numpy())
     assert (diff <= atol + rtol * np.abs(want.numpy())).all(), diff.max()
     assert diff.max() < 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q0,Sq", [(0, 16), (16, 16), (32, 32), (48, 16),
+                                   (5, 27)])
+def test_flash_plain_query_offset_is_the_pallas_kernels_rows(q0, Sq, causal):
+    """A chunk of Sq queries at q_offset q0 against all 64 keys (one
+    device's share of a context-parallel prefill) gives rows [q0, q0 +
+    Sq) of the Pallas kernel over the whole sequence (interpret mode), in
+    f32 within 1e-5, through the wrapper as through the plain version."""
+    S = 64
+    arrays = _qkv(2, 8, 2, S, 16, seed=q0 + Sq)
+    q, k, v = _port(arrays, "f32")
+    chunk = q[:, :, q0:q0 + Sq]
+    got = flash_attention_plain(chunk, k, v, causal, q_offset=q0)
+    want = _f32(j_flash(*_jax(arrays, "f32"), causal=causal, block_q=16,
+                        block_k=16, interpret=True))[:, :, q0:q0 + Sq]
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL["f32"],
+                               atol=TOL["f32"])
+    torch.testing.assert_close(flash_attention(chunk, k, v, causal,
+                                               q_offset=q0), got,
+                               rtol=0, atol=0)
+    # the log-sum-exp rows too, against the whole sequence's
+    _, lse = flash_attention_plain(chunk, k, v, causal, True, q0)
+    _, lse_all = flash_attention_plain(q, k, v, causal, True)
+    np.testing.assert_allclose(lse.numpy(), lse_all[:, :, q0:q0 + Sq].numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_flash_query_offset_bounds_and_the_gradient_refuse():
+    """q_offset + Sq must not pass Sk; FlashAttention (with a gradient)
+    takes whole sequences only: its backward has no offset."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    q, k, v = _port(_qkv(1, 4, 2, 32, 8), "f32")
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q[:, :, :16], k, v, q_offset=17)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, v, q_offset=1)
+    qg = q[:, :, :16].clone().requires_grad_()
+    with pytest.raises(ValueError, match="whole sequence"):
+        FlashAttention.apply(qg, k, v, True, 16)
+    with pytest.raises(ValueError, match="whole sequence"):
+        FlashAttention.apply(qg, k, v, True, 0)
+
+
+@pytest.mark.parametrize("dt,hd", [("bf16", 128), ("f32", 128), ("bf16", 32)])
+def test_dry_run_counts_the_offset_chunks_tiles(dt, hd):
+    """A context-parallel chunk's visited tiles, as the kernels step them
+    (analysis/op_count.py through the shape-only op): the diagonal moves
+    by the offset, so a chunk at q_offset o of Sk keys visits the key
+    tiles up to its last row's position; the chunks of a sequence visit
+    what its whole call visits where the chunks are whole tiles."""
+    from repro_torch.analysis import op_count
+    from repro_torch.kernels import flash_attention as fa
+    B, H, K, S, n = 1, 8, 2, 512, 4
+    dtype = T_DT[dt]
+    b = fa.SM90_BLOCK_Q if fa.route(dtype, hd) == "sm90" else fa.BLOCK_Q
+
+    def meta(s):
+        return torch.empty(B, H if s != S else K, s, hd, device="meta",
+                           dtype=dtype)
+
+    Sq = S // n
+    total = 0
+    for g in range(n):
+        _, c = op_count.count(lambda: fa.flash_attention(
+            meta(Sq), meta(S), meta(S), q_offset=g * Sq))
+        tiles = sum(min(-(-S // b), ((u + 1) * b + g * Sq - 1) // b + 1)
+                    for u in range(-(-Sq // b)))
+        assert c["flops"] == 4 * hd * B * H * tiles * b * b \
+            == fa.kernel_flops(B, H, Sq, hd, dtype, True, S, g * Sq)
+        total += c["flops"]
+    assert total == fa.kernel_flops(B, H, S, hd, dtype, True)
+    _, c = op_count.count(lambda: fa.flash_attention(
+        meta(Sq), meta(S), meta(S), causal=False, q_offset=Sq))
+    assert c["flops"] == 4 * hd * B * H * (Sq // b) * (S // b) * b * b

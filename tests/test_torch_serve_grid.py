@@ -5,16 +5,25 @@ against the reference's own grid code, in f32 at smoke size:
   * the reference's ``prefill`` and a ``decode_step`` jitted with
     ``in_shardings`` from ``param_specs`` fitted by ``fit_tree``, as its
     dry run lowers them (repro/launch/dryrun.py:78-113; the decode with
-    ``seq_sharded=False``): qwen3-14b and olmoe-1b-7b on (4, 2) and
-    (8, 1), whisper-large-v3 (through ``encode(ctx)``) and qwen2-vl-72b
-    (M-RoPE, a prompt with an image) on (8, 1). Against them the port's
-    ``prefill`` and ``decode_step`` on a ``ShardedLM`` of the same grid,
-    loaded per shard from the same numpy leaves
+    ``seq_sharded=False``, the cache laid out by ``cache_specs_tree``):
+    qwen3-14b and olmoe-1b-7b on (4, 2), (8, 1) and (2, 4), qwen3-14b on
+    (1, 8), whisper-large-v3 (through ``encode(ctx)``) on (8, 1) and
+    qwen2-vl-72b (M-RoPE, a prompt with an image) on (8, 1) and (1, 8);
+    and (``PROFILE_CASES``) qwen3-14b under the ``kv_heads`` profile on
+    (2, 4) and (4, 2), and on (1, 8) with a max_len that does not divide
+    by "model", so the fit keeps the cache's length whole. Against them
+    the port's ``prefill`` and ``decode_step`` on a ``ShardedLM`` of the
+    same grid, loaded per shard from the same numpy leaves
     (``lm_params_from_numpy(..., shardings=param_shardings(...))``):
-    logits within 1e-5 relative L2 (whisper's encoder states too). The
-    sharded run against the port's whole model under the same ``ctx``:
-    1e-6, bit for bit where dp is 1; ``generate(ctx=)``'s greedy tokens
-    equal the whole model's;
+    logits within 1e-5 relative L2 (whisper's encoder states too). Where
+    "model" is larger than 1 the port serves in the reference's layout
+    (models/model.py: the "model" path; context-parallel prefill,
+    tensor-parallel decode, the cache in its fitted pieces), elsewhere a
+    dp row a device (the "rows" path). The sharded run against the
+    port's whole model under the same ``ctx``: 1e-6 (the model path's
+    partial sums are reduced across devices), bit for bit on a (1, 1)
+    grid's row path; ``generate(ctx=)``'s greedy tokens equal the whole
+    model's;
   * ``shard_over_data`` and ``jax.jit(classify_windows,
     *detection_step_specs(mesh))`` on a (4, 2) mesh, 64 windows, path
     ``ref``, against the port's over 8 logical devices: scores within
@@ -39,8 +48,18 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_DEV = 8
 CASES = (("qwen3-14b", (4, 2)), ("qwen3-14b", (8, 1)),
          ("olmoe-1b-7b", (4, 2)), ("olmoe-1b-7b", (8, 1)),
-         ("whisper-large-v3", (8, 1)), ("qwen2-vl-72b", (8, 1)))
-B, S, NEW = 8, 16, 4
+         ("whisper-large-v3", (8, 1)), ("qwen2-vl-72b", (8, 1)),
+         ("qwen3-14b", (2, 4)), ("qwen3-14b", (1, 8)),
+         ("olmoe-1b-7b", (2, 4)), ("qwen2-vl-72b", (1, 8)))
+# S + NEW (the cache's max_len) divides by every "model" axis above, so
+# each splits the cache by length
+B, S, NEW = 8, 16, 8
+# (arch, grid, profile, max_len): the cache by heads (qwen3's 2 KV heads
+# over 4 model devices do not divide, so the fit keeps them whole; over
+# 2 they split), and a max_len that does not divide by 8
+PROFILE_CASES = (("qwen3-14b", (2, 4), "kv_heads", S + NEW),
+                 ("qwen3-14b", (4, 2), "kv_heads", S + NEW),
+                 ("qwen3-14b", (1, 8), "baseline", S + 4))
 TOL = 1e-5                     # the port against the reference
 SELF_TOL = 1e-6                # sharded against whole, where dp > 1
 WIN_B, WIN_GRID = 64, (4, 2)
@@ -121,8 +140,11 @@ def _reference(out: str) -> None:
         return jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
                             is_leaf=lambda x: isinstance(x, P))
 
+    from repro.sharding.rules import PROFILES
     params_of = {}
-    for arch, shape in CASES:
+    for arch, shape, profile, max_len in (
+            [(a, sh, "baseline", S + NEW) for a, sh in CASES]
+            + list(PROFILE_CASES)):
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   dtype=jnp.float32)
         if arch not in params_of:
@@ -132,7 +154,7 @@ def _reference(out: str) -> None:
         params = params_of[arch]
         mesh = jax.make_mesh(shape, ("data", "model"),
                              axis_types=(auto,) * 2)
-        key = f"{arch}/{shape[0]}x{shape[1]}"
+        key = _key(arch, shape, profile, max_len)
         data = _batch(cfg.vocab, arch, cfg.d_model, cfg.encoder_ctx)
         batch = {k: jnp.asarray(data[k]) for k in
                  ("tokens", "positions", "enc_input") if k in data}
@@ -140,13 +162,13 @@ def _reference(out: str) -> None:
         b_sh = named(mesh, fit_tree(
             {k: v for k, v in batch_specs(cfg, mesh, "prefill").items()
              if k in batch}, batch, mesh))
-        ctx = make_ctx(mesh)
-        fn = jax.jit(functools.partial(prefill, cfg=cfg, max_len=S + NEW,
+        ctx = make_ctx(mesh, profile=PROFILES[profile])
+        fn = jax.jit(functools.partial(prefill, cfg=cfg, max_len=max_len,
                                        ctx=ctx), in_shardings=(p_sh, b_sh))
         logits, cache = fn(params, batch)
         res[f"{key}/prefill"] = np.asarray(logits)
-        c_sh = named(mesh, fit_tree(cache_specs_tree(cfg, mesh), cache,
-                                    mesh))
+        c_sh = named(mesh, fit_tree(cache_specs_tree(
+            cfg, mesh, PROFILES[profile]), cache, mesh))
         cache = jax.device_put(cache, c_sh)
         dctx = dataclasses.replace(ctx, seq_sharded=False)
         tok_sh = NamedSharding(mesh, P(dp_axes(mesh), None))
@@ -216,6 +238,13 @@ def ref(tmp_path_factory):
         yield {k: z[k] for k in z.files}
 
 
+def _key(arch, shape, profile="baseline", max_len=S + NEW) -> str:
+    key = f"{arch}/{shape[0]}x{shape[1]}"
+    if (profile, max_len) != ("baseline", S + NEW):
+        key += f"/{profile}/{max_len}"
+    return key
+
+
 def _rel(got, want) -> float:
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
@@ -247,24 +276,28 @@ def _grid(shape):
 
 @pytest.fixture(scope="module")
 def served(ref):
-    """Each case's port runs: {key: (sharded prefill logits, its cache's
-    rows, sharded decode logits, whole prefill and decode logits, the
-    encoder states sharded and whole, generate's tokens sharded and
-    whole)}, from the reference's leaves."""
+    """Each case's port runs: {key: (sharded prefill logits, its cache
+    (one a dp row, or pieces), sharded decode logits, whole prefill and
+    decode logits, the encoder states sharded and whole, generate's
+    tokens sharded and whole, the paths taken)}, from the reference's
+    leaves."""
     import torch
     from repro_torch.convert import lm_params_from_numpy
-    from repro_torch.models.model import decode_step, encode, prefill
+    from repro_torch.models import model as m
     from repro_torch.serve.engine import generate
-    from repro_torch.sharding.rules import make_ctx, param_shardings
+    from repro_torch.sharding.rules import (PROFILES, make_ctx,
+                                            param_shardings)
     out = {}
-    for arch, shape in CASES:
+    for arch, shape, profile, max_len in (
+            [(a, sh, "baseline", S + NEW) for a, sh in CASES]
+            + list(PROFILE_CASES)):
         cfg = _cfg(arch)
         leaves = _unflat(ref, f"{arch}/leaves")
         grid = _grid(shape)
         whole = lm_params_from_numpy(leaves, cfg, "cpu")
         sharded = lm_params_from_numpy(leaves, cfg, "cpu",
                                        param_shardings(grid, whole, cfg))
-        ctx = make_ctx(grid)
+        ctx = make_ctx(grid, profile=PROFILES[profile])
         dctx = dataclasses.replace(ctx, seq_sharded=False)
         data = _batch(cfg.vocab, arch, cfg.d_model, cfg.encoder_ctx)
         batch = {k: torch.from_numpy(data[k]) for k in
@@ -272,24 +305,48 @@ def served(ref):
         token = torch.from_numpy(data["token"]).long()
         r = {}
         for name, p in (("sharded", sharded), ("whole", whole)):
-            logits, cache = prefill(p, batch, cfg, S + NEW, ctx)
+            m.reset_paths()
+            logits, cache = m.prefill(p, batch, cfg, max_len, ctx)
             enc = None
             if cfg.encoder_layers:
-                enc = encode(p, data["enc_input"], cfg, ctx)
-            step, _ = decode_step(p, token, cache, cfg, enc=enc, ctx=dctx)
+                enc = m.encode(p, data["enc_input"], cfg, ctx)
+            step, _ = m.decode_step(p, token, cache, cfg, enc=enc,
+                                    ctx=dctx)
+            paths = dict(m.path_counts)
             gen = None
-            if not cfg.mrope:
+            if not cfg.mrope and max_len == S + NEW:
                 gen = generate(p, cfg, data["tokens"], NEW, ctx=ctx,
                                enc_input=data.get("enc_input"))
             r[name] = {"prefill": logits, "cache": cache, "decode": step,
-                       "enc": enc, "generate": gen}
-        out[f"{arch}/{shape[0]}x{shape[1]}"] = r
+                       "enc": enc, "generate": gen, "paths": paths}
+        r["profile"], r["max_len"] = profile, max_len
+        out[_key(arch, shape, profile, max_len)] = r
     return out
+
+
+def _all_cases():
+    return [(a, sh, "baseline", S + NEW) for a, sh in CASES] \
+        + list(PROFILE_CASES)
 
 
 @pytest.mark.parametrize("arch,shape", CASES)
 def test_sharded_serving_matches_the_reference(arch, shape, ref, served):
-    key = f"{arch}/{shape[0]}x{shape[1]}"
+    _matches_the_reference(_key(arch, shape), ref, served)
+
+
+@pytest.mark.parametrize("arch,shape,profile,max_len", PROFILE_CASES)
+def test_cache_layouts_serve_as_the_reference(arch, shape, profile, max_len,
+                                              ref, served):
+    """The kv_heads profile and a max_len the "model" axis does not
+    divide: the reference's numbers, the whole model's within 1e-6, and
+    the cache in the reference's fitted blocks."""
+    key = _key(arch, shape, profile, max_len)
+    _matches_the_reference(key, ref, served)
+    _matches_the_whole_model(key, shape, served, arch)
+
+
+def _matches_the_reference(key, ref, served):
+    arch = key.split("/")[0]
     got = served[key]["sharded"]
     for what in ("prefill", "decode"):
         assert tuple(got[what].shape) == (B, 1, _cfg(arch).vocab)
@@ -301,10 +358,22 @@ def test_sharded_serving_matches_the_reference(arch, shape, ref, served):
 
 @pytest.mark.parametrize("arch,shape", CASES)
 def test_sharded_serving_matches_the_whole_model(arch, shape, served):
+    _matches_the_whole_model(_key(arch, shape), shape, served, arch)
+
+
+def _matches_the_whole_model(key, shape, served, arch):
+    """The sharded run against the whole model's under the same ctx, each
+    on its path; the cache: one block a dp row on the row path, on the
+    model path the pieces of the reference's fitted layout."""
     import torch
-    r = served[f"{arch}/{shape[0]}x{shape[1]}"]
+    from repro_torch.models.model import MODEL_AXIS_FAMILIES
+    r = served[key]
     got, want = r["sharded"], r["whole"]
-    exact = shape[0] == 1
+    path = ("model" if shape[1] > 1
+            and _cfg(arch).family in MODEL_AXIS_FAMILIES else "rows")
+    assert got["paths"] == {"whole": 0, "rows": 0, "model": 0, path: 2}
+    assert want["paths"] == {"whole": 2, "rows": 0, "model": 0}
+    exact = shape[0] == 1 and path == "rows"
     for what in ("prefill", "decode", "enc"):
         if got[what] is None:
             continue
@@ -314,53 +383,190 @@ def test_sharded_serving_matches_the_whole_model(arch, shape, served):
             assert _rel(got[what].numpy(), want[what].numpy()) <= SELF_TOL
     if got["generate"] is not None:
         assert torch.equal(got["generate"], want["generate"])
-    # the cache is one block a dp row, each of the row's B / dp rows
-    rows = got["cache"]["rows"]
-    assert len(rows) == shape[0] and got["cache"]["idx"] == S
+    cache = got["cache"]
+    assert cache["idx"] == S
+    if path == "rows":
+        # the cache is one block a dp row, each of the row's B / dp rows
+        rows = cache["rows"]
+        assert len(rows) == shape[0]
+        pieces = {t: torch.cat([c[t] for c in rows], 1) for t in ("k", "v")}
+    else:
+        _cache_pieces_are_the_fitted_blocks(cache, shape, arch,
+                                            r["profile"], r["max_len"])
+        pieces = {t: cache["shardings"][t].gather(cache["pieces"][t])
+                  for t in ("k", "v")}
     for t in ("k", "v"):
         whole = want["cache"][t]
-        assert torch.equal(torch.cat([c[t] for c in rows], 1), whole) \
-            if exact else _rel(torch.cat([c[t] for c in rows], 1).numpy(),
-                               whole.numpy()) <= SELF_TOL
+        assert torch.equal(pieces[t], whole) if exact \
+            else _rel(pieces[t].numpy(), whole.numpy()) <= SELF_TOL
+
+
+def _cache_pieces_are_the_fitted_blocks(cache, shape, arch, profile,
+                                        max_len, batch=B):
+    """Each grid device's cache piece is its block of the profile's
+    cache_specs_tree fitted by fit_spec to the whole cache's shape (the
+    reference's fit_tree), on its device; -> the fitted specs."""
+    from repro_torch.sharding.rules import PROFILES, cache_specs_tree, \
+        fit_spec
+    specs = {}
+    for t in ("k", "v"):
+        sh, pieces = cache["shardings"][t], cache["pieces"][t]
+        cfg = _cfg(arch)
+        whole = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        specs[t] = fit_spec(cache_specs_tree(cfg, sh.grid,
+                                             PROFILES[profile])[t],
+                            whole, sh.grid)
+        assert sh.spec == specs[t]
+        assert len(pieces) == shape[0] * shape[1]
+        for p, dev, blk in zip(pieces, sh.grid.flat, sh.slices(whole)):
+            assert tuple(p.shape) == tuple(s.stop - s.start for s in blk)
+            assert p.device == dev
+    return specs
 
 
 def test_dp_one_grid_serves_bit_for_bit_and_its_moe_groups_stay_split(ref):
     """llama4-scout (a shared expert on top) on (1, 4): one dp row, its 4
-    experts over 4 model indices; the prefill and a decode step equal the
-    whole model's under the same ctx bit for bit, and each layer's expert
-    group g is assembled from its own pieces alone (never a whole
-    stack)."""
+    experts over 4 model indices, served over "model"; the prefill and a
+    decode step within 1e-6 of the whole model's under the same ctx (the
+    tensor-parallel partial sums are reduced across the devices), the
+    MoE's expert paths taken, and each layer's expert group g assembled
+    from its own pieces alone (never a whole stack). On a (1, 1) grid, the
+    row path: bit for bit."""
     import torch
     from repro_torch.models import moe
-    from repro_torch.models.model import decode_step, init_params, prefill
-    from repro_torch.models.sharded import EXPERT_LEAVES, row_model, \
-        row_plans
+    from repro_torch.models import model as m
+    from repro_torch.models.sharded import EXPERT_LEAVES, ModelRow, \
+        row_model, row_plans
     from repro_torch.sharding.rules import make_ctx, param_shardings
     cfg = _cfg("llama4-scout-17b-a16e")
-    whole = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    whole = m.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 16)))
+    for shape, path in (((1, 4), "model"), ((1, 1), "rows")):
+        grid = _grid(shape)
+        sharded = _cut(whole, param_shardings(grid, whole, cfg))
+        ctx = make_ctx(grid)
+        assert m.serve_path(sharded, cfg, ctx) == path
+        moe.reset_paths()
+        got = m.prefill(sharded, {"tokens": x}, cfg, 20, ctx)
+        assert moe.path_counts["a2a"] == cfg.n_layers
+        want = m.prefill(whole, {"tokens": x}, cfg, 20, ctx)
+        moe.reset_paths()
+        step = m.decode_step(sharded, x[:, -1:], got[1], cfg, ctx=ctx)[0]
+        assert moe.path_counts["replicated" if shape[1] > 1 else "a2a"] \
+            == cfg.n_layers
+        want_step = m.decode_step(whole, x[:, -1:], want[1], cfg,
+                                  ctx=ctx)[0]
+        if path == "rows":
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(step, want_step)
+        else:
+            assert _rel(got[0].numpy(), want[0].numpy()) <= SELF_TOL
+            assert _rel(step.numpy(), want_step.numpy()) <= SELF_TOL
     grid = _grid((1, 4))
     sharded = _cut(whole, param_shardings(grid, whole, cfg))
     ctx = make_ctx(grid)
-    x = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab, (2, 16)))
-    got = prefill(sharded, {"tokens": x}, cfg, 20, ctx)
-    want = prefill(whole, {"tokens": x}, cfg, 20, ctx)
-    assert torch.equal(got[0], want[0])
-    moe.reset_paths()
-    step = decode_step(sharded, x[:, -1:], got[1], cfg, ctx=ctx)[0]
-    assert moe.path_counts["replicated"] == cfg.n_layers
-    assert torch.equal(step,
-                       decode_step(whole, x[:, -1:], want[1], cfg,
-                                   ctx=ctx)[0])
     (plan,) = row_plans(ctx)
+    # the model path's expert group g: device g's own pieces
+    row = ModelRow(sharded, plan)
+    E_l = cfg.n_experts // 4
+    for g, w in enumerate(row.local("layers.0.moe.w_gate")):
+        assert w is sharded.pieces["layers.0.moe.w_gate"][g]
+        assert torch.equal(w, whole.layers[0].moe.w_gate[
+            g * E_l:(g + 1) * E_l])
     lp = row_model(cfg, sharded.pieces, sharded.shardings, plan,
                    experts=True).layers[0].gather()
     assert not any(hasattr(lp.moe, p.split(".")[1]) for p in EXPERT_LEAVES)
-    E_l = cfg.n_experts // 4
     for g in range(4):
         w_gate = lp.moe.ep_groups[(g, torch.device("cpu"))][1]
         assert torch.equal(w_gate, whole.layers[0].moe.w_gate[
             g * E_l:(g + 1) * E_l])
+
+
+def test_decode_over_model_gathers_no_layer_and_reads_its_own_pieces(
+        monkeypatch):
+    """qwen3-14b on (1, 8): a decode step calls no LayerShards.gather and
+    reads every parameter through its device's own piece (the piece
+    itself: no copy), writes the new key into the one piece that holds
+    its position, and each device's cache piece is its fitted
+    cache_specs_tree block; the prefill gathers each layer once for the
+    row's one device (8 logical devices of the CPU share a copy). With a
+    max_len that does not divide by 8 the cache stays whole on each
+    device, as the reference's fit keeps it."""
+    import torch
+    from repro_torch.models import model as m
+    from repro_torch.models import sharded as shd
+    from repro_torch.sharding.rules import make_ctx, param_shardings
+    cfg = _cfg("qwen3-14b")
+    whole = m.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    grid = _grid((1, 8))
+    sharded = _cut(whole, param_shardings(grid, whole, cfg))
+    ctx = make_ctx(grid)
+    calls, reads = [0], []
+    gather, local = shd.LayerShards.gather, shd.ModelRow.local
+
+    def counting(self, *a, **kw):
+        calls[0] += 1
+        return gather(self, *a, **kw)
+
+    def reading(self, name):
+        out = local(self, name)
+        reads.append(all(t is p for t, p in zip(out,
+                                                 sharded.pieces[name])))
+        return out
+    monkeypatch.setattr(shd.LayerShards, "gather", counting)
+    monkeypatch.setattr(shd.ModelRow, "local", reading)
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 16)))
+    for max_len, split in ((24, True), (21, False)):
+        logits, cache = m.prefill(sharded, {"tokens": x}, cfg, max_len, ctx)
+        assert calls[0] == cfg.n_layers
+        calls[0], reads[:] = 0, []
+        before = [p.clone() for p in cache["pieces"]["k"]]
+        step, cache = m.decode_step(sharded, x[:, -1:], cache, cfg, ctx=ctx)
+        assert calls[0] == 0 and reads and all(reads)
+        specs = _cache_pieces_are_the_fitted_blocks(cache, (1, 8),
+                                                    "qwen3-14b", "baseline",
+                                                    max_len, 2)
+        assert specs["k"][2] == ("model" if split else None)
+        owner = 16 // (max_len // 8) if split else None
+        for d, (a, b) in enumerate(zip(before, cache["pieces"]["k"])):
+            assert torch.equal(a, b) != (not split or d == owner)
+        want = m.decode_step(whole, x[:, -1:], m.prefill(
+            whole, {"tokens": x}, cfg, max_len)[1], cfg)[0]
+        assert _rel(step.numpy(), want.numpy()) <= SELF_TOL
+        calls[0] = 0
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "internlm2-20b",
+                                  "command-r-35b"])
+def test_every_dense_config_serves_over_model_as_the_whole_model(arch):
+    """The dense family's other configs (command-r ties its embeddings:
+    the logits over the embedding's vocab rows) on (2, 4) over "model":
+    the prefill, two decode steps and generate's tokens as the whole
+    model's (1e-6 in f32), the path counter "model"."""
+    import torch
+    from repro_torch.models import model as m
+    from repro_torch.serve.engine import generate
+    from repro_torch.sharding.rules import make_ctx, param_shardings
+    cfg = _cfg(arch)
+    whole = m.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    grid = _grid((2, 4))
+    sharded = _cut(whole, param_shardings(grid, whole, cfg))
+    ctx = make_ctx(grid)
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (4, 16)))
+    m.reset_paths()
+    got = generate(sharded, cfg, x, 4, ctx=ctx)
+    assert m.path_counts == {"whole": 0, "rows": 0, "model": 4}
+    assert torch.equal(got, generate(whole, cfg, x, 4, ctx=ctx))
+    (a, ca), (b, cb) = (m.prefill(p, {"tokens": x}, cfg, 24, ctx)
+                        for p in (sharded, whole))
+    for t in range(2):
+        assert _rel(a.numpy(), b.numpy()) <= SELF_TOL, t
+        a, ca = m.decode_step(sharded, x[:, t:t + 1], ca, cfg, ctx=ctx)
+        b, cb = m.decode_step(whole, x[:, t:t + 1], cb, cfg, ctx=ctx)
+    assert _rel(a.numpy(), b.numpy()) <= SELF_TOL
 
 
 def test_windows_over_a_grid_match_the_reference(ref):

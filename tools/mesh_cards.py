@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The LM mesh paths across cards against the same on logical devices.
 
-    python3 tools/mesh_cards.py [--out FILE]
+    python3 tools/mesh_cards.py [--out FILE] [--runs "NAME;..."]
+                                [--what serve,prefill_32k,...]
+                                [--no-dry | --dry-only]
 
 Needs 4 CUDA cards. Each path runs twice in one process at smoke
 size in f32 (seeded weights, chip_smoke.smoke_leaves): on a grid of
@@ -30,7 +32,10 @@ of one model; the copies between cards change no value):
     the allocator's 512-byte rounding), and dropping the whole state
     frees it from card 0;
   * serving from weights held as shards: olmoe-1b-7b on (2, 2) and
-    qwen2-vl-72b on (4, 1), loaded per shard
+    qwen3-14b on (1, 4) over "model" (models/model.py's model path:
+    context-parallel prefill, tensor-parallel decode on each card's own
+    pieces, the cache's length over "model"; the path counter must say
+    so), qwen2-vl-72b on (4, 1) (the row path), loaded per shard
     (``lm_params_from_numpy(..., shardings=)``): prefill and decode
     logits and ``generate(ctx=)``'s tokens; ``init_params(...,
     shardings=)`` per shard: each card's pieces and allocated bytes
@@ -41,20 +46,26 @@ of one model; the copies between cards change no value):
 Then the models no card holds, at full width
 and depth in bf16 from seeded weights made per shard (``FULL``), one
 JSON line each ({"run", ...} or {"run", "error"}): qwen2-vl-72b (80
-layers) on (4, 1), llama4-scout-17b-a16e (48 layers) on (1, 4) and on
-(4, 1), serving B 4 x S 512 + 32 tokens and prefills at 32,768 (B 4,
-one row a card); qwen3-14b's 40-layer ZeRO-3 step on (4, 1) from a
-train state made per shard, at B 4 x S 512 and at train_4k. For each:
-every card's ``memory_allocated`` after init against its
-``device_bytes``; card 0's init peak against its pieces plus its largest
-leaf's draw (f32, then the bf16 cast); the pieces against the whole
-init's, leaf by leaf, bit for bit; prefill S against prefill S - 1 plus
-a ``decode_step`` (5e-2 relative L2; a MoE's route flips at the last
+layers) on (1, 4) over "model" (serving B 4 x S 512 + 32 tokens, and a
+prefill at 32,768 at B 1) and on (4, 1) (a dp row a card: B 4 x S 512 +
+32, and prefills at 32,768, B 4), llama4-scout-17b-a16e (48 layers) on
+(1, 4) over "model" and on (4, 1), serving and prefills at 32,768;
+qwen3-14b's 40-layer ZeRO-3 step on (4, 1) from a train state made per
+shard, at B 4 x S 512 and at train_4k. ``--runs`` picks runs by name,
+``--what`` their parts. For each: every card's ``memory_allocated``
+after init against its ``device_bytes``; card 0's init peak against its
+pieces plus its largest leaf's draw (f32, then the bf16 cast); the
+pieces against the whole init's, leaf by leaf, bit for bit; over
+"model", the cache made alone (``init_cache(ctx=)``): each card's
+allocated bytes against the ``device_bytes`` of its fitted pieces; the
+path the serving calls took; prefill S against prefill S - 1 plus a
+``decode_step`` (5e-2 relative L2; a MoE's route flips at the last
 token must be near-ties, pinned as chip_smoke.py's phase 5e does); each
 card's peak beside the dry run's (launch/dryrun.py ``run_cell`` on a
 grid of 4, computed in a process of its own on the host while the cards
-run); ms on the host clock. ``--out FILE`` writes everything there
-too, as JSON.
+run; ``--no-dry`` leaves it out, ``--dry-only`` computes it alone, with
+no card, for the runs named); ms on the host clock. ``--out FILE``
+writes everything there too, as JSON.
 
 Prints the card, one JSON line per check ({"check", "max_rel", "ok"})
 and exits 1 if any fails.
@@ -339,15 +350,18 @@ def shard_serve(torch, np, smoke_leaves, arch, model):
             np.arange(16)[None, :, None], (4, 16, 3)).copy()
 
     def run():
+        from repro_torch.models import model as lm
         grid = make_host_mesh(model, "cuda")
         ctx = make_ctx(grid)
-        from repro_torch.models.model import param_shapes
         params = lm_params_from_numpy(leaves, cfg, "cuda", param_shardings(
-            grid, param_shapes(cfg), cfg))
+            grid, lm.param_shapes(cfg), cfg))
         for n, pieces in params.pieces.items():
             assert [p.device for p in pieces] == list(grid.flat), n
         moe.reset_paths()
+        lm.reset_paths()
         first, cache = prefill(params, batch, cfg, 24, ctx)
+        want = "model" if model > 1 else "rows"
+        assert lm.path_counts[want] == 1, lm.path_counts
         if cfg.is_moe:
             assert moe.path_counts["a2a"] == cfg.n_layers * grid.shape[0], \
                 moe.path_counts
@@ -442,7 +456,9 @@ def windows_cards(torch, np):
 #: (run, arch, layers, grid (data, model), what): serving B 4 x S 512 +
 #: 32 tokens and its S vs S - 1 + decode check, or a prefill at 32,768;
 #: the ZeRO-3 steps at B 4 x S 512 and at train_4k
-FULL = (("qwen2-vl 80L (4, 1)", "qwen2-vl-72b", 0, (4, 1),
+FULL = (("qwen2-vl 80L (1, 4)", "qwen2-vl-72b", 0, (1, 4),
+         ("serve", "prefill_32k_b1")),
+        ("qwen2-vl 80L (4, 1)", "qwen2-vl-72b", 0, (4, 1),
          ("serve", "prefill_32k")),
         ("llama4-scout 48L (1, 4)", "llama4-scout-17b-a16e", 0, (1, 4),
          ("serve",)),
@@ -463,14 +479,18 @@ CONSIST_TOL = 5e-2
 # decode, which never drops); E / k (16) would hold every token at 8x
 # the buffers
 LONG_CF = 2.0
-# the dry run's cells (arch, shape, grid, seq_len or 0), run in a process
-# of its own beside the cards
-DRY = (("qwen2-vl-72b", "prefill_32k", (4, 1), 512),
-       ("qwen2-vl-72b", "prefill_32k", (4, 1), 0),
-       ("llama4-scout-17b-a16e", "prefill_32k", (1, 4), 512),
-       ("llama4-scout-17b-a16e", "prefill_32k", (4, 1), 0),
-       ("qwen3-14b", "train_4k", (4, 1), 512),
-       ("qwen3-14b", "train_4k", (4, 1), 0))
+# the dry run's cells (arch, shape, grid, seq_len or 0, batch), run in a
+# process of its own beside the cards
+DRY = (("qwen2-vl-72b", "prefill_32k", (1, 4), 512, 4),
+       ("qwen2-vl-72b", "decode_32k", (1, 4), 544, 4),
+       ("qwen2-vl-72b", "prefill_32k", (1, 4), 0, 1),
+       ("qwen2-vl-72b", "prefill_32k", (4, 1), 512, 4),
+       ("qwen2-vl-72b", "prefill_32k", (4, 1), 0, 4),
+       ("llama4-scout-17b-a16e", "prefill_32k", (1, 4), 512, 4),
+       ("llama4-scout-17b-a16e", "decode_32k", (1, 4), 544, 4),
+       ("llama4-scout-17b-a16e", "prefill_32k", (4, 1), 0, 4),
+       ("qwen3-14b", "train_4k", (4, 1), 512, 4),
+       ("qwen3-14b", "train_4k", (4, 1), 0, 4))
 _DRY = r"""
 import json, sys
 import torch
@@ -478,12 +498,12 @@ from repro_torch.launch.dryrun import run_cell
 from repro_torch.launch.mesh import grid_of
 torch.set_num_threads(4)
 out = {}
-for arch, shape, grid, seq in json.loads(sys.argv[1]):
-    key = f"{arch} {shape} {tuple(grid)} {seq}"
+for arch, shape, grid, seq, batch in json.loads(sys.argv[1]):
+    key = f"{arch} {shape} {tuple(grid)} {seq} B{batch}"
     try:
         g = grid_of((torch.device("meta"),) * 4, tuple(grid),
                     ("data", "model"))
-        r = run_cell(arch, shape, grid=g, batch=4, seq_len=seq)
+        r = run_cell(arch, shape, grid=g, batch=batch, seq_len=seq)
         out[key] = {"peak_gib": r["mem"]["peak_bytes"] / 2 ** 30,
                     "argument_gib": r["mem"]["argument_bytes"] / 2 ** 30,
                     "step_ms": r["step_time_s"] * 1e3}
@@ -494,11 +514,15 @@ for arch, shape, grid, seq in json.loads(sys.argv[1]):
 """
 
 
-def start_dry(out: pathlib.Path):
+def start_dry(out: pathlib.Path, runs):
+    """The dry run's cells of the archs in ``runs``, in a process of its
+    own that sees no card."""
+    archs = {r[1] for r in runs}
+    cells = [c for c in DRY if c[0] in archs]
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(ROOT / "src"))
     return subprocess.Popen(
-        [sys.executable, "-c", _DRY, json.dumps(DRY), str(out)], env=env,
+        [sys.executable, "-c", _DRY, json.dumps(cells), str(out)], env=env,
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
 
 
@@ -756,13 +780,45 @@ def consistency(torch, chip, model, cfg, x, ctx, positions=None):
     return rec
 
 
+def cache_bytes(torch, cfg, ctx, B: int, max_len: int) -> dict:
+    """The cache of a serving call over "model" made alone
+    (``init_cache(ctx=)``): each card's allocated bytes against the
+    ``device_bytes`` of its fitted pieces, and the specs."""
+    from repro_torch.models.model import cache_shapes, init_cache
+    from repro_torch.sharding.rules import device_bytes
+
+    gc.collect()
+    sync(torch)
+    base = [torch.cuda.memory_allocated(i) for i in range(CARDS)]
+    cache = init_cache(cfg, B, max_len, ctx=ctx)
+    sync(torch)
+    got = [torch.cuda.memory_allocated(i) - b for i, b in enumerate(base)]
+    want = device_bytes(cache["shardings"], cache_shapes(cfg, B, max_len))
+    rec = {"specs": {k: str(sh.spec) for k, sh in
+                     cache["shardings"].items()},
+           "device_bytes_gib": [gib(w) for w in want],
+           "allocated_gib": [gib(g) for g in got],
+           "allocated_eq_device_bytes": all(
+               w <= g <= w + 2 ** 20 * len(want) for g, w in
+               zip(got, want))}
+    del cache
+    return rec
+
+
 def serve_full(torch, np, chip, model, cfg, ctx):
     """B 4 x S 512 + 32 greedy tokens through prefill and decode_step
-    (prefill ms, decode ms a step), then the S vs S - 1 + decode check
-    (a MoE at capacity factor E / k, where nothing drops)."""
+    (prefill ms, decode ms a step; over "model" the cache's bytes a card
+    first, and the path the calls took), then the S vs S - 1 + decode
+    check (a MoE at capacity factor E / k, where nothing drops)."""
+    from repro_torch.models import model as lm
     from repro_torch.models.model import decode_step, prefill
 
     B, S, new = SERVE
+    path = lm.serve_path(model, cfg, ctx)
+    pre = {"path": path}
+    if path == "model":
+        pre["cache"] = cache_bytes(torch, cfg, ctx, B, S + new)
+    lm.reset_paths()
     x = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab, (B, S)), device="cuda:0")
     pos = (np.broadcast_to(np.arange(S)[None, :, None], (B, S, 3)).copy()
@@ -779,8 +835,10 @@ def serve_full(torch, np, chip, model, cfg, ctx):
         toks.append(logits[:, -1].argmax(-1, keepdim=True))
     sync(torch)
     dec_ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
-    rec = {"prefill_ms": round(pre_ms, 1), "decode_ms_step": round(dec_ms, 1),
-           "finite": bool(torch.isfinite(logits).all())}
+    rec = {**pre, "prefill_ms": round(pre_ms, 1),
+           "decode_ms_step": round(dec_ms, 1),
+           "finite": bool(torch.isfinite(logits).all()),
+           "path_counts": dict(lm.path_counts)}
     del cache, logits
     ccfg = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts
                                 / cfg.top_k) if cfg.is_moe else cfg)
@@ -788,11 +846,11 @@ def serve_full(torch, np, chip, model, cfg, ctx):
     return rec
 
 
-def long_prefill(torch, np, chip, model, cfg, ctx):
-    """Prefill at 32,768, B 4 (one row a card on (4, 1)), and the S vs S
-    - 1 + decode check; a MoE at capacity factor LONG_CF (its last
+def long_prefill(torch, np, chip, model, cfg, ctx, B: int = LONG[0]):
+    """Prefill at 32,768, B 4 (one row a card on (4, 1)) or ``B``, and the
+    S vs S - 1 + decode check; a MoE at capacity factor LONG_CF (its last
     tokens' dropped choices pinned in the decode, LastRoutes)."""
-    B, S = LONG
+    S = LONG[1]
     if cfg.is_moe:
         cfg = dataclasses.replace(cfg, capacity_factor=LONG_CF)
     x = torch.as_tensor(np.random.default_rng(3).integers(
@@ -821,16 +879,19 @@ def train_full(torch, np, chip, state, cfg, grid, shape):
             "loss_falls": losses[-1] < losses[0]}
 
 
-def full_width(torch, np, out):
-    """Each FULL run, its record printed and kept in ``out``; a run that
-    fails (out of memory too) is recorded with what it reached."""
+def full_width(torch, np, out, runs=FULL, parts=None):
+    """Each of ``runs`` (FULL's), its record printed and kept in ``out``;
+    ``parts``: only those of each run's parts. A run that fails (out of
+    memory too) is recorded with what it reached."""
     import chip_smoke as chip
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import grid_of
     from repro_torch.sharding.rules import make_ctx
 
     cards = [torch.device("cuda", i) for i in range(CARDS)]
-    for run, arch, layers, shape, what in FULL:
+    for run, arch, layers, shape, what in runs:
+        if parts is not None:
+            what = tuple(w for w in what if w in parts)
         cfg = get_config(arch)
         if layers:
             cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -845,9 +906,10 @@ def full_width(torch, np, out):
                 if w == "serve":
                     r = serve_full(torch, np, chip, made, cfg,
                                    make_ctx(grid))
-                elif w == "prefill_32k":
+                elif w.startswith("prefill_32k"):
                     r = long_prefill(torch, np, chip, made, cfg,
-                                     make_ctx(grid))
+                                     make_ctx(grid),
+                                     1 if w.endswith("_b1") else LONG[0])
                 else:
                     r = train_full(torch, np, chip, made, cfg, grid,
                                    TRAIN if w == "train" else TRAIN_4K)
@@ -864,8 +926,45 @@ def full_width(torch, np, out):
         print(json.dumps(rec), flush=True)
 
 
+def read_dry(dry, path: pathlib.Path) -> dict:
+    """The dry run's predictions, once its process ends (at most 900 s)."""
+    try:
+        dry.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        dry.kill()
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {"error": dry.stderr.read()[-2000:] if dry.stderr
+                else "no output"}
+
+
 def main() -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    args = sys.argv[1:]
+    out_json = args[args.index("--out") + 1] if "--out" in args else None
+    runs = FULL
+    if "--runs" in args:
+        names = args[args.index("--runs") + 1].split(";")
+        runs = tuple(r for r in FULL if r[0] in names)
+        if len(runs) != len(names):
+            print(f"mesh_cards: --runs takes names of {[r[0] for r in FULL]}",
+                  file=sys.stderr)
+            return 2
+    parts = (args[args.index("--what") + 1].split(",") if "--what" in args
+             else None)
+    scratch = pathlib.Path(tempfile.mkdtemp())
+    dry = None if "--no-dry" in args else start_dry(scratch / "dry.json",
+                                                    runs)
+    if "--dry-only" in args:
+        predicted = read_dry(dry, scratch / "dry.json")
+        shutil.rmtree(scratch, ignore_errors=True)
+        print(json.dumps({"dry_run": predicted}), flush=True)
+        if out_json:
+            with open(out_json, "w") as f:
+                json.dump({"dry_run": predicted}, f, indent=1)
+        return 0
     import numpy as np
     import torch
     from chip_smoke import smoke_leaves, train_batch
@@ -874,11 +973,9 @@ def main() -> int:
     if torch.cuda.device_count() < CARDS:
         print(f"mesh_cards: needs {CARDS} CUDA cards, found "
               f"{torch.cuda.device_count()}", file=sys.stderr)
+        if dry is not None:
+            dry.kill()
         return 2
-    args = sys.argv[1:]
-    out_json = args[args.index("--out") + 1] if "--out" in args else None
-    scratch = pathlib.Path(tempfile.mkdtemp())
-    dry = start_dry(scratch / "dry.json")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -897,6 +994,8 @@ def main() -> int:
         "state bytes a card (2, 2)": lambda: state_bytes(torch),
         "shard serve olmoe (2, 2)": lambda: shard_serve(
             torch, np, smoke_leaves, "olmoe-1b-7b", 2),
+        "shard serve qwen3 (1, 4)": lambda: shard_serve(
+            torch, np, smoke_leaves, "qwen3-14b", 4),
         "shard serve qwen2-vl (4, 1)": lambda: shard_serve(
             torch, np, smoke_leaves, "qwen2-vl-72b", 1),
         "shard init olmoe (2, 2)": lambda: shard_init(torch),
@@ -913,26 +1012,18 @@ def main() -> int:
             out = {"check": name, "error": f"{type(exc).__name__}: {exc}"}
         failed += not ok
         print(json.dumps(out), flush=True)
-    runs = []
+    records = []
     t0 = time.perf_counter()
-    full_width(torch, np, runs)
+    full_width(torch, np, records, runs, parts)
     print(f"full width: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    try:
-        dry.wait(timeout=900)
-    except subprocess.TimeoutExpired:
-        dry.kill()
-    try:
-        with open(scratch / "dry.json") as f:
-            predicted = json.load(f)
-    except (OSError, ValueError):
-        predicted = {"error": dry.stderr.read()[-2000:] if dry.stderr
-                     else "no output"}
+    predicted = (read_dry(dry, scratch / "dry.json") if dry is not None
+                 else {"skipped": "--no-dry"})
     shutil.rmtree(scratch, ignore_errors=True)
     print(json.dumps({"dry_run": predicted}), flush=True)
     if out_json:
         with open(out_json, "w") as f:
-            json.dump({"card": card, "runs": runs, "dry_run": predicted}, f,
-                      indent=1)
+            json.dump({"card": card, "runs": records, "dry_run": predicted},
+                      f, indent=1)
     return 1 if failed else 0
 
 
