@@ -138,6 +138,12 @@ Phases, each of which exits non-zero on failure:
      context-parallel prefill, FLASH_CHUNK): both routes in bf16 and
      f32 at every offset and hd against the plain version at the same
      offset, timed at hd 128 beside SDPA with the chunk's boolean mask;
+     and its backward at hd 128 (one device's chunk of a context-parallel
+     train step): sm90 and cuda_core in bf16, cuda_core in f32, each
+     against the plain backward at the same offset, a rerun bit for bit,
+     the keys past each chunk zero bit for bit, the four chunks (dk and
+     dv summed in f32, dq concatenated) against the whole sequence's
+     backward, timed beside SDPA's backward under the chunk's mask;
      ``--only flash`` runs the build and this phase alone;
   5. LM serving of qwen3-14b: at smoke size in f32 (weights through
      lm_params_from_numpy) the card's greedy tokens and logits against
@@ -158,10 +164,10 @@ Phases, each of which exits non-zero on failure:
      hymba-1.5b and llama4-scout-17b-a16e give the CPU port's greedy
      tokens and logits on the card; at full width in bf16 (seeded random
      weights made on the card) olmoe-1b-7b, mamba2-130m and hymba-1.5b
-     (16 of 32 layers; FAMILY_LAYERS; all 32 run in phase 5e) (hymba
+     (8 of 32 layers; FAMILY_LAYERS; all 32 run in phase 5e) (hymba
      also at B 1 x S 2,048, past its window) generate with the counters
      reset before and read after (flash_attention once per layer without
-     a window, on the sm90 route: 16, 0 and 2 a prefill, no other
+     a window, on the sm90 route: 16, 0 and 1 a prefill, no other
      kernel), the same tokens on a rerun, parameters = param_count(),
      prefill against prefill + decode_step in bf16 and in f32 with
      planted faults over the f32 limit (the SSM's: a conv window missing
@@ -172,12 +178,12 @@ Phases, each of which exits non-zero on failure:
      then the encoder-decoder and VLM families: whisper-large-v3 and
      qwen2-vl-72b join the smoke f32 line (whisper with seeded frame
      embeddings, qwen2-vl's prompt laid out around an image), and at full
-     width in bf16 whisper-large-v3 (16 + 16 of its 32 + 32 layers; B 4,
+     width in bf16 whisper-large-v3 (8 + 8 of its 32 + 32 layers; B 4,
      1,500 seeded
      frames, a 224-token prompt) generates and qwen2-vl-72b (8 of 80
      layers; B 4 x S 512 "text" and "image" prompts) decodes greedily
      through prefill with (B, S, 3) positions and decode_step: flash sm90
-     32 a whisper prefill (16 encoder layers, every key visible, and 16
+     16 a whisper prefill (8 encoder layers, every key visible, and 8
      decoder layers), 8 a qwen2-vl text prefill and 0 an image one, no
      other kernel; the same checks and numbers as above, the planted
      faults whisper's encoder states of another row and sinusoidal row
@@ -223,8 +229,13 @@ Phases, each of which exits non-zero on failure:
      in the reference's layout, context-parallel prefill and
      tensor-parallel decode -- and qwen2-vl-72b (8 of 80 layers) on
      (4, 1), a dp row a device; 16,384 windows over 4
-     devices = one device's bit for bit; the ZeRO-3 trainer and gpipe
-     (lm_mesh); ``--only lm_mesh`` runs the build and this phase alone;
+     devices = one device's bit for bit; the ZeRO-3 trainer over
+     "model" (olmoe-1b-7b 4L on (2, 2), qwen3-14b 4L on (1, 4), B 4 x S
+     512: the gradient against the plain step's at its worst leaf within
+     3e-2, the path counter, flash forward and backward launches by
+     route, ms a step beside the plain step's and the row path's on the
+     same grid) and gpipe (lm_mesh); ``--only lm_mesh`` runs the build
+     and this phase alone;
   5e. lm shapes: phi3-medium-14b, internlm2-20b and command-r-35b at full
      width with 5b's checks (f32 at 32 / 16 layers); then every arch at
      the reference's lengths (configs/registry.py SHAPES) at B 1: prefill
@@ -428,7 +439,10 @@ LM_ARCH = "qwen3-14b"
 # the limits (olmoe at 8 layers: prefill vs decode 5.16e-2, and the mesh
 # phase's greedy tokens parting at a margin of 0.078)
 LM_LAYERS = 8
-FAMILY_LAYERS = {"hymba-1.5b": 16, "whisper-large-v3": 16}
+# hymba and whisper at 8 layers (16 until the offset backward and the
+# "model" train step joined phases 3c and 5d), to keep the whole script
+# near 12 of its 20 minutes; phase 5e runs both at full depth
+FAMILY_LAYERS = {"hymba-1.5b": 8, "whisper-large-v3": 8}
 # (group, B, prompt length); each prompt gets LM_NEW new tokens
 LM_BATCHES = (("B4xS512", 4, 512), ("B1xS2048", 1, 2048))
 LM_GROUPS = tuple(g for g, _, _ in LM_BATCHES)
@@ -532,8 +546,9 @@ SHARD_TOL, SHARD_TOL_F32 = 3e-2, 1e-6
 # 16,384 windows (COPROC_WINDOWS) over this many logical devices
 MESH_WINDOWS = 4
 MESH_SMOKE_PROMPT = (4, 16)
-# the sharded trainer: olmoe at 4 of its 16 layers on (data 2, model 2)
-MESH_TRAIN = ("olmoe-1b-7b", 4, (2, 2))
+# the sharded trainer over "model" (context-parallel): olmoe at 4 of its
+# 16 layers on (data 2, model 2), qwen3-14b at 4 of its 40 on (1, 4)
+MESH_TRAIN = (("olmoe-1b-7b", 4, (2, 2)), ("qwen3-14b", 4, (1, 4)))
 # the plan printed beside it: qwen3-14b's whole train state on (4, 1)
 MESH_PLAN = ("qwen3-14b", (4, 1))
 # gpipe: 4 full-width qwen3-14b layers over 4 stages, 4 microbatches
@@ -2029,6 +2044,7 @@ def check_flash(torch, np) -> dict:
                     [g for g, _, _ in LM_BATCHES], 1)
     out["flash_attention"]["max_abs_err"] = max(worst.values())
     out["flash_attention_chunk"] = check_flash_chunks(torch, np)
+    out["flash_attention_bwd_chunk"] = check_flash_bwd_chunks(torch, np)
     return out
 
 
@@ -2042,8 +2058,9 @@ def check_flash_chunks(torch, np) -> dict:
     offset, every key visible at the second. At hd 128 in bf16 and f32,
     at the first and last offsets: device / plain / SDPA ms (SDPA with
     the chunk's boolean mask: its is_causal aligns the diagonal top-left
-    when Sq != Sk) and the bound (q, k, v read once, o written once; 4 hd
-    operations a visible pair at the type's rate). One line, on standard
+    when Sq != Sk) and the bound (q read once, k and v once over the
+    q_offset + Sq keys the chunk sees, o written once; 4 hd operations a
+    visible pair at the type's rate). One line, on standard
     error; -> the errors and times, for the kernels line."""
     import torch.nn.functional as F
 
@@ -2111,8 +2128,10 @@ def check_flash_chunks(torch, np) -> dict:
                         (lambda: F.scaled_dot_product_attention(
                             qc, kc, vc, attn_mask=mask, enable_gqa=True),
                          ""))]
+                    # k and v read over the keys the chunk sees alone
+                    seen = min(Sk, off + Sq)
                     nbytes = q.element_size() * B * hd * (2 * Sq * H
-                                                          + 2 * Sk * K)
+                                                          + 2 * seen * K)
                     bound = max(nbytes / HBM_BPS,
                                 4 * B * H * hd * pairs / rate) * 1e3
                     times[f"{dt} q{off}"] = ms + [bound]
@@ -2127,6 +2146,128 @@ def check_flash_chunks(torch, np) -> dict:
     # on standard error: the kernels line carries its numbers
     level_line(line)
     return {"max_abs_err": err, "ms": times}
+
+
+def check_flash_bwd_chunks(torch, np) -> dict:
+    """Phase 3c, the backward's query-offset form: FLASH_CHUNK's queries
+    at hd 128 at each FLASH_CHUNK_OFFSETS offset against the whole
+    sequence's keys, (B, S, H, hd) views as a context-parallel train step
+    hands them, each chunk's forward (with its LSE) at its offset and then
+    its backward: bf16 on the sm90 route (through the wrapper, which must
+    launch it) and the CUDA-core route (launched directly), f32 on the
+    CUDA-core route, each held to flash_attention_bwd_plain at the same
+    offset (BWD_TOL, relative L2 of dq, dk and dv); a rerun bit for bit;
+    every key past the chunk's last query with zero dk and dv, bit for
+    bit; and the chunks together against the whole sequence's backward on
+    the same route: dk and dv summed in f32 in chunk order, dq
+    concatenated (BWD_TOL). At the first and last offsets: device span /
+    plain / SDPA-backward (autograd of scaled_dot_product_attention under
+    the chunk's boolean mask) ms and the bound (q, o, do, dq over Sq
+    rows, k and v read over the q_offset + Sq keys the chunk sees, dk and
+    dv written over Sk rows, the LSE once; five products of 2 hd
+    operations a visible pair at the type's rate). One line, on
+    standard error; -> the errors and times, for the kernels line."""
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.flash_attention as fa
+
+    B, H, K, Sq, Sk = FLASH_CHUNK
+    hd = 128
+    rng = np.random.default_rng(11)
+    arrs = [torch.from_numpy(rng.standard_normal(
+        (B, Sk, n, hd), dtype=np.float32)).to(DEV) for n in (H, K, K, H)]
+    err = {"sm90": 0.0, "cuda_core": 0.0, "f32": 0.0}
+    whole_err = dict(err)
+    times, n = {}, 0
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    for dt, modes in ((torch.bfloat16, ("sm90", "cuda_core")),
+                      (torch.float32, ("f32",))):
+        q, k, v, do = (x.to(dt).transpose(1, 2) for x in arrs)
+        out_w, lse_w = fa.flash_attention(q, k, v, True, lse=True)
+        for m in modes:
+            launch = fa.launch_bwd_cuda_core if m == "cuda_core" \
+                else fa.flash_attention_bwd
+            whole = launch(q, k, v, out_w, do, lse_w, True)
+            dk_sum = torch.zeros(k.shape, dtype=torch.float32, device=DEV)
+            dv_sum = torch.zeros_like(dk_sum)
+            dqs = []
+            for off in FLASH_CHUNK_OFFSETS:
+                what = f"flash_attention_bwd chunk {m} q_offset {off}"
+                qc, doc = q[:, :, off:off + Sq], do[:, :, off:off + Sq]
+                out, lse = fa.flash_attention(qc, k, v, True, lse=True,
+                                              q_offset=off)
+                r0 = dict(fa.flash_attention_bwd.route_launches)
+                got = launch(qc, k, v, out, doc, lse, True, off)
+                again = launch(qc, k, v, out, doc, lse, True, off)
+                torch.cuda.synchronize()
+                if m != "cuda_core":
+                    r = "sm90" if m == "sm90" else "cuda_core"
+                    need(fa.flash_attention_bwd.route_launches
+                         == {**r0, r: r0[r] + 2},
+                         f"{what}: not one {r} launch a call")
+                need(all(torch.equal(a, b) for a, b in zip(got, again)),
+                     f"{what}: a rerun differs")
+                want = fa.flash_attention_bwd_plain(qc, k, v, doc, lse, True,
+                                                    off)
+                e = max(_rel_l2(torch, g, w) for g, w in zip(got, want))
+                need(e <= BWD_TOL["f32" if m == "f32" else "bf16"],
+                     f"{what}: rel L2 {e} against the plain backward")
+                err[m] = max(err[m], e)
+                past = [int(torch.count_nonzero(t[:, :, off + Sq:].view(
+                    bits[dt]))) for t in got[1:]]
+                need(past == [0, 0], f"{what}: {past} nonzero dk / dv bits "
+                                     f"at keys past the chunk")
+                dqs.append(got[0])
+                dk_sum += got[1].float()
+                dv_sum += got[2].float()
+                n += 1
+                if m == "cuda_core" or off not in (
+                        FLASH_CHUNK_OFFSETS[0], FLASH_CHUNK_OFFSETS[-1]):
+                    continue
+                mask = torch.ones(Sq, Sk, dtype=torch.bool,
+                                  device=DEV).tril(off)
+                ql, kl, vl = (x.detach().contiguous().requires_grad_(True)
+                              for x in (qc, k, v))
+                out_l = F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=mask, enable_gqa=True)
+                pairs = Sq * off + Sq * (Sq + 1) // 2
+                # k and v read over the keys the chunk sees, dk and dv
+                # written over all Sk (the zeros are output too)
+                seen = min(Sk, off + Sq)
+                nbytes = q.element_size() * B * hd * (
+                    4 * Sq * H + 2 * seen * K + 2 * Sk * K) + 4 * B * H * Sq
+                rate = BF16_FLOPS if m == "sm90" else F32_FLOPS
+                bound = max(nbytes / HBM_BPS,
+                            10 * hd * B * H * pairs / rate) * 1e3
+                times[f"{m} q{off}"] = [
+                    kernel_span_ms(torch, lambda: launch(
+                        qc, k, v, out, doc, lse, True, off),
+                        "flash_attention_bwd"),
+                    cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                        qc, k, v, doc, lse, True, off), reps=5),
+                    kernel_span_ms(torch, lambda: torch.autograd.grad(
+                        out_l, (ql, kl, vl), doc, retain_graph=True), ""),
+                    bound]
+            e = max(_rel_l2(torch, g, w) for g, w in zip(
+                (torch.cat(dqs, 2), dk_sum, dv_sum), whole))
+            need(e <= BWD_TOL["f32" if m == "f32" else "bf16"],
+                 f"flash_attention_bwd chunks {m}: summed against the whole "
+                 f"sequence's backward, rel L2 {e}")
+            whole_err[m] = e
+    line = (f"  flash_attention_bwd chunk B{B} H{H} K{K} Sq{Sq} of Sk{Sk} "
+            f"hd{hd} at q_offset "
+            f"{'/'.join(map(str, FLASH_CHUNK_OFFSETS))}, {n} chunks: rel "
+            f"L2 vs plain sm90 {err['sm90']:.1e}, cuda_core "
+            f"{err['cuda_core']:.1e} (bf16, tol {BWD_TOL['bf16']:g}), f32 "
+            f"{err['f32']:.1e} (tol {BWD_TOL['f32']:g}); chunks summed vs "
+            f"whole " + ", ".join(f"{k} {v:.1e}" for k, v in
+                                  whole_err.items())
+            + "; reruns equal, keys past each chunk zero bit for bit; "
+            "device-span/plain/SDPA-bwd-mask/bound ms: "
+            + "; ".join(f"{k} " + "/".join(_g(t) for t in v)
+                        for k, v in times.items()))
+    level_line(line)
+    return {"max_abs_err": err, "whole": whole_err, "ms": times}
 
 
 # ------------------------------------------------------------- phase 4
@@ -4771,17 +4912,39 @@ def lm_encdec_vlm(torch, np):
 # ------------------------------------------------------------ phase 5c
 
 @contextlib.contextmanager
+def row_path():
+    """Send jit_train_step's gradient down the "rows" path (a dp row a
+    device) for as long as the block lasts, counted as such: the row
+    path's time on the same grid, beside the "model" path's."""
+    import repro_torch.train.train_step as ts
+    from repro_torch.models import model as lm
+
+    taken = ts.train_path
+
+    def rows(params, cfg, ctx=None):
+        lm.path_counts["rows"] += 1
+        return "rows"
+
+    ts.train_path = rows
+    try:
+        yield
+    finally:
+        ts.train_path = taken
+
+
+@contextlib.contextmanager
 def plain_flash(fa):
     """Run ``FlashAttention`` through the plain forward (with its LSE)
     and the plain backward, on any device, for as long as the block
     lasts: the comparison the kernels are held to in the train step."""
     fwd, bwd = fa.flash_attention, fa.flash_attention_bwd
 
-    def forward(q, k, v, causal=True, lse=False):
-        return fa.flash_attention_plain(q, k, v, causal, lse)
+    def forward(q, k, v, causal=True, lse=False, q_offset=0):
+        return fa.flash_attention_plain(q, k, v, causal, lse, q_offset)
 
-    def backward(q, k, v, out, dout, lse, causal=True):
-        return fa.flash_attention_bwd_plain(q, k, v, dout, lse, causal)
+    def backward(q, k, v, out, dout, lse, causal=True, q_offset=0):
+        return fa.flash_attention_bwd_plain(q, k, v, dout, lse, causal,
+                                            q_offset)
 
     fa.flash_attention, fa.flash_attention_bwd = forward, backward
     try:
@@ -4975,15 +5138,19 @@ def check_flash_bwd(torch, np) -> dict:
                         + _faults(dict(faults[dt], sound=0), 1)
                         for dt in ("f32", "bf16"))
     level_line(f"flash_attention_bwd planted faults: {planted}")
-    print(f"  flash_attention_bwd vs plain, rel L2 f32 {worst['f32']:.1e} "
-          f"(tol {BWD_TOL['f32']:g}), bf16 sm90 {worst['sm90']:.1e} / "
-          f"cuda_core {worst['cuda_core']:.1e} (tol {BWD_TOL['bf16']:g}), "
-          f"sm90 vs cuda_core {worst['sm90 vs cuda_core']:.1e}; one route "
-          f"launch a call, reruns equal; LSE {lse_worst:.1e} (tol "
-          f"{LSE_TOL:g}); planted faults over both limits (least "
-          f"{min(min(f.values()) for f in faults.values()):.2f}); sm90 "
-          f"device span/plain/SDPA-bwd ms (bound): " + "; ".join(text)
-          + " (qwen3's below)", flush=True)
+    # the detail on standard error (the kernels line carries qwen3's)
+    level_line(f"  flash_attention_bwd vs plain, rel L2 f32 "
+               f"{worst['f32']:.1e} (tol {BWD_TOL['f32']:g}), bf16 sm90 "
+               f"{worst['sm90']:.1e} / cuda_core {worst['cuda_core']:.1e} "
+               f"(tol {BWD_TOL['bf16']:g}), sm90 vs cuda_core "
+               f"{worst['sm90 vs cuda_core']:.1e}; one route launch a call, "
+               f"reruns equal; LSE {lse_worst:.1e} (tol {LSE_TOL:g}); "
+               f"planted faults over both limits (least "
+               f"{min(min(f.values()) for f in faults.values()):.2f}); sm90 "
+               f"device span/plain/SDPA-bwd ms (bound): " + "; ".join(text))
+    print(f"  flash_attention_bwd vs plain: rel L2 f32 {worst['f32']:.1e}, "
+          f"bf16 sm90 {worst['sm90']:.1e}, cuda_core "
+          f"{worst['cuda_core']:.1e}; faults over both limits", flush=True)
     out = summarize(rows, ("flash_attention_bwd",), list(LM_GROUPS), 1)
     out["flash_attention_bwd"]["max_abs_err"] = max(
         worst[m] for m in ("f32", "sm90", "cuda_core"))
@@ -5643,24 +5810,29 @@ def mesh_windows(torch, np):
                       + f" ({n} launches a kernel)")
 
 
-def mesh_train(torch, np):
-    """The sharded (ZeRO-3) trainer: olmoe-1b-7b at full width with
-    MESH_TRAIN's layers on a (data, model) grid of logical devices, bf16,
-    B 4 x S 512 of lm_data. At capacity factor E / k (nothing drops) step
-    1's gradient, gathered from the shards, against make_train_step's
-    (local MoE) leaf by leaf within TRAIN_GRAD_TOL; then TRAIN_STEPS
-    steps at the config's own factor with the counters reset just before
-    and read just after (the loss falls; flash sm90 forward and backward
-    launched); ms a step beside the plain step's; per-device state bytes
-    from state_shardings, and MESH_PLAN's, computed without allocating;
-    then gpipe_apply (mesh_pipe). -> (launches, forward routes, backward
-    routes, stdout line)."""
+def mesh_train(torch, np, arch, layers, shape):
+    """The sharded (ZeRO-3) trainer over "model": ``arch`` at full width
+    with ``layers`` layers on a (data, model) grid of logical devices,
+    bf16, B 4 x S 512 of lm_data, through jit_train_step's "model" path
+    (context-parallel: each dp row's sequence cut over its devices, the
+    flash forward and backward at each chunk's offset). Step 1's gradient
+    (a MoE at capacity factor E / k: nothing drops), gathered from the
+    shards, against make_train_step's (local MoE) leaf by leaf within
+    TRAIN_GRAD_TOL; then TRAIN_STEPS steps at the config's own factor
+    with the counters reset just before and read just after (the loss
+    falls; the path counter; flash forward and backward launched on sm90
+    once a chunk: the forward twice, with the recompute); ms a step
+    beside the plain step's and the row path's on the same grid
+    (``row_path``); per-device state bytes from
+    state_shardings, and MESH_PLAN's, computed without allocating. ->
+    (launches, forward routes, backward routes, stdout line)."""
     import dataclasses as dc
 
     import repro_torch.kernels as kernels
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
     from repro_torch.models import moe
     from repro_torch.models.model import loss_fn
     from repro_torch.train.optimizer import OptConfig
@@ -5670,7 +5842,6 @@ def mesh_train(torch, np):
                                               state_device_bytes,
                                               state_shardings)
 
-    arch, layers, shape = MESH_TRAIN
     cfg = dc.replace(get_config(arch), n_layers=layers)
     B, S = TRAIN_BATCH
     torch.cuda.empty_cache()
@@ -5678,7 +5849,6 @@ def mesh_train(torch, np):
     state = init_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
                              DEV)
     params = state["params"]
-    n = sum(t.numel() for t in params.parameters())
     grid = make_host_mesh(shape[1], DEV)
     need(grid.shape == shape, f"grid {grid.shape}, want {shape}")
     sh = state_shardings(grid, state, cfg)
@@ -5688,12 +5858,17 @@ def mesh_train(torch, np):
     opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
 
     # step 1's gradient where nothing drops: sharded against plain
-    ncfg = dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    ncfg = (dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            if cfg.is_moe else cfg)
     loss_p = loss_fn(params, dev_batch, ncfg)
     loss_p.backward()
     moe.reset_paths()
+    lm.reset_paths()
     loss_s, acc = jit_train_step(ncfg, opt, grid).grads(sharded, batch)
-    need(moe.path_counts["local"] == 0 and moe.path_counts["a2a"] > 0,
+    need(lm.path_counts["model"] == 1,
+         f"the sharded gradient took the paths {lm.path_counts}")
+    need(not cfg.is_moe or (moe.path_counts["local"] == 0
+                            and moe.path_counts["a2a"] > 0),
          f"the sharded gradient's MoE took {moe.path_counts}")
     leaf = {}
     for name, p in params.named_parameters():
@@ -5713,45 +5888,50 @@ def mesh_train(torch, np):
 
     step = jit_train_step(cfg, opt, grid)
     kernels.reset_launches()
+    lm.reset_paths()
     losses = []
     for _ in range(TRAIN_STEPS):
         sharded, m = step(sharded, batch)
         losses.append(float(m["loss"]))
     torch.cuda.synchronize()
     name = "lm mesh train"
-    launches = {name: check_launches(name, kernels.launch_counts())}
+    launches = {f"{name} {arch.split('-')[0]}": check_launches(
+        name, kernels.launch_counts())}
+    paths = dict(lm.path_counts)
     fwd = dict(fa.flash_attention.route_launches)
     bwd = dict(fa.flash_attention_bwd.route_launches)
-    rows = shape[0]
-    need(fwd == {"sm90": 2 * layers * rows * TRAIN_STEPS, "cuda_core": 0}
-         and bwd == {"sm90": layers * rows * TRAIN_STEPS, "cuda_core": 0},
+    chunks = layers * shape[0] * shape[1] * TRAIN_STEPS
+    need(paths["model"] == TRAIN_STEPS and paths["rows"] == 0,
+         f"the sharded steps took the paths {paths}")
+    need(fwd == {"sm90": 2 * chunks, "cuda_core": 0}
+         and bwd == {"sm90": chunks, "cuda_core": 0},
          f"the sharded steps launched flash {fwd} forward and {bwd} "
          f"backward")
     need(all(np.isfinite(losses)) and losses[-1] < losses[0],
          f"the sharded trainer's loss did not fall: {losses}")
     ms = host_ms(torch, lambda: step(sharded, batch), 2)
+    with row_path():
+        ms_rows = host_ms(torch, lambda: step(sharded, batch), 2)
     plain = make_train_step(cfg, opt)
     ms_plain = host_ms(torch, lambda: plain(state, dev_batch), 2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per_dev = state_device_bytes(grid, cfg)
     plan_arch, plan_shape = MESH_PLAN
-    os.environ["REPRO_TEST_DEVICES"] = str(plan_shape[0] * plan_shape[1])
     plan = state_device_bytes(make_host_mesh(plan_shape[1], DEV),
                               get_config(plan_arch))
-    level_line(f"  {name} {shape}: loss {losses}; leaf rel L2 (worst "
-               f"{worst}) {sorted(leaf.values())[-5:]}; per-device state "
-               f"bytes {per_dev}; {plan_arch} {plan_shape} {plan}; peak "
-               f"{peak:.1f} GiB")
+    level_line(f"  {name} {arch} {shape}: loss {losses}; leaf rel L2 "
+               f"(worst {worst}) {sorted(leaf.values())[-5:]}; per-device "
+               f"state bytes {per_dev}; {plan_arch} {plan_shape} {plan}; "
+               f"ms a step model / rows / plain {ms:.1f} / {ms_rows:.1f} / "
+               f"{ms_plain:.1f}; peak {peak:.1f} GiB")
     del state, params, sharded, step, plain, dev_batch
     torch.cuda.empty_cache()
     line = (f"  mesh train {arch.split('-')[0]} {layers}L {shape[0]}x"
-            f"{shape[1]}: grad {leaf[worst]:.0e} (tol {TRAIN_GRAD_TOL:g}), "
-            f"loss {losses[0]:.2f}->{losses[-1]:.2f}, {ms:.0f} ms/step "
-            f"(plain {ms_plain:.0f}), sm90 {fwd['sm90']}/{bwd['sm90']}, "
-            f"{max(per_dev) / 2 ** 30:.2f} GiB/device; "
-            f"{plan_arch.split('-')[0]} {get_config(plan_arch).n_layers}L "
-            f"{plan_shape[0]}x{plan_shape[1]} "
-            f"{max(plan) / 2 ** 30:.1f} GiB/device")
+            f"{shape[1]} model x{paths['model']}: grad {leaf[worst]:.0e} "
+            f"(tol {TRAIN_GRAD_TOL:g}), loss {losses[0]:.2f}->"
+            f"{losses[-1]:.2f}, sm90 {fwd['sm90']}/{bwd['sm90']}, "
+            f"{ms:.0f} ms/step (rows {ms_rows:.0f}, plain {ms_plain:.0f}), "
+            f"{max(per_dev) / 2 ** 30:.2f} GiB/device")
     return launches, fwd, bwd, line
 
 
@@ -5854,20 +6034,23 @@ def lm_mesh(torch, np):
             print(line, flush=True)
         got, text = mesh_windows(torch, np)
         launches.update(got)
-        os.environ["REPRO_TEST_DEVICES"] = str(MESH_TRAIN[2][0]
-                                               * MESH_TRAIN[2][1])
-        got, f, b, line = mesh_train(torch, np)
-        got2, f2, b2, text2 = mesh_pipe(torch, np)
+        for arch, layers, shape in MESH_TRAIN:
+            os.environ["REPRO_TEST_DEVICES"] = str(shape[0] * shape[1])
+            got, f, b, line = mesh_train(torch, np, arch, layers, shape)
+            launches.update(got)
+            fwd = {r: n + f[r] for r, n in fwd.items()}
+            bwd = {r: n + b[r] for r, n in bwd.items()}
+            print(line, flush=True)
+        got, f, b, text2 = mesh_pipe(torch, np)
     finally:
         if saved is None:
             os.environ.pop("REPRO_TEST_DEVICES", None)
         else:
             os.environ["REPRO_TEST_DEVICES"] = saved
     launches.update(got)
-    launches.update(got2)
-    fwd = {r: n + f[r] + f2[r] for r, n in fwd.items()}
-    bwd = {r: n + b[r] + b2[r] for r, n in bwd.items()}
-    print(line + "; " + text2, flush=True)
+    fwd = {r: n + f[r] for r, n in fwd.items()}
+    bwd = {r: n + b[r] for r, n in bwd.items()}
+    print(" " + text2, flush=True)
     print("  mesh " + text, flush=True)
     return launches, fwd, bwd
 
@@ -6680,6 +6863,16 @@ def main(argv=None) -> int:
     bwd_entry["launches_by_route"] = bwd_routes
     for m, v in bwd_entry["modes"].items():
         v["source"] = BWD_SOURCES[m]
+    # its query-offset form likewise (rel L2 against the plain backward
+    # by route, and at the first and last offsets span / plain /
+    # SDPA-bwd / bound ms; the chunks summed against the whole sequence's
+    # are on the phase 3c line on standard error)
+    chunk = summary["flash_attention_bwd_chunk"]
+    bwd_entry["q_offset"] = {
+        "shape": "B%dxH%dxK%dxSq%d of Sk%d hd128" % FLASH_CHUNK,
+        "rel_l2": {k: _r(v) for k, v in chunk["max_abs_err"].items()},
+        "ms_plain_sdpa_bound": {k: [_r(x) for x in v]
+                                for k, v in chunk["ms"].items()}}
     print(json.dumps(kernels_line, separators=(",", ":")))
     print(card[0])
     print(json.dumps({"ok": True, "device": {

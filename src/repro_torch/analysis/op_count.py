@@ -63,9 +63,11 @@ def _flash_fwd_formula(q, k, v, causal, lse, q_offset=0, out_val=None):
                         q_offset=q_offset)
 
 
-def _flash_bwd_formula(q, k, v, out, dout, lse, causal, out_val=None):
+def _flash_bwd_formula(q, k, v, out, dout, lse, causal, q_offset=0,
+                       out_val=None):
     B, H, S, hd = q.shape
-    return kernel_bwd_flops(B, H, S, hd, q.dtype, causal)
+    return kernel_bwd_flops(B, H, S, hd, q.dtype, causal, Sk=k.shape[2],
+                            q_offset=q_offset)
 
 
 _flash_fwd_formula._get_raw = True

@@ -1,13 +1,18 @@
 // Flash attention backward for LM training, GQA, causal or not: from q
-// (B, H, S, hd), k and v (B, K, S, hd) with H = K * rep, the forward's
-// output o and its log-sum-exp lse (f32 (B, H, S), written by
+// (B, H, Sq, hd), k and v (B, K, Sk, hd) with H = K * rep, the forward's
+// output o and its log-sum-exp lse (f32 (B, H, Sq), written by
 // csrc/flash_attention.cu or csrc/flash_attention_sm90.cu on request),
 // and the output's gradient do -> dq, dk, dv in the inputs' dtype. f32
 // or bf16; every tensor but lse read or written through element strides
 // (the last dimension unit-stride), so training hands in its (B, S, H,
 // hd) projections with no transpose copy. Query head h reads KV head
-// h / rep. hd <= 128 and a multiple of 8; any S (rows and keys past S
-// are masked).
+// h / rep. hd <= 128 and a multiple of 8; any lengths (rows past Sq and
+// keys past Sk are masked). The queries sit at key positions q_off ..
+// q_off + Sq - 1 (q_off + Sq <= Sk): causal, query i sees key j iff j <=
+// q_off + i, as in the forward's offset form; a whole sequence is q_off
+// 0 with Sq = Sk, and a context-parallel step hands each device its
+// chunk of queries against the whole sequence's keys. A key that no
+// query of the chunk sees gets exactly zero dK and dV.
 //
 // Replaces no TPU kernel: the JAX package has no Pallas backward. Its
 // gradient for attention is repro/models/attention.py:359 (_flash_bwd,
@@ -129,14 +134,14 @@ template <typename D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_bwd_delta(const typename D::T* __restrict__ o,
                           const typename D::T* __restrict__ dout,
-                          float* __restrict__ delta, int H, int S, int hd,
+                          float* __restrict__ delta, int H, int Sq, int hd,
                           long long rows, Args a) {
   const long long row = static_cast<long long>(blockIdx.x) * (THREADS / 32)
                         + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
-  const int i = static_cast<int>(row % S);
-  const long long bh = row / S;
+  const int i = static_cast<int>(row % Sq);
+  const long long bh = row / Sq;
   const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
   const typename D::T* ob = o + off(a.o, b, h) + i * a.o.s;
   const typename D::T* db = dout + off(a.dout, b, h) + i * a.dout.s;
@@ -227,12 +232,15 @@ __device__ __forceinline__ void store_acc(typename D::T* dst, long long ss,
 
 // w = exp(s * scale - lse) (0 where masked) rounded to the inputs' dtype,
 // and ds = w * (dp - delta) * scale rounded likewise, for this thread's
-// 4 x 4 entries; qi / ki give each entry's query and key index
+// 4 x 4 entries; qi / ki give each entry's query and key index, and key
+// ki is masked past Sk, query qi past Sq, and, causal, where ki > q_off
+// + qi
 template <typename D, bool KEY_ROWS>
 __device__ __forceinline__ void weights(float (&s)[4][4], float (&dp)[4][4],
                                         const float* lse_s,
                                         const float* delta_s, int r0, int c0,
-                                        int S, int causal, float scale) {
+                                        int Sq, int Sk, int q_off,
+                                        int causal, float scale) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -243,7 +251,7 @@ __device__ __forceinline__ void weights(float (&s)[4][4], float (&dp)[4][4],
       const int ki = KEY_ROWS ? r0 + r : c0 + c;
       const int qr = KEY_ROWS ? c : r;          // the query's tile row
       float w = 0.0f, ds = 0.0f;
-      if (qi < S && ki < S && !(causal && ki > qi)) {
+      if (qi < Sq && ki < Sk && !(causal && ki > q_off + qi)) {
         w = D::round(expf(__fsub_rn(__fmul_rn(s[i][j], scale), lse_s[qr])));
         ds = D::round(__fmul_rn(__fmul_rn(w, __fsub_rn(dp[i][j],
                                                        delta_s[qr])),
@@ -265,7 +273,9 @@ __device__ __forceinline__ void put(float* P, const float (&x)[4][4]) {
 
 // dK and dV of one (b, KV head, key tile): keys are the rows of every
 // score tile (s^T = K Q^T), so dV += w^T do and dK += ds^T q accumulate
-// without a transpose
+// without a transpose. Causal, the first query tile is the one that holds
+// query k0 - q_off; a tile of keys past q_off + Sq - 1 steps over none
+// and stores zeros
 template <typename D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_bwd_dkdv(const typename D::T* __restrict__ q,
@@ -275,8 +285,9 @@ flash_attention_bwd_dkdv(const typename D::T* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          typename D::T* __restrict__ dk,
-                         typename D::T* __restrict__ dv, int H, int K, int S,
-                         int hd, int causal, float scale, Args a) {
+                         typename D::T* __restrict__ dv, int H, int K,
+                         int Sq, int Sk, int q_off, int hd, int causal,
+                         float scale, Args a) {
   extern __shared__ float smem[];
   const int st = hd + 1;
   float* Ks = smem;
@@ -289,8 +300,8 @@ flash_attention_bwd_dkdv(const typename D::T* __restrict__ q,
 
   const int b = blockIdx.x / K, kvh = blockIdx.x % K;
   const int rep = H / K, k0 = blockIdx.y * BK;
-  load_tile<D>(Ks, k + off(a.k, b, kvh), a.k.s, k0, S, hd);
-  load_tile<D>(Vs, v + off(a.v, b, kvh), a.v.s, k0, S, hd);
+  load_tile<D>(Ks, k + off(a.k, b, kvh), a.k.s, k0, Sk, hd);
+  load_tile<D>(Vs, v + off(a.v, b, kvh), a.v.s, k0, Sk, hd);
 
   float dK[4][CPT], dV[4][CPT];
 #pragma unroll
@@ -298,26 +309,27 @@ flash_attention_bwd_dkdv(const typename D::T* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) dK[i][c] = dV[i][c] = 0.0f;
 
-  const int nq = (S + BQ - 1) / BQ;
-  const int first = causal ? k0 / BQ : 0;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int first = causal ? max(k0 - q_off, 0) / BQ : 0;
   for (int r = 0; r < rep; ++r) {
     const int h = kvh * rep + r;
-    const float* lse_h = lse + (static_cast<long long>(b) * H + h) * S;
-    const float* delta_h = delta + (static_cast<long long>(b) * H + h) * S;
+    const float* lse_h = lse + (static_cast<long long>(b) * H + h) * Sq;
+    const float* delta_h = delta + (static_cast<long long>(b) * H + h) * Sq;
     for (int qt = first; qt < nq; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();                // the last tile's Q, do, P are read
-      load_tile<D>(Qs, q + off(a.q, b, h), a.q.s, q0, S, hd);
-      load_tile<D>(Os, dout + off(a.dout, b, h), a.dout.s, q0, S, hd);
+      load_tile<D>(Qs, q + off(a.q, b, h), a.q.s, q0, Sq, hd);
+      load_tile<D>(Os, dout + off(a.dout, b, h), a.dout.s, q0, Sq, hd);
       if (threadIdx.x < 64) {
         const int qi = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qi < S ? lse_h[qi] : 0.0f;
-        delta_s[threadIdx.x] = qi < S ? delta_h[qi] : 0.0f;
+        lse_s[threadIdx.x] = qi < Sq ? lse_h[qi] : 0.0f;
+        delta_s[threadIdx.x] = qi < Sq ? delta_h[qi] : 0.0f;
       }
       __syncthreads();
       float s[4][4], dp[4][4];
       two_products(Ks, Qs, Vs, Os, hd, s, dp);    // K q^T, V do^T
-      weights<D, true>(s, dp, lse_s, delta_s, k0, q0, S, causal, scale);
+      weights<D, true>(s, dp, lse_s, delta_s, k0, q0, Sq, Sk, q_off, causal,
+                       scale);
       put(Ps, s);
       __syncthreads();
       accumulate(dV, Ps, Os, hd);
@@ -327,12 +339,12 @@ flash_attention_bwd_dkdv(const typename D::T* __restrict__ q,
       accumulate(dK, Ps, Qs, hd);
     }
   }
-  store_acc<D>(dk + off(a.dk, b, kvh), a.dk.s, dK, k0, S, hd);
-  store_acc<D>(dv + off(a.dv, b, kvh), a.dv.s, dV, k0, S, hd);
+  store_acc<D>(dk + off(a.dk, b, kvh), a.dk.s, dK, k0, Sk, hd);
+  store_acc<D>(dv + off(a.dv, b, kvh), a.dv.s, dV, k0, Sk, hd);
 }
 
 // dQ of one (b, h, query tile): dQ += ds K over the key tiles up to the
-// diagonal (all when not causal)
+// diagonal, shifted by q_off (all when not causal)
 template <typename D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_bwd_dq(const typename D::T* __restrict__ q,
@@ -341,8 +353,9 @@ flash_attention_bwd_dq(const typename D::T* __restrict__ q,
                        const typename D::T* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       typename D::T* __restrict__ dq, int H, int K, int S,
-                       int hd, int causal, float scale, Args a) {
+                       typename D::T* __restrict__ dq, int H, int K, int Sq,
+                       int Sk, int q_off, int hd, int causal, float scale,
+                       Args a) {
   extern __shared__ float smem[];
   const int st = hd + 1;
   float* Qs = smem;
@@ -356,13 +369,13 @@ flash_attention_bwd_dq(const typename D::T* __restrict__ q,
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / K);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
-  load_tile<D>(Qs, q + off(a.q, b, h), a.q.s, q0, S, hd);
-  load_tile<D>(Os, dout + off(a.dout, b, h), a.dout.s, q0, S, hd);
+  load_tile<D>(Qs, q + off(a.q, b, h), a.q.s, q0, Sq, hd);
+  load_tile<D>(Os, dout + off(a.dout, b, h), a.dout.s, q0, Sq, hd);
   if (threadIdx.x < 64) {
     const int qi = q0 + threadIdx.x;
-    const long long row = (static_cast<long long>(b) * H + h) * S + qi;
-    lse_s[threadIdx.x] = qi < S ? lse[row] : 0.0f;
-    delta_s[threadIdx.x] = qi < S ? delta[row] : 0.0f;
+    const long long row = (static_cast<long long>(b) * H + h) * Sq + qi;
+    lse_s[threadIdx.x] = qi < Sq ? lse[row] : 0.0f;
+    delta_s[threadIdx.x] = qi < Sq ? delta[row] : 0.0f;
   }
 
   float dQ[4][CPT];
@@ -371,22 +384,23 @@ flash_attention_bwd_dq(const typename D::T* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) dQ[i][c] = 0.0f;
 
-  int nk = (S + BK - 1) / BK;
-  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  int nk = (Sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q_off + q0 + BQ - 1) / BK + 1);
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * BK;
     __syncthreads();                  // the last tile's K and ds are read
-    load_tile<D>(Ks, k + off(a.k, b, kvh), a.k.s, k0, S, hd);
-    load_tile<D>(Vs, v + off(a.v, b, kvh), a.v.s, k0, S, hd);
+    load_tile<D>(Ks, k + off(a.k, b, kvh), a.k.s, k0, Sk, hd);
+    load_tile<D>(Vs, v + off(a.v, b, kvh), a.v.s, k0, Sk, hd);
     __syncthreads();
     float s[4][4], dp[4][4];
     two_products(Qs, Ks, Os, Vs, hd, s, dp);      // q K^T, do V^T
-    weights<D, false>(s, dp, lse_s, delta_s, q0, k0, S, causal, scale);
+    weights<D, false>(s, dp, lse_s, delta_s, q0, k0, Sq, Sk, q_off, causal,
+                      scale);
     put(Ps, dp);
     __syncthreads();
     accumulate(dQ, Ps, Ks, hd);
   }
-  store_acc<D>(dq + off(a.dq, b, h), a.dq.s, dQ, q0, S, hd);
+  store_acc<D>(dq + off(a.dq, b, h), a.dq.s, dQ, q0, Sq, hd);
 }
 
 // set the dynamic shared-memory opt-in of one kernel once per device, for
@@ -409,8 +423,9 @@ cudaError_t opt_in(Kernel kernel, int bytes, int (&opted)[MAX_DEVICES]) {
 template <typename D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int B, int H, int K, int S, int hd,
-           int causal, const Args& a, cudaStream_t stream) {
+           void* dk, void* dv, int B, int H, int K, int Sq, int Sk,
+           int q_off, int hd, int causal, const Args& a,
+           cudaStream_t stream) {
   using T = typename D::T;
   const int bytes = smem_floats(hd) * static_cast<int>(sizeof(float));
   static int opted_kv[MAX_DEVICES] = {}, opted_q[MAX_DEVICES] = {};
@@ -420,26 +435,29 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return static_cast<int>(e);
   // the forward's 1.0 / math.sqrt(hd), a double cut to f32
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
-  const long long rows = static_cast<long long>(B) * H * S;
+  const long long rows = static_cast<long long>(B) * H * Sq;
   const unsigned nrow_blocks =
       static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
   flash_attention_bwd_delta<D><<<nrow_blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, H, S, hd,
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, H, Sq, hd,
       rows, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned tiles = static_cast<unsigned>((S + BK - 1) / BK);
-  flash_attention_bwd_dkdv<D><<<dim3(B * K, tiles), THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, K, S, hd, causal, scale,
-      a);
+  const unsigned key_tiles = static_cast<unsigned>((Sk + BK - 1) / BK);
+  const unsigned query_tiles = static_cast<unsigned>((Sq + BQ - 1) / BQ);
+  flash_attention_bwd_dkdv<D>
+      <<<dim3(B * K, key_tiles), THREADS, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+          static_cast<T*>(dk), static_cast<T*>(dv), H, K, Sq, Sk, q_off, hd,
+          causal, scale, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_attention_bwd_dq<D><<<dim3(B * H, tiles), THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, K, S, hd, causal, scale, a);
+  flash_attention_bwd_dq<D>
+      <<<dim3(B * H, query_tiles), THREADS, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+          static_cast<T*>(dq), H, K, Sq, Sk, q_off, hd, causal, scale, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -447,17 +465,19 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 // q, k, v, o, dout, dq, dk, dv are f32 when bf16 == 0, bf16 (raw 16-bit
 // words) otherwise; lse (the forward's) and delta (scratch) are
-// contiguous f32 (B, H, S). st: element strides (batch, head, row) of q,
-// k, v, o, dout, dq, dk, dv in that order, 24 values; the last dimension
-// of each is unit-stride.
+// contiguous f32 (B, H, Sq). q, o, dout and dq hold Sq rows, k, v, dk and
+// dv Sk rows, the queries at key positions q_off on (q_off + Sq <= Sk).
+// st: element strides (batch, head, row) of q, k, v, o, dout, dq, dk, dv
+// in that order, 24 values; the last dimension of each is unit-stride.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int B, int H, int K, int S, int hd, int causal, int bf16,
-    const long long* st, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return 0;
-  if (K <= 0 || H % K || hd <= 0 || hd > MAX_HD || hd % 8 ||
-      (S + BK - 1) / BK > 65535)
+    void* dv, int B, int H, int K, int Sq, int Sk, int q_off, int hd,
+    int causal, int bf16, const long long* st, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0) return 0;
+  if (K <= 0 || H % K || hd <= 0 || hd > MAX_HD || hd % 8 || q_off < 0 ||
+      q_off + Sq > Sk || (Sk + BK - 1) / BK > 65535 ||
+      (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   Strides* all[8] = {&a.q, &a.k, &a.v, &a.o, &a.dout, &a.dq, &a.dk, &a.dv};
@@ -465,7 +485,7 @@ extern "C" int flash_attention_bwd_launch(
     *all[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<BF16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
-                             K, S, hd, causal, a, s)
+                             K, Sq, Sk, q_off, hd, causal, a, s)
               : launch<F32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
-                            K, S, hd, causal, a, s);
+                            K, Sq, Sk, q_off, hd, causal, a, s);
 }

@@ -1,13 +1,20 @@
 // Flash attention backward for LM training on Hopper's tensor cores, bf16
-// at hd 16, 64 or 128, GQA, causal or not: from q (B, H, S, hd), k and v
-// (B, K, S, hd) with H = K * rep, the forward's output o and its
-// log-sum-exp lse (f32 (B, H, S)), and the output's gradient do -> dq,
+// at hd 16, 64 or 128, GQA, causal or not: from q (B, H, Sq, hd), k and v
+// (B, K, Sk, hd) with H = K * rep, the forward's output o and its
+// log-sum-exp lse (f32 (B, H, Sq)), and the output's gradient do -> dq,
 // dk, dv in bf16. Every tensor but lse is read or written through element
 // strides (the last dimension unit-stride, the others multiples of 16
 // bytes), so training hands in its (B, S, H, hd) projections with no
-// transpose copy. Query head h reads KV head h / rep. Any S: TMA
-// zero-fills rows past S, and the ragged tile and the causal diagonal are
-// masked in registers.
+// transpose copy. Query head h reads KV head h / rep. Any lengths: TMA
+// zero-fills rows past Sq (q, do) and Sk (k, v), and the ragged tiles
+// and the causal diagonal are masked in registers. The queries sit at key
+// positions q_off .. q_off + Sq - 1 (q_off + Sq <= Sk): causal, query i
+// sees key j iff j <= q_off + i, as in the forward's offset form; a whole
+// sequence is q_off 0 with Sq = Sk. A context-parallel step hands each
+// device its chunk of queries against the whole sequence's keys: a key
+// tile past the chunk's last query steps over no query tile and stores
+// zeros, so a key that no query of the chunk sees gets exactly zero dK
+// and dV.
 //
 // Replaces no TPU kernel: the JAX package has no Pallas backward. Its
 // gradient for attention is repro/models/attention.py:359 (_flash_bwd,
@@ -31,7 +38,7 @@
 //    warp a row, each lane hd / 32 contiguous elements (2 at hd 16) in
 //    one load per tensor, the lanes summed by xor shuffles. It writes
 //    (lse, delta) pairs into an f32 (B, H, Sp, 2) scratch the wrapper
-//    allocates, Sp = S rounded up to PAD, zeros past S, so the kernels
+//    allocates, Sp = Sq rounded up to PAD, zeros past Sq, so the kernels
 //    below fetch a tile's pairs with one 16-byte-aligned bulk copy.
 //  * flash_attention_bwd_sm90_dkdv: one thread block per (b, KV head,
 //    head group, 128-key tile), key tile 0 (the most work when causal)
@@ -39,7 +46,8 @@
 //    dV (64 x hd f32) in registers; a producer warpgroup loads the K and V
 //    tiles once, then streams the group's query heads' 64-query Q and do
 //    tiles and their (lse, delta) pairs through a STAGES ring (full and
-//    empty mbarriers), from the diagonal tile on when causal. Keys are the
+//    empty mbarriers), from the diagonal tile on when causal (the tile of
+//    query k0 - q_off). Keys are the
 //    rows: S^T = K Q^T and dP^T = V do^T are shared-by-shared m64n64k16
 //    products, both K-major; w and ds are packed to bf16 in place (the f32
 //    accumulator layout is the A-fragment layout, as the forward packs p);
@@ -49,7 +57,8 @@
 //    order.
 //  * flash_attention_bwd_sm90_dq: one thread block per (b, h, 128-query
 //    tile), longest rows first when causal. Q and do are loaded once; K
-//    and V stream through the ring in 128-key tiles up to the diagonal.
+//    and V stream through the ring in 128-key tiles up to the diagonal
+//    (the key q_off + the tile's last row).
 //    S = Q K^T and dP = do V^T come from shared memory (m64n128k16), and
 //    dQ += dS K takes dS as the register A operand and K MN-major. It runs
 //    on a second stream beside the dK/dV kernel (forked after delta,
@@ -161,14 +170,14 @@ __device__ __forceinline__ void init_barriers(uint32_t first, uint32_t full,
 }
 
 // ld[(b, h, i)] = (lse[b, h, i], sum_d do[i, d] * o[i, d]) in f32 for
-// i < S, (0, 0) for S <= i < Sp. One warp a row, rows in (b, i, h) order
+// i < Sq, (0, 0) for Sq <= i < Sp. One warp a row, rows in (b, i, h) order
 // so that neighbouring warps read neighbouring heads of one position
 template <int HD>
 __global__ void __launch_bounds__(DELTA_THREADS)
 flash_attention_bwd_sm90_delta(const uint16_t* __restrict__ o,
                                const uint16_t* __restrict__ dout,
                                const float* __restrict__ lse,
-                               float2* __restrict__ ld, int H, int S, int Sp,
+                               float2* __restrict__ ld, int H, int Sq, int Sp,
                                long long rows, Strides so, Strides sd) {
   constexpr int E = HD >= 64 ? HD / 32 : 2;        // elements a lane
   const long long row = static_cast<long long>(blockIdx.x)
@@ -179,7 +188,7 @@ flash_attention_bwd_sm90_delta(const uint16_t* __restrict__ o,
   const long long bi = row / H;
   const int i = static_cast<int>(bi % Sp), b = static_cast<int>(bi / Sp);
   float acc = 0.0f;
-  if (i < S && lane * E < HD) {
+  if (i < Sq && lane * E < HD) {
     const uint16_t* po = o + b * so.b + h * so.h + i * so.s + lane * E;
     const uint16_t* pd = dout + b * sd.b + h * sd.h + i * sd.s + lane * E;
     uint32_t wo[E / 2], wd[E / 2];
@@ -202,21 +211,22 @@ flash_attention_bwd_sm90_delta(const uint16_t* __restrict__ o,
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, s));
   if (lane == 0) {
     const long long bh = static_cast<long long>(b) * H + h;
-    ld[bh * Sp + i] = i < S ? make_float2(lse[bh * S + i], acc)
-                            : make_float2(0.0f, 0.0f);
+    ld[bh * Sp + i] = i < Sq ? make_float2(lse[bh * Sq + i], acc)
+                             : make_float2(0.0f, 0.0f);
   }
 }
 
 // the arguments of both block roles: the maps of q and do (rows of the
 // dK/dV role's and the dQ role's tiles), of k and v, the (lse, delta)
-// pairs, the outputs and their element strides
+// pairs, the outputs and their element strides; Sq queries at key
+// positions q_off on, Sk keys
 struct Args {
-  int B, H, K, S, Sp, causal, groups, n_kv;
+  int B, H, K, Sq, Sk, q_off, Sp, causal, groups, n_kv;
   float scale;
   const float2* ld;
   __nv_bfloat16 *dq, *dk, *dv;
   Strides sdq, sdk, sdv;
-  float* part;       // groups > 1: f32 (2, groups, B, K, S, hd) partials
+  float* part;       // groups > 1: f32 (2, groups, B, K, Sk, hd) partials
 };
 
 struct Maps {
@@ -231,7 +241,8 @@ __device__ __forceinline__ void dkdv_block(uint8_t* smem_raw, const Maps& m,
                                            const Args& a, int b, int kvh,
                                            int k0, int g) {
   using G = KvGeo<HD>;
-  const int H = a.H, S = a.S, Sp = a.Sp, causal = a.causal;
+  const int H = a.H, Sq = a.Sq, Sk = a.Sk, q_off = a.q_off, Sp = a.Sp;
+  const int causal = a.causal;
   const float scale = a.scale;
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -246,8 +257,9 @@ __device__ __forceinline__ void dkdv_block(uint8_t* smem_raw, const Maps& m,
   const int rep = H / a.K;
   const int h0 = kvh * rep + g * (rep / a.groups) + min(g, rep % a.groups);
   const int heads = rep / a.groups + (g < rep % a.groups);
-  const int first = causal ? k0 / BQ : 0;               // the diagonal tile
-  const int nq = (S + BQ - 1) / BQ - first;             // query tiles a head
+  // the diagonal tile (past the last one: no step, zeros stored)
+  const int first = causal ? max(k0 - q_off, 0) / BQ : 0;
+  const int nq = max((Sq + BQ - 1) / BQ - first, 0);    // query tiles a head
   const int steps = heads * nq;
   init_barriers(kv_full, full, empty);
 
@@ -317,7 +329,7 @@ __device__ __forceinline__ void dkdv_block(uint8_t* smem_raw, const Maps& m,
       mbar_wait(full + 8 * s, (j / STAGES) & 1);
 
       // a tile wholly above the diagonal for these keys adds nothing
-      if (!(causal && key0 > q0 + BQ - 1)) {
+      if (!(causal && key0 > q_off + q0 + BQ - 1)) {
         float st[BQ / 2], dpt[BQ / 2];
         fence_regs(st);
         fence_regs(dpt);
@@ -340,19 +352,19 @@ __device__ __forceinline__ void dkdv_block(uint8_t* smem_raw, const Maps& m,
         fence_regs(st);
 
         // w = bf16(expf(s * scale - lse)), 0 where masked (only tiles that
-        // cross the diagonal or S): key r keeps queries lo <= q < S, lo =
-        // r when causal, and nothing when r >= S. Packed in place (the
-        // pack is the one rounding) as the A fragments of dV += P^T do,
-        // whose k-steps of 16 queries are issued at once
+        // cross the diagonal, Sq or Sk): key r keeps queries lo <= q < Sq,
+        // lo = r - q_off when causal, and nothing when r >= Sk. Packed in
+        // place (the pack is the one rounding) as the A fragments of dV +=
+        // P^T do, whose k-steps of 16 queries are issued at once
         const float4* ldt = lds + s * (BQ / 2);
-        const bool edge = (causal && key0 + 63 > q0) || q0 + BQ > S
-                          || key0 + 64 > S;
+        const bool edge = (causal && key0 + 63 > q_off + q0)
+                          || q0 + BQ > Sq || key0 + 64 > Sk;
         int lo[2], hi[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int key = krow + 8 * r;
-          lo[r] = (causal ? key : 0) - q0 - col0;
-          hi[r] = key < S ? S - q0 - col0 : lo[r];
+          lo[r] = (causal ? key - q_off : 0) - q0 - col0;
+          hi[r] = key < Sk ? Sq - q0 - col0 : lo[r];
         }
         uint32_t pw[BQ / 16][4];
 #pragma unroll
@@ -427,14 +439,14 @@ __device__ __forceinline__ void dkdv_block(uint8_t* smem_raw, const Maps& m,
     if (a.groups > 1) {
       // this group's f32 partials; flash_attention_bwd_sm90_sum adds the
       // groups in order
-      const long long plane = static_cast<long long>(a.B) * a.K * S * HD;
+      const long long plane = static_cast<long long>(a.B) * a.K * Sk * HD;
       float* pk = a.part + g * plane
-                  + ((static_cast<long long>(b) * a.K + kvh) * S) * HD;
+                  + ((static_cast<long long>(b) * a.K + kvh) * Sk) * HD;
       float* pv = pk + a.groups * plane;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = krow + 8 * r;
-        if (row >= S) continue;
+        if (row >= Sk) continue;
         float2* gk = reinterpret_cast<float2*>(pk + row * HD + col0);
         float2* gv = reinterpret_cast<float2*>(pv + row * HD + col0);
 #pragma unroll
@@ -448,7 +460,7 @@ __device__ __forceinline__ void dkdv_block(uint8_t* smem_raw, const Maps& m,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = krow + 8 * r;
-      if (row >= S) continue;
+      if (row >= Sk) continue;
       uint32_t* gk = reinterpret_cast<uint32_t*>(
           a.dk + b * a.sdk.b + kvh * a.sdk.h + row * a.sdk.s + col0);
       uint32_t* gv = reinterpret_cast<uint32_t*>(
@@ -468,7 +480,8 @@ __device__ __forceinline__ void dq_block(uint8_t* smem_raw, const Maps& m,
                                          const Args& a, int b, int h,
                                          int q0) {
   using G = QGeo<HD>;
-  const int H = a.H, S = a.S, Sp = a.Sp, causal = a.causal;
+  const int H = a.H, Sq = a.Sq, Sk = a.Sk, q_off = a.q_off, Sp = a.Sp;
+  const int causal = a.causal;
   const float scale = a.scale;
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sdo = sq + G::Q_BYTES;
@@ -479,8 +492,8 @@ __device__ __forceinline__ void dq_block(uint8_t* smem_raw, const Maps& m,
   const uint32_t empty = full + 8 * STAGES;
 
   const int kvh = h / (H / a.K);
-  int nk = (S + DQ_BK - 1) / DQ_BK;
-  if (causal) nk = min(nk, (q0 + DQ_BQ - 1) / DQ_BK + 1);
+  int nk = (Sk + DQ_BK - 1) / DQ_BK;
+  if (causal) nk = min(nk, (q_off + q0 + DQ_BQ - 1) / DQ_BK + 1);
   init_barriers(q_full, full, empty);
 
   const int wg = threadIdx.x / 128;
@@ -562,15 +575,16 @@ __device__ __forceinline__ void dq_block(uint8_t* smem_raw, const Maps& m,
       wgmma_wait_one();                   // S is in; dP may run on
       fence_regs(sc);
 
-      // w, masked on tiles that cross the diagonal or S: row r keeps keys
-      // below min(S, r + 1) when causal, S otherwise
-      const bool edge = k0 + DQ_BK > S
-                        || (causal && k0 + DQ_BK - 1 > q0 + wg * 64);
+      // w, masked on tiles that cross the diagonal or Sk: row r keeps
+      // keys below min(Sk, q_off + r + 1) when causal, Sk otherwise
+      const bool edge = k0 + DQ_BK > Sk
+                        || (causal && k0 + DQ_BK - 1 > q_off + q0 + wg * 64);
       // (packed to bf16 at once: the f32 scores die before dP is read)
       int thr[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        thr[r] = (causal ? min(S, row0 + 8 * r + 1) : S) - k0 - col0;
+        thr[r] = (causal ? min(Sk, q_off + row0 + 8 * r + 1) : Sk) - k0
+                 - col0;
       uint32_t pw[DQ_BK / 4];
 #pragma unroll
       for (int i = 0; i < DQ_BK / 2; i += 2) {
@@ -619,7 +633,7 @@ __device__ __forceinline__ void dq_block(uint8_t* smem_raw, const Maps& m,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       uint32_t* g = reinterpret_cast<uint32_t*>(
           a.dq + b * a.sdq.b + h * a.sdq.h + row * a.sdq.s + col0);
 #pragma unroll
@@ -634,7 +648,7 @@ __device__ __forceinline__ void dq_block(uint8_t* smem_raw, const Maps& m,
 template <int HD>
 __global__ void __launch_bounds__(DELTA_THREADS)
 flash_attention_bwd_sm90_sum(const Args a) {
-  const long long n = static_cast<long long>(a.B) * a.K * a.S * (HD / 4);
+  const long long n = static_cast<long long>(a.B) * a.K * a.Sk * (HD / 4);
   const long long t = static_cast<long long>(blockIdx.x) * DELTA_THREADS
                       + threadIdx.x;
   if (t >= 2 * n) return;
@@ -642,8 +656,8 @@ flash_attention_bwd_sm90_sum(const Args a) {
   const long long e = t % n;
   const int c = static_cast<int>(e % (HD / 4)) * 4;
   const long long row = e / (HD / 4);                     // (b, kvh, i)
-  const int i = static_cast<int>(row % a.S);
-  const int bk = static_cast<int>(row / a.S);
+  const int i = static_cast<int>(row % a.Sk);
+  const int bk = static_cast<int>(row / a.Sk);
   const long long plane = n * 4;
   const float* src = a.part + which * a.groups * plane + row * HD + c;
   float4 acc = *reinterpret_cast<const float4*>(src);
@@ -682,7 +696,7 @@ flash_attention_bwd_sm90_dq(const __grid_constant__ Maps m,
                             const __grid_constant__ Args a) {
   extern __shared__ uint8_t smem_raw[];
   const int bh = blockIdx.x % (a.B * a.H);
-  const int nqt = (a.S + DQ_BQ - 1) / DQ_BQ;
+  const int nqt = (a.Sq + DQ_BQ - 1) / DQ_BQ;
   dq_block<HD>(smem_raw, m, a, bh / a.H, bh % a.H,
                (nqt - 1 - static_cast<int>(blockIdx.x) / (a.B * a.H))
                    * DQ_BQ);
@@ -740,20 +754,21 @@ Strides strides_at(const long long* st, int tensor) {
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* ld, float* part,
-           void* dq, void* dk, void* dv, int B, int H, int K, int S,
-           int causal, int groups, const long long* st,
+           void* dq, void* dk, void* dv, int B, int H, int K, int Sq,
+           int Sk, int q_off, int causal, int groups, const long long* st,
            cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  // q's and do's maps with the dK/dV role's and the dQ role's rows; k's
-  // and v's (st: q 0, k 3, v 6, o 9, do 12, dq 15, dk 18, dv 21)
+  // q's and do's maps (Sq rows) with the dK/dV role's and the dQ role's
+  // rows; k's and v's (Sk rows) (st: q 0, k 3, v 6, o 9, do 12, dq 15, dk
+  // 18, dv 21)
   Maps m;
-  if (!make_map<HD>(enc, &m.q64, q, S, H, B, st, BQ) ||
-      !make_map<HD>(enc, &m.do64, dout, S, H, B, st + 12, BQ) ||
-      !make_map<HD>(enc, &m.q128, q, S, H, B, st, DQ_BQ) ||
-      !make_map<HD>(enc, &m.do128, dout, S, H, B, st + 12, DQ_BQ) ||
-      !make_map<HD>(enc, &m.k, k, S, K, B, st + 3, BKV) ||
-      !make_map<HD>(enc, &m.v, v, S, K, B, st + 6, BKV))
+  if (!make_map<HD>(enc, &m.q64, q, Sq, H, B, st, BQ) ||
+      !make_map<HD>(enc, &m.do64, dout, Sq, H, B, st + 12, BQ) ||
+      !make_map<HD>(enc, &m.q128, q, Sq, H, B, st, DQ_BQ) ||
+      !make_map<HD>(enc, &m.do128, dout, Sq, H, B, st + 12, DQ_BQ) ||
+      !make_map<HD>(enc, &m.k, k, Sk, K, B, st + 3, BKV) ||
+      !make_map<HD>(enc, &m.v, v, Sk, K, B, st + 6, BKV))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_kv[MAX_DEVICES] = {}, opted_q[MAX_DEVICES] = {};
   cudaError_t e = opt_in(flash_attention_bwd_sm90_dkdv<HD>, KvGeo<HD>::SMEM,
@@ -767,11 +782,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   a.B = B;
   a.H = H;
   a.K = K;
-  a.S = S;
-  a.Sp = (S + PAD - 1) / PAD * PAD;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.q_off = q_off;
+  a.Sp = (Sq + PAD - 1) / PAD * PAD;
   a.causal = causal;
   a.groups = groups;
-  a.n_kv = B * K * groups * ((S + BKV - 1) / BKV);
+  a.n_kv = B * K * groups * ((Sk + BKV - 1) / BKV);
   a.part = part;
   // the forward's 1.0 / math.sqrt(hd), a double cut to f32
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
@@ -788,7 +805,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                                / (DELTA_THREADS / 32)),
          DELTA_THREADS, 0, stream>>>(
           static_cast<const uint16_t*>(o), static_cast<const uint16_t*>(dout),
-          lse, reinterpret_cast<float2*>(ld), H, S, a.Sp, rows,
+          lse, reinterpret_cast<float2*>(ld), H, Sq, a.Sp, rows,
           strides_at(st, 3), strides_at(st, 4));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -805,11 +822,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_attention_bwd_sm90_dq<HD>
-      <<<static_cast<unsigned>(B * H * ((S + DQ_BQ - 1) / DQ_BQ)), THREADS,
+      <<<static_cast<unsigned>(B * H * ((Sq + DQ_BQ - 1) / DQ_BQ)), THREADS,
          QGeo<HD>::SMEM, side->stream>>>(m, a);
   e = cudaGetLastError();
   if (e == cudaSuccess && groups > 1) {
-    const long long n = 2LL * B * K * S * (HD / 4);
+    const long long n = 2LL * B * K * Sk * (HD / 4);
     flash_attention_bwd_sm90_sum<HD>
         <<<static_cast<unsigned>((n + DELTA_THREADS - 1) / DELTA_THREADS),
            DELTA_THREADS, 0, stream>>>(a);
@@ -822,32 +839,35 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv are bf16 (raw 16-bit words); lse (the
-// forward's) is a contiguous f32 (B, H, S); ld is an f32 scratch of
-// B * H * Sp * 2 values, Sp = S rounded up to 128. st: element strides
+// q, k, v, o, dout, dq, dk, dv are bf16 (raw 16-bit words); q, o, dout
+// and dq hold Sq rows, k, v, dk and dv Sk rows, the queries at key
+// positions q_off on (q_off + Sq <= Sk); lse (the forward's) is a
+// contiguous f32 (B, H, Sq); ld is an f32 scratch of B * H * Sp * 2
+// values, Sp = Sq rounded up to 128; part, where groups > 1, an f32
+// scratch of 2 * groups * B * K * Sk * hd values. st: element strides
 // (batch, head, row) of q, k, v, o, dout, dq, dk, dv in that order, 24
 // values; the last dimension of each is unit-stride, and those of q, k,
 // v and dout are multiples of 8 (TMA). hd is 16, 64 or 128.
 extern "C" int flash_attention_bwd_sm90_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* ld, float* part, void* dq,
-    void* dk, void* dv, int B, int H, int K, int S, int hd, int causal,
-    int groups, const long long* st, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return 0;
-  if (K <= 0 || H % K || groups < 1 || groups > H / K
-      || (groups > 1 && part == nullptr))
+    void* dk, void* dv, int B, int H, int K, int Sq, int Sk, int q_off,
+    int hd, int causal, int groups, const long long* st, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0) return 0;
+  if (K <= 0 || H % K || groups < 1 || groups > H / K || q_off < 0
+      || q_off + Sq > Sk || (groups > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, dout, lse, ld, part, dq, dk, dv, B, H, K,
-                        S, causal, groups, st, s);
+                        Sq, Sk, q_off, causal, groups, st, s);
     case 64:
       return launch<64>(q, k, v, o, dout, lse, ld, part, dq, dk, dv, B, H, K,
-                        S, causal, groups, st, s);
+                        Sq, Sk, q_off, causal, groups, st, s);
     case 128:
       return launch<128>(q, k, v, o, dout, lse, ld, part, dq, dk, dv, B, H,
-                         K, S, causal, groups, st, s);
+                         K, Sq, Sk, q_off, causal, groups, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -13,16 +13,18 @@ forward and backward.
     context-parallel prefill hands each device its chunk of queries at
     the chunk's start against the whole sequence's keys. Replaces the TPU
     kernel repro/kernels/flash_attention.py:86.
-  * ``flash_attention_bwd(q, k, v, out, dout, lse, causal=True)`` -- its
-    gradient (dq, dk, dv) from the forward's output and log-sum-exp, on
-    the route ``route`` picks as for the forward. The JAX package has no
-    Pallas backward; the reference's gradient is
-    repro/models/attention.py:359 (_flash_bwd), whose steps
-    ``flash_attention_bwd_plain`` repeats.
+  * ``flash_attention_bwd(q, k, v, out, dout, lse, causal=True,
+    q_offset=0)`` -- its gradient (dq, dk, dv) from the forward's output
+    and log-sum-exp, on the route ``route`` picks as for the forward, at
+    the same query offset: a chunk's dK and dV are its share of the whole
+    sequence's (the chunks' shares sum to it), exactly zero at every key
+    that no query of the chunk sees. The JAX package has no Pallas
+    backward; the reference's gradient is repro/models/attention.py:359
+    (_flash_bwd), whose steps ``flash_attention_bwd_plain`` repeats.
   * ``FlashAttention`` -- the autograd Function training takes: its
     forward launches a forward route with the LSE output and saves q, k,
-    v, out and lse; its backward launches the backward kernel. It takes
-    a whole sequence only (no offset): the backward has none.
+    v, out and lse; its backward launches the backward kernel, both at
+    the call's ``q_offset`` (a context-parallel step's chunk).
 
 The inputs may be strided views (the last dimension unit-stride): LM
 prefill hands it the (B, S, H, hd) projections transposed, with no
@@ -119,14 +121,14 @@ _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
              + (ctypes.c_longlong,) * 9 + (ctypes.c_void_p,))
 _SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8
                   + (ctypes.c_longlong,) * 12 + (ctypes.c_void_p,))
-# q, k, v, o, dout, lse, delta, dq, dk, dv; B, H, K, S, hd, causal, bf16;
-# the 24 strides; the stream
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
+# q, k, v, o, dout, lse, delta, dq, dk, dv; B, H, K, Sq, Sk, q_offset,
+# hd, causal, bf16; the 24 strides; the stream
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9
                  + (ctypes.c_void_p,) * 2)
 # q, k, v, o, dout, lse, the (lse, delta) pairs, the head groups' f32
-# partials, dq, dk, dv; B, H, K, S, hd, causal, groups; the strides; the
-# stream
-_BWD_SM90_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
+# partials, dq, dk, dv; B, H, K, Sq, Sk, q_offset, hd, causal, groups; the
+# strides; the stream
+_BWD_SM90_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 9
                       + (ctypes.c_void_p,) * 2)
 
 
@@ -181,14 +183,17 @@ def bwd_smem_bytes_sm90(hd: int) -> tuple:
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan_sm90(B: int, H: int, K: int, S: int, causal: bool,
-                  sms: int) -> dict:
+                  sms: int, Sk: int = None, q_offset: int = 0) -> dict:
     """The sm90 backward's launch at (B, H, K, S) on a card of ``sms``
-    SMs (the same at every hd): two kernels side by side that the card
-    runs one block an SM, in index order, the dK/dV kernel first: B x K x
-    ``groups`` head groups x 128-key tiles, each stepping over its group's
-    query heads' 64-query tiles (from the diagonal on when causal); the
-    dQ kernel: B x H x 128-query tiles, each over its 128-key tiles up to
-    the diagonal.
+    SMs (the same at every hd), S queries at key positions ``q_offset``
+    on against ``Sk`` keys (S by default): two kernels side by side that
+    the card runs one block an SM, in index order, the dK/dV kernel
+    first: B x K x ``groups`` head groups x 128-key tiles, each stepping
+    over its group's query heads' 64-query tiles (from the diagonal on
+    when causal: none for a key tile past the chunk's last query); the dQ
+    kernel: B x H x 128-query tiles, each over its 128-key tiles up to the
+    diagonal. A chunk's key tiles up to its offset step over every query
+    tile, so its work a key tile is uneven as a whole sequence's is.
 
     ``groups`` splits each KV head's rep query heads (csrc:dkdv_block):
     the fewest groups whose longest dK/dV block is no longer than the
@@ -200,16 +205,19 @@ def bwd_plan_sm90(B: int, H: int, K: int, S: int, causal: bool,
     fourth kernel sums in group order. Per kernel: blocks, waves (blocks
     over SMs), ring steps of the longest and of the mean block."""
     rep = H // K
+    Sk = S if Sk is None else Sk
     nq = -(-S // SM90_BWD_BLOCK_Q)
-    tiles = [nq - (t * SM90_BWD_BLOCK_KV // SM90_BWD_BLOCK_Q if causal
-                   else 0) for t in range(-(-S // SM90_BWD_BLOCK_KV))]
-    nk = -(-S // SM90_BWD_DQ_BLOCK_K)
-    q = [min(nk, u + 1) if causal else nk
+    tiles = [max(nq - (max(t * SM90_BWD_BLOCK_KV - q_offset, 0)
+                       // SM90_BWD_BLOCK_Q if causal else 0), 0)
+             for t in range(-(-Sk // SM90_BWD_BLOCK_KV))]
+    nk = -(-Sk // SM90_BWD_DQ_BLOCK_K)
+    q = [min(nk, (q_offset + (u + 1) * SM90_BWD_DQ_BLOCK_Q - 1)
+             // SM90_BWD_DQ_BLOCK_K + 1) if causal else nk
          for u in range(-(-S // SM90_BWD_DQ_BLOCK_Q))]
     dq_step = SM90_BWD_DQ_WORK * SM90_BWD_DQ_BLOCK_Q * SM90_BWD_DQ_BLOCK_K \
         / (SM90_BWD_BLOCK_KV * SM90_BWD_BLOCK_Q)
     load = B * H * (sum(tiles) + dq_step * sum(q)) / sms
-    groups = next((g for g in range(1, rep) if -(-rep // g) * tiles[0]
+    groups = next((g for g in range(1, rep) if -(-rep // g) * max(tiles)
                    <= load), rep)
     kv = [n * (rep // groups + (g < rep % groups)) for n in tiles
           for g in range(groups)]
@@ -231,15 +239,16 @@ def _tile_pairs(S: int, bq: int, bk: int, causal: bool,
     queries by bk keys, S queries against ``Sk`` keys (S by default),
     the queries at key positions ``q_offset`` on: every tile, or, causal,
     the tiles a kernel visits -- a query tile's key tiles up to its last
-    row's position (``keys_outer``: a key tile's query tiles from its
-    first key on, as the backward's dK/dV kernels step; whole sequences
-    only)."""
+    row's position (``keys_outer``: a key tile's query tiles from the one
+    that holds its first key's position on, as the backward's dK/dV
+    kernels step; none for a key tile past the last query)."""
     Sk = S if Sk is None else Sk
     nq, nk = -(-S // bq), -(-Sk // bk)
     if not causal:
         return nq * nk * bq * bk
     if keys_outer:
-        return sum(nq - (t * bk) // bq for t in range(nk)) * bq * bk
+        return sum(max(nq - max(t * bk - q_offset, 0) // bq, 0)
+                   for t in range(nk)) * bq * bk
     return sum(min(nk, ((u + 1) * bq + q_offset - 1) // bk + 1)
                for u in range(nq)) * bq * bk
 
@@ -256,18 +265,21 @@ def kernel_flops(B: int, H: int, S: int, hd: int, dtype: torch.dtype,
 
 
 def kernel_bwd_flops(B: int, H: int, S: int, hd: int, dtype: torch.dtype,
-                     causal: bool) -> int:
+                     causal: bool, Sk: int = None, q_offset: int = 0) -> int:
     """Operations the backward route computes: the dK/dV kernel's four
     products (S, dP, dV, dK) over its tiles (128 keys by 64-query steps
     on sm90, 64 x 64 on cuda_core) and the dQ kernel's three (S, dP, dQ)
-    over its (128 x 128 or 64 x 64), 2 hd each."""
+    over its (128 x 128 or 64 x 64), 2 hd each; S queries at
+    ``q_offset`` against ``Sk`` keys (S by default)."""
+    at = {"Sk": Sk, "q_offset": q_offset}
     if route(dtype, hd) == "sm90":
         kv = _tile_pairs(S, SM90_BWD_BLOCK_Q, SM90_BWD_BLOCK_KV, causal,
-                         keys_outer=True)
-        dq = _tile_pairs(S, SM90_BWD_DQ_BLOCK_Q, SM90_BWD_DQ_BLOCK_K, causal)
+                         keys_outer=True, **at)
+        dq = _tile_pairs(S, SM90_BWD_DQ_BLOCK_Q, SM90_BWD_DQ_BLOCK_K, causal,
+                         **at)
     else:
-        kv = _tile_pairs(S, BLOCK_Q, BLOCK_K, causal, keys_outer=True)
-        dq = _tile_pairs(S, BLOCK_Q, BLOCK_K, causal)
+        kv = _tile_pairs(S, BLOCK_Q, BLOCK_K, causal, keys_outer=True, **at)
+        dq = _tile_pairs(S, BLOCK_Q, BLOCK_K, causal, **at)
     return 2 * hd * B * H * (4 * kv + 3 * dq)
 
 
@@ -301,13 +313,14 @@ def _(q, k, v, causal, lse, q_offset=0):
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def _meta_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor, dout: Tensor,
-              lse: Tensor, causal: bool) -> Tuple[Tensor, Tensor, Tensor]:
+              lse: Tensor, causal: bool, q_offset: int = 0
+              ) -> Tuple[Tensor, Tensor, Tensor]:
     raise ValueError("repro_torch::flash_attention_bwd is shape-only: it "
                      "takes meta tensors (the dry run's traces)")
 
 
 @_meta_bwd.register_fake
-def _(q, k, v, out, dout, lse, causal):
+def _(q, k, v, out, dout, lse, causal, q_offset=0):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -371,24 +384,30 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
 
 
 def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, dout: Tensor,
-                              lse: Tensor, causal: bool = True):
+                              lse: Tensor, causal: bool = True,
+                              q_offset: int = 0):
     """The gradient (dq, dk, dv) of the forward at the output gradient
-    ``dout`` (q's shape) from its log-sum-exp ``lse`` (B, H, S), in plain
+    ``dout`` (q's shape) from its log-sum-exp ``lse`` (B, H, Sq), in plain
     tensor ops, step for step as the reference's _flash_bwd
     (repro/models/attention.py:359): f32 scores of the inputs times
-    hd^-0.5, masked to -1e9; w = exp(s - lse) cast to v's dtype; dv = w^T
-    dout and dw = dout v^T in the inputs' dtype; delta = rowsum(dw * w) in
-    f32; ds = w * (dw - delta) * hd^-0.5 cast to q's dtype; dq = ds k, dk
-    = ds^T q; dk and dv summed over each KV head's rep query heads."""
+    hd^-0.5, masked to -1e9 (causal: key j of query i iff j <= q_offset +
+    i, the reference's make_mask over the chunk's rows); w = exp(s - lse)
+    cast to v's dtype; dv = w^T dout and dw = dout v^T in the inputs'
+    dtype; delta = rowsum(dw * w) in f32; ds = w * (dw - delta) * hd^-0.5
+    cast to q's dtype; dq = ds k, dk = ds^T q; dk and dv summed over each
+    KV head's rep query heads. The queries sit at key positions
+    ``q_offset`` on against k's Sk keys: a key no query sees has w = 0
+    and gets zero dk and dv."""
     B, H, S, hd = q.shape
-    K = k.shape[1]
+    K, Sk = k.shape[1], k.shape[2]
     rep = H // K
     scale = hd ** -0.5
     q5 = q.reshape(B, K, rep, S, hd)
     do5 = dout.reshape(B, K, rep, S, hd)
     s = torch.einsum("bkrqd,bksd->bkrqs", q5.float(), k.float()) * scale
     if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        mask = torch.ones((S, Sk), dtype=torch.bool,
+                          device=q.device).tril(q_offset)
         s = s.masked_fill(~mask, -1e9)
     w = torch.exp(s - lse.reshape(B, K, rep, S, 1)).to(v.dtype)
     dv = torch.einsum("bkrqs,bkrqd->bksd", w, do5)
@@ -407,10 +426,9 @@ def _rounded(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float32).to(dtype))
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
-           whole: bool = False) -> None:
+def _check(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0) -> None:
     """ValueError unless q (B, H, Sq, hd) and k, v (B, K, Sk, hd) fit:
-    q_offset + Sq <= Sk, and Sk = Sq where ``whole`` (the backward)."""
+    q_offset + Sq <= Sk."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B, H, S, hd) and k, v "
                          f"(B, K, S, hd), got {tuple(q.shape)}, "
@@ -418,12 +436,10 @@ def _check(q: Tensor, k: Tensor, v: Tensor, q_offset: int = 0,
     B, H, S, hd = q.shape
     if (k.shape[0], k.shape[3]) != (B, hd) or k.shape[1] == 0 \
             or H % k.shape[1] or q_offset < 0 \
-            or q_offset + S > k.shape[2] \
-            or (whole and k.shape[2] != S):
+            or q_offset + S > k.shape[2]:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"match q {tuple(q.shape)} at q_offset {q_offset} "
-                         f"(H a multiple of K; q_offset + Sq <= Sk"
-                         f"{', Sk = Sq' if whole else ''})")
+                         f"(H a multiple of K; q_offset + Sq <= Sk)")
     if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention takes three f32 or three bf16 "
                          f"inputs, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -519,14 +535,16 @@ def launch_sm90(q: Tensor, k: Tensor, v: Tensor,
 
 
 def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
-                        dout: Tensor, lse: Tensor, causal: bool = True):
-    """The gradient (dq, dk, dv) of ``flash_attention(q, k, v, causal)``
-    at the output gradient ``dout``, from its output ``out`` and
-    log-sum-exp ``lse`` (B, H, S) f32; each in its input's dtype and
-    layout. CUDA tensors launch the kernels of ``route(q.dtype, hd)``;
-    CPU tensors run ``flash_attention_bwd_plain`` (which reads no
-    ``out``)."""
-    _check(q, k, v, whole=True)
+                        dout: Tensor, lse: Tensor, causal: bool = True,
+                        q_offset: int = 0):
+    """The gradient (dq, dk, dv) of ``flash_attention(q, k, v, causal,
+    q_offset=q_offset)`` at the output gradient ``dout``, from its output
+    ``out`` and log-sum-exp ``lse`` (B, H, Sq) f32; each in its input's
+    dtype and layout. CUDA tensors launch the kernels of
+    ``route(q.dtype, hd)``; CPU tensors run ``flash_attention_bwd_plain``
+    (which reads no ``out``)."""
+    q_offset = int(q_offset)
+    _check(q, k, v, q_offset)
     B, H, S, hd = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -540,21 +558,24 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                          f"on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, dout, lse, causal)
+        return flash_attention_bwd_plain(q, k, v, dout, lse, causal,
+                                         q_offset)
     if q.device.type == "meta" and _SHAPE_ONLY.get():
-        return _meta_bwd(q, k, v, out, dout, lse, bool(causal))
+        return _meta_bwd(q, k, v, out, dout, lse, bool(causal), q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     if route(q.dtype, hd) == "sm90":
-        return launch_bwd_sm90(q, k, v, out, dout, lse, causal)
-    return launch_bwd_cuda_core(q, k, v, out, dout, lse, causal)
+        return launch_bwd_sm90(q, k, v, out, dout, lse, causal, q_offset)
+    return launch_bwd_cuda_core(q, k, v, out, dout, lse, causal, q_offset)
 
 
 def launch_bwd_cuda_core(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
-                         dout: Tensor, lse: Tensor, causal: bool = True):
+                         dout: Tensor, lse: Tensor, causal: bool = True,
+                         q_offset: int = 0):
     """The CUDA-core backward (csrc/flash_attention_bwd.cu) on CUDA
     tensors, f32 or bf16 at any hd <= 128 a multiple of 8."""
+    _check(q, k, v, q_offset)
     B, H, S, hd = q.shape
     if hd > MAX_HD or hd % 8:
         raise ValueError(f"the backward kernel takes hd <= {MAX_HD}, a "
@@ -575,18 +596,21 @@ def launch_bwd_cuda_core(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     build.launch("flash_attention_bwd", _BWD_ARGTYPES, q,
                  *(t.data_ptr() for t in tensors), lse.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), B, H, k.shape[1], S, hd, int(causal),
-                 _DTYPE_CODES[q.dtype], ctypes.addressof(strides))
+                 dv.data_ptr(), B, H, k.shape[1], S, k.shape[2], q_offset,
+                 hd, int(causal), _DTYPE_CODES[q.dtype],
+                 ctypes.addressof(strides))
     _count_bwd("cuda_core")
     return dq, dk, dv
 
 
 def launch_bwd_sm90(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
-                    dout: Tensor, lse: Tensor, causal: bool = True):
+                    dout: Tensor, lse: Tensor, causal: bool = True,
+                    q_offset: int = 0):
     """The tensor-core backward (csrc/flash_attention_bwd_sm90.cu) on bf16
     CUDA tensors at hd 16, 64 or 128; q, k, v, out and dout read through
     TMA maps (``tma_strides`` raises on a layout they cannot describe),
     dq, dk and dv written in q's, k's and v's layouts."""
+    _check(q, k, v, q_offset)
     B, H, S, hd = q.shape
     if q.dtype != torch.bfloat16 or hd not in SM90_HD:
         raise ValueError(f"the sm90 backward takes bf16 at hd {SM90_HD}; "
@@ -599,12 +623,13 @@ def launch_bwd_sm90(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    K = k.shape[1]
+    K, Sk = k.shape[1], k.shape[2]
     groups = bwd_plan_sm90(B, H, K, S, bool(causal),
-                           build.sm_count(q.device.index))["groups"]
+                           build.sm_count(q.device.index), Sk,
+                           q_offset)["groups"]
     pad = -(-S // SM90_BWD_PAD) * SM90_BWD_PAD
     pairs = torch.empty((B, H, pad, 2), dtype=torch.float32, device=q.device)
-    part = torch.empty((2, groups, B, K, S, hd) if groups > 1 else (0,),
+    part = torch.empty((2, groups, B, K, Sk, hd) if groups > 1 else (0,),
                        dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         s for t in tensors + (dq, dk, dv) for s in t.stride()[:3]])
@@ -612,7 +637,8 @@ def launch_bwd_sm90(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                  *(t.data_ptr() for t in tensors), lse.data_ptr(),
                  pairs.data_ptr(), part.data_ptr() if groups > 1 else None,
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, K, S,
-                 hd, int(causal), groups, ctypes.addressof(strides))
+                 Sk, q_offset, hd, int(causal), groups,
+                 ctypes.addressof(strides))
     _count_bwd("sm90")
     return dq, dk, dv
 
@@ -621,18 +647,15 @@ class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: the forward launches the
     route's kernel with the LSE output and saves q, k, v, out and lse; the
     backward launches ``flash_attention_bwd``'s kernel (the plain versions
-    for CPU tensors). ``FlashAttention.apply(q, k, v, causal)``."""
+    for CPU tensors), both at ``q_offset``.
+    ``FlashAttention.apply(q, k, v, causal, q_offset)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, q_offset=0):
-        if q_offset or q.shape[2] != k.shape[2]:
-            raise ValueError(
-                f"FlashAttention (with a gradient) takes a whole sequence: "
-                f"Sq {q.shape[2]} = Sk {k.shape[2]} and no q_offset (got "
-                f"{q_offset}); the backward kernels have no offset form")
-        out, lse = flash_attention(q, k, v, causal, lse=True)
+        out, lse = flash_attention(q, k, v, causal, lse=True,
+                                   q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.q_offset = causal, int(q_offset)
         return out
 
     @staticmethod
@@ -645,7 +668,8 @@ class FlashAttention(torch.autograd.Function):
             dout = dout.clone(memory_format=torch.contiguous_format)
         elif dout.stride(-1) != 1:
             dout = dout.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal,
+                                         ctx.q_offset)
         return dq, dk, dv, None, None
 
 

@@ -27,10 +27,21 @@ Per-device numbers, and how each is derived:
     (repro/analysis/roofline.py). The step is traced on a one-device
     grid of the same axes, so the MoE takes its EP path with one shard
     (the same routing and capacity as the whole batch) and the profile's
-    attention paths are the grid's. The port's grid paths today run each
-    dp row's dense work on the row's first device (the ZeRO-3 rows,
-    EP shards), so its busiest device does up to the "model" axis' size
-    times this; the premise is kept so rows compare with the reference's.
+    attention paths are the grid's. A train step that takes the "model"
+    path on the grid (``models.model.grid_path``: the dense, MoE and VLM
+    families where the "model" axis is larger than 1) is traced instead
+    on one dp row of the grid's "model" axis (``model_row``) with the
+    row's share of the global batch (B / dp): the sequence cut into that
+    many chunks, each layer gathered onto every device of the row, K and
+    V gathered, the flash forward and backward at each chunk's offset,
+    the MoE's all-to-all over the row -- one dp row's work, divided by
+    the row's devices (so each device counts its own gathered layer and
+    head whole). Held against cards on (1, 4) alone (qwen3-14b 40L,
+    tools/mesh_cards.py); the dp > 1 grids are not measured. The row path's
+    grids run each dp row's dense work on the row's first device (the
+    ZeRO-3 rows, EP shards), so its busiest device does up to the "model"
+    axis' size times this; the premise is kept so rows compare with the
+    reference's.
   * argument bytes: exact per device, ``sharding/rules.py:device_bytes``
     over the plan's layouts -- ``state_shardings`` (train) or
     ``param_specs`` (serving), ``batch_specs`` and ``cache_specs_tree``,
@@ -112,6 +123,17 @@ def production_grid(multi_pod: bool) -> DeviceGrid:
 def one_device(grid: DeviceGrid) -> DeviceGrid:
     """A grid of the same axes, each of size 1, on one meta device."""
     return grid_of((META,), (1,) * len(grid.axis_names), grid.axis_names)
+
+
+def model_row(grid: DeviceGrid) -> DeviceGrid:
+    """One dp row of ``grid``: the same axes, every one but "model" of
+    size 1, on as many meta devices as "model" has."""
+    sizes = tuple(grid.axis_sizes[a] if a == "model" else 1
+                  for a in grid.axis_names)
+    n = 1
+    for s in sizes:
+        n *= s
+    return grid_of((META,) * n, sizes, grid.axis_names)
 
 
 def mesh_label(grid: DeviceGrid) -> str:
@@ -222,15 +244,26 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
 
     specs = _input_specs(cfg, shape, smoke, batch)
     B = next(iter(specs.values())).shape[0]
+    traced = grid.size
     ctx = make_ctx(grid, profile=profile)
     local = make_ctx(one_device(grid), profile=profile)
     batch_in = {k: (_host_positions(v) if k == "positions" else v)
                 for k, v in specs.items()}
     if shape.kind == "train":
+        from ..models.model import grid_path
         from ..train.optimizer import OptConfig
         from ..train.train_step import (init_train_state, jit_train_step,
                                         shard_state, state_shardings)
         g1 = one_device(grid)
+        if grid_path(cfg, ctx) == "model":
+            g1 = model_row(grid)
+            # one dp row's share of the batch, counted on the row's devices
+            traced = g1.size
+            rows = grid.size // traced
+            if B % rows:
+                raise SkipCell(f"a batch of {B} does not split over {rows} "
+                               f"dp rows")
+            batch_in = {k: v[:B // rows] for k, v in batch_in.items()}
         plain = init_train_state(cfg, torch.Generator(), META)
         params = plain["params"]
         state = shard_state(plain, state_shardings(g1, plain, cfg))
@@ -254,6 +287,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
                                ctx=dctx)
     # the parameters' bytes, counted once the trace shows which it reads
     mem["params"] = (p_sh, shapes)
+    mem["traced_devices"] = traced
     decode = shape.kind == "decode"
     S = 1 if decode else specs["tokens"].shape[1]
     coll = _coll_detail(cfg, shape.kind, grid, B, S, shapes, p_sh,
@@ -389,7 +423,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                                             seq_len, layers)
     result, counts = op_count.count(step)
     t_lower = time.time() - t0
-    n = grid.size
+    n = mem.pop("traced_devices", grid.size)
     if "params" in mem:
         p_sh, named = mem.pop("params")
         used = {n: t for n, t in named.items()
@@ -397,7 +431,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         mem["argument"] += most_bytes({n: p_sh[n] for n in used}, used)
     temp = max(0, counts["peak_bytes"] - counts["live_bytes"]) // n
     del result
-    mf = (roofline.model_flops(cfg, shape, n, batch)
+    mf = (roofline.model_flops(cfg, shape, grid.size, batch)
           if arch != "hog_svm_coproc" else 0.0)
     label = mesh_label(grid)
     rl = roofline.Roofline(

@@ -28,11 +28,14 @@ lengths, no RoPE, no mask) and single-token decode against the padded
 cache take ``_sdpa``; ``attention_decode_windowed`` reads only the live
 window and the meta prefix.
 
-Serving over a grid's "model" axis (models/model.py's model path) adds
-two forms: ``attend_chunk``, one device's chunk of a context-parallel
-prefill -- its queries against the whole sequence's keys, through the
-flash kernel at the chunk's offset (``q_offset``), or ``_sdpa`` under the
-chunk's rows of ``make_mask`` (an image prompt, a window) -- and
+Serving and training over a grid's "model" axis (models/model.py's
+model path) add two forms: ``attend_chunk``, one device's chunk of a
+context-parallel prefill or train step -- its queries against the whole
+sequence's keys, through the flash kernel at the chunk's offset
+(``q_offset``; in training its forward and backward through
+``FlashAttention``), or ``_sdpa`` under the chunk's rows of
+``make_mask`` (an image prompt, a window), differentiable either way --
+and
 ``decode_scores`` / ``decode_values``, single-token attention over one
 device's length piece of the cache: the scores gathered over the
 devices for the whole cache's softmax, then the P.V shares summed in
@@ -172,8 +175,9 @@ def attend(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     (training) it goes through ``FlashAttention``, whose backward is the
     hand-written backward kernel; serving (inference mode) calls the
     forward alone. ``q_offset``: q is a chunk of Sq queries at key
-    positions q_offset on, against Sk >= q_offset + Sq keys (serving
-    only: ``FlashAttention`` refuses an offset)."""
+    positions q_offset on, against Sk >= q_offset + Sq keys (a
+    context-parallel prefill's or train step's chunk; ``FlashAttention``'s
+    backward takes the same offset)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     at = {"q_offset": q_offset} if q_offset else {}
     if torch.is_grad_enabled():
@@ -187,7 +191,8 @@ def attend_chunk(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
                  q_pos: Tensor, k_pos: Tensor, q_offset: int, *,
                  window: int = 0, n_meta: int = 0, ctx=None,
                  flash: bool = True) -> Tensor:
-    """One device's chunk of a context-parallel prefill: its queries q
+    """One device's chunk of a context-parallel prefill or train step
+    (differentiable where grad is enabled): its queries q
     (B, Sq, H, hd), at sequence positions q_offset .. q_offset + Sq - 1
     and (B, Sq) mask positions ``q_pos``, against the whole sequence's k
     and v (B, Sk, K, hd) at ``k_pos`` (B, Sk), gathered in model-index

@@ -69,7 +69,17 @@ paths that ``serve_path`` picks from the config and the grid alone
     fitted as the reference fits it (``init_cache(ctx=)``): by length
     over "model" (the softmax's max and sum reduced over the pieces),
     by heads under ``kv_heads``, whole on each model device where the
-    axis does not divide.
+    axis does not divide. The sharded train step
+    (train/train_step.py:``jit_train_step``) takes the same path by the
+    same rule (``train_path``): ``model_nll_sum`` is the context-parallel
+    forward of one dp row -- the prefill's layer (``_cp_layer``) under
+    the reentrant recompute, each layer gathered again in the backward,
+    K and V gathered by ``sharded.seq_gather`` (its backward sums each
+    chunk's dK / dV partials in f32 in model-index order on the chunk's
+    device, rounded once), the flash kernel's forward and backward at
+    each chunk's ``q_offset`` -- then each device's logits and
+    next-token loss on its chunk with the labels cut the same way, the
+    head gathered whole onto each device.
   * "rows" -- every other model held as shards (whisper, mamba2, hymba,
     and any grid whose "model" axis is 1, where the reference's layout
     is FSDP): the batch runs over ``ctx``'s dp rows, each row on its
@@ -111,8 +121,8 @@ from .layers import mlp, norm, sinusoidal_positions, swiglu
 from .moe import ep_a2a_row, ep_replicated_row, moe_ffn
 from .sharded import (ModelRow, ShardedLeaves, ShardedLM, all_gather,
                       all_reduce, as_sharded, gathered_rows, namespace,
-                      on_devices, reduce_scatter, row_model, row_plans,
-                      shard_leaf)
+                      on_devices, reduce_scatter, reduce_to, row_model,
+                      row_plans, seq_gather, shard_leaf)
 from .ssm import ssd_decode, ssd_forward
 
 Tensor = torch.Tensor
@@ -712,7 +722,13 @@ def nll_sum(params: CausalLM, batch: Dict[str, Tensor], cfg: ModelConfig,
     ``train_forward``'s logits in f32, and how many positions are valid
     (labels of -100, any negative, ignored)."""
     logits = train_forward(params, batch, cfg, ctx).to(torch.float32)
-    labels = torch.as_tensor(batch["labels"]).to(logits.device)
+    return _nll(logits, torch.as_tensor(batch["labels"]))
+
+
+def _nll(logits: Tensor, labels: Tensor) -> Tuple[Tensor, Tensor]:
+    """f32 ``logits`` (B, S, V) against ``labels`` (B, S) -> (the sum of
+    logsumexp - the gold logit over the valid positions, their count)."""
+    labels = labels.to(logits.device)
     valid = labels >= 0
     labels_c = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -870,9 +886,10 @@ def _on_first(parts: List[Tensor], device) -> Tensor:
 #: them out: decoder-only, every layer attention and a SwiGLU MLP or MoE
 MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm")
 
-#: prefill and decode_step calls by path since the last reset_paths():
-#: "whole" (a CausalLM), "rows" (a model held as shards, a dp row a
-#: device) and "model" (the reference's layout over "model")
+#: prefill and decode_step calls, and the sharded train step's gradients
+#: (``train_path``), by path since the last reset_paths(): "whole" (a
+#: CausalLM), "rows" (a model held as shards, a dp row a device) and
+#: "model" (the reference's layout over "model")
 path_counts: Dict[str, int] = {"whole": 0, "rows": 0, "model": 0}
 
 
@@ -893,12 +910,29 @@ def serve_path(params, cfg: ModelConfig, ctx=None) -> str:
     model = as_sharded(params, cfg, ctx)
     if model is None:
         return "whole"
-    ctx = _grid_ctx(model, ctx)
+    return grid_path(cfg, _grid_ctx(model, ctx))
+
+
+def grid_path(cfg: ModelConfig, ctx) -> str:
+    """``serve_path``'s rule for a model held as shards on ``ctx``'s
+    grid, from the config and the grid alone: "model" or "rows"."""
     tp = ctx.grid.axis_sizes.get(ctx.tp_axis, 1)
     if (tp > 1 and cfg.family in MODEL_AXIS_FAMILIES and cfg.mlp == "swiglu"
             and not cfg.meta_tokens):
         return "model"
     return "rows"
+
+
+def train_path(params, cfg: ModelConfig, ctx=None) -> str:
+    """The path the sharded train step's gradient takes
+    (train/train_step.py:``jit_train_step``), by ``serve_path``'s rule:
+    "model" (``model_nll_sum``, context-parallel over the row's devices)
+    for the dense, MoE and VLM families on a grid whose "model" axis is
+    larger than 1, "rows" (a dp row a device) otherwise; counted in
+    ``path_counts``."""
+    path = serve_path(params, cfg, ctx)
+    path_counts[path] += 1
+    return path
 
 
 def _grid_ctx(model: ShardedLM, ctx):
@@ -1193,7 +1227,8 @@ def _model_decode(model: ShardedLM, token, cache: Cache, cfg: ModelConfig,
 
 def _cp_moe(row: ModelRow, lps, hs: List[Tensor], cfg: ModelConfig, ctx,
             bounds: List[Tuple[int, int]]) -> List[Tensor]:
-    """A prefill's MoE FFN on each device's own tokens: the all-to-all
+    """A context-parallel pass's MoE FFN on each device's own tokens
+    (prefill, and the train step under autograd): the all-to-all
     path where the sequence splits evenly (expert group g on device g),
     else the replicated path over the row's gathered tokens, each device
     then keeping its run; the shared expert on each device's tokens."""
@@ -1219,6 +1254,105 @@ def _cp_moe(row: ModelRow, lps, hs: List[Tensor], cfg: ModelConfig, ctx,
     return ys
 
 
+def _cp_inputs(row: ModelRow, tok: Tensor, pos: Tensor,
+               bounds: List[Tuple[int, int]], cfg: ModelConfig) -> dict:
+    """A context-parallel pass's inputs on a dp row: device g's chunk
+    [s_g, e_g) of the embedded tokens (``_tp_embed``) and of the positions
+    (B, S) or (B, S, 3) ("q_pos"), and the whole sequence's t stream on
+    every device ("k_pos")."""
+    devs = row.devices
+    toks = on_devices(devs, lambda g: tok.to(devs[g]))
+    return {"x": _tp_embed(row, toks, cfg, bounds),
+            "q_pos": [pos[:, s:e].to(d) for d, (s, e) in zip(devs, bounds)],
+            "k_pos": on_devices(devs, lambda g: t_stream(pos).to(devs[g]))}
+
+
+def _cp_layer(row: ModelRow, lp, xs: List[Tensor], q_pos: List[Tensor],
+              k_pos: List[Tensor], bounds: List[Tuple[int, int]],
+              window: int, cfg: ModelConfig, ctx, flash: bool):
+    """One decoder layer of a context-parallel pass over a dp row, ``lp``
+    the layer whole on each device: each chunk's q, k and v; K and V side
+    by side gathered in model-index order (``seq_gather``: one exchange
+    between the cards, and under grad its f32 backward); each chunk's
+    queries attending at its offset (``attend_chunk``); the FFN on each
+    device's own tokens. -> (xs, each device's whole k, whole v)."""
+    devs = row.devices
+    H, hd = cfg.n_heads, cfg.hd
+    qkv = [_project_qkv(norm(x, p.ln1, cfg.norm, cfg.norm_eps), p.attn,
+                        cfg, qp) for x, p, qp in zip(xs, lp, q_pos)]
+    kv = seq_gather([torch.cat(t[1:], -1) for t in qkv], devs)
+    k = [x[..., :hd] for x in kv]
+    v = [x[..., hd:] for x in kv]
+    xs = [x + torch.matmul(attend_chunk(
+              t[0], k[g], v[g], cfg, t_stream(q_pos[g]), k_pos[g],
+              bounds[g][0], window=window, n_meta=cfg.meta_tokens, ctx=ctx,
+              flash=flash).reshape(x.shape[0], x.shape[1], H * hd),
+              lp[g].attn.wo)
+          for g, (x, t) in enumerate(zip(xs, qkv))]
+    hs = [norm(x, p.ln2, cfg.norm, cfg.norm_eps) for x, p in zip(xs, lp)]
+    f = (_cp_moe(row, lp, hs, cfg, ctx, bounds) if cfg.is_moe
+         else [mlp(h, p.mlp, cfg.mlp) for h, p in zip(hs, lp)])
+    return [x + y for x, y in zip(xs, f)], k, v
+
+
+def _cp_train_layer(xs: List[Tensor], row: ModelRow, li: int, *args
+                    ) -> List[Tensor]:
+    """``_cp_layer`` of layer ``li``, gathered whole onto the row's
+    devices here (and again in the recompute of the backward)."""
+    return _cp_layer(row, row.whole_layer(li), xs, *args)[0]
+
+
+def _cp_remat(fn, xs: List[Tensor], *args) -> List[Tensor]:
+    """``fn(xs, *args)`` over a row's chunks, recomputed in the backward
+    where grad is enabled: only the chunks are kept, in the reentrant
+    form, which recomputes the layer once before its backward fans out
+    over the row's cards (as ``_remat`` for a layer held as shards)."""
+    if not torch.is_grad_enabled():
+        return fn(xs, *args)
+    return list(checkpoint(lambda *t: tuple(fn(list(t), *args)), *xs,
+                           use_reentrant=True))
+
+
+def model_nll_sum(row: ModelRow, batch: Dict[str, object],
+                  cfg: ModelConfig, ctx) -> Tensor:
+    """One dp row's next-token loss numerator in the reference's training
+    layout (its batch at P(dp, "model"), repro/sharding/rules.py:193):
+    the row's sequence cut over its devices, each layer gathered whole
+    onto every device of the row and recomputed in the backward, K and V
+    gathered in model-index order and each chunk's queries attending at
+    its offset (the flash kernel's forward and backward at ``q_offset``,
+    or ``_sdpa`` under the chunk's rows of the mask: an image prompt, a
+    window), the MoE's all-to-all on each device's own tokens; then each
+    device's logits (the final norm and the head, gathered whole) and
+    its ``_nll`` on its chunk of the labels. ``batch``: the row's tokens
+    and labels (B, S) [+ positions (B, S) or (B, S, 3)] on the host. ->
+    the chunks' numerators in f32, added in model-index order on the
+    row's first device."""
+    tokens = torch.as_tensor(batch["tokens"])
+    B, S = tokens.shape
+    pos = _prompt_positions(batch, cfg, B, S)
+    flash = index_causal(pos)
+    if pos is None:
+        pos = arange_positions(B, S, "cpu")
+    bounds = _chunks(S, row.tp)
+    st = _cp_inputs(row, tokens, pos, bounds, cfg)
+    xs = st["x"]
+    for li, window in enumerate(layer_windows(cfg)):
+        xs = _cp_remat(_cp_train_layer, xs, row, li, st["q_pos"],
+                       st["k_pos"], bounds, window, cfg, ctx, flash)
+    devs = row.devices
+    fn = row.local_tree("final_norm")
+    head = row.whole("embed" if cfg.tie_embeddings else "lm_head")
+    labels = torch.as_tensor(batch["labels"])
+    parts = []
+    for g, (x, (s, e)) in enumerate(zip(xs, bounds)):
+        w = head[g].T if cfg.tie_embeddings else head[g]
+        logits = torch.matmul(norm(x, fn[g], cfg.norm, cfg.norm_eps),
+                              w.to(cfg.dtype)).to(torch.float32)
+        parts.append(_nll(logits, labels[:, s:e])[0])
+    return reduce_to(parts, devs[0])
+
+
 def _model_prefill(model: ShardedLM, batch: Dict[str, Tensor],
                    cfg: ModelConfig, max_len: int, ctx
                    ) -> Tuple[Tensor, Cache]:
@@ -1239,43 +1373,19 @@ def _model_prefill(model: ShardedLM, batch: Dict[str, Tensor],
         pos = arange_positions(B, S, "cpu")
     cache = init_cache(cfg, B, max_len, ctx=ctx)
     bounds = _chunks(S, rows[0].tp)
-    states = []
-    for row, tok, p in zip(rows, _split_rows(tokens, len(rows)),
-                           _split_rows(pos, len(rows))):
-        devs = row.devices
-        toks = on_devices(devs, lambda g: tok.to(devs[g]))
-        states.append({
-            "x": _tp_embed(row, toks, cfg, bounds),
-            "q_pos": [p[:, s:e].to(d) for d, (s, e) in zip(devs, bounds)],
-            "k_pos": on_devices(devs, lambda g: t_stream(p).to(devs[g]))})
-    H, hd = cfg.n_heads, cfg.hd
+    states = [_cp_inputs(row, tok, p, bounds, cfg)
+              for row, tok, p in zip(rows, _split_rows(tokens, len(rows)),
+                                     _split_rows(pos, len(rows)))]
     for li, window in enumerate(layer_windows(cfg)):
         lps = [row.whole_layer(li) for row in rows]
         for row, lp, st in zip(rows, lps, states):
-            devs = row.devices
-            xs = st["x"]
-            qkv = [_project_qkv(norm(x, p.ln1, cfg.norm, cfg.norm_eps),
-                                p.attn, cfg, qp)
-                   for x, p, qp in zip(xs, lp, st["q_pos"])]
-            # K and V side by side: one exchange between the cards
-            kv = all_gather([torch.cat(t[1:], -1) for t in qkv], devs, 1)
-            k = [x[..., :hd] for x in kv]
-            v = [x[..., hd:] for x in kv]
+            st["x"], k, v = _cp_layer(row, lp, st["x"], st["q_pos"],
+                                      st["k_pos"], bounds, window, cfg, ctx,
+                                      flash)
             for name, kv in (("k", k), ("v", v)):
                 pieces, boxes, _ = _cache_view(cache, row, name)
                 for g in range(row.tp):
                     _write_kv(pieces[g], boxes[g], li, kv[g], 0)
-            xs = [x + torch.matmul(attend_chunk(
-                      t[0], k[g], v[g], cfg, t_stream(st["q_pos"][g]),
-                      st["k_pos"][g], bounds[g][0], window=window,
-                      n_meta=cfg.meta_tokens, ctx=ctx, flash=flash
-                  ).reshape(x.shape[0], x.shape[1], H * hd), lp[g].attn.wo)
-                  for g, (x, t) in enumerate(zip(xs, qkv))]
-            hs = [norm(x, p.ln2, cfg.norm, cfg.norm_eps)
-                  for x, p in zip(xs, lp)]
-            f = (_cp_moe(row, lp, hs, cfg, ctx, bounds) if cfg.is_moe
-                 else [mlp(h, p.mlp, cfg.mlp) for h, p in zip(hs, lp)])
-            st["x"] = [x + y for x, y in zip(xs, f)]
         del lps
     last = next(g for g, (s, e) in enumerate(bounds) if e == S)
     logits = []

@@ -22,15 +22,19 @@ the row's device of model index g from the pieces that lie on model
 index g, over the dp axes only (``RowPlan.group_orders``), and handed to
 models/moe.py as ``ep_groups``: no card holds a whole expert stack.
 
-Serving over "model" (models/model.py's model path) computes with
-``ModelRow`` instead: the row's device of each model index g
-(``RowPlan.group_devices``), ``local`` reading each leaf's block at
+Serving and training over "model" (models/model.py's model path)
+compute with ``ModelRow`` instead: the row's device of each model index
+g (``RowPlan.group_devices``), ``local`` reading each leaf's block at
 model index g on that device -- its own piece, with no copy, on a (1, N)
-grid; gathered over the dp axes only elsewhere -- and ``whole_layer``
-reading a layer whole onto every device of the row (prefill). The
-collectives between the row's devices (``all_gather``, ``all_reduce``,
-``reduce_scatter``) are copies and sums in model-index order, so every
-device of a row gets the same numbers, on logical devices and on cards.
+grid; gathered over the dp axes only elsewhere -- and ``whole_layer`` /
+``whole`` reading a layer / a leaf whole onto every device of the row
+(prefill, the train step). The collectives between the row's devices
+(``all_gather``, ``all_reduce``, ``reduce_scatter``) are copies and sums
+in model-index order, so every device of a row gets the same numbers, on
+logical devices and on cards; ``seq_gather`` gathers a context-parallel
+step's K and V with a backward of its own: each chunk's gradient is the
+sum of every device's share of it, added in f32 in model-index order on
+the chunk's device and rounded once.
 """
 from __future__ import annotations
 
@@ -210,6 +214,46 @@ def reduce_scatter(parts: Sequence[Tensor], devices,
             for dev, (s, e) in zip(devices, bounds)]
 
 
+class _SeqGather(torch.autograd.Function):
+    """``seq_gather``: forward(devices, *parts) -> one concatenation a
+    model index -- one a distinct device where no part takes a gradient
+    (``all_gather``), else one a model index, also where devices repeat,
+    so each index's gradient arrives apart; backward: part i's gradient is
+    the sum over the indices g of g's gradient at part i's positions, in
+    f32 in model-index order on part i's device, rounded once to its
+    dtype (four bf16 partials added in bf16 would round three more times
+    than the whole sequence's single f32 accumulation)."""
+
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        if not any(ctx.needs_input_grad[1:]):
+            return tuple(all_gather(parts, devices, 1))
+        ctx.devices = devices
+        ctx.sizes = [p.shape[1] for p in parts]
+        ctx.dtype = parts[0].dtype
+        return tuple(torch.cat([p.to(d) for p in parts], 1) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out, s = [], 0
+        for dev, n in zip(ctx.devices, ctx.sizes):
+            acc = None
+            for g in grads:
+                if g is not None:
+                    part = g.narrow(1, s, n).to(dev, torch.float32)
+                    acc = part if acc is None else acc + part
+            out.append(None if acc is None else acc.to(ctx.dtype))
+            s += n
+        return (None, *out)
+
+
+def seq_gather(parts: Sequence[Tensor], devices) -> List[Tensor]:
+    """Each device's concatenation of the row's parts (B, S_g, ...)
+    along the sequence, in model-index order, with the gradient
+    ``_SeqGather`` gives it."""
+    return list(_SeqGather.apply(tuple(devices), *parts))
+
+
 def gathered_rows(layers: Sequence[object]) -> List[object]:
     """One layer of each dp row, gathered (where held as shards) before
     any row runs it: every card's copies of the layer are queued before
@@ -339,6 +383,13 @@ class ModelRow:
         if all(n in self._own for n in names):
             self._own[prefix] = out
         return out
+
+    def whole(self, name: str) -> List[Tensor]:
+        """``name`` whole on every device of the row (one copy a distinct
+        device), each reading its own model index's blocks first."""
+        sh, pieces = self.model.shardings[name], self.model.pieces[name]
+        return on_devices(self.devices, lambda g: sh.gather(
+            pieces, self.devices[g], self.plan.group_orders[g]))
 
     def whole_layer(self, i: int) -> List[object]:
         lsh = LayerShards(self._layers[i], self.plan, experts=True)

@@ -20,14 +20,24 @@ the card (nothing waits for the device).
     state held as the shards ``state_shardings`` lays out
     (``init_train_state(..., shardings=)`` makes it per shard,
     ``shard_state`` from a plain state, ``gather_state`` takes it back).
-    Each dp row of the batch runs on its own device (the row's first),
-    each layer gathering its parameters there as it runs and again in
-    the recomputed backward (models/sharded.py: ``row_model``), the MoE on the row's devices through the EP
-    paths; the loss's numerator and count are reduced over the rows
-    apart (the global mean, however the ignored labels fall); gradients
-    land on the shards and are summed over rows in f32 in row order;
-    AdamW runs shard by shard on each shard's device and the parameters'
-    shards are copied back in their dtype. The reference's ``donate``,
+    The dp rows of the batch run one after another, each on the path
+    ``models.model.train_path`` names. "model" (the dense, MoE and VLM
+    families on a grid whose "model" axis is larger than 1; the
+    reference's batch at P(dp, "model")): the row's sequence cut over its
+    devices, each layer gathered whole onto every device of the row, K
+    and V gathered and each chunk's queries attending at its offset
+    (``models.model.model_nll_sum``). "rows" (whisper, mamba2, hymba, and
+    any grid whose "model" axis is 1): the row on its own device (the
+    row's first), each layer gathering its parameters there as it runs
+    and again in the recomputed backward (models/sharded.py:
+    ``row_model``), the MoE on the row's devices through the EP paths.
+    Either way the loss's numerator is summed over (row, chunk) in f32 in
+    grid order and divided by the global count (the global mean, however
+    the ignored labels fall); each piece's gradient is its own
+    (``_own_grad``: no device keeps a whole layer's gradient past its
+    backward) and is summed over rows in f32 in row order; AdamW runs
+    shard by shard on each shard's device and the parameters' shards are
+    copied back in their dtype. The reference's ``donate``,
     ``state_shape`` and ``batch_shape`` have no counterpart: nothing is
     compiled ahead, and the state is updated in place.
   * ``make_ddp_train_step(cfg, opt, grid=None, compress=True)`` -- the
@@ -55,9 +65,11 @@ import torch
 
 from ..launch.mesh import DeviceGrid, grid_of, visible_devices
 from ..models.configs import ModelConfig
-from ..models.model import (CausalLM, init_params, loss_fn, nll_sum,
-                            param_shapes, trainable)
-from ..models.sharded import row_model, row_plans, shard_leaf
+from ..models.model import (CausalLM, init_params, loss_fn, model_nll_sum,
+                            nll_sum, param_shapes, train_path,
+                            trainable)
+from ..models.sharded import (ModelRow, ShardedLM, row_model, row_plans,
+                              shard_leaf)
 from ..sharding.rules import (PROFILES, Profile, Sharding, device_bytes,
                               dp_axes, make_ctx, param_shardings)
 from .grad_compress import init_residuals, mean_of_payloads, quantize_shards
@@ -300,14 +312,16 @@ def jit_train_step(cfg: ModelConfig, opt: OptConfig, grid: DeviceGrid,
     positions, enc_input]) split into ``microbatches`` runs of rows, each
     over the dp rows. ``step.grads(state, batch)`` -> (loss, {name: f32
     gradient pieces}) is its first half, the gradient as the update sees
-    it."""
+    it. Each call takes the path ``models.model.train_path`` names."""
     sh = param_shardings(grid, param_shapes(cfg), cfg)
     # a row reads each block from its own devices where they hold it
-    plans = row_plans(make_ctx(grid, profile=profile))
+    ctx = make_ctx(grid, profile=profile)
+    plans = row_plans(ctx)
     home = grid.flat[0]
 
     def grads(state: State, batch: Dict[str, object]):
         params = state["params"]
+        taken = train_path(params, cfg, ctx)
         owner = {n: sh[n].owners(p[0].dim()) for n, p in params.items()}
         acc = {n: {i: torch.zeros(p[i].shape, dtype=torch.float32,
                                   device=p[i].device)
@@ -322,8 +336,13 @@ def jit_train_step(cfg: ModelConfig, opt: OptConfig, grid: DeviceGrid,
                 dev = plan.device
                 handles = {n: [_own_grad(q.detach().requires_grad_())
                                for q in p] for n, p in params.items()}
-                model = row_model(cfg, handles, sh, plan)
-                nll, _ = nll_sum(model, _on_device(part, dev), cfg, plan.ctx)
+                if taken == "model":
+                    model = ModelRow(ShardedLM(cfg, sh, handles), plan)
+                    nll = model_nll_sum(model, part, cfg, ctx)
+                else:
+                    model = row_model(cfg, handles, sh, plan)
+                    nll, _ = nll_sum(model, _on_device(part, dev), cfg,
+                                     plan.ctx)
                 (nll / count.to(dev)).backward()
                 nll = nll.detach().to(home)
                 nll_tot = nll if nll_tot is None else nll_tot + nll

@@ -334,3 +334,61 @@ def test_zero3_trains_whisper_encoder():
         rel = float((got - p.grad).norm() / p.grad.norm())
         assert rel <= 1e-5, (n, rel)
     assert any(n.startswith("enc_layers.") for n in acc)
+
+
+_REF_GRID_CELLS = r"""
+import json
+import repro.launch.dryrun as rd     # forces 512 host devices first
+import jax
+auto = jax.sharding.AxisType.Auto
+out = {}
+for shape in ((1, 4), (2, 2)):
+    def mesh(*, multi_pod=False, shape=shape):
+        return jax.make_mesh(shape, ("data", "model"),
+                             axis_types=(auto,) * 2,
+                             devices=jax.devices()[:4])
+    rd.make_production_mesh = mesh
+    out["%dx%d" % shape] = rd.run_cell("qwen3-14b", "train_4k", False,
+                                       smoke=True)["mem"]["argument_bytes"]
+print(json.dumps(out))
+"""
+
+
+def test_train_cell_over_model_traces_the_model_path():
+    """A train_4k cell on a grid whose "model" axis is 4 or 2 traces the
+    context-parallel step (one dp row of the grid's "model" axis, the
+    row's share of the global batch): the "model" path once; the flash
+    backward's FLOPs those of its chunks, ``kernel_bwd_flops`` at each
+    chunk's offset against the whole sequence, summed over the chunks and
+    the layers; its argument bytes the reference's dry run of the same
+    smoke cell on the same (Auto) mesh."""
+    from repro_torch.launch.mesh import grid_of
+    from repro_torch.models import model as m
+    res = subprocess.run([sys.executable, "-c", _REF_GRID_CELLS],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env={**os.environ, "JAX_PLATFORMS": "cpu",
+                                        "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr[-2000:]
+    ref = json.loads(res.stdout.strip().splitlines()[-1])
+    cfg = get_config("qwen3-14b", smoke=True)
+    for shape in ((1, 4), (2, 2)):
+        grid = grid_of((dryrun.META,) * 4, shape, ("data", "model"))
+        m.reset_paths()
+        step, _, _, mem, _ = dryrun.lower_cell("qwen3-14b", "train_4k",
+                                               smoke=True, grid=grid)
+        _, counts = op_count.count(step)
+        assert m.path_counts == {"whole": 0, "rows": 0, "model": 1}
+        specs = dryrun._input_specs(cfg, dryrun.SHAPE_BY_NAME["train_4k"],
+                                    True, 0)
+        B, S = specs["tokens"].shape
+        B //= shape[0]
+        tp = shape[1]
+        c = S // tp
+        want = cfg.n_layers * sum(
+            fa.kernel_bwd_flops(B, cfg.n_heads, c, cfg.hd, cfg.dtype, True,
+                                Sk=S, q_offset=g * c) for g in range(tp))
+        assert counts["flops_by_op"]["repro_torch.flash_attention_bwd"] \
+            == want
+        row = dryrun.run_cell("qwen3-14b", "train_4k", smoke=True,
+                              grid=grid)
+        assert row["mem"]["argument_bytes"] == ref["%dx%d" % shape], shape

@@ -238,7 +238,8 @@ def test_flash_plain_query_offset_is_the_pallas_kernels_rows(q0, Sq, causal):
 
 def test_flash_query_offset_bounds_and_the_gradient_refuse():
     """q_offset + Sq must not pass Sk; FlashAttention (with a gradient)
-    takes whole sequences only: its backward has no offset."""
+    refuses the same offsets, and differentiates at any offset in bounds
+    (its backward has the offset form)."""
     from repro_torch.kernels.flash_attention import FlashAttention
     q, k, v = _port(_qkv(1, 4, 2, 32, 8), "f32")
     with pytest.raises(ValueError, match="q_offset"):
@@ -246,10 +247,12 @@ def test_flash_query_offset_bounds_and_the_gradient_refuse():
     with pytest.raises(ValueError, match="q_offset"):
         flash_attention(q, k, v, q_offset=1)
     qg = q[:, :, :16].clone().requires_grad_()
-    with pytest.raises(ValueError, match="whole sequence"):
-        FlashAttention.apply(qg, k, v, True, 16)
-    with pytest.raises(ValueError, match="whole sequence"):
-        FlashAttention.apply(qg, k, v, True, 0)
+    with pytest.raises(ValueError, match="q_offset"):
+        FlashAttention.apply(qg, k, v, True, 17)
+    with pytest.raises(ValueError, match="q_offset"):
+        FlashAttention.apply(q.clone().requires_grad_(), k, v, True, 1)
+    FlashAttention.apply(qg, k, v, True, 16).sum().backward()
+    assert qg.grad is not None and qg.grad.shape == qg.shape
 
 
 @pytest.mark.parametrize("dt,hd", [("bf16", 128), ("f32", 128), ("bf16", 32)])

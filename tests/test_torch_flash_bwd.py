@@ -396,9 +396,9 @@ def test_tma_strides_take_the_training_layout(monkeypatch):
     seen = {}
     real = fa.flash_attention_bwd
 
-    def spy(q_, k_, v_, out, dout, lse, causal=True):
+    def spy(q_, k_, v_, out, dout, lse, causal=True, q_offset=0):
         seen.update(q=q_, k=k_, v=v_, out=out, dout=dout)
-        return real(q_, k_, v_, out, dout, lse, causal)
+        return real(q_, k_, v_, out, dout, lse, causal, q_offset)
 
     monkeypatch.setattr(fa, "flash_attention_bwd", spy)
     out = fa.FlashAttention.apply(q, k, v, True).transpose(1, 2)
@@ -420,7 +420,7 @@ def test_function_backward_makes_a_refused_dout_tma_legal(monkeypatch):
     keeps its layout."""
     seen = []
 
-    def spy(q, k, v, out, dout, lse, causal=True):
+    def spy(q, k, v, out, dout, lse, causal=True, q_offset=0):
         seen.append(dout)
         return q, k, v
 
@@ -428,6 +428,7 @@ def test_function_backward_makes_a_refused_dout_tma_legal(monkeypatch):
 
     class Ctx:
         causal = True
+        q_offset = 0
 
     for dtype, hd in ((torch.bfloat16, 16), (torch.float32, 16)):
         q = torch.zeros(1, 2, 8, hd, dtype=dtype)
@@ -489,3 +490,179 @@ def test_planted_faults_read_over_the_bf16_limit_at_the_sm90_shape():
         bad = chip_smoke.planted_bwd(torch, q, k, v, do, lse, causal, fault)
         assert max(_rel(g.float(), w.float().numpy())
                    for g, w in zip(sound, bad)) > 3 * tol, fault
+
+
+# ------------------------------------------------ the query-offset form
+
+# a context-parallel step's chunks: Sk 64 keys in 4 chunks of Sq 16
+# queries (GQA rep 4), each chunk at q_offset 0, Sq, 2 Sq and 3 Sq
+OFF_SHAPE = (2, 8, 2, 16, 64, 16)      # B, H, K, Sq, Sk, hd
+OFFSETS = (0, 16, 32, 48)
+OFF_TOL = {"f32": 1e-5, "bf16": 3e-2}
+# chip_smoke.py's phase 3c chunk: 512 queries of 2,048 at these offsets
+OFFSETS_FULL = (0, 512, 1024, 1536)
+
+
+def _chunk_inputs(seed=5):
+    B, H, K, Sq, Sk, hd = OFF_SHAPE
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for shape in
+            ((B, H, Sk, hd), (B, K, Sk, hd), (B, K, Sk, hd), (B, H, Sk, hd))]
+
+
+def _ref_chunk(q, k, v, do, off, dtype):
+    """jax.vjp of the reference's sdpa_flash (its custom VJP, _flash_bwd)
+    for the chunk's queries q (B, H, Sq, hd) at positions off .. off + Sq
+    - 1 against every key, under the chunk's rows of its make_mask."""
+    from repro.models.attention import make_mask as j_make_mask
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    rep = H // K
+    jd = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    mask = jnp.broadcast_to(j_make_mask(jnp.arange(off, off + Sq),
+                                        jnp.arange(Sk), causal=True),
+                            (B, Sq, Sk))
+    q5 = jnp.asarray(q, jd).reshape(B, K, rep, Sq, hd).transpose(
+        0, 3, 1, 2, 4)
+    kv = [jnp.asarray(x, jd).transpose(0, 2, 1, 3) for x in (k, v)]
+    do5 = jnp.asarray(do, jd).reshape(B, K, rep, Sq, hd).transpose(
+        0, 3, 1, 2, 4)
+    _, vjp = jax.vjp(lambda a, b, c: sdpa_flash(a, b, c, mask, hd ** -0.5),
+                     q5, *kv)
+    dq5, dk, dv = (np.asarray(g, np.float32) for g in vjp(do5))
+    dq = dq5.transpose(0, 2, 3, 1, 4).reshape(B, H, Sq, hd)
+    return dq, dk.transpose(0, 2, 1, 3), dv.transpose(0, 2, 1, 3)
+
+
+def _port_chunk(q, k, v, do, off, dtype):
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(td) for x in (q, k, v, do))
+    _, lse = fa.flash_attention(tq, tk, tv, True, lse=True, q_offset=off)
+    return fa.flash_attention_bwd_plain(tq, tk, tv, tdo, lse, True, off)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("off", OFFSETS)
+def test_offset_backward_matches_the_reference_chunk(off, dtype):
+    """flash_attention_bwd_plain at q_offset against jax.vjp of the
+    reference's sdpa_flash under the chunk's rows of make_mask, from the
+    same numpy inputs (Sq != Sk, GQA); bf16 rounds as the reference's
+    bf16 graph does, within 3e-2."""
+    q, k, v, do = _chunk_inputs()
+    Sq = OFF_SHAPE[3]
+    qc, doc = q[:, :, off:off + Sq], do[:, :, off:off + Sq]
+    got = _port_chunk(qc, k, v, doc, off, dtype)
+    want = _ref_chunk(qc, k, v, doc, off, dtype)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(g.float(), w) <= OFF_TOL[dtype], (name, _rel(g.float(),
+                                                                 w))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_offset_chunks_sum_to_the_whole_sequence(dtype):
+    """The four chunks' dk and dv summed (in f32, chunk order) and their
+    dq concatenated equal the whole sequence's backward; every key past a
+    chunk's last query gets exactly zero dk and dv."""
+    q, k, v, do = _chunk_inputs()
+    Sq = OFF_SHAPE[3]
+    whole = _port_chunk(q, k, v, do, 0, dtype)
+    dqs, dk, dv = [], 0.0, 0.0
+    for off in OFFSETS:
+        g = _port_chunk(q[:, :, off:off + Sq], k, v, do[:, :, off:off + Sq],
+                        off, dtype)
+        assert not g[1][:, :, off + Sq:].any() and \
+            not g[2][:, :, off + Sq:].any()
+        dqs.append(g[0])
+        dk = dk + g[1].float()
+        dv = dv + g[2].float()
+    for g, w in zip((torch.cat(dqs, 2), dk, dv), whole):
+        assert _rel(g.float(), w.float().numpy()) <= OFF_TOL[dtype]
+
+
+@pytest.mark.parametrize("off", OFFSETS)
+def test_function_at_an_offset_gives_the_plain_backward_bit_for_bit(off):
+    """FlashAttention.apply(q, k, v, True, q_offset) driven by
+    .backward(): on CPU tensors its forward is the plain forward at the
+    offset, its gradients the plain backward's, bit for bit; a key past
+    the chunk gets exact zeros."""
+    q, k, v, do = _chunk_inputs(seed=8)
+    Sq = OFF_SHAPE[3]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (
+        q[:, :, off:off + Sq], k, v, do[:, :, off:off + Sq]))
+    xs = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    out = fa.FlashAttention.apply(*xs, True, off)
+    torch.testing.assert_close(out.detach(), fa.flash_attention_plain(
+        tq, tk, tv, True, q_offset=off), rtol=0, atol=0)
+    out.backward(tdo)
+    _, lse = fa.flash_attention(tq, tk, tv, True, lse=True, q_offset=off)
+    want = fa.flash_attention_bwd_plain(tq, tk, tv, tdo, lse, True, off)
+    for x, w in zip(xs, want):
+        torch.testing.assert_close(x.grad, w, rtol=0, atol=0)
+    assert not xs[1].grad[:, :, off + Sq:].any()
+    got = fa.flash_attention_bwd(tq, tk, tv, out.detach(), tdo, lse, True,
+                                 off)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_attend_at_an_offset_differentiates_through_the_function():
+    """Training's chunk (grad on) goes through FlashAttention at its
+    offset and agrees with autograd through _sdpa under the chunk's rows
+    of make_mask."""
+    B, H, K, Sq, Sk, hd = OFF_SHAPE
+    q, k, v, do = (torch.from_numpy(x).transpose(1, 2) for x in
+                   _chunk_inputs(seed=4))
+    off = 32
+    qc, doc = q[:, off:off + Sq], do[:, off:off + Sq]
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=128,
+                      n_heads=H, n_kv_heads=K, d_ff=8, vocab=8, head_dim=hd,
+                      dtype=torch.float32)
+    qp = torch.arange(off, off + Sq).expand(B, Sq)
+    kp = torch.arange(Sk).expand(B, Sk)
+    grads = []
+    for fn in (lambda a, b, c: attend(a, b, c, q_offset=off),
+               lambda a, b, c: _sdpa(a, b, c, make_mask(qp, kp), cfg)):
+        xs = [x.clone().requires_grad_(True) for x in (qc, k, v)]
+        fn(*xs).backward(doc)
+        grads.append([x.grad for x in xs])
+    for got, want in zip(*grads):
+        assert _rel(got, want.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("off", OFFSETS_FULL)
+def test_backward_flops_and_plan_count_a_chunks_tiles(off):
+    """kernel_bwd_flops and bwd_plan_sm90 at (Sq, Sk, q_offset): the
+    whole sequence's tiles split over its chunks (the causal diagonal
+    tiles of every chunk at a 128-aligned offset are the whole's), a key
+    tile past the chunk's last query stepping over none, a key tile up to
+    the offset over every query tile."""
+    B, H, K, Sq, Sk, hd = 1, 40, 8, 512, 2048, 128
+    for dt in (torch.bfloat16, torch.float32):
+        whole = fa.kernel_bwd_flops(B, H, Sk, hd, dt, True)
+        parts = [fa.kernel_bwd_flops(B, H, Sq, hd, dt, True, Sk=Sk,
+                                     q_offset=o) for o in OFFSETS_FULL]
+        assert sum(parts) == whole
+        assert fa.kernel_bwd_flops(B, H, Sq, hd, dt, True, Sk=Sk,
+                                   q_offset=off) == parts[off // Sq]
+        assert fa.kernel_bwd_flops(B, H, Sq, hd, dt, False, Sk=Sk,
+                                   q_offset=off) > parts[off // Sq] \
+            or off == Sk - Sq
+    plan = fa.bwd_plan_sm90(B, H, K, Sq, True, 132, Sk, off)
+    kv_tiles = -(-Sk // 128)
+    assert plan["dkdv"]["blocks"] == B * K * plan["groups"] * kv_tiles
+    assert plan["dq"]["blocks"] == B * H * (Sq // 128)
+    assert plan["dq"]["longest_steps"] == (off + Sq) // 128
+    assert fa.bwd_plan_sm90(1, 40, 8, 2048, True, 132) == fa.bwd_plan_sm90(
+        1, 40, 8, 2048, True, 132, 2048, 0)
+
+
+def test_backward_sources_take_the_offset():
+    """Both routes' C entry points take (Sq, Sk, q_off) and the wrappers
+    pass them: a chunk's dK/dV kernel starts at the query tile of k0 -
+    q_off, its dQ kernel's causal key limit moves by q_off."""
+    for src in (SRC.read_text(), SRC_SM90.read_text()):
+        assert re.search(r"int Sq, int Sk, int q_off", src)
+        assert "max(k0 - q_off, 0)" in src
+        assert "q_off + q0" in src
+    assert len(fa._BWD_ARGTYPES) == 10 + 9 + 2
+    assert len(fa._BWD_SM90_ARGTYPES) == 11 + 9 + 2

@@ -16,8 +16,11 @@ of one model; the copies between cards change no value):
     (``_moe_ep_a2a``) and a decode step's (``_moe_ep_replicated``), and
     every layer's expert group g laid out once on the cards of model
     index g (the decode reads the prefill's layout);
-  * the sharded trainer (``jit_train_step``), olmoe-1b-7b on (2, 2): 3
-    steps' loss and grad_norm, then the gathered parameters;
+  * the sharded trainer (``jit_train_step``) over "model" (the
+    context-parallel step: each chunk's K and V gathered, its dK / dV
+    summed in f32 on its card), olmoe-1b-7b on (2, 2) and qwen3-14b on
+    (1, 4): 3 steps' loss and grad_norm, then the gathered parameters;
+    the path counter must say "model";
   * DDP (``make_ddp_train_step``), qwen3-14b on ("data",) of every card,
     plain and int8-compressed: 3 steps' loss, and every replica's
     parameters against the logical run's one replica;
@@ -50,8 +53,10 @@ layers) on (1, 4) over "model" (serving B 4 x S 512 + 32 tokens, and a
 prefill at 32,768 at B 1) and on (4, 1) (a dp row a card: B 4 x S 512 +
 32, and prefills at 32,768, B 4), llama4-scout-17b-a16e (48 layers) on
 (1, 4) over "model" and on (4, 1), serving and prefills at 32,768;
-qwen3-14b's 40-layer ZeRO-3 step on (4, 1) from a train state made per
-shard, at B 4 x S 512 and at train_4k. ``--runs`` picks runs by name,
+qwen3-14b's 40-layer ZeRO-3 step from a train state made per shard, on
+(4, 1) at B 4 x S 512 and at train_4k, and on (1, 4) over "model" at B 4
+x S 512 and at train_4k's length at B 1 (1,024 tokens a card), the path
+counter read. ``--runs`` picks runs by name,
 ``--what`` their parts. For each: every card's ``memory_allocated``
 after init against its ``device_bytes``; card 0's init peak against its
 pieces plus its largest leaf's draw (f32, then the bf16 cast); the
@@ -145,15 +150,16 @@ def serve(torch, np, smoke_leaves):
     return max(rel(torch, first, first_l), rel(torch, step, step_l))
 
 
-def train(torch, np, train_batch):
+def train(torch, np, train_batch, arch: str, model: int):
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import (gather_state, init_train_state,
                                               jit_train_step, shard_state,
                                               state_shardings)
 
-    cfg = dataclasses.replace(get_config("olmoe-1b-7b", smoke=True),
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype=torch.float32)
     opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     batch = train_batch(np, cfg, 4, 32)
@@ -161,14 +167,16 @@ def train(torch, np, train_batch):
     def run():
         state = init_train_state(cfg, torch.Generator(
             device="cuda:0").manual_seed(0), "cuda:0")
-        grid = make_host_mesh(2, "cuda")
+        grid = make_host_mesh(model, "cuda")
         sh = state_shardings(grid, state, cfg)
         sharded = shard_state(state, sh)
         step = jit_train_step(cfg, opt, grid)
         metrics = []
+        lm.reset_paths()
         for _ in range(3):
             sharded, m = step(sharded, batch)
             metrics += [m["loss"], m["grad_norm"]]
+        assert lm.path_counts["model"] == 3, lm.path_counts
         return metrics, gather_state(sharded, sh, "cuda:0")["params"]
 
     m_c, p_c = run()
@@ -465,11 +473,14 @@ FULL = (("qwen2-vl 80L (1, 4)", "qwen2-vl-72b", 0, (1, 4),
         ("llama4-scout 48L (4, 1)", "llama4-scout-17b-a16e", 0, (4, 1),
          ("prefill_32k",)),
         ("qwen3-14b 40L ZeRO-3 (4, 1)", "qwen3-14b", 0, (4, 1),
-         ("train", "train_4k")))
+         ("train", "train_4k")),
+        ("qwen3-14b 40L ZeRO-3 (1, 4) model", "qwen3-14b", 0, (1, 4),
+         ("train", "train_4k_b1")))
 SERVE = (4, 512, 32)
 LONG = (4, 32768)
 TRAIN = (4, 512, 3)
 TRAIN_4K = (4, 4096, 2)
+TRAIN_4K_B1 = (1, 4096, 2)
 # AdamW's rate for the 40-layer steps: chip_smoke.py's 1e-4 (4 layers)
 # overshot at the third step at 40 (12.96 -> 6.56 -> 14.48), 3e-4 more
 TRAIN_LR = 3e-5
@@ -490,7 +501,9 @@ DRY = (("qwen2-vl-72b", "prefill_32k", (1, 4), 512, 4),
        ("llama4-scout-17b-a16e", "decode_32k", (1, 4), 544, 4),
        ("llama4-scout-17b-a16e", "prefill_32k", (4, 1), 0, 4),
        ("qwen3-14b", "train_4k", (4, 1), 512, 4),
-       ("qwen3-14b", "train_4k", (4, 1), 0, 4))
+       ("qwen3-14b", "train_4k", (4, 1), 0, 4),
+       ("qwen3-14b", "train_4k", (1, 4), 512, 4),
+       ("qwen3-14b", "train_4k", (1, 4), 0, 1))
 _DRY = r"""
 import json, sys
 import torch
@@ -861,8 +874,9 @@ def long_prefill(torch, np, chip, model, cfg, ctx, B: int = LONG[0]):
 
 
 def train_full(torch, np, chip, state, cfg, grid, shape):
-    """ZeRO-3 steps at (B, S, steps): the losses (falling) and ms a
-    step."""
+    """ZeRO-3 steps at (B, S, steps): the losses (falling), ms a step
+    and the paths the steps took (models/model.py ``path_counts``)."""
+    from repro_torch.models import model as lm
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import jit_train_step
 
@@ -871,12 +885,14 @@ def train_full(torch, np, chip, state, cfg, grid, shape):
     step = jit_train_step(cfg, opt, grid)
     batch = chip.train_batch(np, cfg, B, S)
     losses, ms = [], []
+    lm.reset_paths()
     for _ in range(steps):
         (state, m), t = timed(torch, lambda: step(state, batch))
         losses.append(float(m["loss"]))
         ms.append(round(t, 1))
     return {"losses": losses, "ms_step": ms,
-            "loss_falls": losses[-1] < losses[0]}
+            "loss_falls": losses[-1] < losses[0],
+            "paths": {k: v for k, v in lm.path_counts.items() if v}}
 
 
 def full_width(torch, np, out, runs=FULL, parts=None):
@@ -912,7 +928,8 @@ def full_width(torch, np, out, runs=FULL, parts=None):
                                      1 if w.endswith("_b1") else LONG[0])
                 else:
                     r = train_full(torch, np, chip, made, cfg, grid,
-                                   TRAIN if w == "train" else TRAIN_4K)
+                                   {"train": TRAIN, "train_4k": TRAIN_4K,
+                                    "train_4k_b1": TRAIN_4K_B1}[w])
                 r["peak_gib"] = peaks(torch)
                 rec[w] = r
         except Exception as exc:           # record it, go on to the next
@@ -984,7 +1001,10 @@ def main() -> int:
     build.build_all()
     checks = {
         "ep serve olmoe (2, 2)": lambda: serve(torch, np, smoke_leaves),
-        "sharded train olmoe (2, 2)": lambda: train(torch, np, train_batch),
+        "sharded train olmoe (2, 2)": lambda: train(
+            torch, np, train_batch, "olmoe-1b-7b", 2),
+        "sharded train qwen3 (1, 4) model": lambda: train(
+            torch, np, train_batch, "qwen3-14b", 4),
         "ddp plain qwen3 (4,)": lambda: ddp(torch, np, train_batch,
                                             CARDS, False),
         "ddp compressed qwen3 (4,)": lambda: ddp(torch, np, train_batch,
