@@ -144,6 +144,12 @@ Phases, each of which exits non-zero on failure:
      the keys past each chunk zero bit for bit, the four chunks (dk and
      dv summed in f32, dq concatenated) against the whole sequence's
      backward, timed beside SDPA's backward under the chunk's mask;
+     then the non-causal chunk (one device's frames of an encoder layer
+     over "model", FLASH_ENC_CHUNK: 375 of 1,500 keys, H = K = 20, hd
+     64), forward and backward on sm90 in bf16 and cuda_core in f32,
+     each against its plain version, reruns bit for bit, the 4 chunks
+     against one whole call (outputs concatenated, dk and dv summed in
+     f32), timed beside SDPA and the bound;
      ``--only flash`` runs the build and this phase alone;
   5. LM serving of qwen3-14b: at smoke size in f32 (weights through
      lm_params_from_numpy) the card's greedy tokens and logits against
@@ -234,8 +240,11 @@ Phases, each of which exits non-zero on failure:
      512: the gradient against the plain step's at its worst leaf within
      3e-2, the path counter, flash forward and backward launches by
      route, ms a step beside the plain step's and the row path's on the
-     same grid) and gpipe (lm_mesh); ``--only lm_mesh`` runs the build
-     and this phase alone;
+     same grid), whisper-large-v3 (4 + 4 layers) over "model" on (1, 4)
+     and (2, 2) -- encode, prefill and decode steps against the whole
+     model, generate(ctx=), flash sm90 one a layer a device of each row,
+     then its ZeRO-3 steps as above -- and gpipe (lm_mesh); ``--only
+     lm_mesh`` runs the build and this phase alone;
   5e. lm shapes: phi3-medium-14b, internlm2-20b and command-r-35b at full
      width with 5b's checks (f32 at 32 / 16 layers); then every arch at
      the reference's lengths (configs/registry.py SHAPES) at B 1: prefill
@@ -247,7 +256,8 @@ Phases, each of which exits non-zero on failure:
      on 16,384 windows through the kernel and fused backends against the
      CPU's scores; each line beside the dry run's predicted peak and
      roofline time (launch/dryrun.py, run in a process of its own from
-     the start, with the CPU's window scores); ``--only lm_shapes`` runs
+     the start, with the CPU's window scores; the length cells' lines on
+     standard error, a summary on standard output); ``--only lm_shapes`` runs
      the build and this phase alone;
   6. print the kernels line (JSON) and, last, the ok line (JSON).
 
@@ -430,6 +440,11 @@ FLASH_MATCHED_TOL = (2e-3, 2.0 ** -7)
 FLASH_CHUNK = (1, 40, 8, 512, 2048)          # B, H, K, Sq, Sk
 FLASH_CHUNK_OFFSETS = (0, 512, 1024, 1536)
 FLASH_CHUNK_HD = (16, 64, 128)
+# one device's chunk of a context-parallel encoder layer (whisper's encoder
+# over a (1, 4) row): every key visible, B 4, H = K = 20, hd 64, 375 of
+# the 1,500 frames against all 1,500 (375 = 2 x 128 + 119 and 1,500 = 11 x
+# 128 + 92: both tails ragged); the four chunks against one whole call
+FLASH_ENC_CHUNK = (4, 20, 20, 375, 1500, 64)  # B, H, K, Sq, Sk, hd
 LM_ARCH = "qwen3-14b"
 # the earlier LM phases' depths since phase 5e holds every arch at its full
 # depth at the reference's lengths (for the run's time): qwen3-14b
@@ -551,6 +566,13 @@ MESH_SMOKE_PROMPT = (4, 16)
 MESH_TRAIN = (("olmoe-1b-7b", 4, (2, 2)), ("qwen3-14b", 4, (1, 4)))
 # the plan printed beside it: qwen3-14b's whole train state on (4, 1)
 MESH_PLAN = ("qwen3-14b", (4, 1))
+# whisper-large-v3 over "model" at full width with 4 encoder and 4 decoder
+# layers on each grid: B 4 x 224 tokens + 1,500 frames (LM_ENCDEC_BATCH),
+# encode, prefill and MESH_ENCDEC_NEW greedy tokens against the whole
+# model, then MESH_ENCDEC_STEPS ZeRO-3 steps over "model" (mesh_train)
+MESH_ENCDEC = ("whisper-large-v3", 4, ((1, 4), (2, 2)))
+MESH_ENCDEC_NEW = 4
+MESH_ENCDEC_STEPS = 3
 # gpipe: 4 full-width qwen3-14b layers over 4 stages, 4 microbatches
 MESH_PIPE = (4, 4, 4, 1, 512)        # layers, stages, M, B_mb, S
 # phase 5e, lm shapes. (a) The dense configs not yet run at full width, with
@@ -617,6 +639,10 @@ PATH_KERNELS = {
     "lm mesh qwen2": ("flash_attention",),
     "lm mesh qwen3 1x4": ("flash_attention",),
     "lm mesh qwen3 2x2": ("flash_attention",),
+    # whisper over "model": the encoder's non-causal chunks and the
+    # decoder's at their offsets
+    "lm mesh whisper 1x4": ("flash_attention",),
+    "lm mesh whisper 2x2": ("flash_attention",),
     "lm mesh train": ("flash_attention", "flash_attention_bwd"),
     "lm mesh gpipe": ("flash_attention", "flash_attention_bwd"),
     # the dense configs at full width, and the reference's lengths: flash
@@ -2045,6 +2071,7 @@ def check_flash(torch, np) -> dict:
     out["flash_attention"]["max_abs_err"] = max(worst.values())
     out["flash_attention_chunk"] = check_flash_chunks(torch, np)
     out["flash_attention_bwd_chunk"] = check_flash_bwd_chunks(torch, np)
+    out["flash_attention_enc_chunk"] = check_flash_enc_chunks(torch, np)
     return out
 
 
@@ -2268,6 +2295,126 @@ def check_flash_bwd_chunks(torch, np) -> dict:
                         for k, v in times.items()))
     level_line(line)
     return {"max_abs_err": err, "whole": whole_err, "ms": times}
+
+
+def check_flash_enc_chunks(torch, np) -> dict:
+    """Phase 3c, the non-causal chunk: FLASH_ENC_CHUNK's four chunks of
+    queries (an encoder layer over "model", every key visible, Sq < Sk),
+    (B, S, H, hd) views as the encoder hands them; bf16 on the sm90 route
+    and f32 on the CUDA-core one, each through the wrappers, which must
+    launch that route (forward and backward): each chunk's forward held
+    to flash_attention_plain (FLASH_TOL) and its backward to
+    flash_attention_bwd_plain (BWD_TOL, relative L2 of dq, dk and dv),
+    reruns bit for bit, and the chunks together against one whole-sequence
+    call on the same route: the outputs concatenated (FLASH_TOL; bit for
+    bit or not, printed), dk and dv summed in f32 in chunk order and dq
+    concatenated (BWD_TOL). At the first chunk, device (span) / plain /
+    SDPA (its backward) ms and the bound: forward, q and o over Sq rows,
+    k and v over Sk keys, 4 hd operations a pair; backward, q, o, do and
+    dq over Sq rows, k and v read and dk and dv written over Sk, the LSE
+    once, 10 hd operations a pair; at the type's rate. One line, on
+    standard error; -> the errors and times, for the kernels line."""
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.flash_attention as fa
+
+    B, H, K, Sq, Sk, hd = FLASH_ENC_CHUNK
+    rng = np.random.default_rng(13)
+    arrs = [torch.from_numpy(rng.standard_normal(
+        (B, Sk, n, hd), dtype=np.float32)).to(DEV) for n in (H, K, K, H)]
+    bounds = [(s, min(s + Sq, Sk)) for s in range(0, Sk, Sq)]
+    err, whole_err, times, same = {}, {}, {}, {}
+    for dt, m, rate in ((torch.bfloat16, "sm90", BF16_FLOPS),
+                        (torch.float32, "f32", F32_FLOPS)):
+        r = "sm90" if m == "sm90" else "cuda_core"
+        tol, btol = FLASH_TOL["bf16" if m == "sm90" else "f32"], \
+            BWD_TOL["bf16" if m == "sm90" else "f32"]
+        q, k, v, do = (x.to(dt).transpose(1, 2) for x in arrs)
+        out_w, lse_w = fa.flash_attention(q, k, v, False, lse=True)
+        whole = fa.flash_attention_bwd(q, k, v, out_w, do, lse_w, False)
+        outs, dqs = [], []
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=DEV)
+        dv = torch.zeros_like(dk)
+        err[m] = [0.0, 0.0]
+        for s, e in bounds:
+            what = f"flash_attention non-causal chunk {m} [{s}, {e})"
+            qc, doc = q[:, :, s:e], do[:, :, s:e]
+            f0 = dict(fa.flash_attention.route_launches)
+            b0 = dict(fa.flash_attention_bwd.route_launches)
+            out, lse = fa.flash_attention(qc, k, v, False, lse=True)
+            again = fa.flash_attention(qc, k, v, False, lse=True)
+            g = fa.flash_attention_bwd(qc, k, v, out, doc, lse, False)
+            g2 = fa.flash_attention_bwd(qc, k, v, out, doc, lse, False)
+            torch.cuda.synchronize()
+            need(fa.flash_attention.route_launches == {**f0, r: f0[r] + 2}
+                 and fa.flash_attention_bwd.route_launches
+                 == {**b0, r: b0[r] + 2}, f"{what}: not one {r} launch a "
+                                          f"call")
+            need(torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                 and all(torch.equal(a, b) for a, b in zip(g, g2)),
+                 f"{what}: a rerun differs")
+            want = fa.flash_attention_plain(qc, k, v, False)
+            diff = (out.float() - want.float()).abs()
+            need(bool((diff <= tol * (1 + want.float().abs())).all()),
+                 f"{what}: max err {float(diff.max())} over {tol} + {tol} "
+                 f"x |want|")
+            want = fa.flash_attention_bwd_plain(qc, k, v, doc, lse, False)
+            eb = max(_rel_l2(torch, a, b) for a, b in zip(g, want))
+            need(eb <= btol, f"{what}: backward rel L2 {eb} against the "
+                             f"plain backward")
+            err[m] = [max(err[m][0], float(diff.max())), max(err[m][1], eb)]
+            outs.append(out)
+            dqs.append(g[0])
+            dk += g[1].float()
+            dv += g[2].float()
+        cat = torch.cat(outs, 2)
+        diff = (cat.float() - out_w.float()).abs()
+        need(bool((diff <= tol * (1 + out_w.float().abs())).all()),
+             f"flash_attention non-causal chunks {m}: concatenated against "
+             f"the whole call, max err {float(diff.max())}")
+        same[m] = bool(torch.equal(cat, out_w))
+        eb = max(_rel_l2(torch, a, b) for a, b in zip(
+            (torch.cat(dqs, 2), dk, dv), whole))
+        need(eb <= btol, f"flash_attention_bwd non-causal chunks {m}: "
+                         f"summed against the whole call, rel L2 {eb}")
+        whole_err[m] = [float(diff.max()), eb]
+        s, e = bounds[0]
+        qc, doc = q[:, :, s:e], do[:, :, s:e]
+        out, lse = fa.flash_attention(qc, k, v, False, lse=True)
+        qx, kx, vx = (x.detach().contiguous().requires_grad_(True)
+                      for x in (qc, k, v))
+        sdpa = F.scaled_dot_product_attention(qx, kx, vx, enable_gqa=True)
+        el = q.element_size()
+        fb = el * B * hd * (2 * (e - s) * H + 2 * Sk * K)
+        bb = el * B * hd * (4 * (e - s) * H + 4 * Sk * K) + 4 * B * H * (e - s)
+        pairs = B * H * (e - s) * Sk
+        times[m] = [
+            kernel_device_ms(torch, lambda: fa.flash_attention(
+                qc, k, v, False), "flash_attention_kernel"),
+            cuda_ms(lambda: fa.flash_attention_plain(qc, k, v, False),
+                    reps=5),
+            kernel_device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qx, kx, vx, enable_gqa=True), ""),
+            max(fb / HBM_BPS, 4 * hd * pairs / rate) * 1e3,
+            kernel_span_ms(torch, lambda: fa.flash_attention_bwd(
+                qc, k, v, out, doc, lse, False), "flash_attention_bwd"),
+            cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                qc, k, v, doc, lse, False), reps=5),
+            kernel_span_ms(torch, lambda: torch.autograd.grad(
+                sdpa, (qx, kx, vx), doc, retain_graph=True), ""),
+            max(bb / HBM_BPS, 10 * hd * pairs / rate) * 1e3]
+    level_line(
+        f"  flash_attention non-causal chunks B{B} H{H} K{K} hd{hd}, "
+        f"{len(bounds)} x Sq{Sq} of Sk{Sk}: max err / bwd rel L2 vs plain "
+        + ", ".join(f"{m} {a:.1e}/{b:.1e}" for m, (a, b) in err.items())
+        + "; chunks vs the whole call " + ", ".join(
+            f"{m} {a:.1e}/{b:.1e}{' (fwd bit for bit)' if same[m] else ''}"
+            for m, (a, b) in whole_err.items())
+        + "; reruns equal; chunk 0 fwd device/plain/SDPA/bound, bwd "
+        "span/plain/SDPA-bwd/bound ms: " + "; ".join(
+            f"{m} " + "/".join(_g(t) for t in v) for m, v in times.items()))
+    return {"max_abs_err": err, "whole": whole_err, "ms": times,
+            "bit_for_bit": same}
 
 
 # ------------------------------------------------------------- phase 4
@@ -5457,24 +5604,26 @@ def train_cli() -> str:
 
 
 def mesh_generate(torch, params, cfg, prompt, new: int, ctx,
-                  positions=None):
+                  positions=None, enc=None):
     """Greedy tokens (B, new) and each step's logits (B, new, V) in f32
     through prefill and decode_step under ``ctx`` (None: the local
-    path); ``positions``: qwen2-vl's (B, S, 3) prompt positions."""
+    path); ``positions``: qwen2-vl's (B, S, 3) prompt positions; ``enc``:
+    whisper's encoder states."""
     from repro_torch.models.model import decode_step, prefill
 
     x = torch.as_tensor(prompt, device=params.device)
     batch = {"tokens": x}
     if positions is not None:
         batch["positions"] = positions
-    logits, cache = prefill(params, batch, cfg, x.shape[1] + new, ctx)
+    logits, cache = prefill(params, batch, cfg, x.shape[1] + new, ctx,
+                            enc=enc)
     toks, steps = [], []
     for t in range(new):
         steps.append(logits[:, -1].float())
         toks.append(steps[-1].argmax(-1, keepdim=True))
         if t < new - 1:
             logits, cache = decode_step(params, toks[-1], cache, cfg,
-                                        ctx=ctx)
+                                        enc=enc, ctx=ctx)
     return torch.cat(toks, 1), torch.stack(steps, 1)
 
 
@@ -5768,6 +5917,117 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
     return launches, routes, line
 
 
+def mesh_encdec(torch, np, shape):
+    """whisper-large-v3 over "model" on a (data, model) grid of logical
+    devices (MESH_ENCDEC), bf16, from weights held as shards (init per
+    shard, each piece = the whole init's bit for bit): encode (each dp
+    row's frames cut over its devices, every key visible), prefill with
+    those states and a decode step, the counters reset just before and
+    read just after (the path "model" both; flash sm90 one a layer a device
+    of each row, encoder and decoder, no other kernel); against the same
+    weights whole (whole_of) under the same ctx: the states, the prefill's
+    and every step's logits of the same tokens within SHARD_TOL, greedy
+    tokens equal up to a near-tie, and generate(ctx=) giving each model's
+    own greedy tokens again; encode + prefill and decode-step ms of both
+    in turns; peak GiB. -> (launches, flash routes, the line)."""
+    import dataclasses as dc
+
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models.model import (decode_step, encode, init_params,
+                                          param_shapes, prefill)
+    from repro_torch.serve.engine import generate
+    from repro_torch.sharding.rules import make_ctx, param_shardings
+
+    arch, L, _ = MESH_ENCDEC
+    _, B, S = LM_ENCDEC_BATCH
+    new = MESH_ENCDEC_NEW
+    data, model = shape
+    cfg = dc.replace(get_config(arch), n_layers=L, encoder_layers=L)
+    grid = make_host_mesh(model, DEV)
+    need(grid.shape == shape, f"grid {grid.shape}, want {shape}")
+    ctx = make_ctx(grid)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sharded = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                          DEV, param_shardings(grid, param_shapes(cfg), cfg))
+    init_matches(torch, cfg, sharded)
+    params = whole_of(torch, sharded)
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=DEV)
+    frames = rng.standard_normal((B, cfg.encoder_ctx, cfg.d_model),
+                                 dtype=np.float32)
+
+    kernels.reset_launches()
+    lm.reset_paths()
+    enc = encode(sharded, frames, cfg, ctx)
+    first, cache = prefill(sharded, {"tokens": x}, cfg, S + new, ctx,
+                           enc=enc)
+    decode_step(sharded, first[:, -1].argmax(-1, keepdim=True), cache, cfg,
+                enc=enc, ctx=ctx)
+    torch.cuda.synchronize()
+    name = f"lm mesh whisper {data}x{model}"
+    launches = {name: check_launches(name, kernels.launch_counts())}
+    routes = dict(fa.flash_attention.route_launches)
+    need(lm.path_counts == {"whole": 0, "rows": 0, "model": 2},
+         f"{arch} {shape}: prefill and decode_step took the paths "
+         f"{lm.path_counts}")
+    need(routes == {"sm90": 2 * L * data * model, "cuda_core": 0},
+         f"{arch} {shape}: encode and prefill launched the flash routes "
+         f"{routes}")
+    del first, cache
+
+    enc_w = encode(params, frames, cfg, ctx)
+    enc_rel = _rel_l2(torch, enc, enc_w)
+    t_sh, l_sh = mesh_generate(torch, sharded, cfg, x, new, ctx, enc=enc)
+    t_wh, l_wh = mesh_generate(torch, params, cfg, x, new, ctx, enc=enc_w)
+    shard_rel = _rel_l2(torch, l_sh[:, 0], l_wh[:, 0])
+    ok = torch.ones_like(t_sh, dtype=torch.bool)
+    ok[:, 1:] = torch.cumprod((t_sh == t_wh).int(), 1)[:, :-1].bool()
+    diff = l_sh - l_wh
+    step_rel = float(diff.square().sum(-1)[ok].sum().sqrt()
+                     / l_wh.square().sum(-1)[ok].sum().sqrt())
+    need(max(enc_rel, shard_rel, step_rel) <= SHARD_TOL,
+         f"{arch} {shape}: sharded vs whole relative L2: states {enc_rel}, "
+         f"prefill logits {shard_rel}, steps {step_rel} > {SHARD_TOL}")
+    tie = max(2 * float(diff.abs().amax(-1)[ok].max()), 2.0 ** -4)
+    same = tokens_to_tie(torch, t_sh, t_wh, l_wh, tie)
+    for p, t in ((sharded, t_sh), (params, t_wh)):
+        got = generate(p, cfg, x, new, ctx=ctx, enc_input=frames)
+        need(torch.equal(got[:, S:], t),
+             f"{arch} {shape}: generate(ctx=) gave other tokens than "
+             f"encode, prefill and decode_step")
+    del l_sh, l_wh, diff
+
+    def runs(p):
+        def pre():
+            e = encode(p, frames, cfg, ctx)
+            return prefill(p, {"tokens": x}, cfg, S + new, ctx, enc=e), e
+        return pre, lambda cache, e: decode_step(p, x[:, -1:], cache, cfg,
+                                                 enc=e, ctx=ctx)
+    ms = {"model": [], "whole": []}
+    for _ in range(2):
+        for k, p in (("model", sharded), ("whole", params)):
+            pre, dec = runs(p)
+            m_pre = host_ms(torch, pre, 1)
+            (_, cache), e = pre()
+            ms[k].append((m_pre, host_ms(torch, lambda: dec(cache, e), 4)))
+    med = {k: [float(np.median(c)) for c in zip(*v)] for k, v in ms.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, sharded, enc, enc_w
+    torch.cuda.empty_cache()
+    line = (f"  mesh whisper {L}+{L}L {data}x{model} model: shards = whole: "
+            f"init, states/prefill/steps {enc_rel:.0e}/{shard_rel:.0e}/"
+            f"{step_rel:.0e}, tokens {same}, generate = own; sm90 "
+            f"{routes['sm90']}; ms model/whole: encode+prefill "
+            f"{med['model'][0]:.1f}/{med['whole'][0]:.1f}, decode "
+            f"{med['model'][1]:.1f}/{med['whole'][1]:.1f}; {peak:.1f} GiB")
+    return launches, routes, line
+
+
 def mesh_windows(torch, np):
     """COPROC_WINDOWS windows (coproc_windows) placed over MESH_WINDOWS
     logical devices of the card (core/pipeline.py:shard_over_data, the
@@ -5810,15 +6070,19 @@ def mesh_windows(torch, np):
                       + f" ({n} launches a kernel)")
 
 
-def mesh_train(torch, np, arch, layers, shape):
+def mesh_train(torch, np, arch, layers, shape, batch_shape=TRAIN_BATCH,
+               steps=TRAIN_STEPS):
     """The sharded (ZeRO-3) trainer over "model": ``arch`` at full width
-    with ``layers`` layers on a (data, model) grid of logical devices,
-    bf16, B 4 x S 512 of lm_data, through jit_train_step's "model" path
-    (context-parallel: each dp row's sequence cut over its devices, the
-    flash forward and backward at each chunk's offset). Step 1's gradient
+    with ``layers`` layers (whisper: encoder and decoder layers each) on a
+    (data, model) grid of logical devices, bf16, ``batch_shape`` (B 4 x S
+    512) of lm_data (whisper's with its seeded frames), through
+    jit_train_step's "model" path (context-parallel: each dp row's
+    sequence cut over its devices, the flash forward and backward at each
+    chunk's offset; whisper's encoder first, non-causal over each chunk
+    of frames). Step 1's gradient
     (a MoE at capacity factor E / k: nothing drops), gathered from the
     shards, against make_train_step's (local MoE) leaf by leaf within
-    TRAIN_GRAD_TOL; then TRAIN_STEPS steps at the config's own factor
+    TRAIN_GRAD_TOL; then ``steps`` steps at the config's own factor
     with the counters reset just before and read just after (the loss
     falls; the path counter; flash forward and backward launched on sm90
     once a chunk: the forward twice, with the recompute); ms a step
@@ -5843,7 +6107,9 @@ def mesh_train(torch, np, arch, layers, shape):
                                               state_shardings)
 
     cfg = dc.replace(get_config(arch), n_layers=layers)
-    B, S = TRAIN_BATCH
+    if cfg.encoder_layers:
+        cfg = dc.replace(cfg, encoder_layers=layers)
+    B, S = batch_shape
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, torch.Generator(device=DEV).manual_seed(0),
@@ -5855,7 +6121,7 @@ def mesh_train(torch, np, arch, layers, shape):
     sharded = shard_state(state, sh)
     batch = train_batch(np, cfg, B, S)
     dev_batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
-    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
 
     # step 1's gradient where nothing drops: sharded against plain
     ncfg = (dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
@@ -5890,7 +6156,7 @@ def mesh_train(torch, np, arch, layers, shape):
     kernels.reset_launches()
     lm.reset_paths()
     losses = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         sharded, m = step(sharded, batch)
         losses.append(float(m["loss"]))
     torch.cuda.synchronize()
@@ -5900,8 +6166,9 @@ def mesh_train(torch, np, arch, layers, shape):
     paths = dict(lm.path_counts)
     fwd = dict(fa.flash_attention.route_launches)
     bwd = dict(fa.flash_attention_bwd.route_launches)
-    chunks = layers * shape[0] * shape[1] * TRAIN_STEPS
-    need(paths["model"] == TRAIN_STEPS and paths["rows"] == 0,
+    chunks = (layers + (cfg.encoder_layers and layers)) * shape[0] \
+        * shape[1] * steps
+    need(paths["model"] == steps and paths["rows"] == 0,
          f"the sharded steps took the paths {paths}")
     need(fwd == {"sm90": 2 * chunks, "cuda_core": 0}
          and bwd == {"sm90": chunks, "cuda_core": 0},
@@ -5927,7 +6194,7 @@ def mesh_train(torch, np, arch, layers, shape):
     del state, params, sharded, step, plain, dev_batch
     torch.cuda.empty_cache()
     line = (f"  mesh train {arch.split('-')[0]} {layers}L {shape[0]}x"
-            f"{shape[1]} model x{paths['model']}: grad {leaf[worst]:.0e} "
+            f"{shape[1]} model x{paths['model']}: grad {leaf[worst]:.1e} "
             f"(tol {TRAIN_GRAD_TOL:g}), loss {losses[0]:.2f}->"
             f"{losses[-1]:.2f}, sm90 {fwd['sm90']}/{bwd['sm90']}, "
             f"{ms:.0f} ms/step (rows {ms_rows:.0f}, plain {ms_plain:.0f}), "
@@ -6041,6 +6308,21 @@ def lm_mesh(torch, np):
             fwd = {r: n + f[r] for r, n in fwd.items()}
             bwd = {r: n + b[r] for r, n in bwd.items()}
             print(line, flush=True)
+        arch, layers, grids = MESH_ENCDEC
+        for shape in grids:
+            os.environ["REPRO_TEST_DEVICES"] = str(shape[0] * shape[1])
+            got, routes, line = mesh_encdec(torch, np, shape)
+            launches.update(got)
+            fwd = {r: n + routes[r] for r, n in fwd.items()}
+            got, f, b, line2 = mesh_train(
+                torch, np, arch, layers, shape,
+                (LM_ENCDEC_BATCH[1], LM_ENCDEC_BATCH[2]), MESH_ENCDEC_STEPS)
+            launches.update({f"{k} {shape[0]}x{shape[1]}": v
+                             for k, v in got.items()})
+            fwd = {r: n + f[r] for r, n in fwd.items()}
+            bwd = {r: n + b[r] for r, n in bwd.items()}
+            print(f"{line}; train x{MESH_ENCDEC_STEPS}: "
+                  + line2.split(": ", 1)[1], flush=True)
         got, f, b, text2 = mesh_pipe(torch, np)
     finally:
         if saved is None:
@@ -6583,11 +6865,13 @@ def lm_shapes(torch, np, pred):
         launches[f"lm {arch}"] = got
         fwd["sm90"] += sm90
     total = dict.fromkeys(kernels.launch_counts(), 0)
-    failed = []
-    print(f"  the reference's lengths, B 1: prefill S (the dry run's "
-          f"roofline ms), busy ms, launches, flash sm90; decode at S; rel "
-          f"L2 of its logits to the prefill's last (tol {CONSIST_TOL:g}); "
-          f"peak GiB (dry run: prefill/decode)", flush=True)
+    failed, cells = [], []
+    # each cell's line on standard error (the standard output's 20 KB), a
+    # summary on standard output
+    level_line(f"  the reference's lengths, B 1: prefill S (the dry run's "
+               f"roofline ms), busy ms, launches, flash sm90; decode at S; "
+               f"rel L2 of its logits to the prefill's last (tol "
+               f"{CONSIST_TOL:g}); peak GiB (dry run: prefill/decode)")
     for cell in shape_cells():
         t0 = time.perf_counter()
         line, counts, fail = length_cell(torch, np, *cell, pred)
@@ -6595,9 +6879,15 @@ def lm_shapes(torch, np, pred):
                    f"{time.perf_counter() - t0:.1f} s")
         total = {k: n + counts[k] for k, n in total.items()}
         fwd["sm90"] += counts["flash_attention"]
-        print(line, flush=True)
+        level_line(line)
+        cells.append(f"{cell[0].split('-')[0]} S{cell[3]}")
         failed += [fail] if fail else []
     need(not failed, "; ".join(failed))
+    print(f"  the reference's lengths, B 1: {len(cells)} cells (" +
+          ", ".join(cells) + f"), prefill S against S - 1 + decode_step "
+          f"within {CONSIST_TOL:g}, flash sm90 {total['flash_attention']}; "
+          f"each cell's ms, busy ms, launches and peak beside the dry "
+          f"run's on standard error", flush=True)
     launches["lm shapes"] = check_launches("lm shapes", total)
     line, got, f, bwd = train_4k(torch, np, pred)
     launches["lm shapes train_4k"] = got
@@ -6873,6 +7163,19 @@ def main(argv=None) -> int:
         "rel_l2": {k: _r(v) for k, v in chunk["max_abs_err"].items()},
         "ms_plain_sdpa_bound": {k: [_r(x) for x in v]
                                 for k, v in chunk["ms"].items()}}
+    # the non-causal chunk (one device's frames of an encoder layer over
+    # "model"), both directions: error against plain by route (the chunks
+    # against the whole call on the phase 3c line) and at the first chunk
+    # device / plain / SDPA / bound ms
+    chunk = summary["flash_attention_enc_chunk"]
+    shape = "B%dxH%dxK%dxSq%d of Sk%d hd%d" % FLASH_ENC_CHUNK
+    for entry, i, key in ((flash, 0, "max_abs_err"), (bwd_entry, 1,
+                                                      "rel_l2")):
+        entry["noncausal"] = {
+            "shape": shape,
+            key: {m: _r(v[i]) for m, v in chunk["max_abs_err"].items()},
+            "ms_plain_sdpa_bound": {m: [_r(x) for x in v[4 * i:4 * i + 4]]
+                                    for m, v in chunk["ms"].items()}}
     print(json.dumps(kernels_line, separators=(",", ":")))
     print(card[0])
     print(json.dumps({"ok": True, "device": {

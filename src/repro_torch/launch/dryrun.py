@@ -28,13 +28,15 @@ Per-device numbers, and how each is derived:
     grid of the same axes, so the MoE takes its EP path with one shard
     (the same routing and capacity as the whole batch) and the profile's
     attention paths are the grid's. A train step that takes the "model"
-    path on the grid (``models.model.grid_path``: the dense, MoE and VLM
-    families where the "model" axis is larger than 1) is traced instead
-    on one dp row of the grid's "model" axis (``model_row``) with the
-    row's share of the global batch (B / dp): the sequence cut into that
-    many chunks, each layer gathered onto every device of the row, K and
-    V gathered, the flash forward and backward at each chunk's offset,
-    the MoE's all-to-all over the row -- one dp row's work, divided by
+    path on the grid (``models.model.grid_path``: the dense, MoE, VLM
+    and encoder-decoder families where the "model" axis is larger than
+    1) is traced instead on one dp row of the grid's "model" axis
+    (``model_row``) with the row's share of the global batch (B / dp):
+    the sequence (and whisper's frames) cut into that many chunks, each
+    layer gathered onto every device of the row, K and V gathered, the
+    flash forward and backward at each chunk's offset (non-causal over
+    the encoder's chunks), the MoE's all-to-all over the row -- one dp
+    row's work, divided by
     the row's devices (so each device counts its own gathered layer and
     head whole). Held against cards on (1, 4) alone (qwen3-14b 40L,
     tools/mesh_cards.py); the dp > 1 grids are not measured. The row path's

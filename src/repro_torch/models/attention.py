@@ -34,7 +34,8 @@ context-parallel prefill or train step -- its queries against the whole
 sequence's keys, through the flash kernel at the chunk's offset
 (``q_offset``; in training its forward and backward through
 ``FlashAttention``), or ``_sdpa`` under the chunk's rows of
-``make_mask`` (an image prompt, a window), differentiable either way --
+``make_mask`` (an image prompt, a window), differentiable either way;
+an encoder chunk takes ``attend(..., causal=False)`` with Sq < Sk --
 and
 ``decode_scores`` / ``decode_values``, single-token attention over one
 device's length piece of the cache: the scores gathered over the
@@ -253,7 +254,9 @@ def attention(x: Tensor, p, cfg: ModelConfig,
 def cross_attention(x: Tensor, enc: Tensor, p, cfg: ModelConfig) -> Tensor:
     """Decoder cross-attention over encoder states (whisper): queries of
     x (B, S, D), keys and values of enc (B, T, D), no RoPE and no mask,
-    through ``_sdpa`` (the flash kernel takes equal lengths only)."""
+    through ``_sdpa`` (a flash route for it is queued: ROADMAP.md queue
+    2 (f)); a context-parallel prefill or train step calls it on each
+    device's chunk of queries against the whole states."""
     B, S, D = x.shape
     T, hd = enc.shape[1], cfg.hd
     q = torch.matmul(x, p.wq).view(B, S, cfg.n_heads, hd)

@@ -49,23 +49,33 @@ again in the recompute of the backward. ``prefill``, ``decode_step`` and
 paths that ``serve_path`` picks from the config and the grid alone
 (``path_counts`` counts each call's):
 
-  * "model" -- a decoder-only family (``MODEL_AXIS_FAMILIES``: dense,
-    MoE, the VLM) on a grid whose "model" axis is larger than 1, in the
-    reference's layout (repro/models/moe.py:88-102 ``act3`` / ``act_q``
-    / ``act_kv_gathered`` / ``act_logits``, repro/sharding/rules.py):
-    prefill is context-parallel -- each dp row's sequence cut over the
-    row's devices, each layer gathered whole onto every device of the
-    row, K and V gathered in model-index order and each device's
-    queries attending at their offset (the flash kernel's
-    ``q_offset``); a MoE's all-to-all path takes each device's own
-    tokens. Decode is tensor-parallel on each device's own pieces (no
-    layer gathered): the embedding a masked lookup in each device's
-    vocab rows summed over "model"; q/k/v column pieces gathered
-    (qk-norm and RoPE on whole heads: the columns may end inside a
-    head); ``wo`` and ``w_down`` row pieces' partial sums added in f32
-    in model-index order and rounded once; the MoE's replicated path
-    with expert group g on device g; ``lm_head``'s vocab columns
-    gathered. The cache is pieces laid out by ``cache_specs_tree``
+  * "model" -- a family of ``MODEL_AXIS_FAMILIES`` (dense, MoE, the VLM
+    and whisper's encoder-decoder) on a grid whose "model" axis is
+    larger than 1, in the reference's layout (repro/models/moe.py:88-102
+    ``act3`` / ``act_q`` / ``act_kv_gathered`` / ``act_logits``,
+    repro/sharding/rules.py): prefill is context-parallel -- each dp
+    row's sequence cut over the row's devices, each layer gathered whole
+    onto every device of the row, K and V gathered in model-index order
+    and each device's queries attending at their offset (the flash
+    kernel's ``q_offset``); a MoE's all-to-all path takes each device's
+    own tokens. Whisper's encoder (``encode``, or ``prefill`` over
+    ``enc_input``) is context-parallel the same way over each row's
+    frames (the sinusoidal rows and RoPE positions at each chunk's own
+    frames; every key visible: the flash kernel's non-causal chunk), its
+    states ending whole on every device of the row (P(dp, None, None)),
+    where each decoder chunk's cross-attention reads them. Decode is
+    tensor-parallel on each device's own pieces (no layer gathered): the
+    embedding a masked lookup in each device's vocab rows summed over
+    "model" (whisper's decoder position row added on each device);
+    q/k/v column pieces gathered (qk-norm and RoPE on whole heads: the
+    columns may end inside a head); whisper's cross-attention from each
+    device's ``xattn`` columns of the token's q and of the k / v of the
+    states (by whole heads where the pieces hold them, else gathered);
+    ``wo`` and ``w_down`` row pieces' partial sums added in f32 in
+    model-index order and rounded once (gelu's ``w_up`` columns
+    activated as pieces); the MoE's replicated path with expert group g
+    on device g; ``lm_head``'s vocab columns gathered. The cache is
+    pieces laid out by ``cache_specs_tree``
     fitted as the reference fits it (``init_cache(ctx=)``): by length
     over "model" (the softmax's max and sum reduced over the pieces),
     by heads under ``kv_heads``, whole on each model device where the
@@ -79,10 +89,13 @@ paths that ``serve_path`` picks from the config and the grid alone
     device, rounded once), the flash kernel's forward and backward at
     each chunk's ``q_offset`` -- then each device's logits and
     next-token loss on its chunk with the labels cut the same way, the
-    head gathered whole onto each device.
-  * "rows" -- every other model held as shards (whisper, mamba2, hymba,
-    and any grid whose "model" axis is 1, where the reference's layout
-    is FSDP): the batch runs over ``ctx``'s dp rows, each row on its
+    head gathered whole onto each device; whisper's encoder first over
+    its chunks of frames under the same recompute, its states gathered by
+    ``seq_gather`` (every decoder chunk's gradient into them summed in
+    f32 on each chunk's owner).
+  * "rows" -- every other model held as shards (mamba2, hymba, and any
+    grid whose "model" axis is 1, where the reference's layout is FSDP):
+    the batch runs over ``ctx``'s dp rows, each row on its
     first device, each layer gathered onto it as the layer runs (a MoE's
     expert groups on the row's devices of each model index); the cache
     is one whole cache a dp row.
@@ -112,10 +125,11 @@ from torch.utils.checkpoint import checkpoint
 import torch.nn.functional as F
 
 from . import moe
-from .attention import (_project_qkv, _sdpa, arange_positions, attend_chunk,
-                        attention, attention_decode, cross_attention,
-                        decode_scores, decode_values, index_causal,
-                        make_mask, qkv_heads, self_attend, t_stream)
+from .attention import (_project_qkv, _sdpa, arange_positions, attend,
+                        attend_chunk, attention, attention_decode,
+                        cross_attention, decode_scores, decode_values,
+                        index_causal, make_mask, qkv_heads, self_attend,
+                        t_stream)
 from .configs import ModelConfig
 from .layers import mlp, norm, sinusoidal_positions, swiglu
 from .moe import ep_a2a_row, ep_replicated_row, moe_ffn
@@ -677,14 +691,20 @@ def encode(params, enc_input, cfg: ModelConfig, ctx=None) -> Tensor:
     ``causal=False``; RoPE at arange positions, as the reference's
     encoder applies it), then the gelu MLP, each after its layernorm --
     and the final ``enc_norm`` -> states (B, T, D). A model held as
-    shards (``ShardedLM``) runs its batch over ``ctx``'s dp rows, as
-    ``prefill`` does; the states return on the grid's first device in
-    row order."""
+    shards (``ShardedLM``) runs its batch over ``ctx``'s dp rows on
+    ``serve_path``'s path, as ``prefill`` does (over "model": each row's
+    frames context-parallel over its devices); the states return on the
+    grid's first device in row order."""
     check_supported(cfg)
     model = as_sharded(params, cfg, ctx)
     with torch.inference_mode():
         if model is None:
             return _encoder(params, enc_input, cfg)
+        if serve_path(model, cfg, ctx) == "model":
+            rows = _model_rows(model, _grid_ctx(model, ctx), len(enc_input))
+            states = _model_encode(rows, _split_rows(enc_input, len(rows)),
+                                   cfg)
+            return _on_first([s[0] for s in states], model.device)
         rows, _ = _sharded_rows(model, cfg, ctx, len(enc_input))
         states = _encoder_rows(rows, _split_rows(enc_input, len(rows)), cfg,
                                serving=True)
@@ -882,9 +902,11 @@ def _on_first(parts: List[Tensor], device) -> Tensor:
 
 # -------------------------------------- serving over the "model" axis
 
-#: the families served over a grid's "model" axis as the reference lays
-#: them out: decoder-only, every layer attention and a SwiGLU MLP or MoE
-MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm")
+#: the families served and trained over a grid's "model" axis as the
+#: reference lays them out: every layer attention, then an MLP or MoE
+#: (whisper's encoder-decoder with its cross-attention too); mamba2's and
+#: hymba's SSM state stays on the row path
+MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 #: prefill and decode_step calls, and the sharded train step's gradients
 #: (``train_path``), by path since the last reset_paths(): "whole" (a
@@ -902,11 +924,10 @@ def serve_path(params, cfg: ModelConfig, ctx=None) -> str:
     """The path ``prefill`` and ``decode_step`` take, from the model's
     kind, the config and the grid alone: "whole" for a ``CausalLM``;
     "model" for a model held as shards of a family in
-    ``MODEL_AXIS_FAMILIES`` (SwiGLU, no meta tokens) on a grid whose
-    "model" axis is larger than 1; "rows" for any other model held as
-    shards (whisper, mamba2, hymba, and every grid whose "model" axis is
-    1, where the reference's layout is FSDP and the row path computes
-    it)."""
+    ``MODEL_AXIS_FAMILIES`` (no meta tokens) on a grid whose "model" axis
+    is larger than 1; "rows" for any other model held as shards (mamba2,
+    hymba, and every grid whose "model" axis is 1, where the reference's
+    layout is FSDP and the row path computes it)."""
     model = as_sharded(params, cfg, ctx)
     if model is None:
         return "whole"
@@ -917,8 +938,7 @@ def grid_path(cfg: ModelConfig, ctx) -> str:
     """``serve_path``'s rule for a model held as shards on ``ctx``'s
     grid, from the config and the grid alone: "model" or "rows"."""
     tp = ctx.grid.axis_sizes.get(ctx.tp_axis, 1)
-    if (tp > 1 and cfg.family in MODEL_AXIS_FAMILIES and cfg.mlp == "swiglu"
-            and not cfg.meta_tokens):
+    if tp > 1 and cfg.family in MODEL_AXIS_FAMILIES and not cfg.meta_tokens:
         return "model"
     return "rows"
 
@@ -927,9 +947,9 @@ def train_path(params, cfg: ModelConfig, ctx=None) -> str:
     """The path the sharded train step's gradient takes
     (train/train_step.py:``jit_train_step``), by ``serve_path``'s rule:
     "model" (``model_nll_sum``, context-parallel over the row's devices)
-    for the dense, MoE and VLM families on a grid whose "model" axis is
-    larger than 1, "rows" (a dp row a device) otherwise; counted in
-    ``path_counts``."""
+    for the dense, MoE, VLM and encoder-decoder families on a grid whose
+    "model" axis is larger than 1, "rows" (a dp row a device) otherwise;
+    counted in ``path_counts``."""
     path = serve_path(params, cfg, ctx)
     path_counts[path] += 1
     return path
@@ -1039,16 +1059,23 @@ def _rows(row: ModelRow, name: str, xs: List[Tensor], split: bool
     return on_devices(row.devices, lambda g: sums[g].to(dtype))
 
 
-def _tp_mlp(row: ModelRow, prefix: str, hs: List[Tensor]) -> List[Tensor]:
-    """The SwiGLU MLP tensor-parallel: the gate and up columns on each
-    device (``w_gate`` and ``w_up`` split alike), the down rows' partial
-    sums reduced in model-index order."""
-    (gate, split), (up, _) = (_cols(row, f"{prefix}.{w}", hs)
-                              for w in ("w_gate", "w_up"))
-    if split:
-        act = [F.silu(a) * b for a, b in zip(gate, up)]
+def _tp_mlp(row: ModelRow, prefix: str, hs: List[Tensor],
+            kind: str = "swiglu") -> List[Tensor]:
+    """The MLP tensor-parallel: the up (and SwiGLU's gate) columns on each
+    device (``w_gate`` and ``w_up`` split alike), the activation on the
+    pieces (elementwise, so exactly the whole's; gelu's tanh form), the
+    down rows' partial sums reduced in model-index order."""
+    up, split = _cols(row, f"{prefix}.w_up", hs)
+    if kind == "gelu":
+        def act_of(g):
+            return F.gelu(up[g], approximate="tanh")
     else:
-        act = on_devices(row.devices, lambda g: F.silu(gate[g]) * up[g])
+        gate, _ = _cols(row, f"{prefix}.w_gate", hs)
+
+        def act_of(g):
+            return F.silu(gate[g]) * up[g]
+    act = ([act_of(g) for g in range(row.tp)] if split
+           else on_devices(row.devices, act_of))
     return _rows(row, prefix + ".w_down", act, split)
 
 
@@ -1071,7 +1098,7 @@ def _tp_moe(row: ModelRow, prefix: str, hs: List[Tensor],
         ys = on_devices(devs, lambda g: moe._moe_local(
             hs[g], namespace({n: loc[n][g] for n in names}), cfg))
     if cfg.shared_expert:
-        sh = _tp_mlp(row, prefix + ".shared", hs)
+        sh = _tp_mlp(row, prefix + ".shared", hs, cfg.mlp)
         ys = on_devices(devs, lambda g: ys[g] + sh[g])
     return ys
 
@@ -1168,6 +1195,46 @@ def _tp_attention_decode(row: ModelRow, prefix: str, hs: List[Tensor],
     return _rows(row, prefix + ".wo", flat, False)
 
 
+def _tp_cross_attention(row: ModelRow, prefix: str, hs: List[Tensor],
+                        encs: List[Tensor], cfg: ModelConfig
+                        ) -> List[Tensor]:
+    """A decode step's cross-attention, tensor-parallel: each device its
+    ``wq`` columns of the token's q and its ``wk`` / ``wv`` columns of the
+    k and v of the whole encoder states it holds (``encs``). Where every
+    piece holds whole heads, each device attends with its own heads and
+    the ``wo`` rows' partial sums are reduced; where the columns end
+    inside a head (or a projection is held whole), q, k and v are
+    gathered whole onto every device first, as ``_qkv_cols`` does."""
+    B, hd = hs[0].shape[0], cfg.hd
+    (q, sq), (k, sk), (v, sv) = (_cols(row, f"{prefix}.{w}", xs) for w, xs
+                                 in (("wq", hs), ("wk", encs),
+                                     ("wv", encs)))
+    own = sq and sk and sv and q[0].shape[-1] % hd == 0 \
+        and k[0].shape[-1] % hd == 0
+    if not own:
+        q, k, v = (_full(row, t, split) for t, split in
+                   ((q, sq), (k, sk), (v, sv)))
+
+    def attend_heads(g):
+        T = k[g].shape[1]
+        out = _sdpa(q[g].view(B, 1, -1, hd), k[g].view(B, T, -1, hd),
+                    v[g].view(B, T, -1, hd), None, cfg)
+        return out.reshape(B, 1, -1)
+    outs = ([attend_heads(g) for g in range(row.tp)] if own
+            else on_devices(row.devices, attend_heads))
+    return _rows(row, prefix + ".wo", outs, own)
+
+
+def _placed_states(rows: List[ModelRow], enc: Tensor, cfg: ModelConfig
+                   ) -> List[List[Tensor]]:
+    """Encoder states (B, T, D) as the decoder over "model" reads them
+    (the reference's P(dp, None, None)): each dp row's, whole, on every
+    device of the row, in the model's dtype."""
+    return [on_devices(row.devices, lambda g, row=row, e=e: e.to(
+        row.devices[g], cfg.dtype)) for row, e in
+        zip(rows, _split_rows(enc, len(rows)))]
+
+
 def _tp_logits(row: ModelRow, xs: List[Tensor], cfg: ModelConfig
                ) -> Tensor:
     """``logits_from_hidden`` over the row's devices: the final norm on
@@ -1187,10 +1254,14 @@ def _tp_logits(row: ModelRow, xs: List[Tensor], cfg: ModelConfig
 
 
 def _model_decode(model: ShardedLM, token, cache: Cache, cfg: ModelConfig,
-                  ctx) -> Tuple[Tensor, Cache]:
+                  ctx, enc: Optional[Tensor] = None) -> Tuple[Tensor, Cache]:
     """``decode_step`` in the reference's layout: each dp row's tokens on
     every device of the row, every product on the pieces each device
-    holds (no layer gathered), the cache written and read in its pieces."""
+    holds (no layer gathered), the cache written and read in its pieces;
+    whisper's decoder position row added to each device's embedding and
+    its cross-attention over ``enc``, whole on every device of the row
+    (the copies prefill placed, where ``enc`` is the tensor it was
+    given)."""
     if "pieces" not in cache or next(iter(cache["shardings"].values())
                                      ).grid != model.grid:
         raise ValueError("a model held as shards over the 'model' axis "
@@ -1198,6 +1269,13 @@ def _model_decode(model: ShardedLM, token, cache: Cache, cfg: ModelConfig,
                          "one of whole tensors or of dp rows")
     rows = _model_rows(model, ctx, len(token))
     idx = cache["idx"]
+    placed = cache.get("enc")
+    if enc is None or not cfg.encoder_layers:
+        encs = [None] * len(rows)
+    elif placed is not None and placed[0] is enc:
+        encs = placed[1]
+    else:
+        encs = _placed_states(rows, enc, cfg)
     states = []
     for row, tok in zip(rows, _split_rows(token, len(rows))):
         devs = row.devices
@@ -1205,22 +1283,33 @@ def _model_decode(model: ShardedLM, token, cache: Cache, cfg: ModelConfig,
         shape = (len(tok), 1, 3) if cfg.mrope else (len(tok), 1)
         pos = on_devices(devs, lambda g: torch.full(
             shape, idx, dtype=torch.int32, device=devs[g]))
-        states.append([_tp_embed(row, toks, cfg), pos])
+        xs = _tp_embed(row, toks, cfg)
+        if cfg.encoder_layers:
+            xs = on_devices(devs, lambda g: xs[g] + decoder_pe(
+                idx, cfg.d_model, devs[g]).to(cfg.dtype))
+        states.append([xs, pos])
     for li, window in enumerate(layer_windows(cfg)):
         lp = f"layers.{li}."
-        for row, st in zip(rows, states):
+        for row, st, e in zip(rows, states, encs):
             xs, pos = st
+            devs = row.devices
             ln1, ln2 = (row.local_tree(lp + n) for n in ("ln1", "ln2"))
-            h = on_devices(row.devices, lambda g: norm(
+            h = on_devices(devs, lambda g: norm(
                 xs[g], ln1[g], cfg.norm, cfg.norm_eps))
             a = _tp_attention_decode(row, lp + "attn", h, pos, cache, li, idx,
                                      window, cfg)
-            xs = on_devices(row.devices, lambda g: xs[g] + a[g])
-            h = on_devices(row.devices, lambda g: norm(
+            xs = on_devices(devs, lambda g: xs[g] + a[g])
+            if e is not None:
+                lnx = row.local_tree(lp + "ln_x")
+                h = on_devices(devs, lambda g: norm(
+                    xs[g], lnx[g], cfg.norm, cfg.norm_eps))
+                c = _tp_cross_attention(row, lp + "xattn", h, e, cfg)
+                xs = on_devices(devs, lambda g: xs[g] + c[g])
+            h = on_devices(devs, lambda g: norm(
                 xs[g], ln2[g], cfg.norm, cfg.norm_eps))
             f = (_tp_moe(row, lp + "moe", h, cfg) if cfg.is_moe
-                 else _tp_mlp(row, lp + "mlp", h))
-            st[0] = on_devices(row.devices, lambda g: xs[g] + f[g])
+                 else _tp_mlp(row, lp + "mlp", h, cfg.mlp))
+            st[0] = on_devices(devs, lambda g: xs[g] + f[g])
     logits = [_tp_logits(row, st[0], cfg) for row, st in zip(rows, states)]
     return _on_first(logits, model.device), {**cache, "idx": idx + 1}
 
@@ -1257,60 +1346,168 @@ def _cp_moe(row: ModelRow, lps, hs: List[Tensor], cfg: ModelConfig, ctx,
 def _cp_inputs(row: ModelRow, tok: Tensor, pos: Tensor,
                bounds: List[Tuple[int, int]], cfg: ModelConfig) -> dict:
     """A context-parallel pass's inputs on a dp row: device g's chunk
-    [s_g, e_g) of the embedded tokens (``_tp_embed``) and of the positions
-    (B, S) or (B, S, 3) ("q_pos"), and the whole sequence's t stream on
-    every device ("k_pos")."""
+    [s_g, e_g) of the embedded tokens (``_tp_embed``; whisper's
+    sinusoidal rows s_g .. e_g - 1 added) and of the positions (B, S) or
+    (B, S, 3) ("q_pos"), and the whole sequence's t stream on every
+    device ("k_pos")."""
     devs = row.devices
     toks = on_devices(devs, lambda g: tok.to(devs[g]))
-    return {"x": _tp_embed(row, toks, cfg, bounds),
+    xs = _tp_embed(row, toks, cfg, bounds)
+    if cfg.encoder_layers and not cfg.mrope:
+        xs = [x + sinusoidal_positions(e - s, cfg.d_model, d, start=s).to(
+            cfg.dtype)[None] for x, d, (s, e) in zip(xs, devs, bounds)]
+    return {"x": xs,
             "q_pos": [pos[:, s:e].to(d) for d, (s, e) in zip(devs, bounds)],
             "k_pos": on_devices(devs, lambda g: t_stream(pos).to(devs[g]))}
 
 
-def _cp_layer(row: ModelRow, lp, xs: List[Tensor], q_pos: List[Tensor],
-              k_pos: List[Tensor], bounds: List[Tuple[int, int]],
-              window: int, cfg: ModelConfig, ctx, flash: bool):
-    """One decoder layer of a context-parallel pass over a dp row, ``lp``
-    the layer whole on each device: each chunk's q, k and v; K and V side
-    by side gathered in model-index order (``seq_gather``: one exchange
-    between the cards, and under grad its f32 backward); each chunk's
-    queries attending at its offset (``attend_chunk``); the FFN on each
-    device's own tokens. -> (xs, each device's whole k, whole v)."""
-    devs = row.devices
+def _cp_attention(row: ModelRow, lp, xs: List[Tensor], q_pos: List[Tensor],
+                  cfg: ModelConfig, attend_fn):
+    """The self-attention residual of a context-parallel layer, ``lp`` the
+    layer whole on each device: each chunk's q, k and v (RoPE at its
+    positions ``q_pos``); K and V side by side gathered in model-index
+    order (``seq_gather``: one exchange between the cards, and under grad
+    its f32 backward); ``attend_fn(g, q, k, v)`` each chunk's queries
+    against the whole sequence's keys. -> (xs, each device's whole k,
+    whole v)."""
     H, hd = cfg.n_heads, cfg.hd
     qkv = [_project_qkv(norm(x, p.ln1, cfg.norm, cfg.norm_eps), p.attn,
                         cfg, qp) for x, p, qp in zip(xs, lp, q_pos)]
-    kv = seq_gather([torch.cat(t[1:], -1) for t in qkv], devs)
+    kv = seq_gather([torch.cat(t[1:], -1) for t in qkv], row.devices)
     k = [x[..., :hd] for x in kv]
     v = [x[..., hd:] for x in kv]
-    xs = [x + torch.matmul(attend_chunk(
-              t[0], k[g], v[g], cfg, t_stream(q_pos[g]), k_pos[g],
-              bounds[g][0], window=window, n_meta=cfg.meta_tokens, ctx=ctx,
-              flash=flash).reshape(x.shape[0], x.shape[1], H * hd),
-              lp[g].attn.wo)
+    xs = [x + torch.matmul(attend_fn(g, t[0], k[g], v[g]).reshape(
+              x.shape[0], x.shape[1], H * hd), lp[g].attn.wo)
           for g, (x, t) in enumerate(zip(xs, qkv))]
+    return xs, k, v
+
+
+def _cp_layer(row: ModelRow, lp, xs: List[Tensor], q_pos: List[Tensor],
+              k_pos: List[Tensor], bounds: List[Tuple[int, int]],
+              window: int, cfg: ModelConfig, ctx, flash: bool,
+              enc: Optional[List[Tensor]] = None):
+    """One decoder layer of a context-parallel pass over a dp row, ``lp``
+    the layer whole on each device: the self-attention (``_cp_attention``)
+    with each chunk's queries attending at its offset
+    (``attend_chunk``); whisper's cross-attention of each chunk's queries
+    over the encoder states its device holds (``enc``); the FFN on each
+    device's own tokens. -> (xs, each device's whole k, whole v)."""
+    xs, k, v = _cp_attention(row, lp, xs, q_pos, cfg, lambda g, q, kg, vg:
+                             attend_chunk(q, kg, vg, cfg, t_stream(q_pos[g]),
+                                          k_pos[g], bounds[g][0],
+                                          window=window,
+                                          n_meta=cfg.meta_tokens, ctx=ctx,
+                                          flash=flash))
+    if enc is not None:
+        xs = [x + cross_attention(norm(x, p.ln_x, cfg.norm, cfg.norm_eps),
+                                  e, p.xattn, cfg)
+              for x, p, e in zip(xs, lp, enc)]
     hs = [norm(x, p.ln2, cfg.norm, cfg.norm_eps) for x, p in zip(xs, lp)]
     f = (_cp_moe(row, lp, hs, cfg, ctx, bounds) if cfg.is_moe
          else [mlp(h, p.mlp, cfg.mlp) for h, p in zip(hs, lp)])
     return [x + y for x, y in zip(xs, f)], k, v
 
 
-def _cp_train_layer(xs: List[Tensor], row: ModelRow, li: int, *args
-                    ) -> List[Tensor]:
+def _cp_train_layer(xs: List[Tensor], row: ModelRow, li: int, *args,
+                    enc=None) -> List[Tensor]:
     """``_cp_layer`` of layer ``li``, gathered whole onto the row's
     devices here (and again in the recompute of the backward)."""
-    return _cp_layer(row, row.whole_layer(li), xs, *args)[0]
+    return _cp_layer(row, row.whole_layer(li), xs, *args, enc=enc)[0]
 
 
-def _cp_remat(fn, xs: List[Tensor], *args) -> List[Tensor]:
-    """``fn(xs, *args)`` over a row's chunks, recomputed in the backward
-    where grad is enabled: only the chunks are kept, in the reentrant
-    form, which recomputes the layer once before its backward fans out
-    over the row's cards (as ``_remat`` for a layer held as shards)."""
+def _cp_frames(row: ModelRow, frames, cfg: ModelConfig
+               ) -> Tuple[List[Tensor], List[Tensor]]:
+    """Whisper's encoder input on a dp row, cut over its devices (the
+    reference's P(dp, "model", None)): device g's frames [s_g, e_g) of
+    (B, T, D) (numpy or a tensor) in the model's dtype plus the
+    sinusoidal rows s_g .. e_g - 1, and their arange positions (B,
+    e_g - s_g) for the encoder's RoPE."""
+    x = torch.as_tensor(frames)
+    B, T, D = x.shape
+    xs, pos = [], []
+    for dev, (s, e) in zip(row.devices, _chunks(T, row.tp)):
+        c = x[:, s:e].to(device=dev, dtype=cfg.dtype)
+        xs.append(c + sinusoidal_positions(e - s, D, dev, start=s).to(
+            cfg.dtype))
+        pos.append(torch.arange(s, e, device=dev).expand(B, e - s))
+    return xs, pos
+
+
+def _cp_enc_layer(row: ModelRow, lp, xs: List[Tensor], pos: List[Tensor],
+                  cfg: ModelConfig) -> List[Tensor]:
+    """One encoder layer of a context-parallel pass over a dp row (the
+    reference's ``act_q`` / ``act_kv_gathered``): each chunk's queries
+    against the whole sequence's gathered K and V, every key visible (the
+    flash kernel, ``causal=False``, Sq < Sk), then the MLP on each
+    device's own frames."""
+    xs, _, _ = _cp_attention(row, lp, xs, pos, cfg, lambda g, q, k, v:
+                             attend(q, k, v, causal=False))
+    return [x + mlp(norm(x, p.ln2, cfg.norm, cfg.norm_eps), p.mlp, cfg.mlp)
+            for x, p in zip(xs, lp)]
+
+
+def _cp_train_enc_layer(xs: List[Tensor], row: ModelRow, li: int,
+                        pos: List[Tensor], cfg: ModelConfig) -> List[Tensor]:
+    """``_cp_enc_layer`` of encoder layer ``li``, gathered whole onto the
+    row's devices here (and again in the recompute of the backward)."""
+    return _cp_enc_layer(row, row.whole_layer(li, "enc_layers"), xs, pos,
+                         cfg)
+
+
+def _cp_enc_states(row: ModelRow, xs: List[Tensor], cfg: ModelConfig
+                   ) -> List[Tensor]:
+    """The encoder's last chunks through ``enc_norm``, gathered whole onto
+    every device of the row in model-index order (the decoder's P(dp,
+    None, None)) by ``seq_gather``: under grad, each chunk's gradient --
+    every decoder chunk's cross-attention sends it one -- summed in f32
+    in model-index order on the chunk's device."""
+    fn = row.local_tree("enc_norm")
+    return seq_gather([norm(x, p, cfg.norm, cfg.norm_eps)
+                       for x, p in zip(xs, fn)], row.devices)
+
+
+def _model_encode(rows: List[ModelRow], inputs, cfg: ModelConfig
+                  ) -> List[List[Tensor]]:
+    """Whisper's encoder over "model" for serving: each dp row's frames
+    cut over the row's devices (``_cp_frames``), each encoder layer
+    gathered whole onto every device of every row (every row's copies
+    queued before any computes) and run context-parallel
+    (``_cp_enc_layer``) -> each row's states, whole on each of its
+    devices (``_cp_enc_states``)."""
+    sts = [_cp_frames(row, f, cfg) for row, f in zip(rows, inputs)]
+    for li in range(cfg.encoder_layers):
+        lps = [row.whole_layer(li, "enc_layers") for row in rows]
+        sts = [(_cp_enc_layer(row, lp, xs, pos, cfg), pos)
+               for row, lp, (xs, pos) in zip(rows, lps, sts)]
+        del lps
+    return [_cp_enc_states(row, xs, cfg) for row, (xs, _) in zip(rows, sts)]
+
+
+def _cp_remat(fn, xs: List[Tensor], *args,
+              enc: Optional[List[Tensor]] = None) -> List[Tensor]:
+    """``fn(xs, *args)`` over a row's chunks (``fn(xs, *args, enc=enc)``
+    where ``enc`` is given), recomputed in the
+    backward where grad is enabled: only the chunks are kept, in the
+    reentrant form, which recomputes the layer once before its backward
+    fans out over the row's cards (as ``_remat`` for a layer held as
+    shards). The encoder states ``enc`` are inputs of the recompute too,
+    so their gradient returns through it (a tensor the block only closed
+    over would be differentiated from inside each block's backward, down
+    through the encoder each time). Where no input needs a gradient
+    (the encoder over its frames) the chunks are made to carry one: the
+    reentrant form differentiates only through its inputs, and the
+    parameters gathered inside would get none (as in ``_remat``)."""
+    def run(xs, enc):
+        return fn(xs, *args) if enc is None else fn(xs, *args, enc=enc)
     if not torch.is_grad_enabled():
-        return fn(xs, *args)
-    return list(checkpoint(lambda *t: tuple(fn(list(t), *args)), *xs,
-                           use_reentrant=True))
+        return run(xs, enc)
+    n = len(xs)
+    ins = list(xs) + list(enc or ())
+    if not any(t.requires_grad for t in ins):
+        ins[:n] = [x.detach().requires_grad_() for x in xs]
+    return list(checkpoint(lambda *t: tuple(run(list(t[:n]),
+                                                list(t[n:]) or None)),
+                           *ins, use_reentrant=True))
 
 
 def model_nll_sum(row: ModelRow, batch: Dict[str, object],
@@ -1324,22 +1521,34 @@ def model_nll_sum(row: ModelRow, batch: Dict[str, object],
     or ``_sdpa`` under the chunk's rows of the mask: an image prompt, a
     window), the MoE's all-to-all on each device's own tokens; then each
     device's logits (the final norm and the head, gathered whole) and
-    its ``_nll`` on its chunk of the labels. ``batch``: the row's tokens
-    and labels (B, S) [+ positions (B, S) or (B, S, 3)] on the host. ->
-    the chunks' numerators in f32, added in model-index order on the
-    row's first device."""
+    its ``_nll`` on its chunk of the labels. Whisper's encoder runs first
+    over the row's frames, context-parallel (each encoder layer under the
+    same recompute, every key visible: the flash kernel's non-causal
+    forward and backward on each chunk of frames); its states, gathered
+    whole onto every device (``_cp_enc_states``), feed each decoder
+    chunk's cross-attention. ``batch``: the row's tokens and labels (B,
+    S) [+ positions (B, S) or (B, S, 3)] [+ enc_input (B, T, D)] on the
+    host. -> the chunks' numerators in f32, added in model-index order
+    on the row's first device."""
     tokens = torch.as_tensor(batch["tokens"])
     B, S = tokens.shape
     pos = _prompt_positions(batch, cfg, B, S)
     flash = index_causal(pos)
     if pos is None:
         pos = arange_positions(B, S, "cpu")
+    enc = None
+    if cfg.encoder_layers:
+        xs, epos = _cp_frames(row, _need_frames(batch, cfg), cfg)
+        for li in range(cfg.encoder_layers):
+            xs = _cp_remat(_cp_train_enc_layer, xs, row, li, epos, cfg)
+        enc = _cp_enc_states(row, xs, cfg)
     bounds = _chunks(S, row.tp)
     st = _cp_inputs(row, tokens, pos, bounds, cfg)
     xs = st["x"]
     for li, window in enumerate(layer_windows(cfg)):
         xs = _cp_remat(_cp_train_layer, xs, row, li, st["q_pos"],
-                       st["k_pos"], bounds, window, cfg, ctx, flash)
+                       st["k_pos"], bounds, window, cfg, ctx, flash,
+                       enc=enc)
     devs = row.devices
     fn = row.local_tree("final_norm")
     head = row.whole("embed" if cfg.tie_embeddings else "lm_head")
@@ -1353,9 +1562,16 @@ def model_nll_sum(row: ModelRow, batch: Dict[str, object],
     return reduce_to(parts, devs[0])
 
 
+def _need_frames(batch: Dict[str, object], cfg: ModelConfig):
+    if batch.get("enc_input") is None:
+        raise ValueError(f"{cfg.name} (encoder-decoder) needs "
+                         f"batch['enc_input'] (B, T_enc, d_model)")
+    return batch["enc_input"]
+
+
 def _model_prefill(model: ShardedLM, batch: Dict[str, Tensor],
-                   cfg: ModelConfig, max_len: int, ctx
-                   ) -> Tuple[Tensor, Cache]:
+                   cfg: ModelConfig, max_len: int, ctx,
+                   enc: Optional[Tensor] = None) -> Tuple[Tensor, Cache]:
     """``prefill`` in the reference's layout: each dp row's sequence cut
     over the row's devices (context parallelism), each layer gathered
     whole onto every device of the row (every row's copies queued before
@@ -1363,7 +1579,9 @@ def _model_prefill(model: ShardedLM, batch: Dict[str, Tensor],
     queries attending at its offset; the cache built as pieces
     (``init_cache(ctx=)``), each device writing its piece from the
     gathered K and V; the last position's logits over the vocab
-    columns."""
+    columns. Whisper: the encoder over "model" first (``_model_encode``)
+    unless ``enc`` is given, whose copies, placed once on every device of
+    each row, the cache keeps for ``decode_step`` ("enc")."""
     tokens = torch.as_tensor(batch["tokens"])
     B, S = tokens.shape
     rows = _model_rows(model, ctx, B)
@@ -1372,16 +1590,23 @@ def _model_prefill(model: ShardedLM, batch: Dict[str, Tensor],
     if pos is None:
         pos = arange_positions(B, S, "cpu")
     cache = init_cache(cfg, B, max_len, ctx=ctx)
+    encs = [None] * len(rows)
+    if cfg.encoder_layers and enc is not None:
+        encs = _placed_states(rows, enc, cfg)
+        cache["enc"] = (enc, encs)
+    elif cfg.encoder_layers:
+        encs = _model_encode(rows, _split_rows(_need_frames(batch, cfg),
+                                               len(rows)), cfg)
     bounds = _chunks(S, rows[0].tp)
     states = [_cp_inputs(row, tok, p, bounds, cfg)
               for row, tok, p in zip(rows, _split_rows(tokens, len(rows)),
                                      _split_rows(pos, len(rows)))]
     for li, window in enumerate(layer_windows(cfg)):
         lps = [row.whole_layer(li) for row in rows]
-        for row, lp, st in zip(rows, lps, states):
+        for row, lp, st, e in zip(rows, lps, states, encs):
             st["x"], k, v = _cp_layer(row, lp, st["x"], st["q_pos"],
                                       st["k_pos"], bounds, window, cfg, ctx,
-                                      flash)
+                                      flash, e)
             for name, kv in (("k", k), ("v", v)):
                 pieces, boxes, _ = _cache_view(cache, row, name)
                 for g in range(row.tp):
@@ -1407,9 +1632,10 @@ def decode_step(params, token: Tensor, cache: Cache,
     without it, as in the reference). The cache's tensors are written in
     place and shared by the returned cache. A model held as shards takes
     ``prefill``'s cache of its path -- pieces over "model" (the
-    tensor-parallel step, ``_model_decode``), or rows, each row on its
-    device -- and returns the logits on the grid's first device in row
-    order."""
+    tensor-parallel step, ``_model_decode``; ``enc`` read from the copies
+    prefill placed on every device where it is the tensor prefill was
+    given), or rows, each row on its device -- and returns the logits on
+    the grid's first device in row order."""
     check_supported(cfg)
     model = as_sharded(params, cfg, ctx)
     path = serve_path(params, cfg, ctx)
@@ -1417,7 +1643,7 @@ def decode_step(params, token: Tensor, cache: Cache,
     if path == "model":
         with torch.inference_mode():
             return _model_decode(model, token, cache, cfg,
-                                 _grid_ctx(model, ctx))
+                                 _grid_ctx(model, ctx), enc)
     with torch.inference_mode():
         idx = cache["idx"]
         if model is None:
@@ -1475,7 +1701,8 @@ def prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig,
     A model held as shards (``ShardedLM``, or ``restore``'s {name:
     pieces} of ``ctx``'s grid) takes ``serve_path``'s path. "model": the
     reference's context-parallel prefill (``_model_prefill``); the cache
-    is ``init_cache(ctx=)``'s pieces. "rows": the batch is split over
+    is ``init_cache(ctx=)``'s pieces (and, given ``enc``, its copies on
+    every device of each row, "enc"). "rows": the batch is split over
     ``ctx``'s dp rows, each run on the row's first device; layer by
     layer, with the rows inner, each row gathers the layer onto its
     device (every row's copies queued before any row computes,
@@ -1495,7 +1722,7 @@ def prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig,
                              f"{max_len}")
         if path == "model":
             return _model_prefill(model, batch, cfg, max_len,
-                                  _grid_ctx(model, ctx))
+                                  _grid_ctx(model, ctx), enc)
         if model is None:
             rows, ctxs, parts, encs = [params], [ctx], [batch], [enc]
         else:

@@ -336,13 +336,14 @@ class ModelRow:
     pieces at its model index: on a (1, N) grid its own piece, with no
     copy. ``whole_layer(i)`` reads layer i whole onto every device of the
     row (one copy a distinct device), the MoE's expert stacks as their
-    groups (group g on device g, ``moe.ep_groups``)."""
+    groups (group g on device g, ``moe.ep_groups``); ``whole_layer(i,
+    "enc_layers")`` the encoder's layer i."""
 
     def __init__(self, model: "ShardedLM", plan: RowPlan):
         self.model, self.plan = model, plan
         self.devices = plan.group_devices
         self.flat = tuple(order[0] for order in plan.group_orders)
-        self._layers = layer_stacks(model.pieces, model.shardings)["layers"]
+        self._stacks = layer_stacks(model.pieces, model.shardings)
         self._own: Dict[str, list] = {}
 
     @property
@@ -391,8 +392,8 @@ class ModelRow:
         return on_devices(self.devices, lambda g: sh.gather(
             pieces, self.devices[g], self.plan.group_orders[g]))
 
-    def whole_layer(self, i: int) -> List[object]:
-        lsh = LayerShards(self._layers[i], self.plan, experts=True)
+    def whole_layer(self, i: int, stack: str = "layers") -> List[object]:
+        lsh = LayerShards(self._stacks[stack][i], self.plan, experts=True)
         groups = lsh._expert_groups() if lsh._grouped() else None
         return on_devices(self.devices, lambda g: lsh.gather(
             self.devices[g], self.plan.group_orders[g], groups))

@@ -629,6 +629,71 @@ def test_attend_at_an_offset_differentiates_through_the_function():
         assert _rel(got, want.numpy()) <= TOL
 
 
+def _encoder_chunks(S: int, n: int = 4):
+    """models/model.py:_chunks -- S frames cut into n runs, ceil(S / n)
+    long, the last shorter."""
+    c = -(-S // n)
+    return [(g * c, min((g + 1) * c, S)) for g in range(n)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("Sk", [64, 62])
+def test_noncausal_chunks_equal_the_whole_call(Sk, dtype):
+    """An encoder layer over "model": each of 4 chunks of queries (Sq <
+    Sk, ragged where 4 does not divide Sk) against every key, every key
+    visible. The chunks' outputs concatenated equal the whole call's bit
+    for bit in f32 (the same scores a row) and within 3e-2 in bf16; their
+    dk and dv summed in f32 in chunk order and their dq concatenated
+    equal the whole sequence's backward; each chunk's backward agrees
+    with jax.vjp of the reference's sdpa_flash under an all-visible mask;
+    FlashAttention runs it in training (``attend(..., causal=False)``)."""
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v, do = (torch.from_numpy(x[:, :, :Sk]).to(td)
+                   for x in _chunk_inputs(seed=12))
+    out_w, lse_w = fa.flash_attention(q, k, v, False, lse=True)
+    whole = fa.flash_attention_bwd_plain(q, k, v, do, lse_w, False)
+    outs, dqs, dk, dv = [], [], 0.0, 0.0
+    for s, e in _encoder_chunks(Sk):
+        qc, doc = q[:, :, s:e], do[:, :, s:e]
+        out, lse = fa.flash_attention(qc, k, v, False, lse=True)
+        outs.append(out)
+        g = fa.flash_attention_bwd_plain(qc, k, v, doc, lse, False)
+        B, H, Sq, hd = qc.shape
+        mask = jnp.ones((B, Sq, Sk), bool)
+        rep = H // k.shape[1]
+        q5 = jnp.asarray(qc.float().numpy(), jnp.float32 if dtype == "f32"
+                         else jnp.bfloat16)
+        q5 = q5.reshape(B, -1, rep, Sq, hd).transpose(0, 3, 1, 2, 4)
+        kv = [jnp.asarray(x.float().numpy(), q5.dtype).transpose(0, 2, 1, 3)
+              for x in (k, v)]
+        do5 = jnp.asarray(doc.float().numpy(), q5.dtype).reshape(
+            B, -1, rep, Sq, hd).transpose(0, 3, 1, 2, 4)
+        _, vjp = jax.vjp(lambda a, b_, c: sdpa_flash(a, b_, c, mask,
+                                                     hd ** -0.5), q5, *kv)
+        rdq, rdk, rdv = (np.asarray(x, np.float32) for x in vjp(do5))
+        for got, want in zip(g, (rdq.transpose(0, 2, 3, 1, 4).reshape(
+                B, H, Sq, hd), rdk.transpose(0, 2, 1, 3),
+                rdv.transpose(0, 2, 1, 3))):
+            assert _rel(got.float(), want) <= OFF_TOL[dtype]
+        dqs.append(g[0])
+        dk = dk + g[1].float()
+        dv = dv + g[2].float()
+    cat = torch.cat(outs, 2)
+    if dtype == "f32":
+        assert torch.equal(cat, out_w)
+    assert _rel(cat.float(), out_w.float().numpy()) <= OFF_TOL[dtype]
+    for g, w in zip((torch.cat(dqs, 2), dk, dv), whole):
+        assert _rel(g.float(), w.float().numpy()) <= OFF_TOL[dtype]
+    xs = [x.float().clone().requires_grad_(True) for x in
+          (q[:, :, :16], k, v)]
+    attend(*(x.transpose(1, 2) for x in xs), causal=False).transpose(
+        1, 2).backward(do[:, :, :16].float())
+    _, lse = fa.flash_attention(*(x.detach() for x in xs), False, lse=True)
+    for x, w in zip(xs, fa.flash_attention_bwd_plain(
+            *(x.detach() for x in xs), do[:, :, :16].float(), lse, False)):
+        torch.testing.assert_close(x.grad, w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("off", OFFSETS_FULL)
 def test_backward_flops_and_plan_count_a_chunks_tiles(off):
     """kernel_bwd_flops and bwd_plan_sm90 at (Sq, Sk, q_offset): the

@@ -7,8 +7,9 @@ against the reference's own grid code, in f32 at smoke size:
     dry run lowers them (repro/launch/dryrun.py:78-113; the decode with
     ``seq_sharded=False``, the cache laid out by ``cache_specs_tree``):
     qwen3-14b and olmoe-1b-7b on (4, 2), (8, 1) and (2, 4), qwen3-14b on
-    (1, 8), whisper-large-v3 (through ``encode(ctx)``) on (8, 1) and
-    qwen2-vl-72b (M-RoPE, a prompt with an image) on (8, 1) and (1, 8);
+    (1, 8), whisper-large-v3 (through ``encode(ctx)``) on (8, 1), (1, 8)
+    and (2, 4) and qwen2-vl-72b (M-RoPE, a prompt with an image) on
+    (8, 1) and (1, 8);
     and (``PROFILE_CASES``) qwen3-14b under the ``kv_heads`` profile on
     (2, 4) and (4, 2), and on (1, 8) with a max_len that does not divide
     by "model", so the fit keeps the cache's length whole. Against them
@@ -17,8 +18,9 @@ against the reference's own grid code, in f32 at smoke size:
     (``lm_params_from_numpy(..., shardings=param_shardings(...))``):
     logits within 1e-5 relative L2 (whisper's encoder states too). Where
     "model" is larger than 1 the port serves in the reference's layout
-    (models/model.py: the "model" path; context-parallel prefill,
-    tensor-parallel decode, the cache in its fitted pieces), elsewhere a
+    (models/model.py: the "model" path; context-parallel prefill and
+    encoder, tensor-parallel decode and cross-attention, the cache in its
+    fitted pieces), elsewhere a
     dp row a device (the "rows" path). The sharded run against the
     port's whole model under the same ``ctx``: 1e-6 (the model path's
     partial sums are reduced across devices), bit for bit on a (1, 1)
@@ -50,7 +52,8 @@ CASES = (("qwen3-14b", (4, 2)), ("qwen3-14b", (8, 1)),
          ("olmoe-1b-7b", (4, 2)), ("olmoe-1b-7b", (8, 1)),
          ("whisper-large-v3", (8, 1)), ("qwen2-vl-72b", (8, 1)),
          ("qwen3-14b", (2, 4)), ("qwen3-14b", (1, 8)),
-         ("olmoe-1b-7b", (2, 4)), ("qwen2-vl-72b", (1, 8)))
+         ("olmoe-1b-7b", (2, 4)), ("qwen2-vl-72b", (1, 8)),
+         ("whisper-large-v3", (1, 8)), ("whisper-large-v3", (2, 4)))
 # S + NEW (the cache's max_len) divides by every "model" axis above, so
 # each splits the cache by length
 B, S, NEW = 8, 16, 8
@@ -179,6 +182,8 @@ def _reference(out: str) -> None:
                           in_shardings=(p_sh, enc_sh))(
                 params, batch["enc_input"])
             res[f"{key}/enc"] = np.asarray(enc)
+            # the decode step takes the states at P(dp, None, None)
+            enc = jax.device_put(enc, enc_sh)
             step = jax.jit(lambda p, t, c, e: decode_step(
                 p, t, c, cfg, dctx, enc=e),
                 in_shardings=(p_sh, tok_sh, c_sh, enc_sh))
@@ -485,25 +490,37 @@ def test_dp_one_grid_serves_bit_for_bit_and_its_moe_groups_stay_split(ref):
 
 def test_decode_over_model_gathers_no_layer_and_reads_its_own_pieces(
         monkeypatch):
-    """qwen3-14b on (1, 8): a decode step calls no LayerShards.gather and
-    reads every parameter through its device's own piece (the piece
-    itself: no copy), writes the new key into the one piece that holds
-    its position, and each device's cache piece is its fitted
-    cache_specs_tree block; the prefill gathers each layer once for the
-    row's one device (8 logical devices of the CPU share a copy). With a
-    max_len that does not divide by 8 the cache stays whole on each
-    device, as the reference's fit keeps it."""
+    """qwen3-14b and whisper-large-v3 on (1, 8): a decode step calls no
+    LayerShards.gather and reads every parameter through its device's own
+    piece (the piece itself: no copy), writes the new key into the one
+    piece that holds its position, and each device's cache piece is its
+    fitted cache_specs_tree block; the prefill gathers each layer once
+    for the row's one device (8 logical devices of the CPU share a copy).
+    With a max_len that does not divide by 8 the cache stays whole on
+    each device, as the reference's fit keeps it. Whisper's states come
+    from ``encode`` (each encoder layer gathered once), and the decode
+    step reads the copies the prefill placed: none placed again."""
     import torch
     from repro_torch.models import model as m
     from repro_torch.models import sharded as shd
     from repro_torch.sharding.rules import make_ctx, param_shardings
-    cfg = _cfg("qwen3-14b")
-    whole = m.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    for arch, seed in (("qwen3-14b", 1), ("whisper-large-v3", 6)):
+        with monkeypatch.context() as mp:
+            _decode_over_model_reads_its_own_pieces(
+                mp, torch, m, shd, make_ctx, param_shardings, arch, seed)
+
+
+def _decode_over_model_reads_its_own_pieces(monkeypatch, torch, m, shd,
+                                            make_ctx, param_shardings, arch,
+                                            seed):
+    cfg = _cfg(arch)
+    whole = m.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     grid = _grid((1, 8))
     sharded = _cut(whole, param_shardings(grid, whole, cfg))
     ctx = make_ctx(grid)
-    calls, reads = [0], []
+    calls, reads, placed = [0], [], [0]
     gather, local = shd.LayerShards.gather, shd.ModelRow.local
+    place = m._placed_states
 
     def counting(self, *a, **kw):
         calls[0] += 1
@@ -514,26 +531,39 @@ def test_decode_over_model_gathers_no_layer_and_reads_its_own_pieces(
         reads.append(all(t is p for t, p in zip(out,
                                                  sharded.pieces[name])))
         return out
+    def placing(*a):
+        placed[0] += 1
+        return place(*a)
     monkeypatch.setattr(shd.LayerShards, "gather", counting)
     monkeypatch.setattr(shd.ModelRow, "local", reading)
+    monkeypatch.setattr(m, "_placed_states", placing)
     x = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab, (2, 16)))
+    enc = None
+    if cfg.encoder_layers:
+        enc = m.encode(sharded, np.random.default_rng(5).standard_normal(
+            (2, cfg.encoder_ctx, cfg.d_model)).astype(np.float32), cfg, ctx)
+        assert calls[0] == cfg.encoder_layers
+        calls[0] = 0
     for max_len, split in ((24, True), (21, False)):
-        logits, cache = m.prefill(sharded, {"tokens": x}, cfg, max_len, ctx)
+        logits, cache = m.prefill(sharded, {"tokens": x}, cfg, max_len, ctx,
+                                  enc=enc)
         assert calls[0] == cfg.n_layers
-        calls[0], reads[:] = 0, []
+        assert placed[0] == int(enc is not None)
+        calls[0], reads[:], placed[0] = 0, [], 0
         before = [p.clone() for p in cache["pieces"]["k"]]
-        step, cache = m.decode_step(sharded, x[:, -1:], cache, cfg, ctx=ctx)
-        assert calls[0] == 0 and reads and all(reads)
-        specs = _cache_pieces_are_the_fitted_blocks(cache, (1, 8),
-                                                    "qwen3-14b", "baseline",
-                                                    max_len, 2)
+        step, cache = m.decode_step(sharded, x[:, -1:], cache, cfg, enc=enc,
+                                    ctx=ctx)
+        assert calls[0] == 0 and reads and all(reads) and placed[0] == 0
+        specs = _cache_pieces_are_the_fitted_blocks(cache, (1, 8), arch,
+                                                    "baseline", max_len, 2)
         assert specs["k"][2] == ("model" if split else None)
         owner = 16 // (max_len // 8) if split else None
         for d, (a, b) in enumerate(zip(before, cache["pieces"]["k"])):
             assert torch.equal(a, b) != (not split or d == owner)
         want = m.decode_step(whole, x[:, -1:], m.prefill(
-            whole, {"tokens": x}, cfg, max_len)[1], cfg)[0]
+            whole, {"tokens": x}, cfg, max_len, enc=enc)[1], cfg,
+            enc=enc)[0]
         assert _rel(step.numpy(), want.numpy()) <= SELF_TOL
         calls[0] = 0
 

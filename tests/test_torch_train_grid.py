@@ -7,16 +7,20 @@ in f32 at smoke size:
   * qwen3-14b (dense) on (1, 4), (2, 2) and (2, 4); olmoe-1b-7b (MoE, at
     capacity factor E / k, so no shard's capacity drops a token) on
     (1, 4) and (2, 2); qwen2-vl-72b with an image prompt (M-RoPE, the
-    masked ``_sdpa`` branch of each chunk) on (1, 4) -- from the same
+    masked ``_sdpa`` branch of each chunk) on (1, 4); whisper-large-v3
+    (the encoder context-parallel over its seeded frames, every key
+    visible, then the decoder's chunks with their cross-attention over
+    the gathered states) on (1, 4), (2, 2) and (2, 4) -- from the same
     numpy state (the reference's ``init_train_state``, loaded per shard
     with ``lm_params_from_numpy(..., shardings=)``): one step's loss and
     grad norm, and every updated parameter and AdamW moment, within 1e-5
     relative L2, on a batch whose ignored labels fall unevenly over the
     dp rows and the chunks; the step took the "model" path (the flash
     forward and backward at each chunk's offset where the prompt is
-    index-causal), the MoE its all-to-all;
+    index-causal; whisper's encoder chunks non-causal against all its
+    frames), the MoE its all-to-all;
   * ``train_path`` says "model" for those families and "rows" for
-    whisper-large-v3 and mamba2-130m on the same grids.
+    mamba2-130m on the same grids.
 
 The reference's grid code needs 8 JAX host devices, set before JAX
 starts, so it runs once per module in a subprocess -- this file run as a
@@ -36,8 +40,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_DEV = 8
 CASES = (("qwen3-14b", (1, 4)), ("qwen3-14b", (2, 2)), ("qwen3-14b", (2, 4)),
          ("olmoe-1b-7b", (1, 4)), ("olmoe-1b-7b", (2, 2)),
-         ("qwen2-vl-72b", (1, 4)))
-ROW_ARCHS = ("whisper-large-v3", "mamba2-130m")
+         ("qwen2-vl-72b", (1, 4)), ("whisper-large-v3", (1, 4)),
+         ("whisper-large-v3", (2, 2)), ("whisper-large-v3", (2, 4)))
+ROW_ARCHS = ("mamba2-130m",)
 GRIDS = ((1, 4), (2, 2), (2, 4))
 B, S = 4, 32
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
@@ -56,7 +61,8 @@ def _batch(vocab: int, arch: str) -> dict:
     """Seeded tokens and labels, the ignored labels packed into row 0's
     first chunks and a stretch of row 3; qwen2-vl's (B, S, 3) positions of
     5 text tokens, a 4 x 4 patch image (one t, so not index-causal) and
-    11 text tokens."""
+    11 text tokens; whisper's seeded frame embeddings (B, 32, 64), its
+    smoke encoder_ctx and d_model."""
     toks = np.random.default_rng(6).integers(0, vocab, (B, S + 1))
     out = {"tokens": toks[:, :-1].astype(np.int32),
            "labels": toks[:, 1:].astype(np.int32)}
@@ -69,6 +75,9 @@ def _batch(vocab: int, arch: str) -> dict:
         after = np.repeat((np.arange(11) + img.max() + 1)[:, None], 3, 1)
         pos = np.concatenate([txt, img, after]).astype(np.int32)
         out["positions"] = np.broadcast_to(pos, (B, S, 3)).copy()
+    if arch == "whisper-large-v3":
+        out["enc_input"] = np.random.default_rng(7).standard_normal(
+            (B, 32, 64)).astype(np.float32)
     return out
 
 
@@ -243,11 +252,11 @@ def trained(ref):
         real = (fa.flash_attention, fa.flash_attention_bwd)
 
         def fwd(q, k, v, causal=True, lse=False, q_offset=0):
-            seen["fwd"].append((q.shape[2], k.shape[2], q_offset))
+            seen["fwd"].append((q.shape[2], k.shape[2], q_offset, causal))
             return real[0](q, k, v, causal, lse, q_offset)
 
         def bwd(q, k, v, out, dout, lse, causal=True, q_offset=0):
-            seen["bwd"].append((q.shape[2], k.shape[2], q_offset))
+            seen["bwd"].append((q.shape[2], k.shape[2], q_offset, causal))
             return real[1](q, k, v, out, dout, lse, causal, q_offset)
 
         # the recompute's forward calls the kernel through FlashAttention,
@@ -294,10 +303,21 @@ def test_model_axis_step_matches_the_reference(arch, shape, ref, trained):
     if arch == "qwen2-vl-72b":
         # the image's patches share one t: every chunk takes _sdpa
         assert seen["fwd"] == seen["bwd"] == []
+    elif arch == "whisper-large-v3":
+        # the encoder's chunks of its T frames against all T, every key
+        # visible, and the decoder's at their offsets, each forward twice
+        # (with the recompute) and backward once
+        cfg = _cfg(arch)
+        T = cfg.encoder_ctx
+        enc = [(T // tp, T, 0, False)] * (tp * cfg.encoder_layers)
+        chunks = [(chunk, S, g * chunk, True) for g in range(tp)] * layers
+        rows = shape[0]
+        assert sorted(seen["fwd"]) == sorted((enc + chunks) * (2 * rows))
+        assert sorted(seen["bwd"]) == sorted((enc + chunks) * rows)
     else:
         # each chunk at its offset, forward (and its recompute) and
         # backward, against the row's whole sequence
-        chunks = [(chunk, S, g * chunk) for g in range(tp)]
+        chunks = [(chunk, S, g * chunk, True) for g in range(tp)]
         rows = shape[0]
         assert seen["fwd"] == chunks * (2 * layers * rows)
         assert sorted(seen["bwd"]) == sorted(chunks * (layers * rows))
@@ -313,7 +333,8 @@ def test_train_path_by_family(shape):
     from repro_torch.sharding.rules import make_ctx, param_shardings
     grid = _grid(shape)
     ctx = make_ctx(grid)
-    for arch in ("qwen3-14b", "olmoe-1b-7b", "qwen2-vl-72b") + ROW_ARCHS:
+    for arch in ("qwen3-14b", "olmoe-1b-7b", "qwen2-vl-72b",
+                 "whisper-large-v3") + ROW_ARCHS:
         cfg = _cfg(arch)
         model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                             param_shardings(grid, param_shapes(cfg), cfg))

@@ -18,7 +18,8 @@ of one model; the copies between cards change no value):
     index g (the decode reads the prefill's layout);
   * the sharded trainer (``jit_train_step``) over "model" (the
     context-parallel step: each chunk's K and V gathered, its dK / dV
-    summed in f32 on its card), olmoe-1b-7b on (2, 2) and qwen3-14b on
+    summed in f32 on its card), olmoe-1b-7b on (2, 2), qwen3-14b and
+    whisper-large-v3 (its encoder context-parallel over the frames) on
     (1, 4): 3 steps' loss and grad_norm, then the gathered parameters;
     the path counter must say "model";
   * DDP (``make_ddp_train_step``), qwen3-14b on ("data",) of every card,
@@ -35,12 +36,13 @@ of one model; the copies between cards change no value):
     the allocator's 512-byte rounding), and dropping the whole state
     frees it from card 0;
   * serving from weights held as shards: olmoe-1b-7b on (2, 2) and
-    qwen3-14b on (1, 4) over "model" (models/model.py's model path:
-    context-parallel prefill, tensor-parallel decode on each card's own
-    pieces, the cache's length over "model"; the path counter must say
-    so), qwen2-vl-72b on (4, 1) (the row path), loaded per shard
-    (``lm_params_from_numpy(..., shardings=)``): prefill and decode
-    logits and ``generate(ctx=)``'s tokens; ``init_params(...,
+    qwen3-14b and whisper-large-v3 on (1, 4) over "model"
+    (models/model.py's model path: context-parallel prefill and encoder,
+    tensor-parallel decode on each card's own pieces, the cache's length
+    over "model"; the path counter must say so), qwen2-vl-72b on (4, 1)
+    (the row path), loaded per shard (``lm_params_from_numpy(...,
+    shardings=)``): prefill and decode logits (whisper's encoder states)
+    and ``generate(ctx=)``'s tokens; ``init_params(...,
     shardings=)`` per shard: each card's pieces and allocated bytes
     (``device_bytes``); 4,096 windows over 4 cards
     (``shard_over_data``) through ``kernel`` and ``fused`` against one
@@ -56,7 +58,9 @@ prefill at 32,768 at B 1) and on (4, 1) (a dp row a card: B 4 x S 512 +
 qwen3-14b's 40-layer ZeRO-3 step from a train state made per shard, on
 (4, 1) at B 4 x S 512 and at train_4k, and on (1, 4) over "model" at B 4
 x S 512 and at train_4k's length at B 1 (1,024 tokens a card), the path
-counter read. ``--runs`` picks runs by name,
+counter read; whisper-large-v3 (32 + 32 layers) on (1, 4) over "model"
+and on (4, 1), serving (its 1,500 seeded frames encoded first) and
+ZeRO-3 steps at B 4 x S 512. ``--runs`` picks runs by name,
 ``--what`` their parts. For each: every card's ``memory_allocated``
 after init against its ``device_bytes``; card 0's init peak against its
 pieces plus its largest leaf's draw (f32, then the bf16 cast); the
@@ -343,7 +347,7 @@ def shard_serve(torch, np, smoke_leaves, arch, model):
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
-    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.model import decode_step, encode, prefill
     from repro_torch.serve.engine import generate
     from repro_torch.sharding.rules import make_ctx, param_shardings
 
@@ -356,6 +360,11 @@ def shard_serve(torch, np, smoke_leaves, arch, model):
     if cfg.mrope:
         batch["positions"] = np.broadcast_to(
             np.arange(16)[None, :, None], (4, 16, 3)).copy()
+    frames = None
+    if cfg.encoder_layers:
+        frames = np.random.default_rng(2).standard_normal(
+            (4, cfg.encoder_ctx, cfg.d_model)).astype(np.float32)
+        batch["enc_input"] = frames
 
     def run():
         from repro_torch.models import model as lm
@@ -373,17 +382,20 @@ def shard_serve(torch, np, smoke_leaves, arch, model):
         if cfg.is_moe:
             assert moe.path_counts["a2a"] == cfg.n_layers * grid.shape[0], \
                 moe.path_counts
-        step, _ = decode_step(params, x[:, -1:], cache, cfg, ctx=ctx)
-        toks = generate(params, cfg, x, 4, ctx=ctx) if not cfg.mrope \
-            else first.argmax(-1)
-        return first, step, toks, grid
+        enc = None if frames is None else encode(params, frames, cfg, ctx)
+        step, _ = decode_step(params, x[:, -1:], cache, cfg, enc=enc,
+                              ctx=ctx)
+        toks = generate(params, cfg, x, 4, ctx=ctx, enc_input=frames) \
+            if not cfg.mrope else first.argmax(-1)
+        return first, step, toks, grid, enc
 
-    first, step, toks, grid = run()
+    first, step, toks, grid, enc = run()
     assert len(set(grid.flat)) == 4, grid.flat
     with logical(4):
-        first_l, step_l, toks_l, _ = run()
+        first_l, step_l, toks_l, _, enc_l = run()
     assert torch.equal(toks.cpu(), toks_l.cpu())
-    return max(rel(torch, first, first_l), rel(torch, step, step_l))
+    return max([rel(torch, first, first_l), rel(torch, step, step_l)]
+               + ([] if enc is None else [rel(torch, enc, enc_l)]))
 
 
 def shard_init(torch):
@@ -475,7 +487,15 @@ FULL = (("qwen2-vl 80L (1, 4)", "qwen2-vl-72b", 0, (1, 4),
         ("qwen3-14b 40L ZeRO-3 (4, 1)", "qwen3-14b", 0, (4, 1),
          ("train", "train_4k")),
         ("qwen3-14b 40L ZeRO-3 (1, 4) model", "qwen3-14b", 0, (1, 4),
-         ("train", "train_4k_b1")))
+         ("train", "train_4k_b1")),
+        ("whisper 32+32L (1, 4) model", "whisper-large-v3", 0, (1, 4),
+         ("serve",)),
+        ("whisper 32+32L (4, 1)", "whisper-large-v3", 0, (4, 1),
+         ("serve",)),
+        ("whisper 32+32L ZeRO-3 (1, 4) model", "whisper-large-v3", 0,
+         (1, 4), ("train",)),
+        ("whisper 32+32L ZeRO-3 (4, 1)", "whisper-large-v3", 0, (4, 1),
+         ("train",)))
 SERVE = (4, 512, 32)
 LONG = (4, 32768)
 TRAIN = (4, 512, 3)
@@ -503,7 +523,11 @@ DRY = (("qwen2-vl-72b", "prefill_32k", (1, 4), 512, 4),
        ("qwen3-14b", "train_4k", (4, 1), 512, 4),
        ("qwen3-14b", "train_4k", (4, 1), 0, 4),
        ("qwen3-14b", "train_4k", (1, 4), 512, 4),
-       ("qwen3-14b", "train_4k", (1, 4), 0, 1))
+       ("qwen3-14b", "train_4k", (1, 4), 0, 1),
+       ("whisper-large-v3", "prefill_32k", (1, 4), 512, 4),
+       ("whisper-large-v3", "prefill_32k", (4, 1), 512, 4),
+       ("whisper-large-v3", "train_4k", (1, 4), 512, 4),
+       ("whisper-large-v3", "train_4k", (4, 1), 512, 4))
 _DRY = r"""
 import json, sys
 import torch
@@ -745,12 +769,13 @@ class LastRoutes:
         return self._wrap(fn, hook)
 
 
-def consistency(torch, chip, model, cfg, x, ctx, positions=None):
+def consistency(torch, chip, model, cfg, x, ctx, positions=None, enc=None):
     """prefill S's last logits against prefill S - 1 + decode_step, each
-    row's; a MoE's last tokens: their dropped choices counted, and the
-    decode's experts pinned to the prefill's (LastRoutes), where every
-    route that differed must be a near-tie, and the choices the prefill
-    dropped dropped in the decode too. -> record."""
+    row's (whisper's both over the encoder states ``enc``); a MoE's last
+    tokens: their dropped choices counted, and the decode's experts
+    pinned to the prefill's (LastRoutes), where every route that differed
+    must be a near-tie, and the choices the prefill dropped dropped in
+    the decode too. -> record."""
     from repro_torch.models.model import decode_step, prefill
 
     S = x.shape[1]
@@ -768,15 +793,18 @@ def consistency(torch, chip, model, cfg, x, ctx, positions=None):
         rec["drops"] = int(sum(int(c.sum()) for c in calls))
         rec["last_token_drops_pinned"] = routes.set_drops(calls)
     else:
-        out, ms = timed(torch, lambda: prefill(model, full, cfg, S, ctx)[0])
+        out, ms = timed(torch, lambda: prefill(model, full, cfg, S, ctx,
+                                               enc=enc)[0])
     rec["prefill_ms"] = round(ms, 1)
     a = out[:, -1].float()
     del out
-    (_, cache), ms = timed(torch, lambda: prefill(model, part, cfg, S, ctx))
+    (_, cache), ms = timed(torch, lambda: prefill(model, part, cfg, S, ctx,
+                                                  enc=enc))
     rec["prefill_s_minus_1_ms"] = round(ms, 1)
 
     def step():
-        return decode_step(model, x[:, -1:], cache, cfg, ctx=ctx)[0]
+        return decode_step(model, x[:, -1:], cache, cfg, enc=enc,
+                           ctx=ctx)[0]
     if cfg.is_moe:
         b, ms = timed(torch, lambda: routes.pin(step, True))
         rec["route_flips"], rec["near_ties"] = routes.flips, routes.ties
@@ -822,9 +850,11 @@ def serve_full(torch, np, chip, model, cfg, ctx):
     """B 4 x S 512 + 32 greedy tokens through prefill and decode_step
     (prefill ms, decode ms a step; over "model" the cache's bytes a card
     first, and the path the calls took), then the S vs S - 1 + decode
-    check (a MoE at capacity factor E / k, where nothing drops)."""
+    check (a MoE at capacity factor E / k, where nothing drops).
+    Whisper: its states from ``encode`` of 1,500 seeded frames (encode
+    ms), read by the prefill and every decode step."""
     from repro_torch.models import model as lm
-    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.model import decode_step, encode, prefill
 
     B, S, new = SERVE
     path = lm.serve_path(model, cfg, ctx)
@@ -838,13 +868,21 @@ def serve_full(torch, np, chip, model, cfg, ctx):
            if cfg.mrope else None)
     batch = {"tokens": x} if pos is None else {"tokens": x,
                                                "positions": pos}
+    enc = None
+    if cfg.encoder_layers:
+        frames = np.random.default_rng(4).standard_normal(
+            (B, cfg.encoder_ctx, cfg.d_model)).astype(np.float32)
+        enc, pre["encode_ms"] = timed(
+            torch, lambda: encode(model, frames, cfg, ctx))
+        pre["encode_ms"] = round(pre["encode_ms"], 1)
     (logits, cache), pre_ms = timed(
-        torch, lambda: prefill(model, batch, cfg, S + new, ctx))
+        torch, lambda: prefill(model, batch, cfg, S + new, ctx, enc=enc))
     toks = [logits[:, -1].argmax(-1, keepdim=True)]
     sync(torch)
     t0 = time.perf_counter()
     for _ in range(new - 1):
-        logits, cache = decode_step(model, toks[-1], cache, cfg, ctx=ctx)
+        logits, cache = decode_step(model, toks[-1], cache, cfg, enc=enc,
+                                    ctx=ctx)
         toks.append(logits[:, -1].argmax(-1, keepdim=True))
     sync(torch)
     dec_ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
@@ -855,7 +893,7 @@ def serve_full(torch, np, chip, model, cfg, ctx):
     del cache, logits
     ccfg = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts
                                 / cfg.top_k) if cfg.is_moe else cfg)
-    rec["check"] = consistency(torch, chip, model, ccfg, x, ctx, pos)
+    rec["check"] = consistency(torch, chip, model, ccfg, x, ctx, pos, enc)
     return rec
 
 
@@ -1018,6 +1056,10 @@ def main() -> int:
             torch, np, smoke_leaves, "qwen3-14b", 4),
         "shard serve qwen2-vl (4, 1)": lambda: shard_serve(
             torch, np, smoke_leaves, "qwen2-vl-72b", 1),
+        "shard serve whisper (1, 4) model": lambda: shard_serve(
+            torch, np, smoke_leaves, "whisper-large-v3", 4),
+        "sharded train whisper (1, 4) model": lambda: train(
+            torch, np, train_batch, "whisper-large-v3", 4),
         "shard init olmoe (2, 2)": lambda: shard_init(torch),
         "windows over 4 cards": lambda: windows_cards(torch, np),
     }
