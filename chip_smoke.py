@@ -149,7 +149,11 @@ Phases, each of which exits non-zero on failure:
      64), forward and backward on sm90 in bf16 and cuda_core in f32,
      each against its plain version, reruns bit for bit, the 4 chunks
      against one whole call (outputs concatenated, dk and dv summed in
-     f32), timed beside SDPA and the bound;
+     f32), timed beside SDPA and the bound; then hymba's chunk (its
+     global layers over a (1, 4) row, FLASH_HYMBA_CHUNK: 544 of 2,176
+     keys at offsets off the tile grid, H 25, K 5, hd 64), forward and
+     backward on sm90 in bf16 against the plain versions at each offset,
+     reruns bit for bit, the 4 chunks against one whole call;
      ``--only flash`` runs the build and this phase alone;
   5. LM serving of qwen3-14b: at smoke size in f32 (weights through
      lm_params_from_numpy) the card's greedy tokens and logits against
@@ -243,7 +247,13 @@ Phases, each of which exits non-zero on failure:
      same grid), whisper-large-v3 (4 + 4 layers) over "model" on (1, 4)
      and (2, 2) -- encode, prefill and decode steps against the whole
      model, generate(ctx=), flash sm90 one a layer a device of each row,
-     then its ZeRO-3 steps as above -- and gpipe (lm_mesh); ``--only
+     then its ZeRO-3 steps as above -- mamba2-130m (24 layers, B 4 x S
+     512) and hymba-1.5b (8 of 32 layers, B 1 x S 2,048 + 128 meta
+     tokens; B 2 on (2, 2)) over "model" on (1, 4) and (2, 2) (MESH_SSM:
+     the context-parallel SSD with its state handed across the devices,
+     tensor-parallel decode on each device's state heads; serving as
+     above, hymba's global layer one flash launch a device of each row,
+     then 3 ZeRO-3 steps as above) -- and gpipe (lm_mesh); ``--only
      lm_mesh`` runs the build and this phase alone;
   5e. lm shapes: phi3-medium-14b, internlm2-20b and command-r-35b at full
      width with 5b's checks (f32 at 32 / 16 layers); then every arch at
@@ -445,6 +455,12 @@ FLASH_CHUNK_HD = (16, 64, 128)
 # the 1,500 frames against all 1,500 (375 = 2 x 128 + 119 and 1,500 = 11 x
 # 128 + 92: both tails ragged); the four chunks against one whole call
 FLASH_ENC_CHUNK = (4, 20, 20, 375, 1500, 64)  # B, H, K, Sq, Sk, hd
+# one device's chunk of hymba's global layers over a (1, 4) row, as phase
+# 5d runs them: 128 meta + 2,048 tokens cut into 544-row chunks, H 25, K
+# 5, hd 64; the offsets are off the 128-row tile grid (544 = 4 x 128 +
+# 32), so the causal diagonal and the chunk's tail fall inside a tile
+FLASH_HYMBA_CHUNK = (1, 25, 5, 544, 2176, 64)  # B, H, K, Sq, Sk, hd
+FLASH_HYMBA_OFFSETS = (0, 544, 1088, 1632)
 LM_ARCH = "qwen3-14b"
 # the earlier LM phases' depths since phase 5e holds every arch at its full
 # depth at the reference's lengths (for the run's time): qwen3-14b
@@ -573,6 +589,18 @@ MESH_PLAN = ("qwen3-14b", (4, 1))
 MESH_ENCDEC = ("whisper-large-v3", 4, ((1, 4), (2, 2)))
 MESH_ENCDEC_NEW = 4
 MESH_ENCDEC_STEPS = 3
+# mamba2-130m at full depth (24 layers), B 4 x S 512, and hymba-1.5b at 8
+# of its 32 layers at full width, B 1 x S 2,048 + its 128 meta tokens
+# (B 2 on (2, 2): a row a dp row), over "model" on each grid of
+# MESH_SSM_GRIDS: serving (mesh_serve: MESH_SSM_NEW greedy tokens), then
+# MESH_SSM_STEPS ZeRO-3 steps at the same batch (mesh_train); the
+# (arch, layers, B, S) of each
+MESH_SSM = (("mamba2-130m", 24, 4, 512), ("hymba-1.5b", 8, 1, 2048))
+MESH_SSM_GRIDS = ((1, 4), (2, 2))
+MESH_SSM_NEW = 16
+MESH_SSM_STEPS = 3
+# the archs whose phase 5d lines and launch counts carry their grid
+MESH_BY_GRID = ("qwen3-14b", "mamba2-130m", "hymba-1.5b")
 # gpipe: 4 full-width qwen3-14b layers over 4 stages, 4 microbatches
 MESH_PIPE = (4, 4, 4, 1, 512)        # layers, stages, M, B_mb, S
 # phase 5e, lm shapes. (a) The dense configs not yet run at full width, with
@@ -644,6 +672,13 @@ PATH_KERNELS = {
     "lm mesh whisper 1x4": ("flash_attention",),
     "lm mesh whisper 2x2": ("flash_attention",),
     "lm mesh train": ("flash_attention", "flash_attention_bwd"),
+    # the SSM and hybrid families over "model": mamba2 attends
+    # nowhere; hymba's global layer takes flash at each chunk's offset
+    "lm mesh mamba2 1x4": (),
+    "lm mesh mamba2 2x2": (),
+    "lm mesh hymba 1x4": ("flash_attention",),
+    "lm mesh hymba 2x2": ("flash_attention",),
+    "lm mesh train mamba2": (),
     "lm mesh gpipe": ("flash_attention", "flash_attention_bwd"),
     # the dense configs at full width, and the reference's lengths: flash
     # wherever a layer attends without a window; train_4k its backward
@@ -2072,6 +2107,7 @@ def check_flash(torch, np) -> dict:
     out["flash_attention_chunk"] = check_flash_chunks(torch, np)
     out["flash_attention_bwd_chunk"] = check_flash_bwd_chunks(torch, np)
     out["flash_attention_enc_chunk"] = check_flash_enc_chunks(torch, np)
+    out["flash_attention_hymba_chunk"] = check_flash_hymba_chunks(torch, np)
     return out
 
 
@@ -2415,6 +2451,83 @@ def check_flash_enc_chunks(torch, np) -> dict:
             f"{m} " + "/".join(_g(t) for t in v) for m, v in times.items()))
     return {"max_abs_err": err, "whole": whole_err, "ms": times,
             "bit_for_bit": same}
+
+
+def check_flash_hymba_chunks(torch, np) -> dict:
+    """Phase 3c, hymba's chunk: FLASH_HYMBA_CHUNK's queries at each
+    FLASH_HYMBA_OFFSETS offset against the whole sequence's keys, causal,
+    in bf16, (B, S, H, hd) views as the context-parallel prefill and train
+    step hand them, through the wrappers, which must launch the sm90 route
+    once a call (forward and backward): each chunk's forward held to
+    flash_attention_plain at its offset (FLASH_TOL) and its backward to
+    flash_attention_bwd_plain (BWD_TOL, relative L2 of dq, dk and dv),
+    reruns bit for bit, and the chunks together against one
+    whole-sequence call: the outputs concatenated (FLASH_TOL), dk and dv
+    summed in f32 in chunk order and dq concatenated (BWD_TOL). One line,
+    on standard error; -> the errors, for the kernels line."""
+    import repro_torch.kernels.flash_attention as fa
+
+    B, H, K, Sq, Sk, hd = FLASH_HYMBA_CHUNK
+    tol, btol = FLASH_TOL["bf16"], BWD_TOL["bf16"]
+    rng = np.random.default_rng(17)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, Sk, n, hd), dtype=np.float32)).to(DEV).to(
+        torch.bfloat16).transpose(1, 2) for n in (H, K, K, H))
+    out_w, lse_w = fa.flash_attention(q, k, v, True, lse=True)
+    whole = fa.flash_attention_bwd(q, k, v, out_w, do, lse_w, True)
+    outs, dqs = [], []
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=DEV)
+    dv = torch.zeros_like(dk)
+    err = [0.0, 0.0]
+    for off in FLASH_HYMBA_OFFSETS:
+        what = f"flash_attention hymba chunk q_offset {off}"
+        qc, doc = q[:, :, off:off + Sq], do[:, :, off:off + Sq]
+        f0 = dict(fa.flash_attention.route_launches)
+        b0 = dict(fa.flash_attention_bwd.route_launches)
+        out, lse = fa.flash_attention(qc, k, v, True, lse=True, q_offset=off)
+        again = fa.flash_attention(qc, k, v, True, lse=True, q_offset=off)
+        g = fa.flash_attention_bwd(qc, k, v, out, doc, lse, True, off)
+        g2 = fa.flash_attention_bwd(qc, k, v, out, doc, lse, True, off)
+        torch.cuda.synchronize()
+        need(fa.flash_attention.route_launches
+             == {**f0, "sm90": f0["sm90"] + 2}
+             and fa.flash_attention_bwd.route_launches
+             == {**b0, "sm90": b0["sm90"] + 2},
+             f"{what}: not one sm90 launch a call")
+        need(torch.equal(out, again[0]) and torch.equal(lse, again[1])
+             and all(torch.equal(a, b) for a, b in zip(g, g2)),
+             f"{what}: a rerun differs")
+        want = fa.flash_attention_plain(qc, k, v, True, q_offset=off)
+        diff = (out.float() - want.float()).abs()
+        need(bool((diff <= tol * (1 + want.float().abs())).all()),
+             f"{what}: max err {float(diff.max())} over {tol} + {tol} x "
+             f"|want|")
+        want = fa.flash_attention_bwd_plain(qc, k, v, doc, lse, True, off)
+        eb = max(_rel_l2(torch, a, b) for a, b in zip(g, want))
+        need(eb <= btol, f"{what}: backward rel L2 {eb} against the plain "
+                         f"backward")
+        err = [max(err[0], float(diff.max())), max(err[1], eb)]
+        outs.append(out)
+        dqs.append(g[0])
+        dk += g[1].float()
+        dv += g[2].float()
+    cat = torch.cat(outs, 2)
+    diff = (cat.float() - out_w.float()).abs()
+    need(bool((diff <= tol * (1 + out_w.float().abs())).all()),
+         f"flash_attention hymba chunks: concatenated against the whole "
+         f"call, max err {float(diff.max())}")
+    eb = max(_rel_l2(torch, a, b) for a, b in zip(
+        (torch.cat(dqs, 2), dk, dv), whole))
+    need(eb <= btol, f"flash_attention_bwd hymba chunks: summed against the "
+                     f"whole call, rel L2 {eb}")
+    whole_err = [float(diff.max()), eb]
+    level_line(
+        f"  flash_attention hymba chunks B{B} H{H} K{K} hd{hd}, Sq{Sq} of "
+        f"Sk{Sk} at q_offset {'/'.join(map(str, FLASH_HYMBA_OFFSETS))}, "
+        f"sm90 bf16: max err / bwd rel L2 vs plain {err[0]:.1e}/"
+        f"{err[1]:.1e} (tol {tol:g} / {btol:g}); chunks vs the whole call "
+        f"{whole_err[0]:.1e}/{whole_err[1]:.1e}; reruns equal")
+    return {"max_abs_err": err, "whole": whole_err}
 
 
 # ------------------------------------------------------------- phase 4
@@ -3906,14 +4019,13 @@ def serve_path(torch, np, configs, svm) -> dict:
     need([r["degraded_mode"] for r in res] == ["full"] * len(chaos)
          and [r["detections"] for r in res] == base,
          "after recovery: results differ from the unperturbed run")
-    print(f"  serve chaos paper+kernel, {len(chaos)} frames one a batch: "
+    level_line(f"  serve chaos paper+kernel, {len(chaos)} frames one a batch: "
           f"fired {'/'.join(fired)}, {cstats['restarts']} restarts, "
           f"{cstats['retries']} retries, same results, stop {stop_s:.2f} s;"
           f" degradation (p99 {p99:.2f} ms: spike {spike:.1f}, lines "
           f"{5 * p99:.1f}/{2.5 * p99:.1f}): {rungs.count('reduced')} frames "
           f"reduced = CPU reduced_detector (delta {max(rdelta):.1e}), full "
-          f"after {extra} more, {trans} transitions, same results",
-          flush=True)
+          f"after {extra} more, {trans} transitions, same results")
     return launches
 
 
@@ -4002,14 +4114,13 @@ def check_uhd_kernels(torch, np, summary) -> None:
         entry = summary[k].setdefault(mode, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], e)
         summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], e)
-    print(f"  uhd kernels = plain at {len(levels)} levels of "
+    level_line(f"  uhd kernels = plain at {len(levels)} levels of "
           f"{UHD[1]}x{UHD[0]}, slabs of " + "/".join(
               str(s[1]) for s in shapes[3:-1]) + f" rows, B{KERNEL_BATCH} "
           f"level 1.0, every mode (fused = pair bit for bit); worst err "
           + ", ".join(f"{k.replace('dense_', '')} " + format(max(
               e for (kk, _), e in worst.items() if kk == k), ".1e")
-                      for k in dict.fromkeys(k for k, _ in worst)),
-          flush=True)
+                      for k in dict.fromkeys(k for k, _ in worst)))
 
 
 def same_kept(got, ref, tol: float, iou_thr: float) -> int:
@@ -4583,6 +4694,15 @@ def attended_pairs(S: int, window: int, n_meta: int) -> int:
                for q in range(S))
 
 
+def flash_layers(cfg) -> int:
+    """The decoder layers whose prefill attention takes flash: every
+    layer without a window where the family attends (hymba's global
+    layers), none for mamba2."""
+    from repro_torch.models.model import layer_windows
+    return sum(w == 0 for w in layer_windows(cfg)) if cfg.has_attention \
+        else 0
+
+
 def lm_bounds(cfg, B: int, S: int, pairs=None):
     """The least milliseconds of one prefill of B x S tokens and of one
     decode step after it on the card, each the larger of bytes and each
@@ -4739,8 +4859,7 @@ def full_width(torch, np, arch: str, groups, f32_layers=None,
     import repro_torch.kernels as kernels
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import get_config
-    from repro_torch.models.model import (decode_step, init_params,
-                                          layer_windows, prefill)
+    from repro_torch.models.model import decode_step, init_params, prefill
     from repro_torch.serve.engine import generate
 
     cfg = get_config(arch)
@@ -4760,8 +4879,7 @@ def full_width(torch, np, arch: str, groups, f32_layers=None,
     torch.cuda.synchronize()
     name = f"lm {arch}"
     launches = check_launches(name, kernels.launch_counts())
-    per = sum(w == 0 for w in layer_windows(cfg)) if cfg.has_attention \
-        else 0
+    per = flash_layers(cfg)
     got = dict(fa.flash_attention.route_launches)
     need(got == {"sm90": per * len(groups), "cuda_core": 0},
          f"{arch}: flash routes {got} in {len(groups)} bf16 prefills, "
@@ -5534,11 +5652,11 @@ def lm_train(torch, np):
     need(dl <= TRAIN_SMOKE_TOL["loss"] and dp <= TRAIN_SMOKE_TOL["params"]
          and res[DEV][2] == 2, f"DDP --compress card vs CPU: loss {dl}, "
                                f"params {dp}")
-    print(f"  train smoke f32 B{TRAIN_SMOKE_BATCH[0]}xS{TRAIN_SMOKE_BATCH[1]}"
-          f" card vs CPU, loss/grads/step params (tol "
-          + "/".join(f"{v:g}" for v in TRAIN_SMOKE_TOL.values()) + "): "
-          + ", ".join(text) + f"; ddp --compress 2 logical devices "
-          f"{dl:.0e}/-/{dp:.0e}", flush=True)
+    level_line(f"  train smoke f32 B{TRAIN_SMOKE_BATCH[0]}x"
+               f"S{TRAIN_SMOKE_BATCH[1]} card vs CPU, loss/grads/step params "
+               "(tol " + "/".join(f"{v:g}" for v in TRAIN_SMOKE_TOL.values())
+               + "): " + ", ".join(text) + f"; ddp --compress 2 logical "
+               f"devices {dl:.0e}/-/{dp:.0e}")
     level_line("  " + train_cli(), flush=True)
     return {name: launches}, routes, bwd_routes, summary
 
@@ -5774,12 +5892,11 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
     torch.cuda.synchronize()
     paths_dec = dict(moe.path_counts)
     # over "model" the reference's layout; a "model" axis of 1, the rows
-    path = ("model" if model > 1 and cfg.family in lm.MODEL_AXIS_FAMILIES
-            else "rows")
+    path = "model" if model > 1 else "rows"
     need(lm.path_counts == {"whole": 0, "rows": 0, "model": 0, path: 2},
          f"{arch} {shape}: prefill and decode_step took the paths "
          f"{lm.path_counts}, want {path} both")
-    name = f"lm mesh {short}" + (f" {data}x{model}" if arch == "qwen3-14b"
+    name = f"lm mesh {short}" + (f" {data}x{model}" if arch in MESH_BY_GRID
                                  else "")
     launches = {name: check_launches(name, kernels.launch_counts())}
     routes = dict(fa.flash_attention.route_launches)
@@ -5791,10 +5908,10 @@ def mesh_serve(torch, np, arch, layers, shape, B, S, new):
          f"{arch}: MoE paths {paths_pre} in the sharded prefill and "
          f"{paths_dec} in a decode step, want a2a and replicated "
          f"{want_paths[0]} each")
-    # one launch a layer on each device of each row over "model" (each
-    # its chunk at its offset), one a row on the row path
+    # one launch a layer without a window on each device of each row over
+    # "model" (each its chunk at its offset), one a row on the row path
     per = model if path == "model" else 1
-    need(routes == {"sm90": L * rows * per, "cuda_core": 0},
+    need(routes == {"sm90": flash_layers(cfg) * rows * per, "cuda_core": 0},
          f"{arch}: the sharded prefill launched the flash routes {routes}")
     del first, cache
 
@@ -6140,8 +6257,11 @@ def mesh_train(torch, np, arch, layers, shape, batch_shape=TRAIN_BATCH,
     for name, p in params.named_parameters():
         g = sh["params"][name].gather([acc[name].get(i)
                                        for i in range(grid.size)])
-        leaf[name] = float((g - p.grad.float()).norm()
-                           / p.grad.float().norm().clamp(min=1e-30))
+        # a parameter no op reads (mamba2's ln2) takes no gradient: zero
+        want = (p.grad.float() if p.grad is not None
+                else torch.zeros_like(g))
+        leaf[name] = float((g - want).norm()
+                           / want.norm().clamp(min=1e-30))
         p.grad = None
     del acc
     worst = max(leaf, key=leaf.get)
@@ -6161,12 +6281,14 @@ def mesh_train(torch, np, arch, layers, shape, batch_shape=TRAIN_BATCH,
         losses.append(float(m["loss"]))
     torch.cuda.synchronize()
     name = "lm mesh train"
-    launches = {f"{name} {arch.split('-')[0]}": check_launches(
-        name, kernels.launch_counts())}
+    short = arch.split("-")[0]
+    launches = {f"{name} {short}": check_launches(
+        f"{name} {short}" if f"{name} {short}" in PATH_KERNELS else name,
+        kernels.launch_counts())}
     paths = dict(lm.path_counts)
     fwd = dict(fa.flash_attention.route_launches)
     bwd = dict(fa.flash_attention_bwd.route_launches)
-    chunks = (layers + (cfg.encoder_layers and layers)) * shape[0] \
+    chunks = (flash_layers(cfg) + cfg.encoder_layers) * shape[0] \
         * shape[1] * steps
     need(paths["model"] == steps and paths["rows"] == 0,
          f"the sharded steps took the paths {paths}")
@@ -6284,8 +6406,10 @@ def lm_mesh(torch, np):
     """Phase 5d: the LM meshes on logical devices of the card
     (REPRO_TEST_DEVICES set for the phase only): each MESH_SERVE cell
     served from weights held as shards (mesh_serve), windows over a grid
-    (mesh_windows), the sharded trainer (mesh_train) and gpipe_apply
-    (mesh_pipe). -> (launches, forward routes, backward routes)."""
+    (mesh_windows), the sharded trainer (mesh_train), whisper
+    (MESH_ENCDEC) and mamba2 and hymba (MESH_SSM) served and trained over
+    "model", and gpipe_apply (mesh_pipe). -> (launches, forward routes,
+    backward routes)."""
     import repro_torch.kernels.flash_attention as fa
 
     saved = os.environ.get("REPRO_TEST_DEVICES")
@@ -6323,6 +6447,22 @@ def lm_mesh(torch, np):
             bwd = {r: n + b[r] for r, n in bwd.items()}
             print(f"{line}; train x{MESH_ENCDEC_STEPS}: "
                   + line2.split(": ", 1)[1], flush=True)
+        for arch, layers, B, S in MESH_SSM:
+            for shape in MESH_SSM_GRIDS:
+                os.environ["REPRO_TEST_DEVICES"] = str(shape[0] * shape[1])
+                Bg = max(B, shape[0])           # a row a dp row at least
+                got, routes, line = mesh_serve(torch, np, arch, layers,
+                                               shape, Bg, S, MESH_SSM_NEW)
+                launches.update(got)
+                fwd = {r: n + routes[r] for r, n in fwd.items()}
+                got, f, b, line2 = mesh_train(torch, np, arch, layers, shape,
+                                              (Bg, S), MESH_SSM_STEPS)
+                launches.update({f"{k} {shape[0]}x{shape[1]}": v
+                                 for k, v in got.items()})
+                fwd = {r: n + f[r] for r, n in fwd.items()}
+                bwd = {r: n + b[r] for r, n in bwd.items()}
+                print(f"{line}; train x{MESH_SSM_STEPS}: "
+                      + line2.split(": ", 1)[1], flush=True)
         got, f, b, text2 = mesh_pipe(torch, np)
     finally:
         if saved is None:
@@ -6569,7 +6709,7 @@ def length_cell(torch, np, arch, layers, profile, S, dec, pred) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import (decode_step, encode, init_params,
-                                          layer_windows, prefill)
+                                          prefill)
     from repro_torch.sharding.rules import PROFILES, make_ctx
 
     cfg = get_config(arch)
@@ -6600,8 +6740,7 @@ def length_cell(torch, np, arch, layers, profile, S, dec, pred) -> tuple:
     ms_pre = (time.perf_counter() - t0) * 1e3
     counts = kernels.launch_counts()
     routes = dict(fa.flash_attention.route_launches)
-    per = (sum(w == 0 for w in layer_windows(cfg)) if cfg.has_attention
-           else 0) + cfg.encoder_layers
+    per = flash_layers(cfg) + cfg.encoder_layers
     need(routes == {"sm90": per, "cuda_core": 0}
          and all(n == (per if k == "flash_attention" else 0)
                  for k, n in counts.items()),
@@ -7176,6 +7315,16 @@ def main(argv=None) -> int:
             key: {m: _r(v[i]) for m, v in chunk["max_abs_err"].items()},
             "ms_plain_sdpa_bound": {m: [_r(x) for x in v[4 * i:4 * i + 4]]
                                     for m, v in chunk["ms"].items()}}
+    # hymba's chunk (its global layers over a (1, 4) row, causal at
+    # offsets off the tile grid), sm90 in bf16, both directions: error
+    # against plain, then the chunks against the whole call
+    chunk = summary["flash_attention_hymba_chunk"]
+    shape = "B%dxH%dxK%dxSq%d of Sk%d hd%d" % FLASH_HYMBA_CHUNK
+    for entry, i, key in ((flash, 0, "max_abs_err"), (bwd_entry, 1,
+                                                      "rel_l2")):
+        entry["hymba_chunk"] = {"shape": shape,
+                                key: _r(chunk["max_abs_err"][i]),
+                                "whole": _r(chunk["whole"][i])}
     print(json.dumps(kernels_line, separators=(",", ":")))
     print(card[0])
     print(json.dumps({"ok": True, "device": {

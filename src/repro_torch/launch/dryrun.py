@@ -28,21 +28,22 @@ Per-device numbers, and how each is derived:
     grid of the same axes, so the MoE takes its EP path with one shard
     (the same routing and capacity as the whole batch) and the profile's
     attention paths are the grid's. A train step that takes the "model"
-    path on the grid (``models.model.grid_path``: the dense, MoE, VLM
-    and encoder-decoder families where the "model" axis is larger than
-    1) is traced instead on one dp row of the grid's "model" axis
-    (``model_row``) with the row's share of the global batch (B / dp):
-    the sequence (and whisper's frames) cut into that many chunks, each
-    layer gathered onto every device of the row, K and V gathered, the
-    flash forward and backward at each chunk's offset (non-causal over
-    the encoder's chunks), the MoE's all-to-all over the row -- one dp
-    row's work, divided by
-    the row's devices (so each device counts its own gathered layer and
-    head whole). Held against cards on (1, 4) alone (qwen3-14b 40L,
-    tools/mesh_cards.py); the dp > 1 grids are not measured. The row path's
-    grids run each dp row's dense work on the row's first device (the
-    ZeRO-3 rows, EP shards), so its busiest device does up to the "model"
-    axis' size times this; the premise is kept so rows compare with the
+    path on the grid (``models.model.grid_path``: every family where the
+    "model" axis is larger than 1) is traced instead on one dp row of
+    the grid's "model" axis (``model_row``) with the row's share of the
+    global batch (B / dp): the sequence (and whisper's frames; hymba's
+    meta tokens first) cut into that many chunks, each layer gathered
+    onto every device of the row (one copy a device), K and V gathered,
+    the flash forward and backward at each chunk's offset (non-causal
+    over the encoder's chunks), the SSD's state handed across the
+    chunks, the MoE's all-to-all over the row -- one dp row's work,
+    divided by the row's devices (so each device counts its own gathered
+    layer and head whole). Held against cards on (1, 4) alone (qwen3-14b
+    40L, whisper, mamba2 24L, hymba 32L: tools/mesh_cards.py); the dp > 1
+    grids are not measured. The row path's grids (a "model" axis of 1)
+    run each dp row's dense work on the row's first device (the ZeRO-3
+    rows, EP shards), so its busiest device does up to the "model" axis'
+    size times this; the premise is kept so rows compare with the
     reference's.
   * argument bytes: exact per device, ``sharding/rules.py:device_bytes``
     over the plan's layouts -- ``state_shardings`` (train) or

@@ -198,12 +198,26 @@ def attend_chunk(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
     and (B, Sq) mask positions ``q_pos``, against the whole sequence's k
     and v (B, Sk, K, hd) at ``k_pos`` (B, Sk), gathered in model-index
     order. No window and ``flash`` (the positions index-causal): the
-    flash kernel at ``q_offset``; else ``_sdpa`` under the chunk's rows
-    of the reference's ``make_mask`` (an image prompt's t stream; a
-    window takes the masked form here, where the row path may take
-    ``banded_core``)."""
+    flash kernel at ``q_offset``. A window reads only its band: under
+    ``ctx.banded`` ``banded_core`` at the chunk's offset (the row path's
+    blocks); else, where ``flash`` (a key more than a window before the
+    query by index is outside it), ``_sdpa`` over the meta keys and the
+    keys from q_offset - window + 1 on, under their rows of the
+    reference's ``make_mask``. Otherwise ``_sdpa`` under the chunk's
+    rows of the whole mask (an image prompt's t stream)."""
     if not window and flash:
         return attend(q, k, v, q_offset=q_offset)
+    if window and ctx is not None and ctx.banded:
+        return banded_core(q, k, v, q_pos, cfg, window=window, n_meta=n_meta,
+                           ctx=ctx, q_offset=q_offset, k_pos=k_pos)
+    if window and flash:
+        lo = max(n_meta, q_offset - window + 1)
+        hi = q_offset + q.shape[1]
+        if lo > n_meta:
+            k, v, k_pos = (torch.cat([t[:, :n_meta], t[:, lo:hi]], 1)
+                           for t in (k, v, k_pos))
+        else:
+            k, v, k_pos = k[:, :hi], v[:, :hi], k_pos[:, :hi]
     return _sdpa(q, k, v, make_mask(q_pos, k_pos, window=window,
                                     n_meta=n_meta), cfg, ctx)
 
@@ -385,51 +399,58 @@ def banded_attention(x: Tensor, p, cfg: ModelConfig, *, window: int,
 
 def banded_core(q: Tensor, k: Tensor, v: Tensor, pos1d: Tensor,
                 cfg: ModelConfig, *, window: int, n_meta: int = 0,
-                ctx=None) -> Tensor:
+                ctx=None, q_offset: int = 0,
+                k_pos: Optional[Tensor] = None) -> Tensor:
     """Banded attention on projected q (B, S, H, hd), k and v (B, S, K,
     hd) at positions ``pos1d`` (B, S) -> (B, S, H, hd); the partial
-    softmaxes' scores in bf16 under ``ctx.bf16_scores``."""
+    softmaxes' scores in bf16 under ``ctx.bf16_scores``. ``q_offset``,
+    ``k_pos``: q is a chunk of a sequence, at sequence rows q_offset on
+    and positions ``pos1d``, against the whole sequence's k and v at
+    ``k_pos`` (B, Sk) (a context-parallel chunk): the whole sequence's
+    blocks and bands, the chunk's rows of them."""
     bf16 = bool(ctx is not None and ctx.bf16_scores)
-    B, S, H, hd = q.shape
-    bq = window
-    nblk = -(-S // bq)
+    B, Sq, H, hd = q.shape
+    if k_pos is None:
+        k_pos = pos1d
+    Sk, bq = k.shape[1], window
+    a = q_offset // bq * bq                  # the chunk's first block
+    lead = q_offset - a
+    nblk = -(-(lead + Sq) // bq)
     Sp = nblk * bq
-    if Sp != S:
-        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, Sp - S)) for t in (q, k, v))
-        pos1d = F.pad(pos1d, (0, Sp - S), value=2 ** 30)
+    big = 2 ** 30
+    qp = F.pad(pos1d, (lead, Sp - lead - Sq), value=big)
+    qb = F.pad(q, (0, 0, 0, 0, lead, Sp - lead - Sq)).reshape(
+        (B * nblk, bq) + q.shape[2:])
+    # the key blocks [a - bq, a + Sp): the first block's previous band
+    # padding where it is block 0 (never attended), the tail past Sk too
+    lo, hi = max(a - bq, 0), min(a + Sp, Sk)
+    front, back = bq - (a - lo), a + Sp - hi
+    kp = F.pad(k_pos[:, lo:hi], (front, back), value=big)
 
-    def blocks(t):  # (B, Sp, ...) -> (B*nblk, bq, ...)
-        return t.reshape((B * nblk, bq) + t.shape[2:])
-
-    def bands(t):   # (B, Sp, ...) -> (B*nblk, 2bq, ...): [prev; cur]
-        tb = t.reshape((B, nblk, bq) + t.shape[2:])
-        prev = torch.cat([torch.zeros_like(tb[:, :1]), tb[:, :-1]], dim=1)
-        band = torch.cat([prev, tb], dim=2)
+    def bands(t):   # (B, (nblk + 1) bq, ...) -> (B*nblk, 2bq, ...)
+        tb = t.reshape((B, nblk + 1, bq) + t.shape[2:])
+        band = torch.cat([tb[:, :-1], tb[:, 1:]], dim=2)
         return band.reshape((B * nblk, 2 * bq) + t.shape[2:])
 
-    qb, kb, vb = blocks(q), bands(k), bands(v)
-    qp = blocks(pos1d)
-    kp = bands(pos1d)
-    # block 0's zero-padded "previous" band is never attended
-    first_pad = ((torch.arange(B * nblk, device=q.device) % nblk == 0)[:, None]
-                 & (torch.arange(2 * bq, device=q.device) < bq)[None, :])
-    kp = torch.where(first_pad, torch.full_like(kp, 2 ** 30), kp)
+    kb, vb = (bands(F.pad(t[:, lo:hi], (0, 0, 0, 0, front, back)))
+              for t in (k, v))
+    qpb, kpb = qp.reshape(B * nblk, bq), bands(kp)
     outs, lses = [], []
     for c in passes(B * nblk, 4 * H * bq * 2 * bq):   # f32 scores
-        mask = make_mask(qp[c], kp[c], window=window)
+        mask = make_mask(qpb[c], kpb[c], window=window)
         if n_meta:
-            mask = mask & (kp[c] >= n_meta)[:, None, :]   # meta: its own pass
+            mask = mask & (kpb[c] >= n_meta)[:, None, :]  # meta: its own pass
         o, lse = _sdpa_lse(qb[c], kb[c], vb[c], mask, bf16)
         outs.append(o)
         lses.append(lse)
-    out_b = cat(outs, 0).reshape(B, Sp, H, hd)[:, :S]
-    lse_b = cat(lses, 0).reshape(B, Sp, H)[:, :S]
+    out_b = cat(outs, 0).reshape(B, Sp, H, hd)[:, lead:lead + Sq]
+    lse_b = cat(lses, 0).reshape(B, Sp, H)[:, lead:lead + Sq]
     if not n_meta:
         return out_b
     # meta keys are visible through the window (sinks); causality still
     # holds for the meta tokens' own queries
     outs, lses = [], []
-    for c in passes(S, 4 * B * H * n_meta):
+    for c in passes(Sq, 4 * B * H * n_meta):
         mask_m = (torch.arange(n_meta, device=q.device)[None, None, :]
                   <= pos1d[:, c, None])
         o, lse = _sdpa_lse(q[:, c], k[:, :n_meta], v[:, :n_meta], mask_m,

@@ -49,16 +49,21 @@ again in the recompute of the backward. ``prefill``, ``decode_step`` and
 paths that ``serve_path`` picks from the config and the grid alone
 (``path_counts`` counts each call's):
 
-  * "model" -- a family of ``MODEL_AXIS_FAMILIES`` (dense, MoE, the VLM
-    and whisper's encoder-decoder) on a grid whose "model" axis is
-    larger than 1, in the reference's layout (repro/models/moe.py:88-102
-    ``act3`` / ``act_q`` / ``act_kv_gathered`` / ``act_logits``,
-    repro/sharding/rules.py): prefill is context-parallel -- each dp
-    row's sequence cut over the row's devices, each layer gathered whole
+  * "model" -- every family on a grid whose "model" axis is larger than
+    1, in the reference's layout
+    (repro/models/moe.py:88-102 ``act3`` / ``act_q`` /
+    ``act_kv_gathered`` / ``act_logits``, repro/sharding/rules.py):
+    prefill is context-parallel -- each dp row's sequence (hymba's meta
+    tokens first) cut over the row's devices, each layer gathered whole
     onto every device of the row, K and V gathered in model-index order
     and each device's queries attending at their offset (the flash
-    kernel's ``q_offset``); a MoE's all-to-all path takes each device's
-    own tokens. Whisper's encoder (``encode``, or ``prefill`` over
+    kernel's ``q_offset``; a window reads only its band); a MoE's
+    all-to-all path takes each device's own tokens; the SSD of mamba2
+    and hymba runs on the whole sequence's chunk grid, each device's
+    local pass at once (reading the raw rows of its first chunk that lie
+    on earlier devices), each device's entering state then handed on
+    from the earlier devices' final states in model-index order
+    (``_cp_ssm``). Whisper's encoder (``encode``, or ``prefill`` over
     ``enc_input``) is context-parallel the same way over each row's
     frames (the sinusoidal rows and RoPE positions at each chunk's own
     frames; every key visible: the flash kernel's non-causal chunk), its
@@ -79,23 +84,32 @@ paths that ``serve_path`` picks from the config and the grid alone
     fitted as the reference fits it (``init_cache(ctx=)``): by length
     over "model" (the softmax's max and sum reduced over the pieces),
     by heads under ``kv_heads``, whole on each model device where the
-    axis does not divide. The sharded train step
+    axis does not divide; the SSM state by heads (each device stepping
+    its own; all of them where the heads do not divide) and the conv rows
+    whole on each model device, ``in_proj``'s column pieces gathered
+    (they need not end at a head), the gated RMSNorm's sum of squares
+    reduced over the devices in f32 in model-index order and
+    ``out_proj``'s row pieces' partial sums reduced. The sharded train
+    step
     (train/train_step.py:``jit_train_step``) takes the same path by the
     same rule (``train_path``): ``model_nll_sum`` is the context-parallel
     forward of one dp row -- the prefill's layer (``_cp_layer``) under
-    the reentrant recompute, each layer gathered again in the backward,
-    K and V gathered by ``sharded.seq_gather`` (its backward sums each
-    chunk's dK / dV partials in f32 in model-index order on the chunk's
-    device, rounded once), the flash kernel's forward and backward at
-    each chunk's ``q_offset`` -- then each device's logits and
-    next-token loss on its chunk with the labels cut the same way, the
-    head gathered whole onto each device; whisper's encoder first over
+    the reentrant recompute, each layer gathered again in the backward
+    (``sharded.gather_copies``: one copy a model index, whose backward
+    sums the copies' gradients into each piece in f32 in model-index
+    order), K and V, the SSD's conv rows and handed states gathered by
+    ``sharded.seq_gather`` (its backward sums each chunk's partials in
+    f32 in model-index order on the chunk's device, rounded once), the
+    flash kernel's forward and backward at each chunk's ``q_offset`` --
+    then each device's logits and next-token loss on its chunk with the
+    labels cut the same way (the meta tokens' rows skipped), the head
+    gathered whole onto each device; whisper's encoder first over
     its chunks of frames under the same recompute, its states gathered by
     ``seq_gather`` (every decoder chunk's gradient into them summed in
     f32 on each chunk's owner).
-  * "rows" -- every other model held as shards (mamba2, hymba, and any
-    grid whose "model" axis is 1, where the reference's layout is FSDP):
-    the batch runs over ``ctx``'s dp rows, each row on its
+  * "rows" -- a model held as shards on a grid whose "model" axis is 1,
+    where the reference's layout is FSDP: the batch runs over ``ctx``'s
+    dp rows, each row on its
     first device, each layer gathered onto it as the layer runs (a MoE's
     expert groups on the row's devices of each model index); the cache
     is one whole cache a dp row.
@@ -131,13 +145,15 @@ from .attention import (_project_qkv, _sdpa, arange_positions, attend,
                         index_causal, make_mask, qkv_heads, self_attend,
                         t_stream)
 from .configs import ModelConfig
-from .layers import mlp, norm, sinusoidal_positions, swiglu
+from .layers import mlp, norm, rmsnorm, sinusoidal_positions, swiglu
 from .moe import ep_a2a_row, ep_replicated_row, moe_ffn
 from .sharded import (ModelRow, ShardedLeaves, ShardedLM, all_gather,
-                      all_reduce, as_sharded, gathered_rows, namespace,
+                      all_reduce, as_sharded, fork, gathered_rows, namespace,
                       on_devices, reduce_scatter, reduce_to, row_model,
                       row_plans, seq_gather, shard_leaf)
-from .ssm import ssd_decode, ssd_forward
+from .ssm import (chunk_state, ssd_chunk, ssd_chunk_out, ssd_conv,
+                  ssd_decode, ssd_decode_conv, ssd_decode_heads, ssd_forward,
+                  ssd_project)
 
 Tensor = torch.Tensor
 Cache = Dict[str, object]
@@ -902,12 +918,6 @@ def _on_first(parts: List[Tensor], device) -> Tensor:
 
 # -------------------------------------- serving over the "model" axis
 
-#: the families served and trained over a grid's "model" axis as the
-#: reference lays them out: every layer attention, then an MLP or MoE
-#: (whisper's encoder-decoder with its cross-attention too); mamba2's and
-#: hymba's SSM state stays on the row path
-MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm", "encdec")
-
 #: prefill and decode_step calls, and the sharded train step's gradients
 #: (``train_path``), by path since the last reset_paths(): "whole" (a
 #: CausalLM), "rows" (a model held as shards, a dp row a device) and
@@ -922,12 +932,10 @@ def reset_paths() -> None:
 
 def serve_path(params, cfg: ModelConfig, ctx=None) -> str:
     """The path ``prefill`` and ``decode_step`` take, from the model's
-    kind, the config and the grid alone: "whole" for a ``CausalLM``;
-    "model" for a model held as shards of a family in
-    ``MODEL_AXIS_FAMILIES`` (no meta tokens) on a grid whose "model" axis
-    is larger than 1; "rows" for any other model held as shards (mamba2,
-    hymba, and every grid whose "model" axis is 1, where the reference's
-    layout is FSDP and the row path computes it)."""
+    kind and the grid alone: "whole" for a ``CausalLM``; "model" for a
+    model held as shards on a grid whose "model" axis is larger than 1;
+    "rows" for one on a grid whose "model" axis is 1, where the
+    reference's layout is FSDP and the row path computes it."""
     model = as_sharded(params, cfg, ctx)
     if model is None:
         return "whole"
@@ -936,20 +944,19 @@ def serve_path(params, cfg: ModelConfig, ctx=None) -> str:
 
 def grid_path(cfg: ModelConfig, ctx) -> str:
     """``serve_path``'s rule for a model held as shards on ``ctx``'s
-    grid, from the config and the grid alone: "model" or "rows"."""
-    tp = ctx.grid.axis_sizes.get(ctx.tp_axis, 1)
-    if tp > 1 and cfg.family in MODEL_AXIS_FAMILIES and not cfg.meta_tokens:
-        return "model"
-    return "rows"
+    grid: "model" where its "model" axis is larger than 1, else "rows"
+    (every family takes either)."""
+    return "model" if ctx.grid.axis_sizes.get(ctx.tp_axis, 1) > 1 \
+        else "rows"
 
 
 def train_path(params, cfg: ModelConfig, ctx=None) -> str:
     """The path the sharded train step's gradient takes
     (train/train_step.py:``jit_train_step``), by ``serve_path``'s rule:
     "model" (``model_nll_sum``, context-parallel over the row's devices)
-    for the dense, MoE, VLM and encoder-decoder families on a grid whose
-    "model" axis is larger than 1, "rows" (a dp row a device) otherwise;
-    counted in ``path_counts``."""
+    for every family on a grid whose "model" axis is larger than 1,
+    "rows" (a dp row a device) where it is 1; counted in
+    ``path_counts``."""
     path = serve_path(params, cfg, ctx)
     path_counts[path] += 1
     return path
@@ -1195,6 +1202,68 @@ def _tp_attention_decode(row: ModelRow, prefix: str, hs: List[Tensor],
     return _rows(row, prefix + ".wo", flat, False)
 
 
+def _tp_ssm_decode(row: ModelRow, prefix: str, hs: List[Tensor],
+                   cache: Cache, li: int, cfg: ModelConfig) -> List[Tensor]:
+    """A decode step's SSD, tensor-parallel: ``in_proj``'s column pieces
+    gathered (``_full``: they need not end at a head); the conv from the
+    whole ``conv_w`` / ``conv_b`` and the cache's ``conv``, whole on each
+    device; each device steps the heads its ``state`` piece holds (all
+    of them where the fit keeps the state whole) and writes them back;
+    the gated RMSNorm on each device's ``norm_scale`` rows, their sum of
+    squares over d_inner added in f32 in model-index order; the
+    ``out_proj`` rows' partial sums reduced (``_rows``). Every value is
+    computed before a piece is written: holders of a block on one device
+    share its tensor."""
+    devs, tp = row.devices, row.tp
+    di, C = cfg.d_inner, cfg.conv_dim
+    dtype = hs[0].dtype
+    p = row.local_tree(prefix)
+    zx, split = _cols(row, prefix + ".in_proj", hs)
+    zx = _full(row, zx, split)
+    (sp, boxes, heads_split), (cp, _, _) = (_cache_view(cache, row, n)
+                                            for n in ("state", "conv"))
+    conv = on_devices(devs, lambda g: ssd_decode_conv(
+        cp[g][li], zx[g][:, 0, di:di + C], p[g], dtype))
+    memo: Dict[int, Tuple[Tensor, Tensor]] = {}
+    for g in range(tp):
+        if id(sp[g]) not in memo:
+            memo[id(sp[g])] = ssd_decode_heads(
+                conv[g][0], zx[g][:, 0, di + C:], zx[g][:, 0, :di],
+                sp[g][li], boxes[g][2], p[g], cfg)
+    new = [memo[id(sp[g])] for g in range(tp)]
+    for g in range(tp):
+        sp[g][li] = new[g][0]
+        cp[g][li] = conv[g][1]
+    P = cfg.ssm_headdim
+    if row.model_dim(prefix + ".norm_scale") is None:
+        # the norm's rows whole: every device the whole gated output
+        us = _full(row, [u for _, u in new], heads_split is not None)
+        ys = on_devices(devs, lambda g: rmsnorm(us[g], p[g].norm_scale,
+                                                cfg.norm_eps))
+        return _rows(row, prefix + ".out_proj", ys, False)
+    n = di // tp
+    cols = [new[g][1][..., g * n - boxes[g][2].start * P:
+                      (g + 1) * n - boxes[g][2].start * P]
+            for g in range(tp)]
+    ss = all_reduce([c.to(torch.float32).square().sum(-1, keepdim=True)
+                     for c in cols], devs)
+    ys = [(c.to(torch.float32) * torch.rsqrt(s / di + cfg.norm_eps)
+           * w.norm_scale.to(torch.float32)).to(dtype)
+          for c, s, w in zip(cols, ss, p)]
+    return _rows(row, prefix + ".out_proj", ys, True)
+
+
+def _tp_branch_norm(row: ModelRow, name: str, xs: List[Tensor],
+                    cfg: ModelConfig) -> List[Tensor]:
+    """hymba's norm of one branch of its mixer (``bn_attn``, ``bn_ssm``)
+    on each device; any other family's branch as it is."""
+    if cfg.family != "hybrid":
+        return xs
+    bn = row.local_tree(name)
+    return on_devices(row.devices, lambda g: norm(xs[g], bn[g], cfg.norm,
+                                                  cfg.norm_eps))
+
+
 def _tp_cross_attention(row: ModelRow, prefix: str, hs: List[Tensor],
                         encs: List[Tensor], cfg: ModelConfig
                         ) -> List[Tensor]:
@@ -1296,15 +1365,29 @@ def _model_decode(model: ShardedLM, token, cache: Cache, cfg: ModelConfig,
             ln1, ln2 = (row.local_tree(lp + n) for n in ("ln1", "ln2"))
             h = on_devices(devs, lambda g: norm(
                 xs[g], ln1[g], cfg.norm, cfg.norm_eps))
-            a = _tp_attention_decode(row, lp + "attn", h, pos, cache, li, idx,
-                                     window, cfg)
-            xs = on_devices(devs, lambda g: xs[g] + a[g])
+            outs = []
+            if cfg.has_attention:
+                outs.append(_tp_branch_norm(row, lp + "bn_attn",
+                                            _tp_attention_decode(
+                                                row, lp + "attn", h, pos,
+                                                cache, li, idx, window, cfg),
+                                            cfg))
+            if cfg.has_ssm:
+                outs.append(_tp_branch_norm(row, lp + "bn_ssm",
+                                            _tp_ssm_decode(
+                                                row, lp + "ssm", h, cache,
+                                                li, cfg), cfg))
+            xs = on_devices(devs, lambda g: xs[g] + _mix([o[g]
+                                                          for o in outs]))
             if e is not None:
                 lnx = row.local_tree(lp + "ln_x")
                 h = on_devices(devs, lambda g: norm(
                     xs[g], lnx[g], cfg.norm, cfg.norm_eps))
                 c = _tp_cross_attention(row, lp + "xattn", h, e, cfg)
                 xs = on_devices(devs, lambda g: xs[g] + c[g])
+            if cfg.family == "ssm":
+                st[0] = xs
+                continue
             h = on_devices(devs, lambda g: norm(
                 xs[g], ln2[g], cfg.norm, cfg.norm_eps))
             f = (_tp_moe(row, lp + "moe", h, cfg) if cfg.is_moe
@@ -1343,16 +1426,43 @@ def _cp_moe(row: ModelRow, lps, hs: List[Tensor], cfg: ModelConfig, ctx,
     return ys
 
 
+def _cp_positions(batch: Dict[str, object], cfg: ModelConfig, B: int,
+                  S: int) -> Tuple[Tensor, bool]:
+    """A context-parallel pass's positions on the host: ``batch``'s (B, S)
+    or (B, S, 3), or arange, after the meta tokens' arange where the
+    config has them (the tokens' shifted by M, as ``_embed_prompt``
+    shifts them) -> (positions (B, M + S[, 3]), whether their mask is
+    index-causal)."""
+    pos = _prompt_positions(batch, cfg, B, S)
+    M = cfg.meta_tokens
+    if M and pos is not None:
+        if pos.dim() != 2:
+            raise ValueError("meta tokens take (B, S) positions")
+        pos = torch.cat([torch.arange(M).expand(B, M), pos + M], 1)
+    flash = index_causal(pos)
+    if pos is None:
+        pos = arange_positions(B, M + S, "cpu")
+    return pos, flash
+
+
 def _cp_inputs(row: ModelRow, tok: Tensor, pos: Tensor,
                bounds: List[Tuple[int, int]], cfg: ModelConfig) -> dict:
     """A context-parallel pass's inputs on a dp row: device g's chunk
-    [s_g, e_g) of the embedded tokens (``_tp_embed``; whisper's
-    sinusoidal rows s_g .. e_g - 1 added) and of the positions (B, S) or
-    (B, S, 3) ("q_pos"), and the whole sequence's t stream on every
+    [s_g, e_g) of the sequence -- hymba's meta tokens first, then the
+    embedded tokens (``_tp_embed``; whisper's sinusoidal rows s_g .. e_g
+    - 1 added) -- and of the positions (``_cp_positions``: (B, M + S) or
+    (B, S, 3)) ("q_pos"), and the whole sequence's t stream on every
     device ("k_pos")."""
     devs = row.devices
+    M = cfg.meta_tokens
     toks = on_devices(devs, lambda g: tok.to(devs[g]))
-    xs = _tp_embed(row, toks, cfg, bounds)
+    xs = _tp_embed(row, toks, cfg, [(max(s - M, 0), max(e - M, 0))
+                                     for s, e in bounds])
+    if M:
+        meta = row.local("meta")
+        xs = [torch.cat([m[s:min(e, M)].to(cfg.dtype).expand(
+            x.shape[0], -1, -1), x], 1)
+            for x, m, (s, e) in zip(xs, meta, bounds)]
     if cfg.encoder_layers and not cfg.mrope:
         xs = [x + sinusoidal_positions(e - s, cfg.d_model, d, start=s).to(
             cfg.dtype)[None] for x, d, (s, e) in zip(xs, devs, bounds)]
@@ -1361,51 +1471,166 @@ def _cp_inputs(row: ModelRow, tok: Tensor, pos: Tensor,
             "k_pos": on_devices(devs, lambda g: t_stream(pos).to(devs[g]))}
 
 
-def _cp_attention(row: ModelRow, lp, xs: List[Tensor], q_pos: List[Tensor],
+def _cp_attention(row: ModelRow, lp, hs: List[Tensor], q_pos: List[Tensor],
                   cfg: ModelConfig, attend_fn):
-    """The self-attention residual of a context-parallel layer, ``lp`` the
-    layer whole on each device: each chunk's q, k and v (RoPE at its
-    positions ``q_pos``); K and V side by side gathered in model-index
-    order (``seq_gather``: one exchange between the cards, and under grad
-    its f32 backward); ``attend_fn(g, q, k, v)`` each chunk's queries
-    against the whole sequence's keys. -> (xs, each device's whole k,
-    whole v)."""
+    """The self-attention of a context-parallel layer on its normed chunks
+    ``hs``, ``lp`` the layer whole on each device: each chunk's q, k and
+    v (RoPE at its positions ``q_pos``); K and V side by side gathered in
+    model-index order (``seq_gather``: one exchange between the cards,
+    and under grad its f32 backward); ``attend_fn(g, q, k, v)`` each
+    chunk's queries against the whole sequence's keys. -> (each chunk's
+    output after ``wo``, each device's whole k, whole v)."""
     H, hd = cfg.n_heads, cfg.hd
-    qkv = [_project_qkv(norm(x, p.ln1, cfg.norm, cfg.norm_eps), p.attn,
-                        cfg, qp) for x, p, qp in zip(xs, lp, q_pos)]
+
+    def project(h, p, qp):
+        # q's gradient is the device's own, k's and v's wait on the
+        # gather's backward: one alias a projection (``fork``)
+        hq, hk, hv = fork(h, h, h)
+        return qkv_heads(torch.matmul(hq, p.wq), torch.matmul(hk, p.wk),
+                         torch.matmul(hv, p.wv), p, cfg, qp)
+    qkv = [project(h, p.attn, qp) for h, p, qp in zip(hs, lp, q_pos)]
     kv = seq_gather([torch.cat(t[1:], -1) for t in qkv], row.devices)
     k = [x[..., :hd] for x in kv]
     v = [x[..., hd:] for x in kv]
-    xs = [x + torch.matmul(attend_fn(g, t[0], k[g], v[g]).reshape(
-              x.shape[0], x.shape[1], H * hd), lp[g].attn.wo)
-          for g, (x, t) in enumerate(zip(xs, qkv))]
-    return xs, k, v
+    outs = [torch.matmul(attend_fn(g, t[0], k[g], v[g]).reshape(
+        h.shape[0], h.shape[1], H * hd), lp[g].attn.wo)
+        for g, (h, t) in enumerate(zip(hs, qkv))]
+    return outs, k, v
+
+
+def _last_rows(x: Tensor, n: int) -> Tensor:
+    """The last n rows of x (B, S, C) along S, zeros before where S < n."""
+    return F.pad(x[:, max(x.shape[1] - n, 0):], (0, 0, max(n - x.shape[1],
+                                                           0), 0))
+
+
+def _handing_on(c: Dict[str, object], owned: int) -> Dict[str, object]:
+    """A device's local pass (``ssd_chunk``) with the state and decay of
+    its first ``owned`` chunks (``chunk_state``) that it hands on. The
+    hand-off's uses wait on other devices, the run's own output's do not:
+    under grad the pass is differentiated once both are in (``fork``)."""
+    *ys, states, decay, cum, C, xh, states_h, decay_h = fork(
+        *c["y_intra"], c["states"], c["chunk_decay"], c["cum"], c["C"],
+        c["xh"], c["states"], c["chunk_decay"])
+    state, total = chunk_state(states_h, decay_h, owned)
+    return dict(c, y_intra=ys, states=states, chunk_decay=decay,
+                cum=cum, C=C, xh=xh, state=state, decay=total)
+
+
+def _cp_ssm(row: ModelRow, lp, hs: List[Tensor], cfg: ModelConfig,
+            cache: bool = False):
+    """The SSD of a context-parallel layer on its normed runs ``hs``,
+    ``lp`` the layer whole on each device, on the whole sequence's chunk
+    grid (Q = min(ssm_chunk, S)), so each product is the whole path's:
+    each run's ``in_proj``; each run's last raw xBC and dt_raw rows (as
+    many as a later run's first chunk and conv can reach back, Q + k -
+    2) gathered in model-index order (``seq_gather``), so each device
+    reads its first chunk's rows on earlier devices and the k-1 before;
+    each device's local pass (``ssd_chunk``), all at once; the final
+    states and total decays of the chunks that end on each device
+    gathered the same way, and each device's entering state E_g =
+    E_{g-1} D_{g-1} + F_{g-1} from them in model-index order; each run's
+    output from its entering state (``ssd_chunk_out``). Under grad, each
+    exchange's backward sums its gradients in f32 in model-index order.
+    -> (each run's output, and with ``cache`` each device's final cache
+    {"state" (B, H, N, P) after the whole sequence, "conv" its last k-1
+    raw rows, f32}, else None)."""
+    devs, k1, H = row.devices, cfg.ssm_conv - 1, cfg.ssm_heads
+    bounds, s = [], 0
+    for h in hs:
+        bounds.append((s, s + h.shape[1]))
+        s += h.shape[1]
+    Q = min(cfg.ssm_chunk, s)
+    proj = [ssd_project(h, p.ssm, cfg) for h, p in zip(hs, lp)]
+    n = Q - 1 + k1
+    tails = seq_gather([r[:, max(r.shape[1] - n, 0):] for _, r in proj],
+                       devs)
+    ends = [0]
+    for a, b in bounds:
+        ends.append(ends[-1] + min(b - a, n))
+    local = []
+    for g, ((a, b), (z, r), p) in enumerate(zip(bounds, proj, lp)):
+        if a == b:
+            # an empty run: a zero state and no decay to hand on
+            shape = (z.shape[0], H, cfg.ssm_state, cfg.ssm_headdim)
+            local.append({"state": z.new_zeros(shape, dtype=torch.float32),
+                          "decay": z.new_ones(shape[:2],
+                                              dtype=torch.float32)})
+            continue
+        lead = a - a // Q * Q
+        owned = sum(min(a - lead + (i + 1) * Q, s) <= b
+                    for i in range(-(-(b - a + lead) // Q)))
+        xBC, dt = ssd_conv(torch.cat([_last_rows(tails[g][:, :ends[g]],
+                                                 lead + k1), r], 1), p.ssm,
+                           cfg)
+        local.append(_handing_on(ssd_chunk(z, xBC, dt, lead, Q, p.ssm, cfg),
+                                 owned))
+    handed = seq_gather([torch.cat([c["state"].flatten(1), c["decay"]],
+                                   -1)[:, None] for c in local], devs)
+
+    def entering(g: int, upto: int) -> Optional[Tensor]:
+        E = None
+        for j in range(upto):
+            F_j = handed[g][:, j, :-H].view(local[j]["state"].shape)
+            E = F_j if E is None else E * handed[g][:, j, -H:, None,
+                                                    None] + F_j
+        return E
+    outs = [h.new_zeros(h.shape) if a == b
+            else ssd_chunk_out(c, entering(g, g), p.ssm, cfg)[0]
+            for g, (h, (a, b), c, p) in enumerate(zip(hs, bounds, local, lp))]
+    if not cache:
+        return outs, None
+    return outs, on_devices(devs, lambda g: {
+        "state": entering(g, row.tp),
+        "conv": _last_rows(tails[g], k1)[..., :cfg.conv_dim].to(
+            torch.float32)})
 
 
 def _cp_layer(row: ModelRow, lp, xs: List[Tensor], q_pos: List[Tensor],
               k_pos: List[Tensor], bounds: List[Tuple[int, int]],
               window: int, cfg: ModelConfig, ctx, flash: bool,
-              enc: Optional[List[Tensor]] = None):
+              enc: Optional[List[Tensor]] = None, cache: bool = False):
     """One decoder layer of a context-parallel pass over a dp row, ``lp``
-    the layer whole on each device: the self-attention (``_cp_attention``)
-    with each chunk's queries attending at its offset
-    (``attend_chunk``); whisper's cross-attention of each chunk's queries
+    the layer whole on each device: its mixer on each chunk's normed
+    input -- the self-attention (``_cp_attention``) with each chunk's
+    queries attending at its offset (``attend_chunk``), the SSD
+    (``_cp_ssm``), or hymba's two side by side, each after its branch
+    norm, averaged; whisper's cross-attention of each chunk's queries
     over the encoder states its device holds (``enc``); the FFN on each
-    device's own tokens. -> (xs, each device's whole k, whole v)."""
-    xs, k, v = _cp_attention(row, lp, xs, q_pos, cfg, lambda g, q, kg, vg:
-                             attend_chunk(q, kg, vg, cfg, t_stream(q_pos[g]),
-                                          k_pos[g], bounds[g][0],
-                                          window=window,
-                                          n_meta=cfg.meta_tokens, ctx=ctx,
-                                          flash=flash))
+    device's own tokens (mamba2 has none). -> (xs, (each device's whole
+    k, whole v) or None, with ``cache`` each device's SSM cache or
+    None)."""
+    hs = [norm(x, p.ln1, cfg.norm, cfg.norm_eps) for x, p in zip(xs, lp)]
+    outs, kv, ssm = [], None, None
+    if cfg.has_attention:
+        a, k, v = _cp_attention(row, lp, hs, q_pos, cfg, lambda g, q, kg, vg:
+                                attend_chunk(q, kg, vg, cfg,
+                                             t_stream(q_pos[g]), k_pos[g],
+                                             bounds[g][0], window=window,
+                                             n_meta=cfg.meta_tokens, ctx=ctx,
+                                             flash=flash))
+        if cfg.family == "hybrid":
+            a = [norm(t, p.bn_attn, cfg.norm, cfg.norm_eps)
+                 for t, p in zip(a, lp)]
+        outs.append(a)
+        kv = (k, v)
+    if cfg.has_ssm:
+        o, ssm = _cp_ssm(row, lp, hs, cfg, cache)
+        if cfg.family == "hybrid":
+            o = [norm(t, p.bn_ssm, cfg.norm, cfg.norm_eps)
+                 for t, p in zip(o, lp)]
+        outs.append(o)
+    xs = [x + _mix([o[g] for o in outs]) for g, x in enumerate(xs)]
     if enc is not None:
         xs = [x + cross_attention(norm(x, p.ln_x, cfg.norm, cfg.norm_eps),
                                   e, p.xattn, cfg)
               for x, p, e in zip(xs, lp, enc)]
+    if cfg.family == "ssm":
+        return xs, kv, ssm
     hs = [norm(x, p.ln2, cfg.norm, cfg.norm_eps) for x, p in zip(xs, lp)]
     f = (_cp_moe(row, lp, hs, cfg, ctx, bounds) if cfg.is_moe
          else [mlp(h, p.mlp, cfg.mlp) for h, p in zip(hs, lp)])
-    return [x + y for x, y in zip(xs, f)], k, v
+    return [x + y for x, y in zip(xs, f)], kv, ssm
 
 
 def _cp_train_layer(xs: List[Tensor], row: ModelRow, li: int, *args,
@@ -1440,8 +1665,11 @@ def _cp_enc_layer(row: ModelRow, lp, xs: List[Tensor], pos: List[Tensor],
     against the whole sequence's gathered K and V, every key visible (the
     flash kernel, ``causal=False``, Sq < Sk), then the MLP on each
     device's own frames."""
-    xs, _, _ = _cp_attention(row, lp, xs, pos, cfg, lambda g, q, k, v:
-                             attend(q, k, v, causal=False))
+    a, _, _ = _cp_attention(row, lp, [norm(x, p.ln1, cfg.norm, cfg.norm_eps)
+                                      for x, p in zip(xs, lp)],
+                            pos, cfg, lambda g, q, k, v:
+                            attend(q, k, v, causal=False))
+    xs = [x + y for x, y in zip(xs, a)]
     return [x + mlp(norm(x, p.ln2, cfg.norm, cfg.norm_eps), p.mlp, cfg.mlp)
             for x, p in zip(xs, lp)]
 
@@ -1514,14 +1742,17 @@ def model_nll_sum(row: ModelRow, batch: Dict[str, object],
                   cfg: ModelConfig, ctx) -> Tensor:
     """One dp row's next-token loss numerator in the reference's training
     layout (its batch at P(dp, "model"), repro/sharding/rules.py:193):
-    the row's sequence cut over its devices, each layer gathered whole
-    onto every device of the row and recomputed in the backward, K and V
-    gathered in model-index order and each chunk's queries attending at
-    its offset (the flash kernel's forward and backward at ``q_offset``,
-    or ``_sdpa`` under the chunk's rows of the mask: an image prompt, a
-    window), the MoE's all-to-all on each device's own tokens; then each
-    device's logits (the final norm and the head, gathered whole) and
-    its ``_nll`` on its chunk of the labels. Whisper's encoder runs first
+    the row's sequence (hymba's meta tokens first) cut over its devices,
+    each layer gathered whole onto every device of the row and
+    recomputed in the backward (``_cp_layer``), K and V gathered in
+    model-index order and each chunk's queries attending at its offset
+    (the flash kernel's forward and backward at ``q_offset``, or
+    ``_sdpa`` under the chunk's rows of the mask: an image prompt, a
+    window's band), the SSD's state handed on across the chunks, the
+    MoE's all-to-all on each device's own tokens; then each device's
+    logits (the final norm and the head, gathered whole) and its
+    ``_nll`` on its chunk of the labels (the meta tokens' rows
+    skipped). Whisper's encoder runs first
     over the row's frames, context-parallel (each encoder layer under the
     same recompute, every key visible: the flash kernel's non-causal
     forward and backward on each chunk of frames); its states, gathered
@@ -1532,17 +1763,15 @@ def model_nll_sum(row: ModelRow, batch: Dict[str, object],
     on the row's first device."""
     tokens = torch.as_tensor(batch["tokens"])
     B, S = tokens.shape
-    pos = _prompt_positions(batch, cfg, B, S)
-    flash = index_causal(pos)
-    if pos is None:
-        pos = arange_positions(B, S, "cpu")
+    pos, flash = _cp_positions(batch, cfg, B, S)
+    M = cfg.meta_tokens
     enc = None
     if cfg.encoder_layers:
         xs, epos = _cp_frames(row, _need_frames(batch, cfg), cfg)
         for li in range(cfg.encoder_layers):
             xs = _cp_remat(_cp_train_enc_layer, xs, row, li, epos, cfg)
         enc = _cp_enc_states(row, xs, cfg)
-    bounds = _chunks(S, row.tp)
+    bounds = _chunks(M + S, row.tp)
     st = _cp_inputs(row, tokens, pos, bounds, cfg)
     xs = st["x"]
     for li, window in enumerate(layer_windows(cfg)):
@@ -1556,9 +1785,11 @@ def model_nll_sum(row: ModelRow, batch: Dict[str, object],
     parts = []
     for g, (x, (s, e)) in enumerate(zip(xs, bounds)):
         w = head[g].T if cfg.tie_embeddings else head[g]
-        logits = torch.matmul(norm(x, fn[g], cfg.norm, cfg.norm_eps),
+        skip = min(max(M - s, 0), e - s)          # the meta tokens' rows
+        logits = torch.matmul(norm(x[:, skip:], fn[g], cfg.norm,
+                                   cfg.norm_eps),
                               w.to(cfg.dtype)).to(torch.float32)
-        parts.append(_nll(logits, labels[:, s:e])[0])
+        parts.append(_nll(logits, labels[:, s + skip - M:e - M])[0])
     return reduce_to(parts, devs[0])
 
 
@@ -1572,23 +1803,22 @@ def _need_frames(batch: Dict[str, object], cfg: ModelConfig):
 def _model_prefill(model: ShardedLM, batch: Dict[str, Tensor],
                    cfg: ModelConfig, max_len: int, ctx,
                    enc: Optional[Tensor] = None) -> Tuple[Tensor, Cache]:
-    """``prefill`` in the reference's layout: each dp row's sequence cut
-    over the row's devices (context parallelism), each layer gathered
-    whole onto every device of the row (every row's copies queued before
-    any computes), K and V gathered in model-index order and each chunk's
-    queries attending at its offset; the cache built as pieces
-    (``init_cache(ctx=)``), each device writing its piece from the
-    gathered K and V; the last position's logits over the vocab
-    columns. Whisper: the encoder over "model" first (``_model_encode``)
-    unless ``enc`` is given, whose copies, placed once on every device of
-    each row, the cache keeps for ``decode_step`` ("enc")."""
+    """``prefill`` in the reference's layout: each dp row's sequence
+    (hymba's meta tokens first) cut over the row's devices (context
+    parallelism), each layer gathered whole onto every device of the row
+    (every row's copies queued before any computes) and run by
+    ``_cp_layer``; the cache built as pieces (``init_cache(ctx=)``),
+    each device writing its piece from the gathered K and V, and its
+    heads of the SSM's final state and the whole conv rows; the last
+    position's logits over the vocab columns. Whisper: the encoder over
+    "model" first (``_model_encode``) unless ``enc`` is given, whose
+    copies, placed once on every device of each row, the cache keeps for
+    ``decode_step`` ("enc")."""
     tokens = torch.as_tensor(batch["tokens"])
     B, S = tokens.shape
     rows = _model_rows(model, ctx, B)
-    pos = _prompt_positions(batch, cfg, B, S)
-    flash = index_causal(pos)
-    if pos is None:
-        pos = arange_positions(B, S, "cpu")
+    pos, flash = _cp_positions(batch, cfg, B, S)
+    Sm = S + cfg.meta_tokens
     cache = init_cache(cfg, B, max_len, ctx=ctx)
     encs = [None] * len(rows)
     if cfg.encoder_layers and enc is not None:
@@ -1597,28 +1827,35 @@ def _model_prefill(model: ShardedLM, batch: Dict[str, Tensor],
     elif cfg.encoder_layers:
         encs = _model_encode(rows, _split_rows(_need_frames(batch, cfg),
                                                len(rows)), cfg)
-    bounds = _chunks(S, rows[0].tp)
+    bounds = _chunks(Sm, rows[0].tp)
     states = [_cp_inputs(row, tok, p, bounds, cfg)
               for row, tok, p in zip(rows, _split_rows(tokens, len(rows)),
                                      _split_rows(pos, len(rows)))]
     for li, window in enumerate(layer_windows(cfg)):
         lps = [row.whole_layer(li) for row in rows]
         for row, lp, st, e in zip(rows, lps, states, encs):
-            st["x"], k, v = _cp_layer(row, lp, st["x"], st["q_pos"],
-                                      st["k_pos"], bounds, window, cfg, ctx,
-                                      flash, e)
-            for name, kv in (("k", k), ("v", v)):
+            st["x"], kv, ssm = _cp_layer(row, lp, st["x"], st["q_pos"],
+                                         st["k_pos"], bounds, window, cfg,
+                                         ctx, flash, e, cache=True)
+            for name, t in zip(("k", "v"), kv or ()):
                 pieces, boxes, _ = _cache_view(cache, row, name)
                 for g in range(row.tp):
-                    _write_kv(pieces[g], boxes[g], li, kv[g], 0)
+                    _write_kv(pieces[g], boxes[g], li, t[g], 0)
+            for name in ("state", "conv") if ssm else ():
+                # the state's heads (all of them where the fit keeps it
+                # whole) and the whole conv rows on each device
+                pieces, boxes, _ = _cache_view(cache, row, name)
+                for g in range(row.tp):
+                    pieces[g][li] = ssm[g][name][:, boxes[g][2]] \
+                        if name == "state" else ssm[g][name]
         del lps
-    last = next(g for g, (s, e) in enumerate(bounds) if e == S)
+    last = next(g for g, (s, e) in enumerate(bounds) if e == Sm)
     logits = []
     for row, st in zip(rows, states):
         x_last = st["x"][last][:, -1:]
         logits.append(_tp_logits(row, on_devices(
             row.devices, lambda g: x_last.to(row.devices[g])), cfg))
-    cache["idx"] = S
+    cache["idx"] = Sm
     return _on_first(logits, model.device), cache
 
 

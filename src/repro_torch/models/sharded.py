@@ -28,7 +28,12 @@ g (``RowPlan.group_devices``), ``local`` reading each leaf's block at
 model index g on that device -- its own piece, with no copy, on a (1, N)
 grid; gathered over the dp axes only elsewhere -- and ``whole_layer`` /
 ``whole`` reading a layer / a leaf whole onto every device of the row
-(prefill, the train step). The collectives between the row's devices
+(prefill, the train step) through ``gather_copies``: under grad, where a
+piece is read by several model indices, one copy an index, whose
+backward adds the copies' gradients into each piece in f32 in
+model-index order and rounds once (autograd would add them in the order
+the cards' backward threads finish, so two runs could differ). The
+collectives between the row's devices
 (``all_gather``, ``all_reduce``, ``reduce_scatter``) are copies and sums
 in model-index order, so every device of a row gets the same numbers, on
 logical devices and on cards; ``seq_gather`` gathers a context-parallel
@@ -136,15 +141,15 @@ class LayerShards(ShardedLeaves):
 
     def _expert_groups(self):
         """{(g, device): (router, w_gate, w_up, w_down)}: the router whole
-        and expert group g on the row's device of model index g."""
+        (``gather_copies``) and expert group g on the row's device of
+        model index g."""
         plan = self.plan
-        rsh, rpieces = self.leaves["moe.router"]
-        routers, out = {}, {}
+        routers = gather_copies(*self.leaves["moe.router"],
+                                plan.group_devices, plan.group_orders)
+        out = {}
         for g, (dev, order) in enumerate(zip(plan.group_devices,
                                              plan.group_orders)):
-            if dev not in routers:
-                routers[dev] = rsh.gather(rpieces, dev, order)
-            out[(g, dev)] = (routers[dev],) + tuple(
+            out[(g, dev)] = (routers[g],) + tuple(
                 self.leaves[p][0].gather(self.leaves[p][1], dev, order,
                                          lead=(g,))
                 for p in EXPERT_LEAVES)
@@ -156,12 +161,23 @@ class LayerShards(ShardedLeaves):
         (``groups``: already assembled ones to share)."""
         if groups is None and self._grouped():
             groups = self._expert_groups()
-        skip = (EXPERT_LEAVES + ("moe.router",)) if groups else ()
         device = self.plan.device if device is None else device
         order = self.plan.order if order is None else order
-        out = namespace({path: sh.gather(pieces, device, order)
-                         for path, (sh, pieces) in self.leaves.items()
-                         if path not in skip})
+        return self.assemble({path: sh.gather(pieces, device, order)
+                              for path, (sh, pieces) in
+                              self.dense(groups).items()}, groups)
+
+    def dense(self, groups) -> Dict[str, Tuple[object, List[Tensor]]]:
+        """The leaves read whole: all but the expert stacks and router
+        where ``groups`` holds them."""
+        skip = (EXPERT_LEAVES + ("moe.router",)) if groups else ()
+        return {p: v for p, v in self.leaves.items() if p not in skip}
+
+    @staticmethod
+    def assemble(flat: Dict[str, Tensor], groups):
+        """The layer's namespace from its whole leaves, the expert groups
+        attached (``moe.ep_groups``)."""
+        out = namespace(flat)
         if groups:
             if not hasattr(out, "moe"):
                 out.moe = types.SimpleNamespace()
@@ -254,6 +270,113 @@ def seq_gather(parts: Sequence[Tensor], devices) -> List[Tensor]:
     return list(_SeqGather.apply(tuple(devices), *parts))
 
 
+class _Fork(torch.autograd.Function):
+    """``fork``: forward(index, *tensors) -> tensors[index[i]] again for
+    each i, as a new tensor on its storage; backward: each tensor's
+    gradient, the sum of its aliases' in argument order, once every alias
+    has its own (the engine runs a node when all its uses have
+    delivered)."""
+
+    @staticmethod
+    def forward(ctx, index, *tensors):
+        ctx.set_materialize_grads(False)
+        ctx.index = index
+        return tuple(tensors[j].view_as(tensors[j]) for j in index)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out: List[Optional[Tensor]] = [None] * (max(ctx.index) + 1)
+        for j, g in zip(ctx.index, grads):
+            if g is not None:
+                out[j] = g if out[j] is None else out[j] + g
+        return (None, *out)
+
+
+def fork(*tensors: Tensor) -> Tuple[Tensor, ...]:
+    """``tensors`` as their uses should read them under grad: one alias
+    an argument (a tensor passed twice gives two uses two aliases), the
+    graph behind them differentiated only once every alias's gradient has
+    come, each tensor's the sum of its aliases' in argument order -- one
+    contribution. Where some uses wait on other cards (a gather's
+    backward) and others do not, the contributions would otherwise reach a
+    tensor in the order the cards' threads deliver them, and f32 sums of
+    three or more would differ between runs."""
+    if not torch.is_grad_enabled() or not any(t.requires_grad
+                                              for t in tensors):
+        return tensors
+    ids: Dict[int, int] = {}
+    distinct = []
+    for t in tensors:
+        if id(t) not in ids:
+            ids[id(t)] = len(distinct)
+            distinct.append(t)
+    return _Fork.apply(tuple(ids[id(t)] for t in tensors), *distinct)
+
+
+class _Copies(torch.autograd.Function):
+    """``gather_copies`` where a piece takes a gradient: forward(plan,
+    *pieces) -> the leaf gathered onto the device of each model index, one
+    copy an index (also where devices repeat, so each index's gradient
+    arrives apart); backward: each piece's gradient is the sum over the
+    indices g of g's gradient at the positions its copy read from the
+    piece, added in f32 in model-index order on the piece's device and
+    rounded once to its dtype. Autograd would add the copies' gradients
+    into the piece in the order the cards' backward threads deliver them,
+    in the piece's dtype, so two runs could differ."""
+
+    @staticmethod
+    def forward(ctx, plan, *pieces):
+        sh, devices, orders, kw, index, reads = plan
+        full = [pieces[j] for j in index]
+        outs = [sh.gather(full, dev, order, **kw)
+                for dev, order in zip(devices, orders)]
+        ctx.reads = reads
+        ctx.dests = [(p.device, p.dtype) for p in pieces]
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acc: List[Optional[Tensor]] = [None] * len(ctx.dests)
+        for grad, reads in zip(grads, ctx.reads):
+            if grad is None:
+                continue
+            for j, sl in reads:
+                part = grad[sl].to(ctx.dests[j][0], torch.float32)
+                acc[j] = part if acc[j] is None else acc[j] + part
+        return (None, *(None if a is None else a.to(dtype)
+                        for a, (_, dtype) in zip(acc, ctx.dests)))
+
+
+def gather_copies(sh, pieces: Sequence[Tensor], devices, orders,
+                  **kw) -> List[Tensor]:
+    """``sh.gather(pieces, devices[g], orders[g], **kw)`` for each model
+    index g: one copy a distinct device (``on_devices``), or, where a
+    piece takes a gradient and is read by two or more indices, one copy
+    an index through ``_Copies``, whose backward sums the copies'
+    gradients in model-index order."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in pieces):
+        ids: Dict[int, int] = {}
+        distinct = []
+        for p in pieces:
+            if id(p) not in ids:
+                ids[id(p)] = len(distinct)
+                distinct.append(p)
+        index = [ids[id(p)] for p in pieces]
+        shape = tuple(n * c for n, c in zip(pieces[0].shape,
+                                             sh.counts(pieces[0].dim())))
+        # each index's reads: (the distinct piece, the slices it fills)
+        reads = [[(index[i], sl) for i, sl in
+                  sh.reads(shape, len(pieces), order, **kw)]
+                 for order in orders]
+        readers = [{g for g, r in enumerate(reads) for j, _ in r if j == k}
+                   for k in range(len(distinct))]
+        if any(len(r) > 1 for r in readers):
+            return list(_Copies.apply((sh, tuple(devices), tuple(orders), kw,
+                                       index, reads), *distinct))
+    return on_devices(devices, lambda g: sh.gather(pieces, devices[g],
+                                                   orders[g], **kw))
+
+
 def gathered_rows(layers: Sequence[object]) -> List[object]:
     """One layer of each dp row, gathered (where held as shards) before
     any row runs it: every card's copies of the layer are queued before
@@ -335,7 +458,8 @@ class ModelRow:
     ``model_dim(name)``, whole along every other dimension -- from the
     pieces at its model index: on a (1, N) grid its own piece, with no
     copy. ``whole_layer(i)`` reads layer i whole onto every device of the
-    row (one copy a distinct device), the MoE's expert stacks as their
+    row (``gather_copies``: one copy a distinct device, or under grad one
+    a model index), the MoE's expert stacks as their
     groups (group g on device g, ``moe.ep_groups``); ``whole_layer(i,
     "enc_layers")`` the encoder's layer i."""
 
@@ -385,18 +509,23 @@ class ModelRow:
             self._own[prefix] = out
         return out
 
+    def _copies(self, sh, pieces) -> List[Tensor]:
+        return gather_copies(sh, pieces, self.devices,
+                             self.plan.group_orders)
+
     def whole(self, name: str) -> List[Tensor]:
-        """``name`` whole on every device of the row (one copy a distinct
-        device), each reading its own model index's blocks first."""
-        sh, pieces = self.model.shardings[name], self.model.pieces[name]
-        return on_devices(self.devices, lambda g: sh.gather(
-            pieces, self.devices[g], self.plan.group_orders[g]))
+        """``name`` whole on every device of the row, each reading its own
+        model index's blocks first (``gather_copies``)."""
+        return self._copies(self.model.shardings[name],
+                            self.model.pieces[name])
 
     def whole_layer(self, i: int, stack: str = "layers") -> List[object]:
         lsh = LayerShards(self._stacks[stack][i], self.plan, experts=True)
         groups = lsh._expert_groups() if lsh._grouped() else None
-        return on_devices(self.devices, lambda g: lsh.gather(
-            self.devices[g], self.plan.group_orders[g], groups))
+        copies = {path: self._copies(sh, pieces)
+                  for path, (sh, pieces) in lsh.dense(groups).items()}
+        return [lsh.assemble({path: c[g] for path, c in copies.items()},
+                             groups) for g in range(self.tp)]
 
 
 class ShardedLM:

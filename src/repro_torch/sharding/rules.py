@@ -54,6 +54,7 @@ the masked paths: windows, M-RoPE image blocks.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -398,6 +399,28 @@ class Sharding:
             return parts[0] if len(parts) == 1 else torch.cat(parts, d)
 
         return assemble(())
+
+    def reads(self, shape: Tuple[int, ...], n_pieces: int,
+              order: Optional[Sequence[int]] = None, lead: Tuple[int, ...] = (),
+              at: Optional[Dict[int, int]] = None
+              ) -> List[Tuple[int, Tuple[slice, ...]]]:
+        """What ``gather`` of a tensor of whole ``shape`` from ``n_pieces``
+        pieces reads: for each block, the flat index of the piece it reads
+        and the slices of the gathered tensor that block fills."""
+        ndim = len(shape)
+        blocks = self.blocks(ndim)
+        first: Dict[Tuple[int, ...], int] = {}
+        for i in (range(n_pieces) if order is None else order):
+            first.setdefault(blocks[i], i)
+        bs = self.block_shape(tuple(shape))
+        fixed = dict(enumerate(lead))
+        fixed.update(at or {})
+        ranges = [[fixed[d]] if d in fixed else range(c)
+                  for d, c in enumerate(self.counts(ndim))]
+        return [(first[b], tuple(slice(0, n) if d in fixed
+                                 else slice(i * n, (i + 1) * n)
+                                 for d, (i, n) in enumerate(zip(b, bs))))
+                for b in itertools.product(*ranges)]
 
     def model_dim(self, ndim: int) -> Optional[int]:
         """The dimension split over "model" (the rules give it an entry of

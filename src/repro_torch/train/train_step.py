@@ -21,14 +21,15 @@ the card (nothing waits for the device).
     (``init_train_state(..., shardings=)`` makes it per shard,
     ``shard_state`` from a plain state, ``gather_state`` takes it back).
     The dp rows of the batch run one after another, each on the path
-    ``models.model.train_path`` names. "model" (the dense, MoE, VLM and
-    encoder-decoder families on a grid whose "model" axis is larger than
-    1; the reference's batch at P(dp, "model")): the row's sequence (and
-    whisper's frames) cut over its devices, each layer gathered whole
-    onto every device of the row, K and V gathered and each chunk's
-    queries attending at its offset (``models.model.model_nll_sum``).
-    "rows" (mamba2, hymba, and any grid whose "model" axis is 1): the
-    row on its own device (the
+    ``models.model.train_path`` names. "model" (every family on a grid
+    whose "model" axis is larger than 1; the reference's batch at P(dp,
+    "model")): the row's sequence (and whisper's frames; hymba's meta
+    tokens first) cut over its devices, each layer gathered whole onto
+    every device of the row (its copies' gradients summed into each
+    piece in model-index order), K and V gathered and each chunk's
+    queries attending at its offset, the SSD's state handed on across
+    the chunks (``models.model.model_nll_sum``). "rows" (a grid whose
+    "model" axis is 1): the row on its own device (the
     row's first), each layer gathering its parameters there as it runs
     and again in the recomputed backward (models/sharded.py:
     ``row_model``), the MoE on the row's devices through the EP paths.

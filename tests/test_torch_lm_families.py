@@ -321,6 +321,61 @@ def test_banded_core_matches_reference(S, window, n_meta, dt):
     _close(got, want, dt)
 
 
+# (S, chunks): offsets off the window's 16-row blocks; chunks of 3 and 8
+# rows; chunks whose band starts past the 8 meta keys (q_offset > 23)
+CHUNK_CUTS = ((40, ((0, 13), (13, 29), (29, 40))),
+              (64, ((0, 30), (30, 33), (33, 64))),
+              (64, tuple((8 * g, 8 * g + 8) for g in range(8))))
+
+
+@pytest.mark.parametrize("dt", DTS)
+@pytest.mark.parametrize("banded", [True, False])
+@pytest.mark.parametrize("S,bounds", CHUNK_CUTS,
+                         ids=["thirds", "short", "eights"])
+def test_window_chunks_read_their_band_as_the_whole_sequence(S, bounds,
+                                                            banded, dt):
+    """A context-parallel chunk's windowed attention (``attend_chunk``,
+    window 16, 8 meta keys), its queries at their offset against the
+    whole sequence's keys: ``banded_core``'s chunk form under
+    ctx.banded, else ``_sdpa`` over the meta keys and the band. The
+    chunks concatenated against the reference's ``banded_core`` on the
+    whole sequence (LOGIT_TOL), against the port's whole-sequence form
+    (``self_attend``, the row path's) within 1e-6 in f32 and 1e-2 in
+    bf16, and in f32 the gradients of q, k and v through the chunks
+    against the whole's within 1e-5."""
+    jcfg, _, cfg, _ = _pair("hymba-1.5b", dt)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kw = dict(window=16, n_meta=8)
+    ctx = _BANDED if banded else None
+    jq, tq = _x((2, S, H, hd), 23, dt)
+    jk, tk = _x((2, S, K, hd), 24, dt)
+    jv, tv = _x((2, S, K, hd), 25, dt)
+    pos = torch.arange(S).expand(2, S)
+    want = _jit(j_attn.banded_core, cfg=jcfg, **kw)(
+        jq, jk, jv, jnp.asarray(pos.numpy(), jnp.int32))
+    grad = dt == "f32"
+    q, k, v = (t.clone().requires_grad_(grad) for t in (tq, tk, tv))
+    whole = t_attn.self_attend(q, k, v, cfg, pos, ctx=ctx, **kw)
+    cq, ck, cv = (t.clone().requires_grad_(grad) for t in (tq, tk, tv))
+    got = torch.cat([t_attn.attend_chunk(cq[:, s:e], ck, cv, cfg,
+                                         pos[:, s:e], pos, s, ctx=ctx, **kw)
+                     for s, e in bounds], 1)
+    _close(got.detach(), want, dt)
+    tol = 1e-6 if grad else 1e-2
+    rel = (torch.linalg.vector_norm((got - whole).float())
+           / torch.linalg.vector_norm(whole.float())).item()
+    assert rel <= tol, rel
+    if grad:
+        w = torch.from_numpy(np.random.default_rng(26).normal(
+            size=got.shape).astype(np.float32))
+        (whole * w).sum().backward()
+        (got * w).sum().backward()
+        for a, b in ((cq, q), (ck, k), (cv, v)):
+            rel = (torch.linalg.vector_norm(a.grad - b.grad)
+                   / torch.linalg.vector_norm(b.grad)).item()
+            assert rel <= 1e-5, rel
+
+
 @pytest.mark.parametrize("dt", DTS)
 @pytest.mark.parametrize("window,n_meta,windowed", [
     (0, 0, False), (16, 8, False), (16, 0, False), (16, 8, True),

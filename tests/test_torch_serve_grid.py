@@ -9,10 +9,16 @@ against the reference's own grid code, in f32 at smoke size:
     qwen3-14b and olmoe-1b-7b on (4, 2), (8, 1) and (2, 4), qwen3-14b on
     (1, 8), whisper-large-v3 (through ``encode(ctx)``) on (8, 1), (1, 8)
     and (2, 4) and qwen2-vl-72b (M-RoPE, a prompt with an image) on
-    (8, 1) and (1, 8);
+    (8, 1) and (1, 8); mamba2-130m and hymba-1.5b (meta tokens, windows,
+    the SSM state split by heads) on (1, 8) and (2, 4), and hymba with
+    ``ssm_headdim=32`` (4 SSM heads, 276 ``in_proj`` columns) on (1, 8),
+    where the fit keeps the state and ``in_proj`` whole and splits
+    ``norm_scale`` and ``out_proj``, as full hymba's on (1, 4);
     and (``PROFILE_CASES``) qwen3-14b under the ``kv_heads`` profile on
     (2, 4) and (4, 2), and on (1, 8) with a max_len that does not divide
-    by "model", so the fit keeps the cache's length whole. Against them
+    by "model", so the fit keeps the cache's length whole, and hymba
+    under ``perf``'s banded windows on (1, 8) and (2, 4) (its windowed
+    layer's chunks through ``banded_core`` at their offsets). Against them
     the port's ``prefill`` and ``decode_step`` on a ``ShardedLM`` of the
     same grid, loaded per shard from the same numpy leaves
     (``lm_params_from_numpy(..., shardings=param_shardings(...))``):
@@ -53,16 +59,25 @@ CASES = (("qwen3-14b", (4, 2)), ("qwen3-14b", (8, 1)),
          ("whisper-large-v3", (8, 1)), ("qwen2-vl-72b", (8, 1)),
          ("qwen3-14b", (2, 4)), ("qwen3-14b", (1, 8)),
          ("olmoe-1b-7b", (2, 4)), ("qwen2-vl-72b", (1, 8)),
-         ("whisper-large-v3", (1, 8)), ("whisper-large-v3", (2, 4)))
+         ("whisper-large-v3", (1, 8)), ("whisper-large-v3", (2, 4)),
+         ("mamba2-130m", (1, 8)), ("mamba2-130m", (2, 4)),
+         ("hymba-1.5b", (1, 8)), ("hymba-1.5b", (2, 4)),
+         ("hymba-1.5b+hd32", (1, 8)))
+# config variants: an arch id, "+", a tag of the fields it replaces
+VARIANTS = {"hd32": {"ssm_headdim": 32}}
 # S + NEW (the cache's max_len) divides by every "model" axis above, so
 # each splits the cache by length
 B, S, NEW = 8, 16, 8
 # (arch, grid, profile, max_len): the cache by heads (qwen3's 2 KV heads
 # over 4 model devices do not divide, so the fit keeps them whole; over
-# 2 they split), and a max_len that does not divide by 8
+# 2 they split), a max_len that does not divide by 8, and hymba's
+# windowed layer through banded_core's chunk form at each chunk's offset
+# ("banded": ``_profile``)
 PROFILE_CASES = (("qwen3-14b", (2, 4), "kv_heads", S + NEW),
                  ("qwen3-14b", (4, 2), "kv_heads", S + NEW),
-                 ("qwen3-14b", (1, 8), "baseline", S + 4))
+                 ("qwen3-14b", (1, 8), "baseline", S + 4),
+                 ("hymba-1.5b", (1, 8), "banded", S + NEW),
+                 ("hymba-1.5b", (2, 4), "banded", S + NEW))
 TOL = 1e-5                     # the port against the reference
 SELF_TOL = 1e-6                # sharded against whole, where dp > 1
 WIN_B, WIN_GRID = 64, (4, 2)
@@ -88,6 +103,24 @@ def _batch(cfg_vocab: int, arch: str, d_model: int, enc_ctx: int) -> dict:
         out["enc_input"] = rng.standard_normal(
             (B, enc_ctx, d_model)).astype(np.float32)
     return out
+
+
+def _arch_cfg(get_config, arch: str, dtype):
+    """The smoke config of ``arch`` ("name" or "name+variant") in
+    ``dtype``."""
+    name, _, tag = arch.partition("+")
+    return dataclasses.replace(get_config(name, smoke=True), dtype=dtype,
+                               **VARIANTS.get(tag, {}))
+
+
+def _profile(profiles, name: str):
+    """The profile ``name`` of ``profiles`` (either package's PROFILES);
+    "banded": perf's banded windows with f32 scores (the reference
+    rounds its bf16 scores as XLA issues them, not as the port does)."""
+    if name == "banded":
+        return dataclasses.replace(profiles["perf"], name="banded",
+                                   bf16_scores=False)
+    return profiles[name]
 
 
 def _windows() -> np.ndarray:
@@ -148,8 +181,7 @@ def _reference(out: str) -> None:
     for arch, shape, profile, max_len in (
             [(a, sh, "baseline", S + NEW) for a, sh in CASES]
             + list(PROFILE_CASES)):
-        cfg = dataclasses.replace(get_config(arch, smoke=True),
-                                  dtype=jnp.float32)
+        cfg = _arch_cfg(get_config, arch, jnp.float32)
         if arch not in params_of:
             params_of[arch] = init_params(cfg, jax.random.PRNGKey(0))
             res.update(_flat(jax.tree.map(np.asarray, params_of[arch]),
@@ -165,13 +197,13 @@ def _reference(out: str) -> None:
         b_sh = named(mesh, fit_tree(
             {k: v for k, v in batch_specs(cfg, mesh, "prefill").items()
              if k in batch}, batch, mesh))
-        ctx = make_ctx(mesh, profile=PROFILES[profile])
+        ctx = make_ctx(mesh, profile=_profile(PROFILES, profile))
         fn = jax.jit(functools.partial(prefill, cfg=cfg, max_len=max_len,
                                        ctx=ctx), in_shardings=(p_sh, b_sh))
         logits, cache = fn(params, batch)
         res[f"{key}/prefill"] = np.asarray(logits)
         c_sh = named(mesh, fit_tree(cache_specs_tree(
-            cfg, mesh, PROFILES[profile]), cache, mesh))
+            cfg, mesh, _profile(PROFILES, profile)), cache, mesh))
         cache = jax.device_put(cache, c_sh)
         dctx = dataclasses.replace(ctx, seq_sharded=False)
         tok_sh = NamedSharding(mesh, P(dp_axes(mesh), None))
@@ -259,8 +291,7 @@ def _rel(got, want) -> float:
 def _cfg(arch):
     import torch
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch, smoke=True),
-                               dtype=torch.float32)
+    return _arch_cfg(get_config, arch, torch.float32)
 
 
 def _cut(whole, shardings):
@@ -302,7 +333,7 @@ def served(ref):
         whole = lm_params_from_numpy(leaves, cfg, "cpu")
         sharded = lm_params_from_numpy(leaves, cfg, "cpu",
                                        param_shardings(grid, whole, cfg))
-        ctx = make_ctx(grid, profile=PROFILES[profile])
+        ctx = make_ctx(grid, profile=_profile(PROFILES, profile))
         dctx = dataclasses.replace(ctx, seq_sharded=False)
         data = _batch(cfg.vocab, arch, cfg.d_model, cfg.encoder_ctx)
         batch = {k: torch.from_numpy(data[k]) for k in
@@ -371,11 +402,9 @@ def _matches_the_whole_model(key, shape, served, arch):
     on its path; the cache: one block a dp row on the row path, on the
     model path the pieces of the reference's fitted layout."""
     import torch
-    from repro_torch.models.model import MODEL_AXIS_FAMILIES
     r = served[key]
     got, want = r["sharded"], r["whole"]
-    path = ("model" if shape[1] > 1
-            and _cfg(arch).family in MODEL_AXIS_FAMILIES else "rows")
+    path = "model" if shape[1] > 1 else "rows"
     assert got["paths"] == {"whole": 0, "rows": 0, "model": 0, path: 2}
     assert want["paths"] == {"whole": 2, "rows": 0, "model": 0}
     exact = shape[0] == 1 and path == "rows"
@@ -389,18 +418,19 @@ def _matches_the_whole_model(key, shape, served, arch):
     if got["generate"] is not None:
         assert torch.equal(got["generate"], want["generate"])
     cache = got["cache"]
-    assert cache["idx"] == S
+    assert cache["idx"] == S + _cfg(arch).meta_tokens
+    names = [t for t in ("k", "v", "state", "conv") if t in want["cache"]]
     if path == "rows":
         # the cache is one block a dp row, each of the row's B / dp rows
         rows = cache["rows"]
         assert len(rows) == shape[0]
-        pieces = {t: torch.cat([c[t] for c in rows], 1) for t in ("k", "v")}
+        pieces = {t: torch.cat([c[t] for c in rows], 1) for t in names}
     else:
         _cache_pieces_are_the_fitted_blocks(cache, shape, arch,
                                             r["profile"], r["max_len"])
         pieces = {t: cache["shardings"][t].gather(cache["pieces"][t])
-                  for t in ("k", "v")}
-    for t in ("k", "v"):
+                  for t in names}
+    for t in names:
         whole = want["cache"][t]
         assert torch.equal(pieces[t], whole) if exact \
             else _rel(pieces[t].numpy(), whole.numpy()) <= SELF_TOL
@@ -408,18 +438,19 @@ def _matches_the_whole_model(key, shape, served, arch):
 
 def _cache_pieces_are_the_fitted_blocks(cache, shape, arch, profile,
                                         max_len, batch=B):
-    """Each grid device's cache piece is its block of the profile's
-    cache_specs_tree fitted by fit_spec to the whole cache's shape (the
-    reference's fit_tree), on its device; -> the fitted specs."""
+    """Each grid device's piece of each cache entry (k, v; state, conv) is
+    its block of the profile's cache_specs_tree fitted by fit_spec to the
+    whole entry's shape (the reference's fit_tree), on its device; -> the
+    fitted specs."""
+    from repro_torch.models.model import cache_shapes
     from repro_torch.sharding.rules import PROFILES, cache_specs_tree, \
         fit_spec
     specs = {}
-    for t in ("k", "v"):
+    cfg = _cfg(arch)
+    for t, (whole, _) in cache_shapes(cfg, batch, max_len).items():
         sh, pieces = cache["shardings"][t], cache["pieces"][t]
-        cfg = _cfg(arch)
-        whole = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
         specs[t] = fit_spec(cache_specs_tree(cfg, sh.grid,
-                                             PROFILES[profile])[t],
+                                             _profile(PROFILES, profile))[t],
                             whole, sh.grid)
         assert sh.spec == specs[t]
         assert len(pieces) == shape[0] * shape[1]
@@ -490,21 +521,26 @@ def test_dp_one_grid_serves_bit_for_bit_and_its_moe_groups_stay_split(ref):
 
 def test_decode_over_model_gathers_no_layer_and_reads_its_own_pieces(
         monkeypatch):
-    """qwen3-14b and whisper-large-v3 on (1, 8): a decode step calls no
-    LayerShards.gather and reads every parameter through its device's own
-    piece (the piece itself: no copy), writes the new key into the one
-    piece that holds its position, and each device's cache piece is its
-    fitted cache_specs_tree block; the prefill gathers each layer once
-    for the row's one device (8 logical devices of the CPU share a copy).
-    With a max_len that does not divide by 8 the cache stays whole on
-    each device, as the reference's fit keeps it. Whisper's states come
-    from ``encode`` (each encoder layer gathered once), and the decode
-    step reads the copies the prefill placed: none placed again."""
+    """qwen3-14b, whisper-large-v3, mamba2-130m, hymba-1.5b and hymba
+    with ``ssm_headdim=32`` on (1, 8): a decode step gathers no layer
+    (calls neither LayerShards.gather nor ModelRow.whole_layer) and reads
+    every parameter through its device's own piece (the piece itself: no
+    copy), writes the new key into the one piece that holds its position,
+    steps the SSM state in every device's piece (its own heads, or all of
+    them where the fit keeps the state whole), and each device's cache
+    piece is its fitted cache_specs_tree block; the prefill gathers each
+    layer once. With a max_len that does not divide by 8 the KV cache
+    stays whole on each device, as the reference's fit keeps it.
+    Whisper's states come from ``encode`` (each encoder layer gathered
+    once), and the decode step reads the copies the prefill placed: none
+    placed again."""
     import torch
     from repro_torch.models import model as m
     from repro_torch.models import sharded as shd
     from repro_torch.sharding.rules import make_ctx, param_shardings
-    for arch, seed in (("qwen3-14b", 1), ("whisper-large-v3", 6)):
+    for arch, seed in (("qwen3-14b", 1), ("whisper-large-v3", 6),
+                       ("mamba2-130m", 7), ("hymba-1.5b", 8),
+                       ("hymba-1.5b+hd32", 9)):
         with monkeypatch.context() as mp:
             _decode_over_model_reads_its_own_pieces(
                 mp, torch, m, shd, make_ctx, param_shardings, arch, seed)
@@ -520,11 +556,16 @@ def _decode_over_model_reads_its_own_pieces(monkeypatch, torch, m, shd,
     ctx = make_ctx(grid)
     calls, reads, placed = [0], [], [0]
     gather, local = shd.LayerShards.gather, shd.ModelRow.local
+    whole_layer = shd.ModelRow.whole_layer
     place = m._placed_states
 
     def counting(self, *a, **kw):
         calls[0] += 1
         return gather(self, *a, **kw)
+
+    def counting_whole(self, *a, **kw):
+        calls[0] += 1
+        return whole_layer(self, *a, **kw)
 
     def reading(self, name):
         out = local(self, name)
@@ -535,6 +576,7 @@ def _decode_over_model_reads_its_own_pieces(monkeypatch, torch, m, shd,
         placed[0] += 1
         return place(*a)
     monkeypatch.setattr(shd.LayerShards, "gather", counting)
+    monkeypatch.setattr(shd.ModelRow, "whole_layer", counting_whole)
     monkeypatch.setattr(shd.ModelRow, "local", reading)
     monkeypatch.setattr(m, "_placed_states", placing)
     x = torch.from_numpy(np.random.default_rng(4).integers(
@@ -551,16 +593,27 @@ def _decode_over_model_reads_its_own_pieces(monkeypatch, torch, m, shd,
         assert calls[0] == cfg.n_layers
         assert placed[0] == int(enc is not None)
         calls[0], reads[:], placed[0] = 0, [], 0
-        before = [p.clone() for p in cache["pieces"]["k"]]
+        before = {t: [p.clone() for p in cache["pieces"][t]]
+                  for t in ("k", "state") if t in cache["pieces"]}
         step, cache = m.decode_step(sharded, x[:, -1:], cache, cfg, enc=enc,
                                     ctx=ctx)
         assert calls[0] == 0 and reads and all(reads) and placed[0] == 0
         specs = _cache_pieces_are_the_fitted_blocks(cache, (1, 8), arch,
                                                     "baseline", max_len, 2)
-        assert specs["k"][2] == ("model" if split else None)
-        owner = 16 // (max_len // 8) if split else None
-        for d, (a, b) in enumerate(zip(before, cache["pieces"]["k"])):
-            assert torch.equal(a, b) != (not split or d == owner)
+        M = cfg.meta_tokens
+        if cfg.has_attention:
+            assert specs["k"][2] == ("model" if split else None)
+            owner = (16 + M) // ((max_len + M) // 8) if split else None
+            for d, (a, b) in enumerate(zip(before["k"],
+                                           cache["pieces"]["k"])):
+                assert torch.equal(a, b) != (not split or d == owner)
+        if cfg.has_ssm:
+            heads = cfg.ssm_heads % 8 == 0
+            assert specs["state"][2] == ("model" if heads else None)
+            assert (all(a is b for a in cache["pieces"]["state"]
+                        for b in cache["pieces"]["state"]) != heads)
+            for a, b in zip(before["state"], cache["pieces"]["state"]):
+                assert not torch.equal(a, b)
         want = m.decode_step(whole, x[:, -1:], m.prefill(
             whole, {"tokens": x}, cfg, max_len, enc=enc)[1], cfg,
             enc=enc)[0]

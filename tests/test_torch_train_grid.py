@@ -10,17 +10,22 @@ in f32 at smoke size:
     masked ``_sdpa`` branch of each chunk) on (1, 4); whisper-large-v3
     (the encoder context-parallel over its seeded frames, every key
     visible, then the decoder's chunks with their cross-attention over
-    the gathered states) on (1, 4), (2, 2) and (2, 4) -- from the same
+    the gathered states) on (1, 4), (2, 2) and (2, 4); mamba2-130m (the
+    SSD context-parallel, each chunk's state handed on in model-index
+    order, the conv reading the rows before its chunk) and hymba-1.5b
+    (meta tokens first; attention and SSM side by side; its window on
+    each chunk's band) on (1, 4), (2, 2) and (2, 4) -- from the same
     numpy state (the reference's ``init_train_state``, loaded per shard
     with ``lm_params_from_numpy(..., shardings=)``): one step's loss and
     grad norm, and every updated parameter and AdamW moment, within 1e-5
     relative L2, on a batch whose ignored labels fall unevenly over the
     dp rows and the chunks; the step took the "model" path (the flash
     forward and backward at each chunk's offset where the prompt is
-    index-causal; whisper's encoder chunks non-causal against all its
-    frames), the MoE its all-to-all;
-  * ``train_path`` says "model" for those families and "rows" for
-    mamba2-130m on the same grids.
+    index-causal, on hymba's global layer alone and none on mamba2;
+    whisper's encoder chunks non-causal against all its frames), the MoE
+    its all-to-all;
+  * ``train_path`` says "model" for every family on the same grids and
+    "rows" on a (4, 1) grid.
 
 The reference's grid code needs 8 JAX host devices, set before JAX
 starts, so it runs once per module in a subprocess -- this file run as a
@@ -41,8 +46,12 @@ N_DEV = 8
 CASES = (("qwen3-14b", (1, 4)), ("qwen3-14b", (2, 2)), ("qwen3-14b", (2, 4)),
          ("olmoe-1b-7b", (1, 4)), ("olmoe-1b-7b", (2, 2)),
          ("qwen2-vl-72b", (1, 4)), ("whisper-large-v3", (1, 4)),
-         ("whisper-large-v3", (2, 2)), ("whisper-large-v3", (2, 4)))
-ROW_ARCHS = ("mamba2-130m",)
+         ("whisper-large-v3", (2, 2)), ("whisper-large-v3", (2, 4)),
+         ("mamba2-130m", (1, 4)), ("mamba2-130m", (2, 2)),
+         ("mamba2-130m", (2, 4)), ("hymba-1.5b", (1, 4)),
+         ("hymba-1.5b", (2, 2)), ("hymba-1.5b", (2, 4)))
+ARCHS = ("qwen3-14b", "olmoe-1b-7b", "qwen2-vl-72b", "whisper-large-v3",
+         "mamba2-130m", "hymba-1.5b")
 GRIDS = ((1, 4), (2, 2), (2, 4))
 B, S = 4, 32
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
@@ -300,7 +309,19 @@ def test_model_axis_step_matches_the_reference(arch, shape, ref, trained):
     tp = shape[1]
     chunk = S // tp
     layers = _cfg(arch).n_layers
-    if arch == "qwen2-vl-72b":
+    if arch == "mamba2-130m":
+        assert seen["fwd"] == seen["bwd"] == []
+    elif arch == "hymba-1.5b":
+        # the global layer's chunks of the meta tokens and the prompt at
+        # their offsets; the windowed layer reads its band through _sdpa
+        cfg = _cfg(arch)
+        Sm = cfg.meta_tokens + S
+        chunks = [(Sm // tp, Sm, g * Sm // tp, True) for g in range(tp)] \
+            * len(cfg.global_attn_layers)
+        rows = shape[0]
+        assert sorted(seen["fwd"]) == sorted(chunks * (2 * rows))
+        assert sorted(seen["bwd"]) == sorted(chunks * rows)
+    elif arch == "qwen2-vl-72b":
         # the image's patches share one t: every chunk takes _sdpa
         assert seen["fwd"] == seen["bwd"] == []
     elif arch == "whisper-large-v3":
@@ -333,21 +354,61 @@ def test_train_path_by_family(shape):
     from repro_torch.sharding.rules import make_ctx, param_shardings
     grid = _grid(shape)
     ctx = make_ctx(grid)
-    for arch in ("qwen3-14b", "olmoe-1b-7b", "qwen2-vl-72b",
-                 "whisper-large-v3") + ROW_ARCHS:
+    one = _grid((4, 1))
+    for arch in ARCHS:
         cfg = _cfg(arch)
         model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                             param_shardings(grid, param_shapes(cfg), cfg))
         m.reset_paths()
-        want = "rows" if arch in ROW_ARCHS else "model"
-        assert m.train_path(model.pieces, cfg, ctx) == want, arch
-        assert m.path_counts == {"whole": 0, "rows": int(want == "rows"),
-                                 "model": int(want == "model")}
-    one = _grid((4, 1))
-    cfg = _cfg("qwen3-14b")
-    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
-                        param_shardings(one, param_shapes(cfg), cfg))
-    assert m.train_path(model, cfg, make_ctx(one)) == "rows"
+        assert m.train_path(model.pieces, cfg, ctx) == "model", arch
+        assert m.path_counts == {"whole": 0, "rows": 0, "model": 1}
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            param_shardings(one, param_shapes(cfg), cfg))
+        assert m.train_path(model, cfg, make_ctx(one)) == "rows", arch
+
+
+def test_gathered_copies_sum_their_gradients_in_model_index_order():
+    """A leaf split over "model" on (1, 4), gathered whole onto each model
+    index (``gather_copies``, as ``ModelRow.whole_layer`` and ``whole``
+    read a layer and the head under grad): one copy an index, each the
+    whole leaf; the backward gives each piece the sum of the copies'
+    gradients at its block in f32 in model-index order, rounded once --
+    with gradients 1, 2^27, 1 and -2^27 every element is that order's f32
+    sum, 0, where the reverse order gives 1 and the exact sum is 2; in
+    f32 and bf16. Without a gradient the copies are one a distinct
+    device."""
+    import torch
+    from repro_torch.models.sharded import gather_copies, row_plans
+    from repro_torch.sharding.rules import Sharding, make_ctx
+    grid = _grid((1, 4))
+    (plan,) = row_plans(make_ctx(grid))
+    sh = Sharding(grid, (None, "model"))
+    for dtype in (torch.float32, torch.bfloat16):
+        whole = torch.randn(3, 8).to(dtype)
+        pieces = [p.detach().requires_grad_() for p in sh.shard(whole)]
+        copies = gather_copies(sh, pieces, plan.group_devices,
+                               plan.group_orders)
+        assert len(copies) == 4 and len({id(c) for c in copies}) == 4
+        assert all(torch.equal(c, whole) for c in copies)
+        vals = (1.0, 2.0 ** 27, 1.0, -2.0 ** 27)
+        grads = [torch.full((3, 8), v, dtype=dtype) for v in vals]
+
+        def f32_sum(vs):
+            acc = torch.zeros((), dtype=torch.float32)
+            for v in vs:
+                acc = acc + v
+            return float(acc)
+        want = f32_sum(vals)
+        assert want == 0.0 and f32_sum(vals[::-1]) == 1.0
+        torch.autograd.backward(copies, grads)
+        for p in pieces:
+            assert p.grad.dtype == dtype
+            assert torch.equal(p.grad, torch.full_like(p.grad, want))
+        with torch.no_grad():
+            frozen = gather_copies(sh, pieces, plan.group_devices,
+                                   plan.group_orders)
+        assert all(c is frozen[0] for c in frozen)
+        assert torch.equal(frozen[0], whole)
 
 
 if __name__ == "__main__":

@@ -18,10 +18,14 @@ of one model; the copies between cards change no value):
     index g (the decode reads the prefill's layout);
   * the sharded trainer (``jit_train_step``) over "model" (the
     context-parallel step: each chunk's K and V gathered, its dK / dV
-    summed in f32 on its card), olmoe-1b-7b on (2, 2), qwen3-14b and
-    whisper-large-v3 (its encoder context-parallel over the frames) on
-    (1, 4): 3 steps' loss and grad_norm, then the gathered parameters;
-    the path counter must say "model";
+    summed in f32 on its card), olmoe-1b-7b on (2, 2), qwen3-14b,
+    whisper-large-v3 (its encoder context-parallel over the frames),
+    mamba2-130m and hymba-1.5b (the SSD's state handed across the
+    cards) on (1, 4): 3 steps' loss and grad_norm, then the gathered
+    parameters; the path counter must say "model"; and qwen3, whisper,
+    mamba2 and hymba twice on the cards, equal bit for bit (each gathered
+    layer's copies add their gradients into its pieces in model-index
+    order: models/sharded.py ``gather_copies``);
   * DDP (``make_ddp_train_step``), qwen3-14b on ("data",) of every card,
     plain and int8-compressed: 3 steps' loss, and every replica's
     parameters against the logical run's one replica;
@@ -36,7 +40,8 @@ of one model; the copies between cards change no value):
     the allocator's 512-byte rounding), and dropping the whole state
     frees it from card 0;
   * serving from weights held as shards: olmoe-1b-7b on (2, 2) and
-    qwen3-14b and whisper-large-v3 on (1, 4) over "model"
+    qwen3-14b, whisper-large-v3, mamba2-130m and hymba-1.5b on (1, 4)
+    over "model"
     (models/model.py's model path: context-parallel prefill and encoder,
     tensor-parallel decode on each card's own pieces, the cache's length
     over "model"; the path counter must say so), qwen2-vl-72b on (4, 1)
@@ -60,8 +65,10 @@ qwen3-14b's 40-layer ZeRO-3 step from a train state made per shard, on
 x S 512 and at train_4k's length at B 1 (1,024 tokens a card), the path
 counter read; whisper-large-v3 (32 + 32 layers) on (1, 4) over "model"
 and on (4, 1), serving (its 1,500 seeded frames encoded first) and
-ZeRO-3 steps at B 4 x S 512. ``--runs`` picks runs by name,
-``--what`` their parts. For each: every card's ``memory_allocated``
+ZeRO-3 steps at B 4 x S 512; mamba2-130m (24 layers) and hymba-1.5b (32,
+under the ``perf`` profile) on (1, 4) over "model", serving and prefills
+at 32,768 and 524,288 at B 1. ``--runs`` picks runs by name, ``--what``
+their parts. For each: every card's ``memory_allocated``
 after init against its ``device_bytes``; card 0's init peak against its
 pieces plus its largest leaf's draw (f32, then the bf16 cast); the
 pieces against the whole init's, leaf by leaf, bit for bit; over
@@ -154,7 +161,9 @@ def serve(torch, np, smoke_leaves):
     return max(rel(torch, first, first_l), rel(torch, step, step_l))
 
 
-def train(torch, np, train_batch, arch: str, model: int):
+def _train_run(torch, np, train_batch, arch: str, model: int):
+    """run() -> 3 sharded steps' (loss, grad_norm) and the gathered
+    parameters, on the cards' grid or, under ``logical``, card 0's."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as lm
@@ -180,14 +189,33 @@ def train(torch, np, train_batch, arch: str, model: int):
         for _ in range(3):
             sharded, m = step(sharded, batch)
             metrics += [m["loss"], m["grad_norm"]]
-        assert lm.path_counts["model"] == 3, lm.path_counts
+        assert lm.path_counts["model" if model > 1 else "rows"] == 3, \
+            lm.path_counts
         return metrics, gather_state(sharded, sh, "cuda:0")["params"]
+    return run
 
+
+def train(torch, np, train_batch, arch: str, model: int):
+    """The sharded steps on the cards against card 0's logical devices."""
+    run = _train_run(torch, np, train_batch, arch, model)
     m_c, p_c = run()
     with logical(4):
         m_l, p_l = run()
     return max([rel(torch, a, b) for a, b in zip(m_c, m_l)]
                + [rel(torch, p_c[n], p_l[n]) for n in p_l])
+
+
+def train_twice(torch, np, train_batch, arch: str, model: int):
+    """Two runs of the sharded steps on the cards: 0.0 where every loss,
+    grad norm and parameter is equal bit for bit, else the largest
+    relative difference (the check's tolerance is 0)."""
+    run = _train_run(torch, np, train_batch, arch, model)
+    (m_a, p_a), (m_b, p_b) = run(), run()
+    same = all(torch.equal(a, b) for a, b in zip(m_a, m_b)) and all(
+        torch.equal(p_a[n], p_b[n]) for n in p_a)
+    return 0.0 if same else max(
+        [rel(torch, a, b) for a, b in zip(m_a, m_b)]
+        + [rel(torch, p_a[n], p_b[n]) for n in p_a] + [1e-30])
 
 
 def ddp(torch, np, train_batch, cards: int, compress: bool):
@@ -495,9 +523,17 @@ FULL = (("qwen2-vl 80L (1, 4)", "qwen2-vl-72b", 0, (1, 4),
         ("whisper 32+32L ZeRO-3 (1, 4) model", "whisper-large-v3", 0,
          (1, 4), ("train",)),
         ("whisper 32+32L ZeRO-3 (4, 1)", "whisper-large-v3", 0, (4, 1),
-         ("train",)))
+         ("train",)),
+        ("mamba2 24L (1, 4) model", "mamba2-130m", 0, (1, 4),
+         ("serve", "prefill_32k_b1", "prefill_500k_b1")),
+        ("hymba 32L (1, 4) model perf", "hymba-1.5b", 0, (1, 4),
+         ("serve", "prefill_32k_b1", "prefill_500k_b1")))
+# a run's profile where it is not the baseline (sharding/rules.py
+# PROFILES): hymba's windows banded, as chip_smoke.py's phase 5e runs it
+RUN_PROFILE = {"hymba 32L (1, 4) model perf": "perf"}
 SERVE = (4, 512, 32)
 LONG = (4, 32768)
+LONG_500K = 524288
 TRAIN = (4, 512, 3)
 TRAIN_4K = (4, 4096, 2)
 TRAIN_4K_B1 = (1, 4096, 2)
@@ -510,8 +546,8 @@ CONSIST_TOL = 5e-2
 # decode, which never drops); E / k (16) would hold every token at 8x
 # the buffers
 LONG_CF = 2.0
-# the dry run's cells (arch, shape, grid, seq_len or 0, batch), run in a
-# process of its own beside the cards
+# the dry run's cells (arch, shape, grid, seq_len or 0, batch[, profile]),
+# run in a process of its own beside the cards
 DRY = (("qwen2-vl-72b", "prefill_32k", (1, 4), 512, 4),
        ("qwen2-vl-72b", "decode_32k", (1, 4), 544, 4),
        ("qwen2-vl-72b", "prefill_32k", (1, 4), 0, 1),
@@ -527,7 +563,15 @@ DRY = (("qwen2-vl-72b", "prefill_32k", (1, 4), 512, 4),
        ("whisper-large-v3", "prefill_32k", (1, 4), 512, 4),
        ("whisper-large-v3", "prefill_32k", (4, 1), 512, 4),
        ("whisper-large-v3", "train_4k", (1, 4), 512, 4),
-       ("whisper-large-v3", "train_4k", (4, 1), 512, 4))
+       ("whisper-large-v3", "train_4k", (4, 1), 512, 4),
+       ("mamba2-130m", "prefill_32k", (1, 4), 512, 4),
+       ("mamba2-130m", "decode_32k", (1, 4), 544, 4),
+       ("mamba2-130m", "prefill_32k", (1, 4), 0, 1),
+       ("mamba2-130m", "prefill_32k", (1, 4), LONG_500K, 1),
+       ("hymba-1.5b", "prefill_32k", (1, 4), 512, 4, "perf"),
+       ("hymba-1.5b", "decode_32k", (1, 4), 544, 4, "perf"),
+       ("hymba-1.5b", "prefill_32k", (1, 4), 0, 1, "perf"),
+       ("hymba-1.5b", "prefill_32k", (1, 4), LONG_500K, 1, "perf"))
 _DRY = r"""
 import json, sys
 import torch
@@ -535,12 +579,14 @@ from repro_torch.launch.dryrun import run_cell
 from repro_torch.launch.mesh import grid_of
 torch.set_num_threads(4)
 out = {}
-for arch, shape, grid, seq, batch in json.loads(sys.argv[1]):
-    key = f"{arch} {shape} {tuple(grid)} {seq} B{batch}"
+for arch, shape, grid, seq, batch, *profile in json.loads(sys.argv[1]):
+    key = f"{arch} {shape} {tuple(grid)} {seq} B{batch}" + "".join(
+        f" {p}" for p in profile)
     try:
         g = grid_of((torch.device("meta"),) * 4, tuple(grid),
                     ("data", "model"))
-        r = run_cell(arch, shape, grid=g, batch=batch, seq_len=seq)
+        r = run_cell(arch, shape, profile=(profile or ["baseline"])[0],
+                     grid=g, batch=batch, seq_len=seq)
         out[key] = {"peak_gib": r["mem"]["peak_bytes"] / 2 ** 30,
                     "argument_gib": r["mem"]["argument_bytes"] / 2 ** 30,
                     "step_ms": r["step_time_s"] * 1e3}
@@ -897,11 +943,12 @@ def serve_full(torch, np, chip, model, cfg, ctx):
     return rec
 
 
-def long_prefill(torch, np, chip, model, cfg, ctx, B: int = LONG[0]):
-    """Prefill at 32,768, B 4 (one row a card on (4, 1)) or ``B``, and the
-    S vs S - 1 + decode check; a MoE at capacity factor LONG_CF (its last
-    tokens' dropped choices pinned in the decode, LastRoutes)."""
-    S = LONG[1]
+def long_prefill(torch, np, chip, model, cfg, ctx, B: int = LONG[0],
+                 S: int = LONG[1]):
+    """Prefill at 32,768 (or S), B 4 (one row a card on (4, 1)) or ``B``,
+    and the S vs S - 1 + decode check; a MoE at capacity factor LONG_CF
+    (its last tokens' dropped choices pinned in the decode,
+    LastRoutes)."""
     if cfg.is_moe:
         cfg = dataclasses.replace(cfg, capacity_factor=LONG_CF)
     x = torch.as_tensor(np.random.default_rng(3).integers(
@@ -940,7 +987,7 @@ def full_width(torch, np, out, runs=FULL, parts=None):
     import chip_smoke as chip
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import grid_of
-    from repro_torch.sharding.rules import make_ctx
+    from repro_torch.sharding.rules import PROFILES, make_ctx
 
     cards = [torch.device("cuda", i) for i in range(CARDS)]
     for run, arch, layers, shape, what in runs:
@@ -950,6 +997,8 @@ def full_width(torch, np, out, runs=FULL, parts=None):
         if layers:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         grid = grid_of(cards, shape, ("data", "model"))
+        ctx = make_ctx(grid, profile=PROFILES[RUN_PROFILE.get(run,
+                                                              "baseline")])
         rec = {"run": run}
         made = None
         try:
@@ -958,12 +1007,11 @@ def full_width(torch, np, out, runs=FULL, parts=None):
             for w in what:
                 reset_peaks(torch)
                 if w == "serve":
-                    r = serve_full(torch, np, chip, made, cfg,
-                                   make_ctx(grid))
-                elif w.startswith("prefill_32k"):
-                    r = long_prefill(torch, np, chip, made, cfg,
-                                     make_ctx(grid),
-                                     1 if w.endswith("_b1") else LONG[0])
+                    r = serve_full(torch, np, chip, made, cfg, ctx)
+                elif w.startswith("prefill_"):
+                    r = long_prefill(torch, np, chip, made, cfg, ctx,
+                                     1 if w.endswith("_b1") else LONG[0],
+                                     LONG_500K if "500k" in w else LONG[1])
                 else:
                     r = train_full(torch, np, chip, made, cfg, grid,
                                    {"train": TRAIN, "train_4k": TRAIN_4K,
@@ -1060,6 +1108,22 @@ def main() -> int:
             torch, np, smoke_leaves, "whisper-large-v3", 4),
         "sharded train whisper (1, 4) model": lambda: train(
             torch, np, train_batch, "whisper-large-v3", 4),
+        "sharded train qwen3 (1, 4) model, two card runs": lambda:
+            train_twice(torch, np, train_batch, "qwen3-14b", 4),
+        "sharded train whisper (1, 4) model, two card runs": lambda:
+            train_twice(torch, np, train_batch, "whisper-large-v3", 4),
+        "shard serve mamba2 (1, 4) model": lambda: shard_serve(
+            torch, np, smoke_leaves, "mamba2-130m", 4),
+        "shard serve hymba (1, 4) model": lambda: shard_serve(
+            torch, np, smoke_leaves, "hymba-1.5b", 4),
+        "sharded train mamba2 (1, 4) model": lambda: train(
+            torch, np, train_batch, "mamba2-130m", 4),
+        "sharded train hymba (1, 4) model": lambda: train(
+            torch, np, train_batch, "hymba-1.5b", 4),
+        "sharded train mamba2 (1, 4) model, two card runs": lambda:
+            train_twice(torch, np, train_batch, "mamba2-130m", 4),
+        "sharded train hymba (1, 4) model, two card runs": lambda:
+            train_twice(torch, np, train_batch, "hymba-1.5b", 4),
         "shard init olmoe (2, 2)": lambda: shard_init(torch),
         "windows over 4 cards": lambda: windows_cards(torch, np),
     }
@@ -1067,7 +1131,7 @@ def main() -> int:
     for name, fn in checks.items():
         try:
             worst = fn()
-            ok = worst <= TOL
+            ok = worst <= (0.0 if name.endswith("two card runs") else TOL)
             out = {"check": name, "max_rel": worst, "ok": ok}
         except Exception as exc:       # report every check, then fail
             ok = False
